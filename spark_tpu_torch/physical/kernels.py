@@ -1,0 +1,378 @@
+"""Device kernels of the physical operators, as torch ops.
+
+The port of ``spark_tpu/physical/kernels.py`` for the single-device
+aggregate path: sort permutations, group ids, mixed-radix key packing,
+segmented reductions and the limit mask. Everything is mask-carrying:
+dead rows ride along and are neutralized per reduction.
+
+Counts and min/max select a path as the reference does (``select_path``):
+
+- K == 1: a plain reduction;
+- K <= 64 (``MIN_ENGINE_K``): K masked dense reductions;
+- 64 < K <= 1024, float32 data (counts: any data) and unsorted ids: the
+  one-pass CUDA kernels of ``ops/seg_agg.py`` (their plain versions on
+  CPU tensors);
+- sorted ids: cumsum differences (counts, integer sums) or a
+  scatter-reduce over the sorted ids (min, max);
+- anything else: scatter.
+
+Integer sums take the same paths as counts, except the kernel: they are
+exact on each (int64 adds natively on the GPU, so the reference's 21-bit
+limb split is not needed). Float sums are a plain reduction for K == 1
+and a scatter-add otherwise, as the reference's float branch.
+``MIN_ENGINE_K`` was measured for the reference on a TPU; it is kept
+unchanged here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_tpu_torch.ops import seg_agg
+
+MIN_ENGINE_K = 64                # _MASKED_SEG_LIMIT / pallas MIN_ENGINE_K
+MAX_KERNEL_K = seg_agg.MAX_K     # 1024
+
+INT64_MIN = -(1 << 63)
+INT64_MAX = (1 << 63) - 1
+
+
+class SortKey(NamedTuple):
+    data: torch.Tensor
+    validity: Optional[torch.Tensor]  # None = all valid
+    ascending: bool = True
+    nulls_first: bool = True
+
+
+def _argsort(x: torch.Tensor, descending: bool = False) -> torch.Tensor:
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    return torch.argsort(x, stable=True, descending=descending)
+
+
+def lexsort_permutation(keys: Sequence[SortKey],
+                        row_mask: torch.Tensor) -> torch.Tensor:
+    """Stable lexicographic sort permutation. Live rows first; within the
+    live region rows are ordered by ``keys`` (most significant first)
+    with SQL null placement."""
+    n = row_mask.shape[0]
+    perm = torch.arange(n, device=row_mask.device)
+    for key in reversed(list(keys)):
+        d = key.data[perm]
+        if key.validity is not None:
+            # canonicalize NULL rows' payload before the data sort, so
+            # nulls keep the order the less significant keys gave them
+            v = key.validity[perm]
+            d = torch.where(v, d, torch.zeros((), dtype=d.dtype,
+                                              device=d.device))
+        perm = perm[_argsort(d, descending=not key.ascending)]
+        if key.validity is not None:
+            v = key.validity[perm]
+            perm = perm[_argsort(v, descending=not key.nulls_first)]
+    live = row_mask[perm]
+    return perm[_argsort(~live)]  # live rows (False) first
+
+
+def group_ids_from_sorted(
+    sorted_keys: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+    sorted_mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Given key columns already sorted (live rows first), return
+    (segment_ids int32, num_groups). Equal adjacent keys (null==null)
+    share a segment; dead rows get the last segment id."""
+    n = sorted_mask.shape[0]
+    dev = sorted_mask.device
+    first = torch.zeros((1,), dtype=torch.bool, device=dev)
+    change = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for data, validity in sorted_keys:
+        neq = torch.cat([first, data[1:] != data[:-1]])
+        if validity is not None:
+            vneq = torch.cat([first, validity[1:] != validity[:-1]])
+            both_null = torch.cat([first, (~validity[1:]) & (~validity[:-1])])
+            neq = (neq & ~both_null) | vneq
+        change = change | neq
+    change = change & sorted_mask
+    seg = torch.cumsum(change.to(torch.int32), 0, dtype=torch.int32)
+    num_groups = torch.where(sorted_mask.any(), seg[-1] + 1,
+                             torch.zeros((), dtype=torch.int32, device=dev))
+    return seg, num_groups
+
+
+# ---- segment aggregation ----------------------------------------------------
+
+
+def select_path(num_segments: int, sorted_seg: bool, kernel_dtype_ok: bool,
+                ) -> str:
+    """Which implementation a segmented reduction takes: ``"single"``,
+    ``"masked"``, ``"kernel"``, ``"sorted"`` or ``"scatter"``.
+    ``kernel_dtype_ok``: the data is float32 (always true for counts)."""
+    if num_segments == 1:
+        return "single"
+    if num_segments <= MIN_ENGINE_K:
+        return "masked"
+    if not sorted_seg and kernel_dtype_ok and num_segments <= MAX_KERNEL_K:
+        return "kernel"
+    if sorted_seg:
+        return "sorted"
+    return "scatter"
+
+
+def _masked_reduce(data, seg, mask, num_segments: int, red, init):
+    cols = []
+    for k in range(num_segments):
+        sel = mask & (seg == k)
+        cols.append(red(torch.where(sel, data, init)))
+    return torch.stack(cols)
+
+
+def seg_bounds(seg: torch.Tensor, num_segments: int):
+    """First/last row positions per segment for MONOTONE seg ids."""
+    ks = torch.arange(num_segments, dtype=seg.dtype, device=seg.device)
+    starts = torch.searchsorted(seg, ks, right=False)
+    ends = torch.searchsorted(seg, ks, right=True) - 1
+    return starts, ends
+
+
+def _sorted_seg_sum(masked, seg, num_segments: int):
+    csum = torch.cumsum(masked, 0, dtype=masked.dtype)
+    starts, ends = seg_bounds(seg, num_segments)
+    n = masked.shape[0]
+    e = ends.clamp(0, n - 1)
+    s = starts.clamp(0, n - 1)
+    total = csum[e] - csum[s] + masked[s]
+    return torch.where(ends >= starts, total,
+                       torch.zeros((), dtype=masked.dtype,
+                                   device=masked.device))
+
+
+def _scatter_sum(masked, seg, num_segments: int):
+    out = torch.zeros(num_segments, dtype=masked.dtype, device=masked.device)
+    return out.index_add_(0, seg.long(), masked)
+
+
+def _scatter_minmax(masked, seg, num_segments: int, is_max: bool):
+    """Min/max over every row of each segment (dead rows carry the
+    identity); NaN propagates as in jnp.minimum/maximum."""
+    ident = _neg_sentinel(masked.dtype) if is_max \
+        else _pos_sentinel(masked.dtype)
+    out = torch.full((num_segments,), ident, dtype=masked.dtype,
+                     device=masked.device)
+    idx = seg.long()
+    out.scatter_reduce_(0, idx, masked, "amax" if is_max else "amin",
+                        include_self=True)
+    if masked.is_floating_point():
+        has_nan = torch.zeros(num_segments, dtype=torch.bool,
+                              device=masked.device)
+        has_nan[idx[torch.isnan(masked)]] = True
+        out = out.masked_fill(has_nan, float("nan"))
+    return out
+
+
+def seg_sum(data, seg, mask, num_segments: int, sorted_seg: bool = False):
+    """Grouped sum of int64 or float data (the only types the
+    aggregates pass). Integer sums are exact on every path. Float sums
+    take a scatter-add for K > 1, as the reference's float branch does;
+    making its bits independent of the GPU's atomic order is ROADMAP
+    queue B item 3."""
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    masked = torch.where(mask, data, zero)
+    path = select_path(num_segments, sorted_seg, False)
+    if path == "single":
+        return masked.sum(dtype=data.dtype).reshape(1)
+    if data.is_floating_point():
+        return _scatter_sum(masked, seg, num_segments)
+    if path == "masked":
+        return _masked_reduce(data, seg, mask, num_segments, torch.sum, zero)
+    if path == "sorted":
+        return _sorted_seg_sum(masked, seg, num_segments)
+    return _scatter_sum(masked, seg, num_segments)
+
+
+def seg_count(seg, mask, num_segments: int, sorted_seg: bool = False):
+    ones = mask.to(torch.int64)
+    path = select_path(num_segments, sorted_seg, True)
+    if path == "single":
+        return ones.sum().reshape(1)
+    if path == "masked":
+        return _masked_reduce(ones, seg, mask, num_segments, torch.sum,
+                              torch.zeros((), dtype=torch.int64,
+                                          device=seg.device))
+    if path == "kernel":
+        return seg_agg.seg_sum(None, seg.to(torch.int32).contiguous(),
+                               mask.contiguous(), num_segments,
+                               exact_int=True)
+    if path == "sorted":
+        return _sorted_seg_sum(ones, seg, num_segments)
+    return _scatter_sum(ones, seg, num_segments)
+
+
+def _seg_minmax(data, seg, mask, num_segments: int, sorted_seg: bool,
+                is_max: bool):
+    ident = _neg_sentinel(data.dtype) if is_max else _pos_sentinel(data.dtype)
+    ident_t = torch.tensor(ident, dtype=data.dtype, device=data.device)
+    masked = torch.where(mask, data, ident_t)
+    path = select_path(num_segments, sorted_seg, data.dtype == torch.float32)
+    red = _nan_max if is_max else _nan_min
+    if path == "single":
+        return red(masked).reshape(1)
+    if path == "masked":
+        return _masked_reduce(data, seg, mask, num_segments, red, ident_t)
+    if path == "kernel":
+        return seg_agg.seg_minmax(data.contiguous(),
+                                  seg.to(torch.int32).contiguous(),
+                                  mask.contiguous(), num_segments, is_max)
+    # "sorted" (ids monotone) and "scatter": the same scatter-reduce,
+    # exact for min/max in any order
+    return _scatter_minmax(masked, seg, num_segments, is_max)
+
+
+def _nan_min(x):
+    return x.amin() if not x.is_floating_point() else \
+        torch.where(torch.isnan(x).any(), x.new_tensor(float("nan")), x.amin())
+
+
+def _nan_max(x):
+    return x.amax() if not x.is_floating_point() else \
+        torch.where(torch.isnan(x).any(), x.new_tensor(float("nan")), x.amax())
+
+
+def seg_min(data, seg, mask, num_segments: int, sorted_seg: bool = False):
+    return _seg_minmax(data, seg, mask, num_segments, sorted_seg, False)
+
+
+def seg_max(data, seg, mask, num_segments: int, sorted_seg: bool = False):
+    return _seg_minmax(data, seg, mask, num_segments, sorted_seg, True)
+
+
+def seg_first(data, seg, mask, num_segments: int, capacity: int,
+              sorted_seg: bool = False):
+    """Value of the first (by position) masked row in each segment, and
+    whether the segment has one."""
+    dev = seg.device
+    pos = torch.where(mask, torch.arange(capacity, device=dev),
+                      torch.full((), capacity, device=dev))
+    first_pos = torch.full((num_segments,), capacity, dtype=pos.dtype,
+                           device=dev)
+    first_pos.scatter_reduce_(0, seg.long(), pos, "amin", include_self=True)
+    idx = first_pos.clamp(0, capacity - 1)
+    return data[idx], first_pos < capacity
+
+
+def _pos_sentinel(dtype):
+    if dtype.is_floating_point:
+        return float("inf")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).max
+
+
+def _neg_sentinel(dtype):
+    if dtype.is_floating_point:
+        return float("-inf")
+    if dtype == torch.bool:
+        return False
+    return torch.iinfo(dtype).min
+
+
+# ---- mixed-radix key packing ------------------------------------------------
+
+
+def pack_codes(
+    codes: Sequence[torch.Tensor],
+    validities: Sequence[Optional[torch.Tensor]],
+    cardinalities: Sequence[int],
+) -> Tuple[torch.Tensor, int]:
+    """Combine per-column small-int codes into one dense int64 group id
+    with mixed-radix packing. Each nullable column contributes
+    (cardinality+1) states, the extra one encoding NULL.
+
+    Returns (combined_ids, total_cardinality)."""
+    total = 1
+    combined = None
+    for code, validity, card in zip(codes, validities, cardinalities):
+        slot = code.to(torch.int64)
+        if validity is not None:
+            slot = torch.where(validity, slot,
+                               torch.full((), card, dtype=torch.int64,
+                                          device=slot.device))
+            card = card + 1
+        combined = slot if combined is None else combined * card + slot
+        total *= card
+    if combined is None:
+        raise ValueError("pack_codes needs at least one key")
+    return combined, total
+
+
+def unpack_code(combined: torch.Tensor, cardinalities: Sequence[int],
+                nullable: Sequence[bool]):
+    """Inverse of pack_codes: combined id -> per-column (code, validity)."""
+    cards = [c + (1 if nl else 0) for c, nl in zip(cardinalities, nullable)]
+    out = []
+    rem = combined
+    for card, orig_card, nl in zip(reversed(cards),
+                                   reversed(list(cardinalities)),
+                                   reversed(list(nullable))):
+        slot = torch.remainder(rem, card)
+        rem = torch.div(rem, card, rounding_mode="floor")
+        if nl:
+            valid = slot < orig_card
+            code = torch.where(valid, slot, torch.zeros_like(slot))
+            out.append((code, valid))
+        else:
+            out.append((slot, None))
+    return list(reversed(out))
+
+
+# ---- key encoding -----------------------------------------------------------
+
+
+def orderable_int64(
+    data: torch.Tensor,
+    validity: Optional[torch.Tensor],
+    ascending: bool = True,
+    nulls_first: bool = True,
+    rank_table: Optional[np.ndarray] = None,
+) -> torch.Tensor:
+    """Encode a sort key column as int64 such that plain integer order ==
+    the SQL sort order (direction + null placement). Floats use the
+    IEEE754 sign-flip trick; dictionary-coded strings go through a rank
+    table."""
+    if rank_table is not None:
+        y = torch.as_tensor(rank_table, dtype=torch.int64,
+                            device=data.device)[data.long()]
+    elif data.is_floating_point():
+        bits = data.to(torch.float64).view(torch.int64)
+        sign = bits < 0
+        top = torch.tensor(INT64_MIN, dtype=torch.int64, device=data.device)
+        u = torch.where(sign, ~bits, bits | top)
+        y = u ^ top
+    else:
+        y = data.to(torch.int64)
+    if not ascending:
+        y = ~y  # bitwise-not reverses integer order without overflow
+    if validity is not None:
+        fill = INT64_MIN if nulls_first else INT64_MAX
+        y = torch.where(validity, y,
+                        torch.full((), fill, dtype=torch.int64,
+                                   device=y.device))
+    return y
+
+
+# ---- misc ------------------------------------------------------------------
+
+
+def limit_mask(row_mask: torch.Tensor, n: int, offset: int = 0
+               ) -> torch.Tensor:
+    """Keep only live rows with live-rank in [offset, offset+n)."""
+    rank = torch.cumsum(row_mask.to(torch.int64), 0) - 1
+    return row_mask & (rank >= offset) & (rank < offset + n)
+
+
+def bucket(n: int, multiple: int = 1024) -> int:
+    """Round up to a capacity bucket."""
+    if n <= 0:
+        return multiple
+    return ((n + multiple - 1) // multiple) * multiple

@@ -1,0 +1,109 @@
+"""The port's package boundary and device rule.
+
+``spark_tpu_torch`` (and ``chip_smoke.py``) import neither ``jax`` nor any
+``spark_tpu`` module, and running the slice loads none. The session runs
+on the card unless the caller asks for the CPU: the default device
+raises without CUDA instead of falling back.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import sys
+import spark_tpu_torch
+from spark_tpu_torch.api.session import SparkSession
+from spark_tpu_torch.tpch import Q1_WIDE, QUERIES, generate_tables, register_views
+
+spark = SparkSession.builder.device("cpu").getOrCreate()
+register_views(spark, generate_tables(0.002, seed=1))
+for q in (QUERIES[1], Q1_WIDE):
+    assert spark.sql(q).collect()
+import chip_smoke  # noqa: F401  (module import only: no card here)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "spark_tpu" or m.startswith("spark_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_slice_loads_no_jax_and_no_reference_module(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_source_imports_jax_or_reference():
+    files = sorted((REPO / "spark_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "spark_tpu"), (path, mod)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SparkSession.builder.getOrCreate()
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert SparkSession.builder.device("cpu").getOrCreate().device.type \
+        == "cpu"
+
+
+def test_kernel_wrappers_refuse_to_fall_back(monkeypatch):
+    """On a CUDA tensor the wrapper launches its kernel or raises: with
+    the build failing, the call raises instead of taking the plain
+    version."""
+    from spark_tpu_torch.ops import _build, seg_agg
+
+    class FakeCuda:
+        type = "cuda"
+
+    class FakeTensor:
+        device = FakeCuda()
+        dtype = torch.int32
+        shape = (4,)
+
+        def dim(self):
+            return 1
+
+        def is_contiguous(self):
+            return True
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "library", no_nvcc)
+    seg = FakeTensor()
+    mask = FakeTensor()
+    mask.dtype = torch.bool
+    with pytest.raises(RuntimeError, match="nvcc"):
+        seg_agg.seg_sum(None, seg, mask, 100, exact_int=True)
