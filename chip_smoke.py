@@ -256,8 +256,9 @@ def slice_phase(seg_agg, tables, dev="cuda"):
     total = {"seg_sum": seg_agg.seg_sum.launches,
              "seg_minmax": seg_agg.seg_minmax.launches}
     log(f"slice: kernel launches per query {launches}; total {total}")
-    check(launches["q1_wide"][0] > 0 and launches["q1_wide"][1] > 0,
-          "q1-wide did not launch both kernels")
+    if dev == "cuda":  # on the CPU the wrappers take their plain versions
+        check(launches["q1_wide"][0] > 0 and launches["q1_wide"][1] > 0,
+              "q1-wide did not launch both kernels")
     check(launches["q1"] == (0, 0), "q1 (K=6) should not launch kernels")
 
     for name, q in queries.items():

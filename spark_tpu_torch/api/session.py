@@ -9,15 +9,13 @@ for ``"cpu"``. Every relation the session creates lives on its device.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Dict, Optional
 
 import pyarrow as pa
 
-from spark_tpu_torch import conf as CF
 from spark_tpu_torch.api.dataframe import DataFrame
 from spark_tpu_torch.columnar.arrow import from_arrow
 from spark_tpu_torch.columnar.batch import round_capacity
-from spark_tpu_torch.conf import RuntimeConf
 from spark_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from spark_tpu_torch.plan import logical as L
 
@@ -37,22 +35,14 @@ class Catalog:
         except KeyError:
             raise KeyError(f"table or view not found: {name}") from None
 
-    def dropTempView(self, name: str) -> bool:
-        return self._views.pop(name.lower(), None) is not None
-
 
 class SparkSessionBuilder:
     def __init__(self):
         self._device = DEFAULT_DEVICE
-        self._conf: Dict[str, Any] = {}
 
     def device(self, name) -> "SparkSessionBuilder":
         """``"cuda"`` (the default) or ``"cpu"``."""
         self._device = name
-        return self
-
-    def config(self, key: str, value: Any) -> "SparkSessionBuilder":
-        self._conf[key] = value
         return self
 
     def getOrCreate(self) -> "SparkSession":
@@ -63,20 +53,14 @@ class SparkSessionBuilder:
         if active is None or active.device != dev:
             active = SparkSession(dev)
             SparkSession._active = active
-        for k, v in self._conf.items():
-            active.conf.set(k, v)
         return active
 
 
 class SparkSession:
     _active: Optional["SparkSession"] = None
 
-    def __init__(self, device=DEFAULT_DEVICE,
-                 conf: Optional[Dict[str, Any]] = None):
+    def __init__(self, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
-        self.conf = RuntimeConf()
-        for k, v in (conf or {}).items():
-            self.conf.set(k, v)
         self.catalog = Catalog()
 
     class _BuilderDescriptor:
@@ -96,9 +80,8 @@ class SparkSession:
     def createDataFrame(self, data: pa.Table) -> DataFrame:
         if not isinstance(data, pa.Table):
             raise TypeError("createDataFrame takes a pyarrow.Table")
-        cap = round_capacity(data.num_rows,
-                             self.conf.get(CF.BATCH_CAPACITY_MULTIPLE))
-        batch = from_arrow(data, capacity=cap, device=self.device)
+        batch = from_arrow(data, capacity=round_capacity(data.num_rows),
+                           device=self.device)
         return DataFrame(self, L.Relation(batch))
 
     def __repr__(self):

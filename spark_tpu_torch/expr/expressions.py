@@ -1,14 +1,12 @@
-"""Expression tree (IR).
+"""Expression tree (IR), trimmed to the nodes the single-device
+aggregate slice plans: columns, literals, aliases, arithmetic,
+comparisons, boolean logic, null tests, casts, sort orders and the
+count/sum/avg/min/max aggregates.
 
 The analogue of Catalyst's expression nodes (reference:
-sql/catalyst/.../expressions/Expression.scala and the ~600 expression
-classes under expressions/). Two big simplifications relative to the
-reference:
-
-- there is no interpreted-vs-codegen duality: expressions compile to jax
-  ops (expr/compiler.py) and XLA plays the role Janino played
-  (reference: expressions/codegen/CodeGenerator.scala:1345),
-- nulls are (values, validity-mask) pairs, not boxed values.
+sql/catalyst/.../expressions/Expression.scala). Expressions are
+evaluated eagerly over torch tensors (expr/compiler.py); nulls are
+(values, validity-mask) pairs, not boxed values.
 
 Nodes are immutable; ``data_type(schema)`` resolves the output type
 against an input schema (the analyzer's type-resolution role,
@@ -17,9 +15,9 @@ reference: analysis/Analyzer.scala:188).
 
 from __future__ import annotations
 
-import datetime
-from dataclasses import dataclass, field
-from typing import Any, Optional, Sequence, Tuple
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 from spark_tpu_torch import types as T
 from spark_tpu_torch.types import DataType, Schema
@@ -27,10 +25,6 @@ from spark_tpu_torch.types import DataType, Schema
 
 class Expression:
     """Base class. Subclasses are frozen dataclasses."""
-
-    #: True for expressions that cannot run inside a jit trace (host
-    #: UDFs); operators containing one execute eagerly between stages.
-    blocks_trace: bool = False
 
     def children(self) -> Tuple["Expression", ...]:
         return ()
@@ -52,149 +46,16 @@ class Expression:
             refs |= c.references()
         return refs
 
-    # -- convenience builders (mirrors the Column DSL) --------------------
-    def __add__(self, other):
-        return Arith("+", self, lit_or_expr(other))
-
-    def __radd__(self, other):
-        return Arith("+", lit_or_expr(other), self)
-
-    def __sub__(self, other):
-        return Arith("-", self, lit_or_expr(other))
-
-    def __rsub__(self, other):
-        return Arith("-", lit_or_expr(other), self)
-
-    def __mul__(self, other):
-        return Arith("*", self, lit_or_expr(other))
-
-    def __rmul__(self, other):
-        return Arith("*", lit_or_expr(other), self)
-
-    def __truediv__(self, other):
-        return Arith("/", self, lit_or_expr(other))
-
-    def __mod__(self, other):
-        return Arith("%", self, lit_or_expr(other))
-
-    def __neg__(self):
-        return Neg(self)
-
-    def __eq__(self, other):  # type: ignore[override]
-        return Cmp("==", self, lit_or_expr(other))
-
-    def __ne__(self, other):  # type: ignore[override]
-        return Cmp("!=", self, lit_or_expr(other))
-
-    def __lt__(self, other):
-        return Cmp("<", self, lit_or_expr(other))
-
-    def __le__(self, other):
-        return Cmp("<=", self, lit_or_expr(other))
-
-    def __gt__(self, other):
-        return Cmp(">", self, lit_or_expr(other))
-
-    def __ge__(self, other):
-        return Cmp(">=", self, lit_or_expr(other))
-
-    def __and__(self, other):
-        return And(self, lit_or_expr(other))
-
-    def __or__(self, other):
-        return Or(self, lit_or_expr(other))
-
-    def __invert__(self):
-        return Not(self)
-
-    def __hash__(self):
-        return object.__hash__(self)
-
-    def __bool__(self):
-        # __eq__ builds a Cmp node, so truthiness of an Expression is
-        # always a bug (it silently made any two Case-sum aggregates
-        # "equal" in dedup paths). Fail loudly instead.
-        raise TypeError(
-            "Expression has no truth value; use expr_key()/semantic_eq() "
-            "for comparison, is_null()/is_not_null() for null tests")
-
-    def alias(self, name: str) -> "Alias":
-        return Alias(self, name)
-
-    def cast(self, dtype: DataType) -> "Cast":
-        return Cast(self, dtype)
-
-    def is_null(self) -> "IsNull":
-        return IsNull(self)
-
-    def is_not_null(self) -> "Not":
-        return Not(IsNull(self))
-
-    def isin(self, *values) -> "In":
-        if len(values) == 1 and isinstance(values[0], (list, tuple, set)):
-            values = tuple(values[0])
-        return In(self, tuple(values))
-
-    def between(self, lo, hi) -> "And":
-        return And(Cmp(">=", self, lit_or_expr(lo)),
-                   Cmp("<=", self, lit_or_expr(hi)))
-
-    def like(self, pattern: str) -> "Like":
-        return Like(self, pattern)
-
-    def asc(self) -> "SortOrder":
-        return SortOrder(self, ascending=True)
-
-    def desc(self) -> "SortOrder":
-        return SortOrder(self, ascending=False)
-
-    def semantic_eq(self, other: "Expression") -> bool:
-        return expr_key(self) == expr_key(other)
-
-    def over(self, window) -> "Expression":
-        """Attach a window spec (pyspark Column.over)."""
-        return window._attach(self)
-
-
-def lit_or_expr(v: Any) -> Expression:
-    return v if isinstance(v, Expression) else Literal(v)
-
-
-def dedup_pair_names(left_names, right_names) -> list:
-    """Joined-pair output names: left keeps its names, duplicates from
-    the right gain '#2' suffixes. THE canonical copy — logical Join
-    schema, physical pair envs, and optimizer/subquery condition
-    rewrites must all agree on this mapping."""
-    seen = set()
-    out = []
-    for n in list(left_names) + list(right_names):
-        name = n
-        while name in seen:
-            name = name + "#2"
-        seen.add(name)
-        out.append(name)
-    return out
-
-
-def _key_part(v):
-    """Key for one field value; recurses into arbitrarily nested tuples so
-    no raw Expression (whose __eq__ is the DSL's Cmp builder) ever lands
-    inside a key — e.g. Case.branches is a tuple of (cond, value) pairs."""
-    if isinstance(v, Expression):
-        return expr_key(v)
-    if isinstance(v, tuple):
-        return tuple(_key_part(x) for x in v)
-    return repr(v)
-
 
 def expr_key(e: Expression):
-    """Structural identity key (dataclass __eq__ is hijacked by the SQL
-    `==` DSL, so semantic comparison goes through this)."""
+    """Structural identity key. Nodes compare by identity (``eq=False``),
+    so structural comparison goes through this."""
     if isinstance(e, Literal):
         return ("lit", e.value, repr(e.dtype))
     parts = [type(e).__name__]
-    for f_name, f_val in vars(e).items():
-        parts.append(_key_part(f_val))
+    for f_val in vars(e).values():
+        parts.append(expr_key(f_val) if isinstance(f_val, Expression)
+                     else repr(f_val))
     return tuple(parts)
 
 
@@ -413,385 +274,6 @@ class IsNull(Expression):
 
 
 @dataclass(eq=False, frozen=True)
-class MakeArray(Expression):
-    """array(e1, e2, ...) literal-ish constructor (reference:
-    CreateArray, complexTypeCreator.scala). Fixed length = arity."""
-
-    args: Tuple[Expression, ...]
-
-    def children(self):
-        return self.args
-
-    def data_type(self, schema):
-        dt = self.args[0].data_type(schema)
-        for a in self.args[1:]:
-            dt = T.common_type(dt, a.data_type(schema))
-        return T.ArrayType(dt)
-
-    def __str__(self):
-        return f"array({', '.join(map(str, self.args))})"
-
-
-@dataclass(eq=False, frozen=True)
-class Split(Expression):
-    """split(str, delim) -> array<string> (reference: StringSplit,
-    regexpExpressions.scala — here delim is a LITERAL separator, not a
-    regex; evaluated over the host dictionary)."""
-
-    child: Expression
-    delim: str
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.ArrayType(T.STRING)
-
-    def __str__(self):
-        return f"split({self.child}, {self.delim!r})"
-
-
-@dataclass(eq=False, frozen=True)
-class Size(Expression):
-    """size(array) (reference: Size, collectionOperations.scala)."""
-
-    child: Expression
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.INT32
-
-    def __str__(self):
-        return f"size({self.child})"
-
-
-@dataclass(eq=False, frozen=True)
-class ElementAt(Expression):
-    """element_at(array, i): 1-based, negative from the end, NULL when
-    out of range (reference: ElementAt, collectionOperations.scala).
-    Over a MAP column the index is a KEY lookup (GetMapValue).
-    ``sql_subscript`` marks the ``x[i]`` form, which is 0-based for
-    arrays (GetArrayItem) but still a key lookup for maps."""
-
-    child: Expression
-    index: Expression
-    sql_subscript: bool = False
-
-    def children(self):
-        return (self.child, self.index)
-
-    def data_type(self, schema):
-        dt = self.child.data_type(schema)
-        if isinstance(dt, T.ArrayType):
-            return dt.element
-        if isinstance(dt, T.MapType):
-            return dt.value
-        raise TypeError(f"element_at over non-array {dt!r}")
-
-    def nullable(self, schema):
-        return True
-
-    def __str__(self):
-        return f"element_at({self.child}, {self.index})"
-
-
-@dataclass(eq=False, frozen=True)
-class ArrayContains(Expression):
-    """array_contains(array, value) (reference: ArrayContains)."""
-
-    child: Expression
-    value: Expression
-
-    def children(self):
-        return (self.child, self.value)
-
-    def data_type(self, schema):
-        return T.BOOLEAN
-
-    def __str__(self):
-        return f"array_contains({self.child}, {self.value})"
-
-
-@dataclass(eq=False, frozen=True)
-class TupleExpr(Expression):
-    """(a, b, ...) row-value constructor — only legal as the probe of a
-    multi-column IN (subquery) (reference: In.scala accepts
-    CreateStruct probes; the subquery rewrite expands it to a
-    multi-key semi join)."""
-
-    items: Tuple[Expression, ...]
-
-    def children(self):
-        return self.items
-
-    def data_type(self, schema):
-        raise TypeError(
-            "a row-value (a, b) is only valid as the probe of a "
-            "multi-column IN (subquery)")
-
-    def __str__(self):
-        return "(" + ", ".join(str(i) for i in self.items) + ")"
-
-
-@dataclass(eq=False, frozen=True)
-class MapHandle(Col):
-    """A BARE reference to a decomposed MAP column, resolved to its
-    '#keys' component (the canonical handle, types.MapType). Evaluates
-    exactly like Col; the SQL select list uses the marker to expand a
-    selected map to its component pair (map_keys() returns a plain Col
-    and is NOT expanded)."""
-
-
-@dataclass(eq=False, frozen=True)
-class CreateMap(Expression):
-    """map(k1, v1, k2, v2, ...) constructor (reference: CreateMap,
-    complexTypeCreator.scala). Map-typed expressions are only legal at
-    the top of a projection — the physical Project expands them into
-    the '#keys'/'#vals' component pair (types.MapType)."""
-
-    args: Tuple[Expression, ...]
-
-    def __post_init__(self):
-        if len(self.args) % 2:
-            raise TypeError("map() needs an even argument count")
-
-    def children(self):
-        return self.args
-
-    def data_type(self, schema):
-        kt = self.args[0].data_type(schema)
-        vt = self.args[1].data_type(schema)
-        for k in self.args[2::2]:
-            kt = T.common_type(kt, k.data_type(schema))
-        for v in self.args[3::2]:
-            vt = T.common_type(vt, v.data_type(schema))
-        return T.MapType(kt, vt)
-
-    def __str__(self):
-        return f"map({', '.join(str(a) for a in self.args)})"
-
-
-@dataclass(eq=False, frozen=True)
-class MapFromArrays(Expression):
-    """map_from_arrays(keys, values) (reference: MapFromArrays)."""
-
-    keys: Expression
-    vals: Expression
-
-    def children(self):
-        return (self.keys, self.vals)
-
-    def data_type(self, schema):
-        kt = self.keys.data_type(schema)
-        vt = self.vals.data_type(schema)
-        if not isinstance(kt, T.ArrayType) or not isinstance(vt, T.ArrayType):
-            raise TypeError("map_from_arrays needs two array inputs")
-        return T.MapType(kt.element, vt.element)
-
-    def __str__(self):
-        return f"map_from_arrays({self.keys}, {self.vals})"
-
-
-@dataclass(eq=False, frozen=True)
-class Lambda(Expression):
-    """Anonymous function for higher-order array functions: ``x ->
-    body`` / ``(x, i) -> body`` (reference: LambdaFunction,
-    higherOrderFunctions.scala). Params bind as column names inside the
-    body, shadowing outer columns; the TPU evaluation vectorizes the
-    body over the flattened (rows x max_len) element plane — no per-
-    element interpretation."""
-
-    params: Tuple[str, ...]
-    body: Expression
-
-    def children(self):
-        return (self.body,)
-
-    def data_type(self, schema):
-        raise TypeError("a lambda has no standalone type")
-
-    def __str__(self):
-        ps = ", ".join(self.params)
-        return f"({ps}) -> {self.body}"
-
-
-def _with_fields(schema, extra_fields):
-    return T.Schema(tuple(schema.fields) + tuple(extra_fields))
-
-
-@dataclass(eq=False, frozen=True)
-class HigherOrder(Expression):
-    """transform / filter / exists / forall / aggregate over arrays
-    (reference: higherOrderFunctions.scala ArrayTransform/ArrayFilter/
-    ArrayExists/ArrayForAll/ArrayAggregate). ``zero``/``finish`` are for
-    ``aggregate`` only."""
-
-    kind: str  # transform | filter | exists | forall | aggregate
-    child: Expression
-    fn: Lambda
-    zero: Optional[Expression] = None
-    finish: Optional["Lambda"] = None
-
-    def children(self):
-        return (self.child, self.fn) + (
-            (self.zero,) if self.zero is not None else ())
-
-    def _element_schema(self, schema):
-        dt = self.child.data_type(schema)
-        if not isinstance(dt, T.ArrayType):
-            raise TypeError(f"{self.kind}() over non-array {dt!r}")
-        fields = [T.Field(self.fn.params[0], dt.element, False)]
-        if len(self.fn.params) > 1:
-            fields.append(T.Field(self.fn.params[1], T.INT32, False))
-        return _with_fields(schema, fields)
-
-    def data_type(self, schema):
-        if self.kind == "transform":
-            return T.ArrayType(
-                self.fn.body.data_type(self._element_schema(schema)))
-        if self.kind == "filter":
-            return self.child.data_type(schema)
-        if self.kind in ("exists", "forall"):
-            return T.BOOLEAN
-        if self.kind == "aggregate":
-            dt = self.child.data_type(schema)
-            acc_dt = self.zero.data_type(schema)
-            s2 = _with_fields(schema, [
-                T.Field(self.fn.params[0], acc_dt, False),
-                T.Field(self.fn.params[1], dt.element, False)])
-            acc_dt = T.common_type(acc_dt, self.fn.body.data_type(s2))
-            if self.finish is not None:
-                s3 = _with_fields(
-                    schema, [T.Field(self.finish.params[0], acc_dt,
-                                     False)])
-                return self.finish.body.data_type(s3)
-            return acc_dt
-        raise TypeError(f"unknown higher-order kind {self.kind!r}")
-
-    def __str__(self):
-        parts = [str(self.child), str(self.fn)]
-        if self.zero is not None:
-            parts.insert(1, str(self.zero))
-        return f"{self.kind}({', '.join(parts)})"
-
-
-@dataclass(eq=False, frozen=True)
-class Explode(Expression):
-    """Generator marker: one output row per array element (reference:
-    Explode/PosExplode, generators.scala). Only legal inside a
-    Generate plan node (physical GenerateExec); evaluating it as an
-    ordinary expression raises."""
-
-    child: Expression
-    with_position: bool = False
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        dt = self.child.data_type(schema)
-        if isinstance(dt, T.ArrayType):
-            return dt.element
-        raise TypeError(f"explode over non-array {dt!r}")
-
-    def __str__(self):
-        return ("posexplode" if self.with_position else "explode") \
-            + f"({self.child})"
-
-
-@dataclass(eq=False, frozen=True)
-class Grouping(Expression):
-    """grouping(col): 1 when the row is a subtotal that aggregated
-    ``col`` away (reference: grouping.scala Grouping). A marker —
-    ResolveGroupingAnalytics-style rewriting (plan/grouping.py) replaces
-    it with arithmetic over the grouping id before evaluation."""
-
-    child: Expression
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.INT32
-
-    def __str__(self):
-        return f"grouping({self.child})"
-
-
-@dataclass(eq=False, frozen=True)
-class GroupingId(Expression):
-    """grouping_id() marker (reference: grouping.scala GroupingID)."""
-
-    def data_type(self, schema):
-        return T.INT64
-
-    def __str__(self):
-        return "grouping_id()"
-
-
-def contains_generator(e: Expression) -> bool:
-    if isinstance(e, Explode):
-        return True
-    return any(contains_generator(c) for c in e.children())
-
-
-@dataclass(eq=False, frozen=True)
-class NullOf(Expression):
-    """NULL typed like ``like`` (reference: Literal(null, child.dataType)
-    inside NullIf's If rewrite, nullExpressions.scala). Keeps Case's
-    common-type inference working where an untyped null literal cannot."""
-
-    like: Expression
-
-    def children(self):
-        return (self.like,)
-
-    def data_type(self, schema):
-        return self.like.data_type(schema)
-
-    def nullable(self, schema):
-        return True
-
-    def __str__(self):
-        return f"NULL_OF({self.like})"
-
-
-@dataclass(eq=False, frozen=True)
-class In(Expression):
-    child: Expression
-    values: Tuple[Any, ...]  # python literals
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.BOOLEAN
-
-    def __str__(self):
-        return f"({self.child} IN {self.values})"
-
-
-@dataclass(eq=False, frozen=True)
-class Like(Expression):
-    """SQL LIKE with % and _ wildcards; evaluated host-side over the
-    column dictionary, gathered on device by code."""
-
-    child: Expression
-    pattern: str
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.BOOLEAN
-
-    def __str__(self):
-        return f"({self.child} LIKE {self.pattern!r})"
-
-
-@dataclass(eq=False, frozen=True)
 class Cast(Expression):
     child: Expression
     dtype: DataType
@@ -804,635 +286,6 @@ class Cast(Expression):
 
     def __str__(self):
         return f"CAST({self.child} AS {self.dtype})"
-
-
-@dataclass(eq=False, frozen=True)
-class Case(Expression):
-    """CASE WHEN c1 THEN v1 [WHEN ...] ELSE e END. With no ELSE,
-    unmatched rows are NULL (SQL semantics). ``when``/``otherwise``
-    make this directly chainable (pyspark's F.when().when().otherwise())."""
-
-    branches: Tuple[Tuple[Expression, Expression], ...]
-    else_value: Optional[Expression]
-
-    def when(self, condition: "Expression", value: Any) -> "Case":
-        return Case(self.branches + ((condition, lit_or_expr(value)),),
-                    self.else_value)
-
-    def otherwise(self, value: Any) -> "Case":
-        return Case(self.branches, lit_or_expr(value))
-
-    def children(self):
-        out = []
-        for c, v in self.branches:
-            out += [c, v]
-        if self.else_value is not None:
-            out.append(self.else_value)
-        return tuple(out)
-
-    def data_type(self, schema):
-        dt = self.branches[0][1].data_type(schema)
-        for _, v in self.branches[1:]:
-            dt = T.common_type(dt, v.data_type(schema))
-        if self.else_value is not None:
-            dt = T.common_type(dt, self.else_value.data_type(schema))
-        return dt
-
-    def __str__(self):
-        return "CASE ..."
-
-
-@dataclass(eq=False, frozen=True)
-class Coalesce(Expression):
-    args: Tuple[Expression, ...]
-
-    def children(self):
-        return self.args
-
-    def data_type(self, schema):
-        dt = self.args[0].data_type(schema)
-        for a in self.args[1:]:
-            dt = T.common_type(dt, a.data_type(schema))
-        return dt
-
-    def __str__(self):
-        return f"COALESCE({', '.join(map(str, self.args))})"
-
-
-@dataclass(eq=False, frozen=True)
-class ExtractDatePart(Expression):
-    """EXTRACT(YEAR|MONTH|DAY FROM date_expr)."""
-
-    part: str  # 'year' | 'month' | 'day'
-    child: Expression
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.INT32
-
-    def __str__(self):
-        return f"EXTRACT({self.part} FROM {self.child})"
-
-
-@dataclass(eq=False, frozen=True)
-class AddMonths(Expression):
-    child: Expression
-    months: int
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.DATE
-
-    def __str__(self):
-        return f"ADD_MONTHS({self.child}, {self.months})"
-
-
-@dataclass(eq=False, frozen=True)
-class StringPredicate(Expression):
-    """startswith / endswith / contains — host dictionary evaluation."""
-
-    op: str  # 'startswith' | 'endswith' | 'contains'
-    child: Expression
-    needle: str
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.BOOLEAN
-
-    def __str__(self):
-        return f"{self.op}({self.child}, {self.needle!r})"
-
-
-@dataclass(eq=False, frozen=True)
-class Substring(Expression):
-    """SUBSTRING(str, pos, len) — 1-based, host dictionary transform."""
-
-    child: Expression
-    pos: int
-    length: int
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.STRING
-
-    def __str__(self):
-        return f"SUBSTRING({self.child}, {self.pos}, {self.length})"
-
-
-@dataclass(eq=False, frozen=True)
-class Concat(Expression):
-    """String concatenation (|| / concat()). Evaluated over host
-    dictionaries: the output dictionary is the cartesian product of the
-    input dictionaries (guarded), codes combine by mixed radix."""
-
-    args: Tuple[Expression, ...]
-
-    def children(self):
-        return self.args
-
-    def data_type(self, schema):
-        return T.STRING
-
-    def __str__(self):
-        return f"CONCAT({', '.join(map(str, self.args))})"
-
-
-@dataclass(eq=False, frozen=True)
-class ConcatWs(Expression):
-    """concat_ws(sep, ...): separator-joined concat that SKIPS null
-    arguments (reference: ConcatWs, stringExpressions.scala — null
-    inputs drop out with their separator; result is never null unless
-    the separator is). Evaluated over host dictionaries like Concat,
-    with a per-input null sentinel absorbed into the mixed radix."""
-
-    sep: str
-    args: Tuple[Expression, ...]
-
-    def children(self):
-        return self.args
-
-    def data_type(self, schema):
-        return T.STRING
-
-    def nullable(self, schema):
-        return False
-
-    def __str__(self):
-        return f"CONCAT_WS({self.sep!r}, {', '.join(map(str, self.args))})"
-
-
-@dataclass(eq=False, frozen=True)
-class Abs(Expression):
-    child: Expression
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return self.child.data_type(schema)
-
-    def __str__(self):
-        return f"ABS({self.child})"
-
-
-@dataclass(eq=False, frozen=True)
-class UnaryMath(Expression):
-    """floor/ceil/sqrt/exp/ln/log10/sign (reference: catalyst
-    expressions/mathExpressions.scala)."""
-
-    op: str
-    child: Expression
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        if self.op in ("floor", "ceil"):
-            return T.INT64
-        if self.op == "sign":
-            return self.child.data_type(schema)
-        return T.FLOAT64
-
-    def __str__(self):
-        return f"{self.op.upper()}({self.child})"
-
-
-@dataclass(eq=False, frozen=True)
-class Round(Expression):
-    """ROUND(x, scale) with HALF_UP ties (Spark semantics; numpy rounds
-    half-even)."""
-
-    child: Expression
-    scale: int = 0
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        dt = self.child.data_type(schema)
-        return dt if dt.is_integral else T.FLOAT64
-
-    def __str__(self):
-        return f"ROUND({self.child}, {self.scale})"
-
-
-@dataclass(eq=False, frozen=True)
-class Pow(Expression):
-    left: Expression
-    right: Expression
-
-    def children(self):
-        return (self.left, self.right)
-
-    def data_type(self, schema):
-        return T.FLOAT64
-
-    def __str__(self):
-        return f"POWER({self.left}, {self.right})"
-
-
-@dataclass(eq=False, frozen=True)
-class StringTransform(Expression):
-    """upper/lower/trim/ltrim/rtrim/initcap/reverse/repeat/lpad/rpad/
-    translate — host dictionary transforms (reference:
-    stringExpressions.scala Upper/Lower/StringTrim/StringLPad/...).
-    ``args`` carries the op's scalar parameters (pad string, width...)."""
-
-    op: str
-    child: Expression
-    args: Tuple = ()
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.STRING
-
-    def __str__(self):
-        return f"{self.op.upper()}({self.child})"
-
-
-@dataclass(eq=False, frozen=True)
-class StrLength(Expression):
-    child: Expression
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.INT32
-
-    def __str__(self):
-        return f"LENGTH({self.child})"
-
-
-@dataclass(eq=False, frozen=True)
-class RegexpExtract(Expression):
-    """regexp_extract(str, pattern, group) (reference:
-    regexpExpressions.scala RegExpExtract; no match -> '')."""
-
-    child: Expression
-    pattern: str
-    group: int = 1
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.STRING
-
-    def __str__(self):
-        return f"REGEXP_EXTRACT({self.child}, {self.pattern!r}, {self.group})"
-
-
-@dataclass(eq=False, frozen=True)
-class RegexpReplace(Expression):
-    child: Expression
-    pattern: str
-    replacement: str
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.STRING
-
-    def __str__(self):
-        return f"REGEXP_REPLACE({self.child}, {self.pattern!r})"
-
-
-@dataclass(eq=False, frozen=True)
-class RegexpLike(Expression):
-    """RLIKE / regexp_like — boolean regex match over the dictionary."""
-
-    child: Expression
-    pattern: str
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.BOOLEAN
-
-    def __str__(self):
-        return f"({self.child} RLIKE {self.pattern!r})"
-
-
-@dataclass(eq=False, frozen=True)
-class DateTrunc(Expression):
-    """date_trunc('year'|'month', date) (reference:
-    datetimeExpressions.scala TruncDate)."""
-
-    unit: str
-    child: Expression
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.DATE
-
-    def __str__(self):
-        return f"DATE_TRUNC({self.unit!r}, {self.child})"
-
-
-@dataclass(eq=False, frozen=True)
-class LastDay(Expression):
-    child: Expression
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.DATE
-
-    def __str__(self):
-        return f"LAST_DAY({self.child})"
-
-
-# ---- window expressions -----------------------------------------------------
-
-
-@dataclass(eq=False, frozen=True)
-class RowNumber(Expression):
-    """row_number() — 1-based position within the window partition
-    (reference: expressions/windowExpressions.scala RowNumber)."""
-
-    def data_type(self, schema):
-        return T.INT32
-
-    def nullable(self, schema):
-        return False
-
-    @property
-    def name(self):
-        return "row_number()"
-
-    def __str__(self):
-        return self.name
-
-
-@dataclass(eq=False, frozen=True)
-class Rank(Expression):
-    dense: bool = False
-
-    def data_type(self, schema):
-        return T.INT32
-
-    def nullable(self, schema):
-        return False
-
-    @property
-    def name(self):
-        return "dense_rank()" if self.dense else "rank()"
-
-    def __str__(self):
-        return self.name
-
-
-@dataclass(eq=False, frozen=True)
-class LagLead(Expression):
-    """lag/lead(child, offset, default) — value of a row offset rows
-    before/after within the partition (reference:
-    windowExpressions.scala Lag/Lead)."""
-
-    child: Expression
-    offset: int
-    default: Optional[Expression]
-    lead: bool  # False = lag
-
-    def children(self):
-        return (self.child,) if self.default is None \
-            else (self.child, self.default)
-
-    def data_type(self, schema):
-        return self.child.data_type(schema)
-
-    @property
-    def name(self):
-        fn = "lead" if self.lead else "lag"
-        return f"{fn}({self.child}, {self.offset})"
-
-    def __str__(self):
-        return self.name
-
-
-@dataclass(eq=False, frozen=True)
-class NTile(Expression):
-    n: int
-
-    def data_type(self, schema):
-        return T.INT32
-
-    def nullable(self, schema):
-        return False
-
-    @property
-    def name(self):
-        return f"ntile({self.n})"
-
-    def __str__(self):
-        return self.name
-
-
-@dataclass(eq=False, frozen=True)
-class WindowExpr(Expression):
-    """fn OVER (PARTITION BY ... ORDER BY ... frame) (reference:
-    expressions/windowExpressions.scala WindowExpression +
-    WindowSpecDefinition). ``frame`` is (mode, start, end) with mode
-    'rows'|'range', bounds None=unbounded, 0=current row, +/-n offsets;
-    None frame means the SQL default (RANGE UNBOUNDED PRECEDING..CURRENT
-    ROW with ORDER BY, whole partition without)."""
-
-    func: Expression
-    partition_by: Tuple[Expression, ...]
-    order_by: Tuple["SortOrder", ...]
-    frame: Optional[Tuple[str, Optional[int], Optional[int]]] = None
-
-    def children(self):
-        return (self.func,) + tuple(self.partition_by) + tuple(self.order_by)
-
-    def data_type(self, schema):
-        dt = self.func.data_type(schema)
-        if isinstance(self.func, Count):
-            return T.INT64
-        return dt
-
-    @property
-    def name(self):
-        return f"{self.func.name} OVER (...)"
-
-    def __str__(self):
-        return self.name
-
-
-@dataclass(eq=False, frozen=True)
-class TumblingWindow(Expression):
-    """Tumbling event-time window key: floor(child / width) * width, the
-    window START (reference: expressions/TimeWindow.scala). Carrying the
-    width lets streaming eviction close a window only when the watermark
-    passes its END."""
-
-    child: Expression
-    width: int
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return self.child.data_type(schema)
-
-    @property
-    def name(self):
-        return "window"
-
-    def __str__(self):
-        return f"window({self.child}, {self.width})"
-
-    def as_arith(self) -> Expression:
-        return Arith("-", self.child,
-                     Arith("%", self.child, Literal(self.width)))
-
-
-@dataclass(eq=False, frozen=True)
-class SessionWindow(Expression):
-    """Gap-based session window key (reference:
-    expressions/SessionWindow.scala; planned by MergingSessionsExec).
-    The streaming runner keys partial aggregates by the raw event time
-    (each event opens a provisional [t, t+gap) session) and merges
-    overlapping sessions in the state-merge step; the grouping output
-    is the merged session START."""
-
-    child: Expression
-    gap: int
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return self.child.data_type(schema)
-
-    @property
-    def name(self):
-        return "session_window"
-
-    def __str__(self):
-        return f"session_window({self.child}, {self.gap})"
-
-
-def window_dictionary(w: "WindowExpr", schema) -> Optional[tuple]:
-    """String dictionary of a window output, when the function carries
-    values through from a dictionary-encoded column (lag/lead/min/max/
-    first)."""
-    fn = w.func
-    if not isinstance(fn, (LagLead, Min, Max, First)):
-        return None
-    c = strip_alias(fn.child)
-    if isinstance(c, Col) and c.col_name in schema:
-        return schema.field(c.col_name).dictionary
-    return None
-
-
-def contains_blocking(e: Expression) -> bool:
-    """Any host-only (untraceable) expression below — forces the
-    enclosing operator onto the eager path."""
-    if e.blocks_trace:
-        return True
-    return any(contains_blocking(c) for c in e.children())
-
-
-def contains_window(e: Expression) -> bool:
-    if isinstance(e, WindowExpr):
-        return True
-    return any(contains_window(c) for c in e.children())
-
-
-# ---- subquery expressions ---------------------------------------------------
-
-
-@dataclass(eq=False, frozen=True)
-class OuterRef(Expression):
-    """A correlated reference to a column of the OUTER query inside a
-    subquery (reference: expressions/subquery.scala OuterReference).
-    Resolved dtype is captured at parse time; decorrelation
-    (plan/subquery.py) eliminates these before execution."""
-
-    col_name: str
-    dtype: DataType = None  # type: ignore[assignment]
-
-    def data_type(self, schema: Schema) -> DataType:
-        return self.dtype
-
-    def references(self) -> set:
-        return set()  # not a reference of the INNER plan
-
-    def __str__(self):
-        return f"outer({self.col_name})"
-
-
-class SubqueryExpression(Expression):
-    """Marker base (reference: expressions/subquery.scala)."""
-
-
-@dataclass(eq=False, frozen=True)
-class ScalarSubquery(SubqueryExpression):
-    plan: Any  # LogicalPlan producing one row, one column
-
-    def data_type(self, schema: Schema) -> DataType:
-        return self.plan.schema.fields[0].dtype
-
-    def __str__(self):
-        return "scalar-subquery(...)"
-
-
-@dataclass(eq=False, frozen=True)
-class InSubquery(SubqueryExpression):
-    child: Expression
-    plan: Any  # LogicalPlan producing one column
-    negated: bool = False
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema: Schema) -> DataType:
-        return T.BOOLEAN
-
-    def __str__(self):
-        n = "NOT " if self.negated else ""
-        return f"({self.child} {n}IN subquery(...))"
-
-
-@dataclass(eq=False, frozen=True)
-class Exists(SubqueryExpression):
-    plan: Any  # LogicalPlan
-    negated: bool = False
-
-    def data_type(self, schema: Schema) -> DataType:
-        return T.BOOLEAN
-
-    def nullable(self, schema):
-        return False
-
-    def __str__(self):
-        n = "NOT " if self.negated else ""
-        return f"{n}EXISTS(...)"
-
-
-def contains_subquery(e: Expression) -> bool:
-    if isinstance(e, SubqueryExpression):
-        return True
-    return any(contains_subquery(c) for c in e.children())
-
-
-# ---- sort order ------------------------------------------------------------
 
 
 @dataclass(eq=False, frozen=True)
@@ -1475,7 +328,6 @@ class AggregateExpression(Expression):
 @dataclass(eq=False, frozen=True)
 class Sum(AggregateExpression):
     child: Expression
-    distinct: bool = False
 
     def children(self):
         return (self.child,)
@@ -1491,8 +343,7 @@ class Sum(AggregateExpression):
 
     @property
     def name(self):
-        d = "DISTINCT " if self.distinct else ""
-        return f"sum({d}{self.child})"
+        return f"sum({self.child})"
 
     def __str__(self):
         return self.name
@@ -1501,7 +352,6 @@ class Sum(AggregateExpression):
 @dataclass(eq=False, frozen=True)
 class Avg(AggregateExpression):
     child: Expression
-    distinct: bool = False
 
     def children(self):
         return (self.child,)
@@ -1515,8 +365,7 @@ class Avg(AggregateExpression):
 
     @property
     def name(self):
-        d = "DISTINCT " if self.distinct else ""
-        return f"avg({d}{self.child})"
+        return f"avg({self.child})"
 
     def __str__(self):
         return self.name
@@ -1527,7 +376,6 @@ class Count(AggregateExpression):
     """COUNT(expr); COUNT(*) is Count(None)."""
 
     child: Optional[Expression] = None
-    distinct: bool = False
 
     def children(self):
         return (self.child,) if self.child is not None else ()
@@ -1541,8 +389,7 @@ class Count(AggregateExpression):
     @property
     def name(self):
         inner = "*" if self.child is None else str(self.child)
-        d = "DISTINCT " if self.distinct else ""
-        return f"count({d}{inner})"
+        return f"count({inner})"
 
     def __str__(self):
         return self.name
@@ -1584,109 +431,6 @@ class Max(AggregateExpression):
         return self.name
 
 
-@dataclass(eq=False, frozen=True)
-class StddevVariance(AggregateExpression):
-    """stddev_samp/stddev_pop/var_samp/var_pop via Welford-free
-    sum/sum-of-squares formulation (matches benchmark parity targets,
-    reference: AggregateBenchmark stddev row)."""
-
-    kind: str  # 'stddev_samp' | 'stddev_pop' | 'var_samp' | 'var_pop'
-    child: Expression
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.FLOAT64
-
-    @property
-    def name(self):
-        return f"{self.kind}({self.child})"
-
-    def __str__(self):
-        return self.name
-
-
-@dataclass(eq=False, frozen=True)
-class First(AggregateExpression):
-    child: Expression
-    ignore_nulls: bool = False
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return self.child.data_type(schema)
-
-    @property
-    def name(self):
-        return f"first({self.child})"
-
-    def __str__(self):
-        return self.name
-
-
-@dataclass(eq=False, frozen=True)
-class Collect(AggregateExpression):
-    """collect_list / collect_set: gather the group's values into an
-    array (reference: expressions/aggregate/collect.scala). Blocking-
-    only on device — the output width is the largest group's count, a
-    data-dependent shape (the sort-agg path host-syncs it alongside the
-    group count)."""
-
-    child: Expression
-    unique: bool = False  # collect_set
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        return T.ArrayType(self.child.data_type(schema))
-
-    @property
-    def name(self):
-        return f"collect_{'set' if self.unique else 'list'}({self.child})"
-
-    def __str__(self):
-        return self.name
-
-
-@dataclass(eq=False, frozen=True)
-class Percentile(AggregateExpression):
-    """percentile_approx / median, computed EXACTLY per group by a
-    (group, value) lexsort + per-group rank gather — fully vectorized
-    over groups, no host sync (reference:
-    aggregate/ApproximatePercentile.scala:81, aggregate/Median uses
-    exact Percentile; the TPU build has no reason to approximate:
-    the sort is the same device sort every blocking aggregate pays).
-    ``interpolate`` (median / exact percentile) returns float64 between
-    ranks; otherwise the actual element at rank ceil(q*n) is returned in
-    the input's type, matching approx_percentile's contract of picking
-    a REAL element."""
-
-    child: Expression
-    percentage: float
-    interpolate: bool = False
-
-    def children(self):
-        return (self.child,)
-
-    def data_type(self, schema):
-        if self.interpolate:
-            return T.FLOAT64
-        return self.child.data_type(schema)
-
-    @property
-    def name(self):
-        fn = "median" if (self.interpolate and self.percentage == 0.5) \
-            else ("percentile" if self.interpolate else "percentile_approx")
-        arg = "" if fn == "median" else f", {self.percentage}"
-        return f"{fn}({self.child}{arg})"
-
-    def __str__(self):
-        return self.name
-
-
 def strip_alias(e: Expression) -> Expression:
     while isinstance(e, Alias):
         e = e.child
@@ -1696,110 +440,28 @@ def strip_alias(e: Expression) -> Expression:
 def contains_aggregate(e: Expression) -> bool:
     if isinstance(e, AggregateExpression):
         return True
-    if isinstance(e, WindowExpr):
-        return False  # the aggregate belongs to the window, not the query
     return any(contains_aggregate(c) for c in e.children())
 
 
 def collect_aggregates(e: Expression) -> list:
     if isinstance(e, AggregateExpression):
         return [e]
-    if isinstance(e, WindowExpr):
-        return []
     out = []
     for c in e.children():
         out.extend(collect_aggregates(c))
     return out
 
 
-def transform_expr_down(e: Expression, fn) -> Expression:
-    """PRE-order expression transform: ``fn`` sees each node before its
-    children; when fn returns a replacement, recursion stops there
-    (TreeNode.transformDown analogue)."""
-    import dataclasses
-
-    ne = fn(e)
-    if ne is not e:
-        return ne
-    new_fields = {}
-    changed = False
-    for f_name, f_val in vars(e).items():
-        if isinstance(f_val, Expression):
-            nv = transform_expr_down(f_val, fn)
-            changed |= nv is not f_val
-            new_fields[f_name] = nv
-        elif isinstance(f_val, tuple) and any(
-                isinstance(x, Expression)
-                or (isinstance(x, tuple)
-                    and any(isinstance(y, Expression) for y in x))
-                for x in f_val):
-            # handles tuple-of-tuple fields too (Case.branches)
-            nlist = []
-            for x in f_val:
-                if isinstance(x, Expression):
-                    nlist.append(transform_expr_down(x, fn))
-                elif isinstance(x, tuple):
-                    nlist.append(tuple(
-                        transform_expr_down(y, fn)
-                        if isinstance(y, Expression) else y for y in x))
-                else:
-                    nlist.append(x)
-            nlist = tuple(nlist)
-            changed |= any(
-                a is not b if not isinstance(a, tuple)
-                else any(p is not q for p, q in zip(a, b))
-                for a, b in zip(nlist, f_val))
-            new_fields[f_name] = nlist
-        else:
-            new_fields[f_name] = f_val
-    if changed:
-        e = dataclasses.replace(e, **{
-            k: v for k, v in new_fields.items()
-            if k in {fl.name for fl in dataclasses.fields(e)}
-        })
-    return e
-
-
 def transform_expr(e: Expression, fn) -> Expression:
     """Bottom-up expression transform (TreeNode.transformUp analogue,
     reference: catalyst/trees/TreeNode.scala)."""
-    import dataclasses
-
     new_fields = {}
-    changed = False
-    for f_name, f_val in vars(e).items():
-        if isinstance(f_val, Expression):
-            nv = transform_expr(f_val, fn)
-            changed |= nv is not f_val
-            new_fields[f_name] = nv
-        elif isinstance(f_val, tuple) and f_val and any(
-            isinstance(x, Expression)
-            or (isinstance(x, tuple) and any(isinstance(y, Expression) for y in x))
-            for x in f_val
-        ):
-            nlist = []
-            for x in f_val:
-                if isinstance(x, Expression):
-                    nx = transform_expr(x, fn)
-                    changed |= nx is not x
-                    nlist.append(nx)
-                elif isinstance(x, tuple):
-                    ny = tuple(
-                        transform_expr(y, fn) if isinstance(y, Expression) else y
-                        for y in x
-                    )
-                    # identity check: `ny != x` would route through the
-                    # DSL __eq__/__bool__ on Expression elements
-                    changed |= any(a is not b for a, b in zip(ny, x))
-                    nlist.append(ny)
-                else:
-                    nlist.append(x)
-            new_fields[f_name] = tuple(nlist)
-        else:
-            new_fields[f_name] = f_val
-    if changed:
-        e = dataclasses.replace(e, **{
-            k: v for k, v in new_fields.items()
-            if k in {fl.name for fl in dataclasses.fields(e)}
-        })
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        if isinstance(v, Expression):
+            nv = transform_expr(v, fn)
+            if nv is not v:
+                new_fields[f.name] = nv
+    if new_fields:
+        e = dataclasses.replace(e, **new_fields)
     return fn(e)

@@ -3,8 +3,9 @@
 ``ops/csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and bound with ``ctypes``. The build
 runs at first use, into ``spark_tpu_torch/_build/`` (listed in
-``.gitignore``), under a name that carries a hash of the sources, so an
-edited source is rebuilt and an unchanged one is loaded as built.
+``.gitignore``), under a name that carries a hash of the source, the
+nvcc flags and the nvcc version, so a change to any of them rebuilds
+the library and an unchanged one is loaded as built.
 Nothing here runs at import time: the CPU tests import every module and
 have no ``nvcc``.
 """
@@ -47,12 +48,18 @@ def library(name: str) -> ctypes.CDLL:
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    nvcc = _nvcc()
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    h = hashlib.sha256(src.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update(version.encode())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         build_logs[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:

@@ -361,8 +361,6 @@ def _compute_agg(agg: E.AggregateExpression, env: Env, seg, mask,
     if isinstance(agg, E.Count) and agg.child is None:
         cnt = K.seg_count(seg, mask, num_segments, sorted_seg)
         return TV(cnt, None, T.INT64, None)
-    if getattr(agg, "distinct", False):
-        raise NotImplementedError("DISTINCT aggregates are not ported yet")
 
     tv = C.evaluate(agg.child, env)  # type: ignore[attr-defined]
     ok = mask & tv.valid_or_true(capacity)

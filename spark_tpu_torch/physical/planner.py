@@ -32,8 +32,6 @@ def plan_physical(plan: L.LogicalPlan) -> P.PhysicalPlan:
     if isinstance(plan, L.Distinct):
         cols = tuple(E.Col(n) for n in plan.schema.names)
         return P.HashAggregateExec(cols, cols, plan_physical(plan.child))
-    if isinstance(plan, L.SubqueryAlias):
-        return plan_physical(plan.child)
     raise NotImplementedError(
         f"no physical plan for {type(plan).__name__} in the port yet "
         "(see ROADMAP queue A)")

@@ -1,4 +1,6 @@
-"""Logical plans.
+"""Logical plans, trimmed to the nodes the single-device aggregate
+slice plans: relations, projections, filters, aggregates, sorts, limits
+and DISTINCT.
 
 The analogue of Catalyst's logical operators (reference:
 sql/catalyst/src/main/scala/org/apache/spark/sql/catalyst/plans/logical/
@@ -6,8 +8,8 @@ basicLogicalOperators.scala) plus the TreeNode transform machinery
 (reference: catalyst/trees/TreeNode.scala). Nodes are immutable
 dataclasses; ``schema`` resolves output types bottom-up, which folds the
 analyzer's resolution role (reference: analysis/Analyzer.scala:188) into
-plan construction — the DataFrame API builds resolved plans directly,
-and the SQL parser resolves names against child schemas as it builds.
+plan construction: the SQL parser resolves names against child schemas
+as it builds.
 """
 
 from __future__ import annotations
@@ -15,9 +17,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Tuple
 
-from spark_tpu_torch import types as T
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.types import Field, Schema
 
@@ -82,29 +83,8 @@ class LogicalPlan:
     def node_string(self) -> str:
         return type(self).__name__
 
-    def structural_key(self) -> tuple:
-        """Injective structural identity (node_string is a display
-        string and may omit fields — never use it as a cache key)."""
-        parts: list = [type(self).__name__]
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            parts.append(_field_key(v))
-        return tuple(parts)
-
     def __repr__(self):
         return self.tree_string()
-
-
-def _field_key(v):
-    if isinstance(v, LogicalPlan):
-        return v.structural_key()
-    if isinstance(v, E.Expression):
-        return E.expr_key(v)
-    if isinstance(v, tuple):
-        return tuple(_field_key(x) for x in v)
-    if v.__class__.__module__ == "builtins" and not callable(v):
-        return repr(v)
-    return ("obj", id(v))  # sources/batches: identity
 
 
 def _transform_value(v, fn):
@@ -133,7 +113,6 @@ class Relation(LogicalPlan):
     LocalRelation, reference: catalyst/plans/logical/LocalRelation.scala)."""
 
     batch: Any  # columnar.batch.Batch
-    name: Optional[str] = None
 
     @property
     def schema(self) -> Schema:
@@ -141,32 +120,6 @@ class Relation(LogicalPlan):
 
     def node_string(self):
         return f"Relation{list(self.schema.names)}"
-
-
-@dataclass(eq=False, frozen=True)
-class Range(LogicalPlan):
-    """spark.range(start, end, step) (reference: basicLogicalOperators
-    Range + RangeExec basicPhysicalOperators.scala:412). Generated
-    on-device as iota — no host data."""
-
-    start: int
-    end: int
-    step: int = 1
-    col_name: str = "id"
-
-    @property
-    def schema(self) -> Schema:
-        return Schema((Field(self.col_name, T.INT64, nullable=False),))
-
-    @property
-    def num_rows(self) -> int:
-        if self.step == 0:
-            return 0
-        n = (self.end - self.start + self.step - (1 if self.step > 0 else -1))
-        return max(0, n // self.step)
-
-    def node_string(self):
-        return f"Range({self.start}, {self.end}, {self.step})"
 
 
 # ---- unary -----------------------------------------------------------------
@@ -186,15 +139,6 @@ class Project(LogicalPlan):
         fields = []
         for e in self.exprs:
             dt = e.data_type(cs)
-            if isinstance(dt, T.MapType):
-                # maps decompose into '#keys'/'#vals' array components
-                # (types.MapType)
-                nullable = e.nullable(cs)
-                fields.append(Field(T.map_keys_col(e.name),
-                                    T.ArrayType(dt.key), nullable))
-                fields.append(Field(T.map_vals_col(e.name),
-                                    T.ArrayType(dt.value), nullable))
-                continue
             inner = E.strip_alias(e)
             dictionary = None
             if isinstance(inner, E.Col) and inner.col_name in cs:
@@ -245,7 +189,7 @@ class Aggregate(LogicalPlan):
             dictionary = None
             if isinstance(inner, E.Col) and inner.col_name in cs:
                 dictionary = cs.field(inner.col_name).dictionary
-            elif isinstance(inner, (E.Min, E.Max, E.First)):
+            elif isinstance(inner, (E.Min, E.Max)):
                 c = E.strip_alias(inner.child)
                 if isinstance(c, E.Col) and c.col_name in cs:
                     dictionary = cs.field(c.col_name).dictionary
@@ -255,146 +199,6 @@ class Aggregate(LogicalPlan):
     def node_string(self):
         return (f"Aggregate[keys=[{', '.join(map(str, self.groupings))}], "
                 f"out=[{', '.join(str(e) for e in self.aggregates)}]]")
-
-
-@dataclass(eq=False, frozen=True)
-class Expand(LogicalPlan):
-    """Replicate the input once per projection (reference:
-    plans/logical Expand + execution/ExpandExec.scala:1 — the engine
-    under ROLLUP/CUBE/GROUPING SETS). Output capacity is child capacity
-    x len(projections), statically shaped, fully traceable."""
-
-    projections: Tuple[Tuple[E.Expression, ...], ...]
-    names: Tuple[str, ...]
-    child: LogicalPlan
-
-    def children(self):
-        return (self.child,)
-
-    @cached_property
-    def schema(self) -> Schema:
-        cs = self.child.schema
-        fields = []
-        for i, name in enumerate(self.names):
-            dt = self.projections[0][i].data_type(cs)
-            nullable = False
-            dictionary = None
-            for proj in self.projections:
-                e = proj[i]
-                dt = T.common_type(dt, e.data_type(cs))
-                nullable = nullable or e.nullable(cs)
-                inner = E.strip_alias(e)
-                if isinstance(inner, E.Col) and inner.col_name in cs:
-                    dictionary = dictionary or cs.field(
-                        inner.col_name).dictionary
-            fields.append(Field(name, dt, nullable, dictionary))
-        return Schema(tuple(fields))
-
-    def node_string(self):
-        return f"Expand[{len(self.projections)} sets]"
-
-
-@dataclass(eq=False, frozen=True)
-class Generate(LogicalPlan):
-    """One output row per generated element, child columns replicated
-    (reference: plans/logical Generate + execution/GenerateExec.scala:1;
-    SQL surface: LATERAL VIEW explode(...) / explode in a SELECT list).
-    ``generator`` is an E.Explode; output appends [pos,] value."""
-
-    generator: E.Expression  # E.Explode
-    out_name: str
-    pos_name: Optional[str]  # set for posexplode
-    child: LogicalPlan
-
-    def children(self):
-        return (self.child,)
-
-    @cached_property
-    def schema(self) -> Schema:
-        cs = self.child.schema
-        fields = list(cs.fields)
-        if self.pos_name is not None:
-            fields.append(Field(self.pos_name, T.INT32, nullable=False))
-        el = self.generator.data_type(cs)
-        dictionary = None
-        inner = E.strip_alias(self.generator.child)
-        if isinstance(inner, E.Col) and inner.col_name in cs:
-            dictionary = cs.field(inner.col_name).dictionary
-        fields.append(Field(self.out_name, el, nullable=False,
-                            dictionary=dictionary))
-        return Schema(tuple(fields))
-
-    def node_string(self):
-        return f"Generate[{self.generator} AS {self.out_name}]"
-
-
-@dataclass(eq=False, frozen=True)
-class Window(LogicalPlan):
-    """Append window-function columns to the child's output (reference:
-    plans/logical/basicLogicalOperators.scala Window +
-    execution/window/WindowExec.scala:87). Each entry is an
-    Alias(WindowExpr, out_name); all entries here share nothing — the
-    physical operator groups them by (partition, order) spec."""
-
-    window_exprs: Tuple[E.Alias, ...]
-    child: LogicalPlan
-
-    def children(self):
-        return (self.child,)
-
-    @cached_property
-    def schema(self) -> Schema:
-        cs = self.child.schema
-        fields = list(cs.fields)
-        for e in self.window_exprs:
-            w = E.strip_alias(e)
-            fields.append(Field(e.name, e.data_type(cs), e.nullable(cs),
-                                E.window_dictionary(w, cs)))
-        return Schema(tuple(fields))
-
-    def node_string(self):
-        return f"Window[{', '.join(str(e) for e in self.window_exprs)}]"
-
-
-def collect_nodes(plan: "LogicalPlan", cls) -> list:
-    """All nodes of type ``cls`` in the tree (pre-order)."""
-    out: list = []
-
-    def go(p):
-        if isinstance(p, cls):
-            out.append(p)
-        for c in p.children():
-            go(c)
-
-    go(plan)
-    return out
-
-
-def project_with_windows(exprs: Tuple[E.Expression, ...],
-                         child: LogicalPlan) -> LogicalPlan:
-    """Build Project(exprs, child), hoisting any WindowExpr into a
-    Window node below the projection (the analyzer's ExtractWindowExpressions
-    rule, reference: analysis/Analyzer.scala)."""
-    win: list = []
-    new_exprs: list = []
-    for e in exprs:
-        if not E.contains_window(e):
-            new_exprs.append(e)
-            continue
-        out_name = e.name
-
-        def repl(x: E.Expression) -> E.Expression:
-            if isinstance(x, E.WindowExpr):
-                nm = f"__w{len(win)}"
-                win.append(E.Alias(x, nm))
-                return E.Col(nm)
-            return x
-
-        ne = E.transform_expr(E.strip_alias(e), repl)
-        new_exprs.append(E.Alias(ne, out_name))
-    if not win:
-        return Project(tuple(exprs), child)
-    return Project(tuple(new_exprs), Window(tuple(win), child))
 
 
 @dataclass(eq=False, frozen=True)
@@ -441,114 +245,3 @@ class Distinct(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self.child.schema
-
-
-@dataclass(eq=False, frozen=True)
-class SubqueryAlias(LogicalPlan):
-    alias: str
-    child: LogicalPlan
-
-    def children(self):
-        return (self.child,)
-
-    @property
-    def schema(self) -> Schema:
-        return self.child.schema
-
-    def node_string(self):
-        return f"SubqueryAlias[{self.alias}]"
-
-
-@dataclass(eq=False, frozen=True)
-class Repartition(LogicalPlan):
-    """repartition(n) / repartition(cols) — an explicit exchange request
-    (reference: plans/logical/basicLogicalOperators.scala Repartition +
-    RepartitionByExpression)."""
-
-    num_partitions: int
-    keys: Tuple[E.Expression, ...]
-    child: LogicalPlan
-
-    def children(self):
-        return (self.child,)
-
-    @property
-    def schema(self) -> Schema:
-        return self.child.schema
-
-
-@dataclass(eq=False, frozen=True)
-class Sample(LogicalPlan):
-    fraction: float
-    seed: int
-    child: LogicalPlan
-    with_replacement: bool = False
-
-    def children(self):
-        return (self.child,)
-
-    @property
-    def schema(self) -> Schema:
-        return self.child.schema
-
-
-# ---- binary ----------------------------------------------------------------
-
-JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti", "cross")
-
-
-@dataclass(eq=False, frozen=True)
-class Join(LogicalPlan):
-    left: LogicalPlan
-    right: LogicalPlan
-    how: str  # one of JOIN_TYPES
-    # Equi-join keys (left_keys[i] == right_keys[i]); extra non-equi
-    # predicates go to ``condition`` and are applied post-match.
-    left_keys: Tuple[E.Expression, ...]
-    right_keys: Tuple[E.Expression, ...]
-    condition: Optional[E.Expression] = None
-
-    def children(self):
-        return (self.left, self.right)
-
-    @cached_property
-    def schema(self) -> Schema:
-        if self.how == "left_semi" or self.how == "left_anti":
-            return self.left.schema
-        lf = list(self.left.schema.fields)
-        rf = list(self.right.schema.fields)
-        if self.how in ("left", "full"):
-            rf = [dataclasses.replace(f, nullable=True) for f in rf]
-        if self.how in ("right", "full"):
-            lf = [dataclasses.replace(f, nullable=True) for f in lf]
-        names = E.dedup_pair_names([f.name for f in lf],
-                                   [f.name for f in rf])
-        out = [dataclasses.replace(f, name=n)
-               for f, n in zip(lf + rf, names)]
-        return Schema(tuple(out))
-
-    def node_string(self):
-        ks = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys, self.right_keys))
-        return f"Join[{self.how}, keys=({ks}), cond={self.condition}]"
-
-
-@dataclass(eq=False, frozen=True)
-class Union(LogicalPlan):
-    left: LogicalPlan
-    right: LogicalPlan
-
-    def children(self):
-        return (self.left, self.right)
-
-    @property
-    def schema(self) -> Schema:
-        # Column names/types come from the left (Spark semantics).
-        return self.left.schema
-
-
-# ---- helpers ---------------------------------------------------------------
-
-
-def resolve_star(plan: LogicalPlan) -> Tuple[E.Expression, ...]:
-    """Expand `*` against a plan's schema."""
-    return tuple(E.Col(n) for n in plan.schema.names)

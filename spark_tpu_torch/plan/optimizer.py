@@ -2,8 +2,8 @@
 
 Analogue of Catalyst's optimizer (reference:
 sql/catalyst/.../optimizer/Optimizer.scala:44 defaultBatches:71) with the
-rules that matter for a columnar TPU backend: predicate pushdown, column
-pruning, project collapsing, constant folding, filter simplification.
+rules the single-table slice needs: predicate pushdown, column pruning,
+project collapsing, constant folding, pruning of always-true filters.
 The rule-executor loop mirrors RuleExecutor.scala (fixed-point batches).
 """
 
@@ -13,7 +13,6 @@ import dataclasses
 import datetime
 from typing import Callable, List, Tuple
 
-from spark_tpu_torch import types as T
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.plan import logical as L
 
@@ -37,58 +36,6 @@ def split_conjuncts(e: E.Expression) -> List[E.Expression]:
     if isinstance(e, E.And):
         return split_conjuncts(e.left) + split_conjuncts(e.right)
     return [e]
-
-
-def split_disjuncts(e: E.Expression) -> List[E.Expression]:
-    if isinstance(e, E.Or):
-        return split_disjuncts(e.left) + split_disjuncts(e.right)
-    return [e]
-
-
-def combine_disjuncts(parts: List[E.Expression]) -> E.Expression:
-    out = parts[0]
-    for p in parts[1:]:
-        out = E.Or(out, p)
-    return out
-
-
-def factor_or_common(e: E.Expression) -> E.Expression:
-    """(A AND X) OR (A AND Y) -> A AND (X OR Y): factor conjuncts common
-    to every OR branch (distributivity holds under Kleene 3-valued logic).
-    Unlocks equi-key extraction for TPC-H q19-style predicates where the
-    join key equality is repeated inside each OR branch (reference:
-    optimizer/expressions.scala BooleanSimplification 'common factor
-    extraction' case)."""
-
-    def fn(node: E.Expression) -> E.Expression:
-        if not isinstance(node, E.Or):
-            return node
-        branches = split_disjuncts(node)
-        conj_lists = [split_conjuncts(b) for b in branches]
-        key_lists = [[E.expr_key(c) for c in cl] for cl in conj_lists]
-        common = set(key_lists[0])
-        for kl in key_lists[1:]:
-            common &= set(kl)
-        if not common:
-            return node
-        factored = [c for c, k in zip(conj_lists[0], key_lists[0])
-                    if k in common]
-        # drop duplicates of an already-factored conjunct within a branch
-        rest_branches: List[E.Expression] = []
-        any_true = False
-        for cl, kl in zip(conj_lists, key_lists):
-            remaining = [c for c, k in zip(cl, kl) if k not in common]
-            if not remaining:
-                any_true = True
-            else:
-                rest_branches.append(combine_conjuncts(remaining))
-        if any_true:
-            # one branch reduced to TRUE: OR-part vanishes entirely
-            return combine_conjuncts(factored)
-        return combine_conjuncts(factored +
-                                 [combine_disjuncts(rest_branches)])
-
-    return E.transform_expr(e, fn)
 
 
 def combine_conjuncts(parts: List[E.Expression]) -> E.Expression:
@@ -123,26 +70,12 @@ def fold_constants(e: E.Expression) -> E.Expression:
                 return E.Literal(val)
             except Exception:
                 return node
-        if isinstance(node, E.AddMonths) and isinstance(node.child, E.Literal):
-            v = node.child.value
-            if isinstance(v, datetime.date):
-                months = v.year * 12 + (v.month - 1) + node.months
-                y, m = divmod(months, 12)
-                m += 1
-                day = min(v.day, _days_in_month(y, m))
-                return E.Literal(datetime.date(y, m, day))
         if isinstance(node, E.Not) and isinstance(node.child, E.Literal) \
                 and isinstance(node.child.value, bool):
             return E.Literal(not node.child.value)
         return node
 
     return E.transform_expr(e, fn)
-
-
-def _days_in_month(y: int, m: int) -> int:
-    if m == 12:
-        return 31
-    return (datetime.date(y, m + 1, 1) - datetime.date(y, m, 1)).days
 
 
 # ---- plan-level rules -------------------------------------------------------
@@ -169,9 +102,9 @@ def collapse_projects(plan: L.LogicalPlan) -> L.LogicalPlan:
 
 
 def push_down_predicates(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Move Filters toward scans: through Projects (with substitution),
-    into Join sides, below SubqueryAlias; merge adjacent Filters
-    (reference: Optimizer.scala PushDownPredicates)."""
+    """Move Filters toward scans through Projects (with substitution);
+    merge adjacent Filters (reference: Optimizer.scala
+    PushDownPredicates)."""
 
     def fn(node: L.LogicalPlan) -> L.LogicalPlan:
         if not isinstance(node, L.Filter):
@@ -185,162 +118,6 @@ def push_down_predicates(plan: L.LogicalPlan) -> L.LogicalPlan:
                 mapping = {e.name: E.strip_alias(e) for e in child.exprs}
                 cond = substitute(node.condition, mapping)
                 return L.Project(child.exprs, L.Filter(cond, child.child))
-        if isinstance(child, L.SubqueryAlias):
-            return L.SubqueryAlias(child.alias,
-                                   L.Filter(node.condition, child.child))
-        if isinstance(child, L.Join):
-            left_names = set(child.left.schema.names)
-            right_names = set(child.right.schema.names)
-            left_parts, right_parts, keep = [], [], []
-            for c in split_conjuncts(node.condition):
-                refs = c.references()
-                if refs and refs <= left_names and child.how in (
-                        "inner", "left", "left_semi", "left_anti", "cross"):
-                    left_parts.append(c)
-                elif refs and refs <= right_names and child.how in (
-                        "inner", "right", "cross"):
-                    right_parts.append(c)
-                else:
-                    keep.append(c)
-            if left_parts or right_parts:
-                new_left = (L.Filter(combine_conjuncts(left_parts), child.left)
-                            if left_parts else child.left)
-                new_right = (L.Filter(combine_conjuncts(right_parts), child.right)
-                             if right_parts else child.right)
-                new_join = dataclasses.replace(
-                    child, left=new_left, right=new_right)
-                return L.Filter(combine_conjuncts(keep), new_join) if keep \
-                    else new_join
-        return node
-
-    return plan.transform_up(fn)
-
-
-def extract_equi_joins(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Filter(Join(cross/inner)) with cross-side equality conjuncts ->
-    equi join keys (reference: planning/patterns.scala ExtractEquiJoinKeys
-    + the planner turning ON-less comma joins into hash joins). Essential
-    for SQL comma-style joins: FROM a, b WHERE a.k = b.k."""
-
-    def fn(node: L.LogicalPlan) -> L.LogicalPlan:
-        if not (isinstance(node, L.Filter) and isinstance(node.child, L.Join)):
-            return node
-        join = node.child
-        if join.how not in ("cross", "inner"):
-            return node
-        out_names = join.schema.names
-        n_l = len(join.left.schema.names)
-        left_out = set(out_names[:n_l])
-        right_out_map = dict(zip(out_names[n_l:], join.right.schema.names))
-
-        def to_src(e: E.Expression) -> E.Expression:
-            def sub(x):
-                if isinstance(x, E.Col) and x.col_name in right_out_map:
-                    return E.Col(right_out_map[x.col_name])
-                return x
-
-            return E.transform_expr(e, sub)
-
-        lkeys = list(join.left_keys)
-        rkeys = list(join.right_keys)
-        keep: List[E.Expression] = []
-        changed = False
-        for c in split_conjuncts(node.condition):
-            if isinstance(c, E.Cmp) and c.op == "==":
-                lr, rr = c.left.references(), c.right.references()
-                if lr and lr <= left_out and rr and rr <= set(right_out_map):
-                    lkeys.append(c.left)
-                    rkeys.append(to_src(c.right))
-                    changed = True
-                    continue
-                if rr and rr <= left_out and lr and lr <= set(right_out_map):
-                    lkeys.append(c.right)
-                    rkeys.append(to_src(c.left))
-                    changed = True
-                    continue
-            keep.append(c)
-        if not changed:
-            return node
-        new_join = L.Join(join.left, join.right, "inner",
-                          tuple(lkeys), tuple(rkeys), join.condition)
-        return L.Filter(combine_conjuncts(keep), new_join) if keep \
-            else new_join
-
-    return plan.transform_up(fn)
-
-
-def extract_condition_keys(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Move equality conjuncts of a Join's ON condition into equi-join
-    keys, for EVERY join type (reference: planning/patterns.scala
-    ExtractEquiJoinKeys operates on the full join condition). Without
-    this, semi/anti/outer joins whose keys live only in the condition
-    degrade to all-pairs nested loops. The condition is expressed in the
-    join's OUTPUT name space (right-side duplicates carry '#2' suffixes);
-    extracted right keys are mapped back to right-source names. Safe for
-    outer joins: keys and condition are both part of the match predicate,
-    and unmatched-row padding is unaffected."""
-
-    def fn(node: L.LogicalPlan) -> L.LogicalPlan:
-        if not isinstance(node, L.Join) or node.condition is None:
-            return node
-        if node.how == "cross":
-            return node
-        # the condition is evaluated over the joined PAIR, whose namespace
-        # is left names + '#2'-deduped right names — NOT node.schema
-        # (which is left-only for semi/anti joins)
-        left_names = list(node.left.schema.names)
-        right_names = list(node.right.schema.names)
-        pair_names = E.dedup_pair_names(left_names, right_names)
-        n_l = len(left_names)
-        left_out = set(pair_names[:n_l])
-        right_out_map = dict(zip(pair_names[n_l:], right_names))
-
-        def to_right_src(e: E.Expression) -> E.Expression:
-            def sub(x):
-                if isinstance(x, E.Col) and x.col_name in right_out_map:
-                    return E.Col(right_out_map[x.col_name])
-                return x
-
-            return E.transform_expr(e, sub)
-
-        lkeys = list(node.left_keys)
-        rkeys = list(node.right_keys)
-        keep: List[E.Expression] = []
-        changed = False
-        for c in split_conjuncts(factor_or_common(node.condition)):
-            if isinstance(c, E.Cmp) and c.op == "==":
-                lr, rr = c.left.references(), c.right.references()
-                if lr and lr <= left_out and rr and rr <= set(right_out_map):
-                    lkeys.append(c.left)
-                    rkeys.append(to_right_src(c.right))
-                    changed = True
-                    continue
-                if rr and rr <= left_out and lr and lr <= set(right_out_map):
-                    lkeys.append(c.right)
-                    rkeys.append(to_right_src(c.left))
-                    changed = True
-                    continue
-            keep.append(c)
-        if not changed:
-            return node
-        return dataclasses.replace(
-            node, left_keys=tuple(lkeys), right_keys=tuple(rkeys),
-            condition=combine_conjuncts(keep) if keep else None)
-
-    return plan.transform_up(fn)
-
-
-def simplify_booleans(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Factor common conjuncts out of OR trees in every Filter so that
-    predicate pushdown and equi-key extraction see them as top-level
-    conjuncts (q19's `p_partkey = l_partkey` lives inside each OR
-    branch). Reference: optimizer/expressions.scala BooleanSimplification."""
-
-    def fn(node: L.LogicalPlan) -> L.LogicalPlan:
-        if isinstance(node, L.Filter):
-            new_cond = factor_or_common(node.condition)
-            if new_cond is not node.condition:
-                return L.Filter(new_cond, node.child)
         return node
 
     return plan.transform_up(fn)
@@ -360,7 +137,7 @@ def constant_folding(plan: L.LogicalPlan) -> L.LogicalPlan:
     def fn(node: L.LogicalPlan) -> L.LogicalPlan:
         return node.transform_expressions(
             lambda e: fold_constants(e) if isinstance(
-                e, (E.Arith, E.AddMonths, E.Not)) else e)
+                e, (E.Arith, E.Not)) else e)
 
     return plan.transform_up(fn)
 
@@ -368,22 +145,10 @@ def constant_folding(plan: L.LogicalPlan) -> L.LogicalPlan:
 def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
     """Top-down required-column analysis; inserts narrow Projects above
     leaves so scans read only what is needed (reference: Optimizer.scala
-    ColumnPruning; drives Parquet column projection like
-    FileSourceStrategy's readDataColumns)."""
+    ColumnPruning)."""
 
     def prune(node: L.LogicalPlan, required: set) -> L.LogicalPlan:
-        # map components travel as a unit: a reference to 'm#keys'
-        # (the canonical map handle) must keep 'm#vals' alive and vice
-        # versa — element_at/m[k] reads both (types.MapType)
-        extra = set()
-        for n in required:
-            base = T.map_base_name(n)
-            if base is not None:
-                extra.add(T.map_keys_col(base))
-                extra.add(T.map_vals_col(base))
-                extra.add(base)  # a map EXPRESSION is named by its base
-        required = required | extra
-        if isinstance(node, (L.Relation, L.Range)):
+        if isinstance(node, L.Relation):
             names = node.schema.names
             keep = [n for n in names if n in required]
             if 0 < len(keep) < len(names):
@@ -404,83 +169,15 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
                 child_req |= e.references()
             return dataclasses.replace(
                 node, child=prune(node.child, child_req))
-        if isinstance(node, L.Window):
-            win_names = {e.name for e in node.window_exprs}
-            child_req = {n for n in required if n not in win_names}
-            for e in node.window_exprs:
-                child_req |= e.references()
-            child_req &= set(node.child.schema.names)
-            if not child_req:
-                child_req = set(node.child.schema.names)
-            return dataclasses.replace(
-                node, child=prune(node.child, child_req))
-        if isinstance(node, L.Generate):
-            gen_names = {node.out_name} | (
-                {node.pos_name} if node.pos_name else set())
-            child_req = {n for n in required if n not in gen_names}
-            child_req |= node.generator.references()
-            # arrays ride with a hidden '#len' companion column
-            child_req |= {T.array_len_col(n) for n in
-                          node.generator.references()}
-            child_req &= set(node.child.schema.names) | {
-                T.array_len_col(n) for n in node.child.schema.names}
-            return dataclasses.replace(
-                node, child=prune(node.child, child_req))
-        if isinstance(node, (L.Sort, L.Limit, L.Distinct, L.SubqueryAlias,
-                             L.Repartition, L.Sample)):
+        if isinstance(node, (L.Sort, L.Limit, L.Distinct)):
             child_req = set(required)
             for e in node.expressions():
                 child_req |= e.references()
             if isinstance(node, L.Distinct):
                 child_req |= set(node.schema.names)
             return node.with_children((prune(node.children()[0], child_req),))
-        if isinstance(node, L.Join):
-            # required/condition names live in the OUTPUT name space
-            # (right-side duplicates carry '#2' suffixes) — map them back
-            # to source columns before pruning each side.
-            refs = set(required)
-            if node.condition is not None:
-                refs |= node.condition.references()
-            seen: set = set()
-            left_req: set = set()
-            right_req: set = set()
-            entries = []  # (out_name, side_req_set, src_name) in dedup order
-            for side_req, names in ((left_req, node.left.schema.names),
-                                    (right_req, node.right.schema.names)):
-                for n in names:
-                    out = n
-                    while out in seen:
-                        out = out + "#2"
-                    seen.add(out)
-                    entries.append((out, side_req, n))
-            lookup = {out: (side_req, src) for out, side_req, src in entries}
-            needed = {out for out, _, _ in entries if out in refs}
-            # '#2' suffixes are collision-dependent: keeping 'x#2' only
-            # stays named 'x#2' if every dedup ancestor ('x') survives too
-            for out in list(needed):
-                base = out
-                while base.endswith("#2"):
-                    base = base[:-2]
-                    if base in lookup:
-                        needed.add(base)
-            for out in needed:
-                side_req, src = lookup[out]
-                side_req.add(src)
-            for k in node.left_keys:
-                left_req |= k.references()
-            for k in node.right_keys:
-                right_req |= k.references()
-            return dataclasses.replace(
-                node,
-                left=prune(node.left, left_req),
-                right=prune(node.right, right_req))
-        if isinstance(node, L.Union):
-            # Union is positional: require everything for now.
-            req = set(node.schema.names)
-            return node.with_children(tuple(
-                prune(c, set(c.schema.names)) for c in node.children()))
-        return node.with_children(tuple(
-            prune(c, set(c.schema.names)) for c in node.children()))
+        raise NotImplementedError(
+            f"column pruning for {type(node).__name__}")
 
     return prune(plan, set(plan.schema.names))
 
@@ -489,56 +186,9 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
 
 Rule = Callable[[L.LogicalPlan], L.LogicalPlan]
 
-def extract_generators(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Pull explode/posexplode out of SELECT lists into Generate nodes
-    (reference: analysis ExtractGenerator + GenerateExec planning).
-    ``select a, explode(b) as c`` becomes
-    Project[a, c] over Generate[explode(b) AS c] over child."""
-
-    def rule(node: L.LogicalPlan) -> L.LogicalPlan:
-        if not isinstance(node, L.Project):
-            return node
-        gens = [e for e in node.exprs
-                if isinstance(E.strip_alias(e), E.Explode)]
-        if not gens:
-            # generators nested inside other expressions are rejected
-            for e in node.exprs:
-                if E.contains_generator(e):
-                    raise NotImplementedError(
-                        f"generator must be a top-level SELECT item: {e}")
-            return node
-        if len(gens) > 1:
-            raise NotImplementedError(
-                "only one generator per SELECT list (the reference has "
-                "the same restriction, ExtractGenerator)")
-        gen_item = gens[0]
-        gen = E.strip_alias(gen_item)
-        out_name = gen_item.name if isinstance(gen_item, E.Alias) else "col"
-        pos_name = None
-        if gen.with_position:
-            # posexplode yields (pos, col); an alias names the value col
-            pos_name = "pos"
-        g = L.Generate(gen, out_name, pos_name, node.child)
-        new_exprs = []
-        for e in node.exprs:
-            if e is gen_item:
-                if pos_name is not None:
-                    new_exprs.append(E.Col(pos_name))
-                new_exprs.append(E.Col(out_name))
-            else:
-                new_exprs.append(e)
-        return L.Project(tuple(new_exprs), g)
-
-    return plan.transform_up(rule)
-
-
 _FIXED_POINT_BATCH: Tuple[Rule, ...] = (
-    extract_generators,
     constant_folding,
-    simplify_booleans,
     push_down_predicates,
-    extract_equi_joins,
-    extract_condition_keys,
     collapse_projects,
     prune_filters,
 )
@@ -548,9 +198,9 @@ MAX_ITERATIONS = 20  # reference: RuleExecutor FixedPoint(100); ours converge fa
 
 def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
     """Run rule batches to fixpoint, then one column-pruning pass
-    (reference: RuleExecutor.execute, rules/RuleExecutor.scala). Join
-    reordering, runtime filters and session-injected rules are not
-    ported yet."""
+    (reference: RuleExecutor.execute, rules/RuleExecutor.scala). The
+    join rules, join reordering, runtime filters and session-injected
+    rules are not ported yet."""
     for _ in range(MAX_ITERATIONS):
         new_plan = plan
         for rule in _FIXED_POINT_BATCH:

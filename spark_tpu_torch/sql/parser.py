@@ -1,14 +1,16 @@
-"""SQL parser: text -> logical plans.
+"""SQL parser: text -> logical plans, trimmed to the single-table
+aggregate slice.
 
-Hand-written tokenizer + Pratt expression parser + statement builder,
-covering the dialect the engine executes: SELECT/FROM/WHERE/GROUP BY/
-HAVING/ORDER BY/LIMIT, explicit and comma joins, subqueries (FROM,
-scalar, IN, EXISTS — with correlation via OuterRef), CASE, BETWEEN,
-IN, LIKE, CAST, EXTRACT, date/interval literals, set operations, and
-CREATE/DROP VIEW. The reference parses with a 1,819-line ANTLR grammar
+Hand-written tokenizer, recursive-descent expression parser and
+statement builder for SELECT [DISTINCT] ... FROM <table> [WHERE]
+[GROUP BY] [ORDER BY] [LIMIT [OFFSET]] with comparisons, BETWEEN,
+IS [NOT] NULL, arithmetic, CAST, date and day-interval literals and the
+count/sum/avg/min/max aggregates. Joins, subqueries, set operations,
+HAVING and DISTINCT aggregates raise ``NotImplementedError``; other
+constructs are parse errors. The reference parses with an ANTLR grammar
 (reference: sql/catalyst/src/main/antlr4/.../SqlBaseParser.g4:1 +
-parser/AstBuilder.scala); name resolution here happens during parsing
-against the FROM-clause scope, folding the Analyzer's resolution tier
+parser/AstBuilder.scala); name resolution happens during parsing
+against the FROM relation, folding the Analyzer's resolution tier
 (reference: analysis/Analyzer.scala:188) into plan construction.
 """
 
@@ -16,9 +18,8 @@ from __future__ import annotations
 
 import datetime
 import re
-import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from spark_tpu_torch import types as T
 from spark_tpu_torch.expr import expressions as E
@@ -32,7 +33,7 @@ _TOKEN_RE = re.compile(r"""
   | (?P<num>\d+\.\d*(?:[eE][+-]?\d+)?|\.\d+(?:[eE][+-]?\d+)?|\d+(?:[eE][+-]?\d+)?)
   | (?P<str>'(?:[^']|'')*')
   | (?P<qid>"[^"]*"|`[^`]*`)
-  | (?P<op><>|!=|>=|<=|\|\||->|[=<>+\-*/%(),.;\[\]])
+  | (?P<op><>|!=|>=|<=|[=<>+\-*/%(),.;])
   | (?P<id>[A-Za-z_][A-Za-z_0-9]*)
 """, re.VERBOSE | re.DOTALL)
 
@@ -75,93 +76,29 @@ class SQLParseError(ValueError):
 
 
 _RESERVED_STOP = {
-    "FROM", "WHERE", "GROUP", "HAVING", "ORDER", "LIMIT", "OFFSET", "ON",
-    "JOIN", "INNER", "LEFT", "RIGHT", "FULL", "CROSS", "OUTER", "UNION",
-    "INTERSECT", "EXCEPT", "AS", "AND", "OR", "NOT", "BY", "ASC", "DESC",
-    "THEN", "WHEN", "ELSE", "END", "USING", "SEMI", "ANTI", "NULLS",
-    "LATERAL",
+    "FROM", "WHERE", "GROUP", "HAVING", "ORDER", "LIMIT", "OFFSET", "JOIN",
+    "INNER", "LEFT", "RIGHT", "FULL", "CROSS", "UNION", "INTERSECT",
+    "EXCEPT", "AS", "AND", "OR", "NOT", "BY", "ASC", "DESC", "NULLS",
 }
 
-
-# ---- name resolution scope --------------------------------------------------
-
-
-class Scope:
-    """FROM-clause namespace: per-alias source->output column mapping.
-
-    Join output names deduplicate with '#2' suffixes (logical.Join.schema
-    semantics); the scope tracks, for every relation in the FROM clause,
-    what each of its columns is called in the joined output, so
-    ``alias.col`` and bare ``col`` resolve to output Col names."""
-
-    def __init__(self, parent: Optional["Scope"] = None):
-        self.entries: List[Tuple[Optional[str], List[Tuple[str, str]]]] = []
-        self.parent = parent
-
-    def add_relation(self, alias: Optional[str],
-                     src_names: Sequence[str]) -> List[str]:
-        """Register a relation; returns the OUTPUT names its columns get
-        after join-dedup against everything already in scope."""
-        seen = {out for _, cols in self.entries for _, out in cols}
-        mapping = []
-        for n in src_names:
-            out = n
-            while out in seen:
-                out = out + "#2"
-            seen.add(out)
-            mapping.append((n, out))
-        self.entries.append((alias.lower() if alias else None, mapping))
-        return [out for _, out in mapping]
-
-    def resolve(self, qualifier: Optional[str], name: str) -> Optional[str]:
-        name_l = name.lower()
-        if qualifier is not None:
-            q = qualifier.lower()
-            for alias, cols in self.entries:
-                if alias == q:
-                    for src, out in cols:
-                        if src.lower() == name_l:
-                            return out
-            return None
-        hits = []
-        for _, cols in self.entries:
-            for src, out in cols:
-                if src.lower() == name_l:
-                    hits.append(out)
-        if len(hits) > 1:
-            raise SQLParseError(f"ambiguous column reference {name!r}")
-        if not hits and not name_l.endswith("#keys"):
-            # a MAP column decomposes into '<m>#keys'/'<m>#vals'
-            # (types.MapType); a bare reference resolves to the keys
-            # component, the canonical map handle
-            return self.resolve(qualifier, name + "#keys")
-        return hits[0] if hits else None
-
-    def all_output_names(self) -> List[str]:
-        return [out for _, cols in self.entries for _, out in cols]
-
-    def relation_outputs(self, alias: str) -> Optional[List[str]]:
-        q = alias.lower()
-        for a, cols in self.entries:
-            if a == q:
-                return [out for _, out in cols]
-        return None
+_JOIN_WORDS = {"JOIN", "INNER", "LEFT", "RIGHT", "FULL", "CROSS"}
 
 
-# ---- expression parser (Pratt) ----------------------------------------------
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} are not ported yet (ROADMAP queue A)")
+
+
+# ---- expression parser -------------------------------------------------------
 
 Resolver = Callable[[Optional[str], str], E.Expression]
 
 
-class _ExprParser:
-    def __init__(self, tokens: List[Token], pos: int, resolver: Resolver,
-                 subquery_parser=None):
+class _Tokens:
+    """Token cursor shared by the expression and statement parsers."""
+
+    def __init__(self, tokens: List[Token], pos: int = 0):
         self.toks = tokens
         self.pos = pos
-        self.resolve = resolver
-        self.subquery_parser = subquery_parser  # parses ( SELECT ... )
-
-    # -- token helpers -------------------------------------------------------
 
     def peek(self, ahead: int = 0) -> Token:
         return self.toks[min(self.pos + ahead, len(self.toks) - 1)]
@@ -188,7 +125,15 @@ class _ExprParser:
         t = self.peek()
         return t.kind == "id" and t.upper in values
 
-    # -- grammar -------------------------------------------------------------
+
+class _ExprParser:
+    def __init__(self, cur: _Tokens, resolver: Resolver):
+        self.resolve = resolver
+        # the cursor's own methods: statement and expression parsers
+        # advance one shared position
+        self.peek, self.next = cur.peek, cur.next
+        self.accept, self.expect = cur.accept, cur.expect
+        self.at_keyword = cur.at_keyword
 
     def parse(self) -> E.Expression:
         return self.parse_or()
@@ -207,24 +152,12 @@ class _ExprParser:
 
     def parse_not(self) -> E.Expression:
         if self.accept("NOT"):
-            inner = self.parse_not()
-            if isinstance(inner, E.Exists):
-                return E.Exists(inner.plan, not inner.negated)
-            return E.Not(inner)
+            return E.Not(self.parse_not())
         return self.parse_predicate()
 
     def parse_predicate(self) -> E.Expression:
         if self.at_keyword("EXISTS"):
-            nt = self.peek(2)
-            if nt.kind == "id" and nt.upper == "SELECT":
-                self.next()
-                self.expect("(")
-                plan = self.subquery_parser(self)
-                self.expect(")")
-                return E.Exists(plan)
-            # exists(array, x -> pred): the higher-order function form
-            name_tok = self.next()
-            return self._parse_function_inner(name_tok)
+            raise _not_ported("subqueries")
         left = self.parse_additive()
         negated = bool(self.accept("NOT"))
         t = self.peek()
@@ -241,24 +174,8 @@ class _ExprParser:
             e: E.Expression = E.And(E.Cmp(">=", left, lo),
                                     E.Cmp("<=", left, hi))
             return E.Not(e) if negated else e
-        if self.accept("IN"):
-            self.expect("(")
-            if self.at_keyword("SELECT", "WITH"):
-                plan = self.subquery_parser(self)
-                self.expect(")")
-                return E.InSubquery(left, plan, negated)
-            values = [self._literal_value(self.parse_additive())]
-            while self.accept(","):
-                values.append(self._literal_value(self.parse_additive()))
-            self.expect(")")
-            e = E.In(left, tuple(values))
-            return E.Not(e) if negated else e
-        if self.accept("LIKE"):
-            pat = self.next()
-            if pat.kind != "str":
-                raise SQLParseError(f"LIKE needs a string pattern at {pat.pos}")
-            e = E.Like(left, _unquote(pat.value))
-            return E.Not(e) if negated else e
+        if self.at_keyword("IN", "LIKE"):
+            raise _not_ported(f"{self.peek().upper} predicates")
         if self.accept("IS"):
             neg2 = bool(self.accept("NOT"))
             self.expect("NULL")
@@ -277,25 +194,14 @@ class _ExprParser:
                 self.next()
                 right = self.parse_multiplicative()
                 left = self._date_arith(t.value, left, right)
-            elif t.kind == "op" and t.value == "||":
-                self.next()
-                right = self.parse_multiplicative()
-                left = E.Concat((left, right))
             else:
                 return left
 
     def _date_arith(self, op: str, left: E.Expression,
                     right: E.Expression) -> E.Expression:
-        """Fold interval literals into date arithmetic at parse time."""
+        """Fold a day-interval literal into date arithmetic."""
         if isinstance(right, _Interval):
-            if right.months:
-                months = right.months if op == "+" else -right.months
-                base = E.AddMonths(left, months)
-            else:
-                base = left
-            if right.days:
-                base = E.Arith(op, base, E.Literal(right.days))
-            return base
+            return E.Arith(op, left, E.Literal(right.days))
         if isinstance(left, _Interval):
             raise SQLParseError("interval must be the right operand")
         return E.Arith(op, left, right)
@@ -320,24 +226,7 @@ class _ExprParser:
             return self.parse_unary()
         return self.parse_primary()
 
-    # -- primaries -----------------------------------------------------------
-
     def parse_primary(self) -> E.Expression:
-        e = self._parse_primary_base()
-        while True:
-            t = self.peek()
-            if t.kind == "op" and t.value == "[":
-                # x[i]: 0-based array item / map key lookup (reference:
-                # GetArrayItem / GetMapValue, complexTypeExtractors.scala)
-                self.next()
-                key = self.parse()
-                self.expect("]")
-                e = E.ElementAt(e, key, sql_subscript=True)
-            else:
-                break
-        return e
-
-    def _parse_primary_base(self) -> E.Expression:
         t = self.next()
         if t.kind == "num":
             text = t.value
@@ -348,16 +237,8 @@ class _ExprParser:
             return E.Literal(_unquote(t.value))
         if t.kind == "op" and t.value == "(":
             if self.at_keyword("SELECT", "WITH"):
-                plan = self.subquery_parser(self)
-                self.expect(")")
-                return E.ScalarSubquery(plan)
+                raise _not_ported("subqueries")
             e = self.parse()
-            if self.peek().kind == "op" and self.peek().value == ",":
-                items = [e]
-                while self.accept(","):
-                    items.append(self.parse())
-                self.expect(")")
-                return E.TupleExpr(tuple(items))
             self.expect(")")
             return e
         if t.kind in ("id", "qid"):
@@ -375,13 +256,8 @@ class _ExprParser:
         if u == "DATE" and self.peek().kind == "str":
             s = _unquote(self.next().value)
             return E.Literal(datetime.date.fromisoformat(s))
-        if u == "TIMESTAMP" and self.peek().kind == "str":
-            s = _unquote(self.next().value)
-            return E.Literal(datetime.datetime.fromisoformat(s))
         if u == "INTERVAL":
             return self._parse_interval()
-        if u == "CASE":
-            return self._parse_case()
         if u == "CAST":
             self.expect("(")
             e = self.parse()
@@ -399,14 +275,6 @@ class _ExprParser:
                 type_toks.append(self.next().value)
             self.expect(")")
             return E.Cast(e, parse_type(" ".join(type_toks)))
-        if u == "EXTRACT":
-            self.expect("(")
-            part = self.next().value.lower()
-            self.expect("FROM")
-            e = self.parse()
-            self.expect(")")
-            return E.ExtractDatePart(part, e)
-        # function call?
         nxt = self.peek()
         if nxt.kind == "op" and nxt.value == "(":
             return self._parse_function(t)
@@ -427,424 +295,33 @@ class _ExprParser:
         else:
             raise SQLParseError(f"bad interval quantity at {t.pos}")
         unit = self.next().upper.rstrip("S")
-        if unit == "YEAR":
-            return _Interval(months=12 * qty)
-        if unit == "MONTH":
-            return _Interval(months=qty)
         if unit == "DAY":
             return _Interval(days=qty)
         if unit == "WEEK":
             return _Interval(days=7 * qty)
         raise SQLParseError(f"unsupported interval unit {unit!r}")
 
-    def _parse_case(self) -> E.Expression:
-        branches = []
-        operand = None
-        if not self.at_keyword("WHEN"):
-            operand = self.parse()
-        while self.accept("WHEN"):
-            cond = self.parse()
-            if operand is not None:
-                cond = E.Cmp("==", operand, cond)
-            self.expect("THEN")
-            val = self.parse()
-            branches.append((cond, val))
-        else_v = None
-        if self.accept("ELSE"):
-            else_v = self.parse()
-        self.expect("END")
-        return E.Case(tuple(branches), else_v)
-
-    _AGG_FNS = {"SUM": E.Sum, "AVG": E.Avg, "MIN": E.Min, "MAX": E.Max}
+    _AGG_FNS = {"SUM": E.Sum, "AVG": E.Avg, "MIN": E.Min, "MAX": E.Max,
+                "COUNT": E.Count}
 
     def _parse_function(self, name_tok: Token) -> E.Expression:
-        e = self._parse_function_inner(name_tok)
-        if self.at_keyword("OVER"):
-            self.next()
-            return self._parse_window_spec(e)
-        if isinstance(e, (E.RowNumber, E.Rank, E.NTile, E.LagLead)):
-            raise SQLParseError(
-                f"{name_tok.value} requires an OVER clause at "
-                f"{name_tok.pos}")
-        return e
-
-    def _parse_window_spec(self, func: E.Expression) -> E.WindowExpr:
-        """OVER ( [PARTITION BY ...] [ORDER BY ...] [ROWS|RANGE BETWEEN
-        bound AND bound] ) (reference grammar: SqlBaseParser.g4
-        windowSpec)."""
-        self.expect("(")
-        partition: List[E.Expression] = []
-        orders: List[E.SortOrder] = []
-        frame = None
-        if self.at_keyword("PARTITION"):
-            self.next()
-            self.expect("BY")
-            partition.append(self.parse())
-            while self.accept(","):
-                partition.append(self.parse())
-        if self.at_keyword("ORDER"):
-            self.next()
-            self.expect("BY")
-            while True:
-                e = self.parse()
-                asc = True
-                if self.accept("DESC"):
-                    asc = False
-                else:
-                    self.accept("ASC")
-                nulls_first = None
-                if self.accept("NULLS"):
-                    nulls_first = self.next().upper == "FIRST"
-                orders.append(E.SortOrder(e, asc, nulls_first))
-                if not self.accept(","):
-                    break
-        if self.at_keyword("ROWS", "RANGE"):
-            mode = self.next().upper.lower()
-
-            def bound() -> Tuple[str, Optional[int]]:
-                if self.accept("UNBOUNDED"):
-                    side = self.next()
-                    if side.upper not in ("PRECEDING", "FOLLOWING"):
-                        raise SQLParseError(
-                            f"expected PRECEDING or FOLLOWING at "
-                            f"{side.pos}: {side.value!r}")
-                    return side.upper, None
-                if self.accept("CURRENT"):
-                    self.expect("ROW")
-                    return "CURRENT", 0
-                n = self._int_literal()
-                side = self.next()
-                if side.upper not in ("PRECEDING", "FOLLOWING"):
-                    raise SQLParseError(
-                        f"expected PRECEDING or FOLLOWING at "
-                        f"{side.pos}: {side.value!r}")
-                return side.upper, n
-
-            if self.accept("BETWEEN"):
-                s_side, s_n = bound()
-                self.expect("AND")
-                e_side, e_n = bound()
-            else:
-                s_side, s_n = bound()
-                e_side, e_n = "CURRENT", 0
-            start = None if s_n is None else (
-                -s_n if s_side == "PRECEDING" else s_n)
-            end = None if e_n is None else (
-                -e_n if e_side == "PRECEDING" else e_n)
-            frame = (mode, start, end)
-        self.expect(")")
-        return E.WindowExpr(func, tuple(partition), tuple(orders), frame)
-
-    def _parse_function_inner(self, name_tok: Token) -> E.Expression:
         name = name_tok.upper
+        if name not in self._AGG_FNS:
+            raise SQLParseError(f"unknown function {name_tok.value!r} "
+                                f"at {name_tok.pos}")
         self.expect("(")
-        if name in ("ROW_NUMBER", "RANK", "DENSE_RANK"):
+        if name == "COUNT" and self.accept("*"):
             self.expect(")")
-            if name == "ROW_NUMBER":
-                return E.RowNumber()
-            return E.Rank(dense=(name == "DENSE_RANK"))
-        if name == "NTILE":
-            n = self._int_literal()
-            self.expect(")")
-            return E.NTile(n)
-        if name in ("LAG", "LEAD"):
-            e = self.parse()
-            offset, default = 1, None
-            if self.accept(","):
-                offset = self._int_literal()
-                if self.accept(","):
-                    default = self.parse()
-            self.expect(")")
-            return E.LagLead(e, offset, default, lead=(name == "LEAD"))
-        if name == "COUNT":
-            if self.peek().kind == "op" and self.peek().value == "*":
-                self.next()
-                self.expect(")")
-                return E.Count(None)
-            distinct = bool(self.accept("DISTINCT"))
-            e = self.parse()
-            self.expect(")")
-            return E.Count(e, distinct=distinct)
-        if name in self._AGG_FNS:
-            distinct = bool(self.accept("DISTINCT"))
-            e = self.parse()
-            self.expect(")")
-            cls = self._AGG_FNS[name]
-            if name in ("MIN", "MAX"):
-                return cls(e)
-            return cls(e, distinct=distinct)
-        if name in ("STDDEV", "STDDEV_SAMP", "STDDEV_POP", "VARIANCE",
-                    "VAR_SAMP", "VAR_POP"):
-            e = self.parse()
-            self.expect(")")
-            kind = {"STDDEV": "stddev_samp", "VARIANCE": "var_samp"}.get(
-                name, name.lower())
-            return E.StddevVariance(kind, e)
-        if name == "SUBSTRING" or name == "SUBSTR":
-            e = self.parse()
-            if self.accept("FROM"):
-                pos = self._int_literal()
-                self.expect("FOR")
-                length = self._int_literal()
-            else:
-                self.expect(",")
-                pos = self._int_literal()
-                if self.accept(","):
-                    length = self._int_literal()
-                else:  # substr(s, pos): to the end of the string
-                    length = 1 << 30
-            self.expect(")")
-            return E.Substring(e, pos, length)
-        if name == "COALESCE":
-            args = [self.parse()]
-            while self.accept(","):
-                args.append(self.parse())
-            self.expect(")")
-            return E.Coalesce(tuple(args))
-        if name in ("YEAR", "MONTH", "DAY", "DAYOFMONTH"):
-            e = self.parse()
-            self.expect(")")
-            part = {"DAYOFMONTH": "day"}.get(name, name.lower())
-            return E.ExtractDatePart(part, e)
-        if name == "ABS":
-            e = self.parse()
-            self.expect(")")
-            return E.Abs(e)
-        if name in ("FLOOR", "CEIL", "CEILING", "SQRT", "EXP", "LN",
-                    "LOG10", "SIGN"):
-            e = self.parse()
-            self.expect(")")
-            op = {"CEILING": "ceil"}.get(name, name.lower())
-            return E.UnaryMath(op, e)
-        if name == "ROUND":
-            e = self.parse()
-            scale = 0
-            if self.accept(","):
-                scale = self._int_literal()
-            self.expect(")")
-            return E.Round(e, scale)
-        if name in ("POWER", "POW"):
-            a = self.parse()
-            self.expect(",")
-            b = self.parse()
-            self.expect(")")
-            return E.Pow(a, b)
-        if name in ("UPPER", "LOWER", "TRIM", "LTRIM", "RTRIM"):
-            e = self.parse()
-            self.expect(")")
-            return E.StringTransform(name.lower(), e)
-        if name in ("LENGTH", "LEN", "CHAR_LENGTH"):
-            e = self.parse()
-            self.expect(")")
-            return E.StrLength(e)
-        if name == "REGEXP_EXTRACT":
-            e = self.parse()
-            self.expect(",")
-            pat = self._str_literal()
-            group = 1
-            if self.accept(","):
-                group = self._int_literal()
-            self.expect(")")
-            return E.RegexpExtract(e, pat, group)
-        if name == "REGEXP_REPLACE":
-            e = self.parse()
-            self.expect(",")
-            pat = self._str_literal()
-            self.expect(",")
-            rep = self._str_literal()
-            self.expect(")")
-            return E.RegexpReplace(e, pat, rep)
-        if name == "REGEXP_LIKE":
-            e = self.parse()
-            self.expect(",")
-            pat = self._str_literal()
-            self.expect(")")
-            return E.RegexpLike(e, pat)
-        if name == "DATE_TRUNC":
-            unit = self._str_literal().lower()
-            self.expect(",")
-            e = self.parse()
-            self.expect(")")
-            return E.DateTrunc(unit, e)
-        if name == "LAST_DAY":
-            e = self.parse()
-            self.expect(")")
-            return E.LastDay(e)
-        if name == "APPROX_COUNT_DISTINCT":
-            e = self.parse()
-            if self.accept(","):
-                self.parse()  # rsd accepted, unused (result is exact)
-            self.expect(")")
-            return E.Count(e, distinct=True)
-        if name == "NULLIF":
-            a = self.parse()
-            self.expect(",")
-            b = self.parse()
-            self.expect(")")
-            return E.Case(((E.Cmp("==", a, b), E.NullOf(a)),), a)
-        if name == "CONCAT":
-            args = [self.parse()]
-            while self.accept(","):
-                args.append(self.parse())
-            self.expect(")")
-            return E.Concat(tuple(args))
-        if name in ("DATE_ADD", "DATE_SUB"):
-            e = self.parse()
-            self.expect(",")
-            d = self._int_literal()
-            self.expect(")")
-            op = "+" if name == "DATE_ADD" else "-"
-            return E.Arith(op, e, E.Literal(d))
-        if name == "ADD_MONTHS":
-            e = self.parse()
-            self.expect(",")
-            m = self._int_literal()
-            self.expect(")")
-            return E.AddMonths(e, m)
-        if name in ("LPAD", "RPAD"):
-            e = self.parse()
-            self.expect(",")
-            ln = self._int_literal()
-            pad = " "
-            if self.accept(","):
-                pad = self._str_literal()
-            self.expect(")")
-            return E.StringTransform(name.lower(), e, (ln, pad))
-        if name == "REPEAT":
-            e = self.parse()
-            self.expect(",")
-            nrep = self._int_literal()
-            self.expect(")")
-            return E.StringTransform("repeat", e, (nrep,))
-        if name == "REPLACE":
-            e = self.parse()
-            self.expect(",")
-            find = self._str_literal()
-            self.expect(",")
-            repl = self._str_literal()
-            self.expect(")")
-            import re as _re
-
-            # REPLACE is literal: escape pattern syntax in the needle
-            # and backslashes in the replacement (special in re.sub
-            # templates — \1 would act as a backreference)
-            return E.RegexpReplace(e, _re.escape(find),
-                                   repl.replace("\\", "\\\\"))
-        if name == "TRANSLATE":
-            e = self.parse()
-            self.expect(",")
-            m = self._str_literal()
-            self.expect(",")
-            r = self._str_literal()
-            self.expect(")")
-            return E.StringTransform("translate", e, (m, r))
-        if name == "SPLIT":
-            e = self.parse()
-            self.expect(",")
-            d = self._str_literal()
-            self.expect(")")
-            return E.Split(e, d)
-        if name == "CONCAT_WS":
-            sep = self._str_literal()
-            args = []
-            while self.accept(","):
-                args.append(self.parse())
-            self.expect(")")
-            return E.ConcatWs(str(sep), tuple(args))
-        if name in ("TRANSFORM", "FILTER", "EXISTS", "FORALL"):
-            arr = self.parse()
-            self.expect(",")
-            lam = self._parse_lambda()
-            self.expect(")")
-            return E.HigherOrder(name.lower(), arr, lam)
-        if name in ("AGGREGATE", "REDUCE"):
-            arr = self.parse()
-            self.expect(",")
-            zero = self.parse()
-            self.expect(",")
-            merge = self._parse_lambda()
-            finish = None
-            if self.accept(","):
-                finish = self._parse_lambda()
-            self.expect(")")
-            return E.HigherOrder("aggregate", arr, merge, zero, finish)
-        if name in ("COLLECT_LIST", "COLLECT_SET", "ARRAY_AGG"):
-            e = self.parse()
-            self.expect(")")
-            return E.Collect(e, unique=(name == "COLLECT_SET"))
-        if name in ("PERCENTILE", "PERCENTILE_APPROX", "APPROX_PERCENTILE",
-                    "MEDIAN"):
-            e = self.parse()
-            if name == "MEDIAN":
-                self.expect(")")
-                return E.Percentile(e, 0.5, interpolate=True)
-            self.expect(",")
-            q = self.parse()
-            if not isinstance(q, E.Literal):
-                raise SQLParseError("percentile fraction must be a literal")
-            if self.accept(","):
-                self.parse()  # accuracy accepted, unused (exact result)
-            self.expect(")")
-            return E.Percentile(e, float(q.value),
-                                interpolate=(name == "PERCENTILE"))
-        raise SQLParseError(f"unknown function {name_tok.value!r} "
-                            f"at {name_tok.pos}")
-
-    def _parse_lambda(self) -> "E.Lambda":
-        """``x -> body`` / ``(x, i) -> body`` (reference: LambdaFunction,
-        higherOrderFunctions.scala). Params shadow outer columns inside
-        the body — resolution is wrapped, not scoped-table-based."""
-        params = []
-        if self.peek().kind == "op" and self.peek().value == "(":
-            self.next()
-            params.append(self.next().value)
-            while self.accept(","):
-                params.append(self.next().value)
-            self.expect(")")
-        else:
-            params.append(self.next().value)
-        self.expect("->")
-        by_lower = {p.lower(): p for p in params}
-        outer_resolve = self.resolve
-
-        def resolve(qual, name):
-            if qual is None and name.lower() in by_lower:
-                return E.Col(by_lower[name.lower()])
-            return outer_resolve(qual, name)
-
-        self.resolve = resolve
-        try:
-            body = self.parse()
-        finally:
-            self.resolve = outer_resolve
-        return E.Lambda(tuple(params), body)
-
-    def _str_literal(self) -> str:
-        e = self.parse_primary()
-        if isinstance(e, E.Literal) and isinstance(e.value, str):
-            return e.value
-        raise SQLParseError("expected string literal")
-
-    def _int_literal(self) -> int:
-        e = self.parse_unary()
-        if isinstance(e, E.Literal) and isinstance(e.value, int):
-            return e.value
-        if isinstance(e, E.Neg) and isinstance(e.child, E.Literal):
-            return -e.child.value
-        raise SQLParseError("expected integer literal")
-
-    @staticmethod
-    def _literal_value(e: E.Expression):
-        if isinstance(e, E.Literal):
-            return e.value
-        if isinstance(e, E.Neg) and isinstance(e.child, E.Literal):
-            return -e.child.value
-        raise SQLParseError("IN list supports literals only")
+            return E.Count(None)
+        if self.accept("DISTINCT"):
+            raise _not_ported("DISTINCT aggregates")
+        e = self.parse()
+        self.expect(")")
+        return self._AGG_FNS[name](e)
 
 
-@dataclass
+@dataclass(eq=False, frozen=True)
 class _Interval(E.Expression):
-    months: int = 0
     days: int = 0
 
 
@@ -855,108 +332,39 @@ def _unquote(s: str) -> str:
 # ---- statement parser -------------------------------------------------------
 
 
-class _StmtParser:
-    """Parses one statement; ``catalog`` resolves table names, the
-    optional ``outer`` scope enables correlated subqueries (inner lookups
-    that miss fall through to the outer scope as OuterRef)."""
+class _StmtParser(_Tokens):
+    """Parses one SELECT statement; ``catalog`` resolves table names."""
 
-    def __init__(self, tokens: List[Token], pos: int, catalog,
-                 outer: Optional[Scope] = None,
-                 outer_schema=None):
-        self.toks = tokens
-        self.pos = pos
+    def __init__(self, tokens: List[Token], catalog):
+        super().__init__(tokens)
         self.catalog = catalog
-        self.outer = outer
-        self.outer_schema = outer_schema
 
-    # token helpers shared with the expression parser via a tiny shim
-    def _ep(self, resolver: Resolver) -> _ExprParser:
-        ep = _ExprParser(self.toks, self.pos, resolver,
-                         subquery_parser=self._parse_subquery_in_expr)
-        return ep
-
-    def _sync(self, ep: _ExprParser):
-        self.pos = ep.pos
-
-    def peek(self, ahead: int = 0) -> Token:
-        return self.toks[min(self.pos + ahead, len(self.toks) - 1)]
-
-    def next(self) -> Token:  # noqa: A003
-        t = self.toks[self.pos]
-        self.pos += 1
-        return t
-
-    def accept(self, *values: str) -> Optional[Token]:
-        t = self.peek()
-        if t.kind in ("id", "op") and t.upper in values:
-            return self.next()
-        return None
-
-    def expect(self, value: str) -> Token:
-        t = self.next()
-        if t.upper != value:
-            raise SQLParseError(
-                f"expected {value!r}, found {t.value!r} at {t.pos}")
-        return t
-
-    def at_keyword(self, *values: str) -> bool:
-        t = self.peek()
-        return t.kind == "id" and t.upper in values
-
-    # -- subquery hook from expression context -------------------------------
-
-    def _parse_subquery_in_expr(self, ep: _ExprParser):
-        """Called by the expression parser at '( SELECT'. The CURRENT
-        query's scope becomes the subquery's outer scope."""
-        sub = _StmtParser(self.toks, ep.pos, self.catalog,
-                          outer=self._current_scope,
-                          outer_schema=self._current_plan_schema)
-        plan = sub.parse_query_body()
-        ep.pos = sub.pos
-        return plan
-
-    # -- resolvers ------------------------------------------------------------
-
-    def _make_resolver(self, scope: Scope, plan_schema) -> Resolver:
-        def resolve(qual: Optional[str], name: str) -> E.Expression:
-            out = scope.resolve(qual, name)
-            if out is not None:
-                if out.lower() == (name + "#keys").lower():
-                    # bare map reference: mark so the select list can
-                    # expand it to the '#keys'/'#vals' pair
-                    return E.MapHandle(out)
-                return E.Col(out)
-            if self.outer is not None:
-                out2 = self.outer.resolve(qual, name)
-                if out2 is not None:
-                    dtype = (self.outer_schema.field(out2).dtype
-                             if self.outer_schema is not None
-                             and out2 in self.outer_schema else None)
-                    return E.OuterRef(out2, dtype)
-            raise SQLParseError(
-                f"cannot resolve column {qual + '.' if qual else ''}{name}")
-
-        return resolve
+    def _expr(self, resolver: Resolver) -> E.Expression:
+        return _ExprParser(self, resolver).parse()
 
     # -- FROM clause ----------------------------------------------------------
 
-    def _parse_relation_primary(self, scope: Scope):
-        """table [alias] | ( subquery ) alias — returns (plan, alias)."""
+    def _parse_from(self) -> Tuple[L.LogicalPlan, Resolver]:
+        """FROM <table> [[AS] alias]; returns the plan and its resolver."""
         if self.accept("("):
-            sub = _StmtParser(self.toks, self.pos, self.catalog,
-                              outer=self.outer,
-                              outer_schema=self.outer_schema)
-            plan = sub.parse_query_body()
-            self.pos = sub.pos
-            self.expect(")")
-            alias = self._parse_alias()
-            return plan, alias
+            raise _not_ported("subqueries")
         t = self.next()
         if t.kind not in ("id", "qid"):
             raise SQLParseError(f"expected table name at {t.pos}")
         plan = self.catalog.lookup(t.value)
         alias = self._parse_alias() or t.value
-        return plan, alias
+        if self.accept(",") or self.peek().upper in _JOIN_WORDS:
+            raise _not_ported("joins")
+        names = {n.lower(): n for n in plan.schema.names}
+
+        def resolve(qual: Optional[str], name: str) -> E.Expression:
+            if (qual is None or qual.lower() == alias.lower()) \
+                    and name.lower() in names:
+                return E.Col(names[name.lower()])
+            raise SQLParseError(
+                f"cannot resolve column {qual + '.' if qual else ''}{name}")
+
+        return plan, resolve
 
     def _parse_alias(self) -> Optional[str]:
         if self.accept("AS"):
@@ -967,170 +375,14 @@ class _StmtParser:
             return self.next().value
         return None
 
-    def _parse_from(self) -> Tuple[L.LogicalPlan, Scope]:
-        scope = Scope()
-        plan, alias = self._parse_relation_primary(scope)
-        scope.add_relation(alias, plan.schema.names)
-        while True:
-            if self.accept(","):
-                rplan, ralias = self._parse_relation_primary(scope)
-                scope.add_relation(ralias, rplan.schema.names)
-                plan = L.Join(plan, rplan, "cross", (), ())
-                continue
-            if self.peek(0).upper == "LATERAL" \
-                    and self.peek(1).upper == "VIEW":
-                # LATERAL VIEW [POS]EXPLODE(expr) viewAlias AS col[, pos]
-                # (reference: hive LATERAL VIEW -> Generate; the view
-                # alias itself is accepted and ignored — columns resolve
-                # unqualified like the rest of this parser)
-                self.next(); self.next()
-                fn = self.next().upper
-                if fn not in ("EXPLODE", "POSEXPLODE"):
-                    raise SQLParseError(
-                        f"LATERAL VIEW supports explode/posexplode, "
-                        f"got {fn}")
-                self.expect("(")
-                resolver = self._make_resolver(scope, None)
-                ep = self._ep(resolver)
-                arr = ep.parse()
-                self._sync(ep)
-                self.expect(")")
-                if self.peek().kind in ("id", "qid") \
-                        and self.peek().upper != "AS":
-                    self.next()  # optional view alias
-                names = []
-                if self.accept("AS"):
-                    names.append(self.next().value)
-                    while self.accept(","):
-                        names.append(self.next().value)
-                if fn == "POSEXPLODE":
-                    pos_name = names[0] if len(names) > 1 else "pos"
-                    out_name = (names[1] if len(names) > 1
-                                else (names[0] if names else "col"))
-                else:
-                    pos_name = None
-                    out_name = names[0] if names else "col"
-                gen = E.Explode(arr, with_position=fn == "POSEXPLODE")
-                plan = L.Generate(gen, out_name, pos_name, plan)
-                scope.add_relation(
-                    None, ([pos_name] if pos_name else []) + [out_name])
-                continue
-            how = self._peek_join_type()
-            if how is None:
-                break
-            rplan, ralias = self._parse_relation_primary(scope)
-            right_src = rplan.schema.names
-            # output names the right side will take post-dedup
-            out_names = scope.add_relation(ralias, right_src)
-            right_sub = {out: src for out, src in zip(out_names, right_src)}
-            if self.accept("ON"):
-                resolver = self._make_resolver(scope, None)
-                ep = self._ep(resolver)
-                cond = ep.parse()
-                self._sync(ep)
-                plan = self._build_join(plan, rplan, how, cond, right_sub)
-            elif self.accept("USING"):
-                self.expect("(")
-                cols = [self.next().value]
-                while self.accept(","):
-                    cols.append(self.next().value)
-                self.expect(")")
-                lk = tuple(E.Col(c) for c in cols)
-                plan = L.Join(plan, rplan, how, lk, lk)
-            else:
-                if how != "cross":
-                    raise SQLParseError("JOIN requires ON or USING")
-                plan = L.Join(plan, rplan, "cross", (), ())
-        return plan, scope
+    # -- SELECT ----------------------------------------------------------------
 
-    def _peek_join_type(self) -> Optional[str]:
-        mapping = [
-            (("CROSS", "JOIN"), "cross"),
-            (("INNER", "JOIN"), "inner"),
-            (("LEFT", "SEMI", "JOIN"), "left_semi"),
-            (("LEFT", "ANTI", "JOIN"), "left_anti"),
-            (("LEFT", "OUTER", "JOIN"), "left"),
-            (("LEFT", "JOIN"), "left"),
-            (("RIGHT", "OUTER", "JOIN"), "right"),
-            (("RIGHT", "JOIN"), "right"),
-            (("FULL", "OUTER", "JOIN"), "full"),
-            (("FULL", "JOIN"), "full"),
-            (("JOIN",), "inner"),
-        ]
-        for words, how in mapping:
-            if all(self.peek(i).upper == w for i, w in enumerate(words)):
-                for _ in words:
-                    self.next()
-                return how
-        return None
-
-    def _build_join(self, left: L.LogicalPlan, right: L.LogicalPlan,
-                    how: str, cond: E.Expression,
-                    right_out_to_src: Dict[str, str]) -> L.LogicalPlan:
-        """Split an ON condition into equi keys + residual. The condition
-        references OUTPUT names; keys must be rewritten to each side's
-        SOURCE names (the engines evaluate keys on child pipes)."""
-        from spark_tpu_torch.plan.optimizer import (combine_conjuncts,
-                                              split_conjuncts)
-
-        left_out = set(left.schema.names)
-        right_out = set(right_out_to_src)
-
-        def to_src(e: E.Expression) -> E.Expression:
-            def fn(x):
-                if isinstance(x, E.Col) and x.col_name in right_out_to_src:
-                    return E.Col(right_out_to_src[x.col_name])
-                return x
-
-            return E.transform_expr(e, fn)
-
-        lkeys: List[E.Expression] = []
-        rkeys: List[E.Expression] = []
-        residual: List[E.Expression] = []
-        for c in split_conjuncts(cond):
-            if isinstance(c, E.Cmp) and c.op == "==":
-                lr, rr = c.left.references(), c.right.references()
-                if lr and lr <= left_out and rr and rr <= right_out:
-                    lkeys.append(c.left)
-                    rkeys.append(to_src(c.right))
-                    continue
-                if rr and rr <= left_out and lr and lr <= right_out:
-                    lkeys.append(c.right)
-                    rkeys.append(to_src(c.left))
-                    continue
-            residual.append(c)
-        res = combine_conjuncts(residual) if residual else None
-        return L.Join(left, right, how, tuple(lkeys), tuple(rkeys), res)
-
-    # -- SELECT core -----------------------------------------------------------
-
-    def parse_query_body(self) -> L.LogicalPlan:
-        """query := select_core (UNION [ALL] | INTERSECT | EXCEPT
-        select_core)* [ORDER BY ...] [LIMIT n]"""
+    def parse_query(self) -> L.LogicalPlan:
+        """query := select_core [ORDER BY ...] [LIMIT n [OFFSET m]]"""
         plan = self.parse_select_core()
-        while True:
-            if self.accept("UNION"):
-                all_ = bool(self.accept("ALL"))
-                rhs = self.parse_select_core()
-                plan = L.Union(plan, rhs)
-                if not all_:
-                    plan = L.Distinct(plan)
-            elif self.accept("INTERSECT"):
-                rhs = self.parse_select_core()
-                cols = _null_safe_setop_keys(plan)
-                rcols = _null_safe_setop_keys(rhs)
-                plan = L.Distinct(
-                    L.Join(plan, rhs, "left_semi", cols, rcols))
-            elif self.accept("EXCEPT"):
-                rhs = self.parse_select_core()
-                cols = _null_safe_setop_keys(plan)
-                rcols = _null_safe_setop_keys(rhs)
-                plan = L.Distinct(
-                    L.Join(plan, rhs, "left_anti", cols, rcols))
-            else:
-                break
-        plan = self._parse_order_limit(plan)
-        return plan
+        if self.at_keyword("UNION", "INTERSECT", "EXCEPT"):
+            raise _not_ported("set operations")
+        return self._parse_order_limit(plan)
 
     def _parse_order_limit(self, plan: L.LogicalPlan) -> L.LogicalPlan:
         if self.at_keyword("ORDER"):
@@ -1146,11 +398,9 @@ class _StmtParser:
                            if isinstance(plan, L.Project) else set())
 
             def resolve(qual, name):
-                # ORDER BY resolves against the select OUTPUT; a
-                # qualifier (t1.a) is dropped — the output columns of a
-                # join carry deduplicated bare names, so the bare name
-                # identifies the column (ambiguity already got a _N
-                # suffix at join time)
+                # ORDER BY resolves against the select OUTPUT (a
+                # qualifier is dropped), then against the projection's
+                # input columns
                 if name in out_names:
                     return E.Col(name)
                 for n in out_names:  # case-insensitive fallback
@@ -1167,9 +417,7 @@ class _StmtParser:
 
             orders = []
             while True:
-                ep = self._ep(resolve)
-                e = ep.parse()
-                self._sync(ep)
+                e = self._expr(resolve)
                 asc = True
                 if self.accept("DESC"):
                     asc = False
@@ -1208,8 +456,8 @@ class _StmtParser:
         distinct = bool(self.accept("DISTINCT"))
         self.accept("ALL")
 
-        # select list is parsed AFTER from (resolution needs the scope),
-        # so remember its token span and skip ahead to FROM
+        # select list is parsed AFTER from (resolution needs the
+        # relation), so remember its token span and skip ahead to FROM
         select_start = self.pos
         depth = 0
         while True:
@@ -1227,100 +475,37 @@ class _StmtParser:
             self.next()
         select_end = self.pos
 
-        if self.at_keyword("FROM"):
-            self.next()
-            plan, scope = self._parse_from()
-        else:
-            # SELECT without FROM: single-row relation
-            plan, scope = L.Range(0, 1, 1, "__one"), Scope()
+        self.expect("FROM")
+        plan, resolver = self._parse_from()
 
-        self._current_scope = scope
-        self._current_plan_schema = plan.schema
-        resolver = self._make_resolver(scope, plan.schema)
-
-        # WHERE
         if self.accept("WHERE"):
-            ep = self._ep(resolver)
-            cond = ep.parse()
-            self._sync(ep)
-            plan = L.Filter(cond, plan)
-            self._current_plan_schema = plan.schema
+            plan = L.Filter(self._expr(resolver), plan)
 
         # parse the saved select list now
         saved = self.pos
         self.pos = select_start
-        select_exprs = self._parse_select_list(select_end, scope, resolver)
+        select_exprs = self._parse_select_list(select_end, plan, resolver)
         self.pos = saved
 
-        # GROUP BY / HAVING / aggregate detection
         group_exprs: List[E.Expression] = []
         if self.at_keyword("GROUP"):
             self.next()
             self.expect("BY")
             gresolver = self._group_resolver(resolver, select_exprs)
-            head = self.peek(0).upper
-            if head in ("ROLLUP", "CUBE") and self.peek(1).value == "(" \
-                    or head == "GROUPING" and self.peek(1).upper == "SETS":
-                raise NotImplementedError(
-                    "ROLLUP/CUBE/GROUPING SETS are not ported yet")
             while True:
-                ep = self._ep(gresolver)
-                e = ep.parse()
-                self._sync(ep)
-                group_exprs.append(E.strip_alias(e))
+                group_exprs.append(E.strip_alias(self._expr(gresolver)))
                 if not self.accept(","):
                     break
-        having = None
         if self.at_keyword("HAVING"):
-            self.next()
-            ep = self._ep(resolver)
-            having = ep.parse()
-            self._sync(ep)
+            raise _not_ported("HAVING clauses")
 
-        has_agg = any(E.contains_aggregate(e) for e in select_exprs)
-        has_window = any(E.contains_window(e) for e in select_exprs)
-        if has_window and (group_exprs or has_agg
-                           or having is not None):
-            raise NotImplementedError(
-                "window functions combined with GROUP BY/HAVING in the "
-                "same SELECT are not supported yet")
-        if group_exprs or has_agg or having is not None:
-            outputs = list(select_exprs)
-            having_cond = None
-            if having is not None:
-                hidden, having_cond = self._pull_having_aggs(having)
-                outputs = outputs + hidden
-            plan = L.Aggregate(tuple(group_exprs), tuple(outputs), plan)
-            if having_cond is not None:
-                plan = L.Filter(having_cond, plan)
-                plan = L.Project(
-                    tuple(E.Col(e.name) for e in select_exprs), plan)
+        if group_exprs or any(E.contains_aggregate(e) for e in select_exprs):
+            plan = L.Aggregate(tuple(group_exprs), tuple(select_exprs), plan)
         else:
-            plan = L.project_with_windows(tuple(select_exprs), plan)
-
+            plan = L.Project(tuple(select_exprs), plan)
         if distinct:
             plan = L.Distinct(plan)
         return plan
-
-    def _pull_having_aggs(self, having: E.Expression):
-        """Pull aggregate calls out of a HAVING predicate as hidden
-        outputs so it becomes an ordinary Filter above the Aggregate
-        (where subquery rewriting can reach it); the hidden columns are
-        projected away afterwards."""
-        hidden: List[E.Alias] = []
-        seen_aggs: Dict[tuple, str] = {}
-
-        def pull(e: E.Expression) -> E.Expression:
-            if isinstance(e, E.AggregateExpression):
-                sk = E.expr_key(e)
-                if sk not in seen_aggs:
-                    name = f"__h{len(hidden)}"
-                    seen_aggs[sk] = name
-                    hidden.append(E.Alias(e, name))
-                return E.Col(seen_aggs[sk])
-            return e
-
-        return hidden, E.transform_expr(having, pull)
 
     def _group_resolver(self, resolver: Resolver,
                         select_exprs: List[E.Expression]) -> Resolver:
@@ -1338,27 +523,16 @@ class _StmtParser:
 
         return resolve
 
-    def _parse_select_list(self, end: int, scope: Scope,
+    def _parse_select_list(self, end: int, plan: L.LogicalPlan,
                            resolver: Resolver) -> List[E.Expression]:
         exprs: List[E.Expression] = []
         while self.pos < end:
             t = self.peek()
             if t.kind == "op" and t.value == "*":
                 self.next()
-                exprs.extend(E.Col(n) for n in scope.all_output_names())
-            elif t.kind in ("id", "qid") and self.peek(1).value == "." \
-                    and self.peek(2).value == "*":
-                rel_outs = scope.relation_outputs(t.value)
-                if rel_outs is None:
-                    raise SQLParseError(f"unknown relation {t.value!r}")
-                self.next()
-                self.next()
-                self.next()
-                exprs.extend(E.Col(n) for n in rel_outs)
+                exprs.extend(E.Col(n) for n in plan.schema.names)
             else:
-                ep = self._ep(resolver)
-                e = ep.parse()
-                self._sync(ep)
+                e = self._expr(resolver)
                 if self.pos < end and self.accept("AS"):
                     e = E.Alias(e, self.next().value)
                 elif self.pos < end and self.peek().kind in ("id", "qid") \
@@ -1370,166 +544,17 @@ class _StmtParser:
                     raise SQLParseError(
                         f"expected ',' in select list at "
                         f"{self.peek().pos}: {self.peek().value!r}")
-        # a selected MAP handle ('m' resolved to Col('m#keys')) carries
-        # its '#vals' sibling so the pair survives projection
-        # (types.MapType decomposition)
-        out: List[E.Expression] = []
-        seen = {e.name for e in exprs}
-        for e in exprs:
-            out.append(e)
-            inner = E.strip_alias(e)
-            if isinstance(inner, E.MapHandle) \
-                    and inner.col_name.endswith("#keys"):
-                vals = inner.col_name[:-len("#keys")] + "#vals"
-                if isinstance(e, E.Alias):
-                    alias = e.alias_name
-                    if alias.endswith("#keys"):
-                        alias = alias[:-len("#keys")]
-                    out[-1] = E.Alias(inner, alias + "#keys")
-                    pair: E.Expression = E.Alias(E.Col(vals),
-                                                 alias + "#vals")
-                else:
-                    pair = E.Col(vals)
-                if pair.name not in seen:
-                    out.append(pair)
-                    seen.add(pair.name)
-        return out
+        return exprs
 
 
-# ---- public entry points ----------------------------------------------------
+# ---- public entry point -------------------------------------------------------
 
 
-def _null_safe_setop_keys(plan) -> tuple:
-    """INTERSECT/EXCEPT compare rows with NULL-SAFE equality (SQL set
-    semantics: NULL equals NULL — the reference plans these as
-    null-aware joins, ReplaceIntersectWithSemiJoin + EqualNullSafe).
-    Each nullable column becomes TWO join keys: a typed
-    coalesce-to-zero payload and an is-null flag."""
-    import datetime as _dt
-    import decimal as _decimal
-
-    from spark_tpu_torch import types as T
-
-    keys = []
-    for f in plan.schema.fields:
-        c = E.Col(f.name)
-        if not f.nullable:
-            keys.append(c)
-            continue
-        dt = f.dtype
-        zero: object = 0
-        if isinstance(dt, T.StringType):
-            zero = ""
-        elif isinstance(dt, T.DateType):
-            zero = _dt.date(1970, 1, 1)
-        elif isinstance(dt, (T.Float32Type, T.Float64Type)):
-            zero = 0.0
-        elif isinstance(dt, T.DecimalType):
-            zero = _decimal.Decimal(0)
-        elif isinstance(dt, T.BooleanType):
-            zero = False
-        keys.append(E.Coalesce((c, E.Literal(zero))))
-        keys.append(E.IsNull(c))
-    return tuple(keys)
-
-
-class _NoCatalog:
-    def lookup(self, name: str):
-        raise SQLParseError(
-            f"table or view not found: {name} (no catalog in scope)")
-
-
-def parse_sql(query: str, catalog=None) -> L.LogicalPlan:
-    """Parse a full statement: SELECT query, CREATE/DROP VIEW."""
-    toks = tokenize(query)
-    p = _StmtParser(toks, 0, catalog if catalog is not None else _NoCatalog())
-
-    if p.at_keyword("CREATE"):
-        p.next()
-        p.accept("OR")
-        p.accept("REPLACE")
-        p.accept("TEMP")
-        p.accept("TEMPORARY")
-        p.expect("VIEW")
-        name = p.next().value
-        p.expect("AS")
-        plan = p.parse_query_body()
-        catalog._register_view(name, plan)
-        return L.Range(0, 0, 1, "__ok")  # DDL: empty result
-    if p.at_keyword("DROP"):
-        p.next()
-        p.expect("VIEW")
-        name = p.next().value
-        catalog.dropTempView(name)
-        return L.Range(0, 0, 1, "__ok")
-
-    plan = p.parse_query_body()
+def parse_sql(query: str, catalog) -> L.LogicalPlan:
+    """Parse one SELECT statement against ``catalog``'s temp views."""
+    p = _StmtParser(tokenize(query), catalog)
+    plan = p.parse_query()
     t = p.peek()
     if not (t.kind == "eof" or (t.kind == "op" and t.value == ";")):
         raise SQLParseError(f"trailing input at {t.pos}: {t.value!r}")
-    _refuse_subqueries(plan)
     return plan
-
-
-def _refuse_subqueries(plan: L.LogicalPlan) -> None:
-    """Subquery rewriting (to semi/anti and aggregate joins) is not
-    ported yet: refuse a plan that holds one instead of running it
-    wrongly."""
-    if isinstance(plan, L.SubqueryAlias):
-        _refuse_subqueries(plan.child)
-        return
-    found: list = []
-    L._collect_exprs(tuple(getattr(plan, f.name)
-                           for f in dataclasses.fields(plan)), found)
-    for e in found:
-        if _holds_subquery(e):
-            raise NotImplementedError("subqueries are not ported yet")
-    for c in plan.children():
-        _refuse_subqueries(c)
-
-
-def _holds_subquery(e: E.Expression) -> bool:
-    return isinstance(e, E.SubqueryExpression) or any(
-        _holds_subquery(c) for c in e.children())
-
-
-def _schema_resolver(schema) -> Resolver:
-    def resolve(qual: Optional[str], name: str) -> E.Expression:
-        if schema is not None and name not in schema:
-            for n in schema.names:
-                if n.lower() == name.lower():
-                    return E.Col(n)
-        return E.Col(name)
-
-    return resolve
-
-
-def parse_expression(text: str, schema=None) -> E.Expression:
-    """Parse a standalone SQL expression (df.filter("..."), F.expr)."""
-    toks = tokenize(text)
-    ep = _ExprParser(toks, 0, _schema_resolver(schema))
-    e = ep.parse()
-    t = ep.peek()
-    if t.kind != "eof":
-        raise SQLParseError(f"trailing input at {t.pos}: {t.value!r}")
-    return e
-
-
-def parse_projection(text: str, schema=None) -> E.Expression:
-    """Parse 'expr [AS alias]' (df.selectExpr)."""
-    toks = tokenize(text)
-    ep = _ExprParser(toks, 0, _schema_resolver(schema))
-    e = ep.parse()
-    t = ep.peek()
-    if t.kind == "id" and t.upper == "AS":
-        ep.next()
-        alias = ep.next().value
-        e = E.Alias(e, alias)
-        t = ep.peek()
-    elif t.kind in ("id", "qid") and t.upper not in _RESERVED_STOP:
-        ep.next()
-        e = E.Alias(e, t.value)
-        t = ep.peek()
-    if t.kind != "eof":
-        raise SQLParseError(f"trailing input at {t.pos}: {t.value!r}")
-    return e

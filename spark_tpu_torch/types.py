@@ -1,20 +1,18 @@
-"""Data type system for the TPU-native SQL engine.
+"""Data type system of the port.
 
 Maps the reference's Catalyst type system (reference:
-sql/catalyst/src/main/scala/org/apache/spark/sql/types/) onto JAX-friendly
-device representations:
+sql/catalyst/src/main/scala/org/apache/spark/sql/types/) onto device
+columns held as torch tensors:
 
-- integers / floats map directly to jnp dtypes,
+- integers and floats map directly to torch dtypes,
 - StringType is dictionary-encoded: int32 codes on device + a host-side
   tuple of strings (the dictionary) carried in the schema,
 - DateType is int32 days since the Unix epoch (Arrow date32 layout),
 - TimestampType is int64 microseconds since the epoch,
-- DecimalType(p, s) is represented as float64 on device for round-1
-  (parity tests use tolerances; an exact scaled-int64 path is planned).
+- DecimalType(p, s) is a scaled int64 (the unscaled value).
 
-Unlike Catalyst there is no UnsafeRow binary format: columns are plain
-dense arrays, nulls live in a separate validity bitmask (Arrow-style),
-which is the natural TPU layout (vectorizable, MXU/VPU friendly).
+Columns are plain dense tensors; nulls live in a separate validity mask
+(Arrow-style).
 """
 
 from __future__ import annotations
@@ -134,93 +132,6 @@ class DecimalType(FractionalType):
         return hash((DecimalType, self.precision, self.scale))
 
 
-@dataclass(frozen=True)
-class ArrayType(DataType):
-    """array<element>. Device layout: PADDED 2D values (capacity,
-    max_len) plus a hidden '<col>#len' int32 companion column — the
-    TPU-first answer to the reference's offsets-based UnsafeArrayData
-    (UnsafeArrayData.java): static shapes, and every row-level kernel
-    (gather joins, compaction, exchanges, sort permutations) handles the
-    pair as two ordinary columns with zero special cases. Cost: memory
-    is rows x max_len (document per-batch); elements are non-null
-    (element_at of a missing position is NULL, null ELEMENTS inside an
-    array are not represented yet)."""
-
-    element: DataType
-    np_dtype: Any = field(default=np.int64, compare=False, repr=False)
-
-    def __repr__(self) -> str:
-        return f"array<{self.element!r}>"
-
-    def __hash__(self) -> int:
-        return hash((ArrayType, self.element))
-
-
-LEN_SUFFIX = "#len"
-
-
-def array_len_col(name: str) -> str:
-    """Hidden companion column carrying per-row array lengths."""
-    return name + LEN_SUFFIX
-
-
-@dataclass(frozen=True)
-class MapType(DataType):
-    """map<key, value>. Device layout: a map column DECOMPOSES at the
-    batch boundary into two parallel padded array columns,
-    '<col>#keys' (array<key>) and '<col>#vals' (array<value>), sharing
-    equal per-row lengths — the TPU-first answer to the reference's
-    ArrayBasedMapData (two ArrayData siblings inside one value,
-    reference: types/MapType.scala, ArrayBasedMapData.scala): static
-    shapes, and every row-level kernel handles the pair as ordinary
-    array columns with zero special cases. Lookups (element_at /
-    m[k]) are a vectorized key-match + take_along_axis over the pair.
-    Like the reference, maps are not orderable/groupable."""
-
-    key: DataType
-    value: DataType
-    np_dtype: Any = field(default=np.int64, compare=False, repr=False)
-
-    def __repr__(self) -> str:
-        return f"map<{self.key!r},{self.value!r}>"
-
-    def __hash__(self) -> int:
-        return hash((MapType, self.key, self.value))
-
-
-MAP_KEYS_SUFFIX = "#keys"
-MAP_VALS_SUFFIX = "#vals"
-
-
-def map_keys_col(name: str) -> str:
-    return name + MAP_KEYS_SUFFIX
-
-
-def map_vals_col(name: str) -> str:
-    return name + MAP_VALS_SUFFIX
-
-
-def map_base_name(name: str) -> Optional[str]:
-    """'m#keys'/'m#vals' -> 'm'; None for non-map-component names."""
-    for suffix in (MAP_KEYS_SUFFIX, MAP_VALS_SUFFIX):
-        if name.endswith(suffix):
-            return name[:-len(suffix)]
-    return None
-
-
-@dataclass(frozen=True)
-class StructType(DataType):
-    """struct<...>. Structs FLATTEN at ingest into dotted columns
-    ('s.f1', 's.f2' — reference peer: UnsafeRow nested struct access);
-    this marker type survives only in error messages and casts."""
-
-    names: Tuple[str, ...] = ()
-    np_dtype: Any = field(default=np.int64, compare=False, repr=False)
-
-    def __hash__(self) -> int:
-        return hash((StructType, self.names))
-
-
 # Singleton instances for convenience.
 BOOLEAN = BooleanType()
 INT8 = Int8Type()
@@ -307,10 +218,6 @@ def infer_type(value: Any) -> DataType:
 
 def date_to_days(d: datetime.date) -> int:
     return (d - datetime.date(1970, 1, 1)).days
-
-
-def days_to_date(days: int) -> datetime.date:
-    return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(days))
 
 
 @dataclass(frozen=True)

@@ -61,9 +61,9 @@ def _assert_rows(got, want, rel=1e-12):
 def _build(M, E, scan, kind):
     """The same plan over module sets (M operators, E expressions)."""
     if kind == "example":
-        filt = M.FilterExec(E.Col("k") > 10, scan)
-        proj = M.ProjectExec((E.Col("tag"),
-                              E.Alias(E.Col("v") * 2.0, "v2")), filt)
+        filt = M.FilterExec(E.Cmp(">", E.Col("k"), E.Literal(10)), scan)
+        v2 = E.Alias(E.Arith("*", E.Col("v"), E.Literal(2.0)), "v2")
+        proj = M.ProjectExec((E.Col("tag"), v2), filt)
         agg = M.HashAggregateExec(
             (E.Col("tag"),),
             (E.Col("tag"),
@@ -73,7 +73,7 @@ def _build(M, E, scan, kind):
             proj)
         return M.SortExec((E.SortOrder(E.Col("s"), ascending=False),), agg)
     if kind == "wide":
-        filt = M.FilterExec(E.Col("k") > 3, scan)
+        filt = M.FilterExec(E.Cmp(">", E.Col("k"), E.Literal(3)), scan)
         agg = M.HashAggregateExec(
             (E.Col("tag"), E.Col("flag")),
             (E.Col("tag"), E.Col("flag"),
@@ -91,7 +91,7 @@ def _build(M, E, scan, kind):
             (E.Col("f"),),
             (E.Col("f"), E.Alias(E.Count(None), "n"),
              E.Alias(E.Max(E.Col("k")), "mk")),
-            M.FilterExec(E.Col("k") < 3, scan))
+            M.FilterExec(E.Cmp("<", E.Col("k"), E.Literal(3)), scan))
         return M.SortExec((E.SortOrder(E.Col("f")),
                            E.SortOrder(E.Col("mk"))), agg)
     # sorted path: integer grouping key

@@ -103,3 +103,22 @@ def test_sql_shapes_match_reference(engines, query):
     spark, port, _ = engines
     got, want = _rows(port.sql(query)), _rows(spark.sql(query))
     assert want and got == want
+
+
+@pytest.mark.parametrize("query", [
+    "select l_orderkey from lineitem, orders where l_orderkey = o_orderkey",
+    "select l_orderkey from lineitem join orders on l_orderkey = o_orderkey",
+    "select l_orderkey from lineitem where l_orderkey in "
+    "(select o_orderkey from orders)",
+    "select l_returnflag, count(*) as n from lineitem "
+    "group by l_returnflag having count(*) > 1",
+    "select count(distinct l_returnflag) as n from lineitem",
+    "select l_returnflag from lineitem union select l_linestatus "
+    "from lineitem",
+])
+def test_unported_sql_raises(engines, query):
+    """Joins, subqueries, HAVING, DISTINCT aggregates and set operations
+    are refused instead of being run wrongly."""
+    _, port, _ = engines
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port.sql(query).collect()
