@@ -8,21 +8,32 @@ no result line):
 1. The card's name and power limit, as nvidia-smi reports them.
 2. Build the CUDA kernels from spark_tpu_torch/ops/csrc with nvcc.
 3. TPC-H SF1 generated on the host (spark_tpu_torch/tpch/gen.py).
-   Kernel phase: each kernel against its plain PyTorch version on the
-   card, on data made on the card from a seed, at the shape the main
-   path gives it (the SF1 lineitem batch) and K in {65, 168, 1024}:
-   about 30% of rows masked, some empty groups, NaNs in a few groups.
-   Counts must be equal; min/max equal with NaN in the same groups;
-   float32 sums within rtol 1e-4 / atol 1e-3 of the plain version
-   (another summation order) and bit-identical across two launches.
-   Times (CUDA events) of the kernel, the plain version and one library
-   call, beside the least time the card could take (bound).
+   Kernel phase: every mode of each kernel (seg_sum: count, int64 sum,
+   float32 sum; seg_minmax: min, max) against its plain PyTorch version
+   on the card, on data made on the card from a seed, at the shape the
+   main path gives it (the SF1 lineitem batch) and K in {65, 168, 1024},
+   and on a skewed input (90% of rows in one group) at K = 168: about
+   30% of rows masked, some empty groups, NaNs in a few groups, int64
+   values in +-1e15. Counts and int64 sums must be equal; min/max equal
+   with NaN in the same groups; float32 sums within rtol 1e-4 / atol
+   1e-3 of the plain version (another summation order), and on the
+   skewed input of a float64 sum (there the plain version's float32
+   atomics drift by 1e-3 on their own); every mode
+   bit-identical across two launches. Times of the kernel (CUDA events
+   over back-to-back calls, device-only from torch.profiler, which must
+   show one kernel per call, and the host's time per call), the plain
+   version and one library call, beside the least time the card could
+   take (bound).
+   Crossover: the masked reduction (the path at K <= 64) against the
+   kernel for counts and int64 sums at K in {2, 6, 16, 32, 64}.
 4. Slice phase: the SF1 tables registered on a ``device("cuda")``
    session, TPC-H q1 and q1-wide run through
    ``spark.sql(...).collect()``. Every launch counter is set to 0 just
-   before and read just after; both kernels must have launched. Results
-   must equal the port's own CPU run on the same tables, and q1 the
-   sqlite oracle. Warm wall times follow.
+   before and read just after; q1-wide must launch the count mode 7
+   times, the int64 sum 2 times, min and max once each, and q1 none.
+   Results must equal the port's own CPU run on the same tables, and q1
+   the sqlite oracle. Warm wall times and one profiled run of each
+   follow; q1-wide's profile must hold no ``index_add_``.
 5. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -42,6 +53,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 KS = (65, 168, 1024)
 MAIN_K = 168  # q1-wide: 3 * 2 * 7 * 4 packed dictionary groups
+CROSSOVER_KS = (2, 6, 16, 32, 64)  # q1 has K = 6
 
 
 def log(*args):
@@ -76,6 +88,19 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int = 50) -> float:
+    """Host time per call of ``fn``, without waiting for the card: what
+    the wrapper costs the CPU (its checks, allocation and launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / reps
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     """Least time on the card: the larger of bytes over HBM bandwidth and
     operations over the fp32 (non-tensor) peak."""
@@ -84,125 +109,225 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def make_inputs(n: int, k: int, live_rows: int, seed: int, dev="cuda"):
+def make_inputs(n: int, k: int, live_rows: int, seed: int, dev="cuda",
+                skew: bool = False):
     """seg int32 in [0, k) with every 10th group left empty, ~30% of rows
     masked (and every row past ``live_rows``), float32 data in [0, 100)
-    with NaN in every 100th row of groups 3 and 17."""
+    with NaN in every 100th row of groups 3 and 17, and int64 data in
+    +-1e15. ``skew`` moves 90% of the rows to group 7."""
     g = torch.Generator(device=dev).manual_seed(seed)
     used = torch.tensor([j for j in range(k) if j % 10 != 9],
                         dtype=torch.int32, device=dev)
     pick = torch.randint(0, used.numel(), (n,), generator=g, device=dev)
-    seg = used[pick].contiguous()
+    seg = used[pick]
+    if skew:
+        hot = torch.rand(n, generator=g, device=dev) < 0.9
+        seg = torch.where(hot, torch.full_like(seg, 7 % k), seg)
+    seg = seg.contiguous()
     mask = torch.rand(n, generator=g, device=dev) >= 0.3
     mask[live_rows:] = False
     data = torch.rand(n, generator=g, device=dev) * 100.0
     nan_rows = torch.nonzero((seg == 3) | (seg == 17)).squeeze(1)[::100]
     data[nan_rows] = float("nan")
-    return data.contiguous(), seg, mask.contiguous()
+    i64 = torch.randint(-10 ** 15, 10 ** 15, (n,), generator=g, device=dev,
+                        dtype=torch.int64)
+    return data.contiguous(), i64, seg, mask.contiguous()
+
+
+def profile_calls(fn, calls: int = 10):
+    """Device-only ms per call from torch.profiler's kernel events, and
+    kernels per call (memsets and copies are not kernels). The profiler
+    now and then drops kernel events of a session (seen on an H100: a
+    session that recorded none, one that recorded 69 of about 100); a
+    session whose kernel count is not a whole number per call is taken
+    once more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in _device_events(prof) if _is_kernel(e.key)]
+        count = sum(e.count for e in kernels)
+        if count and count % calls == 0:
+            break
+    us = sum(e.self_device_time_total for e in kernels)
+    return us / 1e3 / calls, count / calls
+
+
+def _device_events(prof):
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def _is_kernel(name: str) -> bool:
+    return not name.startswith(("Memset", "Memcpy"))
+
+
+# bytes each mode must read per row: int32 seg + bool mask (+ data)
+ROW_BYTES = {"count": 5, "sum_i64": 13, "sum_f32": 9, "min": 9, "max": 9}
+
+
+def mode_calls(seg_agg, data, i64, seg, mask, k: int):
+    """{mode: (kernel call, plain version, one library call)}."""
+    dev = seg.device
+    finite = torch.nan_to_num(data, nan=0.0)
+    seg_l = seg.long()
+    mask_f = mask.to(torch.float32)
+    masked_i64 = torch.where(mask, i64, torch.zeros((), dtype=torch.int64,
+                                                    device=dev))
+    masked_f = torch.where(mask, finite, torch.zeros((), device=dev))
+    zeros_i = torch.zeros(k, dtype=torch.int64, device=dev)
+    zeros_f = torch.zeros(k, dtype=torch.float32, device=dev)
+    calls = {
+        "count": (lambda: seg_agg.seg_sum(None, seg, mask, k, exact_int=True),
+                  lambda: seg_agg.seg_sum_plain(None, seg, mask, k, True),
+                  lambda: torch.bincount(seg, weights=mask_f, minlength=k)),
+        "sum_i64": (lambda: seg_agg.seg_sum(i64, seg, mask, k),
+                    lambda: seg_agg.seg_sum_plain(i64, seg, mask, k),
+                    lambda: zeros_i.index_add(0, seg_l, masked_i64)),
+        "sum_f32": (lambda: seg_agg.seg_sum(finite, seg, mask, k),
+                    lambda: seg_agg.seg_sum_plain(finite, seg, mask, k),
+                    lambda: zeros_f.index_add(0, seg_l, masked_f)),
+    }
+    for is_max, name, ident in ((False, "min", float("inf")),
+                                (True, "max", float("-inf"))):
+        fill = torch.full((k,), ident, device=dev)
+        masked = torch.where(mask, data, fill.new_tensor(ident))
+        calls[name] = (
+            lambda m=is_max: seg_agg.seg_minmax(data, seg, mask, k, m),
+            lambda m=is_max: seg_agg.seg_minmax_plain(data, seg, mask, k, m),
+            lambda f=fill, x=masked, r="amax" if is_max else "amin":
+                f.scatter_reduce(0, seg_l, x, r, include_self=True))
+    return calls, finite
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def check_mode(name: str, got, again, want, k: int, data, seg, mask,
+               truth=None):
+    """Kernel result against its plain version; returns max |err|. A
+    float32 sum is held against ``truth`` (a float64 sum) instead where
+    that is given: on the skewed input the plain version adds 3.8M rows
+    into one float32 word through atomics and drifts by 1e-3 itself."""
+    check(torch.equal(_bits(got), _bits(again)),
+          f"{name} K={k}: two launches differ")
+    if name in ("count", "sum_i64"):
+        check(got.dtype == torch.int64 and torch.equal(got, want),
+              f"{name} K={k} differs")
+        return 0
+    if name == "sum_f32":
+        ref = want if truth is None else truth.to(torch.float32)
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-3)
+        return (got - ref).abs().max().item()
+    has_nan = torch.zeros(k, dtype=torch.bool, device=seg.device)
+    has_nan[seg.long()[mask & torch.isnan(data)]] = True
+    check(torch.equal(torch.isnan(got), torch.isnan(want))
+          and torch.equal(torch.isnan(got), has_nan),
+          f"{name} K={k}: NaN groups differ")
+    fin = ~torch.isnan(got)
+    check(torch.equal(got[fin], want[fin]), f"{name} K={k} differs")
+    empty = seg_agg_count(seg, mask, k) == 0
+    check(bool(torch.isinf(got[empty]).all()),
+          f"{name} K={k}: empty groups not +-inf")
+    both = torch.isfinite(got) & torch.isfinite(want)
+    return (got[both] - want[both]).abs().max().item() if both.any() else 0.0
+
+
+def seg_agg_count(seg, mask, k):
+    return torch.bincount(seg[mask].long(), minlength=k)[:k]
 
 
 def kernel_phase(seg_agg, n: int, live_rows: int, dev="cuda"):
-    """Kernel vs plain on the card, on ``n`` rows of which the first
-    ``live_rows`` can be live. Returns {kernel name: K=MAIN_K stats}."""
+    """Every mode against its plain version on the card, on ``n`` rows
+    of which the first ``live_rows`` can be live, at K in KS and on a
+    skewed input. Returns {mode: stats at K=MAIN_K}."""
+    on_card = dev == "cuda"
     main = {}
-    for k in KS:
-        data, seg, mask = make_inputs(n, k, live_rows, k, dev)
-        finite = torch.nan_to_num(data, nan=0.0)
-        seg_l = seg.long()
-        has_nan = torch.zeros(k, dtype=torch.bool, device=dev)
-        has_nan[seg_l[mask & torch.isnan(data)]] = True
-        empty = seg_agg.seg_sum_plain(None, seg, mask, k, True) == 0
-        check(bool(has_nan.any() and empty.any()),
-              "inputs lack NaN/empty groups")
-
-        # count: the exact_int mode of seg_sum, the path's use of B1
-        got = seg_agg.seg_sum(None, seg, mask, k, exact_int=True)
-        want = seg_agg.seg_sum_plain(None, seg, mask, k, True)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"seg_sum(exact_int) K={k} differs")
-        count_err = (got - want).abs().max().item()
-        mask_f = mask.to(torch.float32)
-        count_ms = cuda_ms(
-            lambda: seg_agg.seg_sum(None, seg, mask, k, exact_int=True))
-        count_plain = cuda_ms(
-            lambda: seg_agg.seg_sum_plain(None, seg, mask, k, True))
-        count_lib = cuda_ms(
-            lambda: torch.bincount(seg, weights=mask_f, minlength=k))
-        count_bound = bound_ms(n * 5 + k * 8, n * 3)
-
-        # float32 sum (exact_int off): deterministic, near the plain one
-        a = seg_agg.seg_sum(finite, seg, mask, k)
-        b = seg_agg.seg_sum(finite, seg, mask, k)
-        want = seg_agg.seg_sum_plain(finite, seg, mask, k)
-        torch.cuda.synchronize()
-        check(torch.equal(a, b), f"seg_sum f32 K={k} not bit-identical")
-        torch.testing.assert_close(a, want, rtol=1e-4, atol=1e-3)
-        sum_err = (a - want).abs().max().item()
-        truth = torch.zeros(k, dtype=torch.float64, device=dev).index_add_(
-            0, seg_l[mask], finite[mask].to(torch.float64))
-        log(f"kernel seg_sum[f32] K={k}: max |err| against a float64 sum: "
-            f"kernel {(a - truth).abs().max().item():.6g}, plain "
-            f"{(want - truth).abs().max().item():.6g} (group sums up to "
-            f"{truth.abs().max().item():.6g})")
-        masked0 = torch.where(mask, finite, torch.zeros((), device=dev))
-        zeros = torch.zeros(k, dtype=torch.float32, device=dev)
-        sum_ms = cuda_ms(lambda: seg_agg.seg_sum(finite, seg, mask, k))
-        sum_plain = cuda_ms(lambda: seg_agg.seg_sum_plain(finite, seg, mask,
-                                                          k))
-        sum_lib = cuda_ms(lambda: zeros.index_add(0, seg_l, masked0))
-        sum_bound = bound_ms(n * 9 + k * 4, n * 3)
-
-        # min / max, with NaN groups
-        mm = {}
-        for is_max in (False, True):
-            got = seg_agg.seg_minmax(data, seg, mask, k, is_max)
-            want = seg_agg.seg_minmax_plain(data, seg, mask, k, is_max)
+    cases = [(k, False) for k in KS] + [(MAIN_K, True)]
+    for k, skew in cases:
+        data, i64, seg, mask = make_inputs(n, k, live_rows, k + skew, dev,
+                                           skew)
+        empty = seg_agg_count(seg, mask, k) == 0
+        has_nan = bool((mask & torch.isnan(data)).any())
+        check(has_nan and bool(empty.any()), "inputs lack NaN/empty groups")
+        calls, finite = mode_calls(seg_agg, data, i64, seg, mask, k)
+        truth = torch.zeros(k, dtype=torch.float64, device=dev)
+        truth.index_add_(0, seg.long()[mask], finite[mask].to(torch.float64))
+        tag = f"N={n} K={k}{' skewed' if skew else ''}"
+        for name, (kern, plain, lib) in calls.items():
+            got, again, want = kern(), kern(), plain()
             torch.cuda.synchronize()
-            check(torch.equal(torch.isnan(got), torch.isnan(want))
-                  and torch.equal(torch.isnan(got), has_nan),
-                  f"seg_minmax K={k} max={is_max}: NaN groups differ")
-            fin = ~torch.isnan(got)
-            check(torch.equal(got[fin], want[fin]),
-                  f"seg_minmax K={k} max={is_max} differs")
-            check(bool(torch.isinf(got[empty]).all()),
-                  f"seg_minmax K={k}: empty groups not +-inf")
-            both = torch.isfinite(got) & torch.isfinite(want)
-            mm[is_max] = (got[both] - want[both]).abs().max().item()
-        ident = torch.full((k,), float("inf"), device=dev)
-        masked_inf = torch.where(mask, data, ident.new_tensor(float("inf")))
-        min_ms = cuda_ms(lambda: seg_agg.seg_minmax(data, seg, mask, k))
-        min_plain = cuda_ms(
-            lambda: seg_agg.seg_minmax_plain(data, seg, mask, k))
-        min_lib = cuda_ms(lambda: ident.scatter_reduce(
-            0, seg_l, masked_inf, "amin", include_self=True))
-        min_bound = bound_ms(n * 9 + k * 4, n * 3)
-
-        for name, ms, plain, lib, (bnd, by), err in (
-                ("seg_sum[exact_int]", count_ms, count_plain, count_lib,
-                 count_bound, count_err),
-                ("seg_sum[f32]", sum_ms, sum_plain, sum_lib, sum_bound,
-                 sum_err),
-                ("seg_minmax[min]", min_ms, min_plain, min_lib, min_bound,
-                 max(mm.values()))):
-            log(f"kernel {name} N={n} K={k}: kernel_ms={ms:.4f} "
-                f"plain_ms={plain:.4f} library_ms={lib:.4f} "
-                f"bound_ms={bnd:.4f} ({by}) max_abs_err={err}")
-        if k == MAIN_K:
-            main["seg_sum"] = dict(
-                ms=count_ms, plain_ms=count_plain, library_ms=count_lib,
-                bound_ms=count_bound[0], bound_by=count_bound[1],
-                max_abs_err=count_err)
-            main["seg_minmax"] = dict(
-                ms=min_ms, plain_ms=min_plain, library_ms=min_lib,
-                bound_ms=min_bound[0], bound_by=min_bound[1],
-                max_abs_err=max(mm.values()))
-        del data, seg, mask, finite, seg_l, mask_f, masked0, masked_inf
+            if name == "sum_f32":
+                log(f"kernel sum_f32 {tag}: max |err| against a float64 "
+                    f"sum: kernel {(got - truth).abs().max().item():.6g}, "
+                    f"plain {(want - truth).abs().max().item():.6g} (group "
+                    f"sums up to {truth.abs().max().item():.6g})")
+            err = check_mode(name, got, again, want, k,
+                             finite if name == "sum_f32" else data, seg, mask,
+                             truth if skew else None)
+            ms = cuda_ms(kern)
+            dev_ms, per_call = profile_calls(kern) if on_card else (None,
+                                                                    None)
+            if on_card:
+                check(per_call == 1, f"{name} {tag}: {per_call} kernels "
+                      "per call, want 1")
+            out_bytes = k * got.element_size()
+            bnd, by = bound_ms(n * ROW_BYTES[name] + out_bytes, n * 3)
+            stats = dict(ms=ms, device_ms=dev_ms, kernels_per_call=per_call,
+                         host_ms=host_ms(kern), bound_ms=bnd, bound_by=by,
+                         max_abs_err=err)
+            if not skew:
+                stats.update(plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib))
+            log(f"kernel {name} {tag}: " + " ".join(
+                f"{key}={val:.4f}" if isinstance(val, float) else
+                f"{key}={val}" for key, val in stats.items()))
+            if k == MAIN_K and not skew:
+                main[name] = stats
+            elif k == MAIN_K:
+                main[name].update(skew_ms=ms, skew_device_ms=dev_ms)
+        del data, i64, seg, mask, calls, finite, truth
     return main
+
+
+def crossover_phase(seg_agg, n: int, live_rows: int, dev="cuda"):
+    """The masked reduction (K passes, the path at K <= MIN_ENGINE_K)
+    against the kernel, for counts and int64 sums at small K: ms per call
+    by CUDA events over back-to-back calls (host dispatch included, as a
+    query pays it) and device-only ms from the profiler."""
+    from spark_tpu_torch.physical import kernels as PK
+
+    for k in CROSSOVER_KS:
+        data, i64, seg, mask = make_inputs(n, k, live_rows, 100 + k, dev)
+        for name, masked, kern in (
+                ("count", lambda: PK.seg_count(seg, mask, k),
+                 lambda: seg_agg.seg_sum(None, seg, mask, k, exact_int=True)),
+                ("sum_i64", lambda: PK.seg_sum(i64, seg, mask, k),
+                 lambda: seg_agg.seg_sum(i64, seg, mask, k))):
+            check(PK.select_path(k, False, True) == "masked",
+                  f"K={k} is not on the masked path")
+            check(torch.equal(masked(), kern()),
+                  f"crossover {name} K={k}: masked != kernel")
+            row = dict(masked_ms=cuda_ms(masked), kernel_ms=cuda_ms(kern))
+            if dev == "cuda":
+                row["masked_device_ms"], row["masked_kernels"] = \
+                    profile_calls(masked)
+                row["kernel_device_ms"], _ = profile_calls(kern)
+            log(f"crossover {name} N={n} K={k}: " + " ".join(
+                f"{key}={val:.4f}" for key, val in row.items()))
+        del data, i64, seg, mask
 
 
 def profile_query(spark, name: str, query: str) -> None:
     """One warm run under torch.profiler: host wall time, the card's
-    summed kernel time, its share of the wall (the rest is the card
+    summed device time, its share of the wall (the rest is the card
     idle while the host dispatches), and the top ops by device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -211,23 +336,30 @@ def profile_query(spark, name: str, query: str) -> None:
         t0 = time.perf_counter()
         spark.sql(query).collect()
         wall = (time.perf_counter() - t0) * 1e3
-    # kernel events only: the aten op events above them repeat their time
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    n_kernels = sum(e.count for e in kernels)
+    # device events only: the aten op events above them repeat their time
+    events = _device_events(prof)
+    dev_us = sum(e.self_device_time_total for e in events)
+    n_kernels = sum(e.count for e in events if _is_kernel(e.key))
+    ops = {e.key for e in prof.key_averages()}
+    check(name != "q1_wide" or not any(o.startswith("aten::index_add")
+                                       for o in ops),
+          "q1-wide still calls index_add_")
     if dev_us <= 0:
         log(f"profile {name}: wall {wall:.2f} ms; device time not measured "
             "(the profiler recorded none)")
         return
-    log(f"profile {name}: wall {wall:.2f} ms, device kernels "
-        f"{dev_us / 1e3:.3f} ms over {n_kernels} launches, device busy "
+    log(f"profile {name}: wall {wall:.2f} ms, device {dev_us / 1e3:.3f} ms "
+        f"over {n_kernels} kernel launches, device busy "
         f"{dev_us / 1e3 / wall:.1%} of the wall")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         log(f"profile {name}:   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5} {e.key[:90]}")
+
+
+def mode_launches(seg_agg) -> dict:
+    return {**seg_agg.seg_sum.mode_launches,
+            **seg_agg.seg_minmax.mode_launches}
 
 
 def slice_phase(seg_agg, tables, dev="cuda"):
@@ -245,21 +377,21 @@ def slice_phase(seg_agg, tables, dev="cuda"):
     queries = {"q1": QUERIES[1], "q1_wide": Q1_WIDE}
 
     # the main path, once, with every launch counter read around it
-    seg_agg.seg_sum.launches = 0
-    seg_agg.seg_minmax.launches = 0
+    seg_agg.reset_launches()
     gpu_rows, launches = {}, {}
     for name, q in queries.items():
-        before = (seg_agg.seg_sum.launches, seg_agg.seg_minmax.launches)
+        before = mode_launches(seg_agg)
         gpu_rows[name] = [tuple(r) for r in gpu.sql(q).collect()]
-        launches[name] = (seg_agg.seg_sum.launches - before[0],
-                          seg_agg.seg_minmax.launches - before[1])
-    total = {"seg_sum": seg_agg.seg_sum.launches,
-             "seg_minmax": seg_agg.seg_minmax.launches}
-    log(f"slice: kernel launches per query {launches}; total {total}")
+        after = mode_launches(seg_agg)
+        launches[name] = {m: after[m] - before[m] for m in after}
+    total = mode_launches(seg_agg)
+    log(f"slice: kernel launches per query {launches}")
+    check(not any(launches["q1"].values()),
+          "q1 (K=6) should not launch kernels")
     if dev == "cuda":  # on the CPU the wrappers take their plain versions
-        check(launches["q1_wide"][0] > 0 and launches["q1_wide"][1] > 0,
-              "q1-wide did not launch both kernels")
-    check(launches["q1"] == (0, 0), "q1 (K=6) should not launch kernels")
+        want = {"count": 7, "sum_i64": 2, "sum_f32": 0, "min": 1, "max": 1}
+        check(launches["q1_wide"] == want,
+              f"q1-wide launched {launches['q1_wide']}, want {want}")
 
     for name, q in queries.items():
         walls = []
@@ -323,20 +455,31 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (lineitem {n_rows} rows)")
 
     t0 = time.perf_counter()
-    main_stats = kernel_phase(seg_agg, round_capacity(n_rows), n_rows)
+    n = round_capacity(n_rows)
+    main_stats = kernel_phase(seg_agg, n, n_rows)
+    crossover_phase(seg_agg, n, n_rows)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     launches = slice_phase(seg_agg, tables)
     log(f"slice phase: {time.perf_counter() - t0:.1f} s")
 
-    replaces = {"seg_sum": "spark_tpu/ops/pallas_agg.py:141",
-                "seg_minmax": "spark_tpu/ops/pallas_agg.py:215"}
-    kernels = [dict(name=name, route="cuda",
-                    source="spark_tpu_torch/ops/csrc/seg_agg.cu",
-                    replaces=replaces[name], launches=launches[name],
-                    **main_stats[name])
-               for name in ("seg_sum", "seg_minmax")]
+    kernels = []
+    for name, modes, headline, replaces in (
+            ("seg_sum", ("count", "sum_i64", "sum_f32"), "count",
+             "spark_tpu/ops/pallas_agg.py:141"),
+            ("seg_minmax", ("min", "max"), "min",
+             "spark_tpu/ops/pallas_agg.py:215")):
+        per_mode = {m: dict(main_stats[m], launches=launches[m])
+                    for m in modes}
+        # the top-level numbers are the mode the main path launches most
+        top = {key: val for key, val in main_stats[headline].items()
+               if not key.startswith("skew")}
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="spark_tpu_torch/ops/csrc/seg_agg.cu", replaces=replaces,
+            launches=sum(launches[m] for m in modes), mode=headline, **top,
+            modes=per_mode))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

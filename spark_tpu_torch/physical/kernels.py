@@ -5,23 +5,24 @@ aggregate path: sort permutations, group ids, mixed-radix key packing,
 segmented reductions and the limit mask. Everything is mask-carrying:
 dead rows ride along and are neutralized per reduction.
 
-Counts and min/max select a path as the reference does (``select_path``):
+Counts, sums and min/max select a path as the reference does
+(``select_path``):
 
 - K == 1: a plain reduction;
 - K <= 64 (``MIN_ENGINE_K``): K masked dense reductions;
-- 64 < K <= 1024, float32 data (counts: any data) and unsorted ids: the
+- 64 < K <= 1024, unsorted ids and a type the kernels take
+  (``kernel_eligible``: any count, int64 sums, float32 min/max): the
   one-pass CUDA kernels of ``ops/seg_agg.py`` (their plain versions on
   CPU tensors);
 - sorted ids: cumsum differences (counts, integer sums) or a
   scatter-reduce over the sorted ids (min, max);
 - anything else: scatter.
 
-Integer sums take the same paths as counts, except the kernel: they are
-exact on each (int64 adds natively on the GPU, so the reference's 21-bit
-limb split is not needed). Float sums are a plain reduction for K == 1
-and a scatter-add otherwise, as the reference's float branch.
-``MIN_ENGINE_K`` was measured for the reference on a TPU; it is kept
-unchanged here.
+Integer sums are exact on every path (int64 adds natively on the GPU, so
+the reference's 21-bit limb split is not needed). Float sums are a plain
+reduction for K == 1 and a scatter-add otherwise, as the reference's
+float branch. ``MIN_ENGINE_K`` was measured for the reference on a TPU;
+it is kept unchanged here.
 """
 
 from __future__ import annotations
@@ -104,11 +105,22 @@ def group_ids_from_sorted(
 # ---- segment aggregation ----------------------------------------------------
 
 
+def kernel_eligible(op: str, dtype: Optional[torch.dtype]) -> bool:
+    """Whether the seg_agg kernels take reduction ``op`` ("count", "sum",
+    "min", "max") of ``dtype`` data: counts always, sums of int64 (the
+    exact sum mode), min/max of float32."""
+    if op == "count":
+        return True
+    if op == "sum":
+        return dtype == torch.int64
+    return dtype == torch.float32
+
+
 def select_path(num_segments: int, sorted_seg: bool, kernel_dtype_ok: bool,
                 ) -> str:
     """Which implementation a segmented reduction takes: ``"single"``,
     ``"masked"``, ``"kernel"``, ``"sorted"`` or ``"scatter"``.
-    ``kernel_dtype_ok``: the data is float32 (always true for counts)."""
+    ``kernel_dtype_ok``: ``kernel_eligible`` of the reduction."""
     if num_segments == 1:
         return "single"
     if num_segments <= MIN_ENGINE_K:
@@ -177,33 +189,39 @@ def seg_sum(data, seg, mask, num_segments: int, sorted_seg: bool = False):
     take a scatter-add for K > 1, as the reference's float branch does;
     making its bits independent of the GPU's atomic order is ROADMAP
     queue B item 3."""
+    path = select_path(num_segments, sorted_seg,
+                       kernel_eligible("sum", data.dtype))
+    if path == "kernel":
+        return seg_agg.seg_sum(data.contiguous(),
+                               seg.to(torch.int32).contiguous(),
+                               mask.contiguous(), num_segments)
     zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    if path == "masked" and not data.is_floating_point():
+        return _masked_reduce(data, seg, mask, num_segments, torch.sum, zero)
     masked = torch.where(mask, data, zero)
-    path = select_path(num_segments, sorted_seg, False)
     if path == "single":
         return masked.sum(dtype=data.dtype).reshape(1)
     if data.is_floating_point():
         return _scatter_sum(masked, seg, num_segments)
-    if path == "masked":
-        return _masked_reduce(data, seg, mask, num_segments, torch.sum, zero)
     if path == "sorted":
         return _sorted_seg_sum(masked, seg, num_segments)
     return _scatter_sum(masked, seg, num_segments)
 
 
 def seg_count(seg, mask, num_segments: int, sorted_seg: bool = False):
+    path = select_path(num_segments, sorted_seg,
+                       kernel_eligible("count", None))
+    if path == "kernel":
+        return seg_agg.seg_sum(None, seg.to(torch.int32).contiguous(),
+                               mask.contiguous(), num_segments,
+                               exact_int=True)
     ones = mask.to(torch.int64)
-    path = select_path(num_segments, sorted_seg, True)
     if path == "single":
         return ones.sum().reshape(1)
     if path == "masked":
         return _masked_reduce(ones, seg, mask, num_segments, torch.sum,
                               torch.zeros((), dtype=torch.int64,
                                           device=seg.device))
-    if path == "kernel":
-        return seg_agg.seg_sum(None, seg.to(torch.int32).contiguous(),
-                               mask.contiguous(), num_segments,
-                               exact_int=True)
     if path == "sorted":
         return _sorted_seg_sum(ones, seg, num_segments)
     return _scatter_sum(ones, seg, num_segments)
@@ -211,19 +229,21 @@ def seg_count(seg, mask, num_segments: int, sorted_seg: bool = False):
 
 def _seg_minmax(data, seg, mask, num_segments: int, sorted_seg: bool,
                 is_max: bool):
-    ident = _neg_sentinel(data.dtype) if is_max else _pos_sentinel(data.dtype)
-    ident_t = torch.tensor(ident, dtype=data.dtype, device=data.device)
-    masked = torch.where(mask, data, ident_t)
-    path = select_path(num_segments, sorted_seg, data.dtype == torch.float32)
-    red = _nan_max if is_max else _nan_min
-    if path == "single":
-        return red(masked).reshape(1)
-    if path == "masked":
-        return _masked_reduce(data, seg, mask, num_segments, red, ident_t)
+    path = select_path(num_segments, sorted_seg,
+                       kernel_eligible("max" if is_max else "min",
+                                       data.dtype))
     if path == "kernel":
         return seg_agg.seg_minmax(data.contiguous(),
                                   seg.to(torch.int32).contiguous(),
                                   mask.contiguous(), num_segments, is_max)
+    ident = _neg_sentinel(data.dtype) if is_max else _pos_sentinel(data.dtype)
+    ident_t = torch.tensor(ident, dtype=data.dtype, device=data.device)
+    red = _nan_max if is_max else _nan_min
+    if path == "masked":
+        return _masked_reduce(data, seg, mask, num_segments, red, ident_t)
+    masked = torch.where(mask, data, ident_t)
+    if path == "single":
+        return red(masked).reshape(1)
     # "sorted" (ids monotone) and "scatter": the same scatter-reduce,
     # exact for min/max in any order
     return _scatter_minmax(masked, seg, num_segments, is_max)

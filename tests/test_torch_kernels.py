@@ -84,20 +84,33 @@ def test_select_path():
     assert PK.select_path(1025, False, True) == "scatter"
     assert PK.select_path(168, True, True) == "sorted"
     assert PK.select_path(168, False, False) == "scatter"  # not float32
+    # which reductions the kernels take: counts, int64 sums, f32 min/max
+    assert PK.kernel_eligible("count", None)
+    assert PK.kernel_eligible("sum", torch.int64)
+    assert not PK.kernel_eligible("sum", torch.float32)
+    assert not PK.kernel_eligible("sum", torch.float64)
+    assert PK.kernel_eligible("min", torch.float32)
+    assert not PK.kernel_eligible("max", torch.int64)
+    i64 = PK.kernel_eligible("sum", torch.int64)
+    assert PK.select_path(64, False, i64) == "masked"
+    assert PK.select_path(65, False, i64) == "kernel"
+    assert PK.select_path(1024, False, i64) == "kernel"
+    assert PK.select_path(1025, False, i64) == "scatter"
+    assert PK.select_path(168, True, i64) == "sorted"
 
 
 def test_direct_path_reductions_route_through_kernel_wrappers(monkeypatch):
-    """64 < K <= 1024 unsorted: counts and float32 min/max reach the
-    seg_agg wrappers (which take their plain versions on CPU tensors and
-    launch the CUDA kernels on CUDA tensors); float64 and sorted ids do
-    not."""
+    """64 < K <= 1024 unsorted: counts, int64 sums and float32 min/max
+    reach the seg_agg wrappers (which take their plain versions on CPU
+    tensors and launch the CUDA kernels on CUDA tensors); float sums,
+    float64 min/max, K <= 64 and sorted ids do not."""
     calls = []
     real_sum, real_mm = seg_agg.seg_sum, seg_agg.seg_minmax
     monkeypatch.setattr(seg_agg, "seg_sum", lambda *a, **kw: (
         calls.append("sum"), real_sum(*a, **kw))[1])
     monkeypatch.setattr(seg_agg, "seg_minmax", lambda *a, **kw: (
         calls.append("minmax"), real_mm(*a, **kw))[1])
-    seg, mask, f32, f64, _ = _case(100, False)
+    seg, mask, f32, f64, i64 = _case(100, False)
     ts, tm, t32, t64 = [torch.from_numpy(a) for a in (seg, mask, f32, f64)]
     PK.seg_count(ts, tm, 100)
     PK.seg_min(t32, ts, tm, 100)
@@ -107,6 +120,36 @@ def test_direct_path_reductions_route_through_kernel_wrappers(monkeypatch):
     PK.seg_count(ts, tm, 8)
     PK.seg_count(torch.sort(ts).values, tm, 100, sorted_seg=True)
     assert calls == ["sum", "minmax", "minmax"]
+    ti = torch.from_numpy(i64)
+    PK.seg_sum(ti, ts, tm, 100)
+    assert calls == ["sum", "minmax", "minmax", "sum"]
+    PK.seg_sum(ti, ts, tm, 8)
+    PK.seg_sum(ti, torch.sort(ts).values, tm, 100, sorted_seg=True)
+    PK.seg_sum(t32, ts, tm, 100)
+    PK.seg_sum(t64, ts, tm, 100)
+    assert calls == ["sum", "minmax", "minmax", "sum"]
+
+
+@pytest.mark.parametrize("k", [65, 168, 1024])
+def test_seg_sum_int64_kernel_route_parity(k, monkeypatch):
+    """The direct path's int64 sum at 64 < K <= 1024 goes through the
+    seg_agg wrapper and equals the reference's exact limb sum: values in
+    +-1e15 with negatives, masked rows, empty groups."""
+    rng = np.random.default_rng(17 + k)
+    n = 3000
+    seg = rng.integers(0, k - k // 4, n)  # the last quarter of groups empty
+    mask = rng.random(n) < 0.7
+    data = rng.integers(-10 ** 15, 10 ** 15, n)
+    calls = []
+    real_sum = seg_agg.seg_sum
+    monkeypatch.setattr(seg_agg, "seg_sum", lambda *a, **kw: (
+        calls.append(a[0].dtype), real_sum(*a, **kw))[1])
+    (js, jm, jd), (ts, tm, td) = _both(seg, mask, data)
+    got = PK.seg_sum(td, ts, tm, k)
+    want = np.asarray(RK.seg_sum(jd, js, jm, k))
+    assert calls == [torch.int64] and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[k - k // 4:] == 0).all() and (want < 0).any()
 
 
 def test_pack_unpack_parity():

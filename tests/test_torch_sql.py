@@ -1,6 +1,6 @@
 """The port's SQL slice end to end on the CPU: TPC-H q1 and the q1-wide
-aggregate (four dictionary keys, K = 168 packed groups, so counts and
-float32 min/max take the kernel path) through
+aggregate (four dictionary keys, K = 168 packed groups, so counts, int64
+sums and float32 min/max take the kernel path) through
 ``spark_tpu.api.session.SparkSession`` and through
 ``spark_tpu_torch``'s session with ``device("cpu")``, on the same tables
 (TPC-H at sf 0.02, seed 99, as tests/test_tpch.py).
@@ -44,8 +44,12 @@ def test_slice_matches_reference(engines, name, monkeypatch):
     query = QUERIES[1] if name == "q1" else Q1_WIDE
     calls = []
     real_sum, real_mm = seg_agg.seg_sum, seg_agg.seg_minmax
-    monkeypatch.setattr(seg_agg, "seg_sum", lambda *a, **kw: (
-        calls.append("seg_sum"), real_sum(*a, **kw))[1])
+
+    def spy_sum(data, *a, exact_int=False, **kw):
+        calls.append("count" if exact_int else f"sum[{data.dtype}]")
+        return real_sum(data, *a, exact_int=exact_int, **kw)
+
+    monkeypatch.setattr(seg_agg, "seg_sum", spy_sum)
     monkeypatch.setattr(seg_agg, "seg_minmax", lambda *a, **kw: (
         calls.append("seg_minmax"), real_mm(*a, **kw))[1])
     got = _rows(port.sql(query))
@@ -53,9 +57,12 @@ def test_slice_matches_reference(engines, name, monkeypatch):
     assert want and got == want
     if name == "q1_wide":
         # 7 counts (count(*), four any-valid tests and avg's count, and
-        # the group-present test) and one min, one max
-        assert calls.count("seg_sum") == 7
+        # the group-present test), the two exact decimal sums (sum and
+        # avg of decimals) and one min, one max
+        assert calls.count("count") == 7
+        assert calls.count("sum[torch.int64]") == 2
         assert calls.count("seg_minmax") == 2
+        assert len(calls) == 11
         assert len(got) == len({r[:4] for r in got})
     else:
         assert calls == []  # K = 6: masked reductions
