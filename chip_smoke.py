@@ -26,25 +26,44 @@ no result line):
    take (bound).
    Crossover: the masked reduction (the path at K <= 64) against the
    kernel for counts and int64 sums at K in {2, 6, 16, 32, 64}.
-4. Slice phase: the SF1 tables registered on a ``device("cuda")``
-   session, TPC-H q1 and q1-wide run through
-   ``spark.sql(...).collect()``. Every launch counter is set to 0 just
-   before and read just after; q1-wide must launch the count mode 7
-   times, the int64 sum 2 times, min and max once each, and q1 none.
-   Results must equal the port's own CPU run on the same tables, and q1
-   the sqlite oracle. Warm wall times and one profiled run of each
-   follow; q1-wide's profile must hold no ``index_add_``.
-5. A ``{"kernels": [...]}`` line, the card line, and as the last line
+4. Slice phase: the eight SF1 tables registered on a
+   ``device("cuda")`` session and on a ``device("cpu")`` one, TPC-H q1
+   and q1-wide run through ``spark.sql(...).collect()``. Every launch
+   counter is set to 0 just before and read just after; q1-wide must
+   launch the count mode 7 times, the int64 sum 2 times, min and max
+   once each, and q1 none. Results must equal the port's own CPU run on
+   the same tables, and q1 the sqlite oracle. Warm wall times and one
+   profiled run of each follow; q1-wide's profile must hold no
+   ``index_add_``.
+5. Join phase: TPC-H q3 and q5, a small left outer join with a residual
+   condition (nation/supplier: its 1024-row probe side counts matches
+   with the seg_sum kernel, one launch) and a left anti join with a
+   residual condition (customer/orders), on the same sessions, with the
+   launch counters set to 0 before and read after each, and the host
+   syncs of each run counted (``torch.cuda.set_sync_debug_mode``). q3
+   and q5 launch no kernel. Every result must equal the CPU run; q3 and
+   q5 also the sqlite oracle at SF1. Warm wall times, peak device memory
+   and one profiled run of each follow.
+   In the slice and join phases every call of a kernel's wrapper on the
+   main path is recorded (its arguments and result), and each is held
+   against its plain PyTorch version on those same tensors: counts,
+   int64 sums and min/max equal, float32 sums within rtol 1e-4 / atol
+   1e-3.
+6. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
+import warnings
 
 import torch
 
@@ -362,30 +381,104 @@ def mode_launches(seg_agg) -> dict:
             **seg_agg.seg_minmax.mode_launches}
 
 
-def slice_phase(seg_agg, tables, dev="cuda"):
+@contextlib.contextmanager
+def recording_calls(seg_agg):
+    """While the block runs, record every call the engine makes to the
+    seg_agg wrappers (through ``physical/kernels.py``): its arguments
+    (copied) and its result. The wrappers themselves are untouched and
+    launch and count as they do without it; each record is held against
+    the plain version afterwards (``hold_calls``)."""
+    from spark_tpu_torch.physical import kernels as PK
+
+    calls = []
+
+    def recorder(name):
+        fn = getattr(seg_agg, name)
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            kept = {key: val.clone() if torch.is_tensor(val) else val
+                    for key, val in bound.arguments.items()}
+            calls.append((name, kept, out.clone()))
+            return out
+        return call
+
+    real = PK.seg_agg
+    PK.seg_agg = types.SimpleNamespace(seg_sum=recorder("seg_sum"),
+                                       seg_minmax=recorder("seg_minmax"))
+    try:
+        yield calls
+    finally:
+        PK.seg_agg = real
+
+
+def hold_calls(seg_agg, calls, label: str) -> None:
+    """Each recorded wrapper call's result against the plain version on
+    the same tensors: counts, int64 sums and min/max equal (NaN in the
+    same groups), float32 sums within rtol 1e-4 / atol 1e-3."""
+    for i, (name, args, got) in enumerate(calls):
+        want = getattr(seg_agg, f"{name}_plain")(**args)
+        seg = args["seg"]
+        tag = (f"{label} call {i} ({name}, N={seg.shape[0]}, "
+               f"K={args['num_segments']})")
+        if not got.is_floating_point():
+            check(got.dtype == torch.int64 and torch.equal(got, want),
+                  f"{tag} differs from the plain version")
+        elif name == "seg_sum":
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+        else:
+            nan = torch.isnan(got)
+            check(torch.equal(nan, torch.isnan(want))
+                  and torch.equal(got[~nan], want[~nan]),
+                  f"{tag} differs from the plain version")
+        sorted_ids = bool((seg[1:] >= seg[:-1]).all()) if seg.numel() else True
+        log(f"{tag}: equal to the plain version on the path's own inputs "
+            f"(ids sorted: {sorted_ids})")
+
+
+def sessions(tables, dev="cuda"):
+    """A session on ``dev`` and one on the CPU, each with the eight
+    tables registered."""
     from spark_tpu_torch.api.session import SparkSession
-    from spark_tpu_torch.tpch import Q1_WIDE, QUERIES, register_views
+    from spark_tpu_torch.tpch import register_views
+
+    out = []
+    for d in (dev, "cpu"):
+        spark = SparkSession(device=d)
+        t0 = time.perf_counter()
+        register_views(spark, tables)
+        torch.cuda.synchronize()
+        log(f"views registered on {spark.device} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out.append(spark)
+    return out
+
+
+def slice_phase(seg_agg, gpu, cpu, tables, dev="cuda"):
+    from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
     from spark_tpu_torch.tpch.oracle import (assert_rows_match,
                                              load_sqlite, run_oracle)
 
-    gpu = SparkSession.builder.device(dev).getOrCreate()
-    t0 = time.perf_counter()
-    register_views(gpu, tables)
-    torch.cuda.synchronize()
-    log(f"slice: views registered on {gpu.device} in "
-        f"{time.perf_counter() - t0:.1f} s")
     queries = {"q1": QUERIES[1], "q1_wide": Q1_WIDE}
 
     # the main path, once, with every launch counter read around it
     seg_agg.reset_launches()
     gpu_rows, launches = {}, {}
-    for name, q in queries.items():
-        before = mode_launches(seg_agg)
-        gpu_rows[name] = [tuple(r) for r in gpu.sql(q).collect()]
-        after = mode_launches(seg_agg)
-        launches[name] = {m: after[m] - before[m] for m in after}
+    with recording_calls(seg_agg) as calls:
+        for name, q in queries.items():
+            before = mode_launches(seg_agg)
+            gpu_rows[name] = [tuple(r) for r in gpu.sql(q).collect()]
+            after = mode_launches(seg_agg)
+            launches[name] = {m: after[m] - before[m] for m in after}
     total = mode_launches(seg_agg)
     log(f"slice: kernel launches per query {launches}")
+    if dev == "cuda":
+        check(len(calls) == sum(total.values()),
+              f"{len(calls)} wrapper calls, {total} launches")
+    hold_calls(seg_agg, calls, "slice")
     check(not any(launches["q1"].values()),
           "q1 (K=6) should not launch kernels")
     if dev == "cuda":  # on the CPU the wrappers take their plain versions
@@ -405,9 +498,7 @@ def slice_phase(seg_agg, tables, dev="cuda"):
         if dev == "cuda":
             profile_query(gpu, name, q)
 
-    cpu = SparkSession(device="cpu")
     t0 = time.perf_counter()
-    register_views(cpu, {"lineitem": tables["lineitem"]})
     for name, q in queries.items():
         cpu_rows = [tuple(r) for r in cpu.sql(q).collect()]
         check(cpu_rows == gpu_rows[name], f"{name}: card != CPU run")
@@ -423,6 +514,180 @@ def slice_phase(seg_agg, tables, dev="cuda"):
                       label="q1[sqlite]")
     log(f"slice: q1 equals the sqlite oracle "
         f"({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
+# the join phase's queries besides q3 and q5: a small left outer join
+# (nation, 1024-row capacity, probes supplier; the residual condition
+# sends it through the pair expansion, whose match count over 1024 probe
+# rows takes the seg_sum kernel's count mode) and a left anti join with a
+# residual condition (150k customers probe 1.5M orders; its match count
+# over 150,528 probe rows is a scatter, no kernel)
+JOIN_SMALL_OUTER = """
+select n_name, s_suppkey, s_acctbal
+from nation left join supplier
+  on n_nationkey = s_nationkey and s_acctbal > 9990
+order by n_name, s_suppkey
+"""
+JOIN_ANTI_RESIDUAL = """
+select c_nationkey, count(*) as n
+from customer left anti join orders
+  on c_custkey = o_custkey and o_orderdate >= date '1998-01-01'
+group by c_nationkey
+order by c_nationkey
+"""
+# seg_sum count launches each join-phase query must make on the card
+JOIN_LAUNCHES = {"q3": 0, "q5": 0, "small_outer": 1, "anti_residual": 0}
+# the columns q3 and q5 read, loaded into the sqlite oracle
+ORACLE_COLUMNS = {
+    "customer": ["c_custkey", "c_mktsegment", "c_nationkey"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
+    "lineitem": ["l_orderkey", "l_suppkey", "l_extendedprice", "l_discount",
+                 "l_shipdate"],
+    "supplier": ["s_suppkey", "s_nationkey"],
+    "nation": ["n_nationkey", "n_name", "n_regionkey"],
+    "region": ["r_regionkey", "r_name"],
+}
+# indexes on the key columns: without them sqlite's q5 time grows with
+# the square of the scale, far past the time limit at SF1
+ORACLE_INDEXES = ("customer(c_custkey)", "orders(o_orderkey)",
+                  "orders(o_custkey)", "lineitem(l_orderkey)",
+                  "supplier(s_suppkey)", "nation(n_nationkey)",
+                  "region(r_regionkey)")
+
+
+def collect_counting_syncs(spark, query: str, dev: str):
+    """Rows of one run, and the host syncs it made as PyTorch's sync
+    debug mode reports them (None on the CPU, where there are none to
+    count). The count includes the copies of the result to the host."""
+    if dev != "cuda":
+        return [tuple(r) for r in spark.sql(query).collect()], None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rows = [tuple(r) for r in spark.sql(query).collect()]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+    return rows, syncs
+
+
+def oracle_rows(tables, names):
+    """sqlite rows of the named TPC-H queries over the columns they
+    read."""
+    from spark_tpu_torch.tpch import QUERIES
+    from spark_tpu_torch.tpch.oracle import load_sqlite, run_oracle
+
+    t0 = time.perf_counter()
+    conn = load_sqlite({t: tables[t].select(c)
+                        for t, c in ORACLE_COLUMNS.items()})
+    for i, ix in enumerate(ORACLE_INDEXES):
+        conn.execute(f"create index ix{i} on {ix}")
+    conn.execute("analyze")
+    log(f"join: sqlite loaded and indexed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    try:
+        for name in names:
+            t1 = time.perf_counter()
+            out[name] = run_oracle(conn, QUERIES[int(name[1:])])
+            log(f"join: sqlite {name} in {time.perf_counter() - t1:.1f} s")
+    finally:
+        conn.close()
+    return out
+
+
+def join_order(spark, query: str) -> list:
+    """The optimized plan's joins, top-down, as key-pair strings."""
+    from spark_tpu_torch.plan import logical as L
+    from spark_tpu_torch.plan.optimizer import optimize
+    from spark_tpu_torch.sql.parser import parse_sql
+
+    out = []
+
+    def walk(node):
+        if isinstance(node, L.Join):
+            out.append(", ".join(f"{lk}={rk}" for lk, rk in
+                                 zip(node.left_keys, node.right_keys)))
+        for c in node.children():
+            walk(c)
+
+    walk(optimize(parse_sql(query, spark.catalog)))
+    return out
+
+
+def join_phase(seg_agg, gpu, cpu, tables, dev="cuda"):
+    """q3, q5 and two residual-condition joins on the card: launches,
+    host syncs, results against the CPU run and the oracle, walls,
+    memory and profiles. Returns the seg_sum count launches of the join
+    path's run."""
+    from spark_tpu_torch.tpch import QUERIES
+    from spark_tpu_torch.tpch.oracle import assert_rows_match
+
+    queries = {"q3": QUERIES[3], "q5": QUERIES[5],
+               "small_outer": JOIN_SMALL_OUTER,
+               "anti_residual": JOIN_ANTI_RESIDUAL}
+    for name in ("q3", "q5"):
+        log(f"join: {name} join order {join_order(gpu, queries[name])}")
+
+    # the join path, once, with every launch counter read around it
+    seg_agg.reset_launches()
+    rows, launches, syncs = {}, {}, {}
+    with recording_calls(seg_agg) as calls:
+        for name, q in queries.items():
+            before = mode_launches(seg_agg)
+            t0 = time.perf_counter()
+            rows[name], syncs[name] = collect_counting_syncs(gpu, q, dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            after = mode_launches(seg_agg)
+            launches[name] = {m: after[m] - before[m] for m in after}
+            log(f"join: {name} first run {wall:.1f} ms, "
+                f"{len(rows[name])} rows, host syncs {syncs[name]}, "
+                f"launches {launches[name]}")
+    total = mode_launches(seg_agg)
+    if dev == "cuda":  # on the CPU the wrappers take their plain versions
+        for name, want in JOIN_LAUNCHES.items():
+            got = launches[name]
+            check(got["count"] == want and sum(got.values()) == want,
+                  f"{name} launched {got}, want {want} count launches")
+        check(len(calls) == sum(total.values()),
+              f"{len(calls)} wrapper calls, {total} launches")
+    hold_calls(seg_agg, calls, "join")
+
+    t0 = time.perf_counter()
+    for name, q in queries.items():
+        cpu_rows = [tuple(r) for r in cpu.sql(q).collect()]
+        check(rows[name] and cpu_rows == rows[name],
+              f"{name}: card != CPU run")
+        log(f"join: {name} {len(cpu_rows)} rows, equal to the port's CPU "
+            "run")
+    log(f"join: CPU runs took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    want = oracle_rows(tables, ("q3", "q5"))
+    for name in ("q3", "q5"):
+        assert_rows_match(rows[name], want[name], label=f"{name}[sqlite]")
+    log(f"join: q3 and q5 equal the sqlite oracle "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    for name, q in queries.items():
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = [tuple(r) for r in gpu.sql(q).collect()]
+            walls.append((time.perf_counter() - t0) * 1e3)
+            check(again == rows[name], f"{name}: run-to-run difference")
+        log(f"join: {name} warm wall ms on the card {walls} "
+            f"(median {statistics.median(walls):.1f})")
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            gpu.sql(q).collect()
+            peak = torch.cuda.max_memory_allocated() - base
+            log(f"join: {name} peak device memory above the tables "
+                f"{peak / 2 ** 20:.1f} MiB")
+            profile_query(gpu, name, q)
     return total
 
 
@@ -461,8 +726,16 @@ def main() -> int:
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches = slice_phase(seg_agg, tables)
+    gpu, cpu = sessions(tables)
+    launches = slice_phase(seg_agg, gpu, cpu, tables)
     log(f"slice phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    join_launches = join_phase(seg_agg, gpu, cpu, tables)
+    log(f"join phase: {time.perf_counter() - t0:.1f} s")
+    check(join_launches["count"] >= 1,
+          "the join path launched no seg_sum kernel")
+    by_path = {"aggregate": launches, "join": join_launches}
 
     kernels = []
     for name, modes, headline, replaces in (
@@ -470,7 +743,8 @@ def main() -> int:
              "spark_tpu/ops/pallas_agg.py:141"),
             ("seg_minmax", ("min", "max"), "min",
              "spark_tpu/ops/pallas_agg.py:215")):
-        per_mode = {m: dict(main_stats[m], launches=launches[m])
+        per_mode = {m: dict(main_stats[m],
+                            launches=sum(p[m] for p in by_path.values()))
                     for m in modes}
         # the top-level numbers are the mode the main path launches most
         top = {key: val for key, val in main_stats[headline].items()
@@ -478,8 +752,10 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda",
             source="spark_tpu_torch/ops/csrc/seg_agg.cu", replaces=replaces,
-            launches=sum(launches[m] for m in modes), mode=headline, **top,
-            modes=per_mode))
+            launches=sum(p[m] for p in by_path.values() for m in modes),
+            launches_by_path={path: sum(p[m] for m in modes)
+                              for path, p in by_path.items()},
+            mode=headline, **top, modes=per_mode))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The port of ``spark_tpu/expr/compiler.py`` for the main-path subset:
 columns, literals and aliases; arithmetic, including exact scaled-int64
 decimals; comparisons, including date literals and dictionary-string
-tables; three-valued boolean logic and null tests; casts. Null semantics
+tables; three-valued boolean logic and null tests; casts; month
+arithmetic on dates (``AddMonths``). Null semantics
 follow SQL three-valued logic, carried as (values, validity-mask) pairs.
 
 String expressions never touch bytes on the device: predicates are
@@ -223,8 +224,55 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
     if isinstance(expr, E.Cast):
         return _eval_cast(expr, env)
 
+    if isinstance(expr, E.AddMonths):
+        tv = evaluate(expr.child, env)
+        y, m, d = _civil_from_days(tv.data.to(torch.int64))
+        total = (y * 12 + (m - 1)) + expr.months
+        ny = _floordiv(total, 12)
+        nm = total - ny * 12 + 1
+        nd = torch.minimum(d, _days_in_month(ny, nm))
+        days = _days_from_civil(ny, nm, nd)
+        return TV(days.to(torch.int32), tv.validity, T.DATE, None)
+
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not ported yet: {expr}")
+
+
+def _civil_from_days(days: torch.Tensor):
+    """Days since the epoch -> (year, month, day), branch-free (Howard
+    Hinnant's civil_from_days)."""
+    z = days + 719468
+    era = _floordiv(torch.where(z >= 0, z, z - 146096), 146097)
+    doe = z - era * 146097
+    yoe = _floordiv(doe - _floordiv(doe, 1460) + _floordiv(doe, 36524)
+                    - _floordiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floordiv(yoe, 4) - _floordiv(yoe, 100))
+    mp = _floordiv(5 * doy + 2, 153)
+    d = doy - _floordiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
+def _days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor):
+    """(year, month, day) -> days since the epoch (Hinnant's
+    days_from_civil)."""
+    y = torch.where(m <= 2, y - 1, y)
+    era = _floordiv(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _floordiv(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _floordiv(yoe, 4) - _floordiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def _days_in_month(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    lengths = torch.tensor([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
+                           dtype=torch.int64, device=y.device)
+    leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
+    base = lengths[m - 1]
+    return torch.where((m == 2) & leap, base + 1, base)
 
 
 def _eval_arith(expr: E.Arith, env: Env) -> TV:

@@ -1,7 +1,7 @@
 """Expression tree (IR), trimmed to the nodes the single-device
-aggregate slice plans: columns, literals, aliases, arithmetic,
-comparisons, boolean logic, null tests, casts, sort orders and the
-count/sum/avg/min/max aggregates.
+aggregate and join slices plan: columns, literals, aliases, arithmetic,
+month arithmetic on dates, comparisons, boolean logic, null tests,
+casts, sort orders and the count/sum/avg/min/max aggregates.
 
 The analogue of Catalyst's expression nodes (reference:
 sql/catalyst/.../expressions/Expression.scala). Expressions are
@@ -57,6 +57,22 @@ def expr_key(e: Expression):
         parts.append(expr_key(f_val) if isinstance(f_val, Expression)
                      else repr(f_val))
     return tuple(parts)
+
+
+def dedup_pair_names(left_names, right_names) -> list:
+    """Joined-pair output names: left keeps its names, duplicates from
+    the right gain '#2' suffixes. The one copy that the logical Join
+    schema, the physical pair environments and the optimizer's
+    condition rewrites all use."""
+    seen = set()
+    out = []
+    for n in list(left_names) + list(right_names):
+        name = n
+        while name in seen:
+            name = name + "#2"
+        seen.add(name)
+        out.append(name)
+    return out
 
 
 @dataclass(eq=False, frozen=True)
@@ -286,6 +302,24 @@ class Cast(Expression):
 
     def __str__(self):
         return f"CAST({self.child} AS {self.dtype})"
+
+
+@dataclass(eq=False, frozen=True)
+class AddMonths(Expression):
+    """date + n months, the day clamped to the target month's length
+    (``date + interval 'n' month|year``)."""
+
+    child: Expression
+    months: int
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.DATE
+
+    def __str__(self):
+        return f"ADD_MONTHS({self.child}, {self.months})"
 
 
 @dataclass(eq=False, frozen=True)

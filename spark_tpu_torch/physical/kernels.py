@@ -1,8 +1,10 @@
 """Device kernels of the physical operators, as torch ops.
 
 The port of ``spark_tpu/physical/kernels.py`` for the single-device
-aggregate path: sort permutations, group ids, mixed-radix key packing,
-segmented reductions and the limit mask. Everything is mask-carrying:
+aggregate and join paths: sort and compaction permutations, group ids,
+mixed-radix key packing, segmented reductions, the limit mask, and the
+sorted-build join (build index, per-probe match ranges, pair expansion,
+range packing and 64-bit key hashing). Everything is mask-carrying:
 dead rows ride along and are neutralized per reduction.
 
 Counts, sums and min/max select a path as the reference does
@@ -27,7 +29,7 @@ it is kept unchanged here.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +56,15 @@ def _argsort(x: torch.Tensor, descending: bool = False) -> torch.Tensor:
     return torch.argsort(x, stable=True, descending=descending)
 
 
+def searchsorted(a: torch.Tensor, v: torch.Tensor,
+                 side: str = "left") -> torch.Tensor:
+    """Insertion positions of ``v`` in the sorted 1-D ``a`` (int64). The
+    reference picks a binary-search or co-sort method by a TPU-tuned
+    size ratio, which changes only speed; torch has one method."""
+    return torch.searchsorted(a.contiguous(), v.to(a.dtype).contiguous(),
+                              right=side == "right")
+
+
 def lexsort_permutation(keys: Sequence[SortKey],
                         row_mask: torch.Tensor) -> torch.Tensor:
     """Stable lexicographic sort permutation. Live rows first; within the
@@ -75,6 +86,11 @@ def lexsort_permutation(keys: Sequence[SortKey],
             perm = perm[_argsort(v, descending=not key.nulls_first)]
     live = row_mask[perm]
     return perm[_argsort(~live)]  # live rows (False) first
+
+
+def compaction_permutation(row_mask: torch.Tensor) -> torch.Tensor:
+    """Permutation moving live rows to the front, preserving order."""
+    return _argsort(~row_mask)
 
 
 def group_ids_from_sorted(
@@ -379,6 +395,173 @@ def orderable_int64(
                         torch.full((), fill, dtype=torch.int64,
                                    device=y.device))
     return y
+
+
+# ---- join ------------------------------------------------------------------
+
+
+class JoinRanges(NamedTuple):
+    """Per-probe-row contiguous match range in the sorted build side."""
+
+    build_perm: torch.Tensor  # int32 sort permutation of the build side
+    lo: torch.Tensor          # int64[probe_cap]
+    hi: torch.Tensor          # int64[probe_cap]
+
+    @property
+    def counts(self) -> torch.Tensor:
+        return self.hi - self.lo
+
+
+def build_join_ranges(build_key: torch.Tensor, build_ok: torch.Tensor,
+                      probe_key: torch.Tensor,
+                      probe_ok: torch.Tensor) -> JoinRanges:
+    """Sorted-build equi-join core (replaces HashedRelation.scala /
+    LongToUnsafeRowMap:535): sort build keys with dead/null rows pushed to
+    +inf, then two binary searches per probe row give its match range.
+    ``build_ok``/``probe_ok``: live AND key-valid."""
+    perm, skey, _, _ = make_join_index(build_key, build_ok, None)
+    return ranges_from_index(perm, skey, None, None, probe_key, probe_ok)
+
+
+#: dense lo/cnt lookup tables are built when the packed key domain is at
+#: most this many entries (two int32 tables, 64 MB at 8M entries)
+JOIN_TABLE_MAX = 1 << 23
+
+
+def make_join_index(build_key: torch.Tensor, build_ok: torch.Tensor,
+                    domain: Optional[int]):
+    """The reusable part of a sorted-build join: the build permutation
+    (stable, so equal keys keep build order and pairs come out in the
+    reference's order), the sorted key with dead rows at the +inf
+    sentinel, and, when the packed key domain is small enough, dense
+    lo/cnt lookup tables over the whole domain. The port's join path
+    passes ``domain=None`` (``build_join_ranges``); only the tests reach
+    the dense tables until the join-index cache that reuses them is
+    ported (ROADMAP A11).
+
+    Returns (perm int32[bcap], sorted_key[bcap], lo_table|None,
+    cnt_table|None)."""
+    sentinel = _pos_sentinel(build_key.dtype)
+    masked = torch.where(build_ok, build_key,
+                         torch.full((), sentinel, dtype=build_key.dtype,
+                                    device=build_key.device))
+    perm = torch.argsort(masked, stable=True)
+    skey = masked[perm]
+    lo_t = cnt_t = None
+    if domain is not None and 0 < domain <= JOIN_TABLE_MAX:
+        vals = torch.arange(domain, dtype=build_key.dtype,
+                            device=build_key.device)
+        lo = searchsorted(skey, vals, "left")
+        hi = searchsorted(skey, vals, "right")
+        lo_t = lo.to(torch.int32)
+        cnt_t = (hi - lo).to(torch.int32)
+    return perm.to(torch.int32), skey, lo_t, cnt_t
+
+
+def ranges_from_index(perm: torch.Tensor, sorted_key: torch.Tensor,
+                      lo_table: Optional[torch.Tensor],
+                      cnt_table: Optional[torch.Tensor],
+                      probe_key: torch.Tensor,
+                      probe_ok: torch.Tensor) -> JoinRanges:
+    """build_join_ranges against a precomputed make_join_index. Dead
+    build rows carry the +inf sentinel key, so they sit past every dense
+    table entry / real probe key and never match."""
+    zero = torch.zeros((), dtype=torch.int64, device=probe_key.device)
+    if lo_table is not None:
+        domain = lo_table.shape[0]
+        k = probe_key.clamp(0, domain - 1).long()
+        ok = probe_ok & (probe_key >= 0) & (probe_key < domain)
+        lo = torch.where(ok, lo_table[k].to(torch.int64), zero)
+        hi = torch.where(ok, lo + cnt_table[k].to(torch.int64), zero)
+        return JoinRanges(perm, lo, hi)
+    sentinel = _pos_sentinel(sorted_key.dtype)
+    lo = searchsorted(sorted_key, probe_key, side="left")
+    hi = searchsorted(sorted_key, probe_key, side="right")
+    ok = probe_ok & (probe_key != sentinel)
+    return JoinRanges(perm, torch.where(ok, lo, zero),
+                      torch.where(ok, hi, zero))
+
+
+def expand_join_pairs(ranges: JoinRanges, total: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Materialize (probe_idx, build_idx, pair_mask) for all match pairs.
+    ``total`` is the static output capacity (host-synced count, bucketed).
+    Pair j belongs to the probe row p whose exclusive-offset range covers
+    j; its build index is the j-offsets[p]'th sorted match."""
+    counts = ranges.counts
+    offsets = torch.cumsum(counts, 0) - counts  # exclusive prefix
+    grand_total = offsets[-1] + counts[-1]
+    j = torch.arange(total, device=counts.device)
+    p = searchsorted(offsets, j, side="right") - 1
+    p = p.clamp(0, counts.shape[0] - 1)
+    k = j - offsets[p]
+    build_sorted_pos = ranges.lo[p] + k
+    build_idx = ranges.build_perm[
+        build_sorted_pos.clamp(0, ranges.build_perm.shape[0] - 1)]
+    pair_mask = j < grand_total
+    return p, build_idx, pair_mask
+
+
+def range_compress_keys(
+    keys: List[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+    mins: List[int],
+    ranges: List[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack multiple integer join keys into one int64 via range
+    compression (host supplies per-key min/range from lightweight stats).
+    Returns (combined_key, all_valid_mask)."""
+    combined = torch.zeros(keys[0][0].shape, dtype=torch.int64,
+                           device=keys[0][0].device)
+    valid = None
+    for (data, validity), mn, rg in zip(keys, mins, ranges):
+        slot = (data.to(torch.int64) - mn).clamp(0, rg - 1)
+        combined = combined * rg + slot
+        if validity is not None:
+            valid = validity if valid is None else (valid & validity)
+    if valid is None:
+        valid = torch.ones(combined.shape, dtype=torch.bool,
+                           device=combined.device)
+    return combined, valid
+
+
+# ---- 64-bit hashing ---------------------------------------------------------
+#
+# The reference hashes in uint64. torch has no uint64 right shift on the
+# CPU and thin uint64 support on CUDA, so the port holds the same bits in
+# int64: multiplies and adds wrap identically in two's complement, and a
+# logical right shift is the arithmetic one with the sign-filled high
+# bits masked off.
+
+
+def _signed64(u: int) -> int:
+    """The int64 whose bits are the uint64 ``u``."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+_MIX1 = _signed64(0xFF51AFD7ED558CCD)
+_MIX2 = _signed64(0xC4CEB9FE1A85EC53)
+_GOLDEN = _signed64(0x9E3779B97F4A7C15)
+
+
+def shift_right_logical(h: torch.Tensor, s: int) -> torch.Tensor:
+    """``h >> s`` on the uint64 bits of int64 ``h`` (0 < s < 64)."""
+    return (h >> s) & ((1 << (64 - s)) - 1)
+
+
+def hash64(x: torch.Tensor) -> torch.Tensor:
+    """Deterministic 64-bit avalanche mix (splitmix64/xxh64 finalizer
+    shape), as int64 holding the reference's uint64 bits. Role of the
+    reference's Murmur3/XXH64 hashes (common/unsafe hash/, catalyst
+    XXH64.java)."""
+    h = x.to(torch.int64)
+    h = (h ^ shift_right_logical(h, 33)) * _MIX1
+    h = (h ^ shift_right_logical(h, 33)) * _MIX2
+    return h ^ shift_right_logical(h, 33)
+
+
+def hash_combine(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Fold another column into a running row hash."""
+    return hash64(h ^ (x.to(torch.int64) + _GOLDEN))
 
 
 # ---- misc ------------------------------------------------------------------

@@ -1,21 +1,24 @@
 """Physical operators, run eagerly over torch tensors.
 
 The port of the single-device main path of
-``spark_tpu/physical/operators.py``: scan, filter, project, sort, limit
-and grouped aggregation. A pipeline carries ``(cols: {name: TV},
-row_mask)``; filters flip mask bits, projections rebuild the dict —
+``spark_tpu/physical/operators.py``: scan, filter, project, sort, limit,
+compaction, grouped aggregation and the sorted-build equi-join
+(``JoinExec``, its blocking path). A pipeline carries ``(cols: {name:
+TV}, row_mask)``; filters flip mask bits, projections rebuild the dict —
 shapes never change mid-stage. The reference fuses traceable operators
 into one XLA program; here every operator runs eagerly
 (``execute(child_pipes) -> Pipe``) and the planner evaluates the tree
-recursively.
+recursively. ``traceable`` keeps the reference's meaning: the operator
+needs no host sync, so the planner does not compact its inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_tpu_torch import types as T
@@ -24,6 +27,7 @@ from spark_tpu_torch.expr import compiler as C
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.expr.compiler import TV, Env
 from spark_tpu_torch.physical import kernels as K
+from spark_tpu_torch.plan.logical import join_schema
 from spark_tpu_torch.types import Field, Schema
 
 
@@ -67,6 +71,10 @@ class Pipe:
 
 class PhysicalPlan:
     """Base physical operator."""
+
+    #: True when ``execute`` needs no host sync (the reference's flag:
+    #: such operators fuse into one program there)
+    traceable: bool = True
 
     def children(self) -> Tuple["PhysicalPlan", ...]:
         return ()
@@ -224,6 +232,34 @@ class LimitExec(PhysicalPlan):
 
     def node_string(self):
         return f"Limit[{self.n}]"
+
+
+@dataclass(eq=False)
+class CompactExec(PhysicalPlan):
+    """Gather live rows to the front and truncate to a bucketed capacity
+    (reference analogue: AQE's CoalesceShufflePartitions.scala). Stable
+    compaction preserves sorted row order."""
+
+    child: PhysicalPlan
+    cap: int
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        pipe = child_pipes[0]
+        if self.cap >= pipe.capacity:
+            return pipe
+        idx = K.compaction_permutation(pipe.mask)[:self.cap]
+        cols = {name: _take(pipe.cols[name], idx) for name in pipe.order}
+        return Pipe(cols, pipe.mask[idx], pipe.order)
+
+    def node_string(self):
+        return f"Compact[{self.cap}]"
 
 
 # ---- aggregation ------------------------------------------------------------
@@ -416,6 +452,10 @@ class HashAggregateExec(PhysicalPlan):
     def children(self):
         return (self.child,)
 
+    @property
+    def traceable(self) -> bool:  # type: ignore[override]
+        return self._static_direct_ok()
+
     def _static_direct_ok(self) -> bool:
         """Can we guarantee the direct path from schema info alone?"""
         cs = self.child.schema
@@ -526,3 +566,354 @@ class HashAggregateExec(PhysicalPlan):
     def node_string(self):
         return (f"HashAggregate[keys=[{', '.join(map(str, self.groupings))}], "
                 f"out=[{', '.join(str(e) for e in self.aggregates)}]]")
+
+
+# ---- join ------------------------------------------------------------------
+
+
+def _hash_keys(lds, rds):
+    """Hash-combine multiple key columns into one int64 per row. Shifted
+    right by 2 (logically, on the uint64 bits) so the max value is
+    2^62-1 — strictly below the int64 sentinel build_join_ranges uses
+    for dead rows."""
+    lh = K.hash64(lds[0])
+    rh = K.hash64(rds[0])
+    for ld, rd in zip(lds[1:], rds[1:]):
+        lh = K.hash_combine(lh, ld)
+        rh = K.hash_combine(rh, rd)
+    return K.shift_right_logical(lh, 2), K.shift_right_logical(rh, 2)
+
+
+def _verify_key_pairs(prepped, p_idx, b_idx, cap):
+    """Exact key equality for hash-matched pairs."""
+    ok = torch.ones((cap,), dtype=torch.bool, device=p_idx.device)
+    for ld, rd in prepped:
+        ok = ok & (ld[p_idx] == rd[b_idx])
+    return ok
+
+
+def _gather_pairs(lpipe: Pipe, rpipe: Pipe, p_idx, b_idx
+                  ) -> Tuple[Dict[str, TV], List[str]]:
+    """Both sides' columns gathered at the pair indices, under the
+    '#2'-deduplicated pair names."""
+    pair_names = E.dedup_pair_names(lpipe.order, rpipe.order)
+    n_l = len(lpipe.order)
+    cols: Dict[str, TV] = {}
+    for out_name, src_name in zip(pair_names[:n_l], lpipe.order):
+        cols[out_name] = _take(lpipe.cols[src_name], p_idx)
+    for out_name, src_name in zip(pair_names[n_l:], rpipe.order):
+        cols[out_name] = _take(rpipe.cols[src_name], b_idx)
+    return cols, pair_names
+
+
+@dataclass(eq=False)
+class JoinExec(PhysicalPlan):
+    """Equi-join via sorted-build + searchsorted ranges (reference:
+    ShuffledHashJoinExec.scala:38 / BroadcastHashJoinExec.scala:40 +
+    HashedRelation.scala — rebuilt without hash tables, see
+    kernels.build_join_ranges). Blocking: the output capacity is the
+    host-synced match count. The reference's traced re-execution path
+    and its adaptive statistics caches are not ported."""
+
+    left: PhysicalPlan
+    right: PhysicalPlan
+    how: str
+    left_keys: Tuple[E.Expression, ...]
+    right_keys: Tuple[E.Expression, ...]
+    condition: Optional[E.Expression] = None
+    traceable = False
+
+    def children(self):
+        return (self.left, self.right)
+
+    @property
+    def schema(self) -> Schema:
+        return join_schema(self.how, self.left.schema, self.right.schema)
+
+    # -- key normalization ----------------------------------------------------
+
+    def _combined_keys(self, lpipe: Pipe, rpipe: Pipe):
+        """Evaluate equi-join keys on both sides and pack them into one
+        int64 key per row; strings go through a unified dictionary, ints
+        through range compression on min/max stats that come to the host
+        in ONE copy for all keys. Returns (left key, left key-valid,
+        right key, right key-valid, hashed, per-key (left, right) data):
+        ``hashed`` when the packed range would pass 2^62 and the keys
+        were hashed instead, so pairs must be verified."""
+        lenv, renv = lpipe.env(), rpipe.env()
+        lks = [C.evaluate(k, lenv) for k in self.left_keys]
+        rks = [C.evaluate(k, renv) for k in self.right_keys]
+        dev = lpipe.mask.device
+        i64max = torch.full((), K.INT64_MAX, dtype=torch.int64, device=dev)
+        i64min = torch.full((), K.INT64_MIN, dtype=torch.int64, device=dev)
+
+        lcomb = torch.zeros((lpipe.capacity,), dtype=torch.int64, device=dev)
+        rcomb = torch.zeros((rpipe.capacity,), dtype=torch.int64, device=dev)
+        lvalid = torch.ones((lpipe.capacity,), dtype=torch.bool, device=dev)
+        rvalid = torch.ones((rpipe.capacity,), dtype=torch.bool, device=dev)
+
+        prepped = []  # (ld, rd, rg_or_None, stat_index_or_None)
+        stats = []
+        for lt, rt in zip(lks, rks):
+            if isinstance(lt.dtype, T.StringType) \
+                    or isinstance(rt.dtype, T.StringType):
+                union, (tl, tr) = C.unify_dictionaries(
+                    (lt.dictionary or (), rt.dictionary or ()))
+                ld = (C._gather(tl, lt.data) if len(lt.dictionary or ())
+                      else lt.data)
+                rd = (C._gather(tr, rt.data) if len(rt.dictionary or ())
+                      else rt.data)
+                prepped.append((ld, rd, max(1, len(union)), None))
+            else:
+                ld = lt.data.to(torch.int64)
+                rd = rt.data.to(torch.int64)
+                lok = lpipe.mask & lt.valid_or_true(lpipe.capacity)
+                rok = rpipe.mask & rt.valid_or_true(rpipe.capacity)
+                lo = torch.minimum(torch.where(lok, ld, i64max).min(),
+                                   torch.where(rok, rd, i64max).min())
+                hi = torch.maximum(torch.where(lok, ld, i64min).max(),
+                                   torch.where(rok, rd, i64min).max())
+                prepped.append((ld, rd, None, len(stats)))
+                stats.append(torch.stack([lo, hi]))
+        # host sync: every key's (min, max) in one copy
+        fetched = torch.stack(stats).tolist() if stats else []
+
+        total_range = 1
+        hashed = False
+        for ld, rd, rg, si in prepped:
+            mn = 0
+            if rg is None:
+                mn, mx = fetched[si]
+                if mn > mx:
+                    mn, mx = 0, 0
+                rg = mx - mn + 1
+            if total_range * rg > (1 << 62):  # incl. single wide key
+                hashed = True
+                break
+            lcomb = lcomb * rg + (ld - mn).clamp(0, rg - 1)
+            rcomb = rcomb * rg + (rd - mn).clamp(0, rg - 1)
+            total_range *= rg
+        if hashed:
+            # exact range packing impossible (e.g. two hash-like int64
+            # ids): hash-combine the keys and VERIFY pairs after
+            # expansion (reference: HashedRelation.scala:208 — probe by
+            # hash, confirm by key equality)
+            lcomb, rcomb = _hash_keys([p[0] for p in prepped],
+                                      [p[1] for p in prepped])
+        for lt, rt in zip(lks, rks):
+            if lt.validity is not None:
+                lvalid = lvalid & lt.validity
+            if rt.validity is not None:
+                rvalid = rvalid & rt.validity
+        return lcomb, lvalid, rcomb, rvalid, hashed, \
+            [(p[0], p[1]) for p in prepped]
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        lpipe, rpipe = child_pipes
+        how = self.how
+        if how == "cross" and self.condition is None:
+            return self._cross(lpipe, rpipe)
+        if not self.left_keys:
+            # condition-only join: chunked nested loop instead of
+            # materializing all L*R pairs at once (reference:
+            # BroadcastNestedLoopJoinExec)
+            return self._nested_loop(lpipe, rpipe, how)
+
+        lkey, lvalid, rkey, rvalid, hashed, prepped = self._combined_keys(
+            lpipe, rpipe)
+        # probe = left, build = right (left-side row order is preserved,
+        # matching streamed-side semantics)
+        ranges = K.build_join_ranges(rkey, rpipe.mask & rvalid,
+                                     lkey, lpipe.mask & lvalid)
+        if how in ("left_semi", "left_anti") and self.condition is None \
+                and not hashed:
+            has_match = ranges.counts > 0
+            keep = lpipe.mask & (has_match if how == "left_semi"
+                                 else ~has_match)
+            return Pipe(lpipe.cols, keep, lpipe.order)
+        total = int(ranges.counts.sum())  # host sync: output sizing
+        return self._pairs_pipe(lpipe, rpipe, ranges, hashed, prepped,
+                                K.bucket(total))
+
+    def _pairs_pipe(self, lpipe: Pipe, rpipe: Pipe, ranges, hashed,
+                    prepped, cap: int) -> Pipe:
+        """General match expansion at a static capacity."""
+        how = self.how
+        p_idx, b_idx, pair_mask = K.expand_join_pairs(ranges, cap)
+        # The pair environment always carries BOTH sides (with '#2'
+        # dedup names) so semi/anti join conditions can reference the
+        # inner relation; the output schema narrows afterwards.
+        cols, order = _gather_pairs(lpipe, rpipe, p_idx, b_idx)
+
+        pair_ok = pair_mask
+        if hashed:
+            # hash probe: confirm candidate pairs by exact key equality
+            pair_ok = pair_ok & _verify_key_pairs(prepped, p_idx, b_idx,
+                                                  cap)
+        if self.condition is not None:
+            ctv = C.evaluate(self.condition,
+                             Env(cols, cap, device=pair_ok.device))
+            pair_ok = pair_ok & ctv.data & ctv.valid_or_true(cap)
+
+        if how == "inner":
+            return Pipe(cols, pair_ok, order)
+
+        # matched flags must be computed on the ORIGINAL pair arrays,
+        # before any unmatched-row appends change the capacity
+        matched = K.seg_count(p_idx, pair_ok, lpipe.capacity) > 0
+        matched_b = (K.seg_count(b_idx, pair_ok, rpipe.capacity) > 0
+                     if how in ("right", "full") else None)
+        if how == "left_semi":
+            return Pipe(lpipe.cols, lpipe.mask & matched, lpipe.order)
+        if how == "left_anti":
+            return Pipe(lpipe.cols, lpipe.mask & ~matched, lpipe.order)
+        if how in ("left", "full"):
+            cols, pair_ok = append_unmatched_left(cols, pair_ok, order,
+                                                  lpipe, matched)
+        if how in ("right", "full"):
+            cols, pair_ok = append_unmatched_right(cols, pair_ok, order,
+                                                   lpipe, rpipe, matched_b)
+        return Pipe(cols, pair_ok, order)
+
+    def _nested_loop(self, lpipe: Pipe, rpipe: Pipe, how: str) -> Pipe:
+        """Condition-only join evaluated in fixed-size left-chunks of
+        bounded pair count; surviving pair indices come to the host per
+        chunk and are gathered once at the end."""
+        lcap = lpipe.capacity
+        rcap = rpipe.capacity
+        dev = lpipe.mask.device
+        rn = int(rpipe.mask.sum())  # host sync: build size
+        rperm = K.compaction_permutation(rpipe.mask)
+
+        matched_l = np.zeros(lcap, dtype=bool)
+        matched_r = np.zeros(rcap, dtype=bool)
+        keep_p: List[np.ndarray] = []
+        keep_b: List[np.ndarray] = []
+        if rn > 0:
+            budget = 1 << 22  # pairs per chunk (~32 MB of int64 per col)
+            chunk = max(1, min(lcap, budget // rn))
+            j = torch.arange(chunk * rn, device=dev)
+            local_p = torch.div(j, rn, rounding_mode="floor")
+            b_idx = rperm[j % rn]
+            for start in range(0, lcap, chunk):
+                p_idx = (local_p + start).clamp(0, lcap - 1)
+                pair_ok = (local_p + start < lcap) & lpipe.mask[p_idx]
+                if self.condition is not None:
+                    cols, _ = _gather_pairs(lpipe, rpipe, p_idx, b_idx)
+                    ctv = C.evaluate(self.condition,
+                                     Env(cols, chunk * rn, device=dev))
+                    pair_ok = pair_ok & ctv.data & ctv.valid_or_true(
+                        chunk * rn)
+                idx = np.nonzero(pair_ok.cpu().numpy())[0]  # host sync
+                if idx.size:
+                    ps = p_idx.cpu().numpy()[idx]
+                    bs = b_idx.cpu().numpy()[idx]
+                    matched_l[ps] = True
+                    matched_r[bs] = True
+                    if how not in ("left_semi", "left_anti"):
+                        keep_p.append(ps)
+                        keep_b.append(bs)
+
+        ml = torch.from_numpy(matched_l).to(dev)
+        if how == "left_semi":
+            return Pipe(lpipe.cols, lpipe.mask & ml, lpipe.order)
+        if how == "left_anti":
+            return Pipe(lpipe.cols, lpipe.mask & ~ml, lpipe.order)
+
+        all_p = (np.concatenate(keep_p) if keep_p
+                 else np.zeros((0,), dtype=np.int64))
+        all_b = (np.concatenate(keep_b) if keep_b
+                 else np.zeros((0,), dtype=np.int64))
+        total = int(all_p.shape[0])
+        cap = K.bucket(total)
+        pad_p = np.zeros(cap, dtype=np.int64)
+        pad_b = np.zeros(cap, dtype=np.int64)
+        pad_p[:total] = all_p
+        pad_b[:total] = all_b
+        pair_ok = torch.arange(cap, device=dev) < total
+        cols, order = _gather_pairs(lpipe, rpipe,
+                                    torch.from_numpy(pad_p).to(dev),
+                                    torch.from_numpy(pad_b).to(dev))
+        if how in ("left", "full"):
+            cols, pair_ok = append_unmatched_left(cols, pair_ok, order,
+                                                  lpipe, ml)
+        if how in ("right", "full"):
+            cols, pair_ok = append_unmatched_right(
+                cols, pair_ok, order, lpipe, rpipe,
+                torch.from_numpy(matched_r).to(dev))
+        return Pipe(cols, pair_ok, order)
+
+    def _cross(self, lpipe: Pipe, rpipe: Pipe) -> Pipe:
+        """Cartesian product with the right side's live rows compacted
+        to the front; an empty right side gives an empty product."""
+        dev = lpipe.mask.device
+        rn = int(rpipe.mask.sum())  # host sync: output sizing
+        lcap = lpipe.capacity
+        cap = K.bucket(lcap * rn if rn else 1)
+        j = torch.arange(cap, device=dev)
+        rs = max(rn, 1)
+        p_idx = torch.div(j, rs, rounding_mode="floor")
+        rperm = K.compaction_permutation(rpipe.mask)
+        b_idx = rperm[j % rs]
+        pair_mask = (j < lcap * rs) & lpipe.mask[p_idx.clamp(0, lcap - 1)]
+        if rn == 0:
+            pair_mask = torch.zeros_like(pair_mask)
+        cols, order = _gather_pairs(lpipe, rpipe, p_idx.clamp(0, lcap - 1),
+                                    b_idx)
+        return Pipe(cols, pair_mask, order)
+
+    def node_string(self):
+        ks = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys,
+                                                  self.right_keys))
+        return f"Join[{self.how}, ({ks}), cond={self.condition}]"
+
+
+def append_unmatched_left(cols, pair_ok, order, lpipe, matched):
+    """Append left rows with no (condition-passing) match; right side
+    NULL (reference contract: joins/ShuffledHashJoinExec.scala:38 —
+    unmatched stream rows padded with nulls). Returns (cols, mask)."""
+    lcap = lpipe.capacity
+    n_l = len(lpipe.order)
+    new_cols: Dict[str, TV] = {}
+    for i, name in enumerate(order):
+        tv = cols[name]
+        rows = tv.data.shape[0]
+        if i < n_l:
+            src = lpipe.cols[lpipe.order[i]]
+            data = torch.cat([tv.data, src.data])
+            validity = None
+            if tv.validity is not None or src.validity is not None:
+                validity = torch.cat([tv.valid_or_true(rows),
+                                      src.valid_or_true(lcap)])
+        else:
+            data = torch.cat([tv.data, torch.zeros(
+                (lcap,), dtype=tv.data.dtype, device=tv.data.device)])
+            validity = torch.cat([tv.valid_or_true(rows), torch.zeros(
+                (lcap,), dtype=torch.bool, device=tv.data.device)])
+        new_cols[name] = TV(data, validity, tv.dtype, tv.dictionary)
+    return new_cols, torch.cat([pair_ok, lpipe.mask & ~matched])
+
+
+def append_unmatched_right(cols, pair_ok, order, lpipe, rpipe, matched_b):
+    """Append right rows with no (condition-passing) match; left side
+    NULL. Returns (cols, mask)."""
+    rcap = rpipe.capacity
+    n_l = len(lpipe.order)
+    new_cols: Dict[str, TV] = {}
+    for i, name in enumerate(order):
+        tv = cols[name]
+        rows = tv.data.shape[0]
+        if i < n_l:
+            data = torch.cat([tv.data, torch.zeros(
+                (rcap,), dtype=tv.data.dtype, device=tv.data.device)])
+            validity = torch.cat([tv.valid_or_true(rows), torch.zeros(
+                (rcap,), dtype=torch.bool, device=tv.data.device)])
+        else:
+            src = rpipe.cols[rpipe.order[i - n_l]]
+            data = torch.cat([tv.data, src.data])
+            validity = None
+            if tv.validity is not None or src.validity is not None:
+                validity = torch.cat([tv.valid_or_true(rows),
+                                      src.valid_or_true(rcap)])
+        new_cols[name] = TV(data, validity, tv.dtype, tv.dictionary)
+    return new_cols, torch.cat([pair_ok, rpipe.mask & ~matched_b])

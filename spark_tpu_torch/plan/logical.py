@@ -1,6 +1,6 @@
-"""Logical plans, trimmed to the nodes the single-device aggregate
-slice plans: relations, projections, filters, aggregates, sorts, limits
-and DISTINCT.
+"""Logical plans, trimmed to the nodes the single-device aggregate and
+join slices plan: relations, projections, filters, aggregates, sorts,
+limits, DISTINCT and joins.
 
 The analogue of Catalyst's logical operators (reference:
 sql/catalyst/src/main/scala/org/apache/spark/sql/catalyst/plans/logical/
@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.types import Field, Schema
@@ -245,3 +245,48 @@ class Distinct(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self.child.schema
+
+
+# ---- binary ----------------------------------------------------------------
+
+
+def join_schema(how: str, left: Schema, right: Schema) -> Schema:
+    """Output schema of a join: the left side's for semi/anti joins,
+    else both sides with '#2'-deduplicated right names, the outer side
+    of an outer join made nullable."""
+    if how in ("left_semi", "left_anti"):
+        return left
+    lf = list(left.fields)
+    rf = list(right.fields)
+    if how in ("left", "full"):
+        rf = [dataclasses.replace(f, nullable=True) for f in rf]
+    if how in ("right", "full"):
+        lf = [dataclasses.replace(f, nullable=True) for f in lf]
+    names = E.dedup_pair_names([f.name for f in lf], [f.name for f in rf])
+    return Schema(tuple(dataclasses.replace(f, name=n)
+                        for f, n in zip(lf + rf, names)))
+
+
+@dataclass(eq=False, frozen=True)
+class Join(LogicalPlan):
+    left: LogicalPlan
+    right: LogicalPlan
+    # inner, left, right, full, left_semi, left_anti or cross
+    how: str
+    # Equi-join keys (left_keys[i] == right_keys[i]); extra non-equi
+    # predicates go to ``condition`` and are applied post-match.
+    left_keys: Tuple[E.Expression, ...]
+    right_keys: Tuple[E.Expression, ...]
+    condition: Optional[E.Expression] = None
+
+    def children(self):
+        return (self.left, self.right)
+
+    @cached_property
+    def schema(self) -> Schema:
+        return join_schema(self.how, self.left.schema, self.right.schema)
+
+    def node_string(self):
+        ks = ", ".join(f"{l}={r}"
+                       for l, r in zip(self.left_keys, self.right_keys))
+        return f"Join[{self.how}, keys=({ks}), cond={self.condition}]"

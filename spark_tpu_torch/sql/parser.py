@@ -1,16 +1,20 @@
-"""SQL parser: text -> logical plans, trimmed to the single-table
-aggregate slice.
+"""SQL parser: text -> logical plans, trimmed to the single-device
+aggregate and join slices.
 
 Hand-written tokenizer, recursive-descent expression parser and
-statement builder for SELECT [DISTINCT] ... FROM <table> [WHERE]
+statement builder for SELECT [DISTINCT] ... FROM <relations> [WHERE]
 [GROUP BY] [ORDER BY] [LIMIT [OFFSET]] with comparisons, BETWEEN,
-IS [NOT] NULL, arithmetic, CAST, date and day-interval literals and the
-count/sum/avg/min/max aggregates. Joins, subqueries, set operations,
-HAVING and DISTINCT aggregates raise ``NotImplementedError``; other
-constructs are parse errors. The reference parses with an ANTLR grammar
-(reference: sql/catalyst/src/main/antlr4/.../SqlBaseParser.g4:1 +
+IS [NOT] NULL, arithmetic, CAST, date literals, day/week/month/year
+intervals and the count/sum/avg/min/max aggregates. The FROM clause
+takes tables with aliases, comma joins and ``[INNER|CROSS|LEFT
+[OUTER]|RIGHT [OUTER]|FULL [OUTER]|LEFT SEMI|LEFT ANTI] JOIN ...
+ON/USING``. Subqueries (in FROM or in expressions), LATERAL VIEW, set
+operations, HAVING and DISTINCT aggregates raise
+``NotImplementedError``; other constructs are parse errors. The
+reference parses with an ANTLR grammar (reference:
+sql/catalyst/src/main/antlr4/.../SqlBaseParser.g4:1 +
 parser/AstBuilder.scala); name resolution happens during parsing
-against the FROM relation, folding the Analyzer's resolution tier
+against the FROM clause's scope, folding the Analyzer's resolution tier
 (reference: analysis/Analyzer.scala:188) into plan construction.
 """
 
@@ -19,11 +23,12 @@ from __future__ import annotations
 import datetime
 import re
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from spark_tpu_torch import types as T
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.plan import logical as L
+from spark_tpu_torch.plan.optimizer import combine_conjuncts, split_conjuncts
 from spark_tpu_torch.sql.ddl import parse_type
 
 # ---- tokenizer --------------------------------------------------------------
@@ -76,16 +81,72 @@ class SQLParseError(ValueError):
 
 
 _RESERVED_STOP = {
-    "FROM", "WHERE", "GROUP", "HAVING", "ORDER", "LIMIT", "OFFSET", "JOIN",
-    "INNER", "LEFT", "RIGHT", "FULL", "CROSS", "UNION", "INTERSECT",
-    "EXCEPT", "AS", "AND", "OR", "NOT", "BY", "ASC", "DESC", "NULLS",
+    "FROM", "WHERE", "GROUP", "HAVING", "ORDER", "LIMIT", "OFFSET", "ON",
+    "JOIN", "INNER", "LEFT", "RIGHT", "FULL", "CROSS", "OUTER", "UNION",
+    "INTERSECT", "EXCEPT", "AS", "AND", "OR", "NOT", "BY", "ASC", "DESC",
+    "THEN", "WHEN", "ELSE", "END", "USING", "SEMI", "ANTI", "NULLS",
+    "LATERAL",
 }
-
-_JOIN_WORDS = {"JOIN", "INNER", "LEFT", "RIGHT", "FULL", "CROSS"}
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} are not ported yet (ROADMAP queue A)")
+
+
+# ---- name resolution scope --------------------------------------------------
+
+
+class Scope:
+    """FROM-clause namespace: per-alias source->output column mapping.
+
+    Join output names deduplicate with '#2' suffixes (logical.Join.schema
+    semantics); the scope tracks, for every relation in the FROM clause,
+    what each of its columns is called in the joined output, so
+    ``alias.col`` and bare ``col`` resolve to output Col names."""
+
+    def __init__(self):
+        self.entries: List[Tuple[Optional[str], List[Tuple[str, str]]]] = []
+
+    def add_relation(self, alias: Optional[str],
+                     src_names: Sequence[str]) -> List[str]:
+        """Register a relation; returns the OUTPUT names its columns get
+        after join-dedup against everything already in scope."""
+        seen = {out for _, cols in self.entries for _, out in cols}
+        mapping = []
+        for n in src_names:
+            out = n
+            while out in seen:
+                out = out + "#2"
+            seen.add(out)
+            mapping.append((n, out))
+        self.entries.append((alias.lower() if alias else None, mapping))
+        return [out for _, out in mapping]
+
+    def resolve(self, qualifier: Optional[str], name: str) -> Optional[str]:
+        name_l = name.lower()
+        if qualifier is not None:
+            q = qualifier.lower()
+            for alias, cols in self.entries:
+                if alias == q:
+                    for src, out in cols:
+                        if src.lower() == name_l:
+                            return out
+            return None
+        hits = [out for _, cols in self.entries for src, out in cols
+                if src.lower() == name_l]
+        if len(hits) > 1:
+            raise SQLParseError(f"ambiguous column reference {name!r}")
+        return hits[0] if hits else None
+
+    def all_output_names(self) -> List[str]:
+        return [out for _, cols in self.entries for _, out in cols]
+
+    def relation_outputs(self, alias: str) -> Optional[List[str]]:
+        q = alias.lower()
+        for a, cols in self.entries:
+            if a == q:
+                return [out for _, out in cols]
+        return None
 
 
 # ---- expression parser -------------------------------------------------------
@@ -199,9 +260,16 @@ class _ExprParser:
 
     def _date_arith(self, op: str, left: E.Expression,
                     right: E.Expression) -> E.Expression:
-        """Fold a day-interval literal into date arithmetic."""
+        """Fold interval literals into date arithmetic at parse time."""
         if isinstance(right, _Interval):
-            return E.Arith(op, left, E.Literal(right.days))
+            if right.months:
+                months = right.months if op == "+" else -right.months
+                base = E.AddMonths(left, months)
+            else:
+                base = left
+            if right.days:
+                base = E.Arith(op, base, E.Literal(right.days))
+            return base
         if isinstance(left, _Interval):
             raise SQLParseError("interval must be the right operand")
         return E.Arith(op, left, right)
@@ -295,6 +363,10 @@ class _ExprParser:
         else:
             raise SQLParseError(f"bad interval quantity at {t.pos}")
         unit = self.next().upper.rstrip("S")
+        if unit == "YEAR":
+            return _Interval(months=12 * qty)
+        if unit == "MONTH":
+            return _Interval(months=qty)
         if unit == "DAY":
             return _Interval(days=qty)
         if unit == "WEEK":
@@ -322,6 +394,7 @@ class _ExprParser:
 
 @dataclass(eq=False, frozen=True)
 class _Interval(E.Expression):
+    months: int = 0
     days: int = 0
 
 
@@ -342,10 +415,23 @@ class _StmtParser(_Tokens):
     def _expr(self, resolver: Resolver) -> E.Expression:
         return _ExprParser(self, resolver).parse()
 
+    # -- resolvers ------------------------------------------------------------
+
+    @staticmethod
+    def _make_resolver(scope: Scope) -> Resolver:
+        def resolve(qual: Optional[str], name: str) -> E.Expression:
+            out = scope.resolve(qual, name)
+            if out is not None:
+                return E.Col(out)
+            raise SQLParseError(
+                f"cannot resolve column {qual + '.' if qual else ''}{name}")
+
+        return resolve
+
     # -- FROM clause ----------------------------------------------------------
 
-    def _parse_from(self) -> Tuple[L.LogicalPlan, Resolver]:
-        """FROM <table> [[AS] alias]; returns the plan and its resolver."""
+    def _parse_relation_primary(self) -> Tuple[L.LogicalPlan, str]:
+        """table [[AS] alias] — returns (plan, alias)."""
         if self.accept("("):
             raise _not_ported("subqueries")
         t = self.next()
@@ -353,18 +439,102 @@ class _StmtParser(_Tokens):
             raise SQLParseError(f"expected table name at {t.pos}")
         plan = self.catalog.lookup(t.value)
         alias = self._parse_alias() or t.value
-        if self.accept(",") or self.peek().upper in _JOIN_WORDS:
-            raise _not_ported("joins")
-        names = {n.lower(): n for n in plan.schema.names}
+        return plan, alias
 
-        def resolve(qual: Optional[str], name: str) -> E.Expression:
-            if (qual is None or qual.lower() == alias.lower()) \
-                    and name.lower() in names:
-                return E.Col(names[name.lower()])
-            raise SQLParseError(
-                f"cannot resolve column {qual + '.' if qual else ''}{name}")
+    def _parse_from(self) -> Tuple[L.LogicalPlan, Scope]:
+        scope = Scope()
+        plan, alias = self._parse_relation_primary()
+        scope.add_relation(alias, plan.schema.names)
+        while True:
+            if self.accept(","):
+                rplan, ralias = self._parse_relation_primary()
+                scope.add_relation(ralias, rplan.schema.names)
+                plan = L.Join(plan, rplan, "cross", (), ())
+                continue
+            if self.peek(0).upper == "LATERAL" \
+                    and self.peek(1).upper == "VIEW":
+                raise _not_ported("LATERAL VIEW generators")
+            how = self._peek_join_type()
+            if how is None:
+                break
+            rplan, ralias = self._parse_relation_primary()
+            right_src = rplan.schema.names
+            # output names the right side will take post-dedup
+            out_names = scope.add_relation(ralias, right_src)
+            right_sub = {out: src for out, src in zip(out_names, right_src)}
+            if self.accept("ON"):
+                cond = self._expr(self._make_resolver(scope))
+                plan = self._build_join(plan, rplan, how, cond, right_sub)
+            elif self.accept("USING"):
+                self.expect("(")
+                cols = [self.next().value]
+                while self.accept(","):
+                    cols.append(self.next().value)
+                self.expect(")")
+                lk = tuple(E.Col(c) for c in cols)
+                plan = L.Join(plan, rplan, how, lk, lk)
+            else:
+                if how != "cross":
+                    raise SQLParseError("JOIN requires ON or USING")
+                plan = L.Join(plan, rplan, "cross", (), ())
+        return plan, scope
 
-        return plan, resolve
+    _JOIN_TYPES = (
+        (("CROSS", "JOIN"), "cross"),
+        (("INNER", "JOIN"), "inner"),
+        (("LEFT", "SEMI", "JOIN"), "left_semi"),
+        (("LEFT", "ANTI", "JOIN"), "left_anti"),
+        (("LEFT", "OUTER", "JOIN"), "left"),
+        (("LEFT", "JOIN"), "left"),
+        (("RIGHT", "OUTER", "JOIN"), "right"),
+        (("RIGHT", "JOIN"), "right"),
+        (("FULL", "OUTER", "JOIN"), "full"),
+        (("FULL", "JOIN"), "full"),
+        (("JOIN",), "inner"),
+    )
+
+    def _peek_join_type(self) -> Optional[str]:
+        for words, how in self._JOIN_TYPES:
+            if all(self.peek(i).upper == w for i, w in enumerate(words)):
+                for _ in words:
+                    self.next()
+                return how
+        return None
+
+    def _build_join(self, left: L.LogicalPlan, right: L.LogicalPlan,
+                    how: str, cond: E.Expression,
+                    right_out_to_src: Dict[str, str]) -> L.LogicalPlan:
+        """Split an ON condition into equi keys + residual. The condition
+        references OUTPUT names; keys must be rewritten to each side's
+        SOURCE names (the engines evaluate keys on child pipes)."""
+        left_out = set(left.schema.names)
+        right_out = set(right_out_to_src)
+
+        def to_src(e: E.Expression) -> E.Expression:
+            def fn(x):
+                if isinstance(x, E.Col) and x.col_name in right_out_to_src:
+                    return E.Col(right_out_to_src[x.col_name])
+                return x
+
+            return E.transform_expr(e, fn)
+
+        lkeys: List[E.Expression] = []
+        rkeys: List[E.Expression] = []
+        residual: List[E.Expression] = []
+        for c in split_conjuncts(cond):
+            if isinstance(c, E.Cmp) and c.op == "==":
+                lr, rr = c.left.references(), c.right.references()
+                if lr and lr <= left_out and rr and rr <= right_out:
+                    lkeys.append(c.left)
+                    rkeys.append(to_src(c.right))
+                    continue
+                if rr and rr <= left_out and lr and lr <= right_out:
+                    lkeys.append(c.right)
+                    rkeys.append(to_src(c.left))
+                    continue
+            residual.append(c)
+        res = combine_conjuncts(residual) if residual else None
+        return L.Join(left, right, how, tuple(lkeys), tuple(rkeys), res)
 
     def _parse_alias(self) -> Optional[str]:
         if self.accept("AS"):
@@ -476,7 +646,8 @@ class _StmtParser(_Tokens):
         select_end = self.pos
 
         self.expect("FROM")
-        plan, resolver = self._parse_from()
+        plan, scope = self._parse_from()
+        resolver = self._make_resolver(scope)
 
         if self.accept("WHERE"):
             plan = L.Filter(self._expr(resolver), plan)
@@ -484,7 +655,7 @@ class _StmtParser(_Tokens):
         # parse the saved select list now
         saved = self.pos
         self.pos = select_start
-        select_exprs = self._parse_select_list(select_end, plan, resolver)
+        select_exprs = self._parse_select_list(select_end, scope, resolver)
         self.pos = saved
 
         group_exprs: List[E.Expression] = []
@@ -523,14 +694,23 @@ class _StmtParser(_Tokens):
 
         return resolve
 
-    def _parse_select_list(self, end: int, plan: L.LogicalPlan,
+    def _parse_select_list(self, end: int, scope: Scope,
                            resolver: Resolver) -> List[E.Expression]:
         exprs: List[E.Expression] = []
         while self.pos < end:
             t = self.peek()
             if t.kind == "op" and t.value == "*":
                 self.next()
-                exprs.extend(E.Col(n) for n in plan.schema.names)
+                exprs.extend(E.Col(n) for n in scope.all_output_names())
+            elif t.kind in ("id", "qid") and self.peek(1).value == "." \
+                    and self.peek(2).value == "*":
+                rel_outs = scope.relation_outputs(t.value)
+                if rel_outs is None:
+                    raise SQLParseError(f"unknown relation {t.value!r}")
+                self.next()
+                self.next()
+                self.next()
+                exprs.extend(E.Col(n) for n in rel_outs)
             else:
                 e = self._expr(resolver)
                 if self.pos < end and self.accept("AS"):

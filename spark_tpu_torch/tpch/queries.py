@@ -1,6 +1,6 @@
-"""TPC-H query texts used by the port: q1 from the TPC-H specification
-(rev 2.18, default substitution parameters), copied from the reference
-package's query set, plus ``Q1_WIDE``.
+"""TPC-H query texts used by the port: q1, q3 and q5 from the TPC-H
+specification (rev 2.18, default substitution parameters), copied from
+the reference package's query set, plus ``Q1_WIDE``.
 
 ``Q1_WIDE`` is a q1-shaped aggregate grouped by four dictionary columns
 (3 * 2 * 7 * 4 = 168 packed groups), so HashAggregate's direct path runs
@@ -33,6 +33,57 @@ group by
 order by
     l_returnflag,
     l_linestatus
+""",
+    3: """
+select
+    l_orderkey,
+    sum(l_extendedprice * (1 - l_discount)) as revenue,
+    o_orderdate,
+    o_shippriority
+from
+    customer,
+    orders,
+    lineitem
+where
+    c_mktsegment = 'BUILDING'
+    and c_custkey = o_custkey
+    and l_orderkey = o_orderkey
+    and o_orderdate < date '1995-03-15'
+    and l_shipdate > date '1995-03-15'
+group by
+    l_orderkey,
+    o_orderdate,
+    o_shippriority
+order by
+    revenue desc,
+    o_orderdate
+limit 10
+""",
+    5: """
+select
+    n_name,
+    sum(l_extendedprice * (1 - l_discount)) as revenue
+from
+    customer,
+    orders,
+    lineitem,
+    supplier,
+    nation,
+    region
+where
+    c_custkey = o_custkey
+    and l_orderkey = o_orderkey
+    and l_suppkey = s_suppkey
+    and c_nationkey = s_nationkey
+    and s_nationkey = n_nationkey
+    and n_regionkey = r_regionkey
+    and r_name = 'ASIA'
+    and o_orderdate >= date '1994-01-01'
+    and o_orderdate < date '1994-01-01' + interval '1' year
+group by
+    n_name
+order by
+    revenue desc
 """,
 }
 
