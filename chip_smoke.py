@@ -44,12 +44,23 @@ no result line):
    and q5 launch no kernel. Every result must equal the CPU run; q3 and
    q5 also the sqlite oracle at SF1. Warm wall times, peak device memory
    and one profiled run of each follow.
-   In the slice and join phases every call of a kernel's wrapper on the
-   main path is recorded (its arguments and result), and each is held
-   against its plain PyTorch version on those same tensors: counts,
-   int64 sums and min/max equal, float32 sums within rtol 1e-4 / atol
-   1e-3.
-6. A ``{"kernels": [...]}`` line, the card line, and as the last line
+6. Subquery phase: TPC-H q13, q14, q16, q18 and q22 (derived tables,
+   LIKE over o_comment's 1.5M-entry dictionary, CASE, IN lists,
+   count(DISTINCT), HAVING, NOT IN / IN / NOT EXISTS and scalar
+   subqueries rewritten into joins) on the same sessions, with the
+   launch counters set to 0 before and read after each (none may launch
+   a kernel) and the host syncs of each run counted. Every result must
+   equal the CPU run and the sqlite oracle at SF1 (its LIKE made
+   case-sensitive, as the engine's). Warm wall times, peak device
+   memory and one profiled run of each follow, then the host time of
+   q13's LIKE table over o_comment: the C++ table against the Python
+   regex path, and its copy to the card.
+   In the slice, join and subquery phases every call of a kernel's
+   wrapper on the main path is recorded (its arguments and result), and
+   each is held against its plain PyTorch version on those same
+   tensors: counts, int64 sums and min/max equal, float32 sums within
+   rtol 1e-4 / atol 1e-3.
+7. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -598,6 +609,163 @@ def oracle_rows(tables, names):
     return out
 
 
+# the subquery phase's TPC-H queries: seg_agg launches each must make on
+# the card (none: sorted, masked or single-group aggregates; semi and
+# anti joins without a residual condition count no matches; q13's outer
+# join counts over 150k probe rows, past the kernels' K)
+SUBQUERY_QUERIES = (13, 14, 16, 18, 22)
+# the columns those queries read, loaded into the sqlite oracle, and the
+# key columns indexed there
+SUBQUERY_ORACLE_COLUMNS = {
+    "customer": ["c_custkey", "c_name", "c_phone", "c_acctbal"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice",
+               "o_comment"],
+    "lineitem": ["l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
+                 "l_discount", "l_shipdate"],
+    "part": ["p_partkey", "p_brand", "p_type", "p_size"],
+    "partsupp": ["ps_partkey", "ps_suppkey"],
+    "supplier": ["s_suppkey", "s_comment"],
+}
+SUBQUERY_ORACLE_INDEXES = ("customer(c_custkey)", "orders(o_orderkey)",
+                           "orders(o_custkey)", "lineitem(l_orderkey)",
+                           "part(p_partkey)", "partsupp(ps_partkey)",
+                           "supplier(s_suppkey)")
+
+
+def subquery_oracle_rows(tables):
+    """sqlite rows of the subquery phase's queries at SF1."""
+    from spark_tpu_torch.tpch import QUERIES
+    from spark_tpu_torch.tpch.oracle import load_sqlite, run_oracle
+
+    t0 = time.perf_counter()
+    conn = load_sqlite({t: tables[t].select(c)
+                        for t, c in SUBQUERY_ORACLE_COLUMNS.items()})
+    for i, ix in enumerate(SUBQUERY_ORACLE_INDEXES):
+        conn.execute(f"create index ix{i} on {ix}")
+    conn.execute("analyze")
+    conn.execute("pragma case_sensitive_like = on")
+    log(f"subquery: sqlite loaded and indexed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    try:
+        for q in SUBQUERY_QUERIES:
+            t1 = time.perf_counter()
+            out[f"q{q}"] = run_oracle(conn, QUERIES[q])
+            log(f"subquery: sqlite q{q} in {time.perf_counter() - t1:.1f} s")
+    finally:
+        conn.close()
+    return out
+
+
+def like_table_times(spark, dev: str) -> None:
+    """Host time of q13's LIKE table over o_comment's dictionary: the C++
+    kernels (the path at 2048 entries and more) against the Python regex
+    path, and the table's copy to the card, which every evaluation
+    makes (``expr/compiler._gather``)."""
+    import numpy as np
+
+    from spark_tpu_torch.expr import compiler as C
+    from spark_tpu_torch.native import like_table
+
+    field = spark.catalog.lookup("orders").batch.schema.field("o_comment")
+    d = field.dictionary
+    pattern = "%special%requests%"
+    native_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        table = like_table(d, pattern)
+        native_ms.append((time.perf_counter() - t0) * 1e3)
+    rx = C._like_to_regex(pattern)
+    t0 = time.perf_counter()
+    regex = C._dict_table(d, lambda s: rx.match(s) is not None)
+    regex_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(table, regex), "o_comment LIKE: C++ != regex")
+    copy_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(table, device=dev)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"subquery: o_comment LIKE {pattern!r} over {len(d)} dictionary "
+        f"entries ({int(table.sum())} match): C++ table ms {native_ms} "
+        f"(median {statistics.median(native_ms):.1f}), Python regex "
+        f"{regex_ms:.1f} ms; table copy to {dev} ms {copy_ms} (median "
+        f"{statistics.median(copy_ms):.2f})")
+
+
+def subquery_phase(seg_agg, gpu, cpu, tables, dev="cuda"):
+    """q13, q14, q16, q18 and q22 on the card: launches, host syncs,
+    results against the CPU run and the oracle, walls, memory, profiles,
+    and the LIKE table's host times. Returns the seg_agg launches of the
+    subquery path's run."""
+    from spark_tpu_torch.tpch import QUERIES
+    from spark_tpu_torch.tpch.oracle import assert_rows_match
+
+    queries = {f"q{q}": QUERIES[q] for q in SUBQUERY_QUERIES}
+    for name, q in queries.items():
+        log(f"subquery: {name} joins {join_order(gpu, q)}")
+
+    # the subquery path, once, with every launch counter read around it
+    seg_agg.reset_launches()
+    rows, launches, syncs = {}, {}, {}
+    with recording_calls(seg_agg) as calls:
+        for name, q in queries.items():
+            before = mode_launches(seg_agg)
+            t0 = time.perf_counter()
+            rows[name], syncs[name] = collect_counting_syncs(gpu, q, dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            after = mode_launches(seg_agg)
+            launches[name] = {m: after[m] - before[m] for m in after}
+            log(f"subquery: {name} first run {wall:.1f} ms, "
+                f"{len(rows[name])} rows, host syncs {syncs[name]}, "
+                f"launches {launches[name]}")
+    total = mode_launches(seg_agg)
+    if dev == "cuda":  # on the CPU the wrappers take their plain versions
+        for name, got in launches.items():
+            check(not any(got.values()),
+                  f"{name} launched {got}, want no launches")
+        check(len(calls) == sum(total.values()),
+              f"{len(calls)} wrapper calls, {total} launches")
+    hold_calls(seg_agg, calls, "subquery")
+
+    t0 = time.perf_counter()
+    for name, q in queries.items():
+        cpu_rows = [tuple(r) for r in cpu.sql(q).collect()]
+        check(rows[name] and cpu_rows == rows[name],
+              f"{name}: card != CPU run")
+        log(f"subquery: {name} {len(cpu_rows)} rows, equal to the port's "
+            "CPU run")
+    log(f"subquery: CPU runs took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    want = subquery_oracle_rows(tables)
+    for name in queries:
+        assert_rows_match(rows[name], want[name], label=f"{name}[sqlite]")
+    log(f"subquery: {', '.join(queries)} equal the sqlite oracle "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    for name, q in queries.items():
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = [tuple(r) for r in gpu.sql(q).collect()]
+            walls.append((time.perf_counter() - t0) * 1e3)
+            check(again == rows[name], f"{name}: run-to-run difference")
+        log(f"subquery: {name} warm wall ms on the card {walls} "
+            f"(median {statistics.median(walls):.1f})")
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            gpu.sql(q).collect()
+            peak = torch.cuda.max_memory_allocated() - base
+            log(f"subquery: {name} peak device memory above the tables "
+                f"{peak / 2 ** 20:.1f} MiB")
+            profile_query(gpu, name, q)
+    like_table_times(gpu, dev)
+    return total
+
+
 def join_order(spark, query: str) -> list:
     """The optimized plan's joins, top-down, as key-pair strings."""
     from spark_tpu_torch.plan import logical as L
@@ -710,6 +878,11 @@ def main() -> int:
     for line in _build.build_logs.get("seg_agg", "").splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"build: {line.strip()}")
+    from spark_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.like_table(("x",), "%")  # builds strkernels.cpp with g++
+    log(f"build: native/strkernels.cpp in {time.perf_counter() - t0:.1f} s")
 
     from spark_tpu_torch.tpch import generate_tables
 
@@ -735,7 +908,12 @@ def main() -> int:
     log(f"join phase: {time.perf_counter() - t0:.1f} s")
     check(join_launches["count"] >= 1,
           "the join path launched no seg_sum kernel")
-    by_path = {"aggregate": launches, "join": join_launches}
+
+    t0 = time.perf_counter()
+    subquery_launches = subquery_phase(seg_agg, gpu, cpu, tables)
+    log(f"subquery phase: {time.perf_counter() - t0:.1f} s")
+    by_path = {"aggregate": launches, "join": join_launches,
+               "subquery": subquery_launches}
 
     kernels = []
     for name, modes, headline, replaces in (

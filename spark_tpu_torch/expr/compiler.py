@@ -4,13 +4,17 @@ The port of ``spark_tpu/expr/compiler.py`` for the main-path subset:
 columns, literals and aliases; arithmetic, including exact scaled-int64
 decimals; comparisons, including date literals and dictionary-string
 tables; three-valued boolean logic and null tests; casts; month
-arithmetic on dates (``AddMonths``). Null semantics
-follow SQL three-valued logic, carried as (values, validity-mask) pairs.
+arithmetic on dates (``AddMonths``); IN lists, LIKE, string predicates,
+substring, CASE, COALESCE and date parts. Null semantics follow SQL
+three-valued logic, carried as (values, validity-mask) pairs.
 
 String expressions never touch bytes on the device: predicates are
 evaluated host-side over the column dictionary and become int32-code
-lookup-table gathers. Every tensor is created with an explicit dtype and
-device, so torch's type promotion never decides a result type.
+lookup-table gathers. LIKE and the string predicates build their table
+with the C++ kernels of ``spark_tpu_torch/native`` for dictionaries of
+``_NATIVE_DICT_MIN`` entries or more, and with Python's ``re``/``str``
+below that. Every tensor is created with an explicit dtype and device,
+so torch's type promotion never decides a result type.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import datetime
 import decimal
 import operator
+import re
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -123,6 +128,70 @@ def _gather(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(table, device=codes.device)[codes.long()]
 
 
+def _gather_or_false(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
+    """A boolean dictionary table gathered by code; all False for an
+    empty dictionary (every row is then NULL or dead)."""
+    if len(table):
+        return _gather(table, codes)
+    return torch.zeros(codes.shape, dtype=torch.bool, device=codes.device)
+
+
+#: dictionaries at least this large build LIKE / string-predicate tables
+#: with the C++ kernels (the reference's ``_NATIVE_DICT_MIN``)
+_NATIVE_DICT_MIN = 2048
+
+
+def _use_native(dictionary) -> bool:
+    """Per-entry CPython overhead dominates above a few thousand entries
+    (a comment column can hold one entry per row)."""
+    return len(dictionary) >= _NATIVE_DICT_MIN
+
+
+def _like_to_regex(pattern: str) -> "re.Pattern":
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return re.compile("^" + "".join(out) + "$", re.DOTALL)
+
+
+def like_table(dictionary: Tuple[str, ...], pattern: str) -> np.ndarray:
+    """bool per dictionary entry: ``entry LIKE pattern``."""
+    if _use_native(dictionary):
+        from spark_tpu_torch import native
+
+        return native.like_table(dictionary, pattern)
+    rx = _like_to_regex(pattern)
+    return _dict_table(dictionary, lambda s: rx.match(s) is not None)
+
+
+def predicate_table(dictionary: Tuple[str, ...], op: str,
+                    needle: str) -> np.ndarray:
+    """bool per dictionary entry: ``op`` (startswith, endswith,
+    contains) of ``needle``."""
+    if _use_native(dictionary):
+        from spark_tpu_torch import native
+
+        return native.predicate_table(dictionary, op, needle)
+    fn = {
+        "startswith": lambda s: s.startswith(needle),
+        "endswith": lambda s: s.endswith(needle),
+        "contains": lambda s: needle in s,
+    }[op]
+    return _dict_table(dictionary, fn)
+
+
+def _translate(tv: TV, table: np.ndarray, union) -> TV:
+    """A string TV re-coded into the union dictionary ``union`` through
+    its translation table (``unify_dictionaries``)."""
+    data = _gather(table, tv.data) if len(tv.dictionary or ()) else tv.data
+    return TV(data, tv.validity, T.STRING, union)
+
+
 def unify_dictionaries(
     dicts: Tuple[Tuple[str, ...], ...]
 ) -> Tuple[Tuple[str, ...], Tuple[np.ndarray, ...]]:
@@ -223,6 +292,46 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
 
     if isinstance(expr, E.Cast):
         return _eval_cast(expr, env)
+
+    if isinstance(expr, E.In):
+        return _eval_in(expr, env)
+
+    if isinstance(expr, E.Like):
+        tv = evaluate(expr.child, env)
+        table = like_table(tv.dictionary or (), expr.pattern)
+        return TV(_gather_or_false(table, tv.data), tv.validity, T.BOOLEAN,
+                  None)
+
+    if isinstance(expr, E.StringPredicate):
+        tv = evaluate(expr.child, env)
+        table = predicate_table(tv.dictionary or (), expr.op, expr.needle)
+        return TV(_gather_or_false(table, tv.data), tv.validity, T.BOOLEAN,
+                  None)
+
+    if isinstance(expr, E.Substring):
+        # a new sorted dictionary of the substrings, and a code remap
+        tv = evaluate(expr.child, env)
+        dictionary = tv.dictionary or ()
+        transformed = [s[expr.pos - 1: expr.pos - 1 + expr.length]
+                       for s in dictionary]
+        new_dict = tuple(sorted(set(transformed)))
+        pos = {s: i for i, s in enumerate(new_dict)}
+        table = np.array([pos[t] for t in transformed], dtype=np.int32)
+        codes = (_gather(table, tv.data) if len(table)
+                 else torch.zeros((n,), dtype=torch.int32, device=env.device))
+        return TV(codes, tv.validity, T.STRING, new_dict)
+
+    if isinstance(expr, E.Case):
+        return _eval_case(expr, env)
+
+    if isinstance(expr, E.Coalesce):
+        return _eval_coalesce(expr, env)
+
+    if isinstance(expr, E.ExtractDatePart):
+        tv = evaluate(expr.child, env)
+        y, m, d = _civil_from_days(tv.data.to(torch.int64))
+        part = {"year": y, "month": m, "day": d}[expr.part]
+        return TV(part.to(torch.int32), tv.validity, T.INT32, None)
 
     if isinstance(expr, E.AddMonths):
         tv = evaluate(expr.child, env)
@@ -373,23 +482,20 @@ _PY_OPS = {"==": operator.eq, "!=": operator.ne, "<": operator.lt,
            "<=": operator.le, ">": operator.gt, ">=": operator.ge}
 
 
-def _string_cmp_tables(lt: TV, rt: TV, op: str, n: int) -> torch.Tensor:
+def _string_cmp_tables(lt: TV, rt: TV, op: str) -> torch.Tensor:
     """Comparison between two string TVs via host dictionaries."""
     pyop = _PY_OPS[op]
     ld = lt.dictionary or ()
     rd = rt.dictionary or ()
-    dev = lt.data.device
     if rt.dictionary is not None and len(rd) == 1 and rt.validity is None:
         # col OP literal: one table over the column dictionary
         needle = rd[0]
-        table = _dict_table(ld, lambda s: pyop(s, needle))
-        return (_gather(table, lt.data) if len(ld)
-                else torch.zeros((n,), dtype=torch.bool, device=dev))
+        return _gather_or_false(_dict_table(ld, lambda s: pyop(s, needle)),
+                                lt.data)
     if lt.dictionary is not None and len(ld) == 1 and lt.validity is None:
         needle = ld[0]
-        table = _dict_table(rd, lambda s: pyop(needle, s))
-        return (_gather(table, rt.data) if len(rd)
-                else torch.zeros((n,), dtype=torch.bool, device=dev))
+        return _gather_or_false(_dict_table(rd, lambda s: pyop(needle, s)),
+                                rt.data)
     # col OP col: translate both into a unified sorted dictionary, then
     # compare the (order-preserving) unified codes.
     union, (tl, tr) = unify_dictionaries((ld, rd))
@@ -441,7 +547,7 @@ def _eval_cmp(expr: E.Cmp, env: Env) -> TV:
     valid = _and_validity(lt.validity, rt.validity)
 
     if isinstance(lt.dtype, T.StringType) or isinstance(rt.dtype, T.StringType):
-        data = _string_cmp_tables(lt, rt, expr.op, n)
+        data = _string_cmp_tables(lt, rt, expr.op)
         return TV(data, valid, T.BOOLEAN, None)
 
     if isinstance(lt.dtype, T.DateType) or isinstance(rt.dtype, T.DateType):
@@ -488,3 +594,100 @@ def _eval_cast(expr: E.Cast, env: Env) -> TV:
                                  device=env.device))
         return TV(data, tv.validity, dst, None)
     return TV(tv.data.to(_torch_dtype(dst)), tv.validity, dst, None)
+
+
+def _eval_in(expr: E.In, env: Env) -> TV:
+    """``x IN (literals)``. A NULL list item never matches: the engine's
+    IN is two-valued, so a non-matching row is false, not NULL."""
+    n = env.capacity
+    tv = evaluate(expr.child, env)
+    if isinstance(tv.dtype, T.StringType):
+        values = set(expr.values)
+        table = _dict_table(tv.dictionary or (), lambda s: s in values)
+        return TV(_gather_or_false(table, tv.data), tv.validity, T.BOOLEAN,
+                  None)
+    res = torch.zeros((n,), dtype=torch.bool, device=env.device)
+    for v in expr.values:
+        if v is None:
+            continue
+        if isinstance(tv.dtype, T.DateType) and isinstance(v, datetime.date):
+            v = T.date_to_days(v)
+        if isinstance(tv.dtype, T.DecimalType):
+            # the data is the scaled int64: scale the literal as
+            # _literal_tv does. A literal off the scale grid (0.0501 at
+            # scale 2) can never equal a stored value, so it is skipped
+            # rather than rounded to a false hit.
+            q = decimal.Decimal(str(v)).scaleb(tv.dtype.scale)
+            if q != q.to_integral_value():
+                continue
+            v = int(q)
+        res = res | (tv.data == v)
+    return TV(res, tv.validity, T.BOOLEAN, None)
+
+
+def _eval_case(expr: E.Case, env: Env) -> TV:
+    n = env.capacity
+    dev = env.device
+    conds = [evaluate(c, env) for c, _ in expr.branches]
+    vals = [evaluate(v, env) for _, v in expr.branches]
+    else_tv = (evaluate(expr.else_value, env)
+               if expr.else_value is not None else None)
+
+    out_dict: Optional[Tuple[str, ...]] = None
+    if any(isinstance(v.dtype, T.StringType) for v in vals):
+        # branches carry different dictionaries: re-code every one into
+        # their union before blending
+        dicts = [v.dictionary or () for v in vals]
+        if else_tv is not None:
+            dicts.append(else_tv.dictionary or ())
+        union, tables = unify_dictionaries(tuple(dicts))
+        vals = [_translate(v, t, union) for v, t in zip(vals, tables)]
+        if else_tv is not None:
+            else_tv = _translate(else_tv, tables[-1], union)
+        out_dt: DataType = T.STRING
+        out_dict = union
+    else:
+        out_dt = vals[0].dtype
+        for v in vals[1:]:
+            out_dt = T.common_type(out_dt, v.dtype)
+        if else_tv is not None:
+            out_dt = T.common_type(out_dt, else_tv.dtype)
+
+    if else_tv is not None:
+        data = _cast_data(else_tv.data, else_tv.dtype, out_dt)
+        valid = else_tv.validity
+    else:
+        data = torch.zeros((n,), dtype=_torch_dtype(out_dt), device=dev)
+        valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    matched = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for c, v in zip(conds, vals):
+        fire = c.data & c.valid_or_true(n) & ~matched
+        data = torch.where(fire, _cast_data(v.data, v.dtype, out_dt), data)
+        valid_arr = valid if valid is not None else torch.ones(
+            (n,), dtype=torch.bool, device=dev)
+        valid = torch.where(fire, v.valid_or_true(n), valid_arr)
+        matched = matched | fire
+    return TV(data, valid, out_dt, out_dict)
+
+
+def _eval_coalesce(expr: E.Coalesce, env: Env) -> TV:
+    n = env.capacity
+    tvs = [evaluate(a, env) for a in expr.args]
+    out_dt = tvs[0].dtype
+    out_dict = tvs[0].dictionary
+    if isinstance(out_dt, T.StringType):
+        # the args carry different dictionaries (a column and a fill
+        # literal): re-code every one into the union, as Case does
+        union, tables = unify_dictionaries(tuple(
+            tv.dictionary or () for tv in tvs))
+        tvs = [_translate(tv, t, union) for tv, t in zip(tvs, tables)]
+        out_dict = union
+    data = tvs[-1].data
+    valid = tvs[-1].validity
+    for tv in reversed(tvs[:-1]):
+        v = tv.valid_or_true(n)
+        data = torch.where(v, _cast_data(tv.data, tv.dtype, out_dt), data)
+        # valid where this arg is valid or the later fallback was
+        valid = None if valid is None else (v | valid)
+    return TV(data, valid, out_dt, out_dict)

@@ -1,7 +1,11 @@
 """Expression tree (IR), trimmed to the nodes the single-device
-aggregate and join slices plan: columns, literals, aliases, arithmetic,
-month arithmetic on dates, comparisons, boolean logic, null tests,
-casts, sort orders and the count/sum/avg/min/max aggregates.
+aggregate, join and subquery slices plan: columns, literals, aliases,
+arithmetic, month arithmetic on dates, comparisons, boolean logic, null
+tests, casts, IN lists, LIKE and the other dictionary string predicates,
+substring, CASE, COALESCE, date parts, sort orders, the subquery nodes
+(removed by ``plan/subquery.py`` before execution) and the
+count/sum/avg/min/max/first aggregates, with DISTINCT on count, sum and
+avg.
 
 The analogue of Catalyst's expression nodes (reference:
 sql/catalyst/.../expressions/Expression.scala). Expressions are
@@ -47,16 +51,23 @@ class Expression:
         return refs
 
 
+def _key_part(v):
+    """Key for one field value; recurses into nested tuples (e.g.
+    Case.branches, a tuple of (cond, value) pairs)."""
+    if isinstance(v, Expression):
+        return expr_key(v)
+    if isinstance(v, tuple):
+        return tuple(_key_part(x) for x in v)
+    return repr(v)
+
+
 def expr_key(e: Expression):
     """Structural identity key. Nodes compare by identity (``eq=False``),
     so structural comparison goes through this."""
     if isinstance(e, Literal):
         return ("lit", e.value, repr(e.dtype))
-    parts = [type(e).__name__]
-    for f_val in vars(e).values():
-        parts.append(expr_key(f_val) if isinstance(f_val, Expression)
-                     else repr(f_val))
-    return tuple(parts)
+    return (type(e).__name__,) + tuple(_key_part(v)
+                                       for v in vars(e).values())
 
 
 def dedup_pair_names(left_names, right_names) -> list:
@@ -323,6 +334,159 @@ class AddMonths(Expression):
 
 
 @dataclass(eq=False, frozen=True)
+class TupleExpr(Expression):
+    """(a, b, ...) row-value constructor, only legal as the probe of a
+    multi-column IN (subquery) (reference: In.scala accepts
+    CreateStruct probes; the subquery rewrite expands it to a
+    multi-key semi join)."""
+
+    items: Tuple[Expression, ...]
+
+    def children(self):
+        return self.items
+
+    def data_type(self, schema):
+        raise TypeError(
+            "a row-value (a, b) is only valid as the probe of a "
+            "multi-column IN (subquery)")
+
+    def __str__(self):
+        return "(" + ", ".join(str(i) for i in self.items) + ")"
+
+
+@dataclass(eq=False, frozen=True)
+class In(Expression):
+    child: Expression
+    values: Tuple[Any, ...]  # python literals
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.BOOLEAN
+
+    def __str__(self):
+        return f"({self.child} IN {self.values})"
+
+
+@dataclass(eq=False, frozen=True)
+class Like(Expression):
+    """SQL LIKE with % and _ wildcards; evaluated host-side over the
+    column dictionary, gathered on the device by code."""
+
+    child: Expression
+    pattern: str
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.BOOLEAN
+
+    def __str__(self):
+        return f"({self.child} LIKE {self.pattern!r})"
+
+
+@dataclass(eq=False, frozen=True)
+class Case(Expression):
+    """CASE WHEN c1 THEN v1 [WHEN ...] ELSE e END. With no ELSE,
+    unmatched rows are NULL (SQL semantics)."""
+
+    branches: Tuple[Tuple[Expression, Expression], ...]
+    else_value: Optional[Expression]
+
+    def children(self):
+        out = []
+        for c, v in self.branches:
+            out += [c, v]
+        if self.else_value is not None:
+            out.append(self.else_value)
+        return tuple(out)
+
+    def data_type(self, schema):
+        dt = self.branches[0][1].data_type(schema)
+        for _, v in self.branches[1:]:
+            dt = T.common_type(dt, v.data_type(schema))
+        if self.else_value is not None:
+            dt = T.common_type(dt, self.else_value.data_type(schema))
+        return dt
+
+    def __str__(self):
+        return "CASE ..."
+
+
+@dataclass(eq=False, frozen=True)
+class Coalesce(Expression):
+    args: Tuple[Expression, ...]
+
+    def children(self):
+        return self.args
+
+    def data_type(self, schema):
+        dt = self.args[0].data_type(schema)
+        for a in self.args[1:]:
+            dt = T.common_type(dt, a.data_type(schema))
+        return dt
+
+    def __str__(self):
+        return f"COALESCE({', '.join(map(str, self.args))})"
+
+
+@dataclass(eq=False, frozen=True)
+class ExtractDatePart(Expression):
+    """EXTRACT(YEAR|MONTH|DAY FROM date_expr)."""
+
+    part: str  # 'year' | 'month' | 'day'
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.INT32
+
+    def __str__(self):
+        return f"EXTRACT({self.part} FROM {self.child})"
+
+
+@dataclass(eq=False, frozen=True)
+class StringPredicate(Expression):
+    """startswith / endswith / contains, evaluated over the host
+    dictionary."""
+
+    op: str  # 'startswith' | 'endswith' | 'contains'
+    child: Expression
+    needle: str
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.BOOLEAN
+
+    def __str__(self):
+        return f"{self.op}({self.child}, {self.needle!r})"
+
+
+@dataclass(eq=False, frozen=True)
+class Substring(Expression):
+    """SUBSTRING(str, pos, len): 1-based, a host dictionary transform."""
+
+    child: Expression
+    pos: int
+    length: int
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.STRING
+
+    def __str__(self):
+        return f"SUBSTRING({self.child}, {self.pos}, {self.length})"
+
+
+@dataclass(eq=False, frozen=True)
 class SortOrder(Expression):
     """Sort key wrapper (reference: expressions/SortOrder.scala).
     nulls_first default matches Spark: NULLS FIRST for ASC, LAST for DESC."""
@@ -348,6 +512,76 @@ class SortOrder(Expression):
         return f"{self.child} {d}"
 
 
+# ---- subquery expressions ---------------------------------------------------
+
+
+@dataclass(eq=False, frozen=True)
+class OuterRef(Expression):
+    """A correlated reference to a column of the OUTER query inside a
+    subquery (reference: expressions/subquery.scala OuterReference).
+    The dtype is captured at parse time; decorrelation
+    (plan/subquery.py) removes these before execution."""
+
+    col_name: str
+    dtype: DataType = None  # type: ignore[assignment]
+
+    def data_type(self, schema: Schema) -> DataType:
+        return self.dtype
+
+    def references(self) -> set:
+        return set()  # not a reference of the INNER plan
+
+    def __str__(self):
+        return f"outer({self.col_name})"
+
+
+class SubqueryExpression(Expression):
+    """Marker base (reference: expressions/subquery.scala)."""
+
+
+@dataclass(eq=False, frozen=True)
+class ScalarSubquery(SubqueryExpression):
+    plan: Any  # LogicalPlan producing one row, one column
+
+    def data_type(self, schema: Schema) -> DataType:
+        return self.plan.schema.fields[0].dtype
+
+    def __str__(self):
+        return "scalar-subquery(...)"
+
+
+@dataclass(eq=False, frozen=True)
+class InSubquery(SubqueryExpression):
+    child: Expression
+    plan: Any  # LogicalPlan producing one column
+    negated: bool = False
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema: Schema) -> DataType:
+        return T.BOOLEAN
+
+    def __str__(self):
+        n = "NOT " if self.negated else ""
+        return f"({self.child} {n}IN subquery(...))"
+
+
+@dataclass(eq=False, frozen=True)
+class Exists(SubqueryExpression):
+    plan: Any  # LogicalPlan
+    negated: bool = False
+
+    def data_type(self, schema: Schema) -> DataType:
+        return T.BOOLEAN
+
+
+def contains_subquery(e: Expression) -> bool:
+    if isinstance(e, SubqueryExpression):
+        return True
+    return any(contains_subquery(c) for c in e.children())
+
+
 # ---- aggregates ------------------------------------------------------------
 
 
@@ -362,6 +596,7 @@ class AggregateExpression(Expression):
 @dataclass(eq=False, frozen=True)
 class Sum(AggregateExpression):
     child: Expression
+    distinct: bool = False
 
     def children(self):
         return (self.child,)
@@ -377,7 +612,8 @@ class Sum(AggregateExpression):
 
     @property
     def name(self):
-        return f"sum({self.child})"
+        d = "DISTINCT " if self.distinct else ""
+        return f"sum({d}{self.child})"
 
     def __str__(self):
         return self.name
@@ -386,6 +622,7 @@ class Sum(AggregateExpression):
 @dataclass(eq=False, frozen=True)
 class Avg(AggregateExpression):
     child: Expression
+    distinct: bool = False
 
     def children(self):
         return (self.child,)
@@ -399,7 +636,8 @@ class Avg(AggregateExpression):
 
     @property
     def name(self):
-        return f"avg({self.child})"
+        d = "DISTINCT " if self.distinct else ""
+        return f"avg({d}{self.child})"
 
     def __str__(self):
         return self.name
@@ -410,6 +648,7 @@ class Count(AggregateExpression):
     """COUNT(expr); COUNT(*) is Count(None)."""
 
     child: Optional[Expression] = None
+    distinct: bool = False
 
     def children(self):
         return (self.child,) if self.child is not None else ()
@@ -423,7 +662,8 @@ class Count(AggregateExpression):
     @property
     def name(self):
         inner = "*" if self.child is None else str(self.child)
-        return f"count({inner})"
+        d = "DISTINCT " if self.distinct else ""
+        return f"count({d}{inner})"
 
     def __str__(self):
         return self.name
@@ -465,6 +705,25 @@ class Max(AggregateExpression):
         return self.name
 
 
+@dataclass(eq=False, frozen=True)
+class First(AggregateExpression):
+    child: Expression
+    ignore_nulls: bool = False
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return self.child.data_type(schema)
+
+    @property
+    def name(self):
+        return f"first({self.child})"
+
+    def __str__(self):
+        return self.name
+
+
 def strip_alias(e: Expression) -> Expression:
     while isinstance(e, Alias):
         e = e.child
@@ -488,14 +747,23 @@ def collect_aggregates(e: Expression) -> list:
 
 def transform_expr(e: Expression, fn) -> Expression:
     """Bottom-up expression transform (TreeNode.transformUp analogue,
-    reference: catalyst/trees/TreeNode.scala)."""
+    reference: catalyst/trees/TreeNode.scala). Descends into tuple
+    fields and tuples of pairs (Coalesce.args, Case.branches)."""
+
+    def tx(v):
+        if isinstance(v, Expression):
+            return transform_expr(v, fn)
+        if isinstance(v, tuple):
+            nv = tuple(tx(x) for x in v)
+            return nv if any(a is not b for a, b in zip(nv, v)) else v
+        return v
+
     new_fields = {}
     for f in dataclasses.fields(e):
         v = getattr(e, f.name)
-        if isinstance(v, Expression):
-            nv = transform_expr(v, fn)
-            if nv is not v:
-                new_fields[f.name] = nv
+        nv = tx(v)
+        if nv is not v:
+            new_fields[f.name] = nv
     if new_fields:
         e = dataclasses.replace(e, **new_fields)
     return fn(e)

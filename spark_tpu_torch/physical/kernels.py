@@ -2,7 +2,8 @@
 
 The port of ``spark_tpu/physical/kernels.py`` for the single-device
 aggregate and join paths: sort and compaction permutations, group ids,
-mixed-radix key packing, segmented reductions, the limit mask, and the
+mixed-radix key packing, segmented reductions, the DISTINCT-aggregate
+first-row mask, the limit mask, and the
 sorted-build join (build index, per-probe match ranges, pair expansion,
 range packing and 64-bit key hashing). Everything is mask-carrying:
 dead rows ride along and are neutralized per reduction.
@@ -360,6 +361,42 @@ def unpack_code(combined: torch.Tensor, cardinalities: Sequence[int],
         else:
             out.append((slot, None))
     return list(reversed(out))
+
+
+def distinct_first_mask(data: torch.Tensor, seg: torch.Tensor,
+                        ok: torch.Tensor) -> torch.Tensor:
+    """True for the first ok row of each (segment, value) pair: the
+    DISTINCT-aggregate core (reference: ``kernels.distinct_first_mask``;
+    Spark plans an Expand + two-level aggregate,
+    RewriteDistinctAggregates.scala). A stable lexsort by (segment,
+    value) with dead rows last, head flags of each run, scattered back
+    to the rows' positions. ANDed into an aggregate's ok mask, it makes
+    count/sum/avg see each value once per group.
+
+    Floats compare by the bits of a canonical value (every NaN one NaN,
+    -0.0 as +0.0), so NaN == NaN (Spark's NormalizeFloatingNumbers.scala).
+    The bits are read as signed integers where the reference reads them
+    unsigned: the order of the values differs, the runs and so the head
+    of each run do not, since the stable sort keeps each run's first
+    row first."""
+    n = data.shape[0]
+    if data.is_floating_point():
+        canon = torch.where(torch.isnan(data),
+                            torch.full((), float("nan"), dtype=data.dtype,
+                                       device=data.device), data)
+        canon = torch.where(canon == 0.0, torch.zeros((), dtype=data.dtype,
+                                                      device=data.device),
+                            canon)
+        data = canon.view(torch.int32 if data.dtype == torch.float32
+                          else torch.int64)
+    keys = [SortKey(seg, None, True, True), SortKey(data, None, True, True)]
+    perm = lexsort_permutation(keys, ok)
+    sseg, sval = seg[perm], data[perm]
+    head = torch.cat([torch.ones((1,), dtype=torch.bool, device=seg.device),
+                      (sseg[1:] != sseg[:-1]) | (sval[1:] != sval[:-1])])
+    out = torch.zeros((n,), dtype=torch.bool, device=seg.device)
+    out[perm] = head & ok[perm]
+    return out
 
 
 # ---- key encoding -----------------------------------------------------------

@@ -294,23 +294,21 @@ def rewrite_agg_outputs(
             return E.Col(f"__agg{len(agg_calls) - 1}")
         if isinstance(e, E.Alias):
             return E.Alias(rewrite(e.child), e.alias_name)
-        # generic rebuild with rewritten expression-valued fields
-        new_fields = {}
-        changed = False
-        for fl in dataclasses.fields(e):
-            v = getattr(e, fl.name)
+        # generic rebuild with rewritten expression-valued fields, also
+        # inside tuples (Coalesce.args) and tuples of pairs
+        # (Case.branches)
+        def field(v):
             if isinstance(v, E.Expression):
-                nv = rewrite(v)
-                changed |= nv is not v
-                new_fields[fl.name] = nv
-            elif isinstance(v, tuple) and any(
-                    isinstance(x, E.Expression) for x in v):
-                nv = tuple(rewrite(x) if isinstance(x, E.Expression) else x
-                           for x in v)
-                changed |= any(a is not b for a, b in zip(nv, v))
-                new_fields[fl.name] = nv
-            else:
-                new_fields[fl.name] = v
+                return rewrite(v)
+            if isinstance(v, tuple):
+                nv = tuple(field(x) for x in v)
+                return nv if any(a is not b for a, b in zip(nv, v)) else v
+            return v
+
+        new_fields = {fl.name: field(getattr(e, fl.name))
+                      for fl in dataclasses.fields(e)}
+        changed = any(new_fields[fl.name] is not getattr(e, fl.name)
+                      for fl in dataclasses.fields(e))
         return dataclasses.replace(e, **new_fields) if changed else e
 
     outputs = []
@@ -371,6 +369,19 @@ def first_group_keys(sorted_keys: List[TV], seg, mask, num_segments: int,
     return out
 
 
+def _distinct_mask_cached(env: Env, child: E.Expression, tv: TV, seg,
+                          ok) -> torch.Tensor:
+    """distinct_first_mask memoized per (env, child expression): several
+    DISTINCT aggregates over one column share one (seg, value) sort."""
+    cache = getattr(env, "_distinct_cache", None)
+    if cache is None:
+        cache = env._distinct_cache = {}
+    key = E.expr_key(child)
+    if key not in cache:
+        cache[key] = K.distinct_first_mask(tv.data, seg, ok)
+    return cache[key]
+
+
 def decimal_sum_type(dt: "T.DecimalType") -> "T.DecimalType":
     """Sum widens decimals by 10 integral digits (Sum.scala)."""
     return T.bounded_decimal(dt.precision + 10, dt.scale)
@@ -401,6 +412,10 @@ def _compute_agg(agg: E.AggregateExpression, env: Env, seg, mask,
     tv = C.evaluate(agg.child, env)  # type: ignore[attr-defined]
     ok = mask & tv.valid_or_true(capacity)
     any_valid = K.seg_count(seg, ok, num_segments, sorted_seg) > 0
+    if getattr(agg, "distinct", False):
+        # keep one ok row per (group, value); any_valid is taken before
+        # (the dedup leaves it unchanged)
+        ok = ok & _distinct_mask_cached(env, agg.child, tv, seg, ok)
 
     if isinstance(agg, E.Count):
         cnt = K.seg_count(seg, ok, num_segments, sorted_seg)
@@ -430,6 +445,14 @@ def _compute_agg(agg: E.AggregateExpression, env: Env, seg, mask,
     if isinstance(agg, E.Max):
         m = K.seg_max(tv.data, seg, ok, num_segments, sorted_seg)
         return TV(m, any_valid, tv.dtype, tv.dictionary)
+    if isinstance(agg, E.First):
+        use = ok if agg.ignore_nulls else mask
+        data, found = K.seg_first(tv.data, seg, use, num_segments, capacity,
+                                  sorted_seg)
+        valid = found if tv.validity is None else (
+            found & K.seg_first(tv.valid_or_true(capacity), seg, use,
+                                num_segments, capacity, sorted_seg)[0])
+        return TV(data, valid, tv.dtype, tv.dictionary)
     raise NotImplementedError(f"aggregate {agg!r} is not ported yet")
 
 
@@ -551,8 +574,10 @@ class HashAggregateExec(PhysicalPlan):
         cap = pipe.capacity
         key_tvs = [C.evaluate(g, env) for g in self.groupings]
         pipe2, sorted_keys, seg, ng = sorted_groups(pipe, key_tvs)
-        n_groups = max(1, int(ng))  # host sync: output sizing
-        num_segments = K.bucket(n_groups, 256)
+        n_groups = int(ng)  # host sync: output sizing
+        # an empty input has no group; the reference sizes with
+        # max(1, groups) and so emits one empty group (ROADMAP C)
+        num_segments = K.bucket(max(1, n_groups), 256)
         env2 = pipe2.env()
         _, agg_calls = rewrite_agg_outputs(self.groupings, self.aggregates)
         agg_tvs = [_compute_agg(a, env2, seg, pipe2.mask, num_segments, cap,

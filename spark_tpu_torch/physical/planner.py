@@ -37,6 +37,8 @@ def plan_physical(plan: L.LogicalPlan) -> P.PhysicalPlan:
     if isinstance(plan, L.Distinct):
         cols = tuple(E.Col(n) for n in plan.schema.names)
         return P.HashAggregateExec(cols, cols, plan_physical(plan.child))
+    if isinstance(plan, L.SubqueryAlias):
+        return plan_physical(plan.child)
     if isinstance(plan, L.Join):
         return P.JoinExec(plan_physical(plan.left), plan_physical(plan.right),
                           plan.how, plan.left_keys, plan.right_keys,

@@ -41,6 +41,8 @@ def _filter_selectivity(cond: E.Expression) -> float:
     for c in split_conjuncts(cond):
         if isinstance(c, E.Cmp) and c.op == "==":
             sel *= 0.1
+        elif isinstance(c, (E.In, E.Like)):
+            sel *= 0.2
         else:
             sel *= 0.4
     return max(sel, 1e-4)
@@ -101,7 +103,8 @@ def _atom_ndv(atom: L.LogicalPlan, expr: E.Expression) -> Optional[float]:
     name = inner.col_name
     node = atom
     while True:
-        if isinstance(node, (L.Filter, L.Limit, L.Distinct, L.Sort)):
+        if isinstance(node, (L.Filter, L.SubqueryAlias, L.Limit, L.Distinct,
+                             L.Sort)):
             node = node.children()[0]
             continue
         if isinstance(node, L.Project):

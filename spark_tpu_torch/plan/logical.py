@@ -1,6 +1,6 @@
-"""Logical plans, trimmed to the nodes the single-device aggregate and
-join slices plan: relations, projections, filters, aggregates, sorts,
-limits, DISTINCT and joins.
+"""Logical plans, trimmed to the nodes the single-device aggregate,
+join and subquery slices plan: relations, projections, filters,
+aggregates, sorts, limits, DISTINCT, subquery aliases and joins.
 
 The analogue of Catalyst's logical operators (reference:
 sql/catalyst/src/main/scala/org/apache/spark/sql/catalyst/plans/logical/
@@ -245,6 +245,22 @@ class Distinct(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self.child.schema
+
+
+@dataclass(eq=False, frozen=True)
+class SubqueryAlias(LogicalPlan):
+    alias: str
+    child: LogicalPlan
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def node_string(self):
+        return f"SubqueryAlias[{self.alias}]"
 
 
 # ---- binary ----------------------------------------------------------------

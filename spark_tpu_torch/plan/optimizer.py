@@ -171,9 +171,9 @@ def collapse_projects(plan: L.LogicalPlan) -> L.LogicalPlan:
 
 
 def push_down_predicates(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Move Filters toward scans: through Projects (with substitution)
-    and into Join sides; merge adjacent Filters (reference:
-    Optimizer.scala PushDownPredicates)."""
+    """Move Filters toward scans: through Projects (with substitution),
+    into Join sides, below SubqueryAlias; merge adjacent Filters
+    (reference: Optimizer.scala PushDownPredicates)."""
 
     def fn(node: L.LogicalPlan) -> L.LogicalPlan:
         if not isinstance(node, L.Filter):
@@ -187,6 +187,9 @@ def push_down_predicates(plan: L.LogicalPlan) -> L.LogicalPlan:
                 mapping = {e.name: E.strip_alias(e) for e in child.exprs}
                 cond = substitute(node.condition, mapping)
                 return L.Project(child.exprs, L.Filter(cond, child.child))
+        if isinstance(child, L.SubqueryAlias):
+            return L.SubqueryAlias(child.alias,
+                                   L.Filter(node.condition, child.child))
         if isinstance(child, L.Join):
             left_names = set(child.left.schema.names)
             right_names = set(child.right.schema.names)
@@ -383,7 +386,7 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
                 child_req |= e.references()
             return dataclasses.replace(
                 node, child=prune(node.child, child_req))
-        if isinstance(node, (L.Sort, L.Limit, L.Distinct)):
+        if isinstance(node, (L.Sort, L.Limit, L.Distinct, L.SubqueryAlias)):
             child_req = set(required)
             for e in node.expressions():
                 child_req |= e.references()

@@ -1,15 +1,20 @@
 """SQL parser: text -> logical plans, trimmed to the single-device
-aggregate and join slices.
+aggregate, join and subquery slices.
 
 Hand-written tokenizer, recursive-descent expression parser and
 statement builder for SELECT [DISTINCT] ... FROM <relations> [WHERE]
-[GROUP BY] [ORDER BY] [LIMIT [OFFSET]] with comparisons, BETWEEN,
-IS [NOT] NULL, arithmetic, CAST, date literals, day/week/month/year
-intervals and the count/sum/avg/min/max aggregates. The FROM clause
-takes tables with aliases, comma joins and ``[INNER|CROSS|LEFT
-[OUTER]|RIGHT [OUTER]|FULL [OUTER]|LEFT SEMI|LEFT ANTI] JOIN ...
-ON/USING``. Subqueries (in FROM or in expressions), LATERAL VIEW, set
-operations, HAVING and DISTINCT aggregates raise
+[GROUP BY] [HAVING] [ORDER BY] [LIMIT [OFFSET]] with comparisons,
+BETWEEN, [NOT] IN (list | subquery), [NOT] LIKE, [NOT] EXISTS, scalar
+subqueries, IS [NOT] NULL, arithmetic, CASE, CAST, substring, extract,
+coalesce, date literals, day/week/month/year intervals and the
+count/sum/avg/min/max aggregates (count/sum/avg also DISTINCT). The
+FROM clause takes tables and derived tables ``( SELECT ... ) [AS]
+alias`` with aliases, comma joins and ``[INNER|CROSS|LEFT [OUTER]|RIGHT
+[OUTER]|FULL [OUTER]|LEFT SEMI|LEFT ANTI] JOIN ... ON/USING``. A
+subquery resolves names it cannot find in its own FROM clause against
+the enclosing query's (``OuterRef``); ``parse_sql`` hands the plan to
+``plan/subquery.py``, which rewrites every subquery into joins. Window
+functions, grouping sets, LATERAL VIEW and set operations raise
 ``NotImplementedError``; other constructs are parse errors. The
 reference parses with an ANTLR grammar (reference:
 sql/catalyst/src/main/antlr4/.../SqlBaseParser.g4:1 +
@@ -29,6 +34,7 @@ from spark_tpu_torch import types as T
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.plan import logical as L
 from spark_tpu_torch.plan.optimizer import combine_conjuncts, split_conjuncts
+from spark_tpu_torch.plan.subquery import rewrite_subqueries
 from spark_tpu_torch.sql.ddl import parse_type
 
 # ---- tokenizer --------------------------------------------------------------
@@ -102,10 +108,15 @@ class Scope:
     Join output names deduplicate with '#2' suffixes (logical.Join.schema
     semantics); the scope tracks, for every relation in the FROM clause,
     what each of its columns is called in the joined output, so
-    ``alias.col`` and bare ``col`` resolve to output Col names."""
+    ``alias.col`` and bare ``col`` resolve to output Col names. A
+    subquery's scope carries the enclosing query's (``outer``): a name
+    found only there is a correlated reference, typed by that scope's
+    ``schema`` (its FROM clause's plan schema)."""
 
-    def __init__(self):
+    def __init__(self, outer: Optional["Scope"] = None):
         self.entries: List[Tuple[Optional[str], List[Tuple[str, str]]]] = []
+        self.outer = outer
+        self.schema = None
 
     def add_relation(self, alias: Optional[str],
                      src_names: Sequence[str]) -> List[str]:
@@ -188,8 +199,12 @@ class _Tokens:
 
 
 class _ExprParser:
-    def __init__(self, cur: _Tokens, resolver: Resolver):
+    def __init__(self, cur: _Tokens, resolver: Resolver,
+                 subquery: Optional[Callable[[], L.LogicalPlan]] = None):
         self.resolve = resolver
+        # parses ``SELECT ...`` at the cursor (after a '('); None where
+        # no subquery may appear
+        self.subquery = subquery
         # the cursor's own methods: statement and expression parsers
         # advance one shared position
         self.peek, self.next = cur.peek, cur.next
@@ -213,12 +228,25 @@ class _ExprParser:
 
     def parse_not(self) -> E.Expression:
         if self.accept("NOT"):
-            return E.Not(self.parse_not())
+            inner = self.parse_not()
+            if isinstance(inner, E.Exists):
+                return E.Exists(inner.plan, not inner.negated)
+            return E.Not(inner)
         return self.parse_predicate()
+
+    def _parse_subquery(self) -> L.LogicalPlan:
+        if self.subquery is None:
+            raise SQLParseError(
+                f"subquery not allowed here (at {self.peek().pos})")
+        return self.subquery()
 
     def parse_predicate(self) -> E.Expression:
         if self.at_keyword("EXISTS"):
-            raise _not_ported("subqueries")
+            self.next()
+            self.expect("(")
+            plan = self._parse_subquery()
+            self.expect(")")
+            return E.Exists(plan)
         left = self.parse_additive()
         negated = bool(self.accept("NOT"))
         t = self.peek()
@@ -235,8 +263,25 @@ class _ExprParser:
             e: E.Expression = E.And(E.Cmp(">=", left, lo),
                                     E.Cmp("<=", left, hi))
             return E.Not(e) if negated else e
-        if self.at_keyword("IN", "LIKE"):
-            raise _not_ported(f"{self.peek().upper} predicates")
+        if self.accept("IN"):
+            self.expect("(")
+            if self.at_keyword("SELECT", "WITH"):
+                plan = self._parse_subquery()
+                self.expect(")")
+                return E.InSubquery(left, plan, negated)
+            values = [self._literal_value(self.parse_additive())]
+            while self.accept(","):
+                values.append(self._literal_value(self.parse_additive()))
+            self.expect(")")
+            e = E.In(left, tuple(values))
+            return E.Not(e) if negated else e
+        if self.accept("LIKE"):
+            pat = self.next()
+            if pat.kind != "str":
+                raise SQLParseError(
+                    f"LIKE needs a string pattern at {pat.pos}")
+            e = E.Like(left, _unquote(pat.value))
+            return E.Not(e) if negated else e
         if self.accept("IS"):
             neg2 = bool(self.accept("NOT"))
             self.expect("NULL")
@@ -305,8 +350,16 @@ class _ExprParser:
             return E.Literal(_unquote(t.value))
         if t.kind == "op" and t.value == "(":
             if self.at_keyword("SELECT", "WITH"):
-                raise _not_ported("subqueries")
+                plan = self._parse_subquery()
+                self.expect(")")
+                return E.ScalarSubquery(plan)
             e = self.parse()
+            if self.accept(","):
+                items = [e, self.parse()]
+                while self.accept(","):
+                    items.append(self.parse())
+                self.expect(")")
+                return E.TupleExpr(tuple(items))
             self.expect(")")
             return e
         if t.kind in ("id", "qid"):
@@ -326,6 +379,15 @@ class _ExprParser:
             return E.Literal(datetime.date.fromisoformat(s))
         if u == "INTERVAL":
             return self._parse_interval()
+        if u == "CASE":
+            return self._parse_case()
+        if u == "EXTRACT":
+            self.expect("(")
+            part = self.next().value.lower()
+            self.expect("FROM")
+            e = self.parse()
+            self.expect(")")
+            return E.ExtractDatePart(part, e)
         if u == "CAST":
             self.expect("(")
             e = self.parse()
@@ -373,23 +435,92 @@ class _ExprParser:
             return _Interval(days=7 * qty)
         raise SQLParseError(f"unsupported interval unit {unit!r}")
 
+    def _parse_case(self) -> E.Expression:
+        branches = []
+        operand = None
+        if not self.at_keyword("WHEN"):
+            operand = self.parse()
+        while self.accept("WHEN"):
+            cond = self.parse()
+            if operand is not None:
+                cond = E.Cmp("==", operand, cond)
+            self.expect("THEN")
+            branches.append((cond, self.parse()))
+        else_v = None
+        if self.accept("ELSE"):
+            else_v = self.parse()
+        self.expect("END")
+        return E.Case(tuple(branches), else_v)
+
     _AGG_FNS = {"SUM": E.Sum, "AVG": E.Avg, "MIN": E.Min, "MAX": E.Max,
                 "COUNT": E.Count}
+    _WINDOW_FNS = {"ROW_NUMBER", "RANK", "DENSE_RANK", "NTILE", "LAG",
+                   "LEAD"}
 
     def _parse_function(self, name_tok: Token) -> E.Expression:
         name = name_tok.upper
-        if name not in self._AGG_FNS:
-            raise SQLParseError(f"unknown function {name_tok.value!r} "
-                                f"at {name_tok.pos}")
+        if name in self._WINDOW_FNS:
+            raise _not_ported("window functions")
         self.expect("(")
-        if name == "COUNT" and self.accept("*"):
+        e = self._parse_function_args(name, name_tok)
+        if self.at_keyword("OVER"):
+            raise _not_ported("window functions")
+        return e
+
+    def _parse_function_args(self, name: str,
+                             name_tok: Token) -> E.Expression:
+        if name in self._AGG_FNS:
+            if name == "COUNT" and self.accept("*"):
+                self.expect(")")
+                return E.Count(None)
+            distinct = bool(self.accept("DISTINCT"))
+            e = self.parse()
             self.expect(")")
-            return E.Count(None)
-        if self.accept("DISTINCT"):
-            raise _not_ported("DISTINCT aggregates")
-        e = self.parse()
-        self.expect(")")
-        return self._AGG_FNS[name](e)
+            if name in ("MIN", "MAX"):
+                return self._AGG_FNS[name](e)
+            return self._AGG_FNS[name](e, distinct=distinct)
+        if name in ("SUBSTRING", "SUBSTR"):
+            e = self.parse()
+            if self.accept("FROM"):
+                pos = self._int_literal()
+                self.expect("FOR")
+                length = self._int_literal()
+            else:
+                self.expect(",")
+                pos = self._int_literal()
+                # substr(s, pos): to the end of the string
+                length = self._int_literal() if self.accept(",") else 1 << 30
+            self.expect(")")
+            return E.Substring(e, pos, length)
+        if name == "COALESCE":
+            args = [self.parse()]
+            while self.accept(","):
+                args.append(self.parse())
+            self.expect(")")
+            return E.Coalesce(tuple(args))
+        if name in ("YEAR", "MONTH", "DAY", "DAYOFMONTH"):
+            e = self.parse()
+            self.expect(")")
+            return E.ExtractDatePart({"DAYOFMONTH": "day"}.get(
+                name, name.lower()), e)
+        raise SQLParseError(f"unknown function {name_tok.value!r} "
+                            f"at {name_tok.pos}")
+
+    def _int_literal(self) -> int:
+        e = self.parse_unary()
+        if isinstance(e, E.Literal) and isinstance(e.value, int):
+            return e.value
+        if isinstance(e, E.Neg) and isinstance(e.child, E.Literal):
+            return -e.child.value
+        raise SQLParseError("expected integer literal")
+
+    @staticmethod
+    def _literal_value(e: E.Expression):
+        if isinstance(e, E.Literal):
+            return e.value
+        if isinstance(e, E.Neg) and isinstance(e.child, E.Literal):
+            return -e.child.value
+        raise SQLParseError("IN list supports literals only")
 
 
 @dataclass(eq=False, frozen=True)
@@ -406,14 +537,34 @@ def _unquote(s: str) -> str:
 
 
 class _StmtParser(_Tokens):
-    """Parses one SELECT statement; ``catalog`` resolves table names."""
+    """Parses one SELECT statement; ``catalog`` resolves table names. A
+    subquery's parser starts at ``pos`` with the enclosing query's scope
+    as ``outer``, so inner lookups that miss resolve there as
+    ``OuterRef``."""
 
-    def __init__(self, tokens: List[Token], catalog):
-        super().__init__(tokens)
+    def __init__(self, tokens: List[Token], catalog, pos: int = 0,
+                 outer: Optional[Scope] = None):
+        super().__init__(tokens, pos)
         self.catalog = catalog
+        self.outer = outer
+        # the FROM scope of the SELECT being parsed: the outer scope of a
+        # subquery in its expressions
+        self._current_scope: Optional[Scope] = None
 
     def _expr(self, resolver: Resolver) -> E.Expression:
-        return _ExprParser(self, resolver).parse()
+        return _ExprParser(self, resolver,
+                           self._parse_subquery_in_expr).parse()
+
+    def _parse_subquery(self, outer: Optional[Scope]) -> L.LogicalPlan:
+        sub = _StmtParser(self.toks, self.catalog, self.pos, outer)
+        plan = sub.parse_query()
+        self.pos = sub.pos
+        return plan
+
+    def _parse_subquery_in_expr(self) -> L.LogicalPlan:
+        """``SELECT ...`` inside an expression: the current query's scope
+        becomes the subquery's outer scope."""
+        return self._parse_subquery(self._current_scope)
 
     # -- resolvers ------------------------------------------------------------
 
@@ -423,6 +574,14 @@ class _StmtParser(_Tokens):
             out = scope.resolve(qual, name)
             if out is not None:
                 return E.Col(out)
+            if scope.outer is not None:
+                out = scope.outer.resolve(qual, name)
+                if out is not None:
+                    schema = scope.outer.schema
+                    dtype = (schema.field(out).dtype
+                             if schema is not None and out in schema
+                             else None)
+                    return E.OuterRef(out, dtype)
             raise SQLParseError(
                 f"cannot resolve column {qual + '.' if qual else ''}{name}")
 
@@ -431,9 +590,14 @@ class _StmtParser(_Tokens):
     # -- FROM clause ----------------------------------------------------------
 
     def _parse_relation_primary(self) -> Tuple[L.LogicalPlan, str]:
-        """table [[AS] alias] — returns (plan, alias)."""
+        """table [[AS] alias] | ( subquery ) [[AS] alias] — returns
+        (plan, alias)."""
         if self.accept("("):
-            raise _not_ported("subqueries")
+            # a derived table sees the enclosing query's outer scope, not
+            # its sibling FROM items
+            plan = self._parse_subquery(self.outer)
+            self.expect(")")
+            return plan, self._parse_alias()
         t = self.next()
         if t.kind not in ("id", "qid"):
             raise SQLParseError(f"expected table name at {t.pos}")
@@ -442,7 +606,7 @@ class _StmtParser(_Tokens):
         return plan, alias
 
     def _parse_from(self) -> Tuple[L.LogicalPlan, Scope]:
-        scope = Scope()
+        scope = Scope(self.outer)
         plan, alias = self._parse_relation_primary()
         scope.add_relation(alias, plan.schema.names)
         while True:
@@ -647,6 +811,8 @@ class _StmtParser(_Tokens):
 
         self.expect("FROM")
         plan, scope = self._parse_from()
+        scope.schema = plan.schema
+        self._current_scope = scope
         resolver = self._make_resolver(scope)
 
         if self.accept("WHERE"):
@@ -662,21 +828,56 @@ class _StmtParser(_Tokens):
         if self.at_keyword("GROUP"):
             self.next()
             self.expect("BY")
+            if self.at_keyword("ROLLUP", "CUBE") \
+                    or self.peek(0).upper == "GROUPING" \
+                    and self.peek(1).upper == "SETS":
+                raise _not_ported("grouping sets (ROLLUP, CUBE, GROUPING "
+                                  "SETS)")
             gresolver = self._group_resolver(resolver, select_exprs)
             while True:
                 group_exprs.append(E.strip_alias(self._expr(gresolver)))
                 if not self.accept(","):
                     break
-        if self.at_keyword("HAVING"):
-            raise _not_ported("HAVING clauses")
+        having = None
+        if self.accept("HAVING"):
+            having = self._expr(resolver)
 
-        if group_exprs or any(E.contains_aggregate(e) for e in select_exprs):
-            plan = L.Aggregate(tuple(group_exprs), tuple(select_exprs), plan)
+        if group_exprs or having is not None \
+                or any(E.contains_aggregate(e) for e in select_exprs):
+            outputs = list(select_exprs)
+            having_cond = None
+            if having is not None:
+                hidden, having_cond = self._pull_having_aggs(having)
+                outputs += hidden
+            plan = L.Aggregate(tuple(group_exprs), tuple(outputs), plan)
+            if having_cond is not None:
+                plan = L.Project(tuple(E.Col(e.name) for e in select_exprs),
+                                 L.Filter(having_cond, plan))
         else:
             plan = L.Project(tuple(select_exprs), plan)
         if distinct:
             plan = L.Distinct(plan)
         return plan
+
+    @staticmethod
+    def _pull_having_aggs(having: E.Expression):
+        """Pull aggregate calls out of a HAVING predicate as hidden
+        outputs ``__h{i}``, so the predicate becomes an ordinary Filter
+        above the Aggregate (where the subquery rewrite reaches it); the
+        hidden columns are projected away after it."""
+        hidden: List[E.Alias] = []
+        seen: Dict[tuple, str] = {}
+
+        def pull(e: E.Expression) -> E.Expression:
+            if isinstance(e, E.AggregateExpression):
+                sk = E.expr_key(e)
+                if sk not in seen:
+                    seen[sk] = f"__h{len(hidden)}"
+                    hidden.append(E.Alias(e, seen[sk]))
+                return E.Col(seen[sk])
+            return e
+
+        return hidden, E.transform_expr(having, pull)
 
     def _group_resolver(self, resolver: Resolver,
                         select_exprs: List[E.Expression]) -> Resolver:
@@ -731,10 +932,11 @@ class _StmtParser(_Tokens):
 
 
 def parse_sql(query: str, catalog) -> L.LogicalPlan:
-    """Parse one SELECT statement against ``catalog``'s temp views."""
+    """Parse one SELECT statement against ``catalog``'s temp views, with
+    every subquery rewritten into joins (``plan/subquery.py``)."""
     p = _StmtParser(tokenize(query), catalog)
     plan = p.parse_query()
     t = p.peek()
     if not (t.kind == "eof" or (t.kind == "op" and t.value == ";")):
         raise SQLParseError(f"trailing input at {t.pos}: {t.value!r}")
-    return plan
+    return rewrite_subqueries(plan)

@@ -3,7 +3,10 @@ against the reference's, on one batch carried across with
 ``from_host_arrays``: decimal and integer arithmetic (division by zero
 gives NULL), comparisons with dictionary strings and dates, three-valued
 logic over NULLs, null tests, casts (including the reference's
-decimal-to-float quirk) and negation. Values and validity must be equal
+decimal-to-float quirk), negation, IN lists (ints, decimals with an
+off-grid literal, dates, strings; NULL items), LIKE, the string
+predicates, substring, CASE (mixed dictionaries, no ELSE), COALESCE and
+date parts. Values, validity, types and dictionaries must be equal
 exactly; float64 results rel 1e-15."""
 
 import datetime
@@ -89,6 +92,32 @@ def _cases(E, T):
         "cast_int_float": E.Cast(C("a"), T.FLOAT32),
         "cast_str_date": E.Cast(L("1995-03-15"), T.DATE),
         "cast_str_int": E.Cast(L("42"), T.INT64),
+        "in_int": E.In(C("a"), (1, -3, 7, None, 19)),
+        "in_dec": E.In(C("m"), (7648.16, 0.0501, -8807.7, None)),
+        "in_date": E.In(C("d"), (datetime.date(1993, 9, 5),
+                                 datetime.date(1994, 11, 9), None)),
+        "in_str": E.In(C("s"), ("apple", "nope", "42")),
+        "not_in_str": E.Not(E.In(C("t"), ("fig",))),
+        "like_mid": E.Like(C("s"), "%p%"),
+        "like_underscore": E.Like(C("t"), "_ig"),
+        "not_like": E.Not(E.Like(C("t"), "a%e")),
+        "startswith": E.StringPredicate("startswith", C("s"), "ap"),
+        "endswith": E.StringPredicate("endswith", C("t"), "ini"),
+        "contains": E.StringPredicate("contains", C("s"), "99"),
+        "substring": E.Substring(C("s"), 2, 3),
+        "substring_tail": E.Substring(C("t"), 3, 1 << 30),
+        "case_str_mixed": E.Case(
+            ((E.Cmp(">", C("a"), L(0)), C("s")),
+             (E.IsNull(C("m")), C("t"))), L("other")),
+        "case_num_no_else": E.Case(((C("p"), C("a")), (C("q"), C("z"))),
+                                   None),
+        "case_dec": E.Case(((E.Cmp("<", C("x"), L(0.0)), C("m")),),
+                           C("n")),
+        "coalesce_int": E.Coalesce((C("a"), C("z"))),
+        "coalesce_str": E.Coalesce((C("s"), L("zz"))),
+        "year": E.ExtractDatePart("year", C("d")),
+        "month": E.ExtractDatePart("month", C("d")),
+        "day": E.ExtractDatePart("day", C("d")),
     }
 
 

@@ -222,3 +222,34 @@ def test_orderable_int64_parity(asc, nf):
     np.testing.assert_array_equal(
         PK.orderable_int64(torch.from_numpy(i), None, asc, nf).numpy(),
         np.asarray(RK.orderable_int64(jnp.asarray(i), None, asc, nf)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int64"])
+@pytest.mark.parametrize("sorted_seg", [False, True])
+def test_distinct_first_mask_parity(dtype, sorted_seg):
+    """The DISTINCT first-row mask, exact: few distinct values per
+    group, so runs repeat; floats carry NaN (two payloads), -0.0 beside
+    +0.0 and inf; NULL rows (not ok) and dead rows at the tail."""
+    rng = np.random.default_rng(17 + sorted_seg)
+    n = 3000
+    seg = rng.integers(0, 40, n).astype(np.int32)
+    if sorted_seg:
+        seg = np.sort(seg)
+    vals = rng.integers(-6, 6, n)
+    if dtype == "int64":
+        data = vals * (1 << 40)
+    else:
+        data = vals.astype(dtype) / 4
+        data[rng.random(n) < 0.05] = np.nan
+        data[rng.random(n) < 0.03] = -np.nan  # the sign bit set
+        data[vals == 0] = np.where(rng.random(int((vals == 0).sum())) < 0.5,
+                                   -0.0, 0.0)
+        data[vals == 5] = np.inf
+    ok = rng.random(n) < 0.85          # NULL or masked rows
+    ok[-300:] = False                  # dead padding rows
+    (jd, js, jo), (td, ts, to) = _both(data, seg, ok)
+    want = np.asarray(RK.distinct_first_mask(jd, js, jo))
+    got = PK.distinct_first_mask(td, ts, to)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < ok.sum()
