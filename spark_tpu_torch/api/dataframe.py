@@ -28,7 +28,7 @@ class DataFrame:
     def _execute(self) -> Batch:
         from spark_tpu_torch.physical.planner import execute_logical
 
-        return execute_logical(self._plan)
+        return execute_logical(self._plan, device=self._session.device)
 
     def collect(self) -> List[Row]:
         return [Row.from_dict(d) for d in self._execute().to_pylist()]

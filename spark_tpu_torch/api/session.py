@@ -2,9 +2,10 @@
 
 What the single-device SQL slice needs: ``SparkSession.builder
 .device("cuda"|"cpu").getOrCreate()``, ``createDataFrame(pa.Table)``,
-temp views, ``sql`` and ``table``. The device defaults to ``"cuda"``;
-without a usable CUDA device the session raises unless the caller asked
-for ``"cpu"``. Every relation the session creates lives on its device.
+``range``, temp views, ``sql`` and ``table``. The device defaults to
+``"cuda"``; without a usable CUDA device the session raises unless the
+caller asked for ``"cpu"``. Every relation the session creates lives on
+its device.
 """
 
 from __future__ import annotations
@@ -71,6 +72,14 @@ class SparkSession:
 
     def table(self, name: str) -> DataFrame:
         return DataFrame(self, self.catalog.lookup(name))
+
+    def range(self, start: int, end: Optional[int] = None,
+              step: int = 1) -> DataFrame:
+        """One int64 column ``id``: start, start + step, ... below end
+        (``range(n)`` is 0 .. n-1), made on the session's device."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(self, L.Range(int(start), int(end), int(step)))
 
     def sql(self, query: str) -> DataFrame:
         from spark_tpu_torch.sql.parser import parse_sql

@@ -5,8 +5,9 @@ columns, literals and aliases; arithmetic, including exact scaled-int64
 decimals; comparisons, including date literals and dictionary-string
 tables; three-valued boolean logic and null tests; casts; month
 arithmetic on dates (``AddMonths``); IN lists, LIKE, string predicates,
-substring, CASE, COALESCE and date parts. Null semantics follow SQL
-three-valued logic, carried as (values, validity-mask) pairs.
+substring, CASE, COALESCE, typed NULLs (``NullOf``) and date parts.
+Null semantics follow SQL three-valued logic, carried as (values,
+validity-mask) pairs.
 
 String expressions never touch bytes on the device: predicates are
 evaluated host-side over the column dictionary and become int32-code
@@ -320,6 +321,12 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
         codes = (_gather(table, tv.data) if len(table)
                  else torch.zeros((n,), dtype=torch.int32, device=env.device))
         return TV(codes, tv.validity, T.STRING, new_dict)
+
+    if isinstance(expr, E.NullOf):
+        tv = evaluate(expr.like, env)
+        return TV(tv.data, torch.zeros((n,), dtype=torch.bool,
+                                       device=env.device),
+                  tv.dtype, tv.dictionary)
 
     if isinstance(expr, E.Case):
         return _eval_case(expr, env)

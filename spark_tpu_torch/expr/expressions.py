@@ -1,9 +1,11 @@
 """Expression tree (IR), trimmed to the nodes the single-device
-aggregate, join and subquery slices plan: columns, literals, aliases,
-arithmetic, month arithmetic on dates, comparisons, boolean logic, null
-tests, casts, IN lists, LIKE and the other dictionary string predicates,
-substring, CASE, COALESCE, date parts, sort orders, the subquery nodes
-(removed by ``plan/subquery.py`` before execution) and the
+aggregate, join, subquery and window slices plan: columns, literals,
+aliases, arithmetic, month arithmetic on dates, comparisons, boolean
+logic, null tests, casts, IN lists, LIKE and the other dictionary string
+predicates, substring, CASE, COALESCE, typed NULLs (``NullOf``), date
+parts, sort orders, the subquery nodes (removed by ``plan/subquery.py``
+before execution), the grouping markers ``grouping()``/``grouping_id()``
+(rewritten by ``plan/grouping.py``), the window functions and the
 count/sum/avg/min/max/first aggregates, with DISTINCT on count, sum and
 avg.
 
@@ -512,6 +514,196 @@ class SortOrder(Expression):
         return f"{self.child} {d}"
 
 
+@dataclass(eq=False, frozen=True)
+class NullOf(Expression):
+    """NULL typed like ``like`` (reference: Literal(null, child.dataType)
+    inside NullIf's If rewrite, nullExpressions.scala). Keeps Case's
+    common-type inference working where an untyped null literal cannot;
+    the grouping-sets Expand fills aggregated-away keys with it."""
+
+    like: Expression
+
+    def children(self):
+        return (self.like,)
+
+    def data_type(self, schema):
+        return self.like.data_type(schema)
+
+    def nullable(self, schema):
+        return True
+
+    def __str__(self):
+        return f"NULL_OF({self.like})"
+
+
+@dataclass(eq=False, frozen=True)
+class Grouping(Expression):
+    """grouping(col): 1 when the row is a subtotal that aggregated
+    ``col`` away (reference: grouping.scala Grouping). A marker:
+    ``plan/grouping.py`` replaces it with arithmetic over the grouping
+    id before evaluation."""
+
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.INT32
+
+    def __str__(self):
+        return f"grouping({self.child})"
+
+
+@dataclass(eq=False, frozen=True)
+class GroupingId(Expression):
+    """grouping_id() marker (reference: grouping.scala GroupingID)."""
+
+    def data_type(self, schema):
+        return T.INT64
+
+    def __str__(self):
+        return "grouping_id()"
+
+
+# ---- window expressions -----------------------------------------------------
+
+
+@dataclass(eq=False, frozen=True)
+class RowNumber(Expression):
+    """row_number(): 1-based position within the window partition
+    (reference: expressions/windowExpressions.scala RowNumber)."""
+
+    def data_type(self, schema):
+        return T.INT32
+
+    def nullable(self, schema):
+        return False
+
+    @property
+    def name(self):
+        return "row_number()"
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass(eq=False, frozen=True)
+class Rank(Expression):
+    """rank() / dense_rank() over the window's ORDER BY peers."""
+
+    dense: bool = False
+
+    def data_type(self, schema):
+        return T.INT32
+
+    def nullable(self, schema):
+        return False
+
+    @property
+    def name(self):
+        return "dense_rank()" if self.dense else "rank()"
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass(eq=False, frozen=True)
+class LagLead(Expression):
+    """lag/lead(child, offset, default): the value of the row ``offset``
+    rows before/after within the partition (reference:
+    windowExpressions.scala Lag/Lead)."""
+
+    child: Expression
+    offset: int
+    default: Optional[Expression]
+    lead: bool  # False = lag
+
+    def children(self):
+        return (self.child,) if self.default is None \
+            else (self.child, self.default)
+
+    def data_type(self, schema):
+        return self.child.data_type(schema)
+
+    @property
+    def name(self):
+        fn = "lead" if self.lead else "lag"
+        return f"{fn}({self.child}, {self.offset})"
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass(eq=False, frozen=True)
+class NTile(Expression):
+    """ntile(n): the partition split into ``n`` near-equal buckets."""
+
+    n: int
+
+    def data_type(self, schema):
+        return T.INT32
+
+    def nullable(self, schema):
+        return False
+
+    @property
+    def name(self):
+        return f"ntile({self.n})"
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass(eq=False, frozen=True)
+class WindowExpr(Expression):
+    """fn OVER (PARTITION BY ... ORDER BY ... frame) (reference:
+    expressions/windowExpressions.scala WindowExpression +
+    WindowSpecDefinition). ``frame`` is (mode, start, end) with mode
+    'rows'|'range', bounds None=unbounded, 0=current row, +/-n offsets;
+    a None frame is the SQL default (RANGE UNBOUNDED PRECEDING..CURRENT
+    ROW with ORDER BY, the whole partition without)."""
+
+    func: Expression
+    partition_by: Tuple[Expression, ...]
+    order_by: Tuple["SortOrder", ...]
+    frame: Optional[Tuple[str, Optional[int], Optional[int]]] = None
+
+    def children(self):
+        return (self.func,) + tuple(self.partition_by) + tuple(self.order_by)
+
+    def data_type(self, schema):
+        if isinstance(self.func, Count):
+            return T.INT64
+        return self.func.data_type(schema)
+
+    @property
+    def name(self):
+        return f"{self.func.name} OVER (...)"
+
+    def __str__(self):
+        return self.name
+
+
+def window_dictionary(w: WindowExpr, schema) -> Optional[tuple]:
+    """String dictionary of a window output, when the function carries
+    values through from a dictionary-encoded column (lag/lead/min/max/
+    first)."""
+    fn = w.func
+    if not isinstance(fn, (LagLead, Min, Max, First)):
+        return None
+    c = strip_alias(fn.child)
+    if isinstance(c, Col) and c.col_name in schema:
+        return schema.field(c.col_name).dictionary
+    return None
+
+
+def contains_window(e: Expression) -> bool:
+    if isinstance(e, WindowExpr):
+        return True
+    return any(contains_window(c) for c in e.children())
+
+
 # ---- subquery expressions ---------------------------------------------------
 
 
@@ -733,16 +925,45 @@ def strip_alias(e: Expression) -> Expression:
 def contains_aggregate(e: Expression) -> bool:
     if isinstance(e, AggregateExpression):
         return True
+    if isinstance(e, WindowExpr):
+        return False  # the aggregate belongs to the window, not the query
     return any(contains_aggregate(c) for c in e.children())
 
 
 def collect_aggregates(e: Expression) -> list:
     if isinstance(e, AggregateExpression):
         return [e]
+    if isinstance(e, WindowExpr):
+        return []
     out = []
     for c in e.children():
         out.extend(collect_aggregates(c))
     return out
+
+
+def transform_expr_down(e: Expression, fn) -> Expression:
+    """Pre-order expression transform: ``fn`` sees each node before its
+    children; where it returns a replacement, the descent stops there
+    (TreeNode.transformDown analogue)."""
+    ne = fn(e)
+    if ne is not e:
+        return ne
+
+    def tx(v):
+        if isinstance(v, Expression):
+            return transform_expr_down(v, fn)
+        if isinstance(v, tuple):
+            nv = tuple(tx(x) for x in v)
+            return nv if any(a is not b for a, b in zip(nv, v)) else v
+        return v
+
+    new_fields = {}
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        nv = tx(v)
+        if nv is not v:
+            new_fields[f.name] = nv
+    return dataclasses.replace(e, **new_fields) if new_fields else e
 
 
 def transform_expr(e: Expression, fn) -> Expression:

@@ -1,11 +1,11 @@
 """Device kernels of the physical operators, as torch ops.
 
 The port of ``spark_tpu/physical/kernels.py`` for the single-device
-aggregate and join paths: sort and compaction permutations, group ids,
-mixed-radix key packing, segmented reductions, the DISTINCT-aggregate
-first-row mask, the limit mask, and the
-sorted-build join (build index, per-probe match ranges, pair expansion,
-range packing and 64-bit key hashing). Everything is mask-carrying:
+aggregate, join and window paths: sort and compaction permutations,
+group ids, mixed-radix key packing, segmented reductions and scans, the
+DISTINCT-aggregate first-row mask, the limit mask, and the sorted-build
+join (build index, per-probe match ranges, pair expansion, range packing
+and 64-bit key hashing). Everything is mask-carrying:
 dead rows ride along and are neutralized per reduction.
 
 Counts, sums and min/max select a path as the reference does
@@ -17,8 +17,11 @@ Counts, sums and min/max select a path as the reference does
   (``kernel_eligible``: any count, int64 sums, float32 min/max): the
   one-pass CUDA kernels of ``ops/seg_agg.py`` (their plain versions on
   CPU tensors);
-- sorted ids: cumsum differences (counts, integer sums) or a
-  scatter-reduce over the sorted ids (min, max);
+- sorted ids: cumsum differences (counts, integer sums), a
+  scatter-reduce over the sorted ids (min, max; exact in any order), a
+  running count and a binary search per segment (first rows); the
+  reference's segmented-scan reduction ``_sorted_seg_red`` is not
+  needed, and its scan, ``seg_scan``, serves the window operator;
 - anything else: scatter.
 
 Integer sums are exact on every path (int64 adds natively on the GPU, so
@@ -200,6 +203,24 @@ def _scatter_minmax(masked, seg, num_segments: int, is_max: bool):
     return out
 
 
+def seg_scan(seg: torch.Tensor, x: torch.Tensor, combine) -> torch.Tensor:
+    """Segmented inclusive scan of ``x`` under the associative
+    ``combine`` (torch.minimum, torch.maximum), restarting where the
+    MONOTONE ``seg`` changes (the reference's associative_scan): log2(n)
+    doubling steps, each combining a row with the row 2^k back when both
+    lie in one segment. Exact for min/max; NaN propagates as in
+    torch.minimum/maximum."""
+    n = x.shape[0]
+    out = x
+    d = 1
+    while d < n:
+        same = seg[d:] == seg[:-d]
+        out = torch.cat([out[:d], torch.where(same, combine(out[:-d], out[d:]),
+                                              out[d:])])
+        d *= 2
+    return out
+
+
 def seg_sum(data, seg, mask, num_segments: int, sorted_seg: bool = False):
     """Grouped sum of int64 or float data (the only types the
     aggregates pass). Integer sums are exact on every path. Float sums
@@ -287,13 +308,34 @@ def seg_max(data, seg, mask, num_segments: int, sorted_seg: bool = False):
 def seg_first(data, seg, mask, num_segments: int, capacity: int,
               sorted_seg: bool = False):
     """Value of the first (by position) masked row in each segment, and
-    whether the segment has one."""
+    whether the segment has one. Paths as the reference's, sorted,
+    masked (up to ``MIN_ENGINE_K`` segments) or scatter: with monotone
+    ids a segment's first masked row is where the running count of
+    masked rows first passes its count before the segment (one cumsum
+    and a binary search per segment, where the reference runs a
+    segmented scan); a scatter-min's atomics serialize when few
+    segments take many rows."""
     dev = seg.device
-    pos = torch.where(mask, torch.arange(capacity, device=dev),
-                      torch.full((), capacity, device=dev))
-    first_pos = torch.full((num_segments,), capacity, dtype=pos.dtype,
-                           device=dev)
-    first_pos.scatter_reduce_(0, seg.long(), pos, "amin", include_self=True)
+    cap_t = torch.full((), capacity, device=dev)
+    if sorted_seg:
+        starts, ends = seg_bounds(seg, num_segments)
+        count = torch.cumsum(mask.to(torch.int64), 0)
+        before = torch.where(starts > 0,
+                             count[(starts - 1).clamp(0, capacity - 1)],
+                             torch.zeros((), dtype=torch.int64, device=dev))
+        first_pos = searchsorted(count, before + 1, side="left")
+        first_pos = torch.where((ends >= starts) & (first_pos <= ends),
+                                first_pos, cap_t)
+    else:
+        pos = torch.where(mask, torch.arange(capacity, device=dev), cap_t)
+        if num_segments <= MIN_ENGINE_K:
+            first_pos = _masked_reduce(pos, seg, mask, num_segments,
+                                       torch.min, cap_t)
+        else:
+            first_pos = torch.full((num_segments,), capacity,
+                                   dtype=pos.dtype, device=dev)
+            first_pos.scatter_reduce_(0, seg.long(), pos, "amin",
+                                      include_self=True)
     idx = first_pos.clamp(0, capacity - 1)
     return data[idx], first_pos < capacity
 

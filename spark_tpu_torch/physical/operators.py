@@ -1,9 +1,10 @@
 """Physical operators, run eagerly over torch tensors.
 
 The port of the single-device main path of
-``spark_tpu/physical/operators.py``: scan, filter, project, sort, limit,
-compaction, grouped aggregation and the sorted-build equi-join
-(``JoinExec``, its blocking path). A pipeline carries ``(cols: {name:
+``spark_tpu/physical/operators.py``: scan, range, filter, project, sort,
+limit, compaction, the grouping-sets expand, union, grouped aggregation
+and the sorted-build equi-join (``JoinExec``, its blocking path); the
+window operator is ``physical/window.py``. A pipeline carries ``(cols: {name:
 TV}, row_mask)``; filters flip mask bits, projections rebuild the dict —
 shapes never change mid-stage. The reference fuses traceable operators
 into one XLA program; here every operator runs eagerly
@@ -27,7 +28,8 @@ from spark_tpu_torch.expr import compiler as C
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.expr.compiler import TV, Env
 from spark_tpu_torch.physical import kernels as K
-from spark_tpu_torch.plan.logical import join_schema
+from spark_tpu_torch.device import resolve_device
+from spark_tpu_torch.plan.logical import expand_schema, join_schema, range_rows
 from spark_tpu_torch.types import Field, Schema
 
 
@@ -116,6 +118,33 @@ class BatchScanExec(PhysicalPlan):
 
     def node_string(self):
         return f"BatchScan{list(self.schema.names)}"
+
+
+@dataclass(eq=False)
+class RangeExec(PhysicalPlan):
+    """``range(start, end, step)`` as one int64 column made on the device
+    (reference: basicPhysicalOperators.scala RangeExec:412)."""
+
+    start: int
+    end: int
+    step: int
+    col_name: str
+    device: object
+
+    @property
+    def schema(self) -> Schema:
+        return Schema((Field(self.col_name, T.INT64, nullable=False),))
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        dev = resolve_device(self.device)
+        n = range_rows(self.start, self.end, self.step)
+        pos = torch.arange(K.bucket(n), dtype=torch.int64, device=dev)
+        ids = self.start + pos * self.step
+        return Pipe({self.col_name: TV(ids, None, T.INT64, None)}, pos < n,
+                    [self.col_name])
+
+    def node_string(self):
+        return f"Range({self.start}, {self.end}, {self.step})"
 
 
 # ---- pipelined unary ops ----------------------------------------------------
@@ -260,6 +289,90 @@ class CompactExec(PhysicalPlan):
 
     def node_string(self):
         return f"Compact[{self.cap}]"
+
+
+@dataclass(eq=False)
+class ExpandExec(PhysicalPlan):
+    """One output block per projection, stacked (reference:
+    execution/ExpandExec.scala:1): capacity = child capacity x sets, no
+    host sync. String columns are re-coded into the union of the
+    projections' dictionaries."""
+
+    projections: Tuple[Tuple[E.Expression, ...], ...]
+    names: Tuple[str, ...]
+    child: PhysicalPlan
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def schema(self) -> Schema:
+        return expand_schema(self.projections, self.names, self.child.schema)
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        pipe = child_pipes[0]
+        env = pipe.env()
+        n = pipe.capacity
+        cols: Dict[str, TV] = {}
+        for i, out_f in enumerate(self.schema.fields):
+            tvs = [C.evaluate(proj[i], env) for proj in self.projections]
+            data, dictionary = _stack_columns(tvs, out_f.dtype)
+            validity = None
+            if any(tv.validity is not None for tv in tvs):
+                validity = torch.cat([tv.valid_or_true(n) for tv in tvs])
+            cols[out_f.name] = TV(data, validity, out_f.dtype, dictionary)
+        mask = torch.cat([pipe.mask] * len(self.projections))
+        return Pipe(cols, mask, list(self.names))
+
+    def node_string(self):
+        return f"Expand[{len(self.projections)} sets]"
+
+
+def _stack_columns(tvs: Sequence[TV], out_dt) -> Tuple[torch.Tensor,
+                                                       Optional[tuple]]:
+    """The data of several TVs concatenated as one column of ``out_dt``:
+    strings re-coded into their dictionaries' union, other types cast."""
+    if isinstance(out_dt, T.StringType):
+        union, tables = C.unify_dictionaries(
+            tuple(tv.dictionary or () for tv in tvs))
+        return torch.cat([C._gather(tb, tv.data) if len(tv.dictionary or ())
+                          else tv.data for tv, tb in zip(tvs, tables)]), union
+    return torch.cat([C._cast_data(tv.data, tv.dtype, out_dt)
+                      for tv in tvs]), None
+
+
+@dataclass(eq=False)
+class UnionExec(PhysicalPlan):
+    """UNION ALL by position: both sides' rows concatenated, capacities
+    added (no compaction); names from the left side."""
+
+    left: PhysicalPlan
+    right: PhysicalPlan
+
+    def children(self):
+        return (self.left, self.right)
+
+    @property
+    def schema(self) -> Schema:
+        return self.left.schema
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        lp, rp = child_pipes
+        cols: Dict[str, TV] = {}
+        for lname, rname in zip(lp.order, rp.order):
+            lt, rt = lp.cols[lname], rp.cols[rname]
+            out_dt = lt.dtype if type(lt.dtype) is type(rt.dtype) \
+                else T.common_type(lt.dtype, rt.dtype)
+            data, dictionary = _stack_columns((lt, rt), out_dt)
+            validity = None
+            if lt.validity is not None or rt.validity is not None:
+                validity = torch.cat([lt.valid_or_true(lp.capacity),
+                                      rt.valid_or_true(rp.capacity)])
+            cols[lname] = TV(data, validity, out_dt, dictionary)
+        return Pipe(cols, torch.cat([lp.mask, rp.mask]), list(cols))
+
+    def node_string(self):
+        return "Union"
 
 
 # ---- aggregation ------------------------------------------------------------

@@ -55,6 +55,8 @@ def estimate_rows(plan: L.LogicalPlan) -> float:
     JoinEstimation}.scala)."""
     if isinstance(plan, L.Relation):
         return float(plan.batch.capacity)
+    if isinstance(plan, L.Range):
+        return float(plan.num_rows)
     if isinstance(plan, L.Filter):
         return max(1.0, estimate_rows(plan.child)
                    * _filter_selectivity(plan.condition))
@@ -76,6 +78,8 @@ def estimate_rows(plan: L.LogicalPlan) -> float:
             return max(1.0, lr * 0.5)
         # PK-FK assumption for equi joins: one side's keys are ~unique
         return max(lr, rr)
+    if isinstance(plan, L.Union):
+        return sum(estimate_rows(c) for c in plan.children())
     children = plan.children()
     if len(children) == 1:
         return estimate_rows(children[0])
@@ -125,6 +129,8 @@ def _atom_ndv(atom: L.LogicalPlan, expr: E.Expression) -> Optional[float]:
             return None
         data = node.batch.data.columns[node.batch.schema.index(name)].data
         return float(torch.unique(data).numel())  # host sync
+    if isinstance(node, L.Range):
+        return float(node.num_rows)
     return None
 
 

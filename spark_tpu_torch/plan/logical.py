@@ -1,6 +1,7 @@
 """Logical plans, trimmed to the nodes the single-device aggregate,
-join and subquery slices plan: relations, projections, filters,
-aggregates, sorts, limits, DISTINCT, subquery aliases and joins.
+join, subquery and window slices plan: relations, ranges, projections,
+filters, aggregates, the grouping-sets ``Expand``, windows, sorts,
+limits, DISTINCT, subquery aliases, joins and unions.
 
 The analogue of Catalyst's logical operators (reference:
 sql/catalyst/src/main/scala/org/apache/spark/sql/catalyst/plans/logical/
@@ -19,6 +20,7 @@ from dataclasses import dataclass
 from functools import cached_property
 from typing import Any, Callable, Optional, Tuple
 
+from spark_tpu_torch import types as T
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.types import Field, Schema
 
@@ -122,6 +124,37 @@ class Relation(LogicalPlan):
         return f"Relation{list(self.schema.names)}"
 
 
+@dataclass(eq=False, frozen=True)
+class Range(LogicalPlan):
+    """spark.range(start, end, step) (reference: basicLogicalOperators
+    Range + RangeExec basicPhysicalOperators.scala:412), and the one-row
+    relation of a SELECT without FROM. Generated on the device."""
+
+    start: int
+    end: int
+    step: int = 1
+    col_name: str = "id"
+
+    @property
+    def schema(self) -> Schema:
+        return Schema((Field(self.col_name, T.INT64, nullable=False),))
+
+    @property
+    def num_rows(self) -> int:
+        return range_rows(self.start, self.end, self.step)
+
+    def node_string(self):
+        return f"Range({self.start}, {self.end}, {self.step})"
+
+
+def range_rows(start: int, end: int, step: int) -> int:
+    """Row count of ``range(start, end, step)``."""
+    if step == 0:
+        return 0
+    n = end - start + step - (1 if step > 0 else -1)
+    return max(0, n // step)
+
+
 # ---- unary -----------------------------------------------------------------
 
 
@@ -199,6 +232,105 @@ class Aggregate(LogicalPlan):
     def node_string(self):
         return (f"Aggregate[keys=[{', '.join(map(str, self.groupings))}], "
                 f"out=[{', '.join(str(e) for e in self.aggregates)}]]")
+
+
+def expand_schema(projections, names, cs: Schema) -> Schema:
+    """Output schema of an Expand over a child of schema ``cs``: each
+    column's common type over the projections, nullable when any is,
+    and the dictionary of a column a projection passes through."""
+    fields = []
+    for i, name in enumerate(names):
+        dt = projections[0][i].data_type(cs)
+        nullable = False
+        dictionary = None
+        for proj in projections:
+            e = proj[i]
+            dt = T.common_type(dt, e.data_type(cs))
+            nullable = nullable or e.nullable(cs)
+            inner = E.strip_alias(e)
+            if isinstance(inner, E.Col) and inner.col_name in cs:
+                dictionary = dictionary or cs.field(inner.col_name).dictionary
+        fields.append(Field(name, dt, nullable, dictionary))
+    return Schema(tuple(fields))
+
+
+@dataclass(eq=False, frozen=True)
+class Expand(LogicalPlan):
+    """Replicate the input once per projection (reference: plans/logical
+    Expand + execution/ExpandExec.scala:1, the engine under
+    ROLLUP/CUBE/GROUPING SETS). Output capacity is the child's times
+    ``len(projections)``."""
+
+    projections: Tuple[Tuple[E.Expression, ...], ...]
+    names: Tuple[str, ...]
+    child: LogicalPlan
+
+    def children(self):
+        return (self.child,)
+
+    @cached_property
+    def schema(self) -> Schema:
+        return expand_schema(self.projections, self.names, self.child.schema)
+
+    def node_string(self):
+        return f"Expand[{len(self.projections)} sets]"
+
+
+def window_schema(window_exprs, cs: Schema) -> Schema:
+    """The child's columns followed by one column per window output."""
+    fields = list(cs.fields)
+    for e in window_exprs:
+        fields.append(Field(e.name, e.data_type(cs), e.nullable(cs),
+                            E.window_dictionary(E.strip_alias(e), cs)))
+    return Schema(tuple(fields))
+
+
+@dataclass(eq=False, frozen=True)
+class Window(LogicalPlan):
+    """Append window-function columns to the child's output (reference:
+    plans/logical/basicLogicalOperators.scala Window +
+    execution/window/WindowExec.scala:87). Each entry is an
+    Alias(WindowExpr, out_name); the physical operator groups them by
+    (partition, order) spec."""
+
+    window_exprs: Tuple[E.Alias, ...]
+    child: LogicalPlan
+
+    def children(self):
+        return (self.child,)
+
+    @cached_property
+    def schema(self) -> Schema:
+        return window_schema(self.window_exprs, self.child.schema)
+
+    def node_string(self):
+        return f"Window[{', '.join(str(e) for e in self.window_exprs)}]"
+
+
+def project_with_windows(exprs: Tuple[E.Expression, ...],
+                         child: LogicalPlan) -> LogicalPlan:
+    """Project(exprs, child), with every WindowExpr hoisted into a Window
+    node below the projection as a ``__w{i}`` column (the analyzer's
+    ExtractWindowExpressions rule, reference: analysis/Analyzer.scala)."""
+    win: list = []
+    new_exprs: list = []
+
+    def repl(x: E.Expression) -> E.Expression:
+        if isinstance(x, E.WindowExpr):
+            nm = f"__w{len(win)}"
+            win.append(E.Alias(x, nm))
+            return E.Col(nm)
+        return x
+
+    for e in exprs:
+        if not E.contains_window(e):
+            new_exprs.append(e)
+            continue
+        ne = E.transform_expr(E.strip_alias(e), repl)
+        new_exprs.append(E.Alias(ne, e.name))
+    if not win:
+        return Project(tuple(exprs), child)
+    return Project(tuple(new_exprs), Window(tuple(win), child))
 
 
 @dataclass(eq=False, frozen=True)
@@ -306,3 +438,19 @@ class Join(LogicalPlan):
         ks = ", ".join(f"{l}={r}"
                        for l, r in zip(self.left_keys, self.right_keys))
         return f"Join[{self.how}, keys=({ks}), cond={self.condition}]"
+
+
+@dataclass(eq=False, frozen=True)
+class Union(LogicalPlan):
+    """UNION ALL by position; names and types come from the left side
+    (Spark semantics)."""
+
+    left: LogicalPlan
+    right: LogicalPlan
+
+    def children(self):
+        return (self.left, self.right)
+
+    @property
+    def schema(self) -> Schema:
+        return self.left.schema

@@ -4,7 +4,8 @@ Analogue of Catalyst's optimizer (reference:
 sql/catalyst/.../optimizer/Optimizer.scala:44 defaultBatches:71) with the
 rules the aggregate and join slices need: predicate pushdown (into join
 sides too), equi-join key extraction from WHERE and ON conditions,
-factoring of common OR conjuncts, column pruning, project collapsing,
+factoring of common OR conjuncts, column pruning (windows, unions and
+the grouping-sets Expand included), project collapsing,
 constant folding (date and month arithmetic included), pruning of
 always-true filters, and cost-based join reordering
 (``plan/join_reorder.py``). The rule-executor loop mirrors
@@ -365,7 +366,7 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
     ColumnPruning)."""
 
     def prune(node: L.LogicalPlan, required: set) -> L.LogicalPlan:
-        if isinstance(node, L.Relation):
+        if isinstance(node, (L.Relation, L.Range)):
             names = node.schema.names
             keep = [n for n in names if n in required]
             if 0 < len(keep) < len(names):
@@ -386,6 +387,16 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
                 child_req |= e.references()
             return dataclasses.replace(
                 node, child=prune(node.child, child_req))
+        if isinstance(node, L.Window):
+            win_names = {e.name for e in node.window_exprs}
+            child_req = {n for n in required if n not in win_names}
+            for e in node.window_exprs:
+                child_req |= e.references()
+            child_req &= set(node.child.schema.names)
+            if not child_req:
+                child_req = set(node.child.schema.names)
+            return dataclasses.replace(
+                node, child=prune(node.child, child_req))
         if isinstance(node, (L.Sort, L.Limit, L.Distinct, L.SubqueryAlias)):
             child_req = set(required)
             for e in node.expressions():
@@ -395,6 +406,25 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
             return node.with_children((prune(node.children()[0], child_req),))
         if isinstance(node, L.Join):
             return _prune_join(node, required, prune)
+        if isinstance(node, L.Expand):
+            # only the outputs required above: the grouping-sets Expand
+            # passes every child column through, and replicates each
+            # once per set (the reference keeps them all)
+            keep = [i for i, n in enumerate(node.names)
+                    if n in required] or [0]
+            child_req = set()
+            for proj in node.projections:
+                for i in keep:
+                    child_req |= proj[i].references()
+            return L.Expand(
+                tuple(tuple(proj[i] for i in keep)
+                      for proj in node.projections),
+                tuple(node.names[i] for i in keep),
+                prune(node.child, child_req))
+        if isinstance(node, L.Union):
+            # positional: every column of both sides is kept
+            return node.with_children(tuple(
+                prune(c, set(c.schema.names)) for c in node.children()))
         raise NotImplementedError(
             f"column pruning for {type(node).__name__}")
 

@@ -1,22 +1,28 @@
 """SQL parser: text -> logical plans, trimmed to the single-device
-aggregate, join and subquery slices.
+aggregate, join, subquery and window slices.
 
 Hand-written tokenizer, recursive-descent expression parser and
-statement builder for SELECT [DISTINCT] ... FROM <relations> [WHERE]
-[GROUP BY] [HAVING] [ORDER BY] [LIMIT [OFFSET]] with comparisons,
-BETWEEN, [NOT] IN (list | subquery), [NOT] LIKE, [NOT] EXISTS, scalar
-subqueries, IS [NOT] NULL, arithmetic, CASE, CAST, substring, extract,
-coalesce, date literals, day/week/month/year intervals and the
-count/sum/avg/min/max aggregates (count/sum/avg also DISTINCT). The
-FROM clause takes tables and derived tables ``( SELECT ... ) [AS]
-alias`` with aliases, comma joins and ``[INNER|CROSS|LEFT [OUTER]|RIGHT
-[OUTER]|FULL [OUTER]|LEFT SEMI|LEFT ANTI] JOIN ... ON/USING``. A
-subquery resolves names it cannot find in its own FROM clause against
-the enclosing query's (``OuterRef``); ``parse_sql`` hands the plan to
-``plan/subquery.py``, which rewrites every subquery into joins. Window
-functions, grouping sets, LATERAL VIEW and set operations raise
-``NotImplementedError``; other constructs are parse errors. The
-reference parses with an ANTLR grammar (reference:
+statement parser for SELECT [DISTINCT] ... [FROM <relations>] [WHERE]
+[GROUP BY [ROLLUP | CUBE | GROUPING SETS]] [HAVING] joined by UNION
+[ALL], INTERSECT and EXCEPT, then [ORDER BY] [LIMIT [OFFSET]], with
+comparisons, BETWEEN, [NOT] IN (list | subquery), [NOT] LIKE, [NOT]
+EXISTS, scalar subqueries, IS [NOT] NULL, arithmetic, CASE, CAST,
+substring, extract, coalesce, date literals, day/week/month/year
+intervals, the count/sum/avg/min/max aggregates (count/sum/avg also
+DISTINCT), grouping()/grouping_id(), and window functions (row_number,
+rank, dense_rank, ntile, lag, lead and the aggregates) OVER (PARTITION
+BY ... ORDER BY ... ROWS|RANGE frame). The FROM clause takes tables and
+derived tables ``( SELECT ... ) [AS] alias`` with aliases, comma joins
+and ``[INNER|CROSS|LEFT [OUTER]|RIGHT [OUTER]|FULL [OUTER]|LEFT
+SEMI|LEFT ANTI] JOIN ... ON/USING``; a SELECT without FROM reads one
+row. A subquery resolves names it cannot find in its own FROM clause
+against the enclosing query's (``OuterRef``); ``parse_sql`` hands the
+plan to ``plan/subquery.py``, which rewrites every subquery into joins.
+A function or construct that the reference parses and the port has not
+ported yet (``_REFERENCE_FUNCTIONS``, ``||``, subscripts, LATERAL VIEW,
+TIMESTAMP literals, CREATE/DROP VIEW) raises ``NotImplementedError``;
+anything else unknown is a parse error. The reference parses with an
+ANTLR grammar (reference:
 sql/catalyst/src/main/antlr4/.../SqlBaseParser.g4:1 +
 parser/AstBuilder.scala); name resolution happens during parsing
 against the FROM clause's scope, folding the Analyzer's resolution tier
@@ -26,6 +32,7 @@ against the FROM clause's scope, folding the Analyzer's resolution tier
 from __future__ import annotations
 
 import datetime
+import decimal
 import re
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -33,6 +40,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 from spark_tpu_torch import types as T
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.plan import logical as L
+from spark_tpu_torch.plan.grouping import (contains_grouping_fns, cube_sets,
+                                           grouping_sets_aggregate,
+                                           rewrite_grouping_fns, rollup_sets)
 from spark_tpu_torch.plan.optimizer import combine_conjuncts, split_conjuncts
 from spark_tpu_torch.plan.subquery import rewrite_subqueries
 from spark_tpu_torch.sql.ddl import parse_type
@@ -44,7 +54,7 @@ _TOKEN_RE = re.compile(r"""
   | (?P<num>\d+\.\d*(?:[eE][+-]?\d+)?|\.\d+(?:[eE][+-]?\d+)?|\d+(?:[eE][+-]?\d+)?)
   | (?P<str>'(?:[^']|'')*')
   | (?P<qid>"[^"]*"|`[^`]*`)
-  | (?P<op><>|!=|>=|<=|[=<>+\-*/%(),.;])
+  | (?P<op><>|!=|>=|<=|\|\||->|[=<>+\-*/%(),.;\[\]])
   | (?P<id>[A-Za-z_][A-Za-z_0-9]*)
 """, re.VERBOSE | re.DOTALL)
 
@@ -96,7 +106,29 @@ _RESERVED_STOP = {
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} are not ported yet (ROADMAP queue A)")
+    return NotImplementedError(f"not ported yet: {what} (ROADMAP queue A)")
+
+
+#: every function name the reference's parser accepts
+#: (``spark_tpu/sql/parser.py``: ``_parse_function_inner`` and
+#: ``_composed_functions``); the port parses those of ``_PORTED_FUNCTIONS``
+#: and refuses the rest as not ported yet
+_REFERENCE_FUNCTIONS = frozenset("""
+    ROW_NUMBER RANK DENSE_RANK NTILE LAG LEAD COUNT SUM AVG MIN MAX
+    STDDEV STDDEV_SAMP STDDEV_POP VARIANCE VAR_SAMP VAR_POP SUBSTRING
+    SUBSTR COALESCE YEAR MONTH DAY DAYOFMONTH ABS FLOOR CEIL CEILING SQRT
+    EXP LN LOG10 SIGN ROUND POWER POW UPPER LOWER TRIM LTRIM RTRIM LENGTH
+    LEN CHAR_LENGTH REGEXP_EXTRACT REGEXP_REPLACE REGEXP_LIKE DATE_TRUNC
+    LAST_DAY APPROX_COUNT_DISTINCT NULLIF CONCAT DATE_ADD DATE_SUB
+    ADD_MONTHS LPAD RPAD REPEAT REPLACE TRANSLATE SPLIT CONCAT_WS
+    TRANSFORM FILTER EXISTS FORALL AGGREGATE REDUCE COLLECT_LIST
+    COLLECT_SET ARRAY_AGG PERCENTILE PERCENTILE_APPROX APPROX_PERCENTILE
+    MEDIAN GREATEST LEAST IFNULL NVL NVL2 LOG2 DEGREES RADIANS PMOD
+    QUARTER DAYOFWEEK WEEKDAY DAYOFYEAR MONTHS_BETWEEN CURRENT_DATE HOUR
+    MINUTE SECOND INITCAP REVERSE GROUPING GROUPING_ID ARRAY SIZE
+    CARDINALITY ELEMENT_AT ARRAY_CONTAINS EXPLODE POSEXPLODE MAP
+    MAP_FROM_ARRAYS MAP_KEYS MAP_VALUES MAP_CONTAINS_KEY
+""".split())
 
 
 # ---- name resolution scope --------------------------------------------------
@@ -242,6 +274,9 @@ class _ExprParser:
 
     def parse_predicate(self) -> E.Expression:
         if self.at_keyword("EXISTS"):
+            if self.peek(2).upper not in ("SELECT", "WITH"):
+                # exists(array, x -> pred), the higher-order function
+                raise _not_ported("function exists()")
             self.next()
             self.expect("(")
             plan = self._parse_subquery()
@@ -300,6 +335,8 @@ class _ExprParser:
                 self.next()
                 right = self.parse_multiplicative()
                 left = self._date_arith(t.value, left, right)
+            elif t.kind == "op" and t.value == "||":
+                raise _not_ported("the || concatenation operator")
             else:
                 return left
 
@@ -340,6 +377,13 @@ class _ExprParser:
         return self.parse_primary()
 
     def parse_primary(self) -> E.Expression:
+        e = self._parse_primary_base()
+        t = self.peek()
+        if t.kind == "op" and t.value == "[":
+            raise _not_ported("array and map subscripts x[i]")
+        return e
+
+    def _parse_primary_base(self) -> E.Expression:
         t = self.next()
         if t.kind == "num":
             text = t.value
@@ -377,6 +421,8 @@ class _ExprParser:
         if u == "DATE" and self.peek().kind == "str":
             s = _unquote(self.next().value)
             return E.Literal(datetime.date.fromisoformat(s))
+        if u == "TIMESTAMP" and self.peek().kind == "str":
+            raise _not_ported("TIMESTAMP literals")
         if u == "INTERVAL":
             return self._parse_interval()
         if u == "CASE":
@@ -454,21 +500,105 @@ class _ExprParser:
 
     _AGG_FNS = {"SUM": E.Sum, "AVG": E.Avg, "MIN": E.Min, "MAX": E.Max,
                 "COUNT": E.Count}
-    _WINDOW_FNS = {"ROW_NUMBER", "RANK", "DENSE_RANK", "NTILE", "LAG",
-                   "LEAD"}
+    #: functions that exist only over a window
+    _WINDOW_ONLY = (E.RowNumber, E.Rank, E.NTile, E.LagLead)
 
     def _parse_function(self, name_tok: Token) -> E.Expression:
-        name = name_tok.upper
-        if name in self._WINDOW_FNS:
-            raise _not_ported("window functions")
         self.expect("(")
-        e = self._parse_function_args(name, name_tok)
+        e = self._parse_function_args(name_tok.upper, name_tok)
         if self.at_keyword("OVER"):
-            raise _not_ported("window functions")
+            self.next()
+            return self._parse_window_spec(e)
+        if isinstance(e, self._WINDOW_ONLY):
+            raise SQLParseError(f"{name_tok.value} requires an OVER clause "
+                                f"at {name_tok.pos}")
         return e
+
+    def _parse_window_spec(self, func: E.Expression) -> E.WindowExpr:
+        """OVER ( [PARTITION BY ...] [ORDER BY ...] [ROWS|RANGE [BETWEEN]
+        bound [AND bound]] ) (reference grammar: SqlBaseParser.g4
+        windowSpec)."""
+        self.expect("(")
+        partition: List[E.Expression] = []
+        orders: List[E.SortOrder] = []
+        frame = None
+        if self.at_keyword("PARTITION"):
+            self.next()
+            self.expect("BY")
+            partition.append(self.parse())
+            while self.accept(","):
+                partition.append(self.parse())
+        if self.at_keyword("ORDER"):
+            self.next()
+            self.expect("BY")
+            while True:
+                e = self.parse()
+                asc = not self.accept("DESC")
+                if asc:
+                    self.accept("ASC")
+                nulls_first = None
+                if self.accept("NULLS"):
+                    nulls_first = self.next().upper == "FIRST"
+                orders.append(E.SortOrder(e, asc, nulls_first))
+                if not self.accept(","):
+                    break
+        if self.at_keyword("ROWS", "RANGE"):
+            mode = self.next().upper.lower()
+            if self.accept("BETWEEN"):
+                start = self._frame_bound()
+                self.expect("AND")
+                end = self._frame_bound()
+            else:
+                start, end = self._frame_bound(), 0
+            frame = (mode, start, end)
+        self.expect(")")
+        return E.WindowExpr(func, tuple(partition), tuple(orders), frame)
+
+    def _frame_bound(self) -> Optional[int]:
+        """UNBOUNDED PRECEDING|FOLLOWING (None), CURRENT ROW (0) or n
+        PRECEDING|FOLLOWING (-n / n)."""
+        if self.accept("UNBOUNDED"):
+            n = None
+        elif self.accept("CURRENT"):
+            self.expect("ROW")
+            return 0
+        else:
+            n = self._int_literal()
+        side = self.next()
+        if side.upper not in ("PRECEDING", "FOLLOWING"):
+            raise SQLParseError(f"expected PRECEDING or FOLLOWING at "
+                                f"{side.pos}: {side.value!r}")
+        if n is None:
+            return None
+        return -n if side.upper == "PRECEDING" else n
 
     def _parse_function_args(self, name: str,
                              name_tok: Token) -> E.Expression:
+        if name in ("ROW_NUMBER", "RANK", "DENSE_RANK"):
+            self.expect(")")
+            if name == "ROW_NUMBER":
+                return E.RowNumber()
+            return E.Rank(dense=(name == "DENSE_RANK"))
+        if name == "NTILE":
+            n = self._int_literal()
+            self.expect(")")
+            return E.NTile(n)
+        if name in ("LAG", "LEAD"):
+            e = self.parse()
+            offset, default = 1, None
+            if self.accept(","):
+                offset = self._int_literal()
+                if self.accept(","):
+                    default = self.parse()
+            self.expect(")")
+            return E.LagLead(e, offset, default, lead=(name == "LEAD"))
+        if name == "GROUPING":
+            e = self.parse()
+            self.expect(")")
+            return E.Grouping(e)
+        if name == "GROUPING_ID":
+            self.expect(")")
+            return E.GroupingId()
         if name in self._AGG_FNS:
             if name == "COUNT" and self.accept("*"):
                 self.expect(")")
@@ -503,6 +633,8 @@ class _ExprParser:
             self.expect(")")
             return E.ExtractDatePart({"DAYOFMONTH": "day"}.get(
                 name, name.lower()), e)
+        if name in _REFERENCE_FUNCTIONS:
+            raise _not_ported(f"function {name.lower()}()")
         raise SQLParseError(f"unknown function {name_tok.value!r} "
                             f"at {name_tok.pos}")
 
@@ -712,10 +844,27 @@ class _StmtParser(_Tokens):
     # -- SELECT ----------------------------------------------------------------
 
     def parse_query(self) -> L.LogicalPlan:
-        """query := select_core [ORDER BY ...] [LIMIT n [OFFSET m]]"""
+        """query := select_core ((UNION [ALL] | INTERSECT | EXCEPT)
+        select_core)* [ORDER BY ...] [LIMIT n [OFFSET m]]. INTERSECT and
+        EXCEPT are semi and anti joins on every column with null-safe
+        keys, then DISTINCT (reference: ReplaceIntersectWithSemiJoin,
+        ReplaceExceptWithAntiJoin)."""
         plan = self.parse_select_core()
-        if self.at_keyword("UNION", "INTERSECT", "EXCEPT"):
-            raise _not_ported("set operations")
+        while True:
+            if self.accept("UNION"):
+                all_ = bool(self.accept("ALL"))
+                plan = L.Union(plan, self.parse_select_core())
+                if not all_:
+                    plan = L.Distinct(plan)
+            elif self.at_keyword("INTERSECT", "EXCEPT"):
+                how = ("left_semi" if self.next().upper == "INTERSECT"
+                       else "left_anti")
+                rhs = self.parse_select_core()
+                plan = L.Distinct(L.Join(plan, rhs, how,
+                                         _null_safe_setop_keys(plan),
+                                         _null_safe_setop_keys(rhs)))
+            else:
+                break
         return self._parse_order_limit(plan)
 
     def _parse_order_limit(self, plan: L.LogicalPlan) -> L.LogicalPlan:
@@ -809,8 +958,11 @@ class _StmtParser(_Tokens):
             self.next()
         select_end = self.pos
 
-        self.expect("FROM")
-        plan, scope = self._parse_from()
+        if self.accept("FROM"):
+            plan, scope = self._parse_from()
+        else:
+            # SELECT without FROM: a one-row relation
+            plan, scope = L.Range(0, 1, 1, "__one"), Scope(self.outer)
         scope.schema = plan.schema
         self._current_scope = scope
         resolver = self._make_resolver(scope)
@@ -825,39 +977,102 @@ class _StmtParser(_Tokens):
         self.pos = saved
 
         group_exprs: List[E.Expression] = []
+        gsets = None  # (keys, index sets) of ROLLUP/CUBE/GROUPING SETS
         if self.at_keyword("GROUP"):
             self.next()
             self.expect("BY")
-            if self.at_keyword("ROLLUP", "CUBE") \
-                    or self.peek(0).upper == "GROUPING" \
-                    and self.peek(1).upper == "SETS":
-                raise _not_ported("grouping sets (ROLLUP, CUBE, GROUPING "
-                                  "SETS)")
             gresolver = self._group_resolver(resolver, select_exprs)
-            while True:
-                group_exprs.append(E.strip_alias(self._expr(gresolver)))
-                if not self.accept(","):
-                    break
+            if self.peek(0).upper in ("ROLLUP", "CUBE") \
+                    and self.peek(1).value == "(":
+                head = self.next().upper
+                keys = self._parse_key_list(gresolver)
+                gsets = (keys, rollup_sets(len(keys)) if head == "ROLLUP"
+                         else cube_sets(len(keys)))
+            elif self.peek(0).upper == "GROUPING" \
+                    and self.peek(1).upper == "SETS":
+                gsets = self._parse_grouping_sets(gresolver)
+            else:
+                while True:
+                    group_exprs.append(E.strip_alias(self._expr(gresolver)))
+                    if not self.accept(","):
+                        break
         having = None
         if self.accept("HAVING"):
             having = self._expr(resolver)
 
-        if group_exprs or having is not None \
-                or any(E.contains_aggregate(e) for e in select_exprs):
+        has_agg = any(E.contains_aggregate(e) for e in select_exprs)
+        if any(E.contains_window(e) for e in select_exprs) and (
+                group_exprs or gsets or has_agg or having is not None):
+            raise NotImplementedError(
+                "window functions combined with GROUP BY/HAVING in the "
+                "same SELECT are not supported yet")
+        if gsets is not None or group_exprs or has_agg \
+                or having is not None:
             outputs = list(select_exprs)
             having_cond = None
             if having is not None:
                 hidden, having_cond = self._pull_having_aggs(having)
                 outputs += hidden
-            plan = L.Aggregate(tuple(group_exprs), tuple(outputs), plan)
+            if gsets is None:
+                plan = L.Aggregate(tuple(group_exprs), tuple(outputs), plan)
+            else:
+                keys, sets = gsets
+                if having_cond is not None \
+                        and contains_grouping_fns(having_cond):
+                    # HAVING reads the grouping id through a hidden
+                    # output; its key references resolve against the
+                    # aggregate's output names
+                    outputs.append(E.Alias(E.GroupingId(), "__gidh"))
+                    having_cond = rewrite_grouping_fns(having_cond, keys,
+                                                       "__gidh")
+                plan = grouping_sets_aggregate(plan, keys, sets,
+                                               tuple(outputs))
             if having_cond is not None:
                 plan = L.Project(tuple(E.Col(e.name) for e in select_exprs),
                                  L.Filter(having_cond, plan))
         else:
-            plan = L.Project(tuple(select_exprs), plan)
+            plan = L.project_with_windows(tuple(select_exprs), plan)
         if distinct:
             plan = L.Distinct(plan)
         return plan
+
+    def _parse_key_list(self, resolver: Resolver) -> List[E.Expression]:
+        """( key, ... ) or ( ) of a grouping set."""
+        keys: List[E.Expression] = []
+        self.expect("(")
+        if not self.accept(")"):
+            while True:
+                keys.append(E.strip_alias(self._expr(resolver)))
+                if self.accept(")"):
+                    break
+                self.expect(",")
+        return keys
+
+    def _parse_grouping_sets(self, resolver: Resolver):
+        """GROUPING SETS ( set, ... ), a set being ( keys ) or a bare key:
+        the keys' ordered union, and each set as indexes into it."""
+        self.next()
+        self.next()
+        self.expect("(")
+        raw_sets = []
+        while True:
+            if self.peek().value == "(":
+                raw_sets.append(tuple(self._parse_key_list(resolver)))
+            else:
+                raw_sets.append((E.strip_alias(self._expr(resolver)),))
+            if self.accept(")"):
+                break
+            self.expect(",")
+        keys: List[E.Expression] = []
+        index: Dict[tuple, int] = {}
+        for s in raw_sets:
+            for e in s:
+                sk = E.expr_key(e)
+                if sk not in index:
+                    index[sk] = len(keys)
+                    keys.append(e)
+        sets = [tuple(index[E.expr_key(e)] for e in s) for s in raw_sets]
+        return keys, sets
 
     @staticmethod
     def _pull_having_aggs(having: E.Expression):
@@ -928,6 +1143,35 @@ class _StmtParser(_Tokens):
         return exprs
 
 
+def _null_safe_setop_keys(plan: L.LogicalPlan) -> tuple:
+    """INTERSECT/EXCEPT compare rows with NULL-safe equality (SQL set
+    semantics: NULL equals NULL; the reference plans these as null-aware
+    joins, ReplaceIntersectWithSemiJoin + EqualNullSafe). Each nullable
+    column becomes two join keys: a typed coalesce-to-zero payload and
+    an is-null flag."""
+    keys = []
+    for f in plan.schema.fields:
+        c = E.Col(f.name)
+        if not f.nullable:
+            keys.append(c)
+            continue
+        dt = f.dtype
+        zero: object = 0
+        if isinstance(dt, T.StringType):
+            zero = ""
+        elif isinstance(dt, T.DateType):
+            zero = datetime.date(1970, 1, 1)
+        elif isinstance(dt, (T.Float32Type, T.Float64Type)):
+            zero = 0.0
+        elif isinstance(dt, T.DecimalType):
+            zero = decimal.Decimal(0)
+        elif isinstance(dt, T.BooleanType):
+            zero = False
+        keys.append(E.Coalesce((c, E.Literal(zero))))
+        keys.append(E.IsNull(c))
+    return tuple(keys)
+
+
 # ---- public entry point -------------------------------------------------------
 
 
@@ -935,6 +1179,8 @@ def parse_sql(query: str, catalog) -> L.LogicalPlan:
     """Parse one SELECT statement against ``catalog``'s temp views, with
     every subquery rewritten into joins (``plan/subquery.py``)."""
     p = _StmtParser(tokenize(query), catalog)
+    if p.at_keyword("CREATE", "DROP"):
+        raise _not_ported("CREATE/DROP VIEW statements")
     plan = p.parse_query()
     t = p.peek()
     if not (t.kind == "eof" or (t.kind == "op" and t.value == ";")):

@@ -1,7 +1,8 @@
-"""TPC-H query texts used by the port: q1, q3, q5, q6, q10, q13, q14,
-q16, q18 and q22 from the TPC-H specification (rev 2.18, default
-substitution parameters), copied from the reference package's query
-set, plus ``Q1_WIDE``.
+"""TPC-H query texts used by the port: all 22 queries of the TPC-H
+specification (rev 2.18, default substitution parameters), copied from
+the reference package's query set (``spark_tpu/tpch/queries.py``),
+``Q1_WIDE``, and the queries of ``chip_smoke.py``'s window phase
+(``WINDOW_QUERIES``).
 
 ``Q1_WIDE`` is a q1-shaped aggregate grouped by four dictionary columns
 (3 * 2 * 7 * 4 = 168 packed groups), so HashAggregate's direct path runs
@@ -35,6 +36,52 @@ order by
     l_returnflag,
     l_linestatus
 """,
+    2: """
+select
+    s_acctbal,
+    s_name,
+    n_name,
+    p_partkey,
+    p_mfgr,
+    s_address,
+    s_phone,
+    s_comment
+from
+    part,
+    supplier,
+    partsupp,
+    nation,
+    region
+where
+    p_partkey = ps_partkey
+    and s_suppkey = ps_suppkey
+    and p_size = 15
+    and p_type like '%BRASS'
+    and s_nationkey = n_nationkey
+    and n_regionkey = r_regionkey
+    and r_name = 'EUROPE'
+    and ps_supplycost = (
+        select
+            min(ps_supplycost)
+        from
+            partsupp,
+            supplier,
+            nation,
+            region
+        where
+            p_partkey = ps_partkey
+            and s_suppkey = ps_suppkey
+            and s_nationkey = n_nationkey
+            and n_regionkey = r_regionkey
+            and r_name = 'EUROPE'
+    )
+order by
+    s_acctbal desc,
+    n_name,
+    s_name,
+    p_partkey
+limit 100
+""",
     3: """
 select
     l_orderkey,
@@ -59,6 +106,29 @@ order by
     revenue desc,
     o_orderdate
 limit 10
+""",
+    4: """
+select
+    o_orderpriority,
+    count(*) as order_count
+from
+    orders
+where
+    o_orderdate >= date '1993-07-01'
+    and o_orderdate < date '1993-07-01' + interval '3' month
+    and exists (
+        select
+            *
+        from
+            lineitem
+        where
+            l_orderkey = o_orderkey
+            and l_commitdate < l_receiptdate
+    )
+group by
+    o_orderpriority
+order by
+    o_orderpriority
 """,
     5: """
 select
@@ -97,6 +167,121 @@ where
     and l_discount between 0.05 and 0.07
     and l_quantity < 24
 """,
+    7: """
+select
+    supp_nation,
+    cust_nation,
+    l_year,
+    sum(volume) as revenue
+from
+    (
+        select
+            n1.n_name as supp_nation,
+            n2.n_name as cust_nation,
+            extract(year from l_shipdate) as l_year,
+            l_extendedprice * (1 - l_discount) as volume
+        from
+            supplier,
+            lineitem,
+            orders,
+            customer,
+            nation n1,
+            nation n2
+        where
+            s_suppkey = l_suppkey
+            and o_orderkey = l_orderkey
+            and c_custkey = o_custkey
+            and s_nationkey = n1.n_nationkey
+            and c_nationkey = n2.n_nationkey
+            and (
+                (n1.n_name = 'FRANCE' and n2.n_name = 'GERMANY')
+                or (n1.n_name = 'GERMANY' and n2.n_name = 'FRANCE')
+            )
+            and l_shipdate between date '1995-01-01' and date '1996-12-31'
+    ) as shipping
+group by
+    supp_nation,
+    cust_nation,
+    l_year
+order by
+    supp_nation,
+    cust_nation,
+    l_year
+""",
+    8: """
+select
+    o_year,
+    sum(case
+        when nation = 'BRAZIL' then volume
+        else 0
+    end) / sum(volume) as mkt_share
+from
+    (
+        select
+            extract(year from o_orderdate) as o_year,
+            l_extendedprice * (1 - l_discount) as volume,
+            n2.n_name as nation
+        from
+            part,
+            supplier,
+            lineitem,
+            orders,
+            customer,
+            nation n1,
+            nation n2,
+            region
+        where
+            p_partkey = l_partkey
+            and s_suppkey = l_suppkey
+            and l_orderkey = o_orderkey
+            and o_custkey = c_custkey
+            and c_nationkey = n1.n_nationkey
+            and n1.n_regionkey = r_regionkey
+            and r_name = 'AMERICA'
+            and s_nationkey = n2.n_nationkey
+            and o_orderdate between date '1995-01-01' and date '1996-12-31'
+            and p_type = 'ECONOMY ANODIZED STEEL'
+    ) as all_nations
+group by
+    o_year
+order by
+    o_year
+""",
+    9: """
+select
+    nation,
+    o_year,
+    sum(amount) as sum_profit
+from
+    (
+        select
+            n_name as nation,
+            extract(year from o_orderdate) as o_year,
+            l_extendedprice * (1 - l_discount)
+                - ps_supplycost * l_quantity as amount
+        from
+            part,
+            supplier,
+            lineitem,
+            partsupp,
+            orders,
+            nation
+        where
+            s_suppkey = l_suppkey
+            and ps_suppkey = l_suppkey
+            and ps_partkey = l_partkey
+            and p_partkey = l_partkey
+            and o_orderkey = l_orderkey
+            and s_nationkey = n_nationkey
+            and p_name like '%green%'
+    ) as profit
+group by
+    nation,
+    o_year
+order by
+    nation,
+    o_year desc
+""",
     10: """
 select
     c_custkey,
@@ -130,6 +315,66 @@ group by
 order by
     revenue desc
 limit 20
+""",
+    11: """
+select
+    ps_partkey,
+    sum(ps_supplycost * ps_availqty) as value
+from
+    partsupp,
+    supplier,
+    nation
+where
+    ps_suppkey = s_suppkey
+    and s_nationkey = n_nationkey
+    and n_name = 'GERMANY'
+group by
+    ps_partkey
+having
+    sum(ps_supplycost * ps_availqty) > (
+        select
+            sum(ps_supplycost * ps_availqty) * 0.0001
+        from
+            partsupp,
+            supplier,
+            nation
+        where
+            ps_suppkey = s_suppkey
+            and s_nationkey = n_nationkey
+            and n_name = 'GERMANY'
+    )
+order by
+    value desc
+""",
+    12: """
+select
+    l_shipmode,
+    sum(case
+        when o_orderpriority = '1-URGENT'
+            or o_orderpriority = '2-HIGH'
+        then 1
+        else 0
+    end) as high_line_count,
+    sum(case
+        when o_orderpriority <> '1-URGENT'
+            and o_orderpriority <> '2-HIGH'
+        then 1
+        else 0
+    end) as low_line_count
+from
+    orders,
+    lineitem
+where
+    o_orderkey = l_orderkey
+    and l_shipmode in ('MAIL', 'SHIP')
+    and l_commitdate < l_receiptdate
+    and l_shipdate < l_commitdate
+    and l_receiptdate >= date '1994-01-01'
+    and l_receiptdate < date '1994-01-01' + interval '1' year
+group by
+    l_shipmode
+order by
+    l_shipmode
 """,
     13: """
 select
@@ -168,6 +413,49 @@ where
     and l_shipdate >= date '1995-09-01'
     and l_shipdate < date '1995-09-01' + interval '1' month
 """,
+    15: """
+select
+    s_suppkey,
+    s_name,
+    s_address,
+    s_phone,
+    total_revenue
+from
+    supplier,
+    (
+        select
+            l_suppkey as supplier_no,
+            sum(l_extendedprice * (1 - l_discount)) as total_revenue
+        from
+            lineitem
+        where
+            l_shipdate >= date '1996-01-01'
+            and l_shipdate < date '1996-01-01' + interval '3' month
+        group by
+            l_suppkey
+    ) as revenue0
+where
+    s_suppkey = supplier_no
+    and total_revenue = (
+        select
+            max(total_revenue)
+        from
+            (
+                select
+                    l_suppkey as supplier_no,
+                    sum(l_extendedprice * (1 - l_discount)) as total_revenue
+                from
+                    lineitem
+                where
+                    l_shipdate >= date '1996-01-01'
+                    and l_shipdate < date '1996-01-01' + interval '3' month
+                group by
+                    l_suppkey
+            ) as revenue1
+    )
+order by
+    s_suppkey
+""",
     16: """
 select
     p_brand,
@@ -199,6 +487,25 @@ order by
     p_brand,
     p_type,
     p_size
+""",
+    17: """
+select
+    sum(l_extendedprice) / 7.0 as avg_yearly
+from
+    lineitem,
+    part
+where
+    p_partkey = l_partkey
+    and p_brand = 'Brand#23'
+    and p_container = 'MED BOX'
+    and l_quantity < (
+        select
+            0.2 * avg(l_quantity)
+        from
+            lineitem
+        where
+            l_partkey = p_partkey
+    )
 """,
     18: """
 select
@@ -234,6 +541,124 @@ group by
 order by
     o_totalprice desc,
     o_orderdate
+limit 100
+""",
+    19: """
+select
+    sum(l_extendedprice * (1 - l_discount)) as revenue
+from
+    lineitem,
+    part
+where
+    (
+        p_partkey = l_partkey
+        and p_brand = 'Brand#12'
+        and p_container in ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+        and l_quantity >= 1 and l_quantity <= 1 + 10
+        and p_size between 1 and 5
+        and l_shipmode in ('AIR', 'AIR REG')
+        and l_shipinstruct = 'DELIVER IN PERSON'
+    )
+    or
+    (
+        p_partkey = l_partkey
+        and p_brand = 'Brand#23'
+        and p_container in ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+        and l_quantity >= 10 and l_quantity <= 10 + 10
+        and p_size between 1 and 10
+        and l_shipmode in ('AIR', 'AIR REG')
+        and l_shipinstruct = 'DELIVER IN PERSON'
+    )
+    or
+    (
+        p_partkey = l_partkey
+        and p_brand = 'Brand#34'
+        and p_container in ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+        and l_quantity >= 20 and l_quantity <= 20 + 10
+        and p_size between 1 and 15
+        and l_shipmode in ('AIR', 'AIR REG')
+        and l_shipinstruct = 'DELIVER IN PERSON'
+    )
+""",
+    20: """
+select
+    s_name,
+    s_address
+from
+    supplier,
+    nation
+where
+    s_suppkey in (
+        select
+            ps_suppkey
+        from
+            partsupp
+        where
+            ps_partkey in (
+                select
+                    p_partkey
+                from
+                    part
+                where
+                    p_name like 'forest%'
+            )
+            and ps_availqty > (
+                select
+                    0.5 * sum(l_quantity)
+                from
+                    lineitem
+                where
+                    l_partkey = ps_partkey
+                    and l_suppkey = ps_suppkey
+                    and l_shipdate >= date '1994-01-01'
+                    and l_shipdate < date '1994-01-01' + interval '1' year
+            )
+    )
+    and s_nationkey = n_nationkey
+    and n_name = 'CANADA'
+order by
+    s_name
+""",
+    21: """
+select
+    s_name,
+    count(*) as numwait
+from
+    supplier,
+    lineitem l1,
+    orders,
+    nation
+where
+    s_suppkey = l1.l_suppkey
+    and o_orderkey = l1.l_orderkey
+    and o_orderstatus = 'F'
+    and l1.l_receiptdate > l1.l_commitdate
+    and exists (
+        select
+            *
+        from
+            lineitem l2
+        where
+            l2.l_orderkey = l1.l_orderkey
+            and l2.l_suppkey <> l1.l_suppkey
+    )
+    and not exists (
+        select
+            *
+        from
+            lineitem l3
+        where
+            l3.l_orderkey = l1.l_orderkey
+            and l3.l_suppkey <> l1.l_suppkey
+            and l3.l_receiptdate > l3.l_commitdate
+    )
+    and s_nationkey = n_nationkey
+    and n_name = 'SAUDI ARABIA'
+group by
+    s_name
+order by
+    numwait desc,
+    s_name
 limit 100
 """,
     22: """
@@ -285,3 +710,122 @@ from lineitem where l_shipdate <= date '1998-09-02'
 group by l_returnflag, l_linestatus, l_shipmode, l_shipinstruct
 order by l_returnflag, l_linestatus, l_shipmode, l_shipinstruct
 """
+
+# chip_smoke.py's window phase over the TPC-H tables: window functions,
+# grouping sets and set operations, each reduced to a few rows. Every
+# window is ordered by a unique key or computes what ties cannot change.
+WINDOW_QUERIES = {
+    # top 3 orders per customer: row_number over 1.5M orders
+    "w1_topn": """
+select count(*) as n, sum(o_totalprice) as total
+from (select o_totalprice,
+             row_number() over (partition by o_custkey
+                                order by o_totalprice desc, o_orderkey) as rn
+      from orders) t
+where rn <= 3
+""",
+    # a running sum and a rank over lineitem's 6M rows: two specs, two
+    # sorts
+    "w2_running": """
+select l_returnflag, count(*) as n, sum(running) as s_running,
+       sum(rk) as s_rank, max(rk) as max_rank
+from (select l_returnflag,
+             sum(l_extendedprice) over (
+                 partition by l_orderkey order by l_linenumber
+                 rows between unbounded preceding and current row) as running,
+             rank() over (partition by l_orderkey
+                          order by l_quantity desc) as rk
+      from lineitem) t
+group by l_returnflag
+order by l_returnflag
+""",
+    # lag and a sliding 7-row frame over orders: min and max through the
+    # sparse table, avg through prefix differences
+    "w3_sliding": """
+select o_orderpriority, count(*) as n, sum(prev_price) as s_prev,
+       count(prev_price) as n_prev, sum(min7) as s_min7,
+       sum(max7) as s_max7, sum(avg7) as s_avg7
+from (select o_orderpriority,
+             lag(o_totalprice, 1) over (
+                 partition by o_orderpriority
+                 order by o_orderdate, o_orderkey) as prev_price,
+             min(o_totalprice) over (
+                 partition by o_orderpriority order by o_orderdate, o_orderkey
+                 rows between 6 preceding and current row) as min7,
+             max(o_totalprice) over (
+                 partition by o_orderpriority order by o_orderdate, o_orderkey
+                 rows between 6 preceding and current row) as max7,
+             avg(o_totalprice) over (
+                 partition by o_orderpriority order by o_orderdate, o_orderkey
+                 rows between 6 preceding and current row) as avg7
+      from orders) t
+group by o_orderpriority
+order by o_orderpriority
+""",
+    # TPC-H q1's filter and sums under ROLLUP
+    "r1_rollup": """
+select l_returnflag, l_linestatus, grouping_id() as gid,
+       sum(l_quantity) as sum_qty, sum(l_extendedprice) as sum_base_price,
+       sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+       count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-12-01' - interval '90' day
+group by rollup (l_returnflag, l_linestatus)
+order by l_returnflag, l_linestatus
+""",
+    "c1_cube": """
+select l_shipmode, l_returnflag, count(*) as n,
+       sum(l_extendedprice) as revenue
+from lineitem
+group by cube (l_shipmode, l_returnflag)
+order by l_shipmode, l_returnflag
+""",
+    "s1_intersect": """
+select count(*) as n
+from (select o_custkey from orders where o_orderpriority = '1-URGENT'
+      intersect
+      select c_custkey from customer where c_mktsegment = 'BUILDING') t
+""",
+    "s1_except": """
+select count(*) as n
+from (select o_custkey from orders where o_orderpriority = '1-URGENT'
+      except
+      select c_custkey from customer where c_mktsegment = 'BUILDING') t
+""",
+    "s1_union": """
+select count(*) as n
+from (select l_orderkey from lineitem where l_shipmode = 'AIR'
+      union
+      select l_orderkey from lineitem where l_quantity > 45) t
+""",
+}
+
+# sqlite has no ROLLUP or CUBE: the UNION ALL of the GROUP BYs that each
+# grouping-sets query stands for; the other window-phase queries run in
+# sqlite as written
+_R1_SUMS = """sum(l_quantity), sum(l_extendedprice),
+       sum(l_extendedprice * (1 - l_discount)), count(*)
+from lineitem where l_shipdate <= date '1998-12-01' - interval '90' day"""
+WINDOW_ORACLE_QUERIES = {
+    "r1_rollup": f"""
+select l_returnflag, l_linestatus, 0, {_R1_SUMS}
+group by l_returnflag, l_linestatus
+union all
+select l_returnflag, null, 1, {_R1_SUMS}
+group by l_returnflag
+union all
+select null, null, 3, {_R1_SUMS}
+""",
+    "c1_cube": """
+select l_shipmode, l_returnflag, count(*), sum(l_extendedprice)
+from lineitem group by l_shipmode, l_returnflag
+union all
+select l_shipmode, null, count(*), sum(l_extendedprice)
+from lineitem group by l_shipmode
+union all
+select null, l_returnflag, count(*), sum(l_extendedprice)
+from lineitem group by l_returnflag
+union all
+select null, null, count(*), sum(l_extendedprice) from lineitem
+""",
+}

@@ -253,3 +253,24 @@ def test_distinct_first_mask_parity(dtype, sorted_seg):
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0 < want.sum() < ok.sum()
+
+
+@pytest.mark.parametrize("k,sorted_seg", [(40, True), (5000, True),
+                                          (40, False), (300, False)])
+def test_seg_first_paths_match_reference(k, sorted_seg):
+    """seg_first on each path (monotone ids: a suffix minimum; K <= 64:
+    masked reductions; else a scatter-min) against the reference's, with
+    masked-out rows inside segments and empty segments."""
+    rng = np.random.default_rng(k)
+    n = 3000
+    seg = rng.integers(0, max(1, k - 3), n).astype(np.int32)
+    if sorted_seg:
+        seg.sort()
+    data = rng.normal(size=n)
+    mask = rng.random(n) < 0.6
+    (js, jd, jm), (ts, td, tm) = _both(seg, data, mask)
+    jv, jf = RK.seg_first(jd, js, jm, k, n, sorted_seg)
+    tv, tf = PK.seg_first(td, ts, tm, k, n, sorted_seg)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(tv.numpy()[tf.numpy()],
+                                  np.asarray(jv)[np.asarray(jf)])

@@ -5,8 +5,11 @@ q5 and SQL shapes of every ported construct, through
 ``spark_tpu.api.session.SparkSession`` and through ``spark_tpu_torch``'s
 session with ``device("cpu")``, on the same tables (TPC-H at sf 0.02,
 seed 99, as tests/test_tpch.py). The subquery slice's TPC-H queries run
-in tests/test_torch_subquery.py, a file of its own so that the test
-workers split the reference engine's compile time.
+in tests/test_torch_subquery.py and the window slice's and the other
+TPC-H queries in tests/test_torch_tpch.py, files of their own so that
+the test workers split the reference engine's compile time. SQL that
+the reference parses and the port has not ported raises
+``NotImplementedError`` naming what it refuses.
 
 Rows must be equal: exact for ints, decimals, dates, strings and float32
 min/max. The TPC-H queries are also checked against the sqlite oracle
@@ -269,6 +272,13 @@ def test_decimal_to_float_cast_keeps_reference_quirk(engines):
     "5000 then 'rich' when s_acctbal is null then n_name end as t "
     "from nation left join supplier on n_nationkey = s_nationkey "
     "order by n_name, b",
+    # a window function, grouping sets and a set operation
+    "select l_orderkey, sum(l_quantity) over (partition by l_orderkey) "
+    "as s from lineitem",
+    "select l_returnflag, l_linestatus, count(*) as n from lineitem "
+    "group by rollup (l_returnflag, l_linestatus)",
+    "select l_returnflag from lineitem union select l_linestatus "
+    "from lineitem",
 ])
 def test_sql_shapes_match_reference(engines, query):
     """Filters with Kleene logic, the sorted aggregate path (integer key),
@@ -277,8 +287,9 @@ def test_sql_shapes_match_reference(engines, query):
     semi, left anti and cross joins, USING, table aliases, ``alias.*``,
     month intervals; derived tables, HAVING, subqueries of every
     rewritten shape, DISTINCT aggregates, CASE, IN, LIKE, substring,
-    extract and coalesce. Rows equal the reference's, and so do the
-    optimized plan's join types and keys."""
+    extract and coalesce; a window function, ROLLUP and UNION. Rows
+    equal the reference's, and so do the optimized plan's join types and
+    keys."""
     spark, port, _ = engines
     got, want = _rows(port.sql(query)), _rows(spark.sql(query))
     assert want and got == want
@@ -288,23 +299,50 @@ def test_sql_shapes_match_reference(engines, query):
 
 
 @pytest.mark.parametrize("query", [
-    "select l_orderkey, sum(l_quantity) over (partition by l_orderkey) "
-    "as s from lineitem",
-    "select l_returnflag, l_linestatus, count(*) as n from lineitem "
-    "group by rollup (l_returnflag, l_linestatus)",
     "select n_name, x from nation lateral view explode(array(1, 2)) t "
     "as x",
     "select c_custkey from customer where c_custkey not in "
     "(select case when o_totalprice > 1000 then o_custkey end from orders "
     "where o_orderkey = c_custkey)",
-    "select l_returnflag from lineitem union select l_linestatus "
-    "from lineitem",
+    "select l_orderkey, percentile_approx(l_quantity, 0.5) from lineitem "
+    "group by l_orderkey",
+    "select l_orderkey, map('a', l_linenumber)['a'] from lineitem",
+    "select n_name, explode(array(n_nationkey, n_regionkey)) from nation",
+    "create view v as select * from nation",
 ])
 def test_unported_sql_raises(engines, query):
-    """Window functions, grouping sets, LATERAL VIEW generators, a
-    correlated NOT IN over a nullable subquery column (which the
-    reference refuses too) and set operations are refused instead of
-    being run wrongly."""
+    """LATERAL VIEW generators, a correlated NOT IN over a nullable
+    subquery column (which the reference refuses too), advanced
+    aggregates, map subscripts, generators in the select list and view
+    DDL are refused instead of being run wrongly."""
     _, port, _ = engines
     with pytest.raises(NotImplementedError, match="not ported"):
         port.sql(query).collect()
+
+
+@pytest.mark.parametrize("expr,name", [
+    ("round(l_tax, 1)", "round"),
+    ("upper(l_shipmode)", "upper"),
+    ("l_shipmode || l_returnflag", "||"),
+    ("nullif(l_linenumber, 1)", "nullif"),
+    ("date_add(l_shipdate, 30)", "date_add"),
+    ("stddev(l_quantity)", "stddev"),
+    ("collect_list(l_linenumber)", "collect_list"),
+    ("array(l_linenumber, 1)[0]", "array"),
+    ("map('k', l_linenumber)", "map"),
+])
+def test_reference_function_not_ported_names_it(engines, expr, name):
+    """A function or operator the reference parses and the port has not
+    ported raises NotImplementedError naming it, not a parse error."""
+    _, port, _ = engines
+    with pytest.raises(NotImplementedError,
+                       match=rf"not ported yet: .*{re.escape(name)}"):
+        port.sql(f"select {expr} from lineitem")
+
+
+def test_unknown_function_is_a_parse_error(engines):
+    from spark_tpu_torch.sql.parser import SQLParseError
+
+    _, port, _ = engines
+    with pytest.raises(SQLParseError, match="unknown function 'frobnicate'"):
+        port.sql("select frobnicate(l_tax) from lineitem")

@@ -4,10 +4,11 @@ oracle's, or where it stops.
 
     JAX_PLATFORMS=cpu python tools/torch_tpch_census.py [--sf 0.02] [--seed 99]
 
-The query texts are the reference package's (``spark_tpu/tpch/queries.py``);
-both engines run on the same generated tables. Prints one line per query
-and a summary; exits non-zero when any query fails. Takes several
-minutes, most of it the reference engine's compiles.
+The query texts are the port's (``spark_tpu_torch/tpch/queries.py``,
+copied from the reference package's); both engines run on the same
+generated tables, and sqlite's copy has its key columns indexed. Prints
+one line per query and a summary; exits non-zero when any query fails.
+Takes several minutes, most of it the reference engine's compiles.
 """
 
 from __future__ import annotations
@@ -32,11 +33,11 @@ def main() -> int:
     from spark_tpu.api.session import SparkSession as RefSession
     from spark_tpu.tpch.gen import generate_tables
     from spark_tpu.tpch.gen import register_views as ref_register
-    from spark_tpu.tpch.queries import QUERIES
     from spark_tpu_torch.api.session import SparkSession as PortSession
+    from spark_tpu_torch.tpch import QUERIES
     from spark_tpu_torch.tpch import register_views as port_register
-    from spark_tpu_torch.tpch.oracle import (assert_rows_match, load_sqlite,
-                                             run_oracle)
+    from spark_tpu_torch.tpch.oracle import (assert_rows_match, index_keys,
+                                             load_sqlite, run_oracle)
 
     tables = generate_tables(args.sf, seed=args.seed)
     ref = RefSession.builder.getOrCreate()
@@ -44,6 +45,7 @@ def main() -> int:
     port = PortSession.builder.device("cpu").getOrCreate()
     port_register(port, tables)
     conn = load_sqlite(tables)
+    index_keys(conn)
     conn.execute("pragma case_sensitive_like = on")
     failed = []
     for q in sorted(QUERIES):
