@@ -6,7 +6,9 @@ Phases, each of which must pass (any failure exits non-zero and prints
 no result line):
 
 1. The card's name and power limit, as nvidia-smi reports them.
-2. Build the CUDA kernels from spark_tpu_torch/ops/csrc with nvcc.
+2. Build the CUDA kernels from spark_tpu_torch/ops/csrc with nvcc (one
+   nvcc for each source, started together). ``TZ`` is set to UTC for the
+   run: timestamp literals are read in the local timezone.
 3. TPC-H SF1 generated on the host (spark_tpu_torch/tpch/gen.py).
    Kernel phase: every mode of each kernel (seg_sum: count, int64 sum,
    float32 sum; seg_minmax: min, max) against its plain PyTorch version
@@ -26,6 +28,13 @@ no result line):
    take (bound).
    Crossover: the masked reduction (the path at K <= 64) against the
    kernel for counts and int64 sums at K in {2, 6, 16, 32, 64}.
+   The deterministic float sum (seg_fsum) at the same shape, float64 and
+   float32, K in {6, 168, 1024} with unsorted ids and K = 10,000 sorted,
+   and a skewed input at K = 168, with NaN, +-inf and empty groups: equal
+   to its plain version bit for bit, and so are a second launch, the
+   compacted live rows and a permutation of the rows; within 1e-12 (float32:
+   1e-5) of each group's sum of |x| of a float64 index_add_. Its times
+   beside its bound and index_add_'s.
 4. The sqlite oracle: every column of the eight SF1 tables, key columns
    indexed, LIKE case-sensitive as the engine's; one load for every
    phase.
@@ -59,11 +68,20 @@ no result line):
      and C1 through the UNION ALL of their GROUP BYs).
    - TPC-H phase: the twelve other TPC-H queries (q2 one count launch,
      the others none; oracle for those of ``TPCH_ORACLE``).
+   - Scalar phase (``tpch/queries.py:SCALAR_QUERIES``): grouped stddev,
+     variance and avg of sqrt at K = 6, 168 and 10,000 (A1: five seg_fsum
+     launches each, A1-168 also eight counts), percentiles (P1), string
+     transforms over host dictionaries (S2a-c), date functions (D1),
+     decimal math (M1) and timestamps over a 1.5M-row table made here from
+     orders (T1). Floats equal the CPU run within 1e-12 of each group's
+     sum of |x| (sum of x^2 for the variances); A1's floats are
+     bit-identical across two runs on the card and its profiles hold no
+     index_add_; oracle for those of ``SCALAR_ORACLE_QUERIES``.
    In every query phase and the slice phase, every call of a kernel's
    wrapper on the main path is recorded (its arguments and result), and
    each is held against its plain PyTorch version on those same
    tensors: counts, int64 sums and min/max equal, float32 sums within
-   rtol 1e-4 / atol 1e-3.
+   rtol 1e-4 / atol 1e-3, seg_fsum bit for bit.
 7. A ``{"kernels": [...]}`` line (launches by path), the card line,
    and as the last line ``{"ok": true, "device": {...}}``. Each phase
    prints its seconds.
@@ -74,7 +92,9 @@ from __future__ import annotations
 import contextlib
 import inspect
 import json
+import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -243,7 +263,9 @@ def mode_calls(seg_agg, data, i64, seg, mask, k: int):
 
 
 def _bits(t):
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
 
 
 def check_mode(name: str, got, again, want, k: int, data, seg, mask,
@@ -360,6 +382,131 @@ def crossover_phase(seg_agg, n: int, live_rows: int, dev="cuda"):
         del data, i64, seg, mask
 
 
+# seg_fsum cases of the kernel phase: (K, sorted ids, skewed)
+FSUM_CASES = ((6, False, False), (168, False, False), (1024, False, False),
+              (10_000, True, False), (MAIN_K, False, True))
+
+
+def fsum_inputs(n: int, k: int, live_rows: int, seed: int, dev="cuda",
+                sorted_ids: bool = False, skew: bool = False):
+    """int32 ids in [0, k) with every 10th group empty (sorted when
+    ``sorted_ids``; 90% of rows in group 7 when ``skew``), ~30% of rows
+    masked and every row past ``live_rows``, float64 values of both signs
+    over six decades; group 3 holds a NaN, group 5 +inf and -inf, group 8
+    -inf."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    used = torch.tensor([j for j in range(k) if j % 10 != 9],
+                        dtype=torch.int32, device=dev)
+    seg = used[torch.randint(0, used.numel(), (n,), generator=g, device=dev)]
+    if skew:
+        hot = torch.rand(n, generator=g, device=dev) < 0.9
+        seg = torch.where(hot, torch.full_like(seg, 7), seg)
+    if sorted_ids:
+        seg = torch.sort(seg).values
+    mask = torch.rand(n, generator=g, device=dev) >= 0.3
+    mask[live_rows:] = False
+    scale = 10.0 ** torch.randint(-2, 4, (n,), generator=g, device=dev)
+    x = torch.randn(n, generator=g, device=dev, dtype=torch.float64) * scale
+    for group, value in ((3, float("nan")), (5, float("inf")),
+                         (5, float("-inf")), (8, float("-inf"))):
+        rows = torch.nonzero((seg == group) & mask).squeeze(1)
+        if group < k and rows.numel():
+            x[rows[rows.numel() // 2]] = value
+    return x, seg.contiguous(), mask.contiguous()
+
+
+def fsum_phase(seg_agg, n: int, live_rows: int, dev="cuda"):
+    """seg_fsum against its plain version, bit for bit, at the main path's
+    shape: two launches, the compacted live rows and a permutation give
+    the same bits; finite groups within 1e-12 (float32 1e-5) of each
+    group's sum of |x| of a float64 index_add_, NaN and +-inf groups as
+    the rules say. Returns {dtype name: stats at K=MAIN_K}."""
+    on_card = dev == "cuda"
+    main = {}
+    for k, sorted_ids, skew in FSUM_CASES:
+        x64, seg, mask = fsum_inputs(n, k, live_rows, 500 + k, dev,
+                                     sorted_ids, skew)
+        live = mask
+        idx = seg.long()[live]
+        truth = torch.zeros(k, dtype=torch.float64, device=dev)
+        absum = torch.zeros(k, dtype=torch.float64, device=dev)
+        fin = torch.isfinite(x64[live])
+        truth.index_add_(0, idx[fin], x64[live][fin])
+        absum.index_add_(0, idx[fin], x64[live][fin].abs())
+        nonfinite = torch.zeros(k, dtype=torch.bool, device=dev)
+        nonfinite[idx[~fin]] = True
+        perm = torch.randperm(n, device=dev)
+        tag = (f"N={n} K={k}{' sorted' if sorted_ids else ''}"
+               f"{' skewed' if skew else ''}")
+        for dtype, tol, name in ((torch.float64, 1e-12, "fsum_f64"),
+                                 (torch.float32, 1e-5, "fsum_f32")):
+            data = x64.to(dtype).contiguous()
+            kern = (lambda d=data: seg_agg.seg_fsum(d, seg, mask, k))
+            got, again = kern(), kern()
+            plain = seg_agg.seg_fsum_plain(data, seg, mask, k)
+            compact = seg_agg.seg_fsum(
+                data[live].contiguous(), seg[live].contiguous(),
+                torch.ones(int(live.sum()), dtype=torch.bool, device=dev), k)
+            shuffled = seg_agg.seg_fsum(data[perm].contiguous(),
+                                        seg[perm].contiguous(),
+                                        mask[perm].contiguous(), k)
+            torch.cuda.synchronize()
+            for label, other in (("a second launch", again),
+                                 ("the plain version", plain),
+                                 ("the compacted rows", compact),
+                                 ("a permutation", shuffled)):
+                check(torch.equal(_bits(got), _bits(other)),
+                      f"seg_fsum {name} {tag}: bits differ from {label}")
+            if dtype == torch.float32:  # the float32 values' own sums
+                truth32 = torch.zeros(k, dtype=torch.float64, device=dev)
+                d32 = data[live].to(torch.float64)
+                truth32.index_add_(0, idx[fin], d32[fin])
+                want = truth32
+            else:
+                want = truth
+            ok = ~nonfinite
+            err = (got.to(torch.float64) - want).abs()
+            check(bool((err[ok] <= tol * absum[ok] + 1e-300).all()),
+                  f"seg_fsum {name} {tag}: off the float64 sum by "
+                  f"{(err[ok] / absum[ok].clamp(min=1e-300)).max().item()}"
+                  " of sum|x|")
+            check(bool((~torch.isfinite(got[nonfinite])).all()),
+                  f"seg_fsum {name} {tag}: a non-finite group came out "
+                  "finite")
+            zero = (absum == 0) & ok
+            check(bool((got[zero] == 0).all()),
+                  f"seg_fsum {name} {tag}: an empty group is not 0")
+            masked = torch.where(mask, data, torch.zeros((), dtype=dtype,
+                                                         device=dev))
+            seg_l = seg.long()
+            lib_out = torch.zeros(k, dtype=dtype, device=dev)
+            ms = cuda_ms(kern)
+            dev_ms, per_call = profile_calls(kern) if on_card else (None,
+                                                                    None)
+            if on_card:
+                check(per_call == 2, f"seg_fsum {name} {tag}: {per_call} "
+                      "kernels per call, want 2")
+            row = data.element_size() + 5
+            bnd, by = bound_ms(n * row + k * data.element_size(), n * 12)
+            plain_fn = (lambda d=data: seg_agg.seg_fsum_plain(d, seg, mask,
+                                                              k))
+            stats = dict(ms=ms, device_ms=dev_ms, kernels_per_call=per_call,
+                         host_ms=host_ms(kern), bound_ms=bnd, bound_by=by,
+                         two_pass_bound_ms=bound_ms(2 * n * row, 0)[0],
+                         max_abs_err=float(err[ok].max()) if ok.any()
+                         else 0.0,
+                         plain_ms=cuda_ms(plain_fn, reps=5),
+                         library_ms=cuda_ms(lambda o=lib_out, m=masked:
+                                            o.index_add(0, seg_l, m)))
+            log(f"kernel seg_fsum {name} {tag}: " + " ".join(
+                f"{key}={val:.4f}" if isinstance(val, float) else
+                f"{key}={val}" for key, val in stats.items()))
+            if k == MAIN_K and not skew:
+                main[name] = stats
+        del x64, seg, mask, perm, truth, absum
+    return main
+
+
 def profile_query(spark, name: str, query: str) -> None:
     """One warm run under torch.profiler: host wall time, the card's
     summed device time, its share of the wall (the rest is the card
@@ -376,9 +523,9 @@ def profile_query(spark, name: str, query: str) -> None:
     dev_us = sum(e.self_device_time_total for e in events)
     n_kernels = sum(e.count for e in events if _is_kernel(e.key))
     ops = {e.key for e in prof.key_averages()}
-    check(name != "q1_wide" or not any(o.startswith("aten::index_add")
-                                       for o in ops),
-          "q1-wide still calls index_add_")
+    check(name not in NO_INDEX_ADD
+          or not any(o.startswith("aten::index_add") for o in ops),
+          f"{name} still calls index_add_")
     if dev_us <= 0:
         log(f"profile {name}: wall {wall:.2f} ms; device time not measured "
             "(the profiler recorded none)")
@@ -392,9 +539,15 @@ def profile_query(spark, name: str, query: str) -> None:
             f"x{e.count:<5} {e.key[:90]}")
 
 
+#: queries whose profiles must hold no index_add_: q1-wide's sums take the
+#: seg_sum kernel, A1's float sums seg_fsum
+NO_INDEX_ADD = ("q1_wide", "a1_6", "a1_168", "a1_sorted")
+
+
 def mode_launches(seg_agg) -> dict:
     return {**seg_agg.seg_sum.mode_launches,
-            **seg_agg.seg_minmax.mode_launches}
+            **seg_agg.seg_minmax.mode_launches,
+            **seg_agg.seg_fsum.mode_launches}
 
 
 @contextlib.contextmanager
@@ -424,7 +577,8 @@ def recording_calls(seg_agg):
 
     real = PK.seg_agg
     PK.seg_agg = types.SimpleNamespace(seg_sum=recorder("seg_sum"),
-                                       seg_minmax=recorder("seg_minmax"))
+                                       seg_minmax=recorder("seg_minmax"),
+                                       seg_fsum=recorder("seg_fsum"))
     try:
         yield calls
     finally:
@@ -434,13 +588,17 @@ def recording_calls(seg_agg):
 def hold_calls(seg_agg, calls, label: str) -> None:
     """Each recorded wrapper call's result against the plain version on
     the same tensors: counts, int64 sums and min/max equal (NaN in the
-    same groups), float32 sums within rtol 1e-4 / atol 1e-3."""
+    same groups), float32 sums within rtol 1e-4 / atol 1e-3, seg_fsum bit
+    for bit."""
     for i, (name, args, got) in enumerate(calls):
         want = getattr(seg_agg, f"{name}_plain")(**args)
         seg = args["seg"]
         tag = (f"{label} call {i} ({name}, N={seg.shape[0]}, "
                f"K={args['num_segments']})")
-        if not got.is_floating_point():
+        if name == "seg_fsum":
+            check(torch.equal(_bits(got), _bits(want)),
+                  f"{tag} differs from the plain version")
+        elif not got.is_floating_point():
             check(got.dtype == torch.int64 and torch.equal(got, want),
                   f"{tag} differs from the plain version")
         elif name == "seg_sum":
@@ -512,7 +670,8 @@ def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     check(not any(launches["q1"].values()),
           "q1 (K=6) should not launch kernels")
     if dev == "cuda":  # on the CPU the wrappers take their plain versions
-        want = {"count": 7, "sum_i64": 2, "sum_f32": 0, "min": 1, "max": 1}
+        want = {"count": 7, "sum_i64": 2, "sum_f32": 0, "min": 1, "max": 1,
+                "fsum_f64": 0, "fsum_f32": 0}
         check(launches["q1_wide"] == want,
               f"q1-wide launched {launches['q1_wide']}, want {want}")
 
@@ -561,17 +720,27 @@ def collect_counting_syncs(spark, query: str, dev: str):
     return rows, syncs
 
 
+def row_bits(rows) -> list:
+    """Rows with every float as its 8 bytes: equal lists mean equal bits
+    (a -0.0 and a NaN compare as themselves)."""
+    return [tuple(struct.pack("<d", v) if isinstance(v, float) else v
+                  for v in r) for r in rows]
+
+
 def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
-              oracle, oracle_queries: dict, dev="cuda"):
+              oracle, oracle_queries: dict, dev="cuda", match_cpu=None):
     """One path of SQL queries on the card. Once, with every launch
     counter set to 0 before and read after each query and the host syncs
-    of each run counted: each query must launch ``launches_want[name]``
-    seg_sum count kernels and no other (0 where not named), and every
-    wrapper call is held against the plain version. Then every result
-    against the port's CPU run (equal rows) and the queries of
-    ``oracle_queries`` (name -> sqlite text) against the sqlite oracle,
-    then warm walls (3 runs), peak device memory above the tables and
-    one profiled run of each. Returns the launches of the path's run."""
+    of each run counted: each query must launch what
+    ``launches_want[name]`` says (an int: that many seg_sum counts; a
+    dict: launches by mode) and nothing else (nothing where not named),
+    and every wrapper call is held against the plain version. Then every
+    result against the port's CPU run (equal rows, or
+    ``match_cpu(name, card_rows, cpu_rows)`` where given) and the queries
+    of ``oracle_queries`` (name -> sqlite text) against the sqlite oracle,
+    then warm walls (3 runs, each bit-identical to the first run), peak
+    device memory above the tables and one profiled run of each. Returns
+    the launches of the path's run."""
     from spark_tpu_torch.tpch.oracle import assert_rows_match, run_oracle
 
     seg_agg.reset_launches()
@@ -591,8 +760,10 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
     if dev == "cuda":  # on the CPU the wrappers take their plain versions
         for name, got in launches.items():
             want = launches_want.get(name, 0)
-            check(got["count"] == want and sum(got.values()) == want,
-                  f"{name} launched {got}, want {want} count launches")
+            if isinstance(want, int):
+                want = {"count": want}
+            check(all(got[m] == want.get(m, 0) for m in got),
+                  f"{name} launched {got}, want {want}")
         check(len(calls) == sum(total.values()),
               f"{len(calls)} wrapper calls, {total} launches")
     hold_calls(seg_agg, calls, label)
@@ -600,8 +771,11 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
     t0 = time.perf_counter()
     for name, q in queries.items():
         cpu_rows = [tuple(r) for r in cpu.sql(q).collect()]
-        check(rows[name] and cpu_rows == rows[name],
-              f"{name}: card != CPU run")
+        check(rows[name], f"{name}: no rows")
+        if match_cpu is None:
+            check(cpu_rows == rows[name], f"{name}: card != CPU run")
+        else:
+            match_cpu(name, rows[name], cpu_rows)
         log(f"{label}: {name} {len(cpu_rows)} rows, equal to the port's "
             "CPU run")
     log(f"{label}: CPU runs took {time.perf_counter() - t0:.1f} s")
@@ -619,7 +793,8 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
             t0 = time.perf_counter()
             again = [tuple(r) for r in gpu.sql(q).collect()]
             walls.append((time.perf_counter() - t0) * 1e3)
-            check(again == rows[name], f"{name}: run-to-run difference")
+            check(row_bits(again) == row_bits(rows[name]),
+                  f"{name}: run-to-run difference")
         log(f"{label}: {name} warm wall ms on the card {walls} "
             f"(median {statistics.median(walls):.1f})")
         if dev == "cuda":
@@ -792,9 +967,72 @@ def tpch_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     from spark_tpu_torch.tpch import QUERIES
 
     queries = {f"q{q}": QUERIES[q] for q in TPCH_REST}
+    for name in ("q2", "q8", "q9"):
+        log(f"tpch: {name} join order {join_order(gpu, queries[name])}")
     return run_phase("tpch", seg_agg, gpu, cpu, queries, TPCH_LAUNCHES,
                      oracle, {f"q{q}": QUERIES[q] for q in TPCH_ORACLE},
                      dev)
+
+
+#: seg_agg launches each scalar-phase query makes on the card, by mode: A1's
+#: stddev and variance sum x and x^2 in float64, its avg of sqrt sums once
+#: (5 seg_fsum launches); at K = 168 its counts (count(*), three
+#: any-valid tests, the counts of stddev, variance and avg, the
+#: group-present test) take the seg_sum kernel. The other queries'
+#: aggregates are masked (K <= 64) or sorted and sum no float.
+SCALAR_LAUNCHES = {"a1_6": {"fsum_f64": 5},
+                   "a1_168": {"count": 8, "fsum_f64": 5},
+                   "a1_sorted": {"fsum_f64": 5}}
+#: per group of each A1 query, the magnitudes its float columns are held
+#: to against the CPU run: sum of x^2 for the stddev (compared squared)
+#: and the variance, sum of |x| for the avg of sqrt
+A1_BOUNDS = """count(*) as n,
+       sum((l_extendedprice * 1.0) * (l_extendedprice * 1.0)) as b_sd,
+       sum((l_quantity * 1.0) * (l_quantity * 1.0)) as b_var,
+       sum(sqrt(l_extendedprice)) as b_avg"""
+A1_TOL = 1e-12
+
+
+def scalar_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
+    """The scalar slice at SF1 (``tpch/queries.py:SCALAR_QUERIES``), with
+    the launches of ``SCALAR_LAUNCHES``. A1's float columns equal the
+    CPU run's within ``A1_TOL`` of each group's magnitude (the card sums
+    floats with seg_fsum, the CPU with index_add_), the other queries'
+    rows exactly; every warm run bit-identical to the first; those of
+    ``SCALAR_ORACLE_QUERIES`` equal to the oracle's."""
+    from spark_tpu_torch.tpch.queries import (A1_AGGS, SCALAR_ORACLE_QUERIES,
+                                              SCALAR_QUERIES)
+
+    bounds = {name: [tuple(r) for r in cpu.sql(
+        SCALAR_QUERIES[name].replace(A1_AGGS, A1_BOUNDS)).collect()]
+        for name in SCALAR_LAUNCHES}
+
+    def match(name, card, cpu_rows):
+        if name not in bounds:
+            check(card == cpu_rows, f"{name}: card != CPU run")
+            return
+        check(len(card) == len(cpu_rows) == len(bounds[name]),
+              f"{name}: row counts differ")
+        worst = 0.0
+        for g, c, b in zip(card, cpu_rows, bounds[name]):
+            check(g[:-3] == c[:-3] == b[:-3], f"{name}: keys or counts "
+                  f"differ: {g[:-3]} {c[:-3]} {b[:-3]}")
+            for j, (x, y, mag) in enumerate(zip(g[-3:], c[-3:], b[-3:])):
+                if x is None or y is None:
+                    check(x is None and y is None, f"{name}: NULL differs")
+                    continue
+                if j == 0:  # the stddev, squared: a variance
+                    x, y = x * x, y * y
+                rel = abs(x - y) / mag
+                check(rel <= A1_TOL, f"{name}: card {g} against CPU {c}: "
+                      f"{rel:.3g} of the group's magnitude")
+                worst = max(worst, rel)
+        log(f"scalar: {name} floats within {worst:.3g} of each group's "
+            f"magnitude of the CPU run's (bound {A1_TOL})")
+
+    return run_phase("scalar", seg_agg, gpu, cpu, SCALAR_QUERIES,
+                     SCALAR_LAUNCHES, oracle, SCALAR_ORACLE_QUERIES, dev,
+                     match_cpu=match)
 
 
 def main() -> int:
@@ -805,17 +1043,23 @@ def main() -> int:
     from spark_tpu_torch.ops import _build, seg_agg
     from spark_tpu_torch.columnar.batch import round_capacity
 
+    # timestamp literals and strings are read in the local timezone
+    os.environ["TZ"] = "UTC"
+    time.tzset()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    _build.library("seg_agg")
-    log(f"build: seg_agg.cu in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_logs.get("seg_agg", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"build: {line.strip()}")
+    sources = ("seg_agg", "seg_fsum")
+    _build.libraries(sources)
+    log(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, together)")
+    for name in sources:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"build {name}: {line.strip()}")
     from spark_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -823,6 +1067,7 @@ def main() -> int:
     log(f"build: native/strkernels.cpp in {time.perf_counter() - t0:.1f} s")
 
     from spark_tpu_torch.tpch import generate_tables
+    from spark_tpu_torch.tpch.queries import timestamp_table
 
     t0 = time.perf_counter()
     tables = generate_tables(1.0, seed=20260729)
@@ -834,36 +1079,49 @@ def main() -> int:
     n = round_capacity(n_rows)
     main_stats = kernel_phase(seg_agg, n, n_rows)
     crossover_phase(seg_agg, n, n_rows)
+    fsum_stats = fsum_phase(seg_agg, n, n_rows)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
     gpu, cpu = sessions(tables)
+    ts = timestamp_table(tables["orders"], seed=20260729)
+    for spark in (gpu, cpu):
+        spark.createDataFrame(ts).createOrReplaceTempView("ts_orders")
     oracle = oracle_connection(tables)
     by_path = {}
     for path, phase in (("aggregate", slice_phase), ("join", join_phase),
                         ("subquery", subquery_phase),
-                        ("window", window_phase), ("tpch", tpch_phase)):
+                        ("window", window_phase), ("tpch", tpch_phase),
+                        ("scalar", scalar_phase)):
         t0 = time.perf_counter()
         by_path[path] = phase(seg_agg, gpu, cpu, oracle)
         log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
     oracle.close()
     check(by_path["join"]["count"] >= 1,
           "the join path launched no seg_sum kernel")
+    check(by_path["scalar"]["fsum_f64"] >= 1,
+          "the scalar path launched no seg_fsum kernel")
+    check(not any(p["fsum_f64"] + p["fsum_f32"] for path, p in
+                  by_path.items() if path != "scalar"),
+          "an earlier path summed floats on a grouped path")
 
     kernels = []
-    for name, modes, headline, replaces in (
+    for name, modes, headline, replaces, source, stats in (
             ("seg_sum", ("count", "sum_i64", "sum_f32"), "count",
-             "spark_tpu/ops/pallas_agg.py:141"),
+             "spark_tpu/ops/pallas_agg.py:141", "seg_agg.cu", main_stats),
             ("seg_minmax", ("min", "max"), "min",
-             "spark_tpu/ops/pallas_agg.py:215")):
-        per_mode = {m: dict(main_stats[m],
+             "spark_tpu/ops/pallas_agg.py:215", "seg_agg.cu", main_stats),
+            ("seg_fsum", ("fsum_f64", "fsum_f32"), "fsum_f64",
+             "spark_tpu/physical/kernels.py:219", "seg_fsum.cu",
+             fsum_stats)):
+        per_mode = {m: dict(stats[m],
                             launches=sum(p[m] for p in by_path.values()))
                     for m in modes}
         # the top-level numbers are the mode the main path launches most
-        top = {key: val for key, val in main_stats[headline].items()
+        top = {key: val for key, val in stats[headline].items()
                if not key.startswith("skew")}
         kernels.append(dict(
             name=name, route="cuda",
-            source="spark_tpu_torch/ops/csrc/seg_agg.cu", replaces=replaces,
+            source=f"spark_tpu_torch/ops/csrc/{source}", replaces=replaces,
             launches=sum(p[m] for p in by_path.values() for m in modes),
             launches_by_path={path: sum(p[m] for m in modes)
                               for path, p in by_path.items()},

@@ -2,11 +2,14 @@
 
 The port of ``spark_tpu/expr/compiler.py`` for the main-path subset:
 columns, literals and aliases; arithmetic, including exact scaled-int64
-decimals; comparisons, including date literals and dictionary-string
-tables; three-valued boolean logic and null tests; casts; month
-arithmetic on dates (``AddMonths``); IN lists, LIKE, string predicates,
-substring, CASE, COALESCE, typed NULLs (``NullOf``) and date parts.
-Null semantics follow SQL three-valued logic, carried as (values,
+decimals; comparisons, including date and timestamp literals, strings
+coerced to dates and timestamps, and dictionary-string tables;
+three-valued boolean logic and null tests; casts; month arithmetic on
+dates (``AddMonths``); IN lists, LIKE, string predicates, substring,
+concatenation, the string transforms, length and regular expressions;
+abs, floor/ceil/sqrt/exp/ln/log10/sign, round and power; date_trunc and
+last_day; CASE, COALESCE, typed NULLs (``NullOf``) and date parts. Null
+semantics follow SQL three-valued logic, carried as (values,
 validity-mask) pairs.
 
 String expressions never touch bytes on the device: predicates are
@@ -14,8 +17,16 @@ evaluated host-side over the column dictionary and become int32-code
 lookup-table gathers. LIKE and the string predicates build their table
 with the C++ kernels of ``spark_tpu_torch/native`` for dictionaries of
 ``_NATIVE_DICT_MIN`` entries or more, and with Python's ``re``/``str``
-below that. Every tensor is created with an explicit dtype and device,
-so torch's type promotion never decides a result type.
+below that. A string transform maps a dictionary to a new one
+(``_dict_transform``): each entry through the Python ``str`` method the
+reference uses (substring and length through pyarrow kernels, which
+equal it on every entry), then one vectorised dedupe, sort and remap in
+pyarrow.
+
+Decimal inputs of the math functions and of round compute on the
+decimal's value (the reference reads the unscaled integer: ROADMAP C).
+Every tensor is created with an explicit dtype and device, so torch's
+type promotion never decides a result type.
 """
 
 from __future__ import annotations
@@ -24,7 +35,9 @@ import datetime
 import decimal
 import operator
 import re
-from typing import Dict, NamedTuple, Optional, Tuple
+import threading
+from collections import OrderedDict
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -208,6 +221,150 @@ def unify_dictionaries(
     return tuple(union), tables
 
 
+# ---- dictionary transforms --------------------------------------------------
+
+#: Arrow copies of recently transformed dictionaries, by identity: a
+#: dictionary is an immutable tuple shared by every batch of its column,
+#: and one query may transform it more than once (q22's substring)
+_ARROW_DICTS: "OrderedDict[int, tuple]" = OrderedDict()
+_ARROW_DICTS_MAX = 32
+_ARROW_DICTS_LOCK = threading.Lock()
+
+
+def _arrow_dictionary(dictionary: Tuple[str, ...]):
+    """The dictionary as a pyarrow large_string array, cached."""
+    import pyarrow as pa
+
+    key = id(dictionary)
+    with _ARROW_DICTS_LOCK:
+        hit = _ARROW_DICTS.get(key)
+        if hit is not None and hit[0] is dictionary:
+            _ARROW_DICTS.move_to_end(key)
+            return hit[1]
+    arr = pa.array(dictionary, type=pa.large_string())
+    with _ARROW_DICTS_LOCK:
+        _ARROW_DICTS[key] = (dictionary, arr)
+        while len(_ARROW_DICTS) > _ARROW_DICTS_MAX:
+            _ARROW_DICTS.popitem(last=False)
+    return arr
+
+
+def _dedupe_sorted(values) -> Tuple[np.ndarray, Tuple[str, ...]]:
+    """Dedupe, sort and remap transformed entries (a pyarrow string array)
+    as whole arrays: the new dictionary in code-point order, as Python
+    sorts ``str`` (UTF-8 byte order is code-point order), and each
+    entry's int32 code in it."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    enc = pc.dictionary_encode(values)
+    order = pc.sort_indices(enc.dictionary).to_numpy()
+    rank = np.empty(len(order), dtype=np.int32)
+    rank[order] = np.arange(len(order), dtype=np.int32)
+    codes = rank[enc.indices.to_numpy(zero_copy_only=False)]
+    return codes, tuple(enc.dictionary.take(pa.array(order)).to_pylist())
+
+
+def _dict_transform(tv: TV, fn, n: int, arrow_fn=None) -> TV:
+    """A string TV mapped to a new dictionary: each entry through ``fn``
+    (a Python ``str`` function) or, where given, ``arrow_fn``, a pyarrow
+    kernel over the whole dictionary that equals ``fn`` on every entry;
+    then one dedupe, sort and remap (``_dedupe_sorted``) and a gather of
+    the rows' codes on the device."""
+    import pyarrow as pa
+
+    dictionary = tv.dictionary or ()
+    if not dictionary:
+        codes = torch.zeros((n,), dtype=torch.int32, device=tv.data.device)
+        return TV(codes, tv.validity, T.STRING, ())
+    if arrow_fn is not None:
+        values = arrow_fn(_arrow_dictionary(dictionary))
+    else:
+        values = pa.array([fn(s) for s in dictionary], type=pa.large_string())
+    table, new_dict = _dedupe_sorted(values)
+    return TV(_gather(table, tv.data), tv.validity, T.STRING, new_dict)
+
+
+def _pad(s: str, width: int, pad: str, left: bool) -> str:
+    """lpad/rpad as the reference: the pad repeats from its start, and a
+    string at least ``width`` long is cut to it (UTF8String.lpad)."""
+    if len(s) >= width:
+        return s[:max(0, width)]
+    if left:
+        return (pad * width)[:width - len(s)] + s
+    return (s + pad * width)[:width]
+
+
+def _translate_fn(matching: str, replace: str):
+    """Spark's translate: match characters beyond the replacement's length
+    are deleted."""
+    table = str.maketrans(matching[:len(replace)], replace[:len(matching)],
+                          matching[len(replace):])
+    return lambda s: s.translate(table)
+
+
+def _string_transform(expr: E.StringTransform, tv: TV, n: int) -> TV:
+    """upper/lower/trim/ltrim/rtrim/initcap/reverse/repeat/lpad/rpad/
+    translate with the reference's Python ``str`` semantics, entry by
+    entry (pyarrow's case mapping and trimming differ from them:
+    ``'ß'.upper()`` is ``'SS'``)."""
+    op, a = expr.op, expr.args
+    if op == "translate":
+        fn = _translate_fn(str(a[0]), str(a[1]))
+    else:
+        fn = {
+            "upper": str.upper, "lower": str.lower, "trim": str.strip,
+            "ltrim": str.lstrip, "rtrim": str.rstrip, "initcap": str.title,
+            "reverse": lambda s: s[::-1],
+            "repeat": lambda s: s * int(a[0]),
+            "lpad": lambda s: _pad(s, int(a[0]), str(a[1]), True),
+            "rpad": lambda s: _pad(s, int(a[0]), str(a[1]), False),
+        }[op]
+    return _dict_transform(tv, fn, n)
+
+
+def _dict_product(name: str, tvs: List[TV], n: int, null_sentinel: bool,
+                  join) -> TV:
+    """Shared core of CONCAT and CONCAT_WS: the product of the input
+    dictionaries joined entry by entry (at most 2^20 entries, as the
+    reference), codes combined by mixed radix, then one dedupe, sort and
+    remap. ``join`` maps one tuple of per-input entries (None for a NULL
+    when ``null_sentinel``) to the output string; with ``null_sentinel``
+    each nullable input's dictionary gains a last None entry that its
+    NULL rows take."""
+    import pyarrow as pa
+
+    for tv in tvs:
+        if not isinstance(tv.dtype, T.StringType):
+            raise NotImplementedError(f"{name} supports strings only")
+    dicts = [tuple(tv.dictionary or ("",))
+             + ((None,) if null_sentinel and tv.validity is not None
+                else ())
+             for tv in tvs]
+    total = 1
+    for d in dicts:
+        total *= len(d)
+    if total > (1 << 20):
+        raise NotImplementedError(
+            f"{name} dictionary product too large ({total})")
+    combo: List[tuple] = [()]
+    for d in dicts:
+        combo = [t + (s,) for t in combo for s in d]
+    table, new_dict = _dedupe_sorted(
+        pa.array([join(t) for t in combo], type=pa.large_string()))
+    dev = tvs[0].data.device
+    codes = torch.zeros((n,), dtype=torch.int64, device=dev)
+    for tv, d in zip(tvs, dicts):
+        c = (tv.data.to(torch.int64) if len(tv.dictionary or ())
+             else torch.zeros((n,), dtype=torch.int64, device=dev))
+        if null_sentinel and tv.validity is not None:
+            c = torch.where(tv.validity, c,
+                            torch.full((), len(d) - 1, dtype=torch.int64,
+                                       device=dev))
+        codes = codes * len(d) + c
+    return TV(_gather(table, codes), None, T.STRING, new_dict)
+
+
 def _literal_tv(value, dtype: DataType, n: int, device) -> TV:
     if value is None:
         data = torch.zeros((n,), dtype=_torch_dtype(dtype), device=device)
@@ -310,17 +467,107 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
                   None)
 
     if isinstance(expr, E.Substring):
-        # a new sorted dictionary of the substrings, and a code remap
         tv = evaluate(expr.child, env)
-        dictionary = tv.dictionary or ()
-        transformed = [s[expr.pos - 1: expr.pos - 1 + expr.length]
-                       for s in dictionary]
-        new_dict = tuple(sorted(set(transformed)))
-        pos = {s: i for i, s in enumerate(new_dict)}
-        table = np.array([pos[t] for t in transformed], dtype=np.int32)
-        codes = (_gather(table, tv.data) if len(table)
-                 else torch.zeros((n,), dtype=torch.int32, device=env.device))
-        return TV(codes, tv.validity, T.STRING, new_dict)
+        start, stop = expr.pos - 1, expr.pos - 1 + expr.length
+        arrow_fn = None
+        if start >= 0 and expr.length >= 0:
+            # Python's slice of code points, the same on every entry
+            import pyarrow.compute as pc
+
+            arrow_fn = lambda arr: pc.utf8_slice_codeunits(arr, start, stop)
+        return _dict_transform(tv, lambda s: s[start:stop], n, arrow_fn)
+
+    if isinstance(expr, E.StringTransform):
+        return _string_transform(expr, evaluate(expr.child, env), n)
+
+    if isinstance(expr, E.StrLength):
+        import pyarrow.compute as pc
+
+        tv = evaluate(expr.child, env)
+        d = tv.dictionary or ()
+        table = (pc.utf8_length(_arrow_dictionary(d)).to_numpy()
+                 .astype(np.int32) if d else np.zeros(1, dtype=np.int32))
+        return TV(_gather(table, tv.data), tv.validity, T.INT32, None)
+
+    if isinstance(expr, E.RegexpExtract):
+        rx = re.compile(expr.pattern)
+
+        def extract(s: str) -> str:
+            m = rx.search(s)
+            if m is None:
+                return ""
+            try:
+                return m.group(expr.group) or ""
+            except IndexError:
+                return ""
+
+        return _dict_transform(evaluate(expr.child, env), extract, n)
+
+    if isinstance(expr, E.RegexpReplace):
+        rx = re.compile(expr.pattern)
+        return _dict_transform(evaluate(expr.child, env),
+                               lambda s: rx.sub(expr.replacement, s), n)
+
+    if isinstance(expr, E.RegexpLike):
+        rx = re.compile(expr.pattern)
+        tv = evaluate(expr.child, env)
+        table = _dict_table(tv.dictionary or (),
+                            lambda s: rx.search(s) is not None)
+        return TV(_gather_or_false(table, tv.data), tv.validity, T.BOOLEAN,
+                  None)
+
+    if isinstance(expr, E.Concat):
+        # a NULL input makes the row NULL (unlike CONCAT_WS)
+        tvs = [evaluate(a, env) for a in expr.args]
+        out = _dict_product("CONCAT", tvs, n, null_sentinel=False,
+                            join="".join)
+        validity = None
+        for tv in tvs:
+            validity = _and_validity(validity, tv.validity)
+        return TV(out.data, validity, T.STRING, out.dictionary)
+
+    if isinstance(expr, E.ConcatWs):
+        # NULL inputs drop out with their separator; never NULL
+        return _dict_product(
+            "CONCAT_WS", [evaluate(a, env) for a in expr.args], n,
+            null_sentinel=True,
+            join=lambda t: expr.sep.join(p for p in t if p is not None))
+
+    if isinstance(expr, E.Abs):
+        tv = evaluate(expr.child, env)
+        return TV(tv.data.abs(), tv.validity, tv.dtype, None)
+
+    if isinstance(expr, E.UnaryMath):
+        return _eval_unary_math(expr, evaluate(expr.child, env))
+
+    if isinstance(expr, E.Round):
+        return _eval_round(expr, evaluate(expr.child, env))
+
+    if isinstance(expr, E.Pow):
+        lt = evaluate(expr.left, env)
+        rt = evaluate(expr.right, env)
+        out = torch.pow(_cast_data(lt.data, lt.dtype, T.FLOAT64),
+                        _cast_data(rt.data, rt.dtype, T.FLOAT64))
+        return TV(out, _and_validity(lt.validity, rt.validity), T.FLOAT64,
+                  None)
+
+    if isinstance(expr, E.DateTrunc):
+        tv = evaluate(expr.child, env)
+        y, m, _ = _civil_from_days(tv.data.to(torch.int64))
+        one = torch.ones_like(m)
+        if expr.unit in ("year", "yy", "yyyy"):
+            days = _days_from_civil(y, one, one)
+        elif expr.unit in ("month", "mon", "mm"):
+            days = _days_from_civil(y, m, one)
+        else:
+            raise NotImplementedError(f"date_trunc unit {expr.unit!r}")
+        return TV(days.to(torch.int32), tv.validity, T.DATE, None)
+
+    if isinstance(expr, E.LastDay):
+        tv = evaluate(expr.child, env)
+        y, m, _ = _civil_from_days(tv.data.to(torch.int64))
+        days = _days_from_civil(y, m, _days_in_month(y, m))
+        return TV(days.to(torch.int32), tv.validity, T.DATE, None)
 
     if isinstance(expr, E.NullOf):
         tv = evaluate(expr.like, env)
@@ -352,6 +599,66 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
 
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not ported yet: {expr}")
+
+
+def _eval_unary_math(expr: E.UnaryMath, tv: TV) -> TV:
+    """floor/ceil/sign/sqrt/exp/ln/log10 as the reference, except that a
+    decimal computes on its value: floor and ceil are exact integer
+    divisions by 10^scale (INT64), sign is -1, 0 or 1 scaled into the
+    decimal's type, and the others read the float64 value."""
+    x, op = tv.data, expr.op
+    dec = isinstance(tv.dtype, T.DecimalType)
+    if op in ("floor", "ceil"):
+        if dec:
+            f = 10 ** tv.dtype.scale
+            out = _floordiv(x, f) if op == "floor" else -_floordiv(-x, f)
+        elif tv.dtype.is_integral:
+            # identity on integers: a float64 round trip would corrupt
+            # values above 2^53
+            out = x.to(torch.int64)
+        else:
+            xf = x.to(torch.float64)
+            out = (torch.floor(xf) if op == "floor"
+                   else torch.ceil(xf)).to(torch.int64)
+        return TV(out, tv.validity, T.INT64, None)
+    if op == "sign":
+        out = torch.sign(x)
+        if dec:
+            out = out * 10 ** tv.dtype.scale
+        elif x.is_floating_point():
+            out = torch.where(torch.isnan(x), x, out)  # jnp.sign keeps NaN
+        return TV(out, tv.validity, tv.dtype, None)
+    fn = {"sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log,
+          "log10": torch.log10}[op]
+    return TV(fn(_cast_data(x, tv.dtype, T.FLOAT64)), tv.validity, T.FLOAT64,
+              None)
+
+
+def _eval_round(expr: E.Round, tv: TV) -> TV:
+    """ROUND with HALF_UP ties. A decimal rounds exactly in scaled int64
+    to ``round_decimal_type``; an integer is unchanged (a negative scale
+    rounds it through float64, as the reference); a float gives
+    sign(x) * floor(|x| * 10^s + 0.5) / 10^s in float64."""
+    if isinstance(tv.dtype, T.DecimalType):
+        out_dt = E.round_decimal_type(tv.dtype, expr.scale)
+        data, scale = tv.data, tv.dtype.scale
+        if expr.scale < scale:
+            data = _round_half_up_div(data, 10 ** (scale - expr.scale))
+            scale = expr.scale
+            if scale < 0:
+                data = data * 10 ** (-scale)
+                scale = 0
+        data = _cast_data(data, T.DecimalType(T.DecimalType.MAX_PRECISION,
+                                              scale), out_dt)
+        return TV(data, tv.validity, out_dt, None)
+    if tv.dtype.is_integral and expr.scale >= 0:
+        return tv
+    x = tv.data.to(torch.float64)
+    f = 10.0 ** expr.scale
+    out = torch.sign(x) * torch.floor(x.abs() * f + 0.5) / f
+    if tv.dtype.is_integral:
+        return TV(out.to(torch.int64), tv.validity, T.INT64, None)
+    return TV(out, tv.validity, T.FLOAT64, None)
 
 
 def _civil_from_days(days: torch.Tensor):
@@ -535,22 +842,44 @@ def _date_coerce(tv: TV, n: int) -> TV:
     return TV(data, _and_validity(tv.validity, ok), T.DATE, None)
 
 
+def _parse_timestamp_micros(s: str):
+    """ISO timestamp string -> microseconds since the epoch, a naive one
+    read in the host's local timezone as the reference reads it (ROADMAP
+    Notes); None when unparseable."""
+    try:
+        return int(datetime.datetime.fromisoformat(s).timestamp() * 1_000_000)
+    except ValueError:
+        return None
+
+
+def _timestamp_coerce(tv: TV, n: int) -> TV:
+    """A string compared with a timestamp coerces to a timestamp via its
+    dictionary; an unparseable entry is NULL."""
+    entries = tv.dictionary or ()
+    parsed = [_parse_timestamp_micros(s) for s in entries]
+    vals = np.array([v if v is not None else 0 for v in parsed] or [0],
+                    dtype=np.int64)
+    ok_tab = np.array([v is not None for v in parsed] or [False])
+    if entries:
+        data, ok = _gather(vals, tv.data), _gather(ok_tab, tv.data)
+    else:
+        data = tv.data.to(torch.int64)
+        ok = torch.zeros((n,), dtype=torch.bool, device=tv.data.device)
+    return TV(data, _and_validity(tv.validity, ok), T.TIMESTAMP, None)
+
+
 def _eval_cmp(expr: E.Cmp, env: Env) -> TV:
     n = env.capacity
     lt = evaluate(expr.left, env)
     rt = evaluate(expr.right, env)
 
-    if isinstance(lt.dtype, T.DateType) and isinstance(rt.dtype, T.StringType):
-        rt = _date_coerce(rt, n)
-    elif isinstance(rt.dtype, T.DateType) \
-            and isinstance(lt.dtype, T.StringType):
-        lt = _date_coerce(lt, n)
-    elif isinstance(lt.dtype, T.TimestampType) \
-            and isinstance(rt.dtype, T.StringType) \
-            or isinstance(rt.dtype, T.TimestampType) \
-            and isinstance(lt.dtype, T.StringType):
-        raise NotImplementedError(
-            "timestamp-string comparison is not ported yet")
+    # a string compared with a date or timestamp takes the temporal type
+    # (reference: _temporal_coerce in _eval_cmp)
+    coerce = {T.DateType: _date_coerce, T.TimestampType: _timestamp_coerce}
+    if type(lt.dtype) in coerce and isinstance(rt.dtype, T.StringType):
+        rt = coerce[type(lt.dtype)](rt, n)
+    elif type(rt.dtype) in coerce and isinstance(lt.dtype, T.StringType):
+        lt = coerce[type(rt.dtype)](lt, n)
     valid = _and_validity(lt.validity, rt.validity)
 
     if isinstance(lt.dtype, T.StringType) or isinstance(rt.dtype, T.StringType):

@@ -1,13 +1,16 @@
 """Expression tree (IR), trimmed to the nodes the single-device
-aggregate, join, subquery and window slices plan: columns, literals,
-aliases, arithmetic, month arithmetic on dates, comparisons, boolean
-logic, null tests, casts, IN lists, LIKE and the other dictionary string
-predicates, substring, CASE, COALESCE, typed NULLs (``NullOf``), date
-parts, sort orders, the subquery nodes (removed by ``plan/subquery.py``
-before execution), the grouping markers ``grouping()``/``grouping_id()``
+aggregate, join, subquery, window and scalar-function slices plan:
+columns, literals, aliases, arithmetic, month arithmetic on dates,
+comparisons, boolean logic, null tests, casts, IN lists, LIKE and the
+other dictionary string predicates, substring, concatenation, the string
+transforms, length and regular expressions, the math functions (abs,
+floor/ceil/sqrt/exp/ln/log10/sign, round, power), date_trunc and
+last_day, CASE, COALESCE, typed NULLs (``NullOf``), date parts, sort
+orders, the subquery nodes (removed by ``plan/subquery.py`` before
+execution), the grouping markers ``grouping()``/``grouping_id()``
 (rewritten by ``plan/grouping.py``), the window functions and the
-count/sum/avg/min/max/first aggregates, with DISTINCT on count, sum and
-avg.
+count/sum/avg/min/max/first, stddev/variance and percentile aggregates,
+with DISTINCT on count, sum and avg.
 
 The analogue of Catalyst's expression nodes (reference:
 sql/catalyst/.../expressions/Expression.scala). Expressions are
@@ -489,6 +492,257 @@ class Substring(Expression):
 
 
 @dataclass(eq=False, frozen=True)
+class Concat(Expression):
+    """String concatenation (``||`` / concat()), evaluated over host
+    dictionaries: the output dictionary is the product of the input
+    dictionaries (at most 2^20 entries), codes combine by mixed radix.
+    A NULL input makes the row NULL."""
+
+    args: Tuple[Expression, ...]
+
+    def children(self):
+        return self.args
+
+    def data_type(self, schema):
+        return T.STRING
+
+    def __str__(self):
+        return f"CONCAT({', '.join(map(str, self.args))})"
+
+
+@dataclass(eq=False, frozen=True)
+class ConcatWs(Expression):
+    """concat_ws(sep, ...): NULL inputs drop out with their separator,
+    and the result is never NULL (reference: ConcatWs,
+    stringExpressions.scala). Each nullable input's dictionary gains a
+    NULL entry inside the mixed radix."""
+
+    sep: str
+    args: Tuple[Expression, ...]
+
+    def children(self):
+        return self.args
+
+    def data_type(self, schema):
+        return T.STRING
+
+    def nullable(self, schema):
+        return False
+
+    def __str__(self):
+        return f"CONCAT_WS({self.sep!r}, {', '.join(map(str, self.args))})"
+
+
+@dataclass(eq=False, frozen=True)
+class Abs(Expression):
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return self.child.data_type(schema)
+
+    def __str__(self):
+        return f"ABS({self.child})"
+
+
+@dataclass(eq=False, frozen=True)
+class UnaryMath(Expression):
+    """floor/ceil/sqrt/exp/ln/log10/sign (reference: catalyst
+    mathExpressions.scala). floor and ceil give INT64, sign the input's
+    type, the others DOUBLE; a decimal input computes on its value."""
+
+    op: str
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        if self.op in ("floor", "ceil"):
+            return T.INT64
+        if self.op == "sign":
+            return self.child.data_type(schema)
+        return T.FLOAT64
+
+    def __str__(self):
+        return f"{self.op.upper()}({self.child})"
+
+
+def round_decimal_type(dt: "T.DecimalType", scale: int) -> "T.DecimalType":
+    """ROUND of a decimal(p, s) to ``scale`` digits: Spark's RoundBase
+    type, decimal(p - s + 1 + s', s') with s' = min(s, scale), and
+    decimal(max(p - s + 1, 1 - scale), 0) for a negative scale."""
+    integral = dt.precision - dt.scale + 1
+    if scale < 0:
+        return T.bounded_decimal(max(integral, 1 - scale), 0)
+    new_scale = min(dt.scale, scale)
+    return T.bounded_decimal(integral + new_scale, new_scale)
+
+
+@dataclass(eq=False, frozen=True)
+class Round(Expression):
+    """ROUND(x, scale) with HALF_UP ties (Spark semantics). Integers stay
+    integers, floats give DOUBLE, and decimals round exactly to
+    ``round_decimal_type`` (the reference gives DOUBLE of the unscaled
+    integer: ROADMAP C)."""
+
+    child: Expression
+    scale: int = 0
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        dt = self.child.data_type(schema)
+        if isinstance(dt, T.DecimalType):
+            return round_decimal_type(dt, self.scale)
+        return dt if dt.is_integral else T.FLOAT64
+
+    def __str__(self):
+        return f"ROUND({self.child}, {self.scale})"
+
+
+@dataclass(eq=False, frozen=True)
+class Pow(Expression):
+    left: Expression
+    right: Expression
+
+    def children(self):
+        return (self.left, self.right)
+
+    def data_type(self, schema):
+        return T.FLOAT64
+
+    def __str__(self):
+        return f"POWER({self.left}, {self.right})"
+
+
+@dataclass(eq=False, frozen=True)
+class StringTransform(Expression):
+    """upper/lower/trim/ltrim/rtrim/initcap/reverse/repeat/lpad/rpad/
+    translate, host dictionary transforms (reference:
+    stringExpressions.scala Upper/Lower/StringTrim/StringLPad/...).
+    ``args`` carries the op's scalar parameters (pad string, width...),
+    and the name shows them, so that lpad(s, 6) and lpad(s, 3) are two
+    columns (the reference names both ``LPAD(s)`` and keeps one)."""
+
+    op: str
+    child: Expression
+    args: Tuple = ()
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.STRING
+
+    def __str__(self):
+        args = "".join(f", {a!r}" for a in self.args)
+        return f"{self.op.upper()}({self.child}{args})"
+
+
+@dataclass(eq=False, frozen=True)
+class StrLength(Expression):
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.INT32
+
+    def __str__(self):
+        return f"LENGTH({self.child})"
+
+
+@dataclass(eq=False, frozen=True)
+class RegexpExtract(Expression):
+    """regexp_extract(str, pattern, group) (reference:
+    regexpExpressions.scala RegExpExtract; no match gives '')."""
+
+    child: Expression
+    pattern: str
+    group: int = 1
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.STRING
+
+    def __str__(self):
+        return f"REGEXP_EXTRACT({self.child}, {self.pattern!r}, {self.group})"
+
+
+@dataclass(eq=False, frozen=True)
+class RegexpReplace(Expression):
+    child: Expression
+    pattern: str
+    replacement: str
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.STRING
+
+    def __str__(self):
+        return (f"REGEXP_REPLACE({self.child}, {self.pattern!r}, "
+                f"{self.replacement!r})")
+
+
+@dataclass(eq=False, frozen=True)
+class RegexpLike(Expression):
+    """RLIKE / regexp_like: a regex search over the dictionary."""
+
+    child: Expression
+    pattern: str
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.BOOLEAN
+
+    def __str__(self):
+        return f"({self.child} RLIKE {self.pattern!r})"
+
+
+@dataclass(eq=False, frozen=True)
+class DateTrunc(Expression):
+    """date_trunc('year'|'month', date) (reference:
+    datetimeExpressions.scala TruncDate)."""
+
+    unit: str
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.DATE
+
+    def __str__(self):
+        return f"DATE_TRUNC({self.unit!r}, {self.child})"
+
+
+@dataclass(eq=False, frozen=True)
+class LastDay(Expression):
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.DATE
+
+    def __str__(self):
+        return f"LAST_DAY({self.child})"
+
+
+@dataclass(eq=False, frozen=True)
 class SortOrder(Expression):
     """Sort key wrapper (reference: expressions/SortOrder.scala).
     nulls_first default matches Spark: NULLS FIRST for ASC, LAST for DESC."""
@@ -911,6 +1165,66 @@ class First(AggregateExpression):
     @property
     def name(self):
         return f"first({self.child})"
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass(eq=False, frozen=True)
+class StddevVariance(AggregateExpression):
+    """stddev_samp/stddev_pop/var_samp/var_pop from the sum and the sum
+    of squares, as the reference computes them; a decimal input computes
+    on its value (the reference reads the unscaled integer: ROADMAP C)."""
+
+    kind: str  # 'stddev_samp' | 'stddev_pop' | 'var_samp' | 'var_pop'
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.FLOAT64
+
+    @property
+    def name(self):
+        return f"{self.kind}({self.child})"
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass(eq=False, frozen=True)
+class Percentile(AggregateExpression):
+    """percentile / percentile_approx / median, computed exactly per
+    group by a (group, value) sort and a gather at each group's rank
+    (reference: aggregate/ApproximatePercentile.scala:81). ``fn`` names
+    the SQL function. Interpolated (percentile, median), the result is a
+    DOUBLE between ranks; otherwise the element at rank ceil(q * n), in
+    the input's type. percentile(x, 0.5) and median(x) get distinct
+    names (the reference names both ``median`` and loses one column:
+    ROADMAP C)."""
+
+    child: Expression
+    percentage: float
+    fn: str = "percentile_approx"  # | "percentile" | "median"
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def interpolate(self) -> bool:
+        return self.fn != "percentile_approx"
+
+    def data_type(self, schema):
+        if self.interpolate:
+            return T.FLOAT64
+        return self.child.data_type(schema)
+
+    @property
+    def name(self):
+        if self.fn == "median":
+            return f"median({self.child})"
+        return f"{self.fn}({self.child}, {self.percentage})"
 
     def __str__(self):
         return self.name

@@ -45,21 +45,37 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
-def _compile(name: str, src: Path, compiler: str, flags) -> ctypes.CDLL:
-    """Load ``lib<name>-<hash>.so`` built from ``src``, building it first
-    when no build of the current source, flags and compiler exists."""
+def _target(name: str, src: Path, compiler: str, flags) -> Path:
+    """``lib<name>-<hash>.so``: the hash covers the source, the flags and
+    the compiler's version."""
     version = subprocess.run([compiler, "--version"], capture_output=True,
                              text=True, check=True).stdout
     h = hashlib.sha256(src.read_bytes())
     h.update("\0".join(flags).encode())
     h.update(version.encode())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str, src: Path, compiler: str, flags):
+    """Start building ``src`` unless a build of it exists. Returns (target
+    path, the compiler's process or None)."""
+    out = _target(name, src, compiler, flags)
+    if out.exists():
+        return out, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".so.tmp{os.getpid()}")
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, src: Path, compiler: str, out: Path,
+            proc) -> ctypes.CDLL:
+    """Wait for ``proc`` (if any), raise with its output on failure, and
+    load the library."""
+    if proc is not None:
+        build_logs[name] = proc.communicate()[0]
         tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [compiler, *flags, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_logs[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(
                 f"{Path(compiler).name} failed for {src}:\n"
@@ -70,11 +86,28 @@ def _compile(name: str, src: Path, compiler: str, flags) -> ctypes.CDLL:
     return lib
 
 
+def _compile(name: str, src: Path, compiler: str, flags) -> ctypes.CDLL:
+    """Load ``lib<name>-<hash>.so`` built from ``src``, building it first
+    when no build of the current source, flags and compiler exists."""
+    out, proc = _start(name, src, compiler, flags)
+    return _finish(name, src, compiler, out, proc)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The CUDA library built from ``ops/csrc/<name>.cu``."""
-    if name in _loaded:
-        return _loaded[name]
-    return _compile(name, CSRC / f"{name}.cu", _nvcc(), NVCC_FLAGS)
+    return libraries((name,))[0]
+
+
+def libraries(names) -> list:
+    """The CUDA libraries of ``names`` (``ops/csrc/<name>.cu``), their
+    builds started together, one ``nvcc`` each."""
+    missing = [name for name in names if name not in _loaded]
+    nvcc = _nvcc() if missing else None
+    started = {name: _start(name, CSRC / f"{name}.cu", nvcc, NVCC_FLAGS)
+               for name in missing}
+    for name, (out, proc) in started.items():
+        _finish(name, CSRC / f"{name}.cu", nvcc, out, proc)
+    return [_loaded[name] for name in names]
 
 
 def host_library(name: str, src: Path) -> ctypes.CDLL:

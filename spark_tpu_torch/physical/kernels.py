@@ -26,9 +26,13 @@ Counts, sums and min/max select a path as the reference does
 
 Integer sums are exact on every path (int64 adds natively on the GPU, so
 the reference's 21-bit limb split is not needed). Float sums are a plain
-reduction for K == 1 and a scatter-add otherwise, as the reference's
-float branch. ``MIN_ENGINE_K`` was measured for the reference on a TPU;
-it is kept unchanged here.
+reduction for K == 1. For K > 1, on every path, they take the
+deterministic CUDA float sum ``ops/seg_agg.seg_fsum`` on the card, whose
+bits depend only on each group's live values, and a scatter-add
+(``index_add_``) on the CPU, which equals the reference's float branch
+(``jax.ops.segment_sum``) bit for bit there; so the card's float groups
+differ from the CPU run's by rounding only. ``MIN_ENGINE_K`` was
+measured for the reference on a TPU; it is kept unchanged here.
 """
 
 from __future__ import annotations
@@ -221,18 +225,29 @@ def seg_scan(seg: torch.Tensor, x: torch.Tensor, combine) -> torch.Tensor:
     return out
 
 
+def _fsum_on(t: torch.Tensor) -> bool:
+    """Whether a float sum over more than one group takes
+    ``seg_agg.seg_fsum``: on a CUDA tensor always, and nothing falls back
+    to ``index_add_`` there."""
+    return t.is_cuda
+
+
 def seg_sum(data, seg, mask, num_segments: int, sorted_seg: bool = False):
     """Grouped sum of int64 or float data (the only types the
-    aggregates pass). Integer sums are exact on every path. Float sums
-    take a scatter-add for K > 1, as the reference's float branch does;
-    making its bits independent of the GPU's atomic order is ROADMAP
-    queue B item 3."""
+    aggregates pass). Integer sums are exact on every path. A float sum
+    over more than one group takes ``seg_agg.seg_fsum`` on the card
+    (bits independent of row layout and atomic order) and a scatter-add
+    on the CPU (the reference's float branch, bit for bit)."""
     path = select_path(num_segments, sorted_seg,
                        kernel_eligible("sum", data.dtype))
     if path == "kernel":
         return seg_agg.seg_sum(data.contiguous(),
                                seg.to(torch.int32).contiguous(),
                                mask.contiguous(), num_segments)
+    if data.is_floating_point() and path != "single" and _fsum_on(data):
+        return seg_agg.seg_fsum(data.contiguous(),
+                                seg.to(torch.int32).contiguous(),
+                                mask.contiguous(), num_segments)
     zero = torch.zeros((), dtype=data.dtype, device=data.device)
     if path == "masked" and not data.is_floating_point():
         return _masked_reduce(data, seg, mask, num_segments, torch.sum, zero)

@@ -566,7 +566,63 @@ def _compute_agg(agg: E.AggregateExpression, env: Env, seg, mask,
             found & K.seg_first(tv.valid_or_true(capacity), seg, use,
                                 num_segments, capacity, sorted_seg)[0])
         return TV(data, valid, tv.dtype, tv.dictionary)
+    if isinstance(agg, E.StddevVariance):
+        return _stddev_variance(agg, tv, seg, ok, any_valid, num_segments,
+                                sorted_seg)
+    if isinstance(agg, E.Percentile):
+        return _percentile(agg, tv, seg, ok, any_valid, num_segments,
+                           capacity, sorted_seg)
     raise NotImplementedError(f"aggregate {agg!r} is not ported yet")
+
+
+def _stddev_variance(agg: E.StddevVariance, tv: TV, seg, ok, any_valid,
+                     num_segments: int, sorted_seg: bool) -> TV:
+    """Variance from the grouped sum and sum of squares, as the reference
+    (``spark_tpu/physical/operators.py:948``): two float64 grouped sums,
+    which take ``seg_agg.seg_fsum`` on the card. A decimal computes on its
+    value (the reference reads the unscaled integer: ROADMAP C). The
+    formula cancels when the spread is small against the mean."""
+    x = C._cast_data(tv.data, tv.dtype, T.FLOAT64)
+    c = K.seg_count(seg, ok, num_segments, sorted_seg).to(torch.float64)
+    s = K.seg_sum(x, seg, ok, num_segments, sorted_seg)
+    s2 = K.seg_sum(x * x, seg, ok, num_segments, sorted_seg)
+    m2 = (s2 - s * s / c.clamp(min=1.0)).clamp(min=0.0)
+    samp = agg.kind.endswith("_samp")
+    var = m2 / (c - 1.0 if samp else c).clamp(min=1.0)
+    data = torch.sqrt(var) if agg.kind.startswith("stddev") else var
+    enough = c >= (2.0 if samp else 1.0)
+    return TV(data, any_valid & enough, T.FLOAT64, None)
+
+
+def _percentile(agg: E.Percentile, tv: TV, seg, ok, any_valid,
+                num_segments: int, capacity: int, sorted_seg: bool) -> TV:
+    """Exact per-group percentile (reference
+    ``spark_tpu/physical/operators.py:969``): one stable sort of (group,
+    value) with the ok rows first, each group's start from its count,
+    and a gather at its rank. Interpolated (percentile, median): float64
+    between ranks floor and ceil of q * (n - 1); otherwise the element at
+    rank ceil(q * n), in the input's type."""
+    q = float(agg.percentage)
+    perm = K.lexsort_permutation(
+        [K.SortKey(seg, None, True, True),
+         K.SortKey(tv.data, tv.validity, True, True)], ok)
+    svals = tv.data[perm]
+    cnt = K.seg_count(seg, ok, num_segments, sorted_seg)
+    starts = torch.cumsum(cnt, 0) - cnt
+    last = capacity - 1
+    if agg.interpolate:
+        fvals = C._cast_data(svals, tv.dtype, T.FLOAT64)
+        pos = q * (cnt - 1).to(torch.float64)
+        lo = torch.floor(pos).to(torch.int64)
+        hi = torch.ceil(pos).to(torch.int64)
+        frac = pos - lo.to(torch.float64)
+        vlo = fvals[(starts + lo).clamp(0, last)]
+        vhi = fvals[(starts + hi).clamp(0, last)]
+        return TV(vlo + (vhi - vlo) * frac, any_valid, T.FLOAT64, None)
+    rank = torch.ceil(q * cnt.to(torch.float64)).to(torch.int64) - 1
+    rank = torch.minimum(rank.clamp(min=0), (cnt - 1).clamp(min=0))
+    data = svals[(starts + rank).clamp(0, last)]
+    return TV(data, any_valid, tv.dtype, tv.dictionary)
 
 
 @dataclass(eq=False)

@@ -137,18 +137,35 @@ def _atom_ndv(atom: L.LogicalPlan, expr: E.Expression) -> Optional[float]:
 # ---- cluster flattening -----------------------------------------------------
 
 
+def _is_scalar_side(plan: L.LogicalPlan) -> bool:
+    """An ungrouped aggregate (one row), under projections, filters and
+    aliases: the scalar-subquery side of a keyless join (q11, q16, q22)."""
+    while isinstance(plan, (L.Project, L.Filter, L.SubqueryAlias)):
+        plan = plan.children()[0]
+    return isinstance(plan, L.Aggregate) and not plan.groupings
+
+
 def _flatten(node: L.LogicalPlan, atoms: List[L.LogicalPlan],
              key_pairs: List[Tuple[E.Expression, E.Expression]],
-             conds: List[E.Expression]) -> bool:
+             conds: List[E.Expression], cross: bool = True) -> bool:
     """Flatten a maximal inner-equi-join subtree. Returns False when the
     cluster shape is out of scope (a keyless theta join would otherwise
-    be turned into a cartesian product)."""
-    if isinstance(node, L.Join) and node.how == "inner":
-        if not node.left_keys:
+    be turned into a cartesian product). With ``cross``, a keyless join
+    without a condition between relations that are not one-row scalar
+    sides (the comma join ``part, supplier`` of q2, q8 and q9) is
+    flattened too, so that the greedy order joins only connected atoms;
+    the reference keeps it as one atom, a cross product (ROADMAP C)."""
+    keyless_cross = (isinstance(node, L.Join) and cross
+                     and node.how in ("inner", "cross")
+                     and not node.left_keys and node.condition is None
+                     and not _is_scalar_side(node.left)
+                     and not _is_scalar_side(node.right))
+    if isinstance(node, L.Join) and node.how == "inner" or keyless_cross:
+        if not node.left_keys and not keyless_cross:
             return False
-        if not _flatten(node.left, atoms, key_pairs, conds):
+        if not _flatten(node.left, atoms, key_pairs, conds, cross):
             return False
-        if not _flatten(node.right, atoms, key_pairs, conds):
+        if not _flatten(node.right, atoms, key_pairs, conds, cross):
             return False
         key_pairs.extend(zip(node.left_keys, node.right_keys))
         if node.condition is not None:
@@ -180,10 +197,21 @@ def reorder_joins(plan: L.LogicalPlan) -> L.LogicalPlan:
 
 
 def _reorder_cluster(root: L.Join) -> Optional[L.LogicalPlan]:
+    """The cluster under ``root`` in greedy order. Keyless joins between
+    relations are flattened into it first; where that leaves the cluster
+    disconnected (a true cross product), they stay atoms as before."""
+    for cross in (True, False):
+        out = _reorder_flat(root, cross)
+        if out is not None:
+            return out
+    return None
+
+
+def _reorder_flat(root: L.Join, cross: bool) -> Optional[L.LogicalPlan]:
     atoms: List[L.LogicalPlan] = []
     key_pairs: List[Tuple[E.Expression, E.Expression]] = []
     conds: List[E.Expression] = []
-    if not _flatten(root, atoms, key_pairs, conds) or len(atoms) < 3:
+    if not _flatten(root, atoms, key_pairs, conds, cross) or len(atoms) < 3:
         return None
 
     # global name uniqueness: expressions keep meaning under any order

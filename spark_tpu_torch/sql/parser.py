@@ -1,15 +1,18 @@
 """SQL parser: text -> logical plans, trimmed to the single-device
-aggregate, join, subquery and window slices.
+aggregate, join, subquery, window and scalar-function slices.
 
 Hand-written tokenizer, recursive-descent expression parser and
 statement parser for SELECT [DISTINCT] ... [FROM <relations>] [WHERE]
 [GROUP BY [ROLLUP | CUBE | GROUPING SETS]] [HAVING] joined by UNION
 [ALL], INTERSECT and EXCEPT, then [ORDER BY] [LIMIT [OFFSET]], with
 comparisons, BETWEEN, [NOT] IN (list | subquery), [NOT] LIKE, [NOT]
-EXISTS, scalar subqueries, IS [NOT] NULL, arithmetic, CASE, CAST,
-substring, extract, coalesce, date literals, day/week/month/year
-intervals, the count/sum/avg/min/max aggregates (count/sum/avg also
-DISTINCT), grouping()/grouping_id(), and window functions (row_number,
+EXISTS, scalar subqueries, IS [NOT] NULL, arithmetic, ``||``, CASE,
+CAST, extract, the scalar functions (string, math, date and timestamp;
+``sql/functions.py`` builds those without a node of their own), date
+and timestamp literals, day/week/month/year intervals, the
+count/sum/avg/min/max aggregates (count/sum/avg also DISTINCT),
+stddev/variance, percentile/percentile_approx/median,
+grouping()/grouping_id(), and window functions (row_number,
 rank, dense_rank, ntile, lag, lead and the aggregates) OVER (PARTITION
 BY ... ORDER BY ... ROWS|RANGE frame). The FROM clause takes tables and
 derived tables ``( SELECT ... ) [AS] alias`` with aliases, comma joins
@@ -19,8 +22,8 @@ row. A subquery resolves names it cannot find in its own FROM clause
 against the enclosing query's (``OuterRef``); ``parse_sql`` hands the
 plan to ``plan/subquery.py``, which rewrites every subquery into joins.
 A function or construct that the reference parses and the port has not
-ported yet (``_REFERENCE_FUNCTIONS``, ``||``, subscripts, LATERAL VIEW,
-TIMESTAMP literals, CREATE/DROP VIEW) raises ``NotImplementedError``;
+ported yet (``_REFERENCE_FUNCTIONS``, subscripts, LATERAL VIEW, CREATE/DROP
+VIEW) raises ``NotImplementedError``;
 anything else unknown is a parse error. The reference parses with an
 ANTLR grammar (reference:
 sql/catalyst/src/main/antlr4/.../SqlBaseParser.g4:1 +
@@ -45,6 +48,7 @@ from spark_tpu_torch.plan.grouping import (contains_grouping_fns, cube_sets,
                                            rewrite_grouping_fns, rollup_sets)
 from spark_tpu_torch.plan.optimizer import combine_conjuncts, split_conjuncts
 from spark_tpu_torch.plan.subquery import rewrite_subqueries
+from spark_tpu_torch.sql import functions as F
 from spark_tpu_torch.sql.ddl import parse_type
 
 # ---- tokenizer --------------------------------------------------------------
@@ -109,25 +113,16 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"not ported yet: {what} (ROADMAP queue A)")
 
 
-#: every function name the reference's parser accepts
+#: the function names the reference's parser accepts
 #: (``spark_tpu/sql/parser.py``: ``_parse_function_inner`` and
-#: ``_composed_functions``); the port parses those of ``_PORTED_FUNCTIONS``
-#: and refuses the rest as not ported yet
+#: ``_composed_functions``) that the port has not ported yet: list, map
+#: and struct columns, the higher-order functions and the collect
+#: aggregates (ROADMAP A2). Each raises ``NotImplementedError`` naming it.
 _REFERENCE_FUNCTIONS = frozenset("""
-    ROW_NUMBER RANK DENSE_RANK NTILE LAG LEAD COUNT SUM AVG MIN MAX
-    STDDEV STDDEV_SAMP STDDEV_POP VARIANCE VAR_SAMP VAR_POP SUBSTRING
-    SUBSTR COALESCE YEAR MONTH DAY DAYOFMONTH ABS FLOOR CEIL CEILING SQRT
-    EXP LN LOG10 SIGN ROUND POWER POW UPPER LOWER TRIM LTRIM RTRIM LENGTH
-    LEN CHAR_LENGTH REGEXP_EXTRACT REGEXP_REPLACE REGEXP_LIKE DATE_TRUNC
-    LAST_DAY APPROX_COUNT_DISTINCT NULLIF CONCAT DATE_ADD DATE_SUB
-    ADD_MONTHS LPAD RPAD REPEAT REPLACE TRANSLATE SPLIT CONCAT_WS
-    TRANSFORM FILTER EXISTS FORALL AGGREGATE REDUCE COLLECT_LIST
-    COLLECT_SET ARRAY_AGG PERCENTILE PERCENTILE_APPROX APPROX_PERCENTILE
-    MEDIAN GREATEST LEAST IFNULL NVL NVL2 LOG2 DEGREES RADIANS PMOD
-    QUARTER DAYOFWEEK WEEKDAY DAYOFYEAR MONTHS_BETWEEN CURRENT_DATE HOUR
-    MINUTE SECOND INITCAP REVERSE GROUPING GROUPING_ID ARRAY SIZE
-    CARDINALITY ELEMENT_AT ARRAY_CONTAINS EXPLODE POSEXPLODE MAP
-    MAP_FROM_ARRAYS MAP_KEYS MAP_VALUES MAP_CONTAINS_KEY
+    SPLIT TRANSFORM FILTER EXISTS FORALL AGGREGATE REDUCE COLLECT_LIST
+    COLLECT_SET ARRAY_AGG ARRAY SIZE CARDINALITY ELEMENT_AT ARRAY_CONTAINS
+    EXPLODE POSEXPLODE MAP MAP_FROM_ARRAYS MAP_KEYS MAP_VALUES
+    MAP_CONTAINS_KEY
 """.split())
 
 
@@ -336,7 +331,8 @@ class _ExprParser:
                 right = self.parse_multiplicative()
                 left = self._date_arith(t.value, left, right)
             elif t.kind == "op" and t.value == "||":
-                raise _not_ported("the || concatenation operator")
+                self.next()
+                left = E.Concat((left, self.parse_multiplicative()))
             else:
                 return left
 
@@ -422,7 +418,10 @@ class _ExprParser:
             s = _unquote(self.next().value)
             return E.Literal(datetime.date.fromisoformat(s))
         if u == "TIMESTAMP" and self.peek().kind == "str":
-            raise _not_ported("TIMESTAMP literals")
+            # a naive datetime, read in the host's local timezone when it
+            # is evaluated, as the reference does (ROADMAP Notes)
+            s = _unquote(self.next().value)
+            return E.Literal(datetime.datetime.fromisoformat(s))
         if u == "INTERVAL":
             return self._parse_interval()
         if u == "CASE":
@@ -633,10 +632,160 @@ class _ExprParser:
             self.expect(")")
             return E.ExtractDatePart({"DAYOFMONTH": "day"}.get(
                 name, name.lower()), e)
+        if name in ("STDDEV", "STDDEV_SAMP", "STDDEV_POP", "VARIANCE",
+                    "VAR_SAMP", "VAR_POP"):
+            e = self.parse()
+            self.expect(")")
+            kind = {"STDDEV": "stddev_samp", "VARIANCE": "var_samp"}.get(
+                name, name.lower())
+            return E.StddevVariance(kind, e)
+        if name in ("PERCENTILE", "PERCENTILE_APPROX", "APPROX_PERCENTILE",
+                    "MEDIAN"):
+            return self._parse_percentile(name)
+        if name == "APPROX_COUNT_DISTINCT":
+            e = self.parse()
+            if self.accept(","):
+                self.parse()  # rsd accepted, unused (the count is exact)
+            self.expect(")")
+            return E.Count(e, distinct=True)
+        if name == "ABS":
+            e = self.parse()
+            self.expect(")")
+            return E.Abs(e)
+        if name in ("FLOOR", "CEIL", "CEILING", "SQRT", "EXP", "LN", "LOG10",
+                    "SIGN"):
+            e = self.parse()
+            self.expect(")")
+            return E.UnaryMath({"CEILING": "ceil"}.get(name, name.lower()), e)
+        if name == "ROUND":
+            e = self.parse()
+            scale = self._int_literal() if self.accept(",") else 0
+            self.expect(")")
+            return E.Round(e, scale)
+        if name in ("POWER", "POW"):
+            a = self.parse()
+            self.expect(",")
+            b = self.parse()
+            self.expect(")")
+            return E.Pow(a, b)
+        if name in ("UPPER", "LOWER", "TRIM", "LTRIM", "RTRIM"):
+            e = self.parse()
+            self.expect(")")
+            return E.StringTransform(name.lower(), e)
+        if name in ("LENGTH", "LEN", "CHAR_LENGTH"):
+            e = self.parse()
+            self.expect(")")
+            return E.StrLength(e)
+        if name in ("REGEXP_EXTRACT", "REGEXP_REPLACE", "REGEXP_LIKE",
+                    "REPLACE", "TRANSLATE"):
+            return self._parse_regexp(name)
+        if name == "DATE_TRUNC":
+            unit = self._str_literal().lower()
+            self.expect(",")
+            e = self.parse()
+            self.expect(")")
+            return E.DateTrunc(unit, e)
+        if name == "LAST_DAY":
+            e = self.parse()
+            self.expect(")")
+            return E.LastDay(e)
+        if name in ("DATE_ADD", "DATE_SUB", "ADD_MONTHS"):
+            e = self.parse()
+            self.expect(",")
+            n = self._int_literal()
+            self.expect(")")
+            if name == "ADD_MONTHS":
+                return E.AddMonths(e, n)
+            return E.Arith("+" if name == "DATE_ADD" else "-", e,
+                           E.Literal(n))
+        if name in ("LPAD", "RPAD", "REPEAT"):
+            e = self.parse()
+            self.expect(",")
+            width = self._int_literal()
+            if name == "REPEAT":
+                self.expect(")")
+                return E.StringTransform("repeat", e, (width,))
+            pad = self._str_literal() if self.accept(",") else " "
+            self.expect(")")
+            return E.StringTransform(name.lower(), e, (width, pad))
+        if name in ("CONCAT", "NULLIF"):
+            args = [self.parse()]
+            while self.accept(","):
+                args.append(self.parse())
+            self.expect(")")
+            if name == "CONCAT":
+                return E.Concat(tuple(args))
+            if len(args) != 2:
+                raise SQLParseError("nullif takes two arguments")
+            return F.nullif(*args)
+        if name == "CONCAT_WS":
+            sep = self._str_literal()
+            args = []
+            while self.accept(","):
+                args.append(self.parse())
+            self.expect(")")
+            return F.concat_ws(sep, *args)
+        if name in F.COMPOSED_FUNCTIONS:
+            args = []
+            if not self.accept(")"):
+                args.append(self.parse())
+                while self.accept(","):
+                    args.append(self.parse())
+                self.expect(")")
+            return F.COMPOSED_FUNCTIONS[name](*args)
         if name in _REFERENCE_FUNCTIONS:
             raise _not_ported(f"function {name.lower()}()")
         raise SQLParseError(f"unknown function {name_tok.value!r} "
                             f"at {name_tok.pos}")
+
+    def _parse_percentile(self, name: str) -> E.Expression:
+        """percentile(x, q) and median(x) interpolate between ranks;
+        percentile_approx / approx_percentile(x, q [, accuracy]) pick an
+        element. All are exact (the accuracy is accepted, unused)."""
+        e = self.parse()
+        if name == "MEDIAN":
+            self.expect(")")
+            return E.Percentile(e, 0.5, "median")
+        self.expect(",")
+        q = self.parse()
+        if not isinstance(q, E.Literal):
+            raise SQLParseError("percentile fraction must be a literal")
+        if self.accept(","):
+            self.parse()
+        self.expect(")")
+        return E.Percentile(e, float(q.value), "percentile"
+                            if name == "PERCENTILE" else "percentile_approx")
+
+    def _parse_regexp(self, name: str) -> E.Expression:
+        """regexp_extract(s, pattern [, group]), regexp_replace(s, pattern,
+        rep), regexp_like(s, pattern), replace(s, find, rep) (a literal
+        replace: the needle's pattern syntax and the replacement's
+        backslashes are escaped) and translate(s, from, to)."""
+        e = self.parse()
+        self.expect(",")
+        pat = self._str_literal()
+        if name == "REGEXP_LIKE":
+            self.expect(")")
+            return E.RegexpLike(e, pat)
+        if name == "REGEXP_EXTRACT":
+            group = self._int_literal() if self.accept(",") else 1
+            self.expect(")")
+            return E.RegexpExtract(e, pat, group)
+        self.expect(",")
+        rep = self._str_literal()
+        self.expect(")")
+        if name == "TRANSLATE":
+            return E.StringTransform("translate", e, (pat, rep))
+        if name == "REPLACE":
+            return E.RegexpReplace(e, re.escape(pat),
+                                   rep.replace("\\", "\\\\"))
+        return E.RegexpReplace(e, pat, rep)
+
+    def _str_literal(self) -> str:
+        e = self.parse_primary()
+        if isinstance(e, E.Literal) and isinstance(e.value, str):
+            return e.value
+        raise SQLParseError("expected string literal")
 
     def _int_literal(self) -> int:
         e = self.parse_unary()

@@ -2,7 +2,7 @@
 specification (rev 2.18, default substitution parameters), copied from
 the reference package's query set (``spark_tpu/tpch/queries.py``),
 ``Q1_WIDE``, and the queries of ``chip_smoke.py``'s window phase
-(``WINDOW_QUERIES``).
+(``WINDOW_QUERIES``) and scalar phase (``SCALAR_QUERIES``).
 
 ``Q1_WIDE`` is a q1-shaped aggregate grouped by four dictionary columns
 (3 * 2 * 7 * 4 = 168 packed groups), so HashAggregate's direct path runs
@@ -829,3 +829,155 @@ union all
 select null, null, count(*), sum(l_extendedprice) from lineitem
 """,
 }
+
+
+# chip_smoke.py's scalar phase over the TPC-H tables (A1_AGGS: the float
+# aggregates of each A1 query): grouped float
+# aggregates (stddev, variance and avg of sqrt, whose float64 sums take
+# seg_fsum on the card) at three group counts, percentiles, string
+# transforms over host dictionaries, date functions, math over decimals,
+# and timestamps (over ``ts_orders``, which ``timestamp_table`` builds).
+A1_AGGS = """count(*) as n,
+       stddev_samp(l_extendedprice) as sd_price,
+       var_pop(l_quantity) as var_qty,
+       avg(sqrt(l_extendedprice)) as avg_sqrt_price"""
+_A1_ORACLE_AGGS = """count(*) as n,
+       sqrt((sum(l_extendedprice * l_extendedprice)
+             - sum(l_extendedprice) * sum(l_extendedprice) / count(*))
+            / (count(*) - 1)) as sd_price,
+       (sum(l_quantity * l_quantity)
+        - sum(l_quantity) * sum(l_quantity) / count(*)) / count(*)
+           as var_qty,
+       avg(sqrt(l_extendedprice)) as avg_sqrt_price"""
+_Q1_WIDE_KEYS = "l_returnflag, l_linestatus, l_shipmode, l_shipinstruct"
+_M1_BODY = """from lineitem group by l_returnflag order by l_returnflag"""
+
+SCALAR_QUERIES = {
+    # K = 6: the masked path, float sums through seg_fsum
+    "a1_6": f"""
+select l_returnflag, l_linestatus, {A1_AGGS}
+from lineitem group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+""",
+    # K = 168: the direct path (counts through the seg_sum kernel)
+    "a1_168": f"""
+select {_Q1_WIDE_KEYS}, {A1_AGGS}
+from lineitem where l_shipdate <= date '1998-09-02'
+group by {_Q1_WIDE_KEYS} order by {_Q1_WIDE_KEYS}
+""",
+    # 10,000 suppliers: the sorted path, K = 10,240 float groups
+    "a1_sorted": f"""
+select l_suppkey, {A1_AGGS}
+from lineitem group by l_suppkey order by l_suppkey
+""",
+    "p1_percentile": """
+select l_returnflag, l_linestatus,
+       percentile_approx(l_quantity, 0.5) as p50_qty,
+       median(l_extendedprice) as median_price,
+       percentile(l_discount, 0.9) as p90_disc
+from lineitem group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+""",
+    # country code (25 entries from c_phone's 150k) x segment (5)
+    "s2a_strings": """
+select cc, seg, count(*) as n, sum(name_len) as name_len
+from (select substr(c_phone, 1, 2) as cc, upper(c_mktsegment) as seg,
+             length(c_name) as name_len from customer) t
+group by cc, seg order by cc, seg
+""",
+    "s2b_regexp": """
+select prio, st, count(*) as n, max(clerk) as last_clerk
+from (select replace(o_orderpriority, '-', ' ') as prio,
+             lpad(trim(o_orderstatus), 3, '*') as st,
+             lpad(o_clerk, 18, '_') as clerk
+      from orders where regexp_like(o_comment, 'special.*requests')) t
+group by prio, st order by prio, st
+""",
+    # n_name || '-' || r_name: a 25 x 5 dictionary product
+    "s2c_concat": """
+select n_name || '-' || r_name as place, count(*) as n
+from customer, nation, region
+where c_nationkey = n_nationkey and n_regionkey = r_regionkey
+group by n_name || '-' || r_name order by place
+""",
+    "d1_dates": """
+select m, count(*) as n, sum(q) as sq, sum(dw) as sdw, sum(ld) as sld,
+       sum(d30) as sd30, max(lm) as last_month_end
+from (select date_trunc('month', l_shipdate) as m,
+             quarter(l_shipdate) as q, dayofweek(l_shipdate) as dw,
+             day(last_day(l_shipdate)) as ld,
+             day(date_add(l_shipdate, 30)) as d30,
+             last_day(l_shipdate) as lm from lineitem) t
+group by m order by m
+""",
+    "m1_decimal_math": f"""
+select l_returnflag,
+       sum(round(l_extendedprice * (1 - l_discount), 0)) as s_round,
+       sum(floor(l_tax * 100)) as s_floor,
+       max(greatest(l_tax, l_discount)) as g,
+       count(nullif(l_linenumber, 1)) as n_nl,
+       sum(pmod(l_orderkey, 7)) as s_pmod,
+       sum(abs(l_extendedprice - 50000)) as s_abs,
+       sum(sign(l_extendedprice - 50000)) as s_sign
+{_M1_BODY}
+""",
+    "t1_timestamps": """
+select h, count(*) as n, sum(mi) as s_minute, sum(se) as s_second,
+       sum(after_lit) as n_after, sum(before_str) as n_before
+from (select hour(o_ts) as h, minute(o_ts) as mi, second(o_ts) as se,
+             case when o_ts >= timestamp '1995-06-17 12:00:00'
+                  then 1 else 0 end as after_lit,
+             case when o_ts < '1996-01-01 06:30:00'
+                  then 1 else 0 end as before_str
+      from ts_orders) t
+group by h order by h
+""",
+}
+
+#: the scalar queries in sqlite's spelling where sqlite computes the same
+#: function: A1's variance through the sum of squares, greatest as the
+#: two-argument max and pmod through sqlite's remainder
+SCALAR_ORACLE_QUERIES = {
+    "a1_6": f"""
+select l_returnflag, l_linestatus, {_A1_ORACLE_AGGS}
+from lineitem group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus
+""",
+    "a1_168": f"""
+select {_Q1_WIDE_KEYS}, {_A1_ORACLE_AGGS}
+from lineitem where l_shipdate <= date '1998-09-02'
+group by {_Q1_WIDE_KEYS} order by {_Q1_WIDE_KEYS}
+""",
+    "a1_sorted": f"""
+select l_suppkey, {_A1_ORACLE_AGGS}
+from lineitem group by l_suppkey order by l_suppkey
+""",
+    "s2a_strings": SCALAR_QUERIES["s2a_strings"],
+    "s2c_concat": SCALAR_QUERIES["s2c_concat"],
+    "m1_decimal_math": f"""
+select l_returnflag,
+       sum(round(l_extendedprice * (1 - l_discount), 0)) as s_round,
+       sum(floor(l_tax * 100)) as s_floor,
+       max(max(l_tax, l_discount)) as g,
+       count(nullif(l_linenumber, 1)) as n_nl,
+       sum(((l_orderkey % 7) + 7) % 7) as s_pmod,
+       sum(abs(l_extendedprice - 50000)) as s_abs,
+       sum(sign(l_extendedprice - 50000)) as s_sign
+{_M1_BODY}
+""",
+}
+
+
+def timestamp_table(orders, seed: int):
+    """``ts_orders``: o_orderkey and o_ts, a timestamp[us] at o_orderdate
+    plus seconds of the day drawn from ``seed``, from the orders table
+    (a pyarrow Table)."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    days = orders.column("o_orderdate").cast(pa.int32()).to_numpy()
+    secs = rng.integers(0, 86_400, len(days))
+    micros = (days.astype(np.int64) * 86_400 + secs) * 1_000_000
+    return pa.table({"o_orderkey": orders.column("o_orderkey"),
+                     "o_ts": pa.array(micros, pa.timestamp("us"))})

@@ -20,7 +20,11 @@ data, validity and the row mask);
 query rows on the card equal to the CPU run's (the slices' queries, the
 window phase's windows, grouping sets and set operations, and the twelve
 other TPC-H queries), except a float window sum, held within 1e-10 of
-the batch's prefix magnitude.
+the batch's prefix magnitude; the deterministic float sum (seg_fsum)
+equal to its plain version bit for bit, across launches, a compacted
+layout and a row permutation; the scalar phase's grouped stddev and
+variance (A1) within rel 1e-10 of the CPU run and bit-identical across
+two runs on the card.
 """
 
 import numpy as np
@@ -401,3 +405,81 @@ def test_window_rollup_union_on_card_match_cpu(cuda_device):
     for g, w in zip(got, want):
         assert tuple(g)[:2] == tuple(w)[:2]
         assert abs(g[2] - w[2]) <= 1e-10 * prefix, (g, w)
+
+
+# ---- the scalar slice: the deterministic float sum ---------------------------
+
+
+def _fsum_bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,sorted_ids", [(1, False), (6, False),
+                                          (168, False), (1024, False),
+                                          (5000, False), (10_000, True)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_seg_fsum_matches_plain_bit_for_bit(cuda_device, k, sorted_ids,
+                                            dtype):
+    """seg_fsum against seg_fsum_plain on the same tensors, bit for bit:
+    two launches, a compacted copy of the live rows and a permutation of
+    the rows give the same bits; NaN, +-inf and empty groups included."""
+    rng = np.random.default_rng(k)
+    n = 300_000
+    seg = rng.integers(-1, k + 1, n).astype(np.int32)
+    if sorted_ids:
+        seg.sort()
+    mask = rng.random(n) < 0.7
+    x = rng.normal(size=n) * 10.0 ** rng.integers(-8, 9, n)
+    x[rng.random(n) < 1e-4] = np.nan
+    x[rng.random(n) < 1e-4] = np.inf
+    x[rng.random(n) < 1e-4] = -np.inf
+    d, s, m = (torch.from_numpy(a).to(cuda_device)
+               for a in (x.astype(np.float64), seg, mask))
+    d = d.to(dtype)
+    got = seg_agg.seg_fsum(d, s, m, k)
+    again = seg_agg.seg_fsum(d, s, m, k)
+    want = seg_agg.seg_fsum_plain(d, s, m, k)
+    live = m
+    compact = seg_agg.seg_fsum(d[live].contiguous(), s[live].contiguous(),
+                               torch.ones(int(live.sum()), dtype=torch.bool,
+                                          device=cuda_device), k)
+    perm = torch.randperm(n, device=cuda_device)
+    shuffled = seg_agg.seg_fsum(d[perm].contiguous(), s[perm].contiguous(),
+                                m[perm].contiguous(), k)
+    torch.cuda.synchronize()
+    for other in (again, want, compact, shuffled):
+        assert torch.equal(_fsum_bits(got), _fsum_bits(other))
+    assert got.dtype == dtype and got.shape == (k,)
+
+
+@pytest.mark.cuda
+def test_scalar_a1_on_card_matches_cpu(cuda_device):
+    """A1's grouped stddev, variance and avg of sqrt at K = 6, 168 and the
+    sorted path on the card against the CPU run: keys and counts equal,
+    floats within rel 1e-10 (the card's seg_fsum and the CPU's index_add_
+    round differently; the variance formula's cancellation is under 10
+    here), the card's floats bit-identical across two runs, and five
+    seg_fsum launches a query."""
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.tpch import generate_tables, register_views
+    from spark_tpu_torch.tpch.queries import SCALAR_QUERIES
+
+    tables = generate_tables(0.02, seed=99)
+    gpu = SparkSession(device="cuda")
+    cpu = SparkSession(device="cpu")
+    register_views(gpu, tables)
+    register_views(cpu, tables)
+    for name in ("a1_6", "a1_168", "a1_sorted"):
+        q = SCALAR_QUERIES[name]
+        seg_agg.reset_launches()
+        got = [tuple(r) for r in gpu.sql(q).collect()]
+        assert seg_agg.seg_fsum.mode_launches == {"fsum_f64": 5,
+                                                  "fsum_f32": 0}, name
+        assert got == [tuple(r) for r in gpu.sql(q).collect()]
+        want = [tuple(r) for r in cpu.sql(q).collect()]
+        assert got and len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g[:-3] == w[:-3]
+            for a, b in zip(g[-3:], w[-3:]):
+                assert abs(a - b) <= 1e-10 * abs(b), (name, g, w)

@@ -5,8 +5,8 @@ through the JAX package.
 
 A query passes when its rows equal the golden rows. The only other
 outcome allowed is ``NotImplementedError``, and only for the queries of
-``NOT_PORTED``: scalar functions, advanced aggregates, arrays, maps and
-higher-order functions (ROADMAP queue A). A query on that list must
+``NOT_PORTED``: list and map columns, the collect aggregates and the
+higher-order functions (ROADMAP A2). A query on that list must
 still raise, so the list shrinks as the port grows."""
 
 import os
@@ -19,16 +19,10 @@ from tests.sql_golden import harness as H
 #: (file, query index) of the golden queries that need constructs the
 #: port has not ported yet, by what they need
 NOT_PORTED = {
-    # round, stddev/var_pop, percentile_approx/median, collect_list/set,
-    # percentile
-    "aggregates-advanced.sql": {0, 1, 2, 3, 4},
-    "arithmetic.sql": {2, 3},            # abs, round
+    "aggregates-advanced.sql": {2, 3},   # collect_list, collect_set
     "arrays.sql": {0, 1, 2, 3},          # array, size, element_at, explode
-    "date-functions.sql": {1},           # date_add
     "higher-order.sql": {0, 1, 2, 3, 4},  # transform, filter, exists, ...
     "maps.sql": {0, 1, 2, 3},            # map, element_at, map_keys, ...
-    "null-propagation.sql": {2},         # nullif
-    "strings.sql": {0, 3, 4, 5, 6},      # length/upper, replace, trim, ||
 }
 
 
@@ -60,11 +54,13 @@ def test_golden_through_port(port, fname, index, sql, want):
 
 
 def test_golden_census():
-    """At least 83 of the 110 golden queries run through the port, every
-    one of window.sql, set-operations.sql and grouping-sets.sql among
-    them."""
+    """At least 95 of the 110 golden queries run through the port, every
+    one of window.sql, set-operations.sql, grouping-sets.sql, strings.sql,
+    arithmetic.sql, date-functions.sql and null-propagation.sql among
+    them; only the 15 that need list or map columns are refused."""
     cases = _cases()
     refused = sum(len(v) for v in NOT_PORTED.values())
-    assert len(cases) == 110 and len(cases) - refused >= 83
-    assert not {"window.sql", "set-operations.sql",
-                "grouping-sets.sql"} & set(NOT_PORTED)
+    assert len(cases) == 110 and len(cases) - refused >= 95
+    assert not {"window.sql", "set-operations.sql", "grouping-sets.sql",
+                "strings.sql", "arithmetic.sql", "date-functions.sql",
+                "null-propagation.sql"} & set(NOT_PORTED)

@@ -4,13 +4,18 @@ holds against the sqlite oracle (the reference's rows in the slow lane:
 its engine compiles for 5-60 s a query), and the queries of
 ``chip_smoke.py``'s window phase (window functions, ROLLUP, CUBE,
 INTERSECT, EXCEPT, UNION) against the reference's rows and sqlite, with
-the tie order of ``row_number()`` against the reference's.
+the tie order of ``row_number()`` against the reference's, and the
+join order of q2, q8 and q9, whose comma join of part and supplier the
+port no longer plans as a cross product (ROADMAP C).
 
 Rows equal to the reference's: exact for ints, decimals, dates and
 strings; the oracle within rel 1e-6 (``assert_rows_match``)."""
 
 import pytest
 
+from spark_tpu_torch.plan import logical as PL
+from spark_tpu_torch.plan.optimizer import optimize as port_optimize
+from spark_tpu_torch.sql.parser import parse_sql as port_parse_sql
 from spark_tpu_torch.tpch import QUERIES
 from spark_tpu_torch.tpch.oracle import (assert_rows_match, index_keys,
                                          load_sqlite, run_oracle)
@@ -88,3 +93,59 @@ def test_row_number_breaks_ties_as_the_reference(engines):  # noqa: F811
              "where l_orderkey < 400")
     got = _rows(port.sql(query))
     assert len(got) > 50 and got == _rows(spark.sql(query))
+
+
+def _keyless_base_joins(plan) -> list:
+    """The joins without keys or condition whose two sides are base
+    relations (a Relation under projections and filters)."""
+    def base(node):
+        while isinstance(node, (PL.Project, PL.Filter, PL.SubqueryAlias)):
+            node = node.children()[0]
+        return isinstance(node, PL.Relation)
+
+    out = []
+
+    def walk(node):
+        if (isinstance(node, PL.Join) and not node.left_keys
+                and node.condition is None and base(node.left)
+                and base(node.right)):
+            out.append(node)
+        for c in node.children():
+            walk(c)
+
+    walk(plan)
+    return out
+
+
+@pytest.mark.parametrize("qnum", (2, 8, 9))
+def test_comma_joins_plan_no_cross_product(engines, oracle,
+                                           qnum):  # noqa: F811
+    """q2, q8 and q9 list part and supplier in one FROM clause with no key
+    between them. The reorder joins each through lineitem or partsupp
+    instead of as a cross product (q9's held 9.9 GB on the card at SF1),
+    and the rows stay those of sqlite."""
+    _, port, _ = engines
+    plan = port_optimize(port_parse_sql(QUERIES[qnum], port.catalog))
+    assert _keyless_base_joins(plan) == []
+    got = _rows(port.sql(QUERIES[qnum]))
+    assert got
+    assert_rows_match(got, run_oracle(oracle, QUERIES[qnum]),
+                      label=f"q{qnum}[port]")
+
+
+def test_scalar_subquery_joins_stay_keyless(engines):  # noqa: F811
+    """The keyless joins of q11, q16 and q22 join a one-row scalar
+    subquery, and stay as they are."""
+    _, port, _ = engines
+    for qnum in (11, 16, 22):
+        plan = port_optimize(port_parse_sql(QUERIES[qnum], port.catalog))
+        joins = []
+
+        def walk(node):
+            if isinstance(node, PL.Join) and not node.left_keys:
+                joins.append(node)
+            for c in node.children():
+                walk(c)
+
+        walk(plan)
+        assert joins, f"q{qnum} lost its scalar-subquery join"
