@@ -28,13 +28,19 @@ no result line):
    take (bound).
    Crossover: the masked reduction (the path at K <= 64) against the
    kernel for counts and int64 sums at K in {2, 6, 16, 32, 64}.
-   The deterministic float sum (seg_fsum) at the same shape, float64 and
-   float32, K in {6, 168, 1024} with unsorted ids and K = 10,000 sorted,
-   and a skewed input at K = 168, with NaN, +-inf and empty groups: equal
-   to its plain version bit for bit, and so are a second launch, the
-   compacted live rows and a permutation of the rows; within 1e-12 (float32:
-   1e-5) of each group's sum of |x| of a float64 index_add_. Its times
-   beside its bound and index_add_'s.
+   The exact float sum (seg_fsum) at the same shape, float64 and
+   float32, K in {6, 168, 1024} with unsorted ids, K = 5000 unsorted with
+   ids outside [0, K) on some live rows, K = 10,000 sorted, a skewed
+   input at K = 168 and values spread over 2^-1000..2^1000 (float32:
+   2^-120..2^120) at K = 168, with NaN, +-inf and empty groups:
+   equal to its plain version bit for bit, and so are a second launch,
+   the compacted live rows and a permutation of the rows; within 1e-12
+   (float32: 1e-5) of each group's sum of |x| of a float64 index_add_; a
+   sample of groups equal to the host's exact sum rounded once (math.fsum;
+   float32 by exact integer sums); the digit kernel and the finish
+   kernel once a call, in the profiler session that gives its device ms.
+   Its device ms beside its one-read bound (the share), index_add_'s and
+   the plain version's.
 4. The sqlite oracle: every column of the eight SF1 tables, key columns
    indexed, LIKE case-sensitive as the engine's; one load for every
    phase.
@@ -92,6 +98,7 @@ from __future__ import annotations
 import contextlib
 import inspect
 import json
+import math
 import os
 import statistics
 import struct
@@ -100,7 +107,9 @@ import sys
 import time
 import types
 import warnings
+from fractions import Fraction
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor fp32
@@ -190,28 +199,29 @@ def make_inputs(n: int, k: int, live_rows: int, seed: int, dev="cuda",
 
 
 def profile_calls(fn, calls: int = 10):
-    """Device-only ms per call from torch.profiler's kernel events, and
-    kernels per call (memsets and copies are not kernels). The profiler
-    now and then drops kernel events of a session (seen on an H100: a
-    session that recorded none, one that recorded 69 of about 100); a
-    session whose kernel count is not a whole number per call is taken
-    once more."""
+    """Device-only ms per call from torch.profiler's kernel events, kernels
+    per call and {kernel name: launches per call}, all from one profiler
+    session (memsets and copies are not kernels). The profiler now and
+    then drops kernel events of a session (seen on an H100: a session that
+    recorded none, one that recorded 69 of about 100); a session in which
+    some kernel's count is not a whole number per call is taken again, up
+    to five sessions in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in _device_events(prof) if _is_kernel(e.key)]
-        count = sum(e.count for e in kernels)
-        if count and count % calls == 0:
+        names = {e.key: e.count / calls for e in kernels}
+        if names and all(v == int(v) for v in names.values()):
             break
     us = sum(e.self_device_time_total for e in kernels)
-    return us / 1e3 / calls, count / calls
+    return us / 1e3 / calls, sum(names.values()), names
 
 
 def _device_events(prof):
@@ -331,8 +341,8 @@ def kernel_phase(seg_agg, n: int, live_rows: int, dev="cuda"):
                              finite if name == "sum_f32" else data, seg, mask,
                              truth if skew else None)
             ms = cuda_ms(kern)
-            dev_ms, per_call = profile_calls(kern) if on_card else (None,
-                                                                    None)
+            dev_ms, per_call, _ = (profile_calls(kern) if on_card
+                                   else (None, None, None))
             if on_card:
                 check(per_call == 1, f"{name} {tag}: {per_call} kernels "
                       "per call, want 1")
@@ -374,26 +384,35 @@ def crossover_phase(seg_agg, n: int, live_rows: int, dev="cuda"):
                   f"crossover {name} K={k}: masked != kernel")
             row = dict(masked_ms=cuda_ms(masked), kernel_ms=cuda_ms(kern))
             if dev == "cuda":
-                row["masked_device_ms"], row["masked_kernels"] = \
+                row["masked_device_ms"], row["masked_kernels"], _ = \
                     profile_calls(masked)
-                row["kernel_device_ms"], _ = profile_calls(kern)
+                row["kernel_device_ms"], _, _ = profile_calls(kern)
             log(f"crossover {name} N={n} K={k}: " + " ".join(
                 f"{key}={val:.4f}" for key, val in row.items()))
         del data, i64, seg, mask
 
 
-# seg_fsum cases of the kernel phase: (K, sorted ids, skewed)
-FSUM_CASES = ((6, False, False), (168, False, False), (1024, False, False),
-              (10_000, True, False), (MAIN_K, False, True))
+# seg_fsum cases of the kernel phase: (K, sorted ids, skewed, exponent
+# spread, ids outside [0, K)); the spread case puts float64 values over
+# 2^-1000..2^1000 (float32 over 2^-120..2^120); K = 5000 is scattered past
+# the 1024 groups a block privatizes
+FSUM_CASES = ((6, False, False, 0, False), (168, False, False, 0, False),
+              (1024, False, False, 0, False), (5000, False, False, 0, True),
+              (10_000, True, False, 0, False), (MAIN_K, False, True, 0, False),
+              (MAIN_K, False, False, 1000, False))
 
 
 def fsum_inputs(n: int, k: int, live_rows: int, seed: int, dev="cuda",
-                sorted_ids: bool = False, skew: bool = False):
+                sorted_ids: bool = False, skew: bool = False,
+                spread: int = 0, outside: bool = False):
     """int32 ids in [0, k) with every 10th group empty (sorted when
-    ``sorted_ids``; 90% of rows in group 7 when ``skew``), ~30% of rows
+    ``sorted_ids``; 90% of rows in group 7 when ``skew``; ~5% of rows,
+    live ones among them, given ids outside [0, k) when ``outside``: -2^31,
+    -1, k, k + 1 and 2^31 - 1, which no group takes), ~30% of rows
     masked and every row past ``live_rows``, float64 values of both signs
-    over six decades; group 3 holds a NaN, group 5 +inf and -inf, group 8
-    -inf."""
+    over six decades (``spread``: normal values times 2^e, e uniform in
+    [-spread, spread]); group 3 holds a NaN, group 5 +inf and -inf, group
+    8 -inf. The same seed gives the same ids and mask at any spread."""
     g = torch.Generator(device=dev).manual_seed(seed)
     used = torch.tensor([j for j in range(k) if j % 10 != 9],
                         dtype=torch.int32, device=dev)
@@ -401,11 +420,21 @@ def fsum_inputs(n: int, k: int, live_rows: int, seed: int, dev="cuda",
     if skew:
         hot = torch.rand(n, generator=g, device=dev) < 0.9
         seg = torch.where(hot, torch.full_like(seg, 7), seg)
+    if outside:
+        bad = torch.tensor([-2 ** 31, -1, k, k + 1, 2 ** 31 - 1],
+                           dtype=torch.int32, device=dev)
+        pick = torch.randint(0, bad.numel(), (n,), generator=g, device=dev)
+        off = torch.rand(n, generator=g, device=dev) < 0.05
+        seg = torch.where(off, bad[pick], seg)
     if sorted_ids:
         seg = torch.sort(seg).values
     mask = torch.rand(n, generator=g, device=dev) >= 0.3
     mask[live_rows:] = False
-    scale = 10.0 ** torch.randint(-2, 4, (n,), generator=g, device=dev)
+    if spread:
+        e = torch.randint(-spread, spread + 1, (n,), generator=g, device=dev)
+        scale = torch.pow(2.0, e.to(torch.float64))
+    else:
+        scale = 10.0 ** torch.randint(-2, 4, (n,), generator=g, device=dev)
     x = torch.randn(n, generator=g, device=dev, dtype=torch.float64) * scale
     for group, value in ((3, float("nan")), (5, float("inf")),
                          (5, float("-inf")), (8, float("-inf"))):
@@ -415,38 +444,89 @@ def fsum_inputs(n: int, k: int, live_rows: int, seed: int, dev="cuda",
     return x, seg.contiguous(), mask.contiguous()
 
 
+# per dtype: significand bits, least normal exponent, largest exponent
+FLOAT_FORMATS = {torch.float64: (53, -1022, 1023),
+                 torch.float32: (24, -126, 127)}
+
+
+def round_once(total: Fraction, dtype) -> float:
+    """The exact ``total`` rounded once to nearest, ties to even, into
+    ``dtype`` (subnormals included, +-inf past the largest finite)."""
+    if total == 0:
+        return 0.0
+    bits, emin, emax = FLOAT_FORMATS[dtype]
+    a = abs(total)
+    e = a.numerator.bit_length() - a.denominator.bit_length()
+    if Fraction(2) ** e > a:
+        e -= 1
+    q = max(e, emin) - (bits - 1)
+    scaled = a / Fraction(2) ** q
+    n, rem = divmod(scaled.numerator, scaled.denominator)
+    if 2 * rem > scaled.denominator or (2 * rem == scaled.denominator
+                                        and n % 2):
+        n += 1
+    sign = -1.0 if total < 0 else 1.0
+    if Fraction(n) * Fraction(2) ** q >= Fraction(2) ** (emax + 1):
+        return sign * math.inf
+    return sign * math.ldexp(n, q)
+
+
+def host_exact_sum(vals, dtype) -> float:
+    """The exact sum of finite host values, rounded once into ``dtype``:
+    math.fsum for float64 (correctly rounded); for float32 each value as
+    an integer significand times 2^shift, summed by shift exactly."""
+    if dtype == torch.float64:
+        return math.fsum(vals.tolist())
+    frac, exp = np.frexp(vals.astype(np.float64))
+    sig = (frac * 2.0 ** 24).astype(np.int64)
+    shift = exp.astype(np.int64) - 24
+    total = Fraction(0)
+    for sh in np.unique(shift).tolist():
+        total += Fraction(int(sig[shift == sh].sum())) * Fraction(2) ** sh
+    return round_once(total, dtype)
+
+
 def fsum_phase(seg_agg, n: int, live_rows: int, dev="cuda"):
     """seg_fsum against its plain version, bit for bit, at the main path's
-    shape: two launches, the compacted live rows and a permutation give
-    the same bits; finite groups within 1e-12 (float32 1e-5) of each
-    group's sum of |x| of a float64 index_add_, NaN and +-inf groups as
-    the rules say. Returns {dtype name: stats at K=MAIN_K}."""
+    shape and on values spread over the type's range: two launches, the
+    compacted live rows and a permutation give the same bits; finite
+    groups within 1e-12 (float32 1e-5) of each group's sum of |x| of a
+    float64 index_add_, a sample of groups equal to the host's correctly
+    rounded sum, NaN and +-inf groups as the rules say; two kernels a call
+    (one reads the rows). Returns {dtype name: stats at K=MAIN_K}."""
     on_card = dev == "cuda"
     main = {}
-    for k, sorted_ids, skew in FSUM_CASES:
-        x64, seg, mask = fsum_inputs(n, k, live_rows, 500 + k, dev,
-                                     sorted_ids, skew)
-        live = mask
-        idx = seg.long()[live]
-        truth = torch.zeros(k, dtype=torch.float64, device=dev)
-        absum = torch.zeros(k, dtype=torch.float64, device=dev)
-        fin = torch.isfinite(x64[live])
-        truth.index_add_(0, idx[fin], x64[live][fin])
-        absum.index_add_(0, idx[fin], x64[live][fin].abs())
-        nonfinite = torch.zeros(k, dtype=torch.bool, device=dev)
-        nonfinite[idx[~fin]] = True
-        perm = torch.randperm(n, device=dev)
-        tag = (f"N={n} K={k}{' sorted' if sorted_ids else ''}"
-               f"{' skewed' if skew else ''}")
+    for k, sorted_ids, skew, spread, outside in FSUM_CASES:
+        perm = None
         for dtype, tol, name in ((torch.float64, 1e-12, "fsum_f64"),
                                  (torch.float32, 1e-5, "fsum_f32")):
+            wide = min(spread, 120) if dtype == torch.float32 else spread
+            tag = (f"N={n} K={k}{' sorted' if sorted_ids else ''}"
+                   f"{' skewed' if skew else ''}"
+                   f"{f' spread 2^+-{wide}' if wide else ''}"
+                   f"{' ids outside [0, K)' if outside else ''}")
+            x64, seg, mask = fsum_inputs(n, k, live_rows, 500 + k, dev,
+                                         sorted_ids, skew, wide, outside)
+            if perm is None:
+                perm = torch.randperm(n, device=dev)
             data = x64.to(dtype).contiguous()
-            kern = (lambda d=data: seg_agg.seg_fsum(d, seg, mask, k))
+            live = mask & (seg >= 0) & (seg < k)  # the rows a group takes
+            idx = seg.long()[live]
+            vals = data[live].to(torch.float64)
+            fin = torch.isfinite(vals)
+            truth = torch.zeros(k, dtype=torch.float64, device=dev)
+            absum = torch.zeros(k, dtype=torch.float64, device=dev)
+            truth.index_add_(0, idx[fin], vals[fin])
+            absum.index_add_(0, idx[fin], vals[fin].abs())
+            nonfinite = torch.zeros(k, dtype=torch.bool, device=dev)
+            nonfinite[idx[~fin]] = True
+            kern = (lambda d=data, s=seg, m=mask: seg_agg.seg_fsum(d, s, m,
+                                                                   k))
             got, again = kern(), kern()
             plain = seg_agg.seg_fsum_plain(data, seg, mask, k)
             compact = seg_agg.seg_fsum(
-                data[live].contiguous(), seg[live].contiguous(),
-                torch.ones(int(live.sum()), dtype=torch.bool, device=dev), k)
+                data[mask].contiguous(), seg[mask].contiguous(),
+                torch.ones(int(mask.sum()), dtype=torch.bool, device=dev), k)
             shuffled = seg_agg.seg_fsum(data[perm].contiguous(),
                                         seg[perm].contiguous(),
                                         mask[perm].contiguous(), k)
@@ -457,15 +537,8 @@ def fsum_phase(seg_agg, n: int, live_rows: int, dev="cuda"):
                                  ("a permutation", shuffled)):
                 check(torch.equal(_bits(got), _bits(other)),
                       f"seg_fsum {name} {tag}: bits differ from {label}")
-            if dtype == torch.float32:  # the float32 values' own sums
-                truth32 = torch.zeros(k, dtype=torch.float64, device=dev)
-                d32 = data[live].to(torch.float64)
-                truth32.index_add_(0, idx[fin], d32[fin])
-                want = truth32
-            else:
-                want = truth
             ok = ~nonfinite
-            err = (got.to(torch.float64) - want).abs()
+            err = (got.to(torch.float64) - truth).abs()
             check(bool((err[ok] <= tol * absum[ok] + 1e-300).all()),
                   f"seg_fsum {name} {tag}: off the float64 sum by "
                   f"{(err[ok] / absum[ok].clamp(min=1e-300)).max().item()}"
@@ -476,34 +549,50 @@ def fsum_phase(seg_agg, n: int, live_rows: int, dev="cuda"):
             zero = (absum == 0) & ok
             check(bool((got[zero] == 0).all()),
                   f"seg_fsum {name} {tag}: an empty group is not 0")
-            masked = torch.where(mask, data, torch.zeros((), dtype=dtype,
+            host = got.cpu().tolist()
+            hvals, hidx = vals.cpu().numpy(), idx.cpu().numpy()
+            sample = [g for g in range(0, k, max(1, k // 6))
+                      if not bool(nonfinite[g])][:6]
+            for g in sample:
+                want = host_exact_sum(hvals[hidx == g], dtype)
+                check(host[g] == want, f"seg_fsum {name} {tag}: group {g} "
+                      f"is {host[g]!r}, its exact sum rounded once "
+                      f"{want!r}")
+            # the library call's inputs: dead rows zeroed, ids in range
+            masked = torch.where(live, data, torch.zeros((), dtype=dtype,
                                                          device=dev))
-            seg_l = seg.long()
+            seg_l = seg.long().clamp(0, k - 1)
             lib_out = torch.zeros(k, dtype=dtype, device=dev)
             ms = cuda_ms(kern)
-            dev_ms, per_call = profile_calls(kern) if on_card else (None,
-                                                                    None)
-            if on_card:
-                check(per_call == 2, f"seg_fsum {name} {tag}: {per_call} "
-                      "kernels per call, want 2")
+            dev_ms, per_call, names = (profile_calls(kern) if on_card
+                                       else (None, None, None))
+            if on_card:  # the device ms above come from this session
+                check(sorted(names.values()) == [1, 1]
+                      and sum("fsum_digit_kernel" in key for key in names)
+                      == 1, f"seg_fsum {name} {tag}: kernels per call "
+                      f"{names}, want the digit kernel and the finish kernel "
+                      "once")
+            # the function's own bytes: each row once, each group's result
+            # once (the digit array is the design's scratch, not counted)
             row = data.element_size() + 5
             bnd, by = bound_ms(n * row + k * data.element_size(), n * 12)
-            plain_fn = (lambda d=data: seg_agg.seg_fsum_plain(d, seg, mask,
-                                                              k))
+            plain_fn = (lambda d=data, s=seg, m=mask:
+                        seg_agg.seg_fsum_plain(d, s, m, k))
             stats = dict(ms=ms, device_ms=dev_ms, kernels_per_call=per_call,
                          host_ms=host_ms(kern), bound_ms=bnd, bound_by=by,
-                         two_pass_bound_ms=bound_ms(2 * n * row, 0)[0],
+                         share=bnd / dev_ms if dev_ms else None,
                          max_abs_err=float(err[ok].max()) if ok.any()
                          else 0.0,
-                         plain_ms=cuda_ms(plain_fn, reps=5),
-                         library_ms=cuda_ms(lambda o=lib_out, m=masked:
-                                            o.index_add(0, seg_l, m)))
+                         plain_ms=cuda_ms(plain_fn, reps=3, warmup=1),
+                         library_ms=cuda_ms(lambda o=lib_out, m=masked,
+                                            s=seg_l: o.index_add(0, s, m)))
             log(f"kernel seg_fsum {name} {tag}: " + " ".join(
-                f"{key}={val:.4f}" if isinstance(val, float) else
-                f"{key}={val}" for key, val in stats.items()))
-            if k == MAIN_K and not skew:
+                f"{key}={val:.6g}" if isinstance(val, float) else
+                f"{key}={val}" for key, val in stats.items())
+                + f"; {len(sample)} groups equal to the host's exact sum")
+            if k == MAIN_K and not skew and not spread:
                 main[name] = stats
-        del x64, seg, mask, perm, truth, absum
+            del x64, seg, mask, data, truth, absum, got, again, plain
     return main
 
 

@@ -1,178 +1,291 @@
-// Deterministic grouped float sum for Hopper (sm_90a): the port's kernel for
-// the float branch of the reference's grouped sum, jax.ops.segment_sum over
-// float data (spark_tpu/physical/kernels.py:seg_sum, lines 219-228). XLA's
-// segment_sum has no Pallas kernel; on the card PyTorch's counterpart,
-// index_add_, adds floats with atomics whose order changes from run to run,
-// so its bits change too. Here the bits of each group's sum depend only on
-// the set of live values in the group: not on the launch, the order of the
-// rows, the positions of dead rows or the order of the atomics.
+// Exact, correctly rounded grouped float sum for Hopper (sm_90a): the
+// port's kernel for the float branch of the reference's grouped sum,
+// jax.ops.segment_sum over float data (spark_tpu/physical/kernels.py:seg_sum,
+// lines 219-228). XLA's segment_sum has no Pallas kernel; on the card
+// PyTorch's counterpart, index_add_, adds floats with atomics whose order
+// changes from run to run, so its bits change too. Here each group's sum is
+// exact until one final rounding, so its bits depend only on the multiset of
+// the group's live values: not on the launch, the row order, the positions
+// of dead rows or the order of the atomics.
 //
 //   seg_fsum_launch   float64 or float32 data, int32 group ids, bool mask,
 //                     any K >= 1; out is float64[K] or float32[K].
 //
 // Semantics: row i adds to group seg[i] when mask[i] is true and
 // 0 <= seg[i] < K. A group holding a NaN, or both +inf and -inf, sums to
-// NaN; else a group holding +inf (-inf) sums to +inf (-inf); an empty group
-// sums to 0.0; a sum past DBL_MAX is +-inf.
+// NaN; else a group holding +inf (-inf) sums to +inf (-inf). Otherwise the
+// result is the exact sum of the group's finite values rounded once, to
+// nearest with ties to even, into the data's type (float32 data is rounded
+// straight to float32, never through float64), +-inf past the largest
+// finite value; an empty group, or one whose values sum to exactly zero,
+// gives +0.0. No value is dropped, however far below the group's largest.
 //
-// Design: a two-pass fixed-point sum.
+// Design: a long (Kulisch) accumulator of 32-bit digits at absolute
+// positions, one read of the input.
 //
-//   1. fsum_exponent_kernel: per group, the largest exponent e_g over its
-//      live finite values, with |x| < 2^e_g read from the exponent field
-//      (an integer atomicMax), and an OR of NaN / +inf / -inf flags.
-//   2. fsum_limb_kernel: each live finite x is scaled by 2^(30 - e_g), a
-//      power of two and so exact, and split into three 30-bit integer limbs
-//      (trunc and subtract, exact). The limbs are added into int64
-//      accumulators: integer adds commute, so any order gives the same
-//      bits. 90 bits below the group's largest value and N < 2^31 rows keep
-//      each limb's sum below 2^61. The last block to finish (a counter
-//      after the accumulators, __threadfence) carries the limbs, rebuilds
-//      each group's value in float64 with round-to-nearest intrinsics
-//      (never contracted into an FMA), and rounds to float32 for float32
-//      data. The error is a few ulps of the exact sum; values more than 90
-//      bits below the group's largest drop out.
+//   A finite x is m * 2^(q - Q) with m < 2^P an integer, q = max(e - 1, 0)
+//   from the biased exponent field e, and Q the exponent of the type's
+//   smallest subnormal (float64: P = 53, Q = 1074, q in [0, 2045]; float32:
+//   P = 24, Q = 149, q in [0, 253]). m << (q mod 32), below 2^84 (float32
+//   2^55), lies in 32-bit digits d = q >> 5 and up: 3 digits for float64
+//   (d + 2 <= 65), 2 for float32 (d + 1 <= 8). So a group needs D = 66
+//   int64 digit words for float64 and D = 9 for float32. Every row adds at
+//   most one chunk below 2^32 to each word, so with N < 2^31 rows each
+//   word's sum stays below 2^63, and its int64 adds are exact and commute.
+//   The sum of N values needs at most 31 bits above the top digit (float64:
+//   below 2^2129, float32 2^308): the carry out of word D - 1, below 2^31,
+//   is kept in a register by the finish and never stored.
 //
-// seg_fsum_plain (ops/seg_agg.py) does the same arithmetic in torch ops, so
-// the two agree bit for bit.
+//   1. fsum_digit_kernel reads every row once. Each block takes one
+//      contiguous chunk of at most 2^15 rows, loading 16 bytes of ids a
+//      lane, contiguous across the warp, as seg_agg.cu does. Up to 1024
+//      groups are privatized in shared memory (one copy per warp while they
+//      fit; past 1024 groups, the id range from the block's first row's id,
+//      which covers the chunk when ids are sorted): per group a window of
+//      12 16-bit half-digits in 32-bit words (a 64-bit shared add is a
+//      compare-and-swap loop on this card, a 32-bit one is native), its
+//      base fixed by the group's first deposit in the block, one digit below
+//      it. A word takes one chunk below 2^16 a row, so it stays below 2^31.
+//      Chunks the window does not hold go to the global [D][K] digit array
+//      with 64-bit atomics; since every add is exact, where a chunk is added
+//      never changes the result.
+//      - Scattered ids: each value's 16-bit chunks, with its sign, are added
+//        to its group's window (6 native shared atomics a row).
+//      - Sorted ids (the ids of a warp step's first load run non-decreasing
+//        across the warp, and 28 or more lanes find their 4 consecutive
+//        rows in one group; a hot group in unsorted ids fails the first
+//        test): where a load's 4 rows lie
+//        in one group at digits dmin and dmin + 1, the lane sums them as one
+//        128-bit integer in units of digit dmin, the warp merges the sums
+//        of lanes holding one group and dmin (a segmented shuffle scan), and
+//        one lane deposits each merged sum; the other loads' values are
+//        deposited one by one.
+//      NaN / +inf / -inf flags are ORed into a per-group word. Each block
+//      adds its nonzero window words into the global array once, at its end.
+//   2. fsum_finish_kernel, one thread a group, reads only the K x D digit
+//      words and flags: it propagates the carries (once to find the sum's
+//      sign, once more on the negated words when negative), keeps the top
+//      nonzero digit, the two below it and a sticky bit, rounds to
+//      nearest-even from there, handles subnormal results and overflow, and
+//      writes out.
 //
-// Each pass reads every row once: 13 bytes a row for float64 (int32 id,
-// bool mask, the value), 9 for float32; about 7.8 us per million float64
-// rows for both passes at 3.35 TB/s on an H100 SXM. Both passes load 16
-// bytes of ids a lane, contiguous across the warp, as seg_agg.cu does.
-// Per step each lane merges runs of equal ids over its rows in registers,
-// then the warp merges equal ids across lanes (a segmented shuffle scan)
-// before one atomic per run: sorted ids (the sorted aggregate path, K past
-// 1024) then cost about one global atomic per warp step. For K <= 1024 the
-// accumulators are privatized in shared memory (one copy per warp while
-// they fit in 32 KB) and merged into the output once per block.
+// seg_fsum_plain (ops/seg_agg.py) builds the same digits and finishes with
+// the same steps in torch ops: every representation of the exact sum has
+// one normalized form, so the two agree bit for bit.
+//
+// Bound: one read, 13 bytes a row for float64 (int32 id, bool mask, the
+// value) and 9 for float32, and each group's result written once: 0.0233
+// ms at N = 5,997,568, K = 168 float64 on an H100 SXM (3.35 TB/s). The
+// digit array's memset and the finish's read (2 x K x D x 8 bytes) are
+// this design's overhead, not part of the bound. A call is a memset and
+// two kernels; only the first kernel reads the input. The digit kernel's
+// integer work per row (the value's digits and chunks, its window's base,
+// 6 shared atomics) keeps it above the bound (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+typedef unsigned long long u64;
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerLoad = 4;            // one 16-byte load of int32 ids
-constexpr int kSharedMaxK = 1024;          // groups kept in shared memory
-constexpr int kSmemBudget = 32 * 1024;     // privatized limb accumulators
-constexpr int kExpBias = 1100;             // stored code e + kExpBias > 0
+constexpr int kRowsPerLoad = 4;          // one 16-byte load of int32 ids
+constexpr int kLoads = 2;                // loads of ids a lane takes a step
+constexpr int kRows = kLoads * kRowsPerLoad;  // rows a lane takes a step
+constexpr int kChunk = 32 * kRows;       // rows a warp takes a step
+constexpr int kWin = 12;                 // half-digits a group's window keeps
+constexpr int kPrivMax = 1024;           // groups privatized in a block
+constexpr int kCopyGroups = 256;         // per-warp copies while they fit
+constexpr int kStride = kWin + 1;        // odd: groups spread over the banks
+constexpr int kGroupBytes = kStride * 4 + 8;  // window, base and flags
+constexpr int kBlockRows = 1 << 15;      // rows a block takes at most
+constexpr int kFinishThreads = 128;
 constexpr int kNaN = 1, kPosInf = 2, kNegInf = 4;
-constexpr double kTwo30 = 1073741824.0;
-constexpr double kTwoM30 = 1.0 / 1073741824.0;
 constexpr int kMaxDevices = 16;
+constexpr u64 kLow32 = 0xffffffffull;
 
-// kRows: rows a lane takes per step (16 float32 or 8 float64 values);
-// kChunk: rows a warp takes per step.
-template <typename In> struct Shape {
-  static constexpr int kLoads = sizeof(In) == 8 ? 2 : 4;
-  static constexpr int kRows = kLoads * kRowsPerLoad;
-  static constexpr int kChunk = 32 * kRows;
+template <typename In> struct Fmt;
+template <> struct Fmt<double> {
+  using Bits = u64;
+  static constexpr int kMant = 52, kExpMax = 0x7ff, kDigits = 66;
+  static constexpr u64 kSign = 1ull << 63, kInf = 0x7ffull << 52,
+                       kQNaN = 0x7ff8ull << 48;
+};
+template <> struct Fmt<float> {
+  using Bits = unsigned int;
+  static constexpr int kMant = 23, kExpMax = 0xff, kDigits = 9;
+  static constexpr u64 kSign = 1ull << 31, kInf = 0xffull << 23,
+                       kQNaN = 0x7fc00000ull;
 };
 
-struct Limbs {
-  long long l0, l1, l2;
-};
+// ---- digits of one value ---------------------------------------------------
 
-__device__ __forceinline__ double pow2(int e) {  // -1022 <= e <= 1023
-  return __longlong_as_double((long long)(e + 1023) << 52);
+// The flag of a non-finite x (bits), else 0.
+template <typename In>
+__device__ __forceinline__ int nonfinite(u64 bits) {
+  constexpr int M = Fmt<In>::kMant;
+  if (((int)(bits >> M) & Fmt<In>::kExpMax) != Fmt<In>::kExpMax) return 0;
+  if (bits & ((1ull << M) - 1)) return kNaN;
+  return bits & Fmt<In>::kSign ? kNegInf : kPosInf;
 }
 
-// The code of the least e with |x| < 2^e, from the exponent field alone:
-// a subnormal or zero takes e = -1021.
-__device__ __forceinline__ int exponent_code(double x) {
-  const int field = (int)((__double_as_longlong(x) >> 52) & 0x7ff);
-  return (field < 1 ? 1 : field) - 1022 + kExpBias;
-}
-
-// x * 2^(30 - e) in three 30-bit limbs, from the most significant down;
-// each limb has x's sign. The scale is split in two powers of two so that
-// each is a normal double.
-__device__ __forceinline__ Limbs split(double x, int code) {
-  const int sh = 30 - (code - kExpBias);
-  const int a = sh >> 1, b = sh - a;
-  const double y = __dmul_rn(__dmul_rn(x, pow2(a)), pow2(b));
-  const double l0 = trunc(y);
-  double r = __dmul_rn(__dsub_rn(y, l0), kTwo30);
-  const double l1 = trunc(r);
-  r = __dmul_rn(__dsub_rn(r, l1), kTwo30);
-  const double l2 = trunc(r);
-  return {(long long)l0, (long long)l1, (long long)l2};
-}
-
-// One group's sum from its limb sums, exponent code and flags.
-__device__ __forceinline__ double compose(long long l0, long long l1,
-                                          long long l2, int code, int flags) {
-  if ((flags & kNaN) || (flags & (kPosInf | kNegInf)) == (kPosInf | kNegInf))
-    return __longlong_as_double(0x7ff8000000000000LL);
-  if (flags & kPosInf) return __longlong_as_double(0x7ff0000000000000LL);
-  if (flags & kNegInf) return __longlong_as_double((long long)0xfff0000000000000ULL);
-  if (code == 0) return 0.0;
-  long long c = l2 >> 30;  // carry so that l1, l2 lie in [0, 2^30)
-  l2 -= c * (1LL << 30);
-  l1 += c;
-  c = l1 >> 30;
-  l1 -= c * (1LL << 30);
-  l0 += c;
-  double t = __dmul_rn(__ll2double_rn(l2), kTwoM30);
-  t = __dadd_rn(__ll2double_rn(l1), t);
-  t = __dmul_rn(t, kTwoM30);
-  const double v = __dadd_rn(__ll2double_rn(l0), t);
-  const int es = code - kExpBias - 30;
-  const int a = es >> 1, b = es - a;
-  return __dmul_rn(__dmul_rn(v, pow2(a)), pow2(b));
+// x (bits) as m << (q mod 32) at digit d = q >> 5, with its sign:
+// |x| / 2^-Q = lo:hi * 2^(32 d), lo:hi below 2^84. Returns whether x is
+// finite and nonzero. Branch-free.
+template <typename In>
+__device__ __forceinline__ bool magnitude(u64 bits, int& d, u64& lo, u64& hi,
+                                          bool& neg) {
+  constexpr int M = Fmt<In>::kMant;
+  const int e = (int)(bits >> M) & Fmt<In>::kExpMax;
+  const u64 frac = bits & ((1ull << M) - 1);
+  const u64 m = e ? frac | (1ull << M) : frac;
+  const int q = e ? e - 1 : 0;
+  const int o = q & 31;
+  d = q >> 5;
+  lo = m << o;
+  hi = (m >> 1) >> (63 - o);  // m >> (64 - o), 0 for o = 0
+  neg = (bits & Fmt<In>::kSign) != 0;
+  return e != Fmt<In>::kExpMax && m != 0;
 }
 
 // ---- warp merge ------------------------------------------------------------
 
-__device__ __forceinline__ int shfl_up(int x, int d) {
-  return __shfl_up_sync(0xffffffffu, x, d);
-}
-__device__ __forceinline__ Limbs shfl_up(Limbs x, int d) {
-  return {__shfl_up_sync(0xffffffffu, x.l0, d),
-          __shfl_up_sync(0xffffffffu, x.l1, d),
-          __shfl_up_sync(0xffffffffu, x.l2, d)};
-}
-__device__ __forceinline__ int combine(int a, int b) { return a > b ? a : b; }
-__device__ __forceinline__ Limbs combine(Limbs a, Limbs b) {
-  return {a.l0 + b.l0, a.l1 + b.l1, a.l2 + b.l2};
+__device__ __forceinline__ void add128(u64& lo, u64& hi, u64 blo, u64 bhi) {
+  lo += blo;
+  hi += bhi + (lo < blo);
 }
 
-// Consecutive lanes holding one key form a segment. Each lane's x becomes
-// its segment's combination up to it; returns true on each segment's last
-// lane, which then holds the whole segment's. All 32 lanes take part.
-template <typename T>
-__device__ __forceinline__ bool segment_reduce(int key, T& x, int lane) {
-  const int prev = __shfl_up_sync(0xffffffffu, key, 1);
-  const unsigned heads = __ballot_sync(0xffffffffu, lane == 0 || prev != key);
-  const int start = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
+// Consecutive lanes holding one id form a segment. Each lane's 128-bit
+// lo:hi becomes its segment's sum up to it; returns true on each segment's
+// last lane, which then holds the whole segment's. All 32 lanes take part.
+__device__ __forceinline__ bool segment_reduce(long long id, u64& lo, u64& hi,
+                                               int lane) {
+  const long long prev = __shfl_up_sync(0xffffffffu, id, 1);
+  const unsigned heads = __ballot_sync(0xffffffffu, lane == 0 || prev != id);
+  if (heads != 0xffffffffu) {  // some lane shares its id with the one before
+    const int start = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const T other = shfl_up(x, d);
-    if (lane - d >= start) x = combine(x, other);
+    for (int d = 1; d < 32; d <<= 1) {
+      const u64 olo = __shfl_up_sync(0xffffffffu, lo, d);
+      const u64 ohi = __shfl_up_sync(0xffffffffu, hi, d);
+      if (lane - d >= start) add128(lo, hi, olo, ohi);
+    }
   }
   return lane == 31 || ((heads >> (lane + 1)) & 1u);
 }
 
-__device__ __forceinline__ void add_limbs(unsigned long long* p, Limbs x) {
-  atomicAdd(p, (unsigned long long)x.l0);
-  atomicAdd(p + 1, (unsigned long long)x.l1);
-  atomicAdd(p + 2, (unsigned long long)x.l2);
+// ---- adding digits ---------------------------------------------------------
+
+// Shared memory by 32-bit address: the native 32-bit shared atomics (a
+// 64-bit shared add is a compare-and-swap loop on this card).
+__device__ __forceinline__ unsigned smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ int shared_ld(unsigned a) {
+  int x;
+  asm volatile("ld.volatile.shared.s32 %0, [%1];" : "=r"(x) : "r"(a));
+  return x;
+}
+// Adds x when c is nonzero, predicated inside the asm: an `if` around an
+// asm statement compiles to a branch.
+__device__ __forceinline__ void shared_add_if(unsigned a, int x, int c) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %2, 0;\n\t"
+      "@p red.shared.add.s32 [%0], %1;\n\t}" ::"r"(a),
+      "r"(x), "r"(c));
+}
+__device__ __forceinline__ void shared_or(unsigned a, int x) {
+  asm volatile("red.shared.or.b32 [%0], %1;" ::"r"(a), "r"(x));
+}
+__device__ __forceinline__ int shared_cas(unsigned a, int want, int x) {
+  int old;
+  asm volatile("atom.shared.cas.b32 %0, [%1], %2, %3;"
+               : "=r"(old) : "r"(a), "r"(want), "r"(x));
+  return old;
+}
+
+// Where a warp's digits go: its copy of the privatized groups [lo, lo +
+// priv) in shared memory (32-bit addresses of its windows, their bases and
+// flags), else the global [D][K] digit array and flags. A group's window
+// holds kWin 16-bit half-digits from half-digit 2 * base in 32-bit words.
+struct Sink {
+  unsigned win, bases, flags;  // [priv][kStride], [priv] (-1: unset), [priv]
+  int lo, priv, K;
+  u64* acc;
+  int* gflags;
+};
+
+// Signed chunks c[0..3], each below 2^32, at digit d and up of the global
+// array, for the group whose column `acc` points at.
+__device__ __noinline__ void add_global(u64* acc, int K, int d, long long c0,
+                                        long long c1, long long c2,
+                                        long long c3) {
+  const long long c[4] = {c0, c1, c2, c3};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c[j]) atomicAdd(acc + (size_t)(d + j) * K, (u64)c[j]);
+}
+
+// A magnitude's signed 16-bit chunks x[0..N) at half-digit 2 * d and up
+// into group `key`: into its window when the window holds them, else into
+// the global array in 32-bit chunks. The window's base is fixed by the
+// group's first deposit in the block, one digit below it (clamped into
+// [0, D - kWin / 2]). A deposit adds less than 2^16 to a window word and
+// holds at least one row, and a block takes at most kBlockRows = 2^15
+// rows, so a word stays below 2^31.
+template <int D, int N>
+__device__ __forceinline__ void deposit(const Sink& s, int key, int d,
+                                        const int (&x)[N]) {
+  const int p = key - s.lo;
+  if ((unsigned)p < (unsigned)s.priv) {
+    constexpr int kTop = D - kWin / 2;
+    int b = shared_ld(s.bases + 4 * p);
+    if (b < 0) {
+      const int want = d < 1 ? 0 : (d - 1 > kTop ? kTop : d - 1);
+      const int old = shared_cas(s.bases + 4 * p, -1, want);
+      b = old < 0 ? want : old;
+    }
+    const int w = d - b;
+    if ((unsigned)w <= (unsigned)((kWin - N) / 2)) {
+      const unsigned q = s.win + 4 * (p * kStride + 2 * w);
+#pragma unroll
+      for (int j = 0; j < N; ++j) shared_add_if(q + 4 * j, x[j], x[j]);
+      return;
+    }
+  }
+  long long c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    c[j] = 2 * j < N ? x[2 * j] + (long long)x[2 * j + 1] * 65536 : 0;
+  add_global(s.acc + key, s.K, d, c[0], c[1], c[2], c[3]);
+}
+
+// The signed 16-bit chunks of +-lo:hi.
+template <int N>
+__device__ __forceinline__ void chunks(u64 lo, u64 hi, bool neg, int (&x)[N]) {
+  const int isg = neg ? -1 : 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = (int)(((j < 4 ? lo : hi) >> (16 * (j & 3))) & 0xffff);
+    x[j] = (c ^ isg) - isg;
+  }
 }
 
 // ---- loads -----------------------------------------------------------------
 
 // The rows of one warp step starting at `base`: load j of lane l covers
 // rows base + (j * 32 + l) * 4 .. +3, so each load instruction reads
-// contiguous memory across the warp. Rows past n are dead.
+// contiguous memory across the warp. Rows past n are dead. v holds each
+// value's bits.
 template <typename In>
 __device__ __forceinline__ void load_step(
-    const In* __restrict__ data, const int* __restrict__ seg,
-    const unsigned char* __restrict__ mask, long long base, long long n,
-    int lane, bool vec, int (&s)[Shape<In>::kRows],
-    bool (&live)[Shape<In>::kRows], double (&v)[Shape<In>::kRows]) {
-  constexpr int kLoads = Shape<In>::kLoads;
-  if (vec && base + Shape<In>::kChunk <= n) {
+    const typename Fmt<In>::Bits* __restrict__ data,
+    const int* __restrict__ seg, const unsigned char* __restrict__ mask,
+    long long base, long long n, int lane, bool vec, int (&s)[kRows],
+    bool (&live)[kRows], u64 (&v)[kRows]) {
+  if (vec && base + kChunk <= n) {
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const long long r = base + (long long)(j * 32 + lane) * kRowsPerLoad;
@@ -183,12 +296,12 @@ __device__ __forceinline__ void load_step(
       live[4 * j] = m4.x; live[4 * j + 1] = m4.y;
       live[4 * j + 2] = m4.z; live[4 * j + 3] = m4.w;
       if constexpr (sizeof(In) == 8) {
-        const double2* p = reinterpret_cast<const double2*>(data + r);
-        const double2 a = p[0], b = p[1];
+        const ulonglong2* p = reinterpret_cast<const ulonglong2*>(data + r);
+        const ulonglong2 a = p[0], b = p[1];
         v[4 * j] = a.x; v[4 * j + 1] = a.y;
         v[4 * j + 2] = b.x; v[4 * j + 3] = b.y;
       } else {
-        const float4 d4 = *reinterpret_cast<const float4*>(data + r);
+        const uint4 d4 = *reinterpret_cast<const uint4*>(data + r);
         v[4 * j] = d4.x; v[4 * j + 1] = d4.y;
         v[4 * j + 2] = d4.z; v[4 * j + 3] = d4.w;
       }
@@ -203,148 +316,255 @@ __device__ __forceinline__ void load_step(
         const bool in = r < n;
         s[4 * j + i] = in ? seg[r] : -1;
         live[4 * j + i] = in && mask[r];
-        v[4 * j + i] = in ? (double)data[r] : 0.0;
+        v[4 * j + i] = in ? (u64)data[r] : 0;
       }
     }
   }
 }
 
-// ---- pass 1: exponents and flags -------------------------------------------
+// ---- kernel 1: digits ------------------------------------------------------
 
 template <typename In>
 __global__ void __launch_bounds__(kThreads)
-fsum_exponent_kernel(const In* __restrict__ data, const int* __restrict__ seg,
-                     const unsigned char* __restrict__ mask, long long n,
-                     int K, int vec, int* __restrict__ emax,
-                     int* __restrict__ flags) {
-  constexpr int kRows = Shape<In>::kRows;
-  constexpr int kChunk = Shape<In>::kChunk;
+fsum_digit_kernel(const typename Fmt<In>::Bits* __restrict__ data,
+                  const int* __restrict__ seg,
+                  const unsigned char* __restrict__ mask, long long n, int K,
+                  int priv, int copies, int chunk_steps, int vec,
+                  u64* __restrict__ acc, int* __restrict__ flags) {
+  constexpr int D = Fmt<In>::kDigits;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const bool shared = K <= kSharedMaxK;
-  int* s_emax = reinterpret_cast<int*>(smem_raw);  // [K] when shared
-  int* s_flags = s_emax + K;                       // [K]
-  if (shared)
-    for (int i = threadIdx.x; i < 2 * K; i += kThreads) s_emax[i] = 0;
+  __shared__ int s_lo;
+  // [copies][priv][kStride] window half-digits, then [copies][priv] window
+  // bases, then [copies][priv] flags
+  const int groups = copies * priv;
+  int* win = reinterpret_cast<int*>(smem_raw);
+  int* bases = win + (size_t)groups * kStride;
+  int* s_flags = bases + groups;
+  const long long first = (long long)blockIdx.x * chunk_steps * kWarps * kChunk;
+  for (int i = threadIdx.x; i < groups * kStride; i += kThreads) win[i] = 0;
+  for (int i = threadIdx.x; i < groups; i += kThreads) {
+    bases[i] = -1;
+    s_flags[i] = 0;
+  }
+  if (threadIdx.x == 0) {  // the privatized ids: [lo, lo + priv)
+    int lo = 0;
+    if (K > priv && first < n) {
+      const int s0 = seg[first];
+      lo = s0 < 0 ? 0 : (s0 > K - priv ? K - priv : s0);
+    }
+    s_lo = lo;
+  }
   __syncthreads();
-  int* t_emax = shared ? s_emax : emax;
-  int* t_flags = shared ? s_flags : flags;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int copy = (warp % copies) * priv;
+  const Sink sink = {smem(win + (size_t)copy * kStride), smem(bases + copy),
+                     smem(s_flags + copy), s_lo, priv, K, acc, flags};
 
-  const long long stride = (long long)gridDim.x * kWarps * kChunk;
-  for (long long base = ((long long)blockIdx.x * kWarps + warp) * kChunk;
-       base < n; base += stride) {  // uniform across the warp
+  for (int step = 0; step < chunk_steps; ++step) {
+    const long long row0 = first + ((long long)step * kWarps + warp) * kChunk;
+    if (row0 >= n) break;  // uniform across the warp
     int s[kRows];
     bool live[kRows];
-    double v[kRows];
-    load_step<In>(data, seg, mask, base, n, lane, vec, s, live, v);
-    int key = -1, run = 0;
+    u64 v[kRows];
+    load_step<In>(data, seg, mask, row0, n, lane, vec, s, live, v);
+    bool odd = false;  // a live non-finite value
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      if (!live[i] || (unsigned)s[i] >= (unsigned)K) continue;
-      if (!isfinite(v[i])) {
-        atomicOr(t_flags + s[i],
-                 isnan(v[i]) ? kNaN : (v[i] > 0 ? kPosInf : kNegInf));
-        continue;
+      const int e = (int)(v[i] >> Fmt<In>::kMant) & Fmt<In>::kExpMax;
+      odd |= live[i] && (unsigned)s[i] < (unsigned)K &&
+             e == Fmt<In>::kExpMax;
+    }
+    // Sorted ids: the first load's 128 ids run non-decreasing across the
+    // warp and 28 or more lanes hold one id. Unsorted ids with a hot group
+    // match within many lanes but are not monotone across the warp.
+    const int prev = __shfl_up_sync(0xffffffffu, s[kRowsPerLoad - 1], 1);
+    const bool rising = (lane == 0 || prev <= s[0]) && s[0] <= s[1] &&
+                        s[1] <= s[2] && s[2] <= s[3];
+    if (__all_sync(0xffffffffu, rising) &&
+        __popc(__ballot_sync(0xffffffffu, s[0] == s[kRowsPerLoad - 1])) >=
+            28) {
+      // Sorted ids. The 4 rows of one load are consecutive. Where they lie
+      // in one group and at digits dmin and dmin + 1, the lane sums them as
+      // one 128-bit integer in units of digit dmin, the warp merges the sums
+      // of lanes holding one group and dmin, and one lane deposits each
+      // merged sum. The lane deposits each value of its other loads.
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int key = s[4 * j];
+        int dmin = D, dmax = -1;
+        bool uniform = true;
+#pragma unroll
+        for (int i = 4 * j; i < 4 * j + 4; ++i) {
+          const int e = (int)(v[i] >> Fmt<In>::kMant) & Fmt<In>::kExpMax;
+          const bool ok = live[i] && (unsigned)s[i] < (unsigned)K &&
+                          e != Fmt<In>::kExpMax && (v[i] & ~Fmt<In>::kSign);
+          const int d = (e ? e - 1 : 0) >> 5;
+          dmin = ok && d < dmin ? d : dmin;
+          dmax = ok && d > dmax ? d : dmax;
+          uniform = uniform && s[i] == key;
+        }
+        const bool sum = uniform && dmax - dmin <= 1;
+        u64 lo = 0, hi = 0;
+#pragma unroll
+        for (int i = 4 * j; i < 4 * j + 4; ++i) {
+          int d;
+          u64 xlo, xhi;
+          bool neg;
+          const bool ok = magnitude<In>(v[i], d, xlo, xhi, neg) && live[i] &&
+                          (unsigned)s[i] < (unsigned)K;
+          if (sum) {
+            if (d > dmin) {
+              xhi = (xhi << 32) | (xlo >> 32);
+              xlo <<= 32;
+            }
+            if (neg) {  // two's complement
+              xlo = ~xlo + 1;
+              xhi = ~xhi + (xlo == 0);
+            }
+            add128(lo, hi, ok ? xlo : 0, ok ? xhi : 0);
+          } else if (ok) {
+            int x[6];
+            chunks(xlo, xhi, neg, x);
+            deposit<D>(sink, s[i], d, x);
+          }
+        }
+        // at most 128 values below 2^116 each: below 2^123
+        const bool mine = sum && dmin < D;
+        const long long id = mine ? ((long long)key << 8) | dmin : -1 - lane;
+        if (segment_reduce(id, lo, hi, lane) && mine) {
+          const bool neg = (long long)hi < 0;
+          if (neg) {
+            lo = ~lo + 1;
+            hi = ~hi + (lo == 0);
+          }
+          int x[8];
+          chunks(lo, hi, neg, x);
+          deposit<D>(sink, key, dmin, x);
+        }
       }
-      const int c = exponent_code(v[i]);
-      if (s[i] == key) {
-        run = combine(run, c);
-      } else {
-        if (key >= 0) atomicMax(t_emax + key, run);
-        key = s[i];
-        run = c;
+    } else {  // scattered ids: each value's own chunks
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        int d;
+        u64 lo, hi;
+        bool neg;
+        const bool ok = magnitude<In>(v[i], d, lo, hi, neg) && live[i] &&
+                        (unsigned)s[i] < (unsigned)K;
+        if (ok) {
+          int x[6];
+          chunks(lo, hi, neg, x);
+          deposit<D>(sink, s[i], d, x);
+        }
       }
     }
-    if (segment_reduce(key, run, lane) && key >= 0) atomicMax(t_emax + key, run);
+    if (__any_sync(0xffffffffu, odd)) {  // NaN / +inf / -inf flags
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int f = live[i] && (unsigned)s[i] < (unsigned)K
+                          ? nonfinite<In>(v[i])
+                          : 0;
+        if (!f) continue;
+        const int p = s[i] - s_lo;
+        if ((unsigned)p < (unsigned)priv)
+          shared_or(sink.flags + 4 * p, f);
+        else
+          atomicOr(flags + s[i], f);
+      }
+    }
   }
-  if (shared) {
-    __syncthreads();
-    for (int k = threadIdx.x; k < K; k += kThreads) {
-      if (s_emax[k]) atomicMax(emax + k, s_emax[k]);
-      if (s_flags[k]) atomicOr(flags + k, s_flags[k]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < groups; i += kThreads) {
+    const int key = s_lo + i % priv;
+    if (s_flags[i]) atomicOr(flags + key, s_flags[i]);
+    const int b = bases[i];
+    if (b < 0) continue;
+#pragma unroll
+    for (int j = 0; j < kWin / 2; ++j) {  // two half-digits a digit
+      const long long w = win[(size_t)i * kStride + 2 * j] +
+                          (long long)win[(size_t)i * kStride + 2 * j + 1] * 65536;
+      if (w) atomicAdd(acc + (size_t)(b + j) * K + key, (u64)w);
     }
   }
 }
 
-// ---- pass 2: limbs, then the last block composes ---------------------------
+// ---- kernel 2: carry, round, write -----------------------------------------
+
+// One group's bits from its digit words acc[i * K] (i < D) and flags.
+template <typename In>
+__device__ __forceinline__ u64 finish(const long long* __restrict__ acc,
+                                      int K, int f) {
+  constexpr int D = Fmt<In>::kDigits;
+  constexpr int P = Fmt<In>::kMant + 1;
+  if ((f & kNaN) || (f & (kPosInf | kNegInf)) == (kPosInf | kNegInf))
+    return Fmt<In>::kQNaN;
+  if (f & kPosInf) return Fmt<In>::kInf;
+  if (f & kNegInf) return Fmt<In>::kSign | Fmt<In>::kInf;
+  long long a[D];
+  long long c = 0;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    a[i] = __ldcg(acc + (size_t)i * K);
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) c = (a[i] + c) >> 32;
+  const bool neg = c < 0;  // the sum's sign: the carry out of the top word
+  // normalized digits r_0..r_D of |sum|, r_i in [0, 2^32); keep the top
+  // nonzero one (h0 at index top), the two below it and whether any lower
+  // digit is nonzero
+  c = 0;
+  int top = -1;
+  u64 h0 = 0, h1 = 0, h2 = 0, p1 = 0, p2 = 0;
+  bool below = false, lower = false;
+#pragma unroll
+  for (int i = 0; i <= D; ++i) {
+    u64 r;
+    if (i < D) {
+      const long long t = (neg ? -a[i] : a[i]) + c;
+      r = (u64)t & kLow32;
+      c = t >> 32;
+    } else {
+      r = (u64)c;
+    }
+    if (r) {
+      top = i;
+      h0 = r; h1 = p1; h2 = p2;
+      below = lower;
+    }
+    lower |= p2 != 0;
+    p2 = p1;
+    p1 = r;
+  }
+  if (top < 0) return 0;  // an exact zero is +0.0
+  const int nb = 64 - __clzll(h0);  // bits of h0, 1..32
+  const int L = 32 * top + nb;      // bits of |sum| / 2^-Q
+  const int sh = 32 - nb;           // left-align h0:h1:h2 to 96 bits
+  const u64 a0 = ((h0 << sh) | (h1 >> (32 - sh))) & kLow32;
+  const u64 a1 = ((h1 << sh) | (h2 >> (32 - sh))) & kLow32;
+  const u64 a2 = (h2 << sh) & kLow32;
+  const u64 top64 = (a0 << 32) | a1;
+  const u64 m = top64 >> (64 - P);  // the leading P bits
+  const u64 rnd = (top64 >> (63 - P)) & 1;
+  const bool sticky = (top64 & ((1ull << (63 - P)) - 1)) || a2 || below;
+  u64 bits;
+  if (L <= P) {  // exact: a subnormal, or the smallest normal binade
+    bits = m >> (P - L);
+  } else {
+    const int ex = L - P < Fmt<In>::kExpMax - 1 ? L - P : Fmt<In>::kExpMax - 1;
+    bits = ((u64)ex << (P - 1)) + m + (rnd & (u64)(sticky || (m & 1)));
+    if (bits > Fmt<In>::kInf) bits = Fmt<In>::kInf;
+  }
+  return neg ? bits | Fmt<In>::kSign : bits;
+}
 
 template <typename In>
-__global__ void __launch_bounds__(kThreads)
-fsum_limb_kernel(const In* __restrict__ data, const int* __restrict__ seg,
-                 const unsigned char* __restrict__ mask, long long n, int K,
-                 int copies, int vec, const int* __restrict__ emax,
-                 const int* __restrict__ flags,
-                 unsigned long long* __restrict__ limbs,
-                 unsigned int* __restrict__ done, In* __restrict__ out) {
-  constexpr int kRows = Shape<In>::kRows;
-  constexpr int kChunk = Shape<In>::kChunk;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ bool last;
-  const bool shared = copies > 0;
-  // [copies][K][3] privatized limb sums, then the exponent codes [K]
-  unsigned long long* hist = reinterpret_cast<unsigned long long*>(smem_raw);
-  int* s_e = reinterpret_cast<int*>(hist + (size_t)copies * K * 3);
-  if (shared) {
-    for (int i = threadIdx.x; i < copies * K * 3; i += kThreads) hist[i] = 0;
-    for (int k = threadIdx.x; k < K; k += kThreads) s_e[k] = emax[k];
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int* e_tab = shared ? s_e : emax;
-  unsigned long long* acc =
-      shared ? hist + (size_t)(warp % copies) * K * 3 : limbs;
-
-  const long long stride = (long long)gridDim.x * kWarps * kChunk;
-  for (long long base = ((long long)blockIdx.x * kWarps + warp) * kChunk;
-       base < n; base += stride) {  // uniform across the warp
-    int s[kRows];
-    bool live[kRows];
-    double v[kRows];
-    load_step<In>(data, seg, mask, base, n, lane, vec, s, live, v);
-    int key = -1;
-    Limbs run = {0, 0, 0};
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      if (!live[i] || (unsigned)s[i] >= (unsigned)K || !isfinite(v[i]))
-        continue;
-      const Limbs q = split(v[i], e_tab[s[i]]);
-      if (s[i] == key) {
-        run = combine(run, q);
-      } else {
-        if (key >= 0) add_limbs(acc + 3 * (size_t)key, run);
-        key = s[i];
-        run = q;
-      }
-    }
-    if (segment_reduce(key, run, lane) && key >= 0)
-      add_limbs(acc + 3 * (size_t)key, run);
-  }
-  if (shared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < K * 3; i += kThreads) {
-      unsigned long long x = hist[i];
-      for (int c = 1; c < copies; ++c) x += hist[(size_t)c * K * 3 + i];
-      if (x) atomicAdd(limbs + i, x);
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (last) {
-    __threadfence();
-    const long long* l = reinterpret_cast<const long long*>(limbs);
-    for (int k = threadIdx.x; k < K; k += kThreads) {
-      const double x = compose(__ldcg(l + 3 * (size_t)k),
-                               __ldcg(l + 3 * (size_t)k + 1),
-                               __ldcg(l + 3 * (size_t)k + 2), emax[k],
-                               flags[k]);
-      if constexpr (sizeof(In) == 8) out[k] = x;
-      else out[k] = __double2float_rn(x);
-    }
-  }
+__global__ void __launch_bounds__(kFinishThreads)
+fsum_finish_kernel(const long long* __restrict__ acc,
+                   const int* __restrict__ flags, int K,
+                   typename Fmt<In>::Bits* __restrict__ out) {
+  const int k = blockIdx.x * kFinishThreads + threadIdx.x;
+  if (k < K)
+    out[k] = (typename Fmt<In>::Bits)finish<In>(acc + k, K, flags[k]);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -355,22 +575,26 @@ int steps_for(long long n, int rows_per_block) {
 }
 
 // Blocks of one resident wave of `kernel` at `smem` bytes: occupancy times
-// the SM count, cached per device, kernel slot and K (K past kSharedMaxK
-// uses no shared memory and shares one entry).
+// the SM count, cached per device, kernel slot and privatized group count.
+// The first call on a device lets the kernel take `max_smem` bytes of
+// dynamic shared memory (past the default 48 KB).
 template <typename Kernel>
-cudaError_t wave_blocks(Kernel kernel, int slot, int K, size_t smem,
-                        int* blocks) {
-  constexpr int kSlots = 4;
-  static int cache[kMaxDevices][kSlots][kSharedMaxK + 1];  // 0 = not yet
+cudaError_t wave_blocks(Kernel kernel, int slot, int priv, size_t smem,
+                        size_t max_smem, int* blocks) {
+  constexpr int kSlots = 2;
+  static int cache[kMaxDevices][kSlots][kPrivMax + 1];  // 0 = not yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const int k_slot = K <= kSharedMaxK ? K : 0;
-  int* hit = dev < kMaxDevices ? &cache[dev][slot][k_slot] : nullptr;
+  int* hit = dev < kMaxDevices ? &cache[dev][slot][priv] : nullptr;
   if (hit && *hit > 0) {
     *blocks = *hit;
     return cudaSuccess;
   }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)max_smem);
+  if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -392,40 +616,41 @@ template <typename In>
 int launch_fsum(const In* data, const int* seg, const unsigned char* mask,
                 long long n, int K, long long* scratch, In* out,
                 cudaStream_t st) {
+  using Bits = typename Fmt<In>::Bits;
+  constexpr size_t D = Fmt<In>::kDigits;
   if (K < 1 || n < 0) return (int)cudaErrorInvalidValue;
-  // scratch, zeroed here: limb sums [K][3], exponent codes [K] and flags
-  // [K] (int32), then the finished-block counter
-  auto* limbs = reinterpret_cast<unsigned long long*>(scratch);
-  int* emax = reinterpret_cast<int*>(scratch + 3LL * K);
-  int* flags = emax + K;
-  auto* done = reinterpret_cast<unsigned int*>(scratch + 4LL * K);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, (4 * (size_t)K + 1) * 8, st);
+  // scratch, zeroed here: digit words [D][K], then flags [K] (int32)
+  auto* acc = reinterpret_cast<u64*>(scratch);
+  int* flags = reinterpret_cast<int*>(scratch + D * K);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, (D * K + ((size_t)K + 1) / 2) * 8, st);
   if (err != cudaSuccess) return (int)err;
 
-  const bool shared = K <= kSharedMaxK;
-  int copies = 0;
-  if (shared) {
-    copies = kSmemBudget / (K * 24);
-    copies = copies < 1 ? 1 : (copies > kWarps ? kWarps : copies);
-  }
-  const size_t smem1 = shared ? (size_t)K * 8 : 0;
-  const size_t smem2 = shared ? (size_t)copies * K * 24 + (size_t)K * 4 : 0;
-  const int steps = steps_for(n, kWarps * Shape<In>::kChunk);
-  const int slot = sizeof(In) == 8 ? 0 : 2;
-  int grid1 = 0, grid2 = 0;
-  err = wave_blocks(fsum_exponent_kernel<In>, slot, K, smem1, &grid1);
+  const int priv = K < kPrivMax ? K : kPrivMax;
+  int copies = K <= kPrivMax ? kCopyGroups / priv : 1;
+  copies = copies < 1 ? 1 : (copies > kWarps ? kWarps : copies);
+  const size_t smem = (size_t)copies * priv * kGroupBytes;
+  const size_t max_smem = (size_t)kPrivMax * kGroupBytes;
+  int grid = 0;
+  err = wave_blocks(fsum_digit_kernel<In>, sizeof(In) == 8 ? 0 : 1, priv,
+                    smem, max_smem, &grid);
   if (err != cudaSuccess) return (int)err;
-  err = wave_blocks(fsum_limb_kernel<In>, slot + 1, K, smem2, &grid2);
-  if (err != cudaSuccess) return (int)err;
-  grid1 = grid1 < steps ? grid1 : steps;
-  grid2 = grid2 < steps ? grid2 : steps;
+  const int steps = steps_for(n, kWarps * kChunk);
+  grid = grid < steps ? grid : steps;
+  int chunk_steps = (steps + grid - 1) / grid;
+  if (chunk_steps > kBlockRows / (kWarps * kChunk))
+    chunk_steps = kBlockRows / (kWarps * kChunk);
+  grid = (steps + chunk_steps - 1) / chunk_steps;
   const int vec = aligned(seg, mask, data);
-  fsum_exponent_kernel<In><<<grid1, kThreads, smem1, st>>>(
-      data, seg, mask, n, K, vec, emax, flags);
+  fsum_digit_kernel<In><<<grid, kThreads, smem, st>>>(
+      reinterpret_cast<const Bits*>(data), seg, mask, n, K, priv, copies,
+      chunk_steps, vec, acc, flags);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fsum_limb_kernel<In><<<grid2, kThreads, smem2, st>>>(
-      data, seg, mask, n, K, copies, vec, emax, flags, limbs, done, out);
+  fsum_finish_kernel<In><<<(K + kFinishThreads - 1) / kFinishThreads,
+                           kFinishThreads, 0, st>>>(
+      reinterpret_cast<const long long*>(acc), flags, K,
+      reinterpret_cast<Bits*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -434,8 +659,9 @@ int launch_fsum(const In* data, const int* seg, const unsigned char* mask,
 extern "C" {
 
 // data float64[n] (is_f64) or float32[n]; out float64[K] or float32[K];
-// scratch int64[4 * K + 1], zeroed here. Two kernels and one memset on
-// `stream`; returns a cudaError_t.
+// scratch int64[66 * K + (K + 1) / 2] for float64, [9 * K + (K + 1) / 2]
+// for float32, zeroed here. A memset and two kernels on `stream`; returns a
+// cudaError_t.
 int seg_fsum_launch(const void* data, int is_f64, const int* seg,
                     const unsigned char* mask, long long n, int K,
                     void* scratch, void* out, void* stream) {

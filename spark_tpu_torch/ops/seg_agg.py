@@ -12,13 +12,15 @@ Hopper, each beside its plain PyTorch version.
 - ``seg_fsum`` is the port's kernel for the float branch of the
   reference's grouped sum (``jax.ops.segment_sum`` in
   ``spark_tpu/physical/kernels.py:seg_sum``), which has no Pallas
-  kernel: a grouped float64 or float32 sum whose bits depend only on the
-  set of live values in each group (a two-pass fixed-point sum,
-  ``csrc/seg_fsum.cu``). ``physical/kernels.seg_sum`` sends every float
-  sum over more than one group on a CUDA tensor to it. On the CPU the
-  engine keeps ``index_add_``, which equals the reference's
-  ``segment_sum`` bit for bit there, so the card's float groups differ
-  from the CPU run's by rounding only (a few ulps).
+  kernel: a grouped float64 or float32 sum, exact until one rounding to
+  nearest-even at the end, so its bits depend only on the multiset of
+  live values in each group (a long accumulator of 32-bit digits at
+  absolute positions, one read of the input, ``csrc/seg_fsum.cu``).
+  ``physical/kernels.seg_sum`` sends every float sum over more than one
+  group on a CUDA tensor to it. On the CPU the engine keeps
+  ``index_add_``, which equals the reference's ``segment_sum`` bit for
+  bit there, so the card's float groups differ from the CPU run's by
+  the CPU's rounding only.
 
 Semantics, shared with the reference: a row contributes when its mask is
 true and ``0 <= seg < num_segments``. Empty groups sum to 0, count 0 and
@@ -27,12 +29,13 @@ card a group holding both -0.0 and +0.0 has min -0.0 and max +0.0. A
 float sum of a group holding a NaN, or both +inf and -inf, is NaN.
 
 The kernels are bandwidth-bound: each reads every row once (5 bytes a row
-for a count, 9 for a float32 sum or min/max, 13 for an int64 sum), about
-1.5, 2.7 and 3.9 us per million rows at 3.35 TB/s on an H100 SXM; the
-float sum of ``seg_fsum`` reads every row twice (13 bytes a row a pass
-for float64). ``csrc/seg_agg.cu`` and ``csrc/seg_fsum.cu`` hold the
-designs. Every ``seg_sum`` and ``seg_minmax`` call is one kernel launch;
-a ``seg_fsum`` call is two kernels and a memset.
+for a count, 9 for a float32 sum or min/max, 13 for an int64 sum or a
+float64 ``seg_fsum``), about 1.5, 2.7 and 3.9 us per million rows at
+3.35 TB/s on an H100 SXM. ``csrc/seg_agg.cu`` and ``csrc/seg_fsum.cu``
+hold the designs. Every ``seg_sum`` and ``seg_minmax`` call is one
+kernel launch; a ``seg_fsum`` call is a memset and two kernels, of
+which only the first reads the input (the second reads the K x D digit
+words).
 
 A wrapper given CPU tensors computes the plain version; given CUDA
 tensors it launches the kernel or raises. Each wrapper counts its kernel
@@ -82,82 +85,124 @@ def seg_minmax_plain(data: torch.Tensor, seg: torch.Tensor,
     return out.masked_fill_(has_nan, float("nan"))
 
 
-def _pow2(e: torch.Tensor) -> torch.Tensor:
-    """2.0 ** e as float64 for int64 ``e`` in [-1022, 1023], built from
-    its bits (exact; ``torch.ldexp`` goes through ``pow`` in the default
-    float dtype)."""
-    return ((e + 1023) << 52).view(torch.float64)
+#: digit words a group takes in seg_fsum's long accumulator, by dtype
+#: (``csrc/seg_fsum.cu``: 32-bit digits at absolute positions)
+FSUM_DIGITS = {torch.float64: 66, torch.float32: 9}
+# per dtype: mantissa bits, largest exponent field, digits a value spans
+_FSUM_FMT = {torch.float64: (52, 0x7FF, 3), torch.float32: (23, 0xFF, 2)}
+_LOW32 = 0xFFFFFFFF
 
 
-FSUM_EXP_BIAS = 1100   # seg_fsum.cu's kExpBias: stored code e + bias > 0
-_TWO30 = float(1 << 30)
+def _fsum_digits(x: torch.Tensor):
+    """Each finite nonzero x as signed 32-bit digits at absolute
+    positions: |x| / 2^-Q = m << (q mod 32) at digit q >> 5, with m the
+    integer significand and q = max(e - 1, 0) from the exponent field e
+    (Q: the exponent of the type's smallest subnormal). Returns (digit
+    index d, int64[n, digits] digits from d up, each below 2^32, with x's
+    sign)."""
+    mant, _, per_value = _FSUM_FMT[x.dtype]
+    bits = x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+    bits = bits.to(torch.int64)
+    e = (bits >> mant) & _FSUM_FMT[x.dtype][1]
+    m = (bits & ((1 << mant) - 1)) | torch.where(e > 0, 1 << mant, 0)
+    q = (e - 1).clamp(min=0)
+    o = q & 31
+    lo = (m & _LOW32) << o           # below 2^63
+    s = (lo >> 32) + ((m >> 32) << o)
+    digits = torch.stack([lo & _LOW32, s & _LOW32, s >> 32][:per_value], 1)
+    return q >> 5, torch.where((bits < 0)[:, None], -digits, digits)
 
 
-def _fsum_split(x: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
-    """x * 2^(30 - e) (e = code - bias) as three 30-bit limbs, int64[n, 3],
-    most significant first, each with x's sign: ``seg_fsum.cu:split``."""
-    sh = 30 - (code - FSUM_EXP_BIAS)
-    a = torch.div(sh, 2, rounding_mode="floor")
-    y = x * _pow2(a)
-    y = y * _pow2(sh - a)
-    l0 = torch.trunc(y)
-    r = (y - l0) * _TWO30
-    l1 = torch.trunc(r)
-    r = (r - l1) * _TWO30
-    return torch.stack([l0, l1, torch.trunc(r)], 1).to(torch.int64)
-
-
-def _fsum_compose(limbs: torch.Tensor, code: torch.Tensor, nan: torch.Tensor,
-                  pinf: torch.Tensor, ninf: torch.Tensor) -> torch.Tensor:
-    """Each group's float64 sum from its limb sums (int64[K, 3]), exponent
-    code (0: no finite value) and flags: ``seg_fsum.cu:compose``."""
-    l0, l1, l2 = limbs.unbind(1)
-    c = l2 >> 30  # carry so that l1, l2 lie in [0, 2^30)
-    l2 = l2 - c * (1 << 30)
-    l1 = l1 + c
-    c = l1 >> 30
-    l1 = l1 - c * (1 << 30)
-    l0 = l0 + c
-    t = l2.to(torch.float64) * (1.0 / _TWO30)
-    t = l1.to(torch.float64) + t
-    t = t * (1.0 / _TWO30)
-    v = l0.to(torch.float64) + t
-    es = code - FSUM_EXP_BIAS - 30
-    a = torch.div(es, 2, rounding_mode="floor")
-    v = v * _pow2(a)
-    v = v * _pow2(es - a)
-    zero = torch.zeros((), dtype=torch.float64, device=v.device)
-    v = torch.where(code == 0, zero, v)
-    v = torch.where(pinf, zero + float("inf"), v)
-    v = torch.where(ninf, zero - float("inf"), v)
-    return torch.where(nan | (pinf & ninf), zero + float("nan"), v)
+def _fsum_finish(acc: torch.Tensor, nan: torch.Tensor, pinf: torch.Tensor,
+                 ninf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Each group's sum from its digit words (int64[D, K]) and flags,
+    rounded once to nearest-even into ``dtype``: ``seg_fsum.cu:finish``,
+    vectorised over the K groups."""
+    mant, exp_max, _ = _FSUM_FMT[dtype]
+    p = mant + 1
+    n_digits, k = acc.shape
+    zero = torch.zeros(k, dtype=torch.int64, device=acc.device)
+    c = zero
+    for i in range(n_digits):
+        c = (acc[i] + c) >> 32
+    neg = c < 0  # the sum's sign: the carry out of the top word
+    acc = torch.where(neg, -acc, acc)
+    # normalized digits r_0..r_D of |sum|: keep the top nonzero one (h0 at
+    # index top), the two below it and whether any lower digit is nonzero
+    c = zero
+    top = zero - 1
+    h0, h1, h2, p1, p2 = zero, zero, zero, zero, zero
+    below = lower = torch.zeros(k, dtype=torch.bool, device=acc.device)
+    for i in range(n_digits + 1):
+        if i < n_digits:
+            t = acc[i] + c
+            r, c = t & _LOW32, t >> 32
+        else:
+            r = c
+        hit = r != 0
+        top = torch.where(hit, i, top)
+        h0, h1, h2 = (torch.where(hit, a, b)
+                      for a, b in ((r, h0), (p1, h1), (p2, h2)))
+        below = torch.where(hit, lower, below)
+        lower = lower | (p2 != 0)
+        p2, p1 = p1, r
+    # bits of h0 (1..32), read from its exact float64 exponent
+    nb = (h0.clamp(min=1).to(torch.float64).view(torch.int64) >> 52) - 1022
+    length = 32 * top + nb  # bits of |sum| / 2^-Q
+    sh = 32 - nb            # left-align h0:h1:h2 to 96 bits a0:a1:a2
+    a0 = ((h0 << sh) | (h1 >> (32 - sh))) & _LOW32
+    a1 = ((h1 << sh) | (h2 >> (32 - sh))) & _LOW32
+    a2 = (h2 << sh) & _LOW32
+    if p > 32:  # the leading p bits, the round bit, the sticky bits
+        m = (a0 << (p - 32)) | (a1 >> (64 - p))
+        rnd = (a1 >> (63 - p)) & 1
+        sticky = ((a1 & ((1 << (63 - p)) - 1)) | a2) != 0
+    else:
+        m = a0 >> (32 - p)
+        rnd = (a0 >> (31 - p)) & 1
+        sticky = ((a0 & ((1 << (31 - p)) - 1)) | a1 | a2) != 0
+    sticky = sticky | below
+    inf = exp_max << mant
+    ex = (length - p).clamp(max=exp_max - 1)
+    rounded = (ex.clamp(min=0) << mant) + m + (rnd & (sticky | (m & 1)).long())
+    bits = torch.where(length <= p, m >> (p - length).clamp(0, 63),
+                       rounded.clamp(max=inf))  # exact below 2^p
+    sign = -(1 << 63) if dtype == torch.float64 else 1 << 31  # as int64
+    bits = torch.where(top < 0, zero, bits | torch.where(neg, sign, 0))
+    qnan = (exp_max << mant) | (1 << (mant - 1))
+    bits = torch.where(pinf, inf, bits)
+    bits = torch.where(ninf, sign | inf, bits)
+    bits = torch.where(nan | (pinf & ninf), qnan, bits)
+    if dtype == torch.float64:
+        return bits.view(torch.float64)
+    bits = bits - ((bits >> 31) << 32)  # uint32 bits as int32
+    return bits.to(torch.int32).view(torch.float32)
 
 
 def seg_fsum_plain(data: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
                    num_segments: int) -> torch.Tensor:
-    """Plain PyTorch version of ``seg_fsum``: the same two-pass
-    fixed-point arithmetic, with an exact int64 ``index_add_`` for the
-    limbs, so it equals the kernel bit for bit."""
+    """Plain PyTorch version of ``seg_fsum``: the same digits, added
+    with an exact int64 ``index_add_`` into the long accumulator, and the
+    same carry and rounding steps, so it equals the kernel bit for bit:
+    each group's exact sum rounded once to nearest-even."""
     k = num_segments
     dev = seg.device
+    n_digits = FSUM_DIGITS[data.dtype]
     live = mask & (seg >= 0) & (seg < k)
     idx = seg[live].long()
-    x = data[live].to(torch.float64)
-    fin = torch.isfinite(x)
+    x = data[live]
     flags = []
     for hit in (torch.isnan(x), x == float("inf"), x == float("-inf")):
         flag = torch.zeros(k, dtype=torch.bool, device=dev)
         flag[idx[hit]] = True
         flags.append(flag)
-    x, idx = x[fin], idx[fin]
-    field = (x.view(torch.int64) >> 52) & 0x7FF
-    code = field.clamp(min=1) - 1022 + FSUM_EXP_BIAS
-    emax = torch.zeros(k, dtype=torch.int64, device=dev)
-    emax.scatter_reduce_(0, idx, code, "amax", include_self=True)
-    limbs = torch.zeros((k, 3), dtype=torch.int64, device=dev)
-    limbs.index_add_(0, idx, _fsum_split(x, emax[idx]))
-    out = _fsum_compose(limbs, emax, *flags)
-    return out if data.dtype == torch.float64 else out.to(torch.float32)
+    fin = torch.isfinite(x)
+    d, digits = _fsum_digits(x[fin])
+    idx = idx[fin]
+    acc = torch.zeros(n_digits * k, dtype=torch.int64, device=dev)
+    for j in range(digits.shape[1]):
+        acc.index_add_(0, (d + j) * k + idx, digits[:, j])
+    return _fsum_finish(acc.view(n_digits, k), *flags, data.dtype)
 
 
 def _check(data: Optional[torch.Tensor], seg: torch.Tensor,
@@ -286,10 +331,11 @@ def seg_fsum(data: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
              num_segments: int) -> torch.Tensor:
     """Grouped sum of float64 or float32 ``data`` by ``seg`` (int32[N])
     over live rows (``mask``, bool[N]), any ``num_segments`` >= 1 ->
-    data's dtype[num_segments]. Its bits depend only on the live values
-    of each group: not on the launch, the row order or where dead rows
-    lie. Within a few ulps of the exact sum; a group holding a NaN, or
-    both infinities, is NaN."""
+    data's dtype[num_segments]: each group's exact sum, rounded once to
+    nearest-even, so its bits depend only on the group's live values (not
+    on the launch, the row order or where dead rows lie). A group holding
+    a NaN, or both infinities, is NaN; one holding one infinity is that
+    infinity; an empty group, or one summing to exactly zero, is +0.0."""
     if seg.device.type == "cpu":
         return seg_fsum_plain(data, seg, mask, num_segments)
     if num_segments < 1 or num_segments >= MAX_ROWS:
@@ -297,7 +343,9 @@ def seg_fsum(data: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
     _check(data, seg, mask, None, (torch.float64, torch.float32))
     lib = _fsum_lib()
     k, dev = num_segments, seg.device
-    scratch = torch.empty(4 * k + 1, dtype=torch.int64, device=dev)
+    # the digit words [D][K], then the flags (int32[K])
+    scratch = torch.empty(FSUM_DIGITS[data.dtype] * k + (k + 1) // 2,
+                          dtype=torch.int64, device=dev)
     out = torch.empty(k, dtype=data.dtype, device=dev)
     is_f64 = data.dtype == torch.float64
     with torch.cuda.device(dev):

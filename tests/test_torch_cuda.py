@@ -20,9 +20,9 @@ data, validity and the row mask);
 query rows on the card equal to the CPU run's (the slices' queries, the
 window phase's windows, grouping sets and set operations, and the twelve
 other TPC-H queries), except a float window sum, held within 1e-10 of
-the batch's prefix magnitude; the deterministic float sum (seg_fsum)
-equal to its plain version bit for bit, across launches, a compacted
-layout and a row permutation; the scalar phase's grouped stddev and
+the batch's prefix magnitude; the exact float sum (seg_fsum) equal to
+its plain version bit for bit, across launches, a compacted layout and a
+row permutation, in two kernels a call; the scalar phase's grouped stddev and
 variance (A1) within rel 1e-10 of the CPU run and bit-identical across
 two runs on the card.
 """
@@ -407,7 +407,7 @@ def test_window_rollup_union_on_card_match_cpu(cuda_device):
         assert abs(g[2] - w[2]) <= 1e-10 * prefix, (g, w)
 
 
-# ---- the scalar slice: the deterministic float sum ---------------------------
+# ---- the scalar slice: the exact float sum ----------------------------------
 
 
 def _fsum_bits(t):
@@ -415,22 +415,27 @@ def _fsum_bits(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,sorted_ids", [(1, False), (6, False),
-                                          (168, False), (1024, False),
-                                          (5000, False), (10_000, True)])
+@pytest.mark.parametrize("k,sorted_ids,wide", [
+    (1, False, False), (6, False, False), (168, False, False),
+    (1024, False, False), (5000, False, False), (10_000, True, False),
+    (168, False, True)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_seg_fsum_matches_plain_bit_for_bit(cuda_device, k, sorted_ids,
-                                            dtype):
+                                            wide, dtype):
     """seg_fsum against seg_fsum_plain on the same tensors, bit for bit:
     two launches, a compacted copy of the live rows and a permutation of
-    the rows give the same bits; NaN, +-inf and empty groups included."""
+    the rows give the same bits; NaN, +-inf and empty groups included;
+    ``wide`` spreads the values' exponents over the type's whole range. A
+    call is two kernels: one reads the rows, one finishes the groups."""
     rng = np.random.default_rng(k)
     n = 300_000
     seg = rng.integers(-1, k + 1, n).astype(np.int32)
     if sorted_ids:
         seg.sort()
     mask = rng.random(n) < 0.7
-    x = rng.normal(size=n) * 10.0 ** rng.integers(-8, 9, n)
+    spread = (1000 if dtype == torch.float64 else 120) if wide else 0
+    x = rng.normal(size=n) * (2.0 ** rng.integers(-spread, spread + 1, n)
+                              if wide else 10.0 ** rng.integers(-8, 9, n))
     x[rng.random(n) < 1e-4] = np.nan
     x[rng.random(n) < 1e-4] = np.inf
     x[rng.random(n) < 1e-4] = -np.inf
@@ -451,6 +456,13 @@ def test_seg_fsum_matches_plain_bit_for_bit(cuda_device, k, sorted_ids,
     for other in (again, want, compact, shuffled):
         assert torch.equal(_fsum_bits(got), _fsum_bits(other))
     assert got.dtype == dtype and got.shape == (k,)
+    import chip_smoke
+
+    _, _, names = chip_smoke.profile_calls(
+        lambda: seg_agg.seg_fsum(d, s, m, k), calls=4)
+    assert sorted(names.values()) == [1.0, 1.0], names
+    assert sum("fsum_digit_kernel" in key for key in names) == 1, names
+    assert sum("fsum_finish_kernel" in key for key in names) == 1, names
 
 
 @pytest.mark.cuda

@@ -1,18 +1,25 @@
-"""The plain version of the port's deterministic grouped float sum
+"""The plain version of the port's exact grouped float sum
 (``spark_tpu_torch/ops/seg_agg.py:seg_fsum_plain``), which the CUDA
 kernel ``ops/csrc/seg_fsum.cu`` equals bit for bit on the card
 (tests/test_torch_cuda.py, chip_smoke.py), and the engine's routing of
 float sums to it.
 
-The reference's float branch is ``jax.ops.segment_sum``
-(``spark_tpu/physical/kernels.py:seg_sum``); on the CPU a float64
-``index_add_`` equals it bit for bit. The fixed-point sum is held within
-1e-12 * sum|x| of each group of that (float32 data: 1e-5 * sum|x|), and
-bit-identical across a static layout, its compacted copy and a row
-permutation. NaN, +-inf, zeros-only and empty groups follow the kernel's
-rules: a NaN or both infinities give NaN, one infinity gives it, an
-empty group or one of zeros gives 0.0.
+Each group's result is its exact sum rounded once to nearest-even: held
+equal to ``math.fsum`` (correctly rounded) for float64, to the exact
+``fractions.Fraction`` sum rounded once where ``math.fsum`` overflows
+on the way (near DBL_MAX), and to the ``Fraction`` sum rounded once to
+float32 for float32 data. The reference's float branch is
+``jax.ops.segment_sum`` (``spark_tpu/physical/kernels.py:seg_sum``); on
+the CPU a float64 ``index_add_`` equals it bit for bit, and the exact sum
+is held within 1e-12 * sum|x| of each group of that (float32 data: 1e-5
+* sum|x|), and bit-identical across a static layout, its compacted copy
+and a row permutation. NaN, +-inf, zeros-only and empty groups follow
+the kernel's rules: a NaN or both infinities give NaN, one infinity
+gives it, an empty group or one of zeros gives +0.0.
 """
+
+import math
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -47,6 +54,49 @@ def _index_add(x, seg, mask, k, absolute=False):
     out = torch.zeros(k, dtype=torch.float64)
     return out.index_add_(0, torch.from_numpy(seg[live]).long(),
                           v.abs() if absolute else v)
+
+
+# per dtype: significand bits, least normal exponent, largest exponent
+_FORMATS = {torch.float64: (53, -1022, 1023), torch.float32: (24, -126, 127)}
+
+
+def _round_once(total: Fraction, dtype: torch.dtype) -> float:
+    """The exact ``total`` rounded once to nearest, ties to even, into
+    ``dtype`` (subnormals included, +-inf past the largest finite)."""
+    if total == 0:
+        return 0.0
+    bits, emin, emax = _FORMATS[dtype]
+    a = abs(total)
+    e = a.numerator.bit_length() - a.denominator.bit_length()
+    if Fraction(2) ** e > a:
+        e -= 1
+    q = max(e, emin) - (bits - 1)  # the quantum at a's binade
+    scaled = a / Fraction(2) ** q
+    n, rem = divmod(scaled.numerator, scaled.denominator)
+    if 2 * rem > scaled.denominator or (2 * rem == scaled.denominator
+                                        and n % 2):
+        n += 1
+    sign = -1.0 if total < 0 else 1.0
+    if Fraction(n) * Fraction(2) ** q >= Fraction(2) ** (emax + 1):
+        return sign * math.inf
+    return sign * math.ldexp(n, q)
+
+
+def _exact_sums(x: np.ndarray, seg: np.ndarray, mask: np.ndarray, k: int,
+                dtype: torch.dtype) -> list:
+    """Each group's live values' exact sum, rounded once into ``dtype``."""
+    out = []
+    for g in range(k):
+        vals = x[mask & (seg == g)]
+        out.append(_round_once(sum(map(Fraction, vals.tolist()),
+                                   Fraction(0)), dtype))
+    return out
+
+
+def _fsum(x, seg, k: int) -> torch.Tensor:
+    t = torch.as_tensor
+    return seg_agg.seg_fsum_plain(t(x), t(np.asarray(seg, dtype=np.int32)),
+                                  torch.ones(len(x), dtype=torch.bool), k)
 
 
 @pytest.mark.parametrize("k", KS)
@@ -123,14 +173,95 @@ def test_overflow_gives_inf():
     assert got.item() == 1e308
 
 
-def test_values_far_below_the_largest_drop_out():
-    """Only the 90 bits below a group's largest value count: 2^-100 next
-    to 1.0 is lost, 2^-80 is kept."""
-    x = torch.tensor([1.0, 2.0 ** -100, 1.0, 2.0 ** -80],
-                     dtype=torch.float64)
-    seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32)
-    got = seg_agg.seg_fsum_plain(x, seg, torch.ones(4, dtype=torch.bool), 2)
-    assert got[0].item() == 1.0 and got[1].item() == 1.0 + 2.0 ** -80
+def test_values_far_below_the_largest_are_kept():
+    """No value drops out, however far below the group's largest: the
+    sum is exact until its one rounding."""
+    got = _fsum(np.array([2.0 ** 100, 1.0, -2.0 ** 100, 1.0, 2.0 ** -100,
+                          -1.0]), [0, 0, 0, 1, 1, 1], 2)
+    assert got[0].item() == 1.0 and got[1].item() == 2.0 ** -100
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_equals_math_fsum(seed):
+    """float64 groups whose exponents spread over 400 bits, with both
+    signs and cancellation: each equals math.fsum of its live values,
+    which is correctly rounded."""
+    rng = np.random.default_rng(seed)
+    n, k = 6000, 40
+    seg = rng.integers(-1, k + 1, n).astype(np.int32)
+    mask = rng.random(n) < 0.8
+    x = rng.normal(size=n) * 2.0 ** rng.integers(-200, 200, n)
+    big = rng.random(n) < 0.05  # cancelling pairs far above the rest
+    x[big] = 2.0 ** 300
+    x[np.flatnonzero(big) - 1] = -2.0 ** 300
+    got = seg_agg.seg_fsum_plain(*map(torch.from_numpy, (x, seg, mask)), k)
+    for g in range(k):
+        want = math.fsum(x[mask & (seg == g)].tolist())
+        assert got[g].item() == want, g
+
+
+def test_subnormal_sums_and_ties_to_even():
+    """Sums in the subnormal range are exact; a sum halfway between two
+    doubles rounds to the even one."""
+    tiny = 5e-324
+    groups = [
+        [1e-310, -9.99e-311, tiny],          # subnormal result
+        [2.5e-308, -2.4e-308, 3 * tiny],     # subnormal after cancelling
+        [2.0 ** -1022, -tiny],               # the largest subnormal
+        [1.0, 2.0 ** -53],                   # tie: stays at 1.0 (even)
+        [1.0 + 2.0 ** -52, 2.0 ** -53],      # tie: up to the even 1 + 2^-51
+        [1.0, 2.0 ** -53, 2.0 ** -200],      # just past the tie: up
+        [-1.0, -(2.0 ** -53), 2.0 ** -200],  # just short of it: stays
+    ]
+    x = np.array([v for g in groups for v in g])
+    seg = [i for i, g in enumerate(groups) for _ in g]
+    got = _fsum(x, seg, len(groups))
+    for g, vals in enumerate(groups):
+        assert got[g].item() == math.fsum(vals), g
+    assert got[3].item() == 1.0 and got[4].item() == 1.0 + 2.0 ** -51
+    assert got[5].item() == 1.0 + 2.0 ** -52 and got[6].item() == -1.0
+
+
+def test_near_dbl_max_against_fraction():
+    """Where math.fsum raises "intermediate overflow" the oracle is the
+    exact Fraction sum rounded once; past DBL_MAX the sum is +-inf."""
+    top = np.finfo(np.float64).max
+    half_ulp = 2.0 ** 970  # DBL_MAX's ulp is 2^971
+    groups = [[1e308, 1e308, -1e308], [top, top, -top], [top, half_ulp / 2],
+              [top, half_ulp], [-top, -top], [top, top, -1e308]]
+    with pytest.raises(OverflowError):
+        math.fsum(groups[0])
+    x = np.array([v for g in groups for v in g])
+    seg = np.array([i for i, g in enumerate(groups) for _ in g],
+                   dtype=np.int32)
+    got = _fsum(x, seg, len(groups)).tolist()
+    want = _exact_sums(x, seg, np.ones(len(x), dtype=bool), len(groups),
+                       torch.float64)
+    assert got == want
+    assert got[0] == 1e308 and got[1] == top and got[2] == top
+    assert got[3] == math.inf and got[4] == -math.inf  # tie past the top
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_float32_rounded_once_from_the_exact_sum(seed):
+    """float32 data: each group is the exact sum rounded once to float32,
+    never through float64 (the double rounding of [1, 2^-24, 2^-80]
+    would give 1.0)."""
+    rng = np.random.default_rng(seed)
+    n, k = 4000, 30
+    seg = rng.integers(-1, k + 1, n).astype(np.int32)
+    mask = rng.random(n) < 0.8
+    x = (rng.normal(size=n) * 2.0 ** rng.integers(-140, 120, n)).astype(
+        np.float32)
+    got = seg_agg.seg_fsum_plain(*map(torch.from_numpy, (x, seg, mask)), k)
+    assert got.dtype == torch.float32
+    want = _exact_sums(x, seg, mask, k, torch.float32)
+    assert [float(v) for v in got] == [float(np.float32(w)) for w in want]
+    once = _fsum(np.array([1.0, 2.0 ** -24, 2.0 ** -80], dtype=np.float32),
+                 [0, 0, 0], 1).item()
+    assert once == 1.0 + 2.0 ** -23
+    assert float(np.float32(np.float64(1.0) + 2.0 ** -24 + 2.0 ** -80)) \
+        == 1.0
 
 
 def test_wrapper_takes_plain_version_on_cpu():
