@@ -1,21 +1,62 @@
-"""DataFrame: a (session, logical plan) pair with the actions the
-single-device SQL slice needs. Actions run optimize -> physical plan ->
-eager execution (physical/planner.py)."""
+"""DataFrame: a lazy logical-plan builder and its actions (the port of
+``spark_tpu/api/dataframe.py``; reference: sql/core/.../Dataset.scala,
+python/pyspark/sql/dataframe.py).
+
+A DataFrame is a (session, logical plan) pair. Transformations build new
+plans; actions optimize under the session's settings, plan and execute
+eagerly on the session's device (``physical/planner.py``).
+
+Not ported yet, each raising ``NotImplementedError``: ``sample`` and
+``sampleBy`` (ROADMAP A2, the random-stream decision),
+``repartition``/``coalesce`` (A10), ``cache``/``persist``/``checkpoint``
+(A9), ``na``/``stat``/``describe``/``corr`` and the rest of
+``api/na_stat.py``, ``rdd``, ``writeStream`` and ``withWatermark``.
+"""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Sequence, Tuple, Union
 
 from spark_tpu_torch.api.row import Row
 from spark_tpu_torch.columnar.batch import Batch
+from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.plan import logical as L
 from spark_tpu_torch.types import Schema
+
+ColumnOrName = Union[E.Expression, str]
+
+
+def _c(c: ColumnOrName) -> E.Expression:
+    return c if isinstance(c, E.Expression) else E.Col(c)
+
+
+def _order(c: ColumnOrName) -> E.SortOrder:
+    e = _c(c)
+    return e if isinstance(e, E.SortOrder) else E.SortOrder(e, ascending=True)
+
+
+def _later(what: str, item: str):
+    """A DataFrame member of a later slice: raises NotImplementedError."""
+    def member(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"not ported yet: DataFrame.{what} (ROADMAP {item})")
+
+    return member
+
+
+_JOIN_ALIASES = {"outer": "full", "full_outer": "full", "fullouter": "full",
+                 "leftouter": "left", "left_outer": "left",
+                 "rightouter": "right", "right_outer": "right",
+                 "semi": "left_semi", "leftsemi": "left_semi",
+                 "anti": "left_anti", "leftanti": "left_anti"}
 
 
 class DataFrame:
     def __init__(self, session, plan: L.LogicalPlan):
         self._session = session
         self._plan = plan
+
+    # ---- metadata ----------------------------------------------------------
 
     @property
     def schema(self) -> Schema:
@@ -25,13 +66,381 @@ class DataFrame:
     def columns(self) -> List[str]:
         return list(self._plan.schema.names)
 
+    @property
+    def sparkSession(self):
+        return self._session
+
+    def explain(self, extended: bool = False) -> None:
+        from spark_tpu_torch.physical.planner import plan_physical
+        from spark_tpu_torch.plan.optimizer import optimize
+
+        print("== Logical Plan ==")
+        print(self._plan.tree_string())
+        opt = optimize(self._plan, self._session.conf)
+        if extended:
+            print("== Optimized Logical Plan ==")
+            print(opt.tree_string())
+        print("== Physical Plan ==")
+        print(plan_physical(opt, self._session.device).tree_string())
+
+    def _with(self, plan: L.LogicalPlan) -> "DataFrame":
+        return DataFrame(self._session, plan)
+
+    # ---- transformations ---------------------------------------------------
+
+    def select(self, *cols: ColumnOrName) -> "DataFrame":
+        if not cols:
+            cols = tuple(self.columns)
+        exprs: List[E.Expression] = []
+        for c in cols:
+            if isinstance(c, str) and c == "*":
+                exprs.extend(E.Col(n) for n in self.columns)
+            else:
+                exprs.append(_c(c))
+        return self._with(L.project_with_windows(tuple(exprs), self._plan))
+
+    def selectExpr(self, *exprs: str) -> "DataFrame":
+        from spark_tpu_torch.sql.parser import parse_projection
+
+        parsed = [parse_projection(s, self._plan.schema) for s in exprs]
+        return self._with(L.project_with_windows(tuple(parsed), self._plan))
+
+    def filter(self, condition: Union[E.Expression, str]) -> "DataFrame":
+        if isinstance(condition, str):
+            from spark_tpu_torch.sql.parser import parse_expression
+
+            condition = parse_expression(condition)
+        return self._with(L.Filter(condition, self._plan))
+
+    where = filter
+
+    def withColumn(self, name: str, col: E.Expression) -> "DataFrame":
+        exprs = [E.Alias(col, name) if n == name else E.Col(n)
+                 for n in self.columns]
+        if name not in self.columns:
+            exprs.append(E.Alias(col, name))
+        return self._with(L.project_with_windows(tuple(exprs), self._plan))
+
+    def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
+        exprs = tuple(E.Alias(E.Col(n), new) if n == old else E.Col(n)
+                      for n in self.columns)
+        return self._with(L.Project(exprs, self._plan))
+
+    def drop(self, *names: str) -> "DataFrame":
+        exprs = tuple(E.Col(n) for n in self.columns if n not in names)
+        return self._with(L.Project(exprs, self._plan))
+
+    def alias(self, name: str) -> "DataFrame":
+        return self._with(L.SubqueryAlias(name, self._plan))
+
+    def distinct(self) -> "DataFrame":
+        return self._with(L.Distinct(self._plan))
+
+    def dropDuplicates(self,
+                       subset: Optional[Sequence[str]] = None) -> "DataFrame":
+        """One row per distinct ``subset`` (every column when None), the
+        other columns from the group's first row."""
+        if subset is None:
+            return self.distinct()
+        keys = tuple(E.Col(n) for n in subset)
+        outs = tuple(E.Col(n) if n in subset
+                     else E.Alias(E.First(E.Col(n)), n)
+                     for n in self.columns)
+        return self._with(L.Aggregate(keys, outs, self._plan))
+
+    drop_duplicates = dropDuplicates
+
+    def limit(self, n: int) -> "DataFrame":
+        return self._with(L.Limit(n, self._plan))
+
+    def offset(self, n: int) -> "DataFrame":
+        return self._with(L.Limit(1 << 62, self._plan, offset=n))
+
+    def sort(self, *cols: ColumnOrName, ascending=None) -> "DataFrame":
+        orders = [_order(c) for c in cols]
+        if ascending is not None:
+            flags = ([ascending] * len(orders)
+                     if isinstance(ascending, bool) else list(ascending))
+            orders = [E.SortOrder(o.child, asc, o.nulls_first)
+                      for o, asc in zip(orders, flags)]
+        return self._with(L.Sort(tuple(orders), self._plan))
+
+    orderBy = sort
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL by position (Spark's ``union``)."""
+        return self._with(L.Union(self._plan, other._plan))
+
+    unionAll = union
+
+    def unionByName(self, other: "DataFrame") -> "DataFrame":
+        reordered = other.select(*[E.Col(n) for n in self.columns])
+        return self._with(L.Union(self._plan, reordered._plan))
+
+    def join(self, other: "DataFrame", on=None,
+             how: str = "inner") -> "DataFrame":
+        """Join on column names (one copy of each join column is kept,
+        merged for right and full outer joins), on a Column condition
+        (equality conjuncts across the sides become equi-join keys, the
+        rest a residual condition) or, with ``on=None``, a cross join."""
+        how = _JOIN_ALIASES.get(how, how)
+        if how not in L.JOIN_TYPES:
+            raise ValueError(f"unsupported join type {how!r}")
+        if on is None:
+            return self.crossJoin(other)
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, (list, tuple)) and on and isinstance(on[0], str):
+            return self._join_using(other, list(on), how)
+        return self._join_on(other, on, how)
+
+    def _join_using(self, other: "DataFrame", on: List[str],
+                    how: str) -> "DataFrame":
+        keys = tuple(E.Col(n) for n in on)
+        joined = L.Join(self._plan, other._plan, how, keys, keys)
+        if how in ("left_semi", "left_anti"):
+            return self._with(joined)
+        # the right copy of join column k is named k or k#2 after the
+        # join's name dedup (Dataset.join(usingColumns) keeps one copy)
+        right_start = len(self._plan.schema.names)
+        names = list(joined.schema.names)
+        right_copy = {}
+        for n in names[right_start:]:
+            base = n[:-2] if n.endswith("#2") else n
+            if base in on:
+                right_copy[base] = n
+        keep = []
+        for i, n in enumerate(names):
+            if i >= right_start and n in right_copy.values():
+                continue
+            if i < right_start and n in on and how in ("right", "full"):
+                keep.append(E.Alias(
+                    E.Coalesce((E.Col(n), E.Col(right_copy[n]))), n))
+            else:
+                keep.append(E.Col(n))
+        return self._with(L.Project(tuple(keep), joined))
+
+    def _join_on(self, other: "DataFrame", cond: E.Expression,
+                 how: str) -> "DataFrame":
+        from spark_tpu_torch.plan.optimizer import (combine_conjuncts,
+                                                    split_conjuncts)
+
+        lnames = set(self._plan.schema.names)
+        rnames = set(other._plan.schema.names)
+        lkeys: List[E.Expression] = []
+        rkeys: List[E.Expression] = []
+        residual: List[E.Expression] = []
+        for c in split_conjuncts(cond):
+            if isinstance(c, E.Cmp) and c.op == "==":
+                lr, rr = c.left.references(), c.right.references()
+                if lr <= lnames and rr <= rnames:
+                    lkeys.append(c.left)
+                    rkeys.append(c.right)
+                    continue
+                if lr <= rnames and rr <= lnames:
+                    lkeys.append(c.right)
+                    rkeys.append(c.left)
+                    continue
+            residual.append(c)
+        res = combine_conjuncts(residual) if residual else None
+        if not lkeys and how == "inner":
+            how = "cross"
+        return self._with(L.Join(self._plan, other._plan, how,
+                                 tuple(lkeys), tuple(rkeys), res))
+
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        return self._with(L.Join(self._plan, other._plan, "cross", (), ()))
+
+    def groupBy(self, *cols: ColumnOrName) -> "GroupedData":
+        return GroupedData(self, tuple(_c(c) for c in cols))
+
+    groupby = groupBy
+
+    def rollup(self, *cols: ColumnOrName) -> "GroupedData":
+        """Hierarchical subtotals (reference: Dataset.rollup)."""
+        return GroupedData(self, tuple(_c(c) for c in cols), "rollup")
+
+    def cube(self, *cols: ColumnOrName) -> "GroupedData":
+        """Every subtotal combination (reference: Dataset.cube)."""
+        return GroupedData(self, tuple(_c(c) for c in cols), "cube")
+
+    def agg(self, *exprs: E.Expression) -> "DataFrame":
+        return self.groupBy().agg(*exprs)
+
+    def __getitem__(self, item):
+        if isinstance(item, str):
+            return E.Col(item)
+        if isinstance(item, E.Expression):
+            return self.filter(item)
+        raise TypeError(item)
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if name in self._plan.schema:
+            return E.Col(name)
+        raise AttributeError(name)
+
+    # ---- actions -----------------------------------------------------------
+
     def _execute(self) -> Batch:
         from spark_tpu_torch.physical.planner import execute_logical
 
-        return execute_logical(self._plan, device=self._session.device)
+        return execute_logical(self._plan, device=self._session.device,
+                               conf=self._session.conf)
 
     def collect(self) -> List[Row]:
-        return [Row.from_dict(d) for d in self._execute().to_pylist()]
+        batch = self._execute()
+        names = tuple(batch.schema.names)
+        cols = batch.host_values()
+        if len(set(names)) < len(names):
+            # rows are keyed by name: of two equal names the last value
+            # wins, as in to_pylist's dicts
+            return [Row.from_dict(dict(zip(names, vals)))
+                    for vals in zip(*cols)]
+        return [Row(names, vals) for vals in zip(*cols)]
+
+    def toArrow(self):
+        from spark_tpu_torch.columnar.arrow import to_arrow
+
+        return to_arrow(self._execute())
+
+    def toPandas(self):
+        """The rows as a pandas DataFrame (imports pandas)."""
+        import pandas as pd
+
+        return pd.DataFrame(self._execute().to_pylist(),
+                            columns=self.columns)
+
+    def count(self) -> int:
+        agg = L.Aggregate((), (E.Alias(E.Count(None), "count"),), self._plan)
+        return int(self._with(agg)._execute().to_pylist()[0]["count"])
+
+    def first(self) -> Optional[Row]:
+        rows = self.limit(1).collect()
+        return rows[0] if rows else None
+
+    def head(self, n: int = 1):
+        rows = self.limit(n).collect()
+        return rows[0] if n == 1 and rows else rows
+
+    def take(self, n: int) -> List[Row]:
+        return self.limit(n).collect()
+
+    def isEmpty(self) -> bool:
+        return len(self.take(1)) == 0
+
+    def show(self, n: int = 20, truncate: bool = True) -> None:
+        rows = self.limit(n).collect()
+        names = self.columns
+        cells = [[_fmt(v, truncate) for v in r] for r in rows]
+        widths = [max([len(str(nm))] + [len(row[i]) for row in cells])
+                  for i, nm in enumerate(names)]
+        sep = "+" + "+".join("-" * w for w in widths) + "+"
+        print(sep)
+        print("|" + "|".join(str(nm).ljust(w)
+                             for nm, w in zip(names, widths)) + "|")
+        print(sep)
+        for row in cells:
+            print("|" + "|".join(v.ljust(w)
+                                 for v, w in zip(row, widths)) + "|")
+        print(sep)
+
+    @property
+    def write(self):
+        from spark_tpu_torch.io.readwriter import DataFrameWriter
+
+        return DataFrameWriter(self)
 
     def createOrReplaceTempView(self, name: str) -> None:
         self._session.catalog._register_view(name, self._plan)
+
+    # ---- later slices --------------------------------------------------------
+
+    sample = _later("sample (the random-stream decision)", "A2")
+    sampleBy = _later("sampleBy (the random-stream decision)", "A2")
+    repartition = _later("repartition", "A10")
+    coalesce = _later("coalesce", "A10")
+    cache = _later("cache", "A9")
+    persist = _later("persist", "A9")
+    unpersist = _later("unpersist", "A9")
+    checkpoint = _later("checkpoint", "A9")
+    localCheckpoint = _later("localCheckpoint", "A9")
+    na = property(_later("na (api/na_stat.py)", "A6"))
+    stat = property(_later("stat (api/na_stat.py)", "A6"))
+    dropna = _later("dropna (api/na_stat.py)", "A6")
+    fillna = _later("fillna (api/na_stat.py)", "A6")
+    replace = _later("replace (api/na_stat.py)", "A6")
+    describe = _later("describe (api/na_stat.py)", "A6")
+    summary = _later("summary (api/na_stat.py)", "A6")
+    corr = _later("corr (api/na_stat.py)", "A6")
+    cov = _later("cov (api/na_stat.py)", "A6")
+    approxQuantile = _later("approxQuantile (api/na_stat.py)", "A6")
+    crosstab = _later("crosstab (api/na_stat.py)", "A6")
+    freqItems = _later("freqItems (api/na_stat.py)", "A6")
+    rdd = property(_later("rdd (the RDD tier)", "A12"))
+    writeStream = property(_later("writeStream (streaming)", "A12"))
+    withWatermark = _later("withWatermark (streaming)", "A12")
+
+
+def _fmt(v, truncate: bool) -> str:
+    s = "NULL" if v is None else str(v)
+    if truncate and len(s) > 20:
+        s = s[:17] + "..."
+    return s
+
+
+class GroupedData:
+    """The result of groupBy/rollup/cube (reference:
+    sql/core/.../RelationalGroupedDataset.scala)."""
+
+    def __init__(self, df: DataFrame, keys: Tuple[E.Expression, ...],
+                 mode: str = "groupby"):
+        self._df = df
+        self._keys = keys
+        self._mode = mode
+
+    def agg(self, *exprs: E.Expression) -> DataFrame:
+        outs = tuple(self._keys) + tuple(exprs)
+        if self._mode == "groupby":
+            return self._df._with(
+                L.Aggregate(self._keys, outs, self._df._plan))
+        from spark_tpu_torch.plan.grouping import (cube_sets,
+                                                   grouping_sets_aggregate,
+                                                   rollup_sets)
+
+        sets = (rollup_sets(len(self._keys)) if self._mode == "rollup"
+                else cube_sets(len(self._keys)))
+        return self._df._with(grouping_sets_aggregate(
+            self._df._plan, self._keys, sets, outs))
+
+    def _simple(self, fn, cols: Tuple[str, ...]) -> DataFrame:
+        key_names = {k.name for k in self._keys}
+        names = cols or tuple(
+            n for n in self._df.columns
+            if self._df.schema.field(n).dtype.is_numeric
+            and n not in key_names)
+        return self.agg(*(E.Alias(fn(E.Col(n)), f"{fn.__name__.lower()}({n})")
+                          for n in names))
+
+    def sum(self, *cols: str) -> DataFrame:  # noqa: A003
+        return self._simple(E.Sum, cols)
+
+    def avg(self, *cols: str) -> DataFrame:
+        return self._simple(E.Avg, cols)
+
+    mean = avg
+
+    def min(self, *cols: str) -> DataFrame:  # noqa: A003
+        return self._simple(E.Min, cols)
+
+    def max(self, *cols: str) -> DataFrame:  # noqa: A003
+        return self._simple(E.Max, cols)
+
+    def count(self) -> DataFrame:
+        return self.agg(E.Alias(E.Count(None), "count"))
+
+    def applyInPandasWithState(self, *args, **kwargs):
+        raise NotImplementedError(
+            "not ported yet: applyInPandasWithState (streaming, ROADMAP "
+            "A12)")

@@ -1,0 +1,534 @@
+"""Column functions, the ``pyspark.sql.functions`` surface (the port of
+``spark_tpu/api/functions.py``; reference: sql/core/.../functions.scala).
+Columns are expression trees: every function builds an
+``expr/expressions.py`` node, and the functions the SQL parser composes
+out of other nodes come from ``sql/functions.py``.
+
+The array, map, higher-order, collect and explode builders, the
+streaming windows and UDFs raise ``NotImplementedError("not ported yet:
+...")``, as the parser does (ROADMAP A2 and the later tiers).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Union
+
+from spark_tpu_torch import types as T
+from spark_tpu_torch.expr import expressions as E
+from spark_tpu_torch.sql import functions as SF
+
+Column = E.Expression
+ColumnOrName = Union[Column, str]
+
+
+def _c(c: ColumnOrName) -> Column:
+    return c if isinstance(c, E.Expression) else E.Col(c)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"not ported yet: {what} (ROADMAP queue A)")
+
+
+def col(name: str) -> Column:
+    return E.Col(name)
+
+
+column = col
+
+
+def lit(value: Any) -> Column:
+    if isinstance(value, E.Expression):
+        return value
+    return E.Literal(value)
+
+
+def expr(sql_text: str) -> Column:
+    """Parse a SQL expression string (reference: functions.expr)."""
+    from spark_tpu_torch.sql.parser import parse_expression
+
+    return parse_expression(sql_text)
+
+
+# ---- window functions ------------------------------------------------------
+
+
+def row_number() -> Column:
+    return E.RowNumber()
+
+
+def rank() -> Column:
+    return E.Rank(dense=False)
+
+
+def dense_rank() -> Column:
+    return E.Rank(dense=True)
+
+
+def ntile(n: int) -> Column:
+    return E.NTile(n)
+
+
+def lag(c: ColumnOrName, offset: int = 1, default: Any = None) -> Column:
+    d = None if default is None else lit(default)
+    return E.LagLead(_c(c), offset, d, lead=False)
+
+
+def lead(c: ColumnOrName, offset: int = 1, default: Any = None) -> Column:
+    d = None if default is None else lit(default)
+    return E.LagLead(_c(c), offset, d, lead=True)
+
+
+# ---- aggregates ------------------------------------------------------------
+
+
+def sum(c: ColumnOrName) -> Column:  # noqa: A001
+    return E.Sum(_c(c))
+
+
+def avg(c: ColumnOrName) -> Column:
+    return E.Avg(_c(c))
+
+
+mean = avg
+
+
+def count(c: ColumnOrName = "*") -> Column:
+    if isinstance(c, str) and c == "*":
+        return E.Count(None)
+    return E.Count(_c(c))
+
+
+def countDistinct(c: ColumnOrName) -> Column:
+    return E.Count(_c(c), distinct=True)
+
+
+count_distinct = countDistinct
+
+
+def sumDistinct(c: ColumnOrName) -> Column:
+    return E.Sum(_c(c), distinct=True)
+
+
+sum_distinct = sumDistinct
+
+
+def avgDistinct(c: ColumnOrName) -> Column:
+    return E.Avg(_c(c), distinct=True)
+
+
+avg_distinct = avgDistinct
+
+
+def min(c: ColumnOrName) -> Column:  # noqa: A001
+    return E.Min(_c(c))
+
+
+def max(c: ColumnOrName) -> Column:  # noqa: A001
+    return E.Max(_c(c))
+
+
+def first(c: ColumnOrName, ignorenulls: bool = False) -> Column:
+    return E.First(_c(c), ignorenulls)
+
+
+def stddev(c: ColumnOrName) -> Column:
+    return E.StddevVariance("stddev_samp", _c(c))
+
+
+stddev_samp = stddev
+
+
+def stddev_pop(c: ColumnOrName) -> Column:
+    return E.StddevVariance("stddev_pop", _c(c))
+
+
+def variance(c: ColumnOrName) -> Column:
+    return E.StddevVariance("var_samp", _c(c))
+
+
+var_samp = variance
+
+
+def var_pop(c: ColumnOrName) -> Column:
+    return E.StddevVariance("var_pop", _c(c))
+
+
+def approx_count_distinct(c: ColumnOrName, rsd: float = 0.05) -> Column:
+    """Distinct count, computed exactly (a valid estimator with rsd 0),
+    as the reference does."""
+    return E.Count(_c(c), distinct=True)
+
+
+def percentile_approx(c: ColumnOrName, percentage: float,
+                      accuracy: int = 10000) -> Column:
+    """The element at the percentile, computed exactly (``accuracy`` is
+    accepted and unused, as in the reference)."""
+    return E.Percentile(_c(c), float(percentage), "percentile_approx")
+
+
+approx_percentile = percentile_approx
+
+
+def percentile(c: ColumnOrName, percentage: float) -> Column:
+    return E.Percentile(_c(c), float(percentage), "percentile")
+
+
+def median(c: ColumnOrName) -> Column:
+    return E.Percentile(_c(c), 0.5, "median")
+
+
+# ---- scalar ----------------------------------------------------------------
+
+
+def abs(c: ColumnOrName) -> Column:  # noqa: A001
+    return E.Abs(_c(c))
+
+
+def coalesce(*cols: ColumnOrName) -> Column:
+    return E.Coalesce(tuple(_c(c) for c in cols))
+
+
+def isnull(c: ColumnOrName) -> Column:
+    return E.IsNull(_c(c))
+
+
+def isnotnull(c: ColumnOrName) -> Column:
+    return E.Not(E.IsNull(_c(c)))
+
+
+def when(condition: Column, value: Any) -> E.Case:
+    """CASE builder; chain ``.when(...).otherwise(...)`` (a chain with
+    no ``otherwise`` is NULL for unmatched rows)."""
+    return E.Case(((condition, lit(value)),), None)
+
+
+def floor(c: ColumnOrName) -> Column:
+    return E.UnaryMath("floor", _c(c))
+
+
+def ceil(c: ColumnOrName) -> Column:
+    return E.UnaryMath("ceil", _c(c))
+
+
+def sqrt(c: ColumnOrName) -> Column:
+    return E.UnaryMath("sqrt", _c(c))
+
+
+def exp(c: ColumnOrName) -> Column:
+    return E.UnaryMath("exp", _c(c))
+
+
+def log(c: ColumnOrName) -> Column:
+    return E.UnaryMath("ln", _c(c))
+
+
+ln = log
+
+
+def log10(c: ColumnOrName) -> Column:
+    return E.UnaryMath("log10", _c(c))
+
+
+def signum(c: ColumnOrName) -> Column:
+    return E.UnaryMath("sign", _c(c))
+
+
+def round(c: ColumnOrName, scale: int = 0) -> Column:  # noqa: A001
+    return E.Round(_c(c), scale)
+
+
+def pow(a: ColumnOrName, b) -> Column:  # noqa: A001
+    return E.Pow(_c(a), lit(b))
+
+
+power = pow
+
+
+def greatest(*cols: ColumnOrName) -> Column:
+    """Largest non-null value (nulls are skipped, not propagated)."""
+    return SF.greatest(*(_c(c) for c in cols))
+
+
+def least(*cols: ColumnOrName) -> Column:
+    return SF.least(*(_c(c) for c in cols))
+
+
+def ifnull(a: ColumnOrName, b: ColumnOrName) -> Column:
+    return SF.ifnull(_c(a), _c(b))
+
+
+nvl = ifnull
+
+
+def nvl2(a: ColumnOrName, b: ColumnOrName, c: ColumnOrName) -> Column:
+    return SF.nvl2(_c(a), _c(b), _c(c))
+
+
+def nullif(a: ColumnOrName, b: ColumnOrName) -> Column:
+    return SF.nullif(_c(a), _c(b))
+
+
+def negative(c: ColumnOrName) -> Column:
+    return E.Neg(_c(c))
+
+
+def positive(c: ColumnOrName) -> Column:
+    return _c(c)
+
+
+def log2(c: ColumnOrName) -> Column:
+    return SF.log2(_c(c))
+
+
+def degrees(c: ColumnOrName) -> Column:
+    return SF.degrees(_c(c))
+
+
+def radians(c: ColumnOrName) -> Column:
+    return SF.radians(_c(c))
+
+
+def pmod(a: ColumnOrName, b) -> Column:
+    return SF.pmod(_c(a), b)
+
+
+# ---- string ----------------------------------------------------------------
+
+
+def substring(c: ColumnOrName, pos: int, length: int) -> Column:
+    return E.Substring(_c(c), pos, length)
+
+
+def startswith(c: ColumnOrName, prefix: str) -> Column:
+    return E.StringPredicate("startswith", _c(c), prefix)
+
+
+def endswith(c: ColumnOrName, suffix: str) -> Column:
+    return E.StringPredicate("endswith", _c(c), suffix)
+
+
+def contains(c: ColumnOrName, needle: str) -> Column:
+    return E.StringPredicate("contains", _c(c), needle)
+
+
+def like(c: ColumnOrName, pattern: str) -> Column:
+    return E.Like(_c(c), pattern)
+
+
+def upper(c: ColumnOrName) -> Column:
+    return E.StringTransform("upper", _c(c))
+
+
+def lower(c: ColumnOrName) -> Column:
+    return E.StringTransform("lower", _c(c))
+
+
+def trim(c: ColumnOrName) -> Column:
+    return E.StringTransform("trim", _c(c))
+
+
+def ltrim(c: ColumnOrName) -> Column:
+    return E.StringTransform("ltrim", _c(c))
+
+
+def rtrim(c: ColumnOrName) -> Column:
+    return E.StringTransform("rtrim", _c(c))
+
+
+def initcap(c: ColumnOrName) -> Column:
+    return SF.initcap(_c(c))
+
+
+def reverse(c: ColumnOrName) -> Column:
+    return SF.reverse(_c(c))
+
+
+def repeat(c: ColumnOrName, n: int) -> Column:
+    return E.StringTransform("repeat", _c(c), (int(n),))
+
+
+def lpad(c: ColumnOrName, length: int, pad: str = " ") -> Column:
+    return E.StringTransform("lpad", _c(c), (int(length), str(pad)))
+
+
+def rpad(c: ColumnOrName, length: int, pad: str = " ") -> Column:
+    return E.StringTransform("rpad", _c(c), (int(length), str(pad)))
+
+
+def translate(c: ColumnOrName, matching: str, replace: str) -> Column:
+    return E.StringTransform("translate", _c(c), (matching, replace))
+
+
+def length(c: ColumnOrName) -> Column:
+    return E.StrLength(_c(c))
+
+
+def regexp_extract(c: ColumnOrName, pattern: str, idx: int = 1) -> Column:
+    return E.RegexpExtract(_c(c), pattern, idx)
+
+
+def regexp_replace(c: ColumnOrName, pattern: str,
+                   replacement: str) -> Column:
+    return E.RegexpReplace(_c(c), pattern, replacement)
+
+
+def replace(c: ColumnOrName, find: str, replacement: str) -> Column:
+    """Literal substring replacement (reference: StringReplace): the
+    pattern is escaped, and so is the one character a replacement
+    template reads specially, the backslash."""
+    return E.RegexpReplace(_c(c), re.escape(str(find)),
+                           str(replacement).replace("\\", "\\\\"))
+
+
+def rlike(c: ColumnOrName, pattern: str) -> Column:
+    return E.RegexpLike(_c(c), pattern)
+
+
+def concat(*cols: ColumnOrName) -> Column:
+    return E.Concat(tuple(_c(c) for c in cols))
+
+
+def concat_ws(sep: str, *cols: ColumnOrName) -> Column:
+    return SF.concat_ws(sep, *(_c(c) for c in cols))
+
+
+# ---- temporal --------------------------------------------------------------
+
+
+def year(c: ColumnOrName) -> Column:
+    return E.ExtractDatePart("year", _c(c))
+
+
+def month(c: ColumnOrName) -> Column:
+    return E.ExtractDatePart("month", _c(c))
+
+
+def dayofmonth(c: ColumnOrName) -> Column:
+    return E.ExtractDatePart("day", _c(c))
+
+
+def add_months(c: ColumnOrName, months: int) -> Column:
+    return E.AddMonths(_c(c), months)
+
+
+def date_add(c: ColumnOrName, days: int) -> Column:
+    return E.Arith("+", _c(c), E.Literal(days))
+
+
+def date_sub(c: ColumnOrName, days: int) -> Column:
+    return E.Arith("-", _c(c), E.Literal(days))
+
+
+def datediff(end: ColumnOrName, start: ColumnOrName) -> Column:
+    return E.Arith("-", _c(end), _c(start))
+
+
+def to_date(c: ColumnOrName) -> Column:
+    return E.Cast(_c(c), T.DATE)
+
+
+def date_trunc(unit: str, c: ColumnOrName) -> Column:
+    return E.DateTrunc(unit.lower(), _c(c))
+
+
+def last_day(c: ColumnOrName) -> Column:
+    return E.LastDay(_c(c))
+
+
+def quarter(c: ColumnOrName) -> Column:
+    return SF.quarter(_c(c))
+
+
+def dayofweek(c: ColumnOrName) -> Column:
+    """1 = Sunday .. 7 = Saturday."""
+    return SF.dayofweek(_c(c))
+
+
+def weekday(c: ColumnOrName) -> Column:
+    """0 = Monday .. 6 = Sunday."""
+    return SF.weekday(_c(c))
+
+
+def dayofyear(c: ColumnOrName) -> Column:
+    return SF.dayofyear(_c(c))
+
+
+def months_between(end: ColumnOrName, start: ColumnOrName) -> Column:
+    return SF.months_between(_c(end), _c(start))
+
+
+def current_date() -> Column:
+    return SF.current_date()
+
+
+def hour(c: ColumnOrName) -> Column:
+    return SF.hour(_c(c))
+
+
+def minute(c: ColumnOrName) -> Column:
+    return SF.minute(_c(c))
+
+
+def second(c: ColumnOrName) -> Column:
+    return SF.second(_c(c))
+
+
+# ---- ordering --------------------------------------------------------------
+
+
+def asc(c: ColumnOrName) -> Column:
+    return E.SortOrder(_c(c), ascending=True)
+
+
+def desc(c: ColumnOrName) -> Column:
+    return E.SortOrder(_c(c), ascending=False)
+
+
+def asc_nulls_last(c: ColumnOrName) -> Column:
+    return E.SortOrder(_c(c), ascending=True, nulls_first=False)
+
+
+def desc_nulls_first(c: ColumnOrName) -> Column:
+    return E.SortOrder(_c(c), ascending=False, nulls_first=True)
+
+
+# ---- not ported yet ----------------------------------------------------------
+
+
+def _refuse(name: str, what: str):
+    def builder(*args, **kwargs):
+        raise _not_ported(f"{what} {name}()")
+
+    builder.__name__ = name
+    builder.__doc__ = f"Not ported yet: raises NotImplementedError ({what})."
+    return builder
+
+
+# the reference's builders whose nodes the port has not ported: list,
+# map and struct columns, the higher-order and collect functions and
+# generators (ROADMAP A2), the streaming windows and UDFs
+array = _refuse("array", "array function")
+split = _refuse("split", "array function")
+size = _refuse("size", "array function")
+element_at = _refuse("element_at", "array function")
+array_contains = _refuse("array_contains", "array function")
+create_map = _refuse("create_map", "map function")
+map_from_arrays = _refuse("map_from_arrays", "map function")
+map_keys = _refuse("map_keys", "map function")
+map_values = _refuse("map_values", "map function")
+map_contains_key = _refuse("map_contains_key", "map function")
+transform = _refuse("transform", "higher-order function")
+filter = _refuse("filter", "higher-order function")  # noqa: A001
+exists = _refuse("exists", "higher-order function")
+forall = _refuse("forall", "higher-order function")
+aggregate = _refuse("aggregate", "higher-order function")
+collect_list = _refuse("collect_list", "aggregate")
+collect_set = _refuse("collect_set", "aggregate")
+array_agg = _refuse("array_agg", "aggregate")
+explode = _refuse("explode", "generator")
+posexplode = _refuse("posexplode", "generator")
+window = _refuse("window", "streaming window")
+session_window = _refuse("session_window", "streaming window")
+udf = _refuse("udf", "user-defined function")
+arrow_udf = _refuse("arrow_udf", "user-defined function")

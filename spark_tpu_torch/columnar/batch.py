@@ -16,7 +16,6 @@ Every tensor of a batch lies on one device.
 
 from __future__ import annotations
 
-import datetime
 import decimal
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -84,45 +83,52 @@ class Batch:
 
     def to_pylist(self) -> list:
         """Materialize live rows as a list of dicts (decoding string
-        dictionaries, dates and decimals). For tests and ``collect()``."""
-        mask, host_cols = self.fetch_host()
-        cols = []
-        for f, (cdata, cvalid) in zip(self.schema.fields, host_cols):
-            data = cdata[mask]
-            valid = (np.ones(len(data), dtype=bool) if cvalid is None
-                     else cvalid[mask])
-            if isinstance(f.dtype, StringType):
-                dictionary = f.dictionary or ()
-                vals = [
-                    dictionary[c] if (v and 0 <= c < len(dictionary)) else None
-                    for c, v in zip(data, valid)
-                ]
-            elif isinstance(f.dtype, DateType):
-                epoch = datetime.date(1970, 1, 1)
-                vals = [
-                    epoch + datetime.timedelta(days=int(d)) if v else None
-                    for d, v in zip(data, valid)
-                ]
-            elif isinstance(f.dtype, TimestampType):
-                epoch = datetime.datetime(1970, 1, 1)
-                vals = [
-                    epoch + datetime.timedelta(microseconds=int(d)) if v
-                    else None
-                    for d, v in zip(data, valid)
-                ]
-            elif isinstance(f.dtype, DecimalType):
-                s = f.dtype.scale
-                vals = [
-                    decimal.Decimal(int(d)).scaleb(-s) if v else None
-                    for d, v in zip(data, valid)
-                ]
-            else:
-                vals = [d.item() if v else None for d, v in zip(data, valid)]
-            cols.append(vals)
+        dictionaries, dates, timestamps and decimals); ``collect()``
+        builds its Rows from ``host_values`` directly."""
         names = self.schema.names
-        n_rows = len(cols[0]) if cols else 0
-        return [{name: col[i] for name, col in zip(names, cols)}
-                for i in range(n_rows)]
+        return [dict(zip(names, vals)) for vals in zip(*self.host_values())]
+
+    def host_values(self) -> list:
+        """The live rows' values, one list of Python values per column
+        (None where null): strings, dates, timestamps and decimals
+        decoded a whole column at a time."""
+        mask, host_cols = self.fetch_host()
+        return [_decode(f, cdata[mask],
+                        None if cvalid is None else cvalid[mask])
+                for f, (cdata, cvalid) in zip(self.schema.fields, host_cols)]
+
+
+def _decode(f, data: np.ndarray, valid: Optional[np.ndarray]) -> list:
+    """One column's live values as Python objects: ``str`` (a code
+    outside the dictionary reads as None), ``datetime.date``,
+    ``datetime.datetime``, ``decimal.Decimal`` at the column's scale, or
+    the numpy values' own Python types."""
+    if isinstance(f.dtype, StringType):
+        dictionary = np.array(list(f.dictionary or ()) + [None],
+                              dtype=object)
+        codes = data.astype(np.int64)
+        codes[(codes < 0) | (codes >= len(dictionary) - 1)] = \
+            len(dictionary) - 1
+        vals = dictionary[codes]
+    elif isinstance(f.dtype, DateType):
+        vals = data.astype("datetime64[D]").astype(object)
+    elif isinstance(f.dtype, TimestampType):
+        vals = data.astype("datetime64[us]").astype(object)
+    elif isinstance(f.dtype, DecimalType):
+        neg_scale = -f.dtype.scale
+        return _with_nulls([decimal.Decimal(d).scaleb(neg_scale)
+                            for d in data.tolist()], valid)
+    else:
+        return _with_nulls(data.tolist(), valid)
+    return _with_nulls(vals.tolist(), valid)
+
+
+def _with_nulls(vals: list, valid: Optional[np.ndarray]) -> list:
+    if valid is None or valid.all():
+        return vals
+    for i in np.flatnonzero(~valid).tolist():
+        vals[i] = None
+    return vals
 
 
 def round_capacity(n: int, multiple: int = 1024) -> int:

@@ -55,6 +55,114 @@ class Expression:
             refs |= c.references()
         return refs
 
+    # -- the Column DSL (pyspark's Column, reference:
+    # ``spark_tpu/expr/expressions.py``): operators build nodes --------
+
+    def __add__(self, other):
+        return Arith("+", self, lit_or_expr(other))
+
+    def __radd__(self, other):
+        return Arith("+", lit_or_expr(other), self)
+
+    def __sub__(self, other):
+        return Arith("-", self, lit_or_expr(other))
+
+    def __rsub__(self, other):
+        return Arith("-", lit_or_expr(other), self)
+
+    def __mul__(self, other):
+        return Arith("*", self, lit_or_expr(other))
+
+    def __rmul__(self, other):
+        return Arith("*", lit_or_expr(other), self)
+
+    def __truediv__(self, other):
+        return Arith("/", self, lit_or_expr(other))
+
+    def __mod__(self, other):
+        return Arith("%", self, lit_or_expr(other))
+
+    def __neg__(self):
+        return Neg(self)
+
+    def __eq__(self, other):  # type: ignore[override]
+        return Cmp("==", self, lit_or_expr(other))
+
+    def __ne__(self, other):  # type: ignore[override]
+        return Cmp("!=", self, lit_or_expr(other))
+
+    def __lt__(self, other):
+        return Cmp("<", self, lit_or_expr(other))
+
+    def __le__(self, other):
+        return Cmp("<=", self, lit_or_expr(other))
+
+    def __gt__(self, other):
+        return Cmp(">", self, lit_or_expr(other))
+
+    def __ge__(self, other):
+        return Cmp(">=", self, lit_or_expr(other))
+
+    def __and__(self, other):
+        return And(self, lit_or_expr(other))
+
+    def __or__(self, other):
+        return Or(self, lit_or_expr(other))
+
+    def __invert__(self):
+        return Not(self)
+
+    def __hash__(self):
+        return object.__hash__(self)
+
+    def __bool__(self):
+        # __eq__ builds a Cmp, so the truth value of an Expression is
+        # always a bug: structural comparison goes through expr_key()
+        raise TypeError(
+            "Expression has no truth value; use expr_key()/semantic_eq() "
+            "for comparison, is_null()/is_not_null() for null tests")
+
+    def alias(self, name: str) -> "Alias":
+        return Alias(self, name)
+
+    def cast(self, dtype: DataType) -> "Cast":
+        return Cast(self, dtype)
+
+    def is_null(self) -> "IsNull":
+        return IsNull(self)
+
+    def is_not_null(self) -> "Not":
+        return Not(IsNull(self))
+
+    def isin(self, *values) -> "In":
+        if len(values) == 1 and isinstance(values[0], (list, tuple, set)):
+            values = tuple(values[0])
+        return In(self, tuple(values))
+
+    def between(self, lo, hi) -> "And":
+        return And(Cmp(">=", self, lit_or_expr(lo)),
+                   Cmp("<=", self, lit_or_expr(hi)))
+
+    def like(self, pattern: str) -> "Like":
+        return Like(self, pattern)
+
+    def asc(self) -> "SortOrder":
+        return SortOrder(self, ascending=True)
+
+    def desc(self) -> "SortOrder":
+        return SortOrder(self, ascending=False)
+
+    def semantic_eq(self, other: "Expression") -> bool:
+        return expr_key(self) == expr_key(other)
+
+    def over(self, window) -> "Expression":
+        """Attach a window spec (pyspark's Column.over)."""
+        return window._attach(self)
+
+
+def lit_or_expr(v: Any) -> Expression:
+    return v if isinstance(v, Expression) else Literal(v)
+
 
 def _key_part(v):
     """Key for one field value; recurses into nested tuples (e.g.
@@ -399,6 +507,14 @@ class Case(Expression):
 
     branches: Tuple[Tuple[Expression, Expression], ...]
     else_value: Optional[Expression]
+
+    def when(self, condition: Expression, value: Any) -> "Case":
+        """Another WHEN branch (pyspark's ``F.when(...).when(...)``)."""
+        return Case(self.branches + ((condition, lit_or_expr(value)),),
+                    self.else_value)
+
+    def otherwise(self, value: Any) -> "Case":
+        return Case(self.branches, lit_or_expr(value))
 
     def children(self):
         out = []

@@ -2,8 +2,8 @@
 
 Planning mirrors ``spark_tpu/physical/planner.py:plan_physical`` for the
 operators of the single-device aggregate, join and window paths: one
-physical choice per logical operator. A ``Range`` is made on the device
-the caller names (the session's). The reference compiles maximal
+physical choice per logical operator. A ``Range`` is made, and a file
+scan read, on the device the caller names (the session's). The reference compiles maximal
 traceable subtrees into one XLA program; the port evaluates the operator
 tree recursively, eagerly, over torch tensors. Where a subtree holds a
 blocking operator (a join, a sorted aggregate), each input of every
@@ -26,13 +26,17 @@ from spark_tpu_torch.plan import logical as L
 def plan_physical(plan: L.LogicalPlan,
                   device=DEFAULT_DEVICE) -> P.PhysicalPlan:
     """The physical plan of ``plan``; ``device`` is where a ``Range``
-    makes its rows (relations carry their own)."""
+    makes its rows and a file scan puts its batch (relations carry their
+    own)."""
 
     def go(p: L.LogicalPlan) -> P.PhysicalPlan:
         return plan_physical(p, device)
 
     if isinstance(plan, L.Relation):
         return P.BatchScanExec(plan.batch)
+    if isinstance(plan, L.UnresolvedScan):
+        return P.BatchScanExec(plan.source.read(plan.columns, plan.filters,
+                                                device))
     if isinstance(plan, L.Range):
         return P.RangeExec(plan.start, plan.end, plan.step, plan.col_name,
                            device)
@@ -103,8 +107,10 @@ def execute(plan: P.PhysicalPlan) -> Batch:
 
 
 def execute_logical(plan: L.LogicalPlan, optimize: bool = True,
-                    device=DEFAULT_DEVICE) -> Batch:
+                    device=DEFAULT_DEVICE, conf=None) -> Batch:
+    """Optimize ``plan`` under ``conf`` (the session's settings; None
+    takes every default) and run it on ``device``."""
     from spark_tpu_torch.plan.optimizer import optimize as opt
 
-    lp = opt(plan) if optimize else plan
+    lp = opt(plan, conf) if optimize else plan
     return execute(plan_physical(lp, device))

@@ -1,12 +1,14 @@
 """Cost-based join reordering.
 
-The port of ``spark_tpu/plan/join_reorder.py`` for in-memory relations.
+The port of ``spark_tpu/plan/join_reorder.py``.
 Analogue of the reference's CostBasedJoinReorder (reference:
 sql/catalyst/.../optimizer/CostBasedJoinReorder.scala:1 — a DP over join
 orders driven by ANALYZE-collected statistics) and the size-estimation
 side of JoinSelectionHelper. There are no persisted statistics; the
-estimates come from the relations themselves (batch capacities, distinct
-key counts on the device), and a greedy pass builds a left-deep order
+estimates come from the relations themselves (batch capacities and
+distinct key counts on the device; for file scans, Parquet metadata and
+pushed-filter counts through ``FileSource.count_rows`` and distinct
+counts of the file columns), and a greedy pass builds a left-deep order
 that keeps intermediate results small. Greedy-smallest-next rather than
 full DP: TPC-H-class plans have <=8 relations and star/snowflake shapes
 where greedy and DP agree.
@@ -49,12 +51,16 @@ def _filter_selectivity(cond: E.Expression) -> float:
 
 
 def estimate_rows(plan: L.LogicalPlan) -> float:
-    """Output cardinality estimate. Exact at leaves (batch capacities),
-    heuristic above them (reference: statsEstimation/
+    """Output cardinality estimate. Exact at leaves (batch capacities,
+    file metadata and pushed-filter counts), heuristic above them (reference: statsEstimation/
     {SizeInBytesOnlyStatsPlanVisitor,FilterEstimation,
     JoinEstimation}.scala)."""
     if isinstance(plan, L.Relation):
         return float(plan.batch.capacity)
+    if isinstance(plan, L.UnresolvedScan):
+        # exact: file metadata, or a memoized filtered count when
+        # predicates were pushed into the scan
+        return float(plan.source.count_rows(plan.filters))
     if isinstance(plan, L.Range):
         return float(plan.num_rows)
     if isinstance(plan, L.Filter):
@@ -129,9 +135,25 @@ def _atom_ndv(atom: L.LogicalPlan, expr: E.Expression) -> Optional[float]:
             return None
         data = node.batch.data.columns[node.batch.schema.index(name)].data
         return float(torch.unique(data).numel())  # host sync
+    if isinstance(node, L.UnresolvedScan):
+        return float(_scan_ndv(node.source, name))
     if isinstance(node, L.Range):
         return float(node.num_rows)
     return None
+
+
+def _scan_ndv(source, column: str) -> int:
+    """Distinct count of a file column, over every row of the files:
+    one projected read per (source, column), memoized on the source
+    until its files change."""
+    ds = source._open()  # first: a rewrite clears the memo
+    cache = source._ndv_cache
+    if column not in cache:
+        import pyarrow.compute as pc
+
+        tbl = ds.to_table(columns=[column])
+        cache[column] = int(pc.count_distinct(tbl.column(column)).as_py())
+    return cache[column]
 
 
 # ---- cluster flattening -----------------------------------------------------

@@ -1,5 +1,6 @@
 """Logical plans, trimmed to the nodes the single-device aggregate,
-join, subquery and window slices plan: relations, ranges, projections,
+join, subquery, window and file-scan slices plan: relations, file scans
+with pushed projections and predicates, ranges, projections,
 filters, aggregates, the grouping-sets ``Expand``, windows, sorts,
 limits, DISTINCT, subquery aliases, joins and unions.
 
@@ -89,6 +90,14 @@ class LogicalPlan:
         return self.tree_string()
 
 
+def collect_nodes(plan: LogicalPlan, cls) -> list:
+    """All nodes of type ``cls`` in the tree, in pre-order."""
+    out = [plan] if isinstance(plan, cls) else []
+    for c in plan.children():
+        out += collect_nodes(c, cls)
+    return out
+
+
 def _transform_value(v, fn):
     if isinstance(v, E.Expression):
         return E.transform_expr(v, fn)
@@ -145,6 +154,36 @@ class Range(LogicalPlan):
 
     def node_string(self):
         return f"Range({self.start}, {self.end}, {self.step})"
+
+
+@dataclass(eq=False, frozen=True)
+class UnresolvedScan(LogicalPlan):
+    """A file scan with pushed-down projection and predicates (the DSv2
+    Scan with SupportsPushDownRequiredColumns/Filters, reference:
+    connector/read/SupportsPushDown*.java; physical peer
+    FileSourceScanExec). ``columns=None`` means all; ``filters`` are
+    exact (the source prunes files and row groups and filters rows by
+    them)."""
+
+    source: Any  # io.datasource.FileSource
+    options: Tuple[Tuple[str, str], ...] = ()
+    columns: Optional[Tuple[str, ...]] = None
+    filters: Tuple[E.Expression, ...] = ()
+
+    @property
+    def schema(self) -> Schema:
+        full = self.source.schema
+        if self.columns is None:
+            return full
+        return Schema(tuple(full.field(n) for n in self.columns))
+
+    def node_string(self):
+        parts = [str(self.source)]
+        if self.columns is not None:
+            parts.append(f"cols={list(self.columns)}")
+        if self.filters:
+            parts.append(f"pushed=[{', '.join(map(str, self.filters))}]")
+        return f"Scan({', '.join(parts)})"
 
 
 def range_rows(start: int, end: int, step: int) -> int:
@@ -415,12 +454,15 @@ def join_schema(how: str, left: Schema, right: Schema) -> Schema:
                         for f, n in zip(lf + rf, names)))
 
 
+JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
+              "cross")
+
+
 @dataclass(eq=False, frozen=True)
 class Join(LogicalPlan):
     left: LogicalPlan
     right: LogicalPlan
-    # inner, left, right, full, left_semi, left_anti or cross
-    how: str
+    how: str  # one of JOIN_TYPES
     # Equi-join keys (left_keys[i] == right_keys[i]); extra non-equi
     # predicates go to ``condition`` and are applied post-match.
     left_keys: Tuple[E.Expression, ...]

@@ -7,18 +7,21 @@ sides too), equi-join key extraction from WHERE and ON conditions,
 factoring of common OR conjuncts, column pruning (windows, unions and
 the grouping-sets Expand included), project collapsing,
 constant folding (date and month arithmetic included), pruning of
-always-true filters, and cost-based join reordering
-(``plan/join_reorder.py``). The rule-executor loop mirrors
-RuleExecutor.scala (fixed-point batches).
+always-true filters, pushdown of predicates and columns into file
+scans, cost-based join reordering (``plan/join_reorder.py``) and runtime
+semi-join filters, each of the last two under its session setting. The
+rule-executor loop mirrors RuleExecutor.scala (fixed-point batches).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
+from spark_tpu_torch import conf as CF
 from spark_tpu_torch.expr import expressions as E
+from spark_tpu_torch.io.datasource import translate_filters
 from spark_tpu_torch.plan import logical as L
 
 
@@ -182,6 +185,18 @@ def push_down_predicates(plan: L.LogicalPlan) -> L.LogicalPlan:
         child = node.child
         if isinstance(child, L.Filter):
             return L.Filter(E.And(child.condition, node.condition), child.child)
+        if isinstance(child, L.UnresolvedScan):
+            # translatable conjuncts go into the scan (file and row-group
+            # pruning and exact row filtering at the source; reference:
+            # FileSourceStrategy, V2ScanRelationPushDown); the rest stays
+            pushed, residual = translate_filters(
+                split_conjuncts(node.condition))
+            if pushed:
+                new_scan = dataclasses.replace(
+                    child, filters=child.filters + tuple(pushed))
+                if residual:
+                    return L.Filter(combine_conjuncts(residual), new_scan)
+                return new_scan
         if isinstance(child, L.Project):
             has_agg = any(E.contains_aggregate(e) for e in child.exprs)
             if not has_agg:
@@ -361,11 +376,21 @@ def constant_folding(plan: L.LogicalPlan) -> L.LogicalPlan:
 
 
 def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Top-down required-column analysis; inserts narrow Projects above
-    leaves so scans read only what is needed (reference: Optimizer.scala
-    ColumnPruning)."""
+    """Top-down required-column analysis; narrows file scans to the
+    columns needed and inserts narrow Projects above the other leaves
+    (reference: Optimizer.scala ColumnPruning; the Parquet column
+    projection of FileSourceStrategy's readDataColumns)."""
 
     def prune(node: L.LogicalPlan, required: set) -> L.LogicalPlan:
+        if isinstance(node, L.UnresolvedScan):
+            # projection pushdown: the scan reads only what the query
+            # needs (pushed filters are evaluated by the source whatever
+            # the projection)
+            names = node.schema.names
+            keep = tuple(n for n in names if n in required)
+            if 0 < len(keep) < len(names):
+                return dataclasses.replace(node, columns=keep)
+            return node
         if isinstance(node, (L.Relation, L.Range)):
             names = node.schema.names
             keep = [n for n in names if n in required]
@@ -489,14 +514,85 @@ _FIXED_POINT_BATCH: Tuple[Rule, ...] = (
 MAX_ITERATIONS = 20  # reference: RuleExecutor FixedPoint(100); ours converge fast
 
 
-def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
-    """Run rule batches to fixpoint, reorder inner-join clusters by cost,
-    then one column-pruning pass (reference: RuleExecutor.execute,
-    rules/RuleExecutor.scala). Join reordering always runs, as under the
-    reference's default settings. Runtime filters (off by default in the
-    reference) and session-injected rules are not ported yet."""
+#: the runtime-filter keys, registered where they are read, as in the
+#: reference (``spark_tpu/plan/optimizer.py:591-603``)
+RUNTIME_FILTER_ENABLED = CF.register(
+    "spark.tpu.runtimeFilter.semiJoinReduction", False,
+    "Inject an exact semi-join filter on the big side of an inner "
+    "equi-join when the other side is filtered (InjectRuntimeFilter."
+    "scala:36, with exact membership through the sorted join index in "
+    "place of a Bloom filter). Off by default, as in the reference.", bool)
+RUNTIME_FILTER_MIN_ROWS = CF.register(
+    "spark.tpu.runtimeFilter.minRows", 1 << 18,
+    "Only semi-filter scan sides at least this large.", int)
+
+
+def _side_scan(node: L.LogicalPlan):
+    scans = L.collect_nodes(node, L.UnresolvedScan)
+    return scans[0] if len(scans) == 1 else None
+
+
+def _has_selective_filter(node: L.LogicalPlan) -> bool:
+    if isinstance(node, L.Filter):
+        return True
+    if isinstance(node, L.UnresolvedScan):
+        return bool(node.filters)
+    return any(_has_selective_filter(c) for c in node.children())
+
+
+def inject_runtime_filters(plan: L.LogicalPlan, conf) -> L.LogicalPlan:
+    """Semi-join reduction (reference: InjectRuntimeFilter.scala:36 and
+    spark.sql.optimizer.runtimeFilter.semiJoinReduction). For an inner
+    equi-join where one side is filtered and the other is a single file
+    scan of at least ``RUNTIME_FILTER_MIN_ROWS`` rows, the large side
+    becomes ``large LEFT SEMI JOIN (the small side)`` on the join keys:
+    rows that cannot match never flow downstream."""
+    if not conf.get(RUNTIME_FILTER_ENABLED):
+        return plan
+    min_rows = conf.get(RUNTIME_FILTER_MIN_ROWS)
+
+    def big_enough(node: L.LogicalPlan) -> bool:
+        scan = _side_scan(node)
+        return (scan is not None
+                and scan.source.count_rows(scan.filters) >= min_rows)
+
+    def already_filtered(node, keys) -> bool:
+        return (isinstance(node, L.Join) and node.how == "left_semi"
+                and tuple(E.expr_key(k) for k in node.left_keys)
+                == tuple(E.expr_key(k) for k in keys))
+
+    def rule(node: L.LogicalPlan) -> L.LogicalPlan:
+        if not (isinstance(node, L.Join) and node.how == "inner"
+                and node.left_keys):
+            return node
+        left, right = node.left, node.right
+        if big_enough(right) and _has_selective_filter(left) \
+                and not already_filtered(right, node.right_keys):
+            right = L.Join(right, left, "left_semi",
+                           node.right_keys, node.left_keys)
+        elif big_enough(left) and _has_selective_filter(right) \
+                and not already_filtered(left, node.left_keys):
+            left = L.Join(left, right, "left_semi",
+                          node.left_keys, node.right_keys)
+        if left is node.left and right is node.right:
+            return node
+        return dataclasses.replace(node, left=left, right=right)
+
+    return plan.transform_up(rule)
+
+
+def optimize(plan: L.LogicalPlan,
+             conf: Optional[CF.RuntimeConf] = None) -> L.LogicalPlan:
+    """Run rule batches to fixpoint; reorder inner-join clusters by cost
+    when ``spark.sql.cbo.joinReorder.enabled``; inject runtime filters
+    when ``spark.tpu.runtimeFilter.semiJoinReduction``; then one
+    column-pruning pass (reference: RuleExecutor.execute,
+    rules/RuleExecutor.scala). ``conf`` is the session's; without one,
+    every key takes its default. Session-injected rules are not ported
+    yet."""
     from spark_tpu_torch.plan.join_reorder import reorder_joins
 
+    conf = conf if conf is not None else CF.RuntimeConf()
     for _ in range(MAX_ITERATIONS):
         new_plan = plan
         for rule in _FIXED_POINT_BATCH:
@@ -505,4 +601,7 @@ def optimize(plan: L.LogicalPlan) -> L.LogicalPlan:
             plan = new_plan
             break
         plan = new_plan
-    return prune_columns(reorder_joins(plan))
+    if conf.get(CF.CBO_JOIN_REORDER):
+        plan = reorder_joins(plan)
+    plan = inject_runtime_filters(plan, conf)
+    return prune_columns(plan)

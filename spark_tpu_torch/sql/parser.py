@@ -1335,3 +1335,41 @@ def parse_sql(query: str, catalog) -> L.LogicalPlan:
     if not (t.kind == "eof" or (t.kind == "op" and t.value == ";")):
         raise SQLParseError(f"trailing input at {t.pos}: {t.value!r}")
     return rewrite_subqueries(plan)
+
+
+def _schema_resolver(schema) -> Resolver:
+    """Names as written, or the schema's spelling of a name that matches
+    one of its columns but for case."""
+    def resolve(qual: Optional[str], name: str) -> E.Expression:
+        if schema is not None and name not in schema:
+            for n in schema.names:
+                if n.lower() == name.lower():
+                    return E.Col(n)
+        return E.Col(name)
+
+    return resolve
+
+
+def _parse_standalone(text: str, schema, alias: bool) -> E.Expression:
+    cur = _Tokens(tokenize(text))
+    e = _ExprParser(cur, _schema_resolver(schema)).parse()
+    t = cur.peek()
+    if alias and t.kind == "id" and t.upper == "AS":
+        cur.next()
+        e = E.Alias(e, cur.next().value)
+    elif alias and t.kind in ("id", "qid") and t.upper not in _RESERVED_STOP:
+        e = E.Alias(e, cur.next().value)
+    t = cur.peek()
+    if t.kind != "eof":
+        raise SQLParseError(f"trailing input at {t.pos}: {t.value!r}")
+    return e
+
+
+def parse_expression(text: str, schema=None) -> E.Expression:
+    """Parse one SQL expression (``df.filter("...")``, ``F.expr``)."""
+    return _parse_standalone(text, schema, alias=False)
+
+
+def parse_projection(text: str, schema=None) -> E.Expression:
+    """Parse ``expr [AS alias]`` (``df.selectExpr``)."""
+    return _parse_standalone(text, schema, alias=True)

@@ -1,8 +1,9 @@
 """TPC-H query texts used by the port: all 22 queries of the TPC-H
 specification (rev 2.18, default substitution parameters), copied from
 the reference package's query set (``spark_tpu/tpch/queries.py``),
-``Q1_WIDE``, and the queries of ``chip_smoke.py``'s window phase
-(``WINDOW_QUERIES``) and scalar phase (``SCALAR_QUERIES``).
+``Q1_WIDE``, the queries of ``chip_smoke.py``'s window phase
+(``WINDOW_QUERIES``) and scalar phase (``SCALAR_QUERIES``), and its io
+phase's queries written with the DataFrame API (``DATAFRAME_QUERIES``).
 
 ``Q1_WIDE`` is a q1-shaped aggregate grouped by four dictionary columns
 (3 * 2 * 7 * 4 = 168 packed groups), so HashAggregate's direct path runs
@@ -981,3 +982,84 @@ def timestamp_table(orders, seed: int):
     micros = (days.astype(np.int64) * 86_400 + secs) * 1_000_000
     return pa.table({"o_orderkey": orders.column("o_orderkey"),
                      "o_ts": pa.array(micros, pa.timestamp("us"))})
+
+
+# chip_smoke.py's io phase: queries written with the DataFrame API, each a
+# function of a session whose views hold the TPC-H tables (and, for the
+# flagship stage, ``flagship``). df_q1 and df_q3 give q1's and q3's rows.
+
+
+def _df_q1(spark):
+    import datetime
+
+    from spark_tpu_torch.api import functions as F
+
+    price = F.col("l_extendedprice")
+    disc_price = price * (1 - F.col("l_discount"))
+    return (spark.table("lineitem")
+            .filter(F.col("l_shipdate") <= datetime.date(1998, 9, 2))
+            .groupBy("l_returnflag", "l_linestatus")
+            .agg(F.sum("l_quantity").alias("sum_qty"),
+                 F.sum(price).alias("sum_base_price"),
+                 F.sum(disc_price).alias("sum_disc_price"),
+                 F.sum(disc_price * (1 + F.col("l_tax"))).alias("sum_charge"),
+                 F.avg("l_quantity").alias("avg_qty"),
+                 F.avg(price).alias("avg_price"),
+                 F.avg("l_discount").alias("avg_disc"),
+                 F.count("*").alias("count_order"))
+            .orderBy("l_returnflag", "l_linestatus"))
+
+
+def _df_q3(spark):
+    import datetime
+
+    from spark_tpu_torch.api import functions as F
+
+    day = datetime.date(1995, 3, 15)
+    customer = spark.table("customer").filter(
+        F.col("c_mktsegment") == "BUILDING")
+    orders = spark.table("orders").filter(F.col("o_orderdate") < day)
+    lineitem = spark.table("lineitem").filter(F.col("l_shipdate") > day)
+    return (customer.join(orders, F.col("c_custkey") == F.col("o_custkey"))
+            .join(lineitem, F.col("l_orderkey") == F.col("o_orderkey"))
+            .groupBy("l_orderkey", "o_orderdate", "o_shippriority")
+            .agg(F.sum(F.col("l_extendedprice")
+                       * (1 - F.col("l_discount"))).alias("revenue"))
+            .select("l_orderkey", "revenue", "o_orderdate", "o_shippriority")
+            .orderBy(F.desc("revenue"), "o_orderdate")
+            .limit(10))
+
+
+def _df_flagship(spark):
+    """The flagship stage of ``__graft_entry__._example_plan``: filter
+    k > 10, project tag and v * 2, sum/count/avg by tag, sort by the sum
+    descending."""
+    from spark_tpu_torch.api import functions as F
+
+    return (spark.table("flagship")
+            .filter(F.col("k") > 10)
+            .select("tag", (F.col("v") * 2.0).alias("v2"))
+            .groupBy("tag")
+            .agg(F.sum("v2").alias("s"), F.count("*").alias("n"),
+                 F.avg("v2").alias("a"))
+            .orderBy(F.desc("s")))
+
+
+DATAFRAME_QUERIES = {"df_q1": _df_q1, "df_q3": _df_q3,
+                     "df_flagship": _df_flagship}
+
+
+def flagship_table(n: int, seed: int):
+    """The flagship stage's input at ``n`` rows, drawn as
+    ``__graft_entry__._example_plan`` draws it: k in [0, 50), v normal
+    times 10, tag one of four strings."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    tags = pa.array(["red", "green", "blue", "gold"])
+    return pa.table({
+        "k": pa.array(rng.integers(0, 50, n), pa.int64()),
+        "v": pa.array(rng.normal(size=n) * 10),
+        "tag": pa.DictionaryArray.from_arrays(
+            pa.array(rng.integers(0, 4, n).astype(np.int32)), tags)})

@@ -61,3 +61,81 @@ def test_to_arrow_round_trip():
     row = back.slice(0, 1).to_pylist()[0]
     assert isinstance(row["dt"], datetime.date)
     assert isinstance(row["ts"], datetime.datetime)
+
+
+def _per_cell_rows(batch) -> list:
+    """``Batch.to_pylist`` as it was before columns were decoded whole:
+    one Python value per cell. The vectorised decoding must give the same
+    rows, value for value and type for type."""
+    from spark_tpu_torch.types import (DateType, DecimalType, StringType,
+                                       TimestampType)
+
+    mask, host_cols = batch.fetch_host()
+    cols = []
+    for f, (cdata, cvalid) in zip(batch.schema.fields, host_cols):
+        data = cdata[mask]
+        valid = (np.ones(len(data), dtype=bool) if cvalid is None
+                 else cvalid[mask])
+        if isinstance(f.dtype, StringType):
+            d = f.dictionary or ()
+            vals = [d[c] if (v and 0 <= c < len(d)) else None
+                    for c, v in zip(data, valid)]
+        elif isinstance(f.dtype, DateType):
+            epoch = datetime.date(1970, 1, 1)
+            vals = [epoch + datetime.timedelta(days=int(x)) if v else None
+                    for x, v in zip(data, valid)]
+        elif isinstance(f.dtype, TimestampType):
+            epoch = datetime.datetime(1970, 1, 1)
+            vals = [epoch + datetime.timedelta(microseconds=int(x)) if v
+                    else None for x, v in zip(data, valid)]
+        elif isinstance(f.dtype, DecimalType):
+            vals = [decimal.Decimal(int(x)).scaleb(-f.dtype.scale) if v
+                    else None for x, v in zip(data, valid)]
+        else:
+            vals = [x.item() if v else None for x, v in zip(data, valid)]
+        cols.append(vals)
+    return [dict(zip(batch.schema.names, vals)) for vals in zip(*cols)]
+
+
+def _typed(rows):
+    """Rows with each value's type and, for Decimals, its exponent, so
+    that equal lists mean equal types and representations; NaN as a
+    string, so that it equals itself."""
+    return [{k: (type(v), v.as_tuple() if isinstance(v, decimal.Decimal)
+                 else "nan" if v != v else v) for k, v in r.items()}
+            for r in rows]
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_to_pylist_matches_per_cell_decoding(seed):
+    table = _table(seed=seed)
+    n = table.num_rows
+    rng = np.random.default_rng(seed)
+    f = np.asarray(table.column("d").to_numpy(zero_copy_only=False))
+    f[rng.random(n) < 0.05] = np.nan
+    table = table.set_column(3, "d", pa.array(f, mask=rng.random(n) < 0.1))
+    table = table.append_column("z", pa.array(
+        [decimal.Decimal(0).scaleb(-3)] * n, pa.decimal128(9, 3)))
+    batch = from_arrow(table, capacity=512, device="cpu")
+    # rows past the live ones, and a dead row in the middle
+    batch.data.row_mask[7] = False
+    # a code past the dictionary reads as None
+    batch.data.columns[6].data[3] = 99
+    got = batch.to_pylist()
+    want = _per_cell_rows(batch)
+    assert len(got) == n - 1
+    assert _typed(got) == _typed(want)
+    assert any(r["d"] is None for r in got) and any(
+        r["d"] != r["d"] for r in got if r["d"] is not None)
+    assert got[3]["ds"] is None
+
+
+def test_to_pylist_empty_and_all_null():
+    table = pa.table({"s": pa.array([None, None], pa.string()),
+                      "m": pa.array([None, None], pa.decimal128(5, 2)),
+                      "t": pa.array([None, None], pa.date32())})
+    batch = from_arrow(table, device="cpu")
+    assert batch.to_pylist() == _per_cell_rows(batch) == [
+        {"s": None, "m": None, "t": None}] * 2
+    batch.data.row_mask[:] = False
+    assert batch.to_pylist() == []

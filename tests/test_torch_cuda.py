@@ -24,10 +24,16 @@ the batch's prefix magnitude; the exact float sum (seg_fsum) equal to
 its plain version bit for bit, across launches, a compacted layout and a
 row permutation, in two kernels a call; the scalar phase's grouped stddev and
 variance (A1) within rel 1e-10 of the CPU run and bit-identical across
-two runs on the card.
+two runs on the card; q1-wide and the flagship stage read from Parquet
+equal to their in-memory runs on the card bit for bit, with the same
+launches.
 """
 
+import struct
+
 import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
 import pytest
 import torch
 
@@ -495,3 +501,62 @@ def test_scalar_a1_on_card_matches_cpu(cuda_device):
             assert g[:-3] == w[:-3]
             for a, b in zip(g[-3:], w[-3:]):
                 assert abs(a - b) <= 1e-10 * abs(b), (name, g, w)
+
+
+# ---- the file scan -------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_parquet_q1_wide_on_card_matches_in_memory(cuda_device, tmp_path):
+    """q1-wide over the lineitem table written to Parquet and read back
+    on the card (the pushed filter and the pruned columns read by the
+    scan) equals the in-memory run on the card bit for bit, and
+    launches the same kernels: 7 counts, 2 int64 sums, 1 min, 1 max.
+    The flagship stage over Parquet through the DataFrame API, with its
+    grouped float sums in seg_fsum, equals its in-memory run bit for bit
+    too."""
+    from spark_tpu_torch.api import functions as F
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.tpch import Q1_WIDE, generate_tables
+
+    def bits(rows):
+        return [tuple(struct.pack("<d", v) if isinstance(v, float) else v
+                      for v in r) for r in rows]
+
+    lineitem = generate_tables(0.02, seed=99)["lineitem"]
+    mem = SparkSession(device="cuda")
+    files = SparkSession(device="cuda")
+    mem.createDataFrame(lineitem).createOrReplaceTempView("lineitem")
+    mem.table("lineitem").write.parquet(str(tmp_path / "lineitem"))
+    files.read.parquet(str(tmp_path / "lineitem")) \
+        .createOrReplaceTempView("lineitem")
+    launches = []
+    rows = []
+    for spark in (mem, files):
+        seg_agg.reset_launches()
+        rows.append([tuple(r) for r in spark.sql(Q1_WIDE).collect()])
+        launches.append((dict(seg_agg.seg_sum.mode_launches),
+                         dict(seg_agg.seg_minmax.mode_launches)))
+    assert rows[0] and rows[1] == rows[0]
+    assert launches[1] == launches[0] == (
+        {"count": 7, "sum_f32": 0, "sum_i64": 2}, {"min": 1, "max": 1})
+
+    rng = np.random.default_rng(0)
+    n = 4096
+    flag = {"k": rng.integers(0, 50, n), "v": rng.normal(size=n) * 10,
+            "tag": np.array(["red", "green", "blue", "gold"])[
+                rng.integers(0, 4, n)]}
+    pq.write_table(pa.table(flag), str(tmp_path / "flag.parquet"))
+    stage = []
+    for df in (mem.createDataFrame(pa.table(flag)),
+               files.read.parquet(str(tmp_path / "flag.parquet"))):
+        seg_agg.reset_launches()
+        stage.append(bits(
+            df.filter(F.col("k") > 10)
+            .select("tag", (F.col("v") * 2.0).alias("v2"))
+            .groupBy("tag")
+            .agg(F.sum("v2").alias("s"), F.count("*").alias("n"),
+                 F.avg("v2").alias("a"))
+            .orderBy(F.desc("s")).collect()))
+        assert seg_agg.seg_fsum.mode_launches["fsum_f64"] == 2
+    assert len(stage[0]) == 4 and stage[1] == stage[0]
