@@ -98,6 +98,19 @@ no result line):
      read of the table's, decode and transfer ms), and the in-memory
      runs' warm walls and profiles are taken in the phase beside the
      Parquet runs'.
+   - Complex phase (``tpch/queries.py:COMPLEX_QUERIES``): X1 explode
+     then aggregate (``LATERAL VIEW explode(array(l_partkey,
+     l_suppkey))``, 12M rows, K = 168: 4 counts, 1 min, 1 max), X2
+     collect_list/collect_set at K = 168 (7 counts), X3 per-order
+     arrays (collect_list over 1.5M groups) joined to orders and read by
+     transform/filter/exists/forall/aggregate, X4 a word count over
+     ``split(o_comment, ' ')``, X5 maps over lineitem's 6M rows and the
+     map functions, X6 a list/map/struct table of 1.5M rows built with
+     pyarrow (``nested_table``), SM1 ``sample(0.01, seed=7)``; the oracle
+     for the columns that do not depend on row order
+     (``COMPLEX_ORACLE_QUERIES``), Python's ``str.split`` for X4; then X6
+     over its table written with ``df.write.parquet`` and read back on
+     the card and the CPU, equal to the in-memory card run bit for bit.
    A profiled run whose session recorded fewer hand-written kernel
    launches than the wrappers counted is taken again (up to five
    sessions): the profiler now and then drops events.
@@ -871,12 +884,13 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
     build a DataFrame) on the card. Once, with every launch
     counter set to 0 before and read after each query and the host syncs
     of each run counted (``after_first(name)``, where given, is called
-    after each): each query must launch what ``launches_want[name]`` says (an int: that many seg_sum counts; a
-    dict: launches by mode) and nothing else (nothing where not named),
-    and every wrapper call is held against the plain version. Then every
-    result against the port's CPU run (equal rows, or
-    ``match_cpu(name, card_rows, cpu_rows)`` where given) and the queries
-    of ``oracle_queries`` (name -> sqlite text) against the sqlite oracle,
+    after each): each query must launch what ``launches_want[name]`` says
+    (an int: that many seg_sum counts; a dict: launches by mode) and
+    nothing else (nothing where not named), and every wrapper call is
+    held against the plain version. Then every result against the port's
+    CPU run (equal rows, or ``match_cpu(name, card_rows, cpu_rows)`` where
+    given) and the queries of ``oracle_queries`` (name -> sqlite text, or
+    (text, the row's columns it holds)) against the sqlite oracle,
     then warm walls (3 runs, each bit-identical to the first run), peak
     device memory above the tables and one profiled run of each. Returns
     the launches of the path's run."""
@@ -923,7 +937,10 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
 
     for name, q in oracle_queries.items():
         t0 = time.perf_counter()
-        assert_rows_match(rows[name], run_oracle(oracle, q),
+        sql, cols = q if isinstance(q, tuple) else (q, None)
+        held = rows[name] if cols is None else [
+            tuple(r[i] for i in cols) for r in rows[name]]
+        assert_rows_match(held, run_oracle(oracle, sql),
                           label=f"{name}[sqlite]")
         log(f"{label}: {name} equals the sqlite oracle "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -1315,6 +1332,76 @@ def io_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
                          after_first=scans)
 
 
+#: seg_agg launches each complex-phase query makes on the card, by mode
+#: (the first card run's counts). X1 (K = 168, the direct path, 12M
+#: exploded rows) counts its rows, its min's and max's any-valid tests
+#: and its groups, and takes one min and one max; X2 (K = 168) counts its
+#: rows and groups, the any-valid test of each of its three collects and
+#: each collect's group widths. X3 (1.5M groups) and X4 (the words' code
+#: ids) take the sorted path, X5, X6 and SM1 the masked one (K <= 64):
+#: no launch.
+COMPLEX_LAUNCHES = {"x1_explode": {"count": 4, "min": 1, "max": 1},
+                    "x2_collect": {"count": 7}}
+
+
+def complex_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
+    """Arrays, maps, structs, explode/LATERAL VIEW, the higher-order
+    functions, collect_list/collect_set and sample at SF1
+    (``tpch/queries.py:COMPLEX_QUERIES``), with the launches of
+    ``COMPLEX_LAUNCHES``: rows equal to the CPU run, the sqlite oracle
+    (``COMPLEX_ORACLE_QUERIES``, the columns that do not depend on row
+    order) and for X4 Python's ``str.split`` with ``Counter``. Then X6
+    over its table written with ``df.write.parquet`` and read back with
+    ``spark.read.parquet`` on the card and the CPU: rows equal to the
+    in-memory card run bit for bit, the first read's decode and transfer
+    ms printed. Returns the launches of the complex path's run."""
+    import tempfile
+
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.tpch.queries import (COMPLEX_ORACLE_QUERIES,
+                                              COMPLEX_QUERIES, word_counts)
+
+    orders = cpu.catalog.lookup("orders").batch
+    comments = orders.select(["o_comment"]).result_columns()[1][0]
+    t0 = time.perf_counter()
+    words = word_counts(comments)
+    log(f"complex: Python str.split word count of {len(comments)} "
+        f"o_comment rows ({len(orders.schema.field('o_comment').dictionary)}"
+        f" dictionary entries, which X4's split reads) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    total = run_phase("complex", seg_agg, gpu, cpu, COMPLEX_QUERIES,
+                      COMPLEX_LAUNCHES, oracle, COMPLEX_ORACLE_QUERIES, dev)
+    got = [tuple(r) for r in gpu.sql(COMPLEX_QUERIES["x4_wordcount"])
+           .collect()]
+    check(got == words, f"x4: {got[:3]} != Python's {words[:3]}")
+    log("complex: x4 equals Python's str.split(' ') and Counter")
+
+    q = COMPLEX_QUERIES["x6_nested"]
+    mem = [tuple(r) for r in gpu.sql(q).collect()]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nested_") as root:
+        path = os.path.join(root, "nested")
+        t0 = time.perf_counter()
+        gpu.table("nested").write.parquet(path)
+        log(f"complex: nested written with df.write.parquet in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for d in (dev, "cpu"):
+            spark = SparkSession(device=d)
+            spark.read.parquet(path).createOrReplaceTempView("nested")
+            src = spark.table("nested")._plan.source
+            t0 = time.perf_counter()
+            rows = [tuple(r) for r in spark.sql(q).collect()]
+            wall = (time.perf_counter() - t0) * 1e3
+            r = src.last_read
+            log(f"complex: x6 from Parquet on {d}: first run {wall:.1f} ms; "
+                f"scan of {r['rows']} rows (list, map and struct columns): "
+                f"decode {r['decode_ms']:.1f} ms, transfer "
+                f"{r['transfer_ms']:.1f} ms")
+            check(row_bits(rows) == row_bits(mem),
+                  f"x6 from Parquet on {d} != the in-memory card run")
+    log("complex: x6 from Parquet equals the in-memory card run bit for bit")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
@@ -1349,7 +1436,7 @@ def main() -> int:
     log(f"build: native/strkernels.cpp in {time.perf_counter() - t0:.1f} s")
 
     from spark_tpu_torch.tpch import generate_tables
-    from spark_tpu_torch.tpch.queries import timestamp_table
+    from spark_tpu_torch.tpch.queries import nested_table, timestamp_table
 
     t0 = time.perf_counter()
     tables = generate_tables(1.0, seed=20260729)
@@ -1366,14 +1453,20 @@ def main() -> int:
 
     gpu, cpu = sessions(tables)
     ts = timestamp_table(tables["orders"], seed=20260729)
+    t0 = time.perf_counter()
+    nested = nested_table(tables["orders"], tables["lineitem"])
+    log(f"complex: the nested table ({nested.num_rows} rows) built on the "
+        f"host in {time.perf_counter() - t0:.1f} s")
     for spark in (gpu, cpu):
         spark.createDataFrame(ts).createOrReplaceTempView("ts_orders")
+        spark.createDataFrame(nested).createOrReplaceTempView("nested")
     oracle = oracle_connection(tables)
     by_path = {}
     for path, phase in (("aggregate", slice_phase), ("join", join_phase),
                         ("subquery", subquery_phase),
                         ("window", window_phase), ("tpch", tpch_phase),
-                        ("scalar", scalar_phase), ("io", io_phase)):
+                        ("scalar", scalar_phase), ("io", io_phase),
+                        ("complex", complex_phase)):
         t0 = time.perf_counter()
         by_path[path] = phase(seg_agg, gpu, cpu, oracle)
         log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
@@ -1384,6 +1477,9 @@ def main() -> int:
           "the scalar path launched no seg_fsum kernel")
     check(by_path["io"]["count"] >= 7 and by_path["io"]["min"] >= 1,
           "the io path launched no seg_sum or seg_minmax kernel")
+    check(by_path["complex"]["count"] >= 1
+          and by_path["complex"]["min"] >= 1,
+          "the complex path launched no seg_sum count or seg_minmax min")
     check(not any(p["fsum_f64"] + p["fsum_f32"] for path, p in
                   by_path.items() if path not in ("scalar", "io")),
           "an earlier path summed floats on a grouped path")

@@ -6,9 +6,8 @@ A DataFrame is a (session, logical plan) pair. Transformations build new
 plans; actions optimize under the session's settings, plan and execute
 eagerly on the session's device (``physical/planner.py``).
 
-Not ported yet, each raising ``NotImplementedError``: ``sample`` and
-``sampleBy`` (ROADMAP A2, the random-stream decision),
-``repartition``/``coalesce`` (A10), ``cache``/``persist``/``checkpoint``
+Not ported yet, each raising ``NotImplementedError``: ``sampleBy``
+(with ``na``/``stat``), ``repartition``/``coalesce`` (A10), ``cache``/``persist``/``checkpoint``
 (A9), ``na``/``stat``/``describe``/``corr`` and the rest of
 ``api/na_stat.py``, ``rdd``, ``writeStream`` and ``withWatermark``.
 """
@@ -127,7 +126,12 @@ class DataFrame:
         return self._with(L.Project(exprs, self._plan))
 
     def drop(self, *names: str) -> "DataFrame":
-        exprs = tuple(E.Col(n) for n in self.columns if n not in names)
+        """The columns but ``names``, an array's ``#len`` companion and
+        a map's halves going with it."""
+        from spark_tpu_torch.plan.optimizer import _with_nested_parts
+
+        gone = _with_nested_parts(set(names))
+        exprs = tuple(E.Col(n) for n in self.columns if n not in gone)
         return self._with(L.Project(exprs, self._plan))
 
     def alias(self, name: str) -> "DataFrame":
@@ -166,6 +170,12 @@ class DataFrame:
         return self._with(L.Sort(tuple(orders), self._plan))
 
     orderBy = sort
+
+    def sample(self, fraction: float, seed: int = 42) -> "DataFrame":
+        """Each row kept with probability ``fraction``, drawn from the
+        seeded stream of ``physical/random.py`` (the reference's draws,
+        bit for bit: the same rows on every device)."""
+        return self._with(L.Sample(float(fraction), int(seed), self._plan))
 
     def union(self, other: "DataFrame") -> "DataFrame":
         """UNION ALL by position (Spark's ``union``)."""
@@ -290,9 +300,10 @@ class DataFrame:
                                conf=self._session.conf)
 
     def collect(self) -> List[Row]:
-        batch = self._execute()
-        names = tuple(batch.schema.names)
-        cols = batch.host_values()
+        """The rows; an array's ``#len`` companion is hidden and a map's
+        ``#keys``/``#vals`` pair is one dict (``Batch.result_columns``)."""
+        names, cols = self._execute().result_columns()
+        names = tuple(names)
         if len(set(names)) < len(names):
             # rows are keyed by name: of two equal names the last value
             # wins, as in to_pylist's dicts
@@ -306,11 +317,9 @@ class DataFrame:
         return to_arrow(self._execute())
 
     def toPandas(self):
-        """The rows as a pandas DataFrame (imports pandas)."""
-        import pandas as pd
-
-        return pd.DataFrame(self._execute().to_pylist(),
-                            columns=self.columns)
+        """The rows as a pandas DataFrame (imports pandas); arrays as
+        lists and maps as dicts, as ``collect()`` gives them."""
+        return self._execute().to_pandas()
 
     def count(self) -> int:
         agg = L.Aggregate((), (E.Alias(E.Count(None), "count"),), self._plan)
@@ -331,9 +340,8 @@ class DataFrame:
         return len(self.take(1)) == 0
 
     def show(self, n: int = 20, truncate: bool = True) -> None:
-        rows = self.limit(n).collect()
-        names = self.columns
-        cells = [[_fmt(v, truncate) for v in r] for r in rows]
+        names, cols = self.limit(n)._execute().result_columns()
+        cells = [[_fmt(v, truncate) for v in r] for r in zip(*cols)]
         widths = [max([len(str(nm))] + [len(row[i]) for row in cells])
                   for i, nm in enumerate(names)]
         sep = "+" + "+".join("-" * w for w in widths) + "+"
@@ -357,8 +365,7 @@ class DataFrame:
 
     # ---- later slices --------------------------------------------------------
 
-    sample = _later("sample (the random-stream decision)", "A2")
-    sampleBy = _later("sampleBy (the random-stream decision)", "A2")
+    sampleBy = _later("sampleBy (api/na_stat.py)", "A6")
     repartition = _later("repartition", "A10")
     coalesce = _later("coalesce", "A10")
     cache = _later("cache", "A9")

@@ -4,9 +4,8 @@ Columns are expression trees: every function builds an
 ``expr/expressions.py`` node, and the functions the SQL parser composes
 out of other nodes come from ``sql/functions.py``.
 
-The array, map, higher-order, collect and explode builders, the
-streaming windows and UDFs raise ``NotImplementedError("not ported yet:
-...")``, as the parser does (ROADMAP A2 and the later tiers).
+The streaming windows and UDFs raise ``NotImplementedError("not ported
+yet: ...")`` (the later tiers of ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -505,29 +504,105 @@ def _refuse(name: str, what: str):
     return builder
 
 
-# the reference's builders whose nodes the port has not ported: list,
-# map and struct columns, the higher-order and collect functions and
-# generators (ROADMAP A2), the streaming windows and UDFs
-array = _refuse("array", "array function")
-split = _refuse("split", "array function")
-size = _refuse("size", "array function")
-element_at = _refuse("element_at", "array function")
-array_contains = _refuse("array_contains", "array function")
-create_map = _refuse("create_map", "map function")
-map_from_arrays = _refuse("map_from_arrays", "map function")
-map_keys = _refuse("map_keys", "map function")
-map_values = _refuse("map_values", "map function")
-map_contains_key = _refuse("map_contains_key", "map function")
-transform = _refuse("transform", "higher-order function")
-filter = _refuse("filter", "higher-order function")  # noqa: A001
-exists = _refuse("exists", "higher-order function")
-forall = _refuse("forall", "higher-order function")
-aggregate = _refuse("aggregate", "higher-order function")
-collect_list = _refuse("collect_list", "aggregate")
-collect_set = _refuse("collect_set", "aggregate")
-array_agg = _refuse("array_agg", "aggregate")
-explode = _refuse("explode", "generator")
-posexplode = _refuse("posexplode", "generator")
+# ---- arrays, maps, higher-order functions, collect and explode -------------
+# (reference: collectionOperations.scala, complexTypeCreator.scala,
+# higherOrderFunctions.scala, aggregate/collect.scala, generators.scala)
+
+
+def array(*cols: ColumnOrName) -> Column:
+    return SF.array(*(_c(c) for c in cols))
+
+
+def split(c: ColumnOrName, delim: str) -> Column:
+    return E.Split(_c(c), str(delim))
+
+
+def size(c: ColumnOrName) -> Column:
+    return SF.size(_c(c))
+
+
+def element_at(c: ColumnOrName, index) -> Column:
+    return SF.element_at(_c(c), index)
+
+
+def array_contains(c: ColumnOrName, value) -> Column:
+    return SF.array_contains(_c(c), value)
+
+
+def create_map(*cols) -> Column:
+    """map(k1, v1, k2, v2, ...), legal at the top of a projection."""
+    return SF.create_map(*(_c(c) for c in cols))
+
+
+def map_from_arrays(keys: ColumnOrName, vals: ColumnOrName) -> Column:
+    return SF.map_from_arrays(_c(keys), _c(vals))
+
+
+def map_keys(c: ColumnOrName) -> Column:
+    return SF.map_keys(_c(c))
+
+
+def map_values(c: ColumnOrName) -> Column:
+    return SF.map_values(_c(c))
+
+
+def map_contains_key(c: ColumnOrName, key) -> Column:
+    return SF.map_contains_key(_c(c), key)
+
+
+def _lambda(fn) -> E.Lambda:
+    """A Python callable as a Lambda: its parameter names become the bound
+    variables (pyspark's shape)."""
+    import inspect
+
+    params = tuple(inspect.signature(fn).parameters)
+    return E.Lambda(params, _c(fn(*[E.Col(p) for p in params])))
+
+
+def transform(c: ColumnOrName, fn) -> Column:
+    """transform(array, x -> ...) or (x, i) -> ... (ArrayTransform)."""
+    return E.HigherOrder("transform", _c(c), _lambda(fn))
+
+
+def filter(c: ColumnOrName, fn) -> Column:  # noqa: A001
+    return E.HigherOrder("filter", _c(c), _lambda(fn))
+
+
+def exists(c: ColumnOrName, fn) -> Column:
+    return E.HigherOrder("exists", _c(c), _lambda(fn))
+
+
+def forall(c: ColumnOrName, fn) -> Column:
+    return E.HigherOrder("forall", _c(c), _lambda(fn))
+
+
+def aggregate(c: ColumnOrName, zero, merge, finish=None) -> Column:
+    """aggregate(array, zero, (acc, x) -> ..., [acc -> ...])."""
+    return E.HigherOrder("aggregate", _c(c), _lambda(merge), lit(zero),
+                         None if finish is None else _lambda(finish))
+
+
+def collect_list(c: ColumnOrName) -> Column:
+    return E.Collect(_c(c))
+
+
+def collect_set(c: ColumnOrName) -> Column:
+    return E.Collect(_c(c), unique=True)
+
+
+array_agg = collect_list
+
+
+def explode(c: ColumnOrName) -> Column:
+    return SF.explode(_c(c))
+
+
+def posexplode(c: ColumnOrName) -> Column:
+    return SF.posexplode(_c(c))
+
+
+# the reference's builders of the later tiers: the streaming windows and
+# the UDFs
 window = _refuse("window", "streaming window")
 session_window = _refuse("session_window", "streaming window")
 udf = _refuse("udf", "user-defined function")

@@ -1,10 +1,13 @@
 """Arrow <-> device-batch interchange.
 
-The port of ``spark_tpu/columnar/arrow.py`` for flat columns: booleans,
-integers, floats, decimal128 (as scaled int64), dictionary or plain
-strings (as int32 codes over a sorted host dictionary), date32 and
-timestamps, with nulls as validity masks. Nested columns (lists,
-structs, maps) are not ported yet.
+The port of ``spark_tpu/columnar/arrow.py``: booleans, integers,
+floats, decimal128 (as scaled int64), dictionary or plain strings (as
+int32 codes over a sorted host dictionary), date32 and timestamps, with
+nulls as validity masks. A list column becomes a padded 2-D column and
+its ``#len`` companion, a map the ``#keys``/``#vals`` pair of lists, and a
+struct flattens into dotted columns, a null struct row nulling every
+child (types.ArrayType, types.MapType); ``to_arrow`` rebuilds lists and
+maps.
 """
 
 from __future__ import annotations
@@ -79,6 +82,11 @@ def dtype_to_arrow_type(dt: T.DataType) -> pa.DataType:
         return pa.date32()
     if isinstance(dt, T.TimestampType):
         return pa.timestamp("us")
+    if isinstance(dt, T.ArrayType):
+        return pa.list_(dtype_to_arrow_type(dt.element))
+    if isinstance(dt, T.MapType):
+        return pa.map_(dtype_to_arrow_type(dt.key),
+                       dtype_to_arrow_type(dt.value))
     raise TypeError(f"unsupported dtype: {dt}")
 
 
@@ -193,23 +201,124 @@ def _column_to_numpy(
     return values.astype(dtype.np_dtype, copy=False), validity, dictionary
 
 
+def _list_to_padded(col):
+    """Arrow list column -> (padded 2-D values, lengths, validity, element
+    dictionary, element dtype): the ArrayType layout."""
+    if isinstance(col, pa.ChunkedArray):
+        col = col.combine_chunks()
+    if pa.types.is_large_list(col.type):
+        col = col.cast(pa.list_(col.type.value_type))
+    validity = None
+    if col.null_count > 0:
+        validity = pc.is_valid(col).to_numpy(zero_copy_only=False)
+    # absolute offsets into col.values: flatten() would drop a null row's
+    # value range (legal Arrow) and misalign every later row
+    offsets = col.offsets.to_numpy(zero_copy_only=False).astype(np.int64)
+    lengths = np.diff(offsets).astype(np.int32)
+    if validity is not None:
+        lengths = np.where(validity, lengths, 0).astype(np.int32)
+    el_dtype = arrow_type_to_dtype(col.type.value_type)
+    fvals, _, dictionary = _column_to_numpy(col.values, el_dtype)
+    n = len(col)
+    max_len = max(1, int(lengths.max()) if n else 1)
+    vals = np.zeros((n, max_len), dtype=fvals.dtype)
+    if len(fvals):
+        jj = np.arange(max_len)[None, :]
+        alive = jj < lengths[:, None]
+        take = offsets[:-1, None] + jj
+        vals[alive] = fvals[take[alive]]
+    return vals, lengths, validity, dictionary, el_dtype
+
+
+def _and_valid(a: Optional[np.ndarray], b: Optional[np.ndarray]):
+    if a is None:
+        return b
+    return a if b is None else a & b
+
+
 def arrow_to_numpy(table: pa.Table):
     """Arrow table -> (Schema, host arrays, validities): the host half
-    of ``from_arrow``."""
+    of ``from_arrow``. A list column becomes a padded 2-D ArrayType
+    column and its ``#len`` companion, a map the ``#keys``/``#vals``
+    pair, a struct its dotted children."""
     fields = []
     arrays = []
     validities = []
-    for name, col in zip(table.column_names, table.columns):
+
+    def add(name, col, parent_valid=None):
+        if isinstance(col, pa.ChunkedArray):
+            col = col.combine_chunks()
+        own = (pc.is_valid(col).to_numpy(zero_copy_only=False)
+               if col.null_count > 0 else None)
+        if pa.types.is_struct(col.type):
+            pv = _and_valid(parent_valid, own)
+            for i, f in enumerate(col.type):
+                add(f"{name}.{f.name}", col.field(i), pv)
+            return
+        if pa.types.is_map(col.type):
+            # the map's own nulls ride on both components
+            pv = _and_valid(parent_valid, own)
+            offsets = col.offsets
+            add(T.map_keys_col(name),
+                pa.ListArray.from_arrays(offsets, col.keys), pv)
+            add(T.map_vals_col(name),
+                pa.ListArray.from_arrays(offsets, col.items), pv)
+            return
+        if pa.types.is_list(col.type) or pa.types.is_large_list(col.type):
+            vals, lengths, validity, dictionary, el_dtype = \
+                _list_to_padded(col)
+            if parent_valid is not None:
+                validity = _and_valid(validity, parent_valid)
+                lengths = np.where(validity, lengths, 0).astype(np.int32)
+            fields.append(Field(name, T.ArrayType(el_dtype),
+                                nullable=validity is not None,
+                                dictionary=dictionary))
+            arrays.append(vals)
+            validities.append(validity)
+            fields.append(Field(T.array_len_col(name), T.INT32,
+                                nullable=False))
+            arrays.append(lengths)
+            validities.append(None)
+            return
         if pa.types.is_nested(col.type):
             raise NotImplementedError(
                 f"nested column {name!r} ({col.type}) is not ported yet")
         dtype = arrow_type_to_dtype(col.type)
         values, validity, dictionary = _column_to_numpy(col, dtype)
+        # a null struct row means every child field is null
+        validity = _and_valid(validity, parent_valid)
         fields.append(Field(name, dtype, nullable=validity is not None,
                             dictionary=dictionary))
         arrays.append(values)
         validities.append(validity)
+
+    for name, col in zip(table.column_names, table.columns):
+        add(name, col)
     return Schema(tuple(fields)), arrays, validities
+
+
+def schema_from_arrow(pa_schema: pa.Schema) -> Schema:
+    """The engine schema an Arrow schema ingests as (nested columns
+    expanded as ``arrow_to_numpy`` expands them)."""
+    empty = pa.table({f.name: pa.array([], type=f.type) for f in pa_schema})
+    return arrow_to_numpy(empty)[0]
+
+
+def source_column(name: str, file_names) -> str:
+    """The top-level Arrow column that holds engine column ``name``: the
+    array or map behind a ``#len``/``#keys``/``#vals`` name, the struct
+    behind a dotted child."""
+    if name in file_names:
+        return name
+    if name.endswith(T.LEN_SUFFIX):
+        return source_column(name[:-len(T.LEN_SUFFIX)], file_names)
+    base = T.map_base_name(name)
+    if base is not None and base in file_names:
+        return base
+    head = name.split(".", 1)[0]
+    if head in file_names:
+        return head
+    raise KeyError(f"column {name!r} not in {list(file_names)}")
 
 
 def from_arrow(table: pa.Table, capacity: Optional[int] = None,
@@ -221,31 +330,79 @@ def from_arrow(table: pa.Table, capacity: Optional[int] = None,
                       device=device)
 
 
+def _flat_arrow(f: Field, data: np.ndarray,
+                valid: Optional[np.ndarray]) -> pa.Array:
+    """One flat column's values (live rows) as an Arrow array."""
+    nulls = None if valid is None else ~valid
+    if isinstance(f.dtype, T.StringType):
+        codes = pa.array(data, type=pa.int32(), mask=nulls)
+        return pa.DictionaryArray.from_arrays(
+            codes, pa.array(list(f.dictionary or ()), type=pa.string())
+        ).cast(pa.string())
+    if isinstance(f.dtype, T.DateType):
+        return pa.array(data, type=pa.int32(), mask=nulls).cast(pa.date32())
+    if isinstance(f.dtype, T.TimestampType):
+        return pa.array(data, type=pa.int64(), mask=nulls).cast(
+            pa.timestamp("us"))
+    if isinstance(f.dtype, T.DecimalType):
+        return decimal_from_unscaled(
+            data, pa.decimal128(f.dtype.precision, f.dtype.scale), valid)
+    return pa.array(data, type=dtype_to_arrow_type(f.dtype), mask=nulls)
+
+
 def to_arrow(batch: Batch) -> pa.Table:
-    """Device Batch -> Arrow table with only live rows."""
+    """Device Batch -> Arrow table with only live rows. Array columns
+    become lists (their ``#len`` companions are dropped), a
+    ``#keys``/``#vals`` pair one map column named by the map."""
     mask, host_cols = batch.fetch_host()
-    columns = []
-    for f, (cdata, cvalid) in zip(batch.schema.fields, host_cols):
+    fields = batch.schema.fields
+    by_name = {f.name: i for i, f in enumerate(fields)}
+    hidden = {T.array_len_col(f.name) for f in fields
+              if isinstance(f.dtype, T.ArrayType)}
+
+    def rebuild_list(i):
+        """(int32 offsets, flat element values, validity) of array
+        column ``i``'s live rows."""
+        f = fields[i]
+        cdata, cvalid = host_cols[i]
         data = cdata[mask]
         valid = None if cvalid is None else cvalid[mask]
-        nulls = None if valid is None else ~valid
-        if isinstance(f.dtype, T.StringType):
-            codes = pa.array(data, type=pa.int32(), mask=nulls)
-            arr = pa.DictionaryArray.from_arrays(
-                codes, pa.array(list(f.dictionary or ()), type=pa.string())
-            ).cast(pa.string())
-        elif isinstance(f.dtype, T.DateType):
-            arr = pa.array(data, type=pa.int32(), mask=nulls).cast(
-                pa.date32())
-        elif isinstance(f.dtype, T.TimestampType):
-            arr = pa.array(data, type=pa.int64(), mask=nulls).cast(
-                pa.timestamp("us"))
-        elif isinstance(f.dtype, T.DecimalType):
-            arr = decimal_from_unscaled(
-                data, pa.decimal128(f.dtype.precision, f.dtype.scale),
-                valid)
-        else:
-            arr = pa.array(data, type=dtype_to_arrow_type(f.dtype),
-                           mask=nulls)
-        columns.append(arr)
-    return pa.table(columns, names=list(batch.schema.names))
+        comp = by_name.get(T.array_len_col(f.name))
+        lens = (host_cols[comp][0][mask].astype(np.int64)
+                if comp is not None
+                else np.full(len(data), data.shape[1], np.int64))
+        if valid is not None:
+            lens = np.where(valid, lens, 0)
+        offsets = np.zeros(len(data) + 1, dtype=np.int32)
+        np.cumsum(lens, out=offsets[1:])
+        alive = np.arange(data.shape[1])[None, :] < lens[:, None]
+        el = Field(f.name, f.dtype.element, dictionary=f.dictionary)
+        return offsets, _flat_arrow(el, data[alive], None), valid
+
+    columns, names = [], []
+    for i, f in enumerate(fields):
+        if f.name in hidden:
+            continue
+        if isinstance(f.dtype, T.ArrayType):
+            base = T.map_base_name(f.name)
+            pair = (base is not None and T.map_keys_col(base) in by_name
+                    and T.map_vals_col(base) in by_name)
+            if pair and f.name == T.map_vals_col(base):
+                continue  # emitted with its '#keys' sibling
+            offsets, values, valid = rebuild_list(i)
+            omask = (None if valid is None or valid.all()
+                     else np.concatenate([~valid, [False]]))
+            off = pa.array(offsets, pa.int32(), mask=omask)
+            if pair:
+                _, items, _ = rebuild_list(by_name[T.map_vals_col(base)])
+                columns.append(pa.MapArray.from_arrays(off, values, items))
+                names.append(base)
+            else:
+                columns.append(pa.ListArray.from_arrays(off, values))
+                names.append(f.name)
+            continue
+        cdata, cvalid = host_cols[i]
+        columns.append(_flat_arrow(f, cdata[mask],
+                                   None if cvalid is None else cvalid[mask]))
+        names.append(f.name)
+    return pa.table(columns, names=names)

@@ -10,6 +10,10 @@ reference's:
   ``None`` meaning "all valid".
 - Strings are int32 dictionary codes; the dictionary itself lives on the
   host in the Schema, never on the device.
+- An array column is a padded 2-D tensor (capacity, max_len) with its
+  lengths in the hidden int32 column ``<col>#len``; a map column is the
+  pair of array columns ``<col>#keys``/``<col>#vals`` (types.ArrayType,
+  types.MapType). Results hide the companions and join map pairs.
 
 Every tensor of a batch lies on one device.
 """
@@ -22,8 +26,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from spark_tpu_torch.types import (DateType, DecimalType, Schema,
-                                   StringType, TimestampType)
+from spark_tpu_torch import types as T
+from spark_tpu_torch.types import (ArrayType, DateType, DecimalType, Field,
+                                   Schema, StringType, TimestampType)
 
 
 class ColumnData(NamedTuple):
@@ -81,21 +86,100 @@ class Batch:
         return host(self.data.row_mask), [
             (host(cd.data), host(cd.validity)) for cd in self.data.columns]
 
+    def select(self, names) -> "Batch":
+        """The batch narrowed to the columns ``names``, in that order."""
+        idx = [self.schema.index(n) for n in names]
+        return Batch(Schema(tuple(self.schema.fields[i] for i in idx)),
+                     BatchData(tuple(self.data.columns[i] for i in idx),
+                               self.data.row_mask))
+
+    def device_nbytes(self) -> int:
+        """Device bytes held by this batch: values, validity and mask."""
+        total = self.data.row_mask.numel() * self.data.row_mask.element_size()
+        for cd in self.data.columns:
+            total += cd.data.numel() * cd.data.element_size()
+            if cd.validity is not None:
+                total += cd.validity.numel() * cd.validity.element_size()
+        return int(total)
+
     def to_pylist(self) -> list:
         """Materialize live rows as a list of dicts (decoding string
-        dictionaries, dates, timestamps and decimals); ``collect()``
-        builds its Rows from ``host_values`` directly."""
-        names = self.schema.names
-        return [dict(zip(names, vals)) for vals in zip(*self.host_values())]
+        dictionaries, dates, timestamps, decimals, arrays and maps);
+        ``collect()`` builds its Rows from ``result_columns`` directly."""
+        names, cols = self.result_columns()
+        return [dict(zip(names, vals)) for vals in zip(*cols)]
 
-    def host_values(self) -> list:
-        """The live rows' values, one list of Python values per column
-        (None where null): strings, dates, timestamps and decimals
-        decoded a whole column at a time."""
+    def to_pandas(self):
+        """The live rows as a pandas DataFrame (imports pandas)."""
+        import pandas as pd
+
+        names, cols = self.result_columns()
+        return pd.DataFrame(dict(zip(names, cols)), columns=names)
+
+    def result_columns(self) -> Tuple[list, list]:
+        """(names, values) of the visible columns: each a list of the
+        live rows' Python values (None where null), decoded a whole
+        column at a time. An array's ``#len`` companion is hidden and its
+        rows are lists cut to their lengths; a ``#keys``/``#vals`` pair
+        becomes one column of dicts named by the map."""
         mask, host_cols = self.fetch_host()
-        return [_decode(f, cdata[mask],
-                        None if cvalid is None else cvalid[mask])
-                for f, (cdata, cvalid) in zip(self.schema.fields, host_cols)]
+        fields = self.schema.fields
+        by_name = {f.name: i for i, f in enumerate(fields)}
+        hidden = {T.array_len_col(f.name) for f in fields
+                  if isinstance(f.dtype, ArrayType)}
+        names: list = []
+        cols: list = []
+        for i, (f, (cdata, cvalid)) in enumerate(zip(fields, host_cols)):
+            if f.name in hidden:
+                continue
+            base = T.map_base_name(f.name)
+            if base is not None and isinstance(f.dtype, ArrayType):
+                kn, vn = T.map_keys_col(base), T.map_vals_col(base)
+                if kn in by_name and vn in by_name:
+                    if f.name == vn:
+                        continue  # emitted with its '#keys' sibling
+                    keys = self._array_values(i, mask, host_cols, by_name)
+                    vals = self._array_values(by_name[vn], mask, host_cols,
+                                              by_name)
+                    names.append(base)
+                    cols.append([None if k is None else dict(zip(k, v))
+                                 for k, v in zip(keys, vals)])
+                    continue
+            names.append(f.name)
+            if isinstance(f.dtype, ArrayType):
+                cols.append(self._array_values(i, mask, host_cols, by_name))
+            else:
+                cols.append(_decode(f, cdata[mask],
+                                    None if cvalid is None
+                                    else cvalid[mask]))
+        return names, cols
+
+    def _array_values(self, i: int, mask, host_cols, by_name) -> list:
+        """Column ``i`` (an array) as one list per live row, cut to the
+        row's length (from the ``#len`` companion; the full width without
+        one), elements decoded as a flat column of the element type."""
+        f = self.schema.fields[i]
+        cdata, cvalid = host_cols[i]
+        data = cdata[mask]
+        valid = None if cvalid is None else cvalid[mask]
+        comp = by_name.get(T.array_len_col(f.name))
+        if comp is not None:
+            lens = host_cols[comp][0][mask].astype(np.int64)
+        else:
+            lens = np.full(len(data), data.shape[1] if data.ndim > 1 else 0,
+                           dtype=np.int64)
+        if valid is not None:
+            lens = np.where(valid, lens, 0)
+        width = data.shape[1] if data.ndim > 1 else 0
+        lens = np.minimum(lens, width)
+        alive = np.arange(width)[None, :] < lens[:, None]
+        flat = _decode(Field(f.name, f.dtype.element,
+                             dictionary=f.dictionary),
+                       data[alive] if width else data.reshape(-1)[:0], None)
+        ends = np.cumsum(lens).tolist()
+        starts = [0] + ends[:-1]
+        out = [flat[a:b] for a, b in zip(starts, ends)]
+        return _with_nulls(out, valid)
 
 
 def _decode(f, data: np.ndarray, valid: Optional[np.ndarray]) -> list:
@@ -157,9 +241,9 @@ def from_numpy(
         validities = [None] * len(arrays)
     datas, valids = [], []
     for f, arr, val in zip(schema.fields, arrays, validities):
-        if arr.ndim != 1:
-            raise NotImplementedError("array columns are not ported yet")
-        padded = np.zeros((cap,), dtype=f.dtype.np_dtype)
+        # an array column is 2-D: (rows, max_len) of its element's dtype
+        padded = np.zeros((cap,) + tuple(arr.shape[1:]),
+                          dtype=f.dtype.np_dtype)
         padded[:n] = arr.astype(f.dtype.np_dtype, copy=False)
         datas.append(padded)
         if val is None:
@@ -190,3 +274,12 @@ def from_host_arrays(schema: Schema, datas: Sequence[np.ndarray],
                        None if v is None else put(v, bool))
             for f, d, v in zip(schema.fields, datas, validities)]
     return Batch(schema, BatchData(tuple(cols), put(row_mask, bool)))
+
+
+def empty_batch(schema: Schema, capacity: int = 1024,
+                device="cuda") -> Batch:
+    """A batch of ``schema`` with no live row (array columns one element
+    wide)."""
+    arrays = [np.zeros((0, 1) if isinstance(f.dtype, ArrayType) else (0,),
+                       dtype=f.dtype.np_dtype) for f in schema.fields]
+    return from_numpy(schema, arrays, capacity=capacity, device=device)

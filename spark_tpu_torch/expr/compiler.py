@@ -8,9 +8,17 @@ three-valued boolean logic and null tests; casts; month arithmetic on
 dates (``AddMonths``); IN lists, LIKE, string predicates, substring,
 concatenation, the string transforms, length and regular expressions;
 abs, floor/ceil/sqrt/exp/ln/log10/sign, round and power; date_trunc and
-last_day; CASE, COALESCE, typed NULLs (``NullOf``) and date parts. Null
+last_day; CASE, COALESCE, typed NULLs (``NullOf``) and date parts; arrays
+(``array``, ``split``, ``size``, ``element_at`` and ``x[i]``,
+``array_contains``), map lookups and the higher-order functions. Null
 semantics follow SQL three-valued logic, carried as (values,
 validity-mask) pairs.
+
+An array value is a padded 2-D tensor (rows, max_len) with per-row
+lengths (``TV.lengths``); a map is the pair of its keys and values arrays
+(types.ArrayType, types.MapType). A higher-order function evaluates its
+lambda body once over the flattened rows x max_len element plane, the
+outer columns it reads repeated per element.
 
 String expressions never touch bytes on the device: predicates are
 evaluated host-side over the column dictionary and become int32-code
@@ -49,12 +57,15 @@ from spark_tpu_torch.types import DataType
 
 
 class TV(NamedTuple):
-    """Typed value: device data + validity + host metadata."""
+    """Typed value: device data + validity + host metadata. An array's
+    ``data`` is 2-D (rows, max_len) and ``lengths`` its per-row int32
+    lengths; in a batch they ride as the ``<col>#len`` companion."""
 
     data: torch.Tensor
     validity: Optional[torch.Tensor]  # None = all valid
     dtype: DataType
     dictionary: Optional[Tuple[str, ...]] = None
+    lengths: Optional[torch.Tensor] = None  # int32[rows], arrays only
 
     def valid_or_true(self, n: int) -> torch.Tensor:
         if self.validity is None:
@@ -75,6 +86,20 @@ class Env:
             device = (mask.device if mask is not None
                       else next(iter(columns.values())).data.device)
         self.device = torch.device(device)
+
+    @classmethod
+    def from_batch(cls, batch) -> "Env":
+        """The batch's columns, each array paired with its ``#len``
+        companion."""
+        by_name = {f.name: cd for f, cd in zip(batch.schema.fields,
+                                               batch.data.columns)}
+        cols = {}
+        for f, cd in zip(batch.schema.fields, batch.data.columns):
+            comp = (by_name.get(T.array_len_col(f.name))
+                    if isinstance(f.dtype, T.ArrayType) else None)
+            cols[f.name] = TV(cd.data, cd.validity, f.dtype, f.dictionary,
+                              None if comp is None else comp.data)
+        return cls(cols, batch.capacity, batch.data.row_mask)
 
 
 def _and_validity(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
@@ -108,6 +133,8 @@ def _float_to_scaled(data: torch.Tensor, scale: int) -> torch.Tensor:
 
 def _cast_data(data: torch.Tensor, src: DataType, dst: DataType
                ) -> torch.Tensor:
+    if isinstance(src, T.ArrayType) and isinstance(dst, T.ArrayType):
+        return _cast_data(data, src.element, dst.element)
     sdec = isinstance(src, T.DecimalType)
     ddec = isinstance(dst, T.DecimalType)
     if sdec and ddec:
@@ -197,13 +224,6 @@ def predicate_table(dictionary: Tuple[str, ...], op: str,
         "contains": lambda s: needle in s,
     }[op]
     return _dict_table(dictionary, fn)
-
-
-def _translate(tv: TV, table: np.ndarray, union) -> TV:
-    """A string TV re-coded into the union dictionary ``union`` through
-    its translation table (``unify_dictionaries``)."""
-    data = _gather(table, tv.data) if len(tv.dictionary or ()) else tv.data
-    return TV(data, tv.validity, T.STRING, union)
 
 
 def unify_dictionaries(
@@ -395,11 +415,7 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
         return _literal_tv(expr.value, expr.dtype, n, env.device)
 
     if isinstance(expr, E.Col):
-        try:
-            return env.columns[expr.col_name]
-        except KeyError:
-            raise KeyError(
-                f"column {expr.col_name!r} not in {sorted(env.columns)}")
+        return _eval_col(expr.col_name, env)
 
     if isinstance(expr, E.Alias):
         return evaluate(expr.child, env)
@@ -587,6 +603,43 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
         part = {"year": y, "month": m, "day": d}[expr.part]
         return TV(part.to(torch.int32), tv.validity, T.INT32, None)
 
+    if isinstance(expr, E.MakeArray):
+        return _eval_make_array(expr, env)
+
+    if isinstance(expr, E.Split):
+        return _eval_split(expr, evaluate(expr.child, env), n)
+
+    if isinstance(expr, E.Size):
+        tv = _array_tv(evaluate(expr.child, env), "size()")
+        return TV(tv.lengths.to(torch.int32), tv.validity, T.INT32, None)
+
+    if isinstance(expr, E.ElementAt):
+        pair = _map_pair(expr.child, env)
+        if pair is not None:
+            return _map_get(pair, evaluate(expr.index, env), n)
+        return _eval_element_at(expr, env, n)
+
+    if isinstance(expr, E.ArrayContains):
+        tv = _array_tv(evaluate(expr.child, env), "array_contains()")
+        vt = evaluate(expr.value, env)
+        eq = _elements_equal(tv, vt) & _alive(tv)
+        return TV(eq.any(dim=1), _and_validity(tv.validity, vt.validity),
+                  T.BOOLEAN, None)
+
+    if isinstance(expr, E.HigherOrder):
+        return _eval_higher_order(expr, env, n)
+
+    if isinstance(expr, (E.CreateMap, E.MapFromArrays)):
+        raise NotImplementedError(
+            "a map-typed expression is legal only at the top of a "
+            "projection, which expands it into its '#keys'/'#vals' "
+            "columns (types.MapType)")
+
+    if isinstance(expr, E.Explode):
+        raise NotImplementedError(
+            "explode() is a generator: legal only as a SELECT item or in "
+            "LATERAL VIEW, not inside another expression")
+
     if isinstance(expr, E.AddMonths):
         tv = evaluate(expr.child, env)
         y, m, d = _civil_from_days(tv.data.to(torch.int64))
@@ -599,6 +652,289 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
 
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not ported yet: {expr}")
+
+
+def _eval_col(name: str, env: Env) -> TV:
+    """A column of the environment. An array takes its lengths from the
+    ``#len`` companion where the environment holds one (row operators
+    move the companion as an ordinary column); a bare map name resolves
+    to its ``#keys`` component, the map's handle (types.MapType)."""
+    tv = env.columns.get(name)
+    if tv is None:
+        keys = T.map_keys_col(name)
+        if keys in env.columns:
+            return _eval_col(keys, env)
+        raise KeyError(f"column {name!r} not in {sorted(env.columns)}")
+    if isinstance(tv.dtype, T.ArrayType):
+        comp = env.columns.get(T.array_len_col(name))
+        if comp is not None:
+            tv = tv._replace(lengths=comp.data)
+        elif tv.lengths is None:
+            tv = tv._replace(lengths=torch.full(
+                (tv.data.shape[0],), tv.data.shape[1], dtype=torch.int32,
+                device=tv.data.device))
+    return tv
+
+
+def _array_tv(tv: TV, what: str) -> TV:
+    if tv.lengths is None or tv.data.dim() != 2:
+        raise NotImplementedError(f"{what} over a non-array value")
+    return tv
+
+
+def _alive(tv: TV) -> torch.Tensor:
+    """bool (rows, max_len): the positions inside each row's length."""
+    width = tv.data.shape[1]
+    pos = torch.arange(width, device=tv.data.device)
+    return pos[None, :] < tv.lengths.to(torch.int64)[:, None]
+
+
+def row_where(cond: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` of a per-row condition over 1-D or 2-D values: the
+    condition spans each row, never a column (a (rows,) mask against
+    (rows, L) data would broadcast along L)."""
+    if a.dim() > 1:
+        cond = cond.reshape(cond.shape + (1,) * (a.dim() - 1))
+    return torch.where(cond, a, b)
+
+
+def pad_width(data: torch.Tensor, width: int) -> torch.Tensor:
+    """2-D values padded with zeros to ``width`` columns."""
+    if data.shape[1] >= width:
+        return data
+    return torch.nn.functional.pad(data, (0, width - data.shape[1]))
+
+
+def _coded(tv: TV, table: np.ndarray) -> torch.Tensor:
+    """A string TV's codes (1-D or 2-D) re-coded through ``table``."""
+    return _gather(table, tv.data) if len(tv.dictionary or ()) else tv.data
+
+
+def _elements_equal(tv: TV, needle: TV) -> torch.Tensor:
+    """bool (rows, max_len): each element of array ``tv`` equal to the
+    row's ``needle``, strings through a shared dictionary, numbers in
+    their common type (a needle of 10.5 never matches an element 10)."""
+    if isinstance(tv.dtype.element, T.StringType):
+        _, (ta, tb) = unify_dictionaries((tv.dictionary or (),
+                                          needle.dictionary or ()))
+        return _coded(tv, ta) == _coded(needle, tb)[:, None]
+    ct = T.common_type(tv.dtype.element, needle.dtype)
+    return (_cast_data(tv.data, tv.dtype.element, ct)
+            == _cast_data(needle.data, needle.dtype, ct)[:, None])
+
+
+def _eval_make_array(expr: E.MakeArray, env: Env) -> TV:
+    """array(a, b, ...): the inputs stacked as columns, in their common
+    type; a null input nulls the row (an element cannot be null)."""
+    n = env.capacity
+    tvs = [evaluate(a, env) for a in expr.args]
+    validity = None
+    for tv in tvs:
+        validity = _and_validity(validity, tv.validity)
+    el = tvs[0].dtype
+    for tv in tvs[1:]:
+        el = T.common_type(el, tv.dtype)
+    if isinstance(el, T.StringType):
+        union, tables = unify_dictionaries(
+            tuple(tv.dictionary or () for tv in tvs))
+        cols = [_coded(tv, tb) for tv, tb in zip(tvs, tables)]
+        dictionary: Optional[Tuple[str, ...]] = union
+    else:
+        cols = [_cast_data(tv.data, tv.dtype, el) for tv in tvs]
+        dictionary = None
+    lengths = torch.full((n,), len(tvs), dtype=torch.int32,
+                         device=env.device)
+    if validity is not None:
+        lengths = torch.where(validity, lengths, torch.zeros_like(lengths))
+    return TV(torch.stack(cols, dim=1), validity, T.ArrayType(el),
+              dictionary, lengths)
+
+
+def split_table(dictionary: Tuple[str, ...], delim: str):
+    """``s.split(delim)`` of every dictionary entry, as the entries'
+    padded word-code table (entries x max words, int32), their word
+    counts and the sorted dictionary of the words. pyarrow's literal
+    split keeps empty pieces, as Python's ``str.split(sep)`` does."""
+    import pyarrow.compute as pc
+
+    parts = pc.split_pattern(_arrow_dictionary(dictionary), delim)
+    lens = np.diff(parts.offsets.to_numpy()).astype(np.int32)
+    codes, words = _dedupe_sorted(parts.flatten())
+    width = max(1, int(lens.max()) if len(lens) else 1)
+    table = np.zeros((max(1, len(dictionary)), width), dtype=np.int32)
+    if len(codes):
+        alive = np.arange(width)[None, :] < lens[:, None]
+        table[:len(lens)][alive] = codes
+    counts = np.zeros(max(1, len(dictionary)), dtype=np.int32)
+    counts[:len(lens)] = lens
+    return table, counts, words
+
+
+def _eval_split(expr: E.Split, tv: TV, n: int) -> TV:
+    """split(s, delim) over the host dictionary (``split_table``), then
+    one gather of the rows' word codes and counts on the device."""
+    if not isinstance(tv.dtype, T.StringType):
+        raise NotImplementedError("split() needs a string input")
+    dictionary = tv.dictionary or ()
+    table, counts, words = split_table(dictionary, expr.delim)
+    codes = (tv.data if dictionary
+             else torch.zeros((n,), dtype=torch.int32, device=tv.data.device))
+    return TV(_gather(table, codes), tv.validity, T.ArrayType(T.STRING),
+              words, _gather(counts, codes))
+
+
+def _eval_element_at(expr: E.ElementAt, env: Env, n: int) -> TV:
+    """element_at(a, i) (1-based, negative from the end) or ``a[i]``
+    (0-based); NULL out of range."""
+    tv = _array_tv(evaluate(expr.child, env), "element_at()")
+    it = evaluate(expr.index, env)
+    idx = it.data.to(torch.int64)
+    lens = tv.lengths.to(torch.int64)
+    if expr.sql_subscript:
+        pos = idx
+        ok = (pos >= 0) & (pos < lens)
+    else:
+        pos = torch.where(idx > 0, idx - 1, lens + idx)
+        ok = (pos >= 0) & (pos < lens) & (idx != 0)
+    pos = pos.clamp(0, max(tv.data.shape[1] - 1, 0))
+    got = torch.gather(tv.data, 1, pos[:, None])[:, 0]
+    validity = tv.valid_or_true(n) & it.valid_or_true(n) & ok
+    return TV(got, validity, tv.dtype.element, tv.dictionary)
+
+
+def _eval_higher_order(expr: E.HigherOrder, env: Env, n: int) -> TV:
+    """transform / filter / exists / forall / aggregate over the padded
+    layout (reference: ``spark_tpu/expr/compiler.py:1116``): the lambda
+    body is evaluated once over the rows x max_len element plane, with
+    the outer columns it reads repeated per element. As in the
+    reference, a NULL predicate counts as false in exists, forall and
+    filter, and transform refuses a nullable body (an element cannot be
+    null)."""
+    tv = _array_tv(evaluate(expr.child, env), f"{expr.kind}()")
+    if expr.kind == "aggregate":
+        return _eval_array_aggregate(expr, tv, env, n)
+    width = tv.data.shape[1]
+    alive = _alive(tv)
+    params = expr.fn.params
+    cols: Dict[str, TV] = {}
+    for name in expr.fn.references():
+        otv = evaluate(E.Col(name), env)
+        if otv.data.dim() != 1:
+            raise NotImplementedError(
+                f"{expr.kind}(): an outer array column ({name}) in the "
+                "lambda body")
+        cols[name] = TV(otv.data.repeat_interleave(width),
+                        None if otv.validity is None
+                        else otv.validity.repeat_interleave(width),
+                        otv.dtype, otv.dictionary)
+    cols[params[0]] = TV(tv.data.reshape(-1), None, tv.dtype.element,
+                         tv.dictionary)
+    if len(params) > 1:  # (x, i) -> ...: the 0-based position
+        cols[params[1]] = TV(
+            torch.arange(width, dtype=torch.int32,
+                         device=env.device).repeat(n), None, T.INT32, None)
+    res = evaluate(expr.fn.body, Env(cols, n * width, device=env.device))
+
+    if expr.kind == "transform":
+        if res.validity is not None:
+            raise NotImplementedError(
+                "transform() with a nullable lambda result: an array "
+                "element cannot be null (coalesce() inside the lambda)")
+        return TV(res.data.reshape(n, width), tv.validity,
+                  T.ArrayType(res.dtype), res.dictionary, tv.lengths)
+    pred = (res.data & res.valid_or_true(n * width)).reshape(n, width)
+    if expr.kind == "filter":
+        keep = pred & alive
+        # a stable compaction of each row: kept elements slide left
+        perm = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+        return TV(torch.gather(tv.data, 1, perm), tv.validity, tv.dtype,
+                  tv.dictionary, keep.sum(dim=1).to(torch.int32))
+    if expr.kind == "exists":
+        return TV((pred & alive).any(dim=1), tv.validity, T.BOOLEAN, None)
+    if expr.kind == "forall":
+        return TV((pred | ~alive).all(dim=1), tv.validity, T.BOOLEAN, None)
+    raise NotImplementedError(f"higher-order function {expr.kind!r}")
+
+
+def _eval_array_aggregate(expr: E.HigherOrder, tv: TV, env: Env,
+                          n: int) -> TV:
+    """aggregate(a, zero, (acc, x) -> ..., [acc -> ...]): a fold over the
+    max_len positions, each step a whole-column op over all rows, the
+    accumulator kept where the position is past the row's length."""
+    acc = evaluate(expr.zero, env)
+    if isinstance(acc.dtype, T.StringType):
+        raise NotImplementedError("aggregate() with a string accumulator")
+    acc_name, x_name = expr.fn.params
+    lens = tv.lengths.to(torch.int64)
+    for j in range(tv.data.shape[1]):
+        cols = dict(env.columns)
+        cols[acc_name] = acc
+        cols[x_name] = TV(tv.data[:, j], None, tv.dtype.element,
+                          tv.dictionary)
+        new = evaluate(expr.fn.body, Env(cols, n, device=env.device))
+        ct = T.common_type(acc.dtype, new.dtype)
+        step = j < lens
+        data = torch.where(step, _cast_data(new.data, new.dtype, ct),
+                           _cast_data(acc.data, acc.dtype, ct))
+        validity = None
+        if acc.validity is not None or new.validity is not None:
+            validity = torch.where(step, new.valid_or_true(n),
+                                   acc.valid_or_true(n))
+        acc = TV(data, validity, ct, None)
+    if expr.finish is not None:
+        cols = dict(env.columns)
+        cols[expr.finish.params[0]] = acc
+        acc = evaluate(expr.finish.body, Env(cols, n, device=env.device))
+    return TV(acc.data, _and_validity(tv.validity, acc.validity), acc.dtype,
+              acc.dictionary)
+
+
+def _map_pair(child: E.Expression, env: Env):
+    """(keys TV, values TV) when ``child`` is a map: a map column's
+    component pair, ``map(...)`` or ``map_from_arrays(...)``; else None."""
+    child = E.strip_alias(child)
+    if isinstance(child, E.CreateMap):
+        return (evaluate(E.MakeArray(child.args[::2]), env),
+                evaluate(E.MakeArray(child.args[1::2]), env))
+    if isinstance(child, E.MapFromArrays):
+        return (_array_tv(evaluate(child.keys, env), "map_from_arrays()"),
+                _array_tv(evaluate(child.vals, env), "map_from_arrays()"))
+    if not isinstance(child, E.Col):
+        return None
+    base = T.map_base_name(child.col_name)
+    if base is None:
+        base = child.col_name
+    kc, vc = T.map_keys_col(base), T.map_vals_col(base)
+    if kc not in env.columns or vc not in env.columns:
+        return None
+    if child.col_name not in (base, kc):
+        return None  # 'm#vals' itself is an ordinary array
+    return _eval_col(kc, env), _eval_col(vc, env)
+
+
+def _map_get(pair, needle: TV, n: int) -> TV:
+    """element_at(m, k) and m[k]: the first key equal to the needle,
+    its value gathered from the values plane; NULL when missing
+    (reference: GetMapValue)."""
+    ktv, vtv = pair
+    _array_tv(ktv, "element_at()")
+    eq = _elements_equal(ktv, needle) & _alive(ktv)
+    found = eq.any(dim=1)
+    pos = torch.argmax(eq.to(torch.uint8), dim=1)
+    out = torch.gather(vtv.data, 1, pos[:, None])[:, 0]
+    validity = ktv.valid_or_true(n) & needle.valid_or_true(n) & found
+    return TV(out, validity, vtv.dtype.element, vtv.dictionary)
+
+
+def evaluate_map_pair(expr: E.Expression, env: Env):
+    """A map-typed projection item as its (keys TV, values TV) pair: the
+    point where a Project expands ``map(...)``, ``map_from_arrays`` and
+    map column references into ``#keys``/``#vals`` columns."""
+    pair = _map_pair(expr, env)
+    if pair is None:
+        raise NotImplementedError(f"not a map-typed expression: {expr}")
+    return pair
 
 
 def _eval_unary_math(expr: E.UnaryMath, tv: TV) -> TV:
@@ -961,6 +1297,32 @@ def _eval_in(expr: E.In, env: Env) -> TV:
     return TV(res, tv.validity, T.BOOLEAN, None)
 
 
+def _is_stringish(dt: DataType) -> bool:
+    """Strings and arrays of strings: values coded in a dictionary."""
+    if isinstance(dt, T.ArrayType):
+        dt = dt.element
+    return isinstance(dt, T.StringType)
+
+
+def _blend_inputs(tvs: List[TV], out_dt: DataType):
+    """The TVs of a CASE or COALESCE in the output's coding: strings (and
+    string arrays) re-coded into their dictionaries' union, numbers cast
+    to ``out_dt``, arrays padded to the widest. Returns (datas, lengths
+    or None per TV, the output dictionary)."""
+    out_dict: Optional[Tuple[str, ...]] = None
+    if _is_stringish(out_dt):
+        out_dict, tables = unify_dictionaries(
+            tuple(tv.dictionary or () for tv in tvs))
+        datas = [_coded(tv, tb) for tv, tb in zip(tvs, tables)]
+    else:
+        datas = [_cast_data(tv.data, tv.dtype, out_dt) for tv in tvs]
+    if isinstance(out_dt, T.ArrayType):
+        width = max(d.shape[1] for d in datas)
+        datas = [pad_width(d, width) for d in datas]
+        tvs = [_array_tv(tv, "CASE/COALESCE") for tv in tvs]
+    return datas, [tv.lengths for tv in tvs], out_dict
+
+
 def _eval_case(expr: E.Case, env: Env) -> TV:
     n = env.capacity
     dev = env.device
@@ -968,62 +1330,54 @@ def _eval_case(expr: E.Case, env: Env) -> TV:
     vals = [evaluate(v, env) for _, v in expr.branches]
     else_tv = (evaluate(expr.else_value, env)
                if expr.else_value is not None else None)
-
-    out_dict: Optional[Tuple[str, ...]] = None
-    if any(isinstance(v.dtype, T.StringType) for v in vals):
-        # branches carry different dictionaries: re-code every one into
-        # their union before blending
-        dicts = [v.dictionary or () for v in vals]
-        if else_tv is not None:
-            dicts.append(else_tv.dictionary or ())
-        union, tables = unify_dictionaries(tuple(dicts))
-        vals = [_translate(v, t, union) for v, t in zip(vals, tables)]
-        if else_tv is not None:
-            else_tv = _translate(else_tv, tables[-1], union)
-        out_dt: DataType = T.STRING
-        out_dict = union
+    strings = [v.dtype for v in vals if _is_stringish(v.dtype)]
+    if strings:
+        out_dt = strings[0]  # branches re-coded into one dictionary
     else:
         out_dt = vals[0].dtype
-        for v in vals[1:]:
+        for v in vals[1:] + ([else_tv] if else_tv is not None else []):
             out_dt = T.common_type(out_dt, v.dtype)
-        if else_tv is not None:
-            out_dt = T.common_type(out_dt, else_tv.dtype)
+    inputs = vals + ([else_tv] if else_tv is not None else [])
+    datas, lengths, out_dict = _blend_inputs(inputs, out_dt)
+    arr = isinstance(out_dt, T.ArrayType)
 
     if else_tv is not None:
-        data = _cast_data(else_tv.data, else_tv.dtype, out_dt)
-        valid = else_tv.validity
+        data, valid, lens = datas[-1], else_tv.validity, lengths[-1]
     else:
-        data = torch.zeros((n,), dtype=_torch_dtype(out_dt), device=dev)
+        shape = (n, datas[0].shape[1]) if arr else (n,)
+        data = torch.zeros(shape, dtype=datas[0].dtype, device=dev)
         valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+        lens = (torch.zeros((n,), dtype=torch.int32, device=dev) if arr
+                else None)
 
     matched = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for c, v in zip(conds, vals):
+    for c, v, vd, vl in zip(conds, vals, datas, lengths):
         fire = c.data & c.valid_or_true(n) & ~matched
-        data = torch.where(fire, _cast_data(v.data, v.dtype, out_dt), data)
+        data = row_where(fire, vd, data)
         valid_arr = valid if valid is not None else torch.ones(
             (n,), dtype=torch.bool, device=dev)
         valid = torch.where(fire, v.valid_or_true(n), valid_arr)
+        if arr:
+            lens = torch.where(fire, vl.to(torch.int32), lens.to(torch.int32))
         matched = matched | fire
-    return TV(data, valid, out_dt, out_dict)
+    return TV(data, valid, out_dt, out_dict, lens)
 
 
 def _eval_coalesce(expr: E.Coalesce, env: Env) -> TV:
     n = env.capacity
     tvs = [evaluate(a, env) for a in expr.args]
     out_dt = tvs[0].dtype
-    out_dict = tvs[0].dictionary
-    if isinstance(out_dt, T.StringType):
-        # the args carry different dictionaries (a column and a fill
-        # literal): re-code every one into the union, as Case does
-        union, tables = unify_dictionaries(tuple(
-            tv.dictionary or () for tv in tvs))
-        tvs = [_translate(tv, t, union) for tv, t in zip(tvs, tables)]
-        out_dict = union
-    data = tvs[-1].data
-    valid = tvs[-1].validity
-    for tv in reversed(tvs[:-1]):
+    datas, lengths, out_dict = _blend_inputs(tvs, out_dt)
+    if out_dict is None:
+        out_dict = tvs[0].dictionary
+    arr = isinstance(out_dt, T.ArrayType)
+    data, valid, lens = datas[-1], tvs[-1].validity, lengths[-1]
+    for tv, d, ln in zip(reversed(tvs[:-1]), reversed(datas[:-1]),
+                         reversed(lengths[:-1])):
         v = tv.valid_or_true(n)
-        data = torch.where(v, _cast_data(tv.data, tv.dtype, out_dt), data)
+        data = row_where(v, d, data)
+        if arr:
+            lens = torch.where(v, ln.to(torch.int32), lens.to(torch.int32))
         # valid where this arg is valid or the later fallback was
         valid = None if valid is None else (v | valid)
-    return TV(data, valid, out_dt, out_dict)
+    return TV(data, valid, out_dt, out_dict, lens)

@@ -3,14 +3,15 @@ aggregate, join, subquery, window and scalar-function slices plan:
 columns, literals, aliases, arithmetic, month arithmetic on dates,
 comparisons, boolean logic, null tests, casts, IN lists, LIKE and the
 other dictionary string predicates, substring, concatenation, the string
-transforms, length and regular expressions, the math functions (abs,
-floor/ceil/sqrt/exp/ln/log10/sign, round, power), date_trunc and
-last_day, CASE, COALESCE, typed NULLs (``NullOf``), date parts, sort
-orders, the subquery nodes (removed by ``plan/subquery.py`` before
-execution), the grouping markers ``grouping()``/``grouping_id()``
+transforms, length and regular expressions, arrays, maps, their
+functions, the higher-order functions and the explode generator, the
+math functions (abs, floor/ceil/sqrt/exp/ln/log10/sign, round, power),
+date_trunc and last_day, CASE, COALESCE, typed NULLs (``NullOf``),
+date parts, sort orders, the subquery nodes (removed by
+``plan/subquery.py`` before execution), the grouping markers ``grouping()``/``grouping_id()``
 (rewritten by ``plan/grouping.py``), the window functions and the
-count/sum/avg/min/max/first, stddev/variance and percentile aggregates,
-with DISTINCT on count, sum and avg.
+count/sum/avg/min/max/first, stddev/variance, percentile and
+collect_list/collect_set aggregates, with DISTINCT on count, sum and avg.
 
 The analogue of Catalyst's expression nodes (reference:
 sql/catalyst/.../expressions/Expression.scala). Expressions are
@@ -244,6 +245,13 @@ class Col(Expression):
 
 
 @dataclass(eq=False, frozen=True)
+class MapHandle(Col):
+    """A bare reference to a map column, resolved to its ``#keys``
+    component (types.MapType). It evaluates as that Col; a SELECT list
+    that selects it adds the ``#vals`` sibling, so the pair survives."""
+
+
+@dataclass(eq=False, frozen=True)
 class Alias(Expression):
     child: Expression
     alias_name: str
@@ -411,6 +419,270 @@ class IsNull(Expression):
 
     def __str__(self):
         return f"({self.child} IS NULL)"
+
+
+# ---- arrays, maps and generators (the padded layout, types.ArrayType) ------
+
+
+@dataclass(eq=False, frozen=True)
+class MakeArray(Expression):
+    """array(e1, e2, ...) (reference: CreateArray,
+    complexTypeCreator.scala): fixed length, the arity. A null input
+    nulls the whole array row, since an element cannot be null."""
+
+    args: Tuple[Expression, ...]
+
+    def children(self):
+        return self.args
+
+    def data_type(self, schema):
+        dt = self.args[0].data_type(schema)
+        for a in self.args[1:]:
+            dt = T.common_type(dt, a.data_type(schema))
+        return T.ArrayType(dt)
+
+    def __str__(self):
+        return f"array({', '.join(map(str, self.args))})"
+
+
+@dataclass(eq=False, frozen=True)
+class Split(Expression):
+    """split(str, delim) -> array<string> (reference: StringSplit; the
+    delimiter is a literal separator, as Python's ``str.split``, and the
+    split runs over the host dictionary)."""
+
+    child: Expression
+    delim: str
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.ArrayType(T.STRING)
+
+    def __str__(self):
+        return f"split({self.child}, {self.delim!r})"
+
+
+@dataclass(eq=False, frozen=True)
+class Size(Expression):
+    """size(array) and size(map) (reference: Size)."""
+
+    child: Expression
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.INT32
+
+    def __str__(self):
+        return f"size({self.child})"
+
+
+@dataclass(eq=False, frozen=True)
+class ElementAt(Expression):
+    """element_at(array, i): 1-based, negative from the end, NULL out of
+    range (reference: ElementAt). Over a map the index is a key lookup
+    (GetMapValue). ``sql_subscript`` marks ``x[i]``, 0-based for arrays
+    (GetArrayItem) and a key lookup for maps."""
+
+    child: Expression
+    index: Expression
+    sql_subscript: bool = False
+
+    def children(self):
+        return (self.child, self.index)
+
+    def data_type(self, schema):
+        dt = self.child.data_type(schema)
+        if isinstance(dt, T.ArrayType):
+            return dt.element
+        if isinstance(dt, T.MapType):
+            return dt.value
+        raise TypeError(f"element_at over non-array {dt!r}")
+
+    def nullable(self, schema):
+        return True
+
+    def __str__(self):
+        return f"element_at({self.child}, {self.index})"
+
+
+@dataclass(eq=False, frozen=True)
+class ArrayContains(Expression):
+    """array_contains(array, value) (reference: ArrayContains)."""
+
+    child: Expression
+    value: Expression
+
+    def children(self):
+        return (self.child, self.value)
+
+    def data_type(self, schema):
+        return T.BOOLEAN
+
+    def __str__(self):
+        return f"array_contains({self.child}, {self.value})"
+
+
+@dataclass(eq=False, frozen=True)
+class CreateMap(Expression):
+    """map(k1, v1, k2, v2, ...) (reference: CreateMap). A map-typed
+    expression is legal only at the top of a projection, which expands
+    it into its ``#keys``/``#vals`` pair (types.MapType)."""
+
+    args: Tuple[Expression, ...]
+
+    def __post_init__(self):
+        if len(self.args) % 2:
+            raise TypeError("map() needs an even argument count")
+
+    def children(self):
+        return self.args
+
+    def data_type(self, schema):
+        kt = self.args[0].data_type(schema)
+        vt = self.args[1].data_type(schema)
+        for k in self.args[2::2]:
+            kt = T.common_type(kt, k.data_type(schema))
+        for v in self.args[3::2]:
+            vt = T.common_type(vt, v.data_type(schema))
+        return T.MapType(kt, vt)
+
+    def __str__(self):
+        return f"map({', '.join(str(a) for a in self.args)})"
+
+
+@dataclass(eq=False, frozen=True)
+class MapFromArrays(Expression):
+    """map_from_arrays(keys, values) (reference: MapFromArrays)."""
+
+    keys: Expression
+    vals: Expression
+
+    def children(self):
+        return (self.keys, self.vals)
+
+    def data_type(self, schema):
+        kt = self.keys.data_type(schema)
+        vt = self.vals.data_type(schema)
+        if not isinstance(kt, T.ArrayType) or not isinstance(vt, T.ArrayType):
+            raise TypeError("map_from_arrays needs two array inputs")
+        return T.MapType(kt.element, vt.element)
+
+    def __str__(self):
+        return f"map_from_arrays({self.keys}, {self.vals})"
+
+
+@dataclass(eq=False, frozen=True)
+class Lambda(Expression):
+    """``x -> body`` / ``(x, i) -> body`` of a higher-order function
+    (reference: LambdaFunction). The parameters bind as column names in
+    the body, shadowing outer columns; the body is evaluated once over
+    the flattened rows x max_len element plane."""
+
+    params: Tuple[str, ...]
+    body: Expression
+
+    def children(self):
+        return (self.body,)
+
+    def data_type(self, schema):
+        raise TypeError("a lambda has no standalone type")
+
+    def references(self) -> set:
+        return self.body.references() - set(self.params)
+
+    def __str__(self):
+        return f"({', '.join(self.params)}) -> {self.body}"
+
+
+def _with_fields(schema, extra_fields):
+    return T.Schema(tuple(schema.fields) + tuple(extra_fields))
+
+
+@dataclass(eq=False, frozen=True)
+class HigherOrder(Expression):
+    """transform / filter / exists / forall / aggregate over an array
+    (reference: higherOrderFunctions.scala). ``zero`` and ``finish`` are
+    aggregate's."""
+
+    kind: str  # transform | filter | exists | forall | aggregate
+    child: Expression
+    fn: Lambda
+    zero: Optional[Expression] = None
+    finish: Optional[Lambda] = None
+
+    def children(self):
+        return (self.child, self.fn) + tuple(
+            e for e in (self.zero, self.finish) if e is not None)
+
+    def _element_schema(self, schema):
+        dt = self.child.data_type(schema)
+        if not isinstance(dt, T.ArrayType):
+            raise TypeError(f"{self.kind}() over non-array {dt!r}")
+        fields = [T.Field(self.fn.params[0], dt.element, False)]
+        if len(self.fn.params) > 1:
+            fields.append(T.Field(self.fn.params[1], T.INT32, False))
+        return _with_fields(schema, fields)
+
+    def data_type(self, schema):
+        if self.kind == "transform":
+            return T.ArrayType(
+                self.fn.body.data_type(self._element_schema(schema)))
+        if self.kind == "filter":
+            return self.child.data_type(schema)
+        if self.kind in ("exists", "forall"):
+            return T.BOOLEAN
+        if self.kind == "aggregate":
+            dt = self.child.data_type(schema)
+            acc_dt = self.zero.data_type(schema)
+            s2 = _with_fields(schema, [
+                T.Field(self.fn.params[0], acc_dt, False),
+                T.Field(self.fn.params[1], dt.element, False)])
+            acc_dt = T.common_type(acc_dt, self.fn.body.data_type(s2))
+            if self.finish is not None:
+                s3 = _with_fields(
+                    schema, [T.Field(self.finish.params[0], acc_dt, False)])
+                return self.finish.body.data_type(s3)
+            return acc_dt
+        raise TypeError(f"unknown higher-order kind {self.kind!r}")
+
+    def __str__(self):
+        parts = [str(self.child), str(self.fn)]
+        if self.zero is not None:
+            parts.insert(1, str(self.zero))
+        return f"{self.kind}({', '.join(parts)})"
+
+
+@dataclass(eq=False, frozen=True)
+class Explode(Expression):
+    """Generator: one output row per array element (reference:
+    Explode/PosExplode, generators.scala). Legal only as a SELECT item
+    or in LATERAL VIEW, which plan it as a ``Generate`` node."""
+
+    child: Expression
+    with_position: bool = False
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        dt = self.child.data_type(schema)
+        if isinstance(dt, T.ArrayType):
+            return dt.element
+        raise TypeError(f"explode over non-array {dt!r}")
+
+    def __str__(self):
+        return ("posexplode" if self.with_position else "explode") \
+            + f"({self.child})"
+
+
+def contains_generator(e: Expression) -> bool:
+    if isinstance(e, Explode):
+        return True
+    return any(contains_generator(c) for c in e.children())
 
 
 @dataclass(eq=False, frozen=True)
@@ -1281,6 +1553,33 @@ class First(AggregateExpression):
     @property
     def name(self):
         return f"first({self.child})"
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass(eq=False, frozen=True)
+class Collect(AggregateExpression):
+    """collect_list / collect_set: a group's non-null values as an array
+    (reference: aggregate/collect.scala). collect_list keeps the rows'
+    order, collect_set keeps each value once, in value order. The output
+    width is the largest group's count, which the host reads."""
+
+    child: Expression
+    unique: bool = False  # collect_set
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return T.ArrayType(self.child.data_type(schema))
+
+    def nullable(self, schema):
+        return False
+
+    @property
+    def name(self):
+        return f"collect_{'set' if self.unique else 'list'}({self.child})"
 
     def __str__(self):
         return self.name

@@ -24,8 +24,8 @@ import pyarrow.dataset as pads
 import torch
 
 from spark_tpu_torch import types as T
-from spark_tpu_torch.columnar.arrow import (arrow_type_to_dtype, from_arrow,
-                                            dtype_to_arrow_type)
+from spark_tpu_torch.columnar.arrow import (dtype_to_arrow_type, from_arrow,
+                                            schema_from_arrow, source_column)
 from spark_tpu_torch.columnar.batch import Batch, round_capacity
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.types import Field, Schema
@@ -42,9 +42,14 @@ def _pa_schema_from_schema(schema: Schema) -> pa.Schema:
 
 
 def _schema_from_pa(pa_schema: pa.Schema) -> Schema:
+    """The engine schema of a file schema: a list column becomes the
+    array and its ``#len`` companion, a map its ``#keys``/``#vals``
+    pair, a struct its dotted children (``columnar/arrow.py``)."""
+    fields = schema_from_arrow(pa_schema).fields
+    nullable = {f.name: f.nullable for f in pa_schema}
     return Schema(tuple(
-        Field(f.name, arrow_type_to_dtype(f.type), nullable=f.nullable)
-        for f in pa_schema))
+        Field(f.name, f.dtype, nullable=nullable.get(f.name, f.nullable))
+        for f in fields))
 
 
 # ---- predicate translation --------------------------------------------------
@@ -75,10 +80,23 @@ def _coerce_literal(v, col_name: str, dtypes):
 _FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
 
 
+def _flat_column(name: str) -> str:
+    """``name`` when it can name a flat file column: the parts of nested
+    columns (``#len``, ``#keys``/``#vals``, dotted struct children) are
+    never pushed."""
+    if "#" in name or "." in name:
+        raise _Untranslatable
+    return name
+
+
 def _translate(e: E.Expression, dtypes=None) -> pads.Expression:
     """Expression -> pyarrow.dataset expression; raises _Untranslatable
-    for anything the scan cannot evaluate. ``dtypes`` ({column:
-    DataType}) turns on the storage-aware literal coercion of a read."""
+    for anything the scan cannot evaluate (filters on nested columns
+    included). ``dtypes`` ({column: DataType}) turns on the storage-aware
+    literal coercion of a read."""
+    for c in e.children():
+        if isinstance(c, E.Col):
+            _flat_column(c.col_name)
     if isinstance(e, E.Cmp):
         if isinstance(e.left, E.Col):
             name, v, op = e.left.col_name, _literal_value(e.right), e.op
@@ -264,12 +282,21 @@ class FileSource:
             self._cache[key] = hit  # most recently used
             return hit
         t0 = time.perf_counter()
+        file_cols = None
+        if columns is not None:
+            # the file columns behind the engine's: a list, map or struct
+            # column is read whole and expanded by from_arrow
+            names = ds.schema.names
+            file_cols = list(dict.fromkeys(source_column(c, names)
+                                           for c in columns))
         table = ds.to_table(
-            columns=list(columns) if columns is not None else None,
+            columns=file_cols,
             filter=_filters_to_pads(filters, self._dtypes()))
         t1 = time.perf_counter()
         batch = from_arrow(table, capacity=round_capacity(table.num_rows),
                            device=device)
+        if columns is not None and tuple(batch.schema.names) != columns:
+            batch = batch.select(columns)
         if batch.data.row_mask.is_cuda:
             # wait for the copies, so that the transfer time is theirs
             torch.cuda.synchronize(batch.data.row_mask.device)

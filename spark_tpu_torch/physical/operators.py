@@ -3,10 +3,18 @@
 The port of the single-device main path of
 ``spark_tpu/physical/operators.py``: scan, range, filter, project, sort,
 limit, compaction, the grouping-sets expand, union, grouped aggregation
-and the sorted-build equi-join (``JoinExec``, its blocking path); the
-window operator is ``physical/window.py``. A pipeline carries ``(cols: {name:
-TV}, row_mask)``; filters flip mask bits, projections rebuild the dict —
-shapes never change mid-stage. The reference fuses traceable operators
+(with collect_list/collect_set), the sorted-build equi-join
+(``JoinExec``, its blocking path), ``GenerateExec`` (explode) and
+``SampleExec``; the window operator is ``physical/window.py``.
+
+An array column is 2-D (capacity, max_len): every row operator gathers
+and concatenates it along rows, pads widths to the widest where inputs
+meet, and moves its lengths twice, in the TV (``TV.lengths``) and as the
+``<col>#len`` companion column that results and batches carry.
+
+A pipeline carries ``(cols: {name: TV}, row_mask)``; filters flip mask
+bits, projections rebuild the dict — shapes never change mid-stage. The
+reference fuses traceable operators
 into one XLA program; here every operator runs eagerly
 (``execute(child_pipes) -> Pipe``) and the planner evaluates the tree
 recursively. ``traceable`` keeps the reference's meaning: the operator
@@ -29,7 +37,10 @@ from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.expr.compiler import TV, Env
 from spark_tpu_torch.physical import kernels as K
 from spark_tpu_torch.device import resolve_device
-from spark_tpu_torch.plan.logical import expand_schema, join_schema, range_rows
+from spark_tpu_torch.plan.logical import (expand_schema, generate_schema,
+                                          join_schema, map_outputs,
+                                          projection_schema, range_rows,
+                                          with_len_companions)
 from spark_tpu_torch.types import Field, Schema
 
 
@@ -53,10 +64,8 @@ class Pipe:
 
     @classmethod
     def from_batch(cls, batch: Batch) -> "Pipe":
-        cols = {
-            f.name: TV(cd.data, cd.validity, f.dtype, f.dictionary)
-            for f, cd in zip(batch.schema.fields, batch.data.columns)}
-        return cls(cols, batch.data.row_mask, batch.schema.names)
+        env = Env.from_batch(batch)
+        return cls(env.columns, batch.data.row_mask, batch.schema.names)
 
     def to_batch(self) -> Batch:
         fields = []
@@ -160,25 +169,62 @@ class ProjectExec(PhysicalPlan):
 
     @property
     def schema(self) -> Schema:
-        cs = self.child.schema
-        fields = []
-        for e in self.exprs:
-            inner = E.strip_alias(e)
-            dictionary = None
-            if isinstance(inner, E.Col) and inner.col_name in cs:
-                dictionary = cs.field(inner.col_name).dictionary
-            fields.append(Field(e.name, e.data_type(cs), e.nullable(cs),
-                                dictionary))
-        return Schema(tuple(fields))
+        return projection_schema(self.exprs, self.child.schema)
 
     def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        """Each item evaluated; a map item expands into its
+        ``#keys``/``#vals`` pair, and every array output gains its
+        ``#len`` companion (``projection_schema``)."""
         pipe = child_pipes[0]
         env = pipe.env()
-        cols = {e.name: C.evaluate(e, env) for e in self.exprs}
-        return Pipe(cols, pipe.mask, [e.name for e in self.exprs])
+        cs = self.child.schema
+        cols: Dict[str, TV] = {}
+        order: List[str] = []
+        for e in self.exprs:
+            pair = map_outputs(e, cs)
+            if pair is not None:
+                for name, tv in zip(pair, C.evaluate_map_pair(e, env)):
+                    cols[name] = tv
+                    order.append(name)
+                continue
+            cols[e.name] = C.evaluate(e, env)
+            order.append(e.name)
+        cols, order = with_companion_cols(cols, order)
+        return Pipe(cols, pipe.mask, order)
 
     def node_string(self):
         return f"Project[{', '.join(str(e) for e in self.exprs)}]"
+
+
+def with_companion_cols(cols: Dict[str, TV], order: Sequence[str]):
+    """(cols, order) with each array column followed by its ``#len``
+    companion (from the TV's lengths; the full width without them),
+    unless ``order`` names that companion itself: the columns of
+    ``plan/logical.py:with_len_companions``."""
+    out = dict(cols)
+    names = set(order)
+    new_order: List[str] = []
+    for name in order:
+        new_order.append(name)
+        tv = cols[name]
+        comp = T.array_len_col(name)
+        if isinstance(tv.dtype, T.ArrayType) and comp not in names:
+            lens = tv.lengths
+            if lens is None:
+                lens = torch.full((tv.data.shape[0],), tv.data.shape[1],
+                                  dtype=torch.int32, device=tv.data.device)
+            out[comp] = TV(lens.to(torch.int32), None, T.INT32, None)
+            new_order.append(comp)
+    return out, new_order
+
+
+def _scalar_column(tv: TV, what: str) -> TV:
+    """``tv`` when it is one value a row; arrays and maps are neither
+    orderable nor groupable, as in the reference."""
+    if tv.data.dim() != 1 or isinstance(tv.dtype, (T.ArrayType, T.MapType)):
+        raise ValueError(f"{what}: an array or map column ({tv.dtype}) is "
+                         "not orderable or groupable")
+    return tv
 
 
 @dataclass(eq=False)
@@ -204,9 +250,11 @@ class FilterExec(PhysicalPlan):
 
 
 def _take(tv: TV, perm: torch.Tensor) -> TV:
+    """The rows ``perm`` of a TV (an array's rows and lengths)."""
     return TV(tv.data[perm],
               None if tv.validity is None else tv.validity[perm],
-              tv.dtype, tv.dictionary)
+              tv.dtype, tv.dictionary,
+              None if tv.lengths is None else tv.lengths[perm])
 
 
 @dataclass(eq=False)
@@ -228,7 +276,7 @@ class SortExec(PhysicalPlan):
         env = pipe.env()
         keys = []
         for o in self.orders:
-            tv = C.evaluate(o.child, env)
+            tv = _scalar_column(C.evaluate(o.child, env), "ORDER BY")
             keys.append(K.SortKey(tv.data, tv.validity, o.ascending,
                                   o.nulls_first_resolved))
         perm = K.lexsort_permutation(keys, pipe.mask)
@@ -312,33 +360,46 @@ class ExpandExec(PhysicalPlan):
     def execute(self, child_pipes: List[Pipe]) -> Pipe:
         pipe = child_pipes[0]
         env = pipe.env()
-        n = pipe.capacity
+        cs = self.child.schema
         cols: Dict[str, TV] = {}
-        for i, out_f in enumerate(self.schema.fields):
+        for i, name in enumerate(self.names):
             tvs = [C.evaluate(proj[i], env) for proj in self.projections]
-            data, dictionary = _stack_columns(tvs, out_f.dtype)
-            validity = None
-            if any(tv.validity is not None for tv in tvs):
-                validity = torch.cat([tv.valid_or_true(n) for tv in tvs])
-            cols[out_f.name] = TV(data, validity, out_f.dtype, dictionary)
+            out_dt = tvs[0].dtype
+            for proj in self.projections[1:]:
+                out_dt = T.common_type(out_dt, proj[i].data_type(cs))
+            cols[name] = _stack_tvs(tvs, out_dt)
         mask = torch.cat([pipe.mask] * len(self.projections))
-        return Pipe(cols, mask, list(self.names))
+        cols, order = with_companion_cols(cols, self.names)
+        return Pipe(cols, mask, order)
 
     def node_string(self):
         return f"Expand[{len(self.projections)} sets]"
 
 
-def _stack_columns(tvs: Sequence[TV], out_dt) -> Tuple[torch.Tensor,
-                                                       Optional[tuple]]:
-    """The data of several TVs concatenated as one column of ``out_dt``:
-    strings re-coded into their dictionaries' union, other types cast."""
-    if isinstance(out_dt, T.StringType):
-        union, tables = C.unify_dictionaries(
+def _stack_tvs(tvs: Sequence[TV], out_dt) -> TV:
+    """Several TVs concatenated along rows as one column of ``out_dt``:
+    strings (and string arrays) re-coded into their dictionaries' union,
+    other types cast, arrays padded to the widest and their lengths
+    concatenated."""
+    el = out_dt.element if isinstance(out_dt, T.ArrayType) else out_dt
+    dictionary = None
+    if isinstance(el, T.StringType):
+        dictionary, tables = C.unify_dictionaries(
             tuple(tv.dictionary or () for tv in tvs))
-        return torch.cat([C._gather(tb, tv.data) if len(tv.dictionary or ())
-                          else tv.data for tv, tb in zip(tvs, tables)]), union
-    return torch.cat([C._cast_data(tv.data, tv.dtype, out_dt)
-                      for tv in tvs]), None
+        datas = [C._coded(tv, tb) for tv, tb in zip(tvs, tables)]
+    else:
+        datas = [C._cast_data(tv.data, tv.dtype, out_dt) for tv in tvs]
+    lengths = None
+    if isinstance(out_dt, T.ArrayType):
+        width = max(d.shape[1] for d in datas)
+        datas = [C.pad_width(d, width) for d in datas]
+        lengths = torch.cat([C._array_tv(tv, "UNION").lengths.to(torch.int32)
+                             for tv in tvs])
+    validity = None
+    if any(tv.validity is not None for tv in tvs):
+        validity = torch.cat([tv.valid_or_true(tv.data.shape[0])
+                              for tv in tvs])
+    return TV(torch.cat(datas), validity, out_dt, dictionary, lengths)
 
 
 @dataclass(eq=False)
@@ -362,17 +423,100 @@ class UnionExec(PhysicalPlan):
         for lname, rname in zip(lp.order, rp.order):
             lt, rt = lp.cols[lname], rp.cols[rname]
             out_dt = lt.dtype if type(lt.dtype) is type(rt.dtype) \
+                and not isinstance(lt.dtype, T.ArrayType) \
                 else T.common_type(lt.dtype, rt.dtype)
-            data, dictionary = _stack_columns((lt, rt), out_dt)
-            validity = None
-            if lt.validity is not None or rt.validity is not None:
-                validity = torch.cat([lt.valid_or_true(lp.capacity),
-                                      rt.valid_or_true(rp.capacity)])
-            cols[lname] = TV(data, validity, out_dt, dictionary)
+            cols[lname] = _stack_tvs((lt, rt), out_dt)
         return Pipe(cols, torch.cat([lp.mask, rp.mask]), list(cols))
 
     def node_string(self):
         return "Union"
+
+
+@dataclass(eq=False)
+class GenerateExec(PhysicalPlan):
+    """explode/posexplode: one output row per live element of the
+    generator's array, the input columns gathered per output row
+    (reference: ``spark_tpu/physical/operators.py:498``,
+    execution/GenerateExec.scala): each row's element offset by a
+    cumulative sum, each output row's input row by a binary search of the
+    offsets, its element by a gather. One host sync sizes the output."""
+
+    generator: E.Explode
+    out_name: str
+    pos_name: Optional[str]
+    child: PhysicalPlan
+    traceable = False
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def schema(self) -> Schema:
+        return generate_schema(self.generator, self.out_name, self.pos_name,
+                               self.child.schema)
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        pipe = child_pipes[0]
+        tv = C._array_tv(C.evaluate(self.generator.child, pipe.env()),
+                         "explode()")
+        cap_in = pipe.capacity
+        dev = pipe.mask.device
+        ok = pipe.mask & tv.valid_or_true(cap_in)
+        counts = torch.where(ok, tv.lengths.to(torch.int64),
+                             torch.zeros((), dtype=torch.int64, device=dev))
+        ends = torch.cumsum(counts, 0)
+        offsets = ends - counts
+        total = int(ends[-1])  # host sync: output sizing
+        cap = K.bucket(total)
+        j = torch.arange(cap, dtype=torch.int64, device=dev)
+        # the input row of output row j: the last row whose offset <= j
+        # (rows with no element share the next row's offset, which wins)
+        p = (K.searchsorted(offsets, j, side="right") - 1).clamp(
+            0, cap_in - 1)
+        k = j - offsets[p]
+        cols = {name: _take(pipe.cols[name], p) for name in pipe.order}
+        order = list(pipe.order)
+        if self.pos_name is not None:
+            cols[self.pos_name] = TV(k.to(torch.int32), None, T.INT32, None)
+            order.append(self.pos_name)
+        width = tv.data.shape[1]
+        el = tv.data.reshape(-1)[p * width + k.clamp(0, width - 1)]
+        cols[self.out_name] = TV(el, None, tv.dtype.element, tv.dictionary)
+        order.append(self.out_name)
+        return Pipe(cols, j < total, order)
+
+    def node_string(self):
+        return f"Generate[{self.generator} AS {self.out_name}]"
+
+
+@dataclass(eq=False)
+class SampleExec(PhysicalPlan):
+    """Bernoulli sample: row i kept when draw i of the seeded stream
+    (``physical/random.uniform``, JAX's ``uniform(PRNGKey(seed),
+    (capacity,))`` bit for bit) is below ``fraction`` (reference:
+    ``spark_tpu/physical/operators.py:651``): the same rows on the CPU
+    and on the card."""
+
+    fraction: float
+    seed: int
+    child: PhysicalPlan
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        from spark_tpu_torch.physical.random import uniform
+
+        pipe = child_pipes[0]
+        u = uniform(self.seed, pipe.capacity, pipe.mask.device)
+        return Pipe(pipe.cols, pipe.mask & (u < self.fraction), pipe.order)
+
+    def node_string(self):
+        return f"Sample[{self.fraction}, seed={self.seed}]"
 
 
 # ---- aggregation ------------------------------------------------------------
@@ -438,6 +582,7 @@ def group_key_codes(key_tvs: List[TV]):
     """Small-int codes + cardinalities for direct (packed) grouping."""
     codes, validities, cards = [], [], []
     for tv in key_tvs:
+        _scalar_column(tv, "GROUP BY")
         if isinstance(tv.dtype, T.BooleanType):
             codes.append(tv.data.to(torch.int32))
             validities.append(tv.validity)
@@ -455,7 +600,8 @@ def group_key_codes(key_tvs: List[TV]):
 def sorted_groups(pipe: Pipe, key_tvs: List[TV]):
     """Sort rows by grouping keys and assign change-flag group ids.
     Returns (sorted_pipe, sorted_key_tvs, seg_ids, num_groups)."""
-    keys = [K.SortKey(tv.data, tv.validity, True, True) for tv in key_tvs]
+    keys = [K.SortKey(_scalar_column(tv, "GROUP BY").data, tv.validity,
+                      True, True) for tv in key_tvs]
     perm = K.lexsort_permutation(keys, pipe.mask)
     spipe = Pipe({name: _take(tv, perm) for name, tv in pipe.cols.items()},
                  pipe.mask[perm], pipe.order)
@@ -523,6 +669,10 @@ def _compute_agg(agg: E.AggregateExpression, env: Env, seg, mask,
         return TV(cnt, None, T.INT64, None)
 
     tv = C.evaluate(agg.child, env)  # type: ignore[attr-defined]
+    if tv.data.dim() != 1 and not (isinstance(agg, E.Count)
+                                   and not agg.distinct):
+        raise NotImplementedError(
+            f"aggregate {agg} over an array or map value is not ported")
     ok = mask & tv.valid_or_true(capacity)
     any_valid = K.seg_count(seg, ok, num_segments, sorted_seg) > 0
     if getattr(agg, "distinct", False):
@@ -572,7 +722,33 @@ def _compute_agg(agg: E.AggregateExpression, env: Env, seg, mask,
     if isinstance(agg, E.Percentile):
         return _percentile(agg, tv, seg, ok, any_valid, num_segments,
                            capacity, sorted_seg)
+    if isinstance(agg, E.Collect):
+        return _collect(agg, env, tv, seg, ok, num_segments, capacity,
+                        sorted_seg)
     raise NotImplementedError(f"aggregate {agg!r} is not ported yet")
+
+
+def _collect(agg: E.Collect, env: Env, tv: TV, seg, ok, num_segments: int,
+             capacity: int, sorted_seg: bool) -> TV:
+    """collect_list / collect_set (reference:
+    ``spark_tpu/physical/operators.py:996``): one stable sort of the ok
+    rows by group (and, for a set, by value after the DISTINCT mask), so a
+    list keeps the rows' order and a set holds each value once, in value
+    order; each group's run is gathered into a row of an array as wide as
+    the largest group, whose count the host reads (one sync)."""
+    if agg.unique:
+        ok = ok & _distinct_mask_cached(env, agg.child, tv, seg, ok)
+    keys = [K.SortKey(seg, None, True, True)]
+    if agg.unique:
+        keys.append(K.SortKey(tv.data, tv.validity, True, True))
+    perm = K.lexsort_permutation(keys, ok)  # stable: keeps row order
+    svals = tv.data[perm]
+    cnt = K.seg_count(seg, ok, num_segments, sorted_seg)
+    starts = torch.cumsum(cnt, 0) - cnt
+    width = max(int(cnt.max()) if num_segments else 0, 1)  # host sync
+    idx = starts[:, None] + torch.arange(width, device=cnt.device)[None, :]
+    return TV(svals[idx.clamp(0, capacity - 1)], None,
+              T.ArrayType(tv.dtype), tv.dictionary, cnt.to(torch.int32))
 
 
 def _stddev_variance(agg: E.StddevVariance, tv: TV, seg, ok, any_valid,
@@ -683,7 +859,7 @@ class HashAggregateExec(PhysicalPlan):
                     dictionary = cs.field(c.col_name).dictionary
             fields.append(Field(e.name, e.data_type(cs), e.nullable(cs),
                                 dictionary))
-        return Schema(tuple(fields))
+        return with_len_companions(fields)
 
     def _finalize(self, key_tvs: List[TV], agg_tvs: List[TV],
                   out_mask: torch.Tensor, num_segments: int) -> Pipe:
@@ -692,7 +868,9 @@ class HashAggregateExec(PhysicalPlan):
         cols.update({f"__agg{i}": tv for i, tv in enumerate(agg_tvs)})
         env = Env(cols, num_segments, device=out_mask.device)
         out_cols = {e.name: C.evaluate(e, env) for e in outputs}
-        return Pipe(out_cols, out_mask, [e.name for e in outputs])
+        out_cols, order = with_companion_cols(out_cols,
+                                              [e.name for e in outputs])
+        return Pipe(out_cols, out_mask, order)
 
     def execute(self, child_pipes: List[Pipe]) -> Pipe:
         pipe = child_pipes[0]
@@ -835,8 +1013,10 @@ class JoinExec(PhysicalPlan):
         ``hashed`` when the packed range would pass 2^62 and the keys
         were hashed instead, so pairs must be verified."""
         lenv, renv = lpipe.env(), rpipe.env()
-        lks = [C.evaluate(k, lenv) for k in self.left_keys]
-        rks = [C.evaluate(k, renv) for k in self.right_keys]
+        lks = [_scalar_column(C.evaluate(k, lenv), "join key")
+               for k in self.left_keys]
+        rks = [_scalar_column(C.evaluate(k, renv), "join key")
+               for k in self.right_keys]
         dev = lpipe.mask.device
         i64max = torch.full((), K.INT64_MAX, dtype=torch.int64, device=dev)
         i64min = torch.full((), K.INT64_MIN, dtype=torch.int64, device=dev)
@@ -1071,21 +1251,43 @@ def append_unmatched_left(cols, pair_ok, order, lpipe, matched):
     new_cols: Dict[str, TV] = {}
     for i, name in enumerate(order):
         tv = cols[name]
-        rows = tv.data.shape[0]
-        if i < n_l:
-            src = lpipe.cols[lpipe.order[i]]
-            data = torch.cat([tv.data, src.data])
-            validity = None
-            if tv.validity is not None or src.validity is not None:
-                validity = torch.cat([tv.valid_or_true(rows),
-                                      src.valid_or_true(lcap)])
-        else:
-            data = torch.cat([tv.data, torch.zeros(
-                (lcap,), dtype=tv.data.dtype, device=tv.data.device)])
-            validity = torch.cat([tv.valid_or_true(rows), torch.zeros(
-                (lcap,), dtype=torch.bool, device=tv.data.device)])
-        new_cols[name] = TV(data, validity, tv.dtype, tv.dictionary)
+        src = (lpipe.cols[lpipe.order[i]] if i < n_l
+               else _null_rows(tv, lcap))
+        new_cols[name] = _cat_rows(tv, src)
     return new_cols, torch.cat([pair_ok, lpipe.mask & ~matched])
+
+
+def _null_rows(tv: TV, rows: int) -> TV:
+    """``rows`` NULL rows shaped as ``tv``'s (an array's as wide, with
+    zero lengths): the padding side of an outer join."""
+    dev = tv.data.device
+    lengths = (None if tv.lengths is None
+               else torch.zeros((rows,), dtype=torch.int32, device=dev))
+    return TV(torch.zeros((rows,) + tuple(tv.data.shape[1:]),
+                          dtype=tv.data.dtype, device=dev),
+              torch.zeros((rows,), dtype=torch.bool, device=dev), tv.dtype,
+              tv.dictionary, lengths)
+
+
+def _cat_lengths(a: TV, b: TV) -> Optional[torch.Tensor]:
+    if a.lengths is None or b.lengths is None:
+        return None
+    return torch.cat([a.lengths.to(torch.int32), b.lengths.to(torch.int32)])
+
+
+def _cat_rows(a: TV, b: TV) -> TV:
+    """The rows of ``a`` then those of ``b`` (same type), arrays padded
+    to the wider."""
+    ad, bd = a.data, b.data
+    if ad.dim() == 2:
+        width = max(ad.shape[1], bd.shape[1])
+        ad, bd = C.pad_width(ad, width), C.pad_width(bd, width)
+    validity = None
+    if a.validity is not None or b.validity is not None:
+        validity = torch.cat([a.valid_or_true(ad.shape[0]),
+                              b.valid_or_true(bd.shape[0])])
+    return TV(torch.cat([ad, bd]), validity, a.dtype, a.dictionary,
+              _cat_lengths(a, b))
 
 
 def append_unmatched_right(cols, pair_ok, order, lpipe, rpipe, matched_b):
@@ -1096,18 +1298,7 @@ def append_unmatched_right(cols, pair_ok, order, lpipe, rpipe, matched_b):
     new_cols: Dict[str, TV] = {}
     for i, name in enumerate(order):
         tv = cols[name]
-        rows = tv.data.shape[0]
-        if i < n_l:
-            data = torch.cat([tv.data, torch.zeros(
-                (rcap,), dtype=tv.data.dtype, device=tv.data.device)])
-            validity = torch.cat([tv.valid_or_true(rows), torch.zeros(
-                (rcap,), dtype=torch.bool, device=tv.data.device)])
-        else:
-            src = rpipe.cols[rpipe.order[i - n_l]]
-            data = torch.cat([tv.data, src.data])
-            validity = None
-            if tv.validity is not None or src.validity is not None:
-                validity = torch.cat([tv.valid_or_true(rows),
-                                      src.valid_or_true(rcap)])
-        new_cols[name] = TV(data, validity, tv.dtype, tv.dictionary)
+        src = (_null_rows(tv, rcap) if i < n_l
+               else rpipe.cols[rpipe.order[i - n_l]])
+        new_cols[name] = _cat_rows(tv, src)
     return new_cols, torch.cat([pair_ok, rpipe.mask & ~matched_b])

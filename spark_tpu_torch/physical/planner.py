@@ -1,8 +1,8 @@
 """Logical -> physical planning and execution.
 
 Planning mirrors ``spark_tpu/physical/planner.py:plan_physical`` for the
-operators of the single-device aggregate, join and window paths: one
-physical choice per logical operator. A ``Range`` is made, and a file
+operators of the single-device aggregate, join, window and nested-type
+paths: one physical choice per logical operator. A ``Range`` is made, and a file
 scan read, on the device the caller names (the session's). The reference compiles maximal
 traceable subtrees into one XLA program; the port evaluates the operator
 tree recursively, eagerly, over torch tensors. Where a subtree holds a
@@ -65,6 +65,11 @@ def plan_physical(plan: L.LogicalPlan,
                           plan.left_keys, plan.right_keys, plan.condition)
     if isinstance(plan, L.Union):
         return P.UnionExec(go(plan.left), go(plan.right))
+    if isinstance(plan, L.Generate):
+        return P.GenerateExec(plan.generator, plan.out_name, plan.pos_name,
+                              go(plan.child))
+    if isinstance(plan, L.Sample):
+        return P.SampleExec(plan.fraction, plan.seed, go(plan.child))
     raise NotImplementedError(
         f"no physical plan for {type(plan).__name__} in the port yet "
         "(see ROADMAP queue A)")

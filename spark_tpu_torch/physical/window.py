@@ -34,6 +34,17 @@ from spark_tpu_torch.types import Schema
 SPARSE_TABLE_MAX_ROWS = 1 << 22
 
 
+def _scalar(tv: TV, what: str) -> TV:
+    """``tv`` when it holds one value a row: an array or map column
+    cannot partition, order or feed a window function, as in the
+    reference (an array may pass through a window query unchanged)."""
+    if tv.data.dim() != 1:
+        raise NotImplementedError(
+            f"{what}: an array or map column ({tv.dtype}) in a window "
+            "is not supported")
+    return tv
+
+
 def _floor_log2(x: torch.Tensor) -> torch.Tensor:
     """floor(log2(x)) of int64 ``x >= 1``, exactly (63 - clz(x)): a
     binary search over the bit positions in integer shifts."""
@@ -114,8 +125,10 @@ class WindowExec(PhysicalPlan):
     def _geometry(pipe: Pipe, env: Env, spec: E.WindowExpr) -> _Geometry:
         cap = pipe.capacity
         dev = pipe.mask.device
-        part_tvs = [C.evaluate(p, env) for p in spec.partition_by]
-        order_tvs = [(C.evaluate(o.child, env), o) for o in spec.order_by]
+        part_tvs = [_scalar(C.evaluate(p, env), "PARTITION BY")
+                    for p in spec.partition_by]
+        order_tvs = [(_scalar(C.evaluate(o.child, env), "window ORDER BY"),
+                      o) for o in spec.order_by]
         sort_keys = [K.SortKey(tv.data, tv.validity, True, True)
                      for tv in part_tvs]
         sort_keys += [K.SortKey(tv.data, tv.validity, o.ascending,
@@ -200,7 +213,7 @@ class WindowExec(PhysicalPlan):
 
     @staticmethod
     def _lag_lead(fn: E.LagLead, env: Env, g: _Geometry):
-        tv = C.evaluate(fn.child, env)
+        tv = _scalar(C.evaluate(fn.child, env), "lag/lead")
         sdata = tv.data[g.perm]
         src = g.pos + (fn.offset if fn.lead else -fn.offset)
         in_part = (src >= g.seg_start) & (src <= g.seg_end)
@@ -313,7 +326,7 @@ class WindowExec(PhysicalPlan):
         cap = g.cap
         child = getattr(fn, "child", None)
         if child is not None:
-            tv = C.evaluate(child, env)
+            tv = _scalar(C.evaluate(child, env), "window aggregate")
             sdata = tv.data[g.perm]
             ok = g.live & tv.valid_or_true(cap)[g.perm]
         else:  # COUNT(*)

@@ -68,6 +68,8 @@ def estimate_rows(plan: L.LogicalPlan) -> float:
                    * _filter_selectivity(plan.condition))
     if isinstance(plan, L.Limit):
         return min(float(plan.n), estimate_rows(plan.child))
+    if isinstance(plan, L.Sample):
+        return estimate_rows(plan.child) * plan.fraction
     if isinstance(plan, L.Aggregate):
         child = estimate_rows(plan.child)
         if not plan.groupings:

@@ -1,8 +1,14 @@
 """Logical plans, trimmed to the nodes the single-device aggregate,
-join, subquery, window and file-scan slices plan: relations, file scans
-with pushed projections and predicates, ranges, projections,
-filters, aggregates, the grouping-sets ``Expand``, windows, sorts,
-limits, DISTINCT, subquery aliases, joins and unions.
+join, subquery, window, file-scan and nested-type slices plan:
+relations, file scans with pushed projections and predicates, ranges,
+projections, filters, aggregates, the grouping-sets ``Expand``, windows,
+``Generate`` (explode), ``Sample``, sorts, limits, DISTINCT, subquery
+aliases, joins and unions.
+
+A projection or aggregate that outputs an array also outputs its
+``<name>#len`` companion, and a map-typed projection item its
+``#keys``/``#vals`` pair (types.ArrayType, types.MapType), in the
+logical schema as in the physical one.
 
 The analogue of Catalyst's logical operators (reference:
 sql/catalyst/src/main/scala/org/apache/spark/sql/catalyst/plans/logical/
@@ -207,19 +213,57 @@ class Project(LogicalPlan):
 
     @cached_property
     def schema(self) -> Schema:
-        cs = self.child.schema
-        fields = []
-        for e in self.exprs:
-            dt = e.data_type(cs)
-            inner = E.strip_alias(e)
-            dictionary = None
-            if isinstance(inner, E.Col) and inner.col_name in cs:
-                dictionary = cs.field(inner.col_name).dictionary
-            fields.append(Field(e.name, dt, e.nullable(cs), dictionary))
-        return Schema(tuple(fields))
+        return projection_schema(self.exprs, self.child.schema)
 
     def node_string(self):
         return f"Project[{', '.join(str(e) for e in self.exprs)}]"
+
+
+def with_len_companions(fields) -> Schema:
+    """``fields`` with each array field followed by its ``#len``
+    companion (int32, never null), unless the list names that companion
+    itself."""
+    names = {f.name for f in fields}
+    out = []
+    for f in fields:
+        out.append(f)
+        comp = T.array_len_col(f.name)
+        if isinstance(f.dtype, T.ArrayType) and comp not in names:
+            out.append(Field(comp, T.INT32, nullable=False))
+    return Schema(tuple(out))
+
+
+def map_outputs(e: E.Expression, cs: Schema):
+    """The ``(keys name, values name)`` a map-typed projection item
+    expands into, or None when ``e`` is not map-typed."""
+    try:
+        dt = e.data_type(cs)
+    except (KeyError, TypeError):
+        return None
+    if not isinstance(dt, T.MapType):
+        return None
+    return T.map_keys_col(e.name), T.map_vals_col(e.name)
+
+
+def projection_schema(exprs, cs: Schema) -> Schema:
+    """Output schema of a projection over ``cs``: a map item becomes its
+    ``#keys``/``#vals`` array pair, and every array its ``#len``
+    companion (the physical ProjectExec emits exactly these)."""
+    fields = []
+    for e in exprs:
+        dt = e.data_type(cs)
+        if isinstance(dt, T.MapType):
+            kn, vn = map_outputs(e, cs)
+            nullable = e.nullable(cs)
+            fields.append(Field(kn, T.ArrayType(dt.key), nullable))
+            fields.append(Field(vn, T.ArrayType(dt.value), nullable))
+            continue
+        inner = E.strip_alias(e)
+        dictionary = None
+        if isinstance(inner, E.Col) and inner.col_name in cs:
+            dictionary = cs.field(inner.col_name).dictionary
+        fields.append(Field(e.name, dt, e.nullable(cs), dictionary))
+    return with_len_companions(fields)
 
 
 @dataclass(eq=False, frozen=True)
@@ -266,7 +310,7 @@ class Aggregate(LogicalPlan):
                 if isinstance(c, E.Col) and c.col_name in cs:
                     dictionary = cs.field(c.col_name).dictionary
             fields.append(Field(e.name, dt, e.nullable(cs), dictionary))
-        return Schema(tuple(fields))
+        return with_len_companions(fields)
 
     def node_string(self):
         return (f"Aggregate[keys=[{', '.join(map(str, self.groupings))}], "
@@ -290,7 +334,7 @@ def expand_schema(projections, names, cs: Schema) -> Schema:
             if isinstance(inner, E.Col) and inner.col_name in cs:
                 dictionary = dictionary or cs.field(inner.col_name).dictionary
         fields.append(Field(name, dt, nullable, dictionary))
-    return Schema(tuple(fields))
+    return with_len_companions(fields)
 
 
 @dataclass(eq=False, frozen=True)
@@ -370,6 +414,66 @@ def project_with_windows(exprs: Tuple[E.Expression, ...],
     if not win:
         return Project(tuple(exprs), child)
     return Project(tuple(new_exprs), Window(tuple(win), child))
+
+
+def generate_schema(generator: E.Explode, out_name: str,
+                    pos_name: Optional[str], cs: Schema) -> Schema:
+    """The child's columns, then [pos,] the generated element."""
+    fields = list(cs.fields)
+    if pos_name is not None:
+        fields.append(Field(pos_name, T.INT32, nullable=False))
+    dictionary = None
+    inner = E.strip_alias(generator.child)
+    if isinstance(inner, E.Col) and inner.col_name in cs:
+        dictionary = cs.field(inner.col_name).dictionary
+    fields.append(Field(out_name, generator.data_type(cs), nullable=False,
+                        dictionary=dictionary))
+    return Schema(tuple(fields))
+
+
+@dataclass(eq=False, frozen=True)
+class Generate(LogicalPlan):
+    """One output row per array element, the child's columns repeated
+    (reference: plans/logical Generate, execution/GenerateExec.scala;
+    SQL: explode in a SELECT list, LATERAL VIEW). ``generator`` is an
+    ``E.Explode``; the output appends [pos,] value."""
+
+    generator: E.Expression
+    out_name: str
+    pos_name: Optional[str]  # posexplode's position column
+    child: LogicalPlan
+
+    def children(self):
+        return (self.child,)
+
+    @cached_property
+    def schema(self) -> Schema:
+        return generate_schema(self.generator, self.out_name, self.pos_name,
+                               self.child.schema)
+
+    def node_string(self):
+        return f"Generate[{self.generator} AS {self.out_name}]"
+
+
+@dataclass(eq=False, frozen=True)
+class Sample(LogicalPlan):
+    """Each row kept when its draw from the seeded stream is below
+    ``fraction`` (reference: Sample; ``physical/random.py`` holds the
+    stream)."""
+
+    fraction: float
+    seed: int
+    child: LogicalPlan
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def node_string(self):
+        return f"Sample[{self.fraction}, seed={self.seed}]"
 
 
 @dataclass(eq=False, frozen=True)

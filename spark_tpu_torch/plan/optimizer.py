@@ -9,8 +9,11 @@ the grouping-sets Expand included), project collapsing,
 constant folding (date and month arithmetic included), pruning of
 always-true filters, pushdown of predicates and columns into file
 scans, cost-based join reordering (``plan/join_reorder.py``) and runtime
-semi-join filters, each of the last two under its session setting. The
+semi-join filters, each of the last two under its session setting, and
+the extraction of SELECT-list generators into ``Generate`` nodes. The
 rule-executor loop mirrors RuleExecutor.scala (fixed-point batches).
+Column pruning keeps an array's ``#len`` companion with it and both
+halves of a map (types.ArrayType, types.MapType).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import datetime
 from typing import Callable, List, Optional, Tuple
 
 from spark_tpu_torch import conf as CF
+from spark_tpu_torch import types as T
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.io.datasource import translate_filters
 from spark_tpu_torch.plan import logical as L
@@ -30,14 +34,28 @@ from spark_tpu_torch.plan import logical as L
 
 def substitute(expr: E.Expression, mapping: dict) -> E.Expression:
     """Replace Col(name) by mapping[name] expressions (used when moving a
-    predicate through a Project)."""
+    predicate through a Project). A lambda's parameters shadow the
+    mapping inside its body."""
 
     def fn(e: E.Expression) -> E.Expression:
+        if isinstance(e, E.Lambda):
+            inner = {k: v for k, v in mapping.items() if k not in e.params}
+            return E.Lambda(e.params, substitute(e.body, inner))
         if isinstance(e, E.Col) and e.col_name in mapping:
             return mapping[e.col_name]
         return e
 
-    return E.transform_expr(expr, fn)
+    return E.transform_expr_down(expr, fn)
+
+
+def _maps_all(exprs, mapping: dict) -> bool:
+    """Whether every column ``exprs`` read is a key of ``mapping``: a
+    Project's ``#len`` companions and map halves have no expression of
+    their own, so a reference to one cannot be substituted."""
+    refs = set()
+    for e in exprs:
+        refs |= e.references()
+    return refs <= set(mapping)
 
 
 def split_conjuncts(e: E.Expression) -> List[E.Expression]:
@@ -162,6 +180,9 @@ def collapse_projects(plan: L.LogicalPlan) -> L.LogicalPlan:
         if isinstance(node, L.Project) and isinstance(node.child, L.Project):
             inner = node.child
             mapping = {e.name: E.strip_alias(e) for e in inner.exprs}
+            if not _maps_all(node.exprs, mapping) or any(
+                    E.contains_generator(e) for e in inner.exprs):
+                return node
             new_exprs = []
             for e in node.exprs:
                 ne = substitute(E.strip_alias(e), mapping)
@@ -199,8 +220,8 @@ def push_down_predicates(plan: L.LogicalPlan) -> L.LogicalPlan:
                 return new_scan
         if isinstance(child, L.Project):
             has_agg = any(E.contains_aggregate(e) for e in child.exprs)
-            if not has_agg:
-                mapping = {e.name: E.strip_alias(e) for e in child.exprs}
+            mapping = {e.name: E.strip_alias(e) for e in child.exprs}
+            if not has_agg and _maps_all([node.condition], mapping):
                 cond = substitute(node.condition, mapping)
                 return L.Project(child.exprs, L.Filter(cond, child.child))
         if isinstance(child, L.SubqueryAlias):
@@ -382,6 +403,7 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
     projection of FileSourceStrategy's readDataColumns)."""
 
     def prune(node: L.LogicalPlan, required: set) -> L.LogicalPlan:
+        required = _with_nested_parts(required)
         if isinstance(node, L.UnresolvedScan):
             # projection pushdown: the scan reads only what the query
             # needs (pushed filters are evaluated by the source whatever
@@ -422,7 +444,14 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
                 child_req = set(node.child.schema.names)
             return dataclasses.replace(
                 node, child=prune(node.child, child_req))
-        if isinstance(node, (L.Sort, L.Limit, L.Distinct, L.SubqueryAlias)):
+        if isinstance(node, L.Generate):
+            made = {node.out_name, node.pos_name}
+            child_req = {n for n in required if n not in made}
+            child_req |= node.generator.references()
+            return dataclasses.replace(
+                node, child=prune(node.child, child_req))
+        if isinstance(node, (L.Sort, L.Limit, L.Distinct, L.SubqueryAlias,
+                             L.Sample)):
             child_req = set(required)
             for e in node.expressions():
                 child_req |= e.references()
@@ -454,6 +483,25 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
             f"column pruning for {type(node).__name__}")
 
     return prune(plan, set(plan.schema.names))
+
+
+def _with_nested_parts(required: set) -> set:
+    """``required`` with the parts that travel together: an array's
+    ``#len`` companion, both halves of a map (and their companions), and
+    a map or array item named by its base (the projection item that
+    makes ``m#keys`` is named ``m``)."""
+    out = set(required)
+    for n in required:
+        base = n[:-len(T.LEN_SUFFIX)] if n.endswith(T.LEN_SUFFIX) else n
+        out.add(base)
+        out.add(T.array_len_col(base))
+        mbase = T.map_base_name(base)
+        if mbase is not None:
+            for part in (T.map_keys_col(mbase), T.map_vals_col(mbase)):
+                out.add(part)
+                out.add(T.array_len_col(part))
+            out.add(mbase)
+    return out
 
 
 def _prune_join(node: L.Join, required: set, prune) -> L.Join:
@@ -501,7 +549,49 @@ def _prune_join(node: L.Join, required: set, prune) -> L.Join:
 
 Rule = Callable[[L.LogicalPlan], L.LogicalPlan]
 
+
+def extract_generators(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """A generator in a SELECT list becomes a ``Generate`` node under the
+    projection (reference: ``spark_tpu/plan/optimizer.py:515``,
+    ExtractGenerator): ``select a, explode(b) as c`` is Project[a, c]
+    over Generate[explode(b) AS c]. One generator per SELECT list, and
+    only as a whole item, as in the reference."""
+
+    def rule(node: L.LogicalPlan) -> L.LogicalPlan:
+        if not isinstance(node, L.Project):
+            return node
+        gens = [e for e in node.exprs
+                if isinstance(E.strip_alias(e), E.Explode)]
+        if not gens:
+            for e in node.exprs:
+                if E.contains_generator(e):
+                    raise NotImplementedError(
+                        f"generator must be a top-level SELECT item: {e}")
+            return node
+        if len(gens) > 1:
+            raise NotImplementedError(
+                "only one generator per SELECT list (as in the "
+                "reference, ExtractGenerator)")
+        item = gens[0]
+        gen = E.strip_alias(item)
+        out_name = item.name if isinstance(item, E.Alias) else "col"
+        pos_name = "pos" if gen.with_position else None
+        g = L.Generate(gen, out_name, pos_name, node.child)
+        exprs = []
+        for e in node.exprs:
+            if e is item:
+                if pos_name is not None:
+                    exprs.append(E.Col(pos_name))
+                exprs.append(E.Col(out_name))
+            else:
+                exprs.append(e)
+        return L.Project(tuple(exprs), g)
+
+    return plan.transform_up(rule)
+
+
 _FIXED_POINT_BATCH: Tuple[Rule, ...] = (
+    extract_generators,
     constant_folding,
     simplify_booleans,
     push_down_predicates,

@@ -1,4 +1,5 @@
-"""DDL schema strings: ``"a INT, b STRING NOT NULL"`` -> Schema
+"""DDL schema strings: ``"a INT, b STRING NOT NULL, m MAP<STRING, INT>,
+xs ARRAY<BIGINT>"`` -> Schema
 (reference: sql/catalyst/.../parser/ParserInterface.parseTableSchema +
 DataType.fromDDL)."""
 
@@ -22,8 +23,31 @@ _TYPE_NAMES = {
 }
 
 
+def _split_top(text: str, sep: str = ",") -> list:
+    """``text`` split at each ``sep`` outside (...) and <...>."""
+    parts, depth, cur = [], 0, []
+    for ch in text:
+        if ch in "(<":
+            depth += 1
+        elif ch in ")>":
+            depth -= 1
+        if ch == sep and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    parts.append("".join(cur))
+    return parts
+
+
 def parse_type(s: str) -> T.DataType:
     s = s.strip().lower()
+    flat = s.replace(" ", "")
+    if flat.startswith("array<") and flat.endswith(">"):
+        return T.ArrayType(parse_type(flat[6:-1]))
+    if flat.startswith("map<") and flat.endswith(">"):
+        key, value = _split_top(flat[4:-1])
+        return T.MapType(parse_type(key), parse_type(value))
     if s.startswith("decimal") or s.startswith("numeric"):
         if "(" in s:
             inner = s[s.index("(") + 1:s.rindex(")")]
@@ -44,25 +68,12 @@ def parse_type(s: str) -> T.DataType:
 
 
 def parse_ddl_schema(ddl: str) -> Schema:
-    """Parse ``name TYPE [NOT NULL], ...`` (paren-aware split so
-    decimal(12,2) commas don't break fields)."""
+    """Parse ``name TYPE [NOT NULL], ...`` (a bracket-aware split, so the
+    commas of decimal(12,2) and map<k, v> don't break fields)."""
     fields = []
-    depth = 0
-    cur = []
-    parts = []
-    for ch in ddl:
-        if ch == "(":
-            depth += 1
-        elif ch == ")":
-            depth -= 1
-        if ch == "," and depth == 0:
-            parts.append("".join(cur))
-            cur = []
-        else:
-            cur.append(ch)
-    if "".join(cur).strip():
-        parts.append("".join(cur))
-    for part in parts:
+    for part in _split_top(ddl):
+        if not part.strip():
+            continue
         toks = part.strip().split()
         if len(toks) < 2:
             raise ValueError(f"bad DDL field {part!r}")

@@ -154,9 +154,74 @@ def concat_ws(sep: str, *cols: E.Expression) -> E.Expression:
     return E.ConcatWs(str(sep), tuple(cols))
 
 
+# ---- arrays, maps and generators (reference: collectionOperations.scala,
+# complexTypeCreator.scala, generators.scala) ---------------------------------
+
+
+def array(*cols: E.Expression) -> E.Expression:
+    return E.MakeArray(tuple(_lit(c) for c in cols))
+
+
+def size(c: E.Expression) -> E.Expression:
+    return E.Size(c)
+
+
+def element_at(c: E.Expression, index) -> E.Expression:
+    return E.ElementAt(c, _lit(index))
+
+
+def array_contains(c: E.Expression, value) -> E.Expression:
+    return E.ArrayContains(c, _lit(value))
+
+
+def explode(c: E.Expression) -> E.Expression:
+    return E.Explode(c)
+
+
+def posexplode(c: E.Expression) -> E.Expression:
+    return E.Explode(c, with_position=True)
+
+
+def create_map(*cols) -> E.Expression:
+    """map(k1, v1, k2, v2, ...), legal at the top of a projection, which
+    expands it into its '#keys'/'#vals' columns (types.MapType)."""
+    return E.CreateMap(tuple(_lit(c) for c in cols))
+
+
+def map_from_arrays(keys: E.Expression, vals: E.Expression) -> E.Expression:
+    return E.MapFromArrays(keys, vals)
+
+
+def _map_base(c: E.Expression) -> str:
+    if not isinstance(c, E.Col):
+        raise TypeError(
+            "map accessors need a map column or an inline map() "
+            "(maps are decomposed into component columns, types.MapType)")
+    return T.map_base_name(c.col_name) or c.col_name
+
+
+def map_keys(c: E.Expression) -> E.Expression:
+    if isinstance(c, E.CreateMap):
+        return E.MakeArray(c.args[::2])
+    if isinstance(c, E.MapFromArrays):
+        return c.keys
+    return E.Col(T.map_keys_col(_map_base(c)))
+
+
+def map_values(c: E.Expression) -> E.Expression:
+    if isinstance(c, E.CreateMap):
+        return E.MakeArray(c.args[1::2])
+    if isinstance(c, E.MapFromArrays):
+        return c.vals
+    return E.Col(T.map_vals_col(_map_base(c)))
+
+
+def map_contains_key(c: E.Expression, key) -> E.Expression:
+    return E.ArrayContains(map_keys(c), _lit(key))
+
+
 #: SQL name -> builder, the reference's ``_composed_functions`` less the
-#: array and map builders (ROADMAP A2) and the grouping markers, which the
-#: parser builds itself
+#: grouping markers, which the parser builds itself
 COMPOSED_FUNCTIONS = {
     "GREATEST": greatest, "LEAST": least,
     "IFNULL": ifnull, "NVL": ifnull, "NVL2": nvl2,
@@ -166,4 +231,10 @@ COMPOSED_FUNCTIONS = {
     "CURRENT_DATE": current_date,
     "HOUR": hour, "MINUTE": minute, "SECOND": second,
     "INITCAP": initcap, "REVERSE": reverse,
+    "ARRAY": array, "SIZE": size, "CARDINALITY": size,
+    "ELEMENT_AT": element_at, "ARRAY_CONTAINS": array_contains,
+    "EXPLODE": explode, "POSEXPLODE": posexplode,
+    "MAP": create_map, "MAP_FROM_ARRAYS": map_from_arrays,
+    "MAP_KEYS": map_keys, "MAP_VALUES": map_values,
+    "MAP_CONTAINS_KEY": map_contains_key,
 }

@@ -12,19 +12,22 @@ CAST, extract, the scalar functions (string, math, date and timestamp;
 and timestamp literals, day/week/month/year intervals, the
 count/sum/avg/min/max aggregates (count/sum/avg also DISTINCT),
 stddev/variance, percentile/percentile_approx/median,
-grouping()/grouping_id(), and window functions (row_number,
-rank, dense_rank, ntile, lag, lead and the aggregates) OVER (PARTITION
-BY ... ORDER BY ... ROWS|RANGE frame). The FROM clause takes tables and
-derived tables ``( SELECT ... ) [AS] alias`` with aliases, comma joins
-and ``[INNER|CROSS|LEFT [OUTER]|RIGHT [OUTER]|FULL [OUTER]|LEFT
-SEMI|LEFT ANTI] JOIN ... ON/USING``; a SELECT without FROM reads one
-row. A subquery resolves names it cannot find in its own FROM clause
-against the enclosing query's (``OuterRef``); ``parse_sql`` hands the
-plan to ``plan/subquery.py``, which rewrites every subquery into joins.
-A function or construct that the reference parses and the port has not
-ported yet (``_REFERENCE_FUNCTIONS``, subscripts, LATERAL VIEW, CREATE/DROP
-VIEW) raises ``NotImplementedError``;
-anything else unknown is a parse error. The reference parses with an
+collect_list/collect_set, grouping()/grouping_id(), and window
+functions (row_number, rank, dense_rank, ntile, lag, lead and the
+aggregates) OVER (PARTITION BY ... ORDER BY ... ROWS|RANGE frame); the
+array and map functions, ``x[i]`` subscripts, explode/posexplode in the
+select list and the higher-order functions with their lambdas ``x ->
+...`` and ``(acc, x) -> ...``. The FROM clause takes tables and derived
+tables ``( SELECT ... ) [AS] alias`` with aliases, comma joins, ``LATERAL
+VIEW [POS]EXPLODE(...) [alias] AS col[, col]`` and ``[INNER|CROSS|LEFT
+[OUTER]|RIGHT [OUTER]|FULL [OUTER]|LEFT SEMI|LEFT ANTI] JOIN ...
+ON/USING``; a SELECT without FROM reads one row. A bare map column name
+resolves to its ``#keys`` half (``E.MapHandle``), and a selected map
+keeps both halves. A subquery resolves names it cannot find in its own
+FROM clause against the enclosing query's (``OuterRef``); ``parse_sql``
+hands the plan to ``plan/subquery.py``, which rewrites every subquery
+into joins. CREATE/DROP VIEW, which the reference parses, raises
+``NotImplementedError``; anything else unknown is a parse error. The reference parses with an
 ANTLR grammar (reference:
 sql/catalyst/src/main/antlr4/.../SqlBaseParser.g4:1 +
 parser/AstBuilder.scala); name resolution happens during parsing
@@ -113,18 +116,6 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"not ported yet: {what} (ROADMAP queue A)")
 
 
-#: the function names the reference's parser accepts
-#: (``spark_tpu/sql/parser.py``: ``_parse_function_inner`` and
-#: ``_composed_functions``) that the port has not ported yet: list, map
-#: and struct columns, the higher-order functions and the collect
-#: aggregates (ROADMAP A2). Each raises ``NotImplementedError`` naming it.
-_REFERENCE_FUNCTIONS = frozenset("""
-    SPLIT TRANSFORM FILTER EXISTS FORALL AGGREGATE REDUCE COLLECT_LIST
-    COLLECT_SET ARRAY_AGG ARRAY SIZE CARDINALITY ELEMENT_AT ARRAY_CONTAINS
-    EXPLODE POSEXPLODE MAP MAP_FROM_ARRAYS MAP_KEYS MAP_VALUES
-    MAP_CONTAINS_KEY
-""".split())
-
 
 # ---- name resolution scope --------------------------------------------------
 
@@ -174,6 +165,10 @@ class Scope:
                 if src.lower() == name_l]
         if len(hits) > 1:
             raise SQLParseError(f"ambiguous column reference {name!r}")
+        if not hits and not name_l.endswith(T.MAP_KEYS_SUFFIX):
+            # a map column decomposes into '<m>#keys'/'<m>#vals'
+            # (types.MapType); its bare name resolves to the keys half
+            return self.resolve(qualifier, T.map_keys_col(name))
         return hits[0] if hits else None
 
     def all_output_names(self) -> List[str]:
@@ -268,10 +263,9 @@ class _ExprParser:
         return self.subquery()
 
     def parse_predicate(self) -> E.Expression:
-        if self.at_keyword("EXISTS"):
-            if self.peek(2).upper not in ("SELECT", "WITH"):
-                # exists(array, x -> pred), the higher-order function
-                raise _not_ported("function exists()")
+        if self.at_keyword("EXISTS") \
+                and self.peek(2).upper in ("SELECT", "WITH"):
+            # (else exists(array, x -> pred), the higher-order function)
             self.next()
             self.expect("(")
             plan = self._parse_subquery()
@@ -374,9 +368,13 @@ class _ExprParser:
 
     def parse_primary(self) -> E.Expression:
         e = self._parse_primary_base()
-        t = self.peek()
-        if t.kind == "op" and t.value == "[":
-            raise _not_ported("array and map subscripts x[i]")
+        while self.peek().kind == "op" and self.peek().value == "[":
+            # x[i]: a 0-based array item or a map key lookup (reference:
+            # GetArrayItem / GetMapValue)
+            self.next()
+            key = self.parse()
+            self.expect("]")
+            e = E.ElementAt(e, key, sql_subscript=True)
         return e
 
     def _parse_primary_base(self) -> E.Expression:
@@ -725,6 +723,31 @@ class _ExprParser:
                 args.append(self.parse())
             self.expect(")")
             return F.concat_ws(sep, *args)
+        if name == "SPLIT":
+            e = self.parse()
+            self.expect(",")
+            delim = self._str_literal()
+            self.expect(")")
+            return E.Split(e, delim)
+        if name in ("TRANSFORM", "FILTER", "EXISTS", "FORALL"):
+            arr = self.parse()
+            self.expect(",")
+            lam = self._parse_lambda()
+            self.expect(")")
+            return E.HigherOrder(name.lower(), arr, lam)
+        if name in ("AGGREGATE", "REDUCE"):
+            arr = self.parse()
+            self.expect(",")
+            zero = self.parse()
+            self.expect(",")
+            merge = self._parse_lambda()
+            finish = self._parse_lambda() if self.accept(",") else None
+            self.expect(")")
+            return E.HigherOrder("aggregate", arr, merge, zero, finish)
+        if name in ("COLLECT_LIST", "COLLECT_SET", "ARRAY_AGG"):
+            e = self.parse()
+            self.expect(")")
+            return E.Collect(e, unique=(name == "COLLECT_SET"))
         if name in F.COMPOSED_FUNCTIONS:
             args = []
             if not self.accept(")"):
@@ -733,10 +756,35 @@ class _ExprParser:
                     args.append(self.parse())
                 self.expect(")")
             return F.COMPOSED_FUNCTIONS[name](*args)
-        if name in _REFERENCE_FUNCTIONS:
-            raise _not_ported(f"function {name.lower()}()")
         raise SQLParseError(f"unknown function {name_tok.value!r} "
                             f"at {name_tok.pos}")
+
+    def _parse_lambda(self) -> E.Lambda:
+        """``x -> body`` or ``(x, i) -> body`` (reference: LambdaFunction).
+        The parameters shadow outer columns inside the body."""
+        params = []
+        if self.accept("("):
+            params.append(self.next().value)
+            while self.accept(","):
+                params.append(self.next().value)
+            self.expect(")")
+        else:
+            params.append(self.next().value)
+        self.expect("->")
+        by_lower = {p.lower(): p for p in params}
+        outer = self.resolve
+
+        def resolve(qual, name):
+            if qual is None and name.lower() in by_lower:
+                return E.Col(by_lower[name.lower()])
+            return outer(qual, name)
+
+        self.resolve = resolve
+        try:
+            body = self.parse()
+        finally:
+            self.resolve = outer
+        return E.Lambda(tuple(params), body)
 
     def _parse_percentile(self, name: str) -> E.Expression:
         """percentile(x, q) and median(x) interpolate between ranks;
@@ -854,6 +902,9 @@ class _StmtParser(_Tokens):
         def resolve(qual: Optional[str], name: str) -> E.Expression:
             out = scope.resolve(qual, name)
             if out is not None:
+                if out.lower() == T.map_keys_col(name).lower():
+                    # a bare map name: the select list keeps its pair
+                    return E.MapHandle(out)
                 return E.Col(out)
             if scope.outer is not None:
                 out = scope.outer.resolve(qual, name)
@@ -898,7 +949,8 @@ class _StmtParser(_Tokens):
                 continue
             if self.peek(0).upper == "LATERAL" \
                     and self.peek(1).upper == "VIEW":
-                raise _not_ported("LATERAL VIEW generators")
+                plan = self._parse_lateral_view(plan, scope)
+                continue
             how = self._peek_join_type()
             if how is None:
                 break
@@ -923,6 +975,39 @@ class _StmtParser(_Tokens):
                     raise SQLParseError("JOIN requires ON or USING")
                 plan = L.Join(plan, rplan, "cross", (), ())
         return plan, scope
+
+    def _parse_lateral_view(self, plan: L.LogicalPlan,
+                            scope: Scope) -> L.LogicalPlan:
+        """``LATERAL VIEW [POS]EXPLODE(expr) [view] AS col[, col]``
+        (reference: ``spark_tpu/sql/parser.py:1000``): a ``Generate``
+        over the FROM clause so far. The view alias is accepted and not
+        used (columns resolve unqualified); posexplode's names are (pos,
+        col)."""
+        self.next()
+        self.next()
+        fn = self.next().upper
+        if fn not in ("EXPLODE", "POSEXPLODE"):
+            raise SQLParseError(
+                f"LATERAL VIEW supports explode/posexplode, got {fn}")
+        self.expect("(")
+        arr = self._expr(self._make_resolver(scope))
+        self.expect(")")
+        if self.peek().kind in ("id", "qid") and self.peek().upper != "AS":
+            self.next()  # the view alias
+        names = []
+        if self.accept("AS"):
+            names.append(self.next().value)
+            while self.accept(","):
+                names.append(self.next().value)
+        if fn == "POSEXPLODE":
+            pos_name = names[0] if len(names) > 1 else "pos"
+            out_name = names[-1] if names else "col"
+        else:
+            pos_name, out_name = None, names[0] if names else "col"
+        gen = E.Explode(arr, with_position=fn == "POSEXPLODE")
+        scope.add_relation(None, ([pos_name] if pos_name else [])
+                           + [out_name])
+        return L.Generate(gen, out_name, pos_name, plan)
 
     _JOIN_TYPES = (
         (("CROSS", "JOIN"), "cross"),
@@ -1289,7 +1374,31 @@ class _StmtParser(_Tokens):
                     raise SQLParseError(
                         f"expected ',' in select list at "
                         f"{self.peek().pos}: {self.peek().value!r}")
-        return exprs
+        return _with_map_pairs(exprs)
+
+
+def _with_map_pairs(exprs: List[E.Expression]) -> List[E.Expression]:
+    """A selected map handle ('m' resolved to ``MapHandle('m#keys')``)
+    brings its '#vals' sibling, under the item's alias, so the pair
+    survives the projection (types.MapType)."""
+    out: List[E.Expression] = []
+    seen = {e.name for e in exprs}
+    for e in exprs:
+        out.append(e)
+        inner = E.strip_alias(e)
+        if not (isinstance(inner, E.MapHandle)
+                and inner.col_name.endswith(T.MAP_KEYS_SUFFIX)):
+            continue
+        vals = T.map_vals_col(T.map_base_name(inner.col_name))
+        pair: E.Expression = E.Col(vals)
+        if isinstance(e, E.Alias):
+            base = T.map_base_name(e.alias_name) or e.alias_name
+            out[-1] = E.Alias(inner, T.map_keys_col(base))
+            pair = E.Alias(pair, T.map_vals_col(base))
+        if pair.name not in seen:
+            out.append(pair)
+            seen.add(pair.name)
+    return out
 
 
 def _null_safe_setop_keys(plan: L.LogicalPlan) -> tuple:

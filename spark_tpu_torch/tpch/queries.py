@@ -1063,3 +1063,193 @@ def flagship_table(n: int, seed: int):
         "v": pa.array(rng.normal(size=n) * 10),
         "tag": pa.DictionaryArray.from_arrays(
             pa.array(rng.integers(0, 4, n).astype(np.int32)), tags)})
+
+
+# chip_smoke.py's complex phase: arrays, maps, structs, explode/LATERAL
+# VIEW, the higher-order functions, collect_list/collect_set and sample
+# over the TPC-H tables, written in SQL the reference's parser accepts.
+# X1 and X2 group by the four lineitem flags (K = 3 * 2 * 7 * 4 = 168,
+# the direct path); X6 reads the ``nested`` table (``nested_table``);
+# SM1 is a DataFrame-API query.
+
+_FLAGS = "l_returnflag, l_linestatus, l_shipmode, l_shipinstruct"
+
+
+def _sm1_sample(spark):
+    """A 1% Bernoulli sample of lineitem, counted by return flag."""
+    from spark_tpu_torch.api import functions as F
+
+    return (spark.table("lineitem").sample(0.01, seed=7)
+            .groupBy("l_returnflag")
+            .agg(F.count("*").alias("n"))
+            .orderBy("l_returnflag"))
+
+
+COMPLEX_QUERIES = {
+    # explode then aggregate: two elements a row, about 12M at SF1
+    "x1_explode": f"""
+select {_FLAGS}, count(*) as n, min(cast(x as float)) as lo,
+       max(cast(x as float)) as hi
+from lineitem lateral view explode(array(l_partkey, l_suppkey)) v as x
+group by {_FLAGS}
+order by {_FLAGS}
+""",
+    # collect at K = 168: arrays as wide as the largest group
+    "x2_collect": f"""
+select {_FLAGS}, size(collect_list(l_quantity)) as nq,
+       size(collect_set(l_linenumber)) as nl,
+       element_at(collect_list(l_partkey), 1) as first_part
+from lineitem
+group by {_FLAGS}
+order by {_FLAGS}
+""",
+    # per-order arrays (1.5M groups, the sorted path) joined to orders
+    # and read by the higher-order functions
+    "x3_higher_order": """
+select o_orderpriority, sum(size(items)) as n_items,
+       sum(aggregate(items, 0, (acc, x) -> acc + x)) as s_items,
+       sum(size(filter(items, x -> x > 100000))) as n_big,
+       sum(case when exists(items, x -> x < 100) then 1 else 0 end)
+         as n_small,
+       sum(case when forall(items, x -> x % 2 = 0) then 1 else 0 end)
+         as n_even,
+       sum(element_at(transform(items, x -> x * 2), -1)) as s_last2
+from (select l_orderkey, collect_list(l_partkey) as items
+      from lineitem group by l_orderkey) li
+join orders on l_orderkey = o_orderkey
+group by o_orderpriority
+order by o_orderpriority
+""",
+    # word count over split: the split runs over o_comment's dictionary
+    "x4_wordcount": """
+select w, count(*) as n
+from orders lateral view explode(split(o_comment, ' ')) v as w
+group by w
+order by n desc, w
+limit 20
+""",
+    # maps over 6M rows, grouped by ship mode (K = 7, the masked path)
+    "x5_maps": """
+select l_shipmode, sum(element_at(m, 'qty')) as s_qty,
+       sum(m['tax']) as s_tax,
+       sum(case when map_contains_key(m, 'disc') then 1 else 0 end) as n_disc
+from (select l_shipmode,
+             map('qty', l_quantity, 'tax', l_tax, 'disc', l_discount) as m
+      from lineitem) t
+group by l_shipmode
+order by l_shipmode
+""",
+    "x5_map_functions": """
+select map_keys(map('a', 1, 'b', 2)) as k, map_values(map('a', 1, 'b', 2))
+         as v,
+       element_at(map_from_arrays(array('x', 'y'), array(7, 8)), 'y') as y
+""",
+    # nested ingest: a list, a map and a struct column (``nested_table``)
+    "x6_nested": """
+select `info.priority` as priority, count(*) as n,
+       sum(size(items)) as n_items, sum(element_at(items, 1)) as s_first,
+       sum(tags['k']) as s_k
+from nested
+group by `info.priority`
+order by priority
+""",
+    "sm1_sample": _sm1_sample,
+}
+
+#: the complex queries' sqlite oracles, with the columns of the engine's
+#: rows each one holds (None: every column); X2's first_part and X3's
+#: s_last2 depend on row order and are held against the CPU run only
+COMPLEX_ORACLE_QUERIES = {
+    "x1_explode": (f"""
+select {_FLAGS}, count(*) as n, min(cast(x as real)) as lo,
+       max(cast(x as real)) as hi
+from (select {_FLAGS}, l_partkey as x from lineitem
+      union all
+      select {_FLAGS}, l_suppkey as x from lineitem) t
+group by {_FLAGS}
+order by {_FLAGS}
+""", None),
+    "x2_collect": (f"""
+select {_FLAGS}, count(l_quantity) as nq,
+       count(distinct l_linenumber) as nl
+from lineitem
+group by {_FLAGS}
+order by {_FLAGS}
+""", (0, 1, 2, 3, 4, 5)),
+    "x3_higher_order": ("""
+select o_orderpriority, sum(n) as n_items, sum(s) as s_items,
+       sum(nb) as n_big, sum(case when ns > 0 then 1 else 0 end) as n_small,
+       sum(case when nodd = 0 then 1 else 0 end) as n_even
+from (select l_orderkey, count(*) as n, sum(l_partkey) as s,
+             sum(case when l_partkey > 100000 then 1 else 0 end) as nb,
+             sum(case when l_partkey < 100 then 1 else 0 end) as ns,
+             sum(case when l_partkey % 2 <> 0 then 1 else 0 end) as nodd
+      from lineitem group by l_orderkey) li
+join orders on l_orderkey = o_orderkey
+group by o_orderpriority
+order by o_orderpriority
+""", (0, 1, 2, 3, 4, 5)),
+    "x5_maps": ("""
+select l_shipmode, sum(l_quantity) as s_qty, sum(l_tax) as s_tax,
+       count(*) as n_disc
+from lineitem
+group by l_shipmode
+order by l_shipmode
+""", None),
+}
+
+
+def word_counts(comments, top: int = 20) -> list:
+    """X4's rows from Python: ``str.split(' ')`` of every comment (the
+    o_comment values), counted, by count descending then word."""
+    from collections import Counter
+
+    counts = Counter(w for s in comments for w in s.split(" "))
+    return sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))[:top]
+
+
+def nested_table(orders, lineitem):
+    """X6's ``nested`` table, one row per order, built on the host with
+    pyarrow: o_orderkey; items, list<int64>, the l_partkey of its lines in
+    line order; tags, map<string, int64>, {'k': o_custkey % 100, 'n': the
+    line count}, without 'k' where o_orderkey % 5 == 0; info,
+    struct<status, priority> of o_orderstatus and o_orderpriority, null
+    where o_orderkey % 97 == 0."""
+    import numpy as np
+    import pyarrow as pa
+
+    lkey = lineitem.column("l_orderkey").to_numpy()
+    order = np.argsort(lkey, kind="stable")
+    parts = lineitem.column("l_partkey").to_numpy()[order]
+    okey = orders.column("o_orderkey").to_numpy()
+    sorted_keys = lkey[order]
+    lo = np.searchsorted(sorted_keys, okey, side="left")
+    hi = np.searchsorted(sorted_keys, okey, side="right")
+    counts = hi - lo
+    # each order's lines, gathered in the orders' order
+    take = np.repeat(lo, counts) + (np.arange(counts.sum())
+                                    - np.repeat(np.cumsum(counts) - counts,
+                                                counts))
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    items = pa.ListArray.from_arrays(pa.array(offsets),
+                                     pa.array(parts[take], pa.int64()))
+    with_k = okey % 5 != 0
+    n_tags = np.where(with_k, 2, 1)
+    toff = np.concatenate([[0], np.cumsum(n_tags)]).astype(np.int32)
+    cust = orders.column("o_custkey").to_numpy() % 100
+    keys = np.full(n_tags.sum(), "n", dtype=object)
+    vals = np.empty(n_tags.sum(), dtype=np.int64)
+    first = toff[:-1]
+    keys[first[with_k]] = "k"
+    vals[first[with_k]] = cust[with_k]
+    last = toff[1:] - 1
+    vals[last] = counts
+    tags = pa.MapArray.from_arrays(pa.array(toff), pa.array(keys, pa.string()),
+                                   pa.array(vals, pa.int64()))
+    info = pa.StructArray.from_arrays(
+        [orders.column("o_orderstatus").combine_chunks().cast(pa.string()),
+         orders.column("o_orderpriority").combine_chunks().cast(pa.string())],
+        names=["status", "priority"],
+        mask=pa.array(okey % 97 == 0))
+    return pa.table({"o_orderkey": pa.array(okey, pa.int64()),
+                     "items": items, "tags": tags, "info": info})

@@ -9,7 +9,10 @@ columns held as torch tensors:
   tuple of strings (the dictionary) carried in the schema,
 - DateType is int32 days since the Unix epoch (Arrow date32 layout),
 - TimestampType is int64 microseconds since the epoch,
-- DecimalType(p, s) is a scaled int64 (the unscaled value).
+- DecimalType(p, s) is a scaled int64 (the unscaled value),
+- ArrayType is a padded 2-D tensor (capacity, max_len) with a per-row
+  int32 length, MapType two parallel arrays of keys and values, and a
+  struct flattens into dotted columns at ingest.
 
 Columns are plain dense tensors; nulls live in a separate validity mask
 (Arrow-style).
@@ -132,6 +135,90 @@ class DecimalType(FractionalType):
         return hash((DecimalType, self.precision, self.scale))
 
 
+@dataclass(frozen=True)
+class ArrayType(DataType):
+    """array<element>. Device layout (the reference's,
+    ``spark_tpu/types.py:138``): padded 2-D values (capacity, max_len)
+    plus a per-row int32 length, which rides in a batch as the hidden
+    companion column ``<col>#len`` and in an evaluated value as
+    ``TV.lengths``. Every row-level operator moves the pair as two
+    ordinary columns. Memory is rows x max_len. Elements are never null:
+    a null array is a null row."""
+
+    element: DataType
+    np_dtype: Any = field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        # the storage dtype of the 2-D values is the element's
+        object.__setattr__(self, "np_dtype", self.element.np_dtype)
+
+    def __repr__(self) -> str:
+        return f"array<{self.element!r}>"
+
+    def __hash__(self) -> int:
+        return hash((ArrayType, self.element))
+
+
+LEN_SUFFIX = "#len"
+
+
+def array_len_col(name: str) -> str:
+    """The hidden companion column carrying an array column's lengths."""
+    return name + LEN_SUFFIX
+
+
+@dataclass(frozen=True)
+class MapType(DataType):
+    """map<key, value>. A map column decomposes into two parallel array
+    columns, ``<col>#keys`` and ``<col>#vals``, that share one length
+    (the reference's layout, ``spark_tpu/types.py:168``). Lookups are a
+    key match over the keys plane and a gather from the values plane.
+    Maps are neither orderable nor groupable."""
+
+    key: DataType
+    value: DataType
+    np_dtype: Any = field(default=np.int64, compare=False, repr=False)
+
+    def __repr__(self) -> str:
+        return f"map<{self.key!r},{self.value!r}>"
+
+    def __hash__(self) -> int:
+        return hash((MapType, self.key, self.value))
+
+
+MAP_KEYS_SUFFIX = "#keys"
+MAP_VALS_SUFFIX = "#vals"
+
+
+def map_keys_col(name: str) -> str:
+    return name + MAP_KEYS_SUFFIX
+
+
+def map_vals_col(name: str) -> str:
+    return name + MAP_VALS_SUFFIX
+
+
+def map_base_name(name: str) -> Optional[str]:
+    """'m#keys'/'m#vals' -> 'm'; None for any other name."""
+    for suffix in (MAP_KEYS_SUFFIX, MAP_VALS_SUFFIX):
+        if name.endswith(suffix):
+            return name[:-len(suffix)]
+    return None
+
+
+@dataclass(frozen=True)
+class StructType(DataType):
+    """struct<...>. Structs flatten at ingest into dotted columns
+    ('s.f1', 's.f2'); this marker survives only in error messages and
+    casts."""
+
+    names: Tuple[str, ...] = ()
+    np_dtype: Any = field(default=np.int64, compare=False, repr=False)
+
+    def __hash__(self) -> int:
+        return hash((StructType, self.names))
+
+
 # Singleton instances for convenience.
 BOOLEAN = BooleanType()
 INT8 = Int8Type()
@@ -161,6 +248,11 @@ def common_type(a: DataType, b: DataType) -> DataType:
     """
     if a == b:
         return a
+    if isinstance(a, ArrayType) and isinstance(b, ArrayType):
+        return ArrayType(common_type(a.element, b.element))
+    if isinstance(a, MapType) and isinstance(b, MapType):
+        return MapType(common_type(a.key, b.key),
+                       common_type(a.value, b.value))
     if isinstance(a, DecimalType) or isinstance(b, DecimalType):
         if isinstance(a, (Float32Type, Float64Type)) or isinstance(
             b, (Float32Type, Float64Type)

@@ -26,7 +26,10 @@ row permutation, in two kernels a call; the scalar phase's grouped stddev and
 variance (A1) within rel 1e-10 of the CPU run and bit-identical across
 two runs on the card; q1-wide and the flagship stage read from Parquet
 equal to their in-memory runs on the card bit for bit, with the same
-launches.
+launches; the complex phase's queries, 2-D gathers, explode, a square
+collect and outer-join padding equal to the CPU run, X1 and X2 with
+their launches; the sampler's stream bit-identical on the card and the
+CPU.
 """
 
 import struct
@@ -560,3 +563,102 @@ def test_parquet_q1_wide_on_card_matches_in_memory(cuda_device, tmp_path):
             .orderBy(F.desc("s")).collect()))
         assert seg_agg.seg_fsum.mode_launches["fsum_f64"] == 2
     assert len(stage[0]) == 4 and stage[1] == stage[0]
+
+
+# ---- arrays, maps, explode, collect and sample ---------------------------------
+
+
+def _complex_sessions(sf: float = 0.02):
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.tpch import generate_tables, register_views
+    from spark_tpu_torch.tpch.queries import nested_table
+
+    tables = generate_tables(sf, seed=99)
+    out = []
+    for dev in ("cuda", "cpu"):
+        spark = SparkSession(device=dev)
+        register_views(spark, tables)
+        spark.createDataFrame(nested_table(tables["orders"],
+                                           tables["lineitem"])) \
+            .createOrReplaceTempView("nested")
+        out.append(spark)
+    return out
+
+
+@pytest.mark.cuda
+def test_complex_x1_x2_on_card_match_cpu(cuda_device):
+    """X1 (explode then aggregate at K = 168) launches 4 counts, 1 min and
+    1 max; X2 (three collects at K = 168) 7 counts; rows equal to the CPU
+    run's."""
+    from spark_tpu_torch.tpch.queries import COMPLEX_QUERIES
+
+    gpu, cpu = _complex_sessions()
+    want = {"x1_explode": ({"count": 4, "sum_f32": 0, "sum_i64": 0},
+                           {"min": 1, "max": 1}),
+            "x2_collect": ({"count": 7, "sum_f32": 0, "sum_i64": 0},
+                           {"min": 0, "max": 0})}
+    for name, launches in want.items():
+        q = COMPLEX_QUERIES[name]
+        seg_agg.reset_launches()
+        got = [tuple(r) for r in gpu.sql(q).collect()]
+        assert (dict(seg_agg.seg_sum.mode_launches),
+                dict(seg_agg.seg_minmax.mode_launches)) == launches, name
+        assert got and got == [tuple(r) for r in cpu.sql(q).collect()]
+
+
+@pytest.mark.cuda
+def test_complex_queries_on_card_match_cpu(cuda_device):
+    """Every complex-phase query (X1-X6 and the sample SM1) on the card
+    equals the CPU run row for row."""
+    from spark_tpu_torch.tpch.queries import COMPLEX_QUERIES
+
+    gpu, cpu = _complex_sessions()
+    for name, q in COMPLEX_QUERIES.items():
+        rows = [[tuple(r) for r in (q(s) if callable(q) else s.sql(q))
+                 .collect()] for s in (gpu, cpu)]
+        assert rows[0] and rows[0] == rows[1], name
+
+
+@pytest.mark.cuda
+def test_gather_explode_collect_on_card_match_cpu(cuda_device):
+    """The 2-D row operators on the card: a gather (sort) of array
+    columns, an explode, a collect_list as wide as its capacity and an
+    outer join's padding equal the CPU run."""
+    from spark_tpu_torch.api.session import SparkSession
+
+    n = 2047
+    keys = ["g0000"] * 1024 + [f"g{i:04d}" for i in range(1, 1024)]
+    tbl = pa.table({"g": pa.array(keys),
+                    "v": pa.array(np.arange(n), pa.int64()),
+                    "xs": pa.array([[i, i * 2][: i % 3] for i in range(n)],
+                                   pa.list_(pa.int64()))})
+    queries = [
+        "select v, xs from t order by v desc limit 50",
+        "select v, x from t lateral view posexplode(xs) e as p, x "
+        "order by v, p",
+        "select g, size(l), element_at(l, -1) from (select g, "
+        "collect_list(v) as l from t group by g) u order by g",
+        "select a.v, b.xs from t a left join t b on a.v = b.v + 1000 "
+        "order by a.v",
+    ]
+    out = []
+    for dev in ("cuda", "cpu"):
+        spark = SparkSession(device=dev)
+        spark.createDataFrame(tbl).createOrReplaceTempView("t")
+        out.append([[tuple(r) for r in spark.sql(q).collect()]
+                    for q in queries])
+    assert out[0] == out[1] and all(out[0])
+
+
+@pytest.mark.cuda
+def test_uniform_on_card_equals_cpu(cuda_device):
+    """The sampler's stream is integer ops: the card's draws equal the
+    CPU's bit for bit."""
+    from spark_tpu_torch.physical.random import uniform
+
+    for seed in (0, 7, 2 ** 40 + 5):
+        for n in (1, 1024, 65_537, 6_000_000):
+            got = uniform(seed, n, cuda_device).cpu()
+            want = uniform(seed, n, "cpu")
+            assert torch.equal(got.view(torch.int64),
+                               want.view(torch.int64))

@@ -11,7 +11,9 @@ DataFrame API over a Parquet file, equals the same stage run by the
 reference's physical operators.
 
 ``test_cache`` of tests/test_dataframe.py waits for the port's memory
-store (ROADMAP A9): here ``cache()`` must raise "not ported yet".
+store (ROADMAP A9): here ``cache()`` must raise "not ported yet";
+``sample``, ``F.explode`` and ``F.collect_list``, which that test also
+held as refusals before the nested-type slice, have parity cases.
 """
 
 import datetime
@@ -280,12 +282,46 @@ def test_cache_waits_for_memory_store(engines):
     for name in ("na", "stat", "rdd", "writeStream"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             getattr(people, name)
-    for call in (lambda: people.sample(0.5), lambda: people.repartition(2),
+    for call in (lambda: people.repartition(2),
                  lambda: people.describe(), lambda: people.fillna(0),
-                 lambda: people.write.saveAsTable("t"),
-                 lambda: PF.explode("name"), lambda: PF.collect_list("name")):
+                 lambda: people.write.saveAsTable("t")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             call()
+
+
+def test_sample(engines):
+    """``sample`` (refused before the nested-type slice): the same rows as
+    the reference, from the same counter-based stream."""
+    def case(s, F, W):
+        df = s.createDataFrame(PEOPLE * 40)
+        return sorted(tuple(r) for r in df.sample(0.3, seed=5).collect())
+    assert _both(engines, case)
+
+
+def test_explode(engines):
+    """``F.explode`` (refused before the nested-type slice) in a select
+    and in a grouped count."""
+    def case(s, F, W):
+        df = s.createDataFrame(PEOPLE).select(
+            "name", F.explode(F.array(F.col("salary"), F.lit(1)))
+            .alias("x"))
+        return (_rows(df.orderBy("name", "x"))
+                + _rows(df.groupBy("x").agg(F.count("*").alias("n"))
+                        .orderBy("x")))
+    assert _both(engines, case)
+
+
+def test_collect_list(engines):
+    """``F.collect_list`` (refused before the nested-type slice) keeps the
+    rows' order per group; ``F.collect_set`` each value once."""
+    def case(s, F, W):
+        df = s.createDataFrame(PEOPLE)
+        return _rows(df.groupBy("dept").agg(
+            F.collect_list("name").alias("names"),
+            F.collect_set("salary").alias("pays"),
+            F.size(F.collect_list("age")).alias("n_age")).orderBy("dept"))
+    assert _both(engines, case)[0] == ("eng", ["alice", "bob"], [100, 200],
+                                       2)
 
 
 def test_stddev(engines):

@@ -5,9 +5,9 @@ through the JAX package.
 
 A query passes when its rows equal the golden rows. The only other
 outcome allowed is ``NotImplementedError``, and only for the queries of
-``NOT_PORTED``: list and map columns, the collect aggregates and the
-higher-order functions (ROADMAP A2). A query on that list must
-still raise, so the list shrinks as the port grows."""
+``NOT_PORTED``, which is empty since the nested-type slice ported list
+and map columns, the collect aggregates and the higher-order functions.
+A query on that list must still raise."""
 
 import os
 
@@ -17,13 +17,8 @@ from spark_tpu_torch.api.session import SparkSession
 from tests.sql_golden import harness as H
 
 #: (file, query index) of the golden queries that need constructs the
-#: port has not ported yet, by what they need
-NOT_PORTED = {
-    "aggregates-advanced.sql": {2, 3},   # collect_list, collect_set
-    "arrays.sql": {0, 1, 2, 3},          # array, size, element_at, explode
-    "higher-order.sql": {0, 1, 2, 3, 4},  # transform, filter, exists, ...
-    "maps.sql": {0, 1, 2, 3},            # map, element_at, map_keys, ...
-}
+#: port has not ported yet, by what they need: none
+NOT_PORTED: dict = {}
 
 
 def _cases():
@@ -54,13 +49,11 @@ def test_golden_through_port(port, fname, index, sql, want):
 
 
 def test_golden_census():
-    """At least 95 of the 110 golden queries run through the port, every
-    one of window.sql, set-operations.sql, grouping-sets.sql, strings.sql,
-    arithmetic.sql, date-functions.sql and null-propagation.sql among
-    them; only the 15 that need list or map columns are refused."""
+    """All 110 golden queries run through the port: none is refused,
+    arrays.sql, maps.sql, higher-order.sql and aggregates-advanced.sql
+    included."""
     cases = _cases()
     refused = sum(len(v) for v in NOT_PORTED.values())
-    assert len(cases) == 110 and len(cases) - refused >= 95
-    assert not {"window.sql", "set-operations.sql", "grouping-sets.sql",
-                "strings.sql", "arithmetic.sql", "date-functions.sql",
-                "null-propagation.sql"} & set(NOT_PORTED)
+    assert len(cases) == 110 and refused == 0
+    assert {"arrays.sql", "maps.sql", "higher-order.sql",
+            "aggregates-advanced.sql"} <= {c.values[0] for c in cases}

@@ -8,8 +8,10 @@ seed 99, as tests/test_tpch.py). The subquery slice's TPC-H queries run
 in tests/test_torch_subquery.py and the window slice's and the other
 TPC-H queries in tests/test_torch_tpch.py, files of their own so that
 the test workers split the reference engine's compile time. SQL that
-the reference parses and the port has not ported raises
-``NotImplementedError`` naming what it refuses.
+the reference parses and the port has not ported (view DDL) raises
+``NotImplementedError`` naming what it refuses; the array, map,
+higher-order, collect and generator constructs it refused before the
+nested-type slice equal the reference's rows.
 
 Rows must be equal: exact for ints, decimals, dates, strings and float32
 min/max. The TPC-H queries are also checked against the sqlite oracle
@@ -299,25 +301,38 @@ def test_sql_shapes_match_reference(engines, query):
 
 
 @pytest.mark.parametrize("query", [
-    "select n_name, x from nation lateral view explode(array(1, 2)) t "
-    "as x",
     "select c_custkey from customer where c_custkey not in "
     "(select case when o_totalprice > 1000 then o_custkey end from orders "
     "where o_orderkey = c_custkey)",
-    "select l_orderkey, collect_list(l_linenumber) from lineitem "
-    "group by l_orderkey",
-    "select l_orderkey, map('a', l_linenumber)['a'] from lineitem",
-    "select n_name, explode(array(n_nationkey, n_regionkey)) from nation",
     "create view v as select * from nation",
 ])
 def test_unported_sql_raises(engines, query):
-    """LATERAL VIEW generators, a correlated NOT IN over a nullable
-    subquery column (which the reference refuses too), the collect
-    aggregates, map subscripts, generators in the select list and view
-    DDL are refused instead of being run wrongly."""
+    """A correlated NOT IN over a nullable subquery column (which the
+    reference refuses too) and view DDL are refused instead of being run
+    wrongly."""
     _, port, _ = engines
     with pytest.raises(NotImplementedError, match="not ported"):
         port.sql(query).collect()
+
+
+@pytest.mark.parametrize("query", [
+    "select n_name, x from nation lateral view explode(array(1, 2)) t "
+    "as x order by n_name, x",
+    "select l_orderkey, collect_list(l_linenumber) from lineitem "
+    "where l_orderkey < 200 group by l_orderkey order by l_orderkey",
+    "select l_orderkey, map('a', l_linenumber)['a'] from lineitem "
+    "where l_orderkey < 200 order by l_orderkey, 2",
+    "select n_name, explode(array(n_nationkey, n_regionkey)) from nation "
+    "order by n_name, 2",
+])
+def test_formerly_unported_sql_matches_reference(engines, query):
+    """The LATERAL VIEW generator, the collect aggregate, the map
+    subscript and the select-list generator that test_unported_sql_raises
+    held as refusals before the nested-type slice: rows equal the
+    reference's."""
+    spark, port, _ = engines
+    got, want = _rows(port.sql(query)), _rows(spark.sql(query))
+    assert want and got == want
 
 
 @pytest.mark.parametrize("expr,name", [
@@ -332,24 +347,69 @@ def test_unported_sql_raises(engines, query):
     ("map('k', l_linenumber)", "map"),
 ])
 def test_reference_function_not_ported_names_it(engines, expr, name):
-    """A function or operator the reference parses and the port has not
-    ported raises NotImplementedError naming it, not a parse error."""
-    _, port, _ = engines
-    with pytest.raises(NotImplementedError,
-                       match=rf"not ported yet: .*{re.escape(name)}"):
-        port.sql(f"select {expr} from lineitem")
+    """The nine expressions this test held as refusals before the
+    nested-type slice: each, over lineitem's first orders (grouped by
+    l_orderkey where it aggregates), equals the reference's rows."""
+    spark, port, _ = engines
+    if name.startswith("collect"):
+        q = (f"select l_orderkey, {expr} from lineitem where l_orderkey "
+             "< 100 group by l_orderkey order by l_orderkey")
+    else:
+        q = (f"select l_orderkey, l_linenumber, {expr} from lineitem "
+             "where l_orderkey < 100 order by l_orderkey, l_linenumber")
+    got, want = _rows(port.sql(q)), _rows(spark.sql(q))
+    assert want and got == want
+
+
+#: the function names the reference's parser accepts that the port
+#: refused before the nested-type slice, each with a call over
+#: l_linenumber the reference runs too
+FORMERLY_REFUSED = {
+    "SPLIT": "split(l_shipmode, 'A')",
+    "TRANSFORM": "transform(array(l_linenumber), x -> x + 1)",
+    "FILTER": "filter(array(l_linenumber, 2), x -> x > 1)",
+    "EXISTS": "exists(array(l_linenumber), x -> x > 1)",
+    "FORALL": "forall(array(l_linenumber), x -> x > 1)",
+    "AGGREGATE": "aggregate(array(l_linenumber, 2), 0, (a, x) -> a + x)",
+    "REDUCE": "reduce(array(l_linenumber, 2), 0, (a, x) -> a + x)",
+    "COLLECT_LIST": "collect_list(l_linenumber)",
+    "COLLECT_SET": "collect_set(l_linenumber)",
+    "ARRAY_AGG": "array_agg(l_linenumber)",
+    "ARRAY": "array(l_linenumber, 1)",
+    "SIZE": "size(array(l_linenumber))",
+    "CARDINALITY": "cardinality(array(l_linenumber))",
+    "ELEMENT_AT": "element_at(array(l_linenumber), 1)",
+    "ARRAY_CONTAINS": "array_contains(array(l_linenumber), 2)",
+    "EXPLODE": "explode(array(l_linenumber, 1))",
+    "POSEXPLODE": "posexplode(array(l_linenumber, 1))",
+    "MAP": "map('k', l_linenumber)",
+    "MAP_FROM_ARRAYS": "map_from_arrays(array('k'), array(l_linenumber))",
+    "MAP_KEYS": "map_keys(map('k', l_linenumber))",
+    "MAP_VALUES": "map_values(map('k', l_linenumber))",
+    "MAP_CONTAINS_KEY": "map_contains_key(map('k', l_linenumber), 'k')",
+}
 
 
 def test_every_refused_function_names_itself(engines):
-    """Every name left in the parser's ``_REFERENCE_FUNCTIONS`` raises
-    NotImplementedError naming it."""
-    from spark_tpu_torch.sql.parser import _REFERENCE_FUNCTIONS
-
-    _, port, _ = engines
-    for name in sorted(_REFERENCE_FUNCTIONS):
-        with pytest.raises(NotImplementedError,
-                           match=rf"not ported yet: .*{name.lower()}"):
-            port.sql(f"select {name.lower()}(l_linenumber) from lineitem")
+    """None of the 22 names the parser refused before the nested-type
+    slice raises "not ported yet" any more: each runs through the port,
+    and its rows over lineitem's first orders equal the reference's."""
+    spark, port, _ = engines
+    assert len(FORMERLY_REFUSED) == 22
+    for name, call in sorted(FORMERLY_REFUSED.items()):
+        if name in ("COLLECT_LIST", "COLLECT_SET", "ARRAY_AGG"):
+            q = (f"select l_orderkey, {call} as v from lineitem where "
+                 "l_orderkey < 40 group by l_orderkey order by l_orderkey")
+        elif name in ("EXPLODE", "POSEXPLODE"):
+            q = (f"select l_orderkey, l_linenumber, {call} from lineitem "
+                 "where l_orderkey < 40 "
+                 "order by l_orderkey, l_linenumber")
+        else:
+            q = (f"select l_orderkey, l_linenumber, {call} as v from "
+                 "lineitem where l_orderkey < 40 "
+                 "order by l_orderkey, l_linenumber")
+        got, want = _rows(port.sql(q)), _rows(spark.sql(q))
+        assert want and got == want, name
 
 
 _ROWS = ("select l_orderkey, l_linenumber, {} from lineitem "
