@@ -111,6 +111,21 @@ no result line):
      (``COMPLEX_ORACLE_QUERIES``), Python's ``str.split`` for X4; then X6
      over its table written with ``df.write.parquet`` and read back on
      the card and the CPU, equal to the in-memory card run bit for bit.
+   Warm runs (``warm_runs``): after its first run, which is blocking and
+   records the plan's runtime statistics, each query runs once with its
+   traced stages eagerly (no graph), then once to capture each traced
+   stage into a CUDA graph (``physical/graphs.py``; the capture run, timed
+   on its own), then 3 times replaying the graphs. Each prints the stages
+   run traced and blocking, the graphs captured and the capture ms, its
+   wall, hand-kernel launches and host syncs (inside stages, in blocking
+   operators, outside the engine). Every warm run's rows equal the first
+   run's bit for bit; every traced stage
+   of a replay is replayed; each replay launches what the eager warm run
+   and the capture run did (``SAME_LAUNCHES``: also the first run); the
+   kernel-wrapper calls each graph recorded at its capture are held
+   against the plain versions on the tensors of a replay. A replay and an
+   eager warm run are profiled, and the graph pool's bytes are printed
+   after each phase.
    A profiled run whose session recorded fewer hand-written kernel
    launches than the wrappers counted is taken again (up to five
    sessions): the profiler now and then drops events.
@@ -637,32 +652,34 @@ def profile_query(spark, name: str, query) -> None:
     """One warm run under torch.profiler: host wall time, the card's
     summed device time, its share of the wall (the rest is the card
     idle while the host dispatches), and the top ops by device time. A
-    session that recorded fewer launches of the hand-written kernels
-    (``seg_atomic_kernel``, ``fsum_digit_kernel``) than their wrappers
-    counted in that run has dropped events (``profile_calls``) and is
-    taken again, up to five sessions in all."""
+    session that recorded fewer events of the hand-written kernels
+    (``seg_atomic_kernel``, ``seg_sum_f32_kernel``, ``fsum_digit_kernel``)
+    than the kernels counted runs on the device in that run
+    (``seg_agg.device_runs``, replayed launches included) has dropped
+    events (``profile_calls``) and is taken again, up to five sessions in
+    all; the device's own count is the measurement the checks use."""
     from torch.profiler import ProfilerActivity, profile
 
     from spark_tpu_torch.ops import seg_agg
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for _ in range(5):
-        before = sum(mode_launches(seg_agg).values())
+        before = sum(seg_agg.device_runs().values())
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             frame(spark, query).collect()
             wall = (time.perf_counter() - t0) * 1e3
-        launched = sum(mode_launches(seg_agg).values()) - before
+        ran = sum(seg_agg.device_runs().values()) - before
         # device events only: the aten op events above them repeat their
         # time
         events = _device_events(prof)
         seen = sum(e.count for e in events if _is_hand_kernel(e.key))
-        if events and seen == launched:
+        if events and seen == ran:
             break
     else:
-        log(f"profile {name}: the profiler recorded {seen} of {launched} "
-            "hand-kernel launches in each of five sessions; the last one "
-            "follows")
+        log(f"profile {name}: the profiler recorded {seen} of the {ran} "
+            "hand-kernel runs the device counted, in each of five "
+            "sessions; the last one follows")
     dev_us = sum(e.self_device_time_total for e in events)
     n_kernels = sum(e.count for e in events if _is_kernel(e.key))
     ops = {e.key for e in prof.key_averages()}
@@ -797,6 +814,7 @@ def oracle_connection(tables):
 
 
 def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
+    from spark_tpu_torch.physical import graphs
     from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
     from spark_tpu_torch.tpch.oracle import assert_rows_match, run_oracle
 
@@ -808,9 +826,14 @@ def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     with recording_calls(seg_agg) as calls:
         for name, q in queries.items():
             before = mode_launches(seg_agg)
+            runs = device_runs(seg_agg, dev)
             gpu_rows[name] = [tuple(r) for r in gpu.sql(q).collect()]
             after = mode_launches(seg_agg)
             launches[name] = {m: after[m] - before[m] for m in after}
+            check(dev != "cuda" or ran_since(seg_agg, runs)
+                  == {m: n for m, n in launches[name].items() if n},
+                  f"{name}: the device ran {ran_since(seg_agg, runs)}, "
+                  f"the wrappers launched {launches[name]}")
     total = mode_launches(seg_agg)
     log(f"slice: kernel launches per query {launches}")
     if dev == "cuda":
@@ -826,16 +849,13 @@ def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
               f"q1-wide launched {launches['q1_wide']}, want {want}")
 
     for name, q in queries.items():
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            rows = [tuple(r) for r in gpu.sql(q).collect()]
-            walls.append((time.perf_counter() - t0) * 1e3)
-            check(rows == gpu_rows[name], f"{name}: run-to-run difference")
-        log(f"slice: {name} warm wall ms on the card {walls} "
-            f"(median {statistics.median(walls):.1f})")
+        warm_runs("slice", seg_agg, gpu, name, q, gpu_rows[name],
+                  launches[name], dev)
         if dev == "cuda":
             profile_query(gpu, name, q)
+            with graphs.eager_stages():
+                profile_query(gpu, f"{name} eager", q)
+    log_pool("slice")
 
     t0 = time.perf_counter()
     for name, q in queries.items():
@@ -853,21 +873,46 @@ def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     return total
 
 
-def collect_counting_syncs(spark, query: str, dev: str):
-    """Rows of one run, and the host syncs it made as PyTorch's sync
-    debug mode reports them (None on the CPU, where there are none to
-    count). The count includes the copies of the result to the host."""
+def collect_split_syncs(spark, query, dev: str):
+    """Rows of one run, and its host syncs split: inside traced stages
+    (``graphs.run_stage``), in blocking operators (the rest of the
+    engine's ``planner.execute``) and outside the engine (planning, the
+    join reorder's distinct counts, the copies of the result). None on
+    the CPU."""
     if dev != "cuda":
         return [tuple(r) for r in frame(spark, query).collect()], None
+    from spark_tpu_torch.physical import graphs, planner
+
+    counts = {"stage": 0, "engine": 0}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
+
+        def n_syncs():
+            return sum(1 for w in caught
+                       if "synchroniz" in str(w.message).lower())
+
+        def counting(fn, key):
+            def run(*args, **kwargs):
+                before = n_syncs()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    counts[key] += n_syncs() - before
+            return run
+
+        real_stage, real_exec = graphs.run_stage, planner.execute
+        graphs.run_stage = counting(real_stage, "stage")
+        planner.execute = counting(real_exec, "engine")
         torch.cuda.set_sync_debug_mode("warn")
         try:
             rows = [tuple(r) for r in frame(spark, query).collect()]
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = sum(1 for w in caught if "synchroniz" in str(w.message).lower())
-    return rows, syncs
+            graphs.run_stage, planner.execute = real_stage, real_exec
+        total = n_syncs()
+    return rows, {"in stages": counts["stage"],
+                  "blocking": counts["engine"] - counts["stage"],
+                  "outside": total - counts["engine"]}
 
 
 def row_bits(rows) -> list:
@@ -894,6 +939,7 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
     then warm walls (3 runs, each bit-identical to the first run), peak
     device memory above the tables and one profiled run of each. Returns
     the launches of the path's run."""
+    from spark_tpu_torch.physical import graphs
     from spark_tpu_torch.tpch.oracle import assert_rows_match, run_oracle
 
     seg_agg.reset_launches()
@@ -901,14 +947,19 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
     with recording_calls(seg_agg) as calls:
         for name, q in queries.items():
             before = mode_launches(seg_agg)
+            runs = device_runs(seg_agg, dev)
             t0 = time.perf_counter()
-            rows[name], syncs[name] = collect_counting_syncs(gpu, q, dev)
+            rows[name], syncs[name] = collect_split_syncs(gpu, q, dev)
             wall = (time.perf_counter() - t0) * 1e3
             after = mode_launches(seg_agg)
             launches[name] = {m: after[m] - before[m] for m in after}
             log(f"{label}: {name} first run {wall:.1f} ms, "
                 f"{len(rows[name])} rows, host syncs {syncs[name]}, "
                 f"launches {launches[name]}")
+            check(dev != "cuda" or ran_since(seg_agg, runs)
+                  == {m: n for m, n in launches[name].items() if n},
+                  f"{name}: the device ran {ran_since(seg_agg, runs)}, "
+                  f"the wrappers launched {launches[name]}")
             if after_first is not None:
                 after_first(name)
     total = mode_launches(seg_agg)
@@ -946,15 +997,8 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
             f"({time.perf_counter() - t0:.1f} s)")
 
     for name, q in queries.items():
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            again = [tuple(r) for r in frame(gpu, q).collect()]
-            walls.append((time.perf_counter() - t0) * 1e3)
-            check(row_bits(again) == row_bits(rows[name]),
-                  f"{name}: run-to-run difference")
-        log(f"{label}: {name} warm wall ms on the card {walls} "
-            f"(median {statistics.median(walls):.1f})")
+        warm_runs(label, seg_agg, gpu, name, q, rows[name], launches[name],
+                  dev)
         if dev == "cuda":
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -963,7 +1007,130 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
             log(f"{label}: {name} peak device memory above the tables "
                 f"{peak / 2 ** 20:.1f} MiB")
             profile_query(gpu, name, q)
+            with graphs.eager_stages():
+                profile_query(gpu, f"{name} eager", q)
+    log_pool(label)
     return total
+
+
+def device_runs(seg_agg, dev: str):
+    """The kernels' own run counts on the card (None on the CPU)."""
+    return seg_agg.device_runs() if dev == "cuda" else None
+
+
+def ran_since(seg_agg, before):
+    """The hand-kernel runs the card counted since ``before`` (modes that
+    ran only)."""
+    if before is None:
+        return None
+    after = seg_agg.device_runs()
+    return {m: after[m] - before[m] for m in after if after[m] != before[m]}
+
+
+#: queries whose replays must launch the hand kernels as their first run
+#: did: their traced plan makes the same wrapper calls as the blocking one
+#: (a traced join may count no matches where the blocking one did, so
+#: elsewhere a replay's launches are held to the capture run's)
+SAME_LAUNCHES = ("q1_wide", "a1_6", "a1_168", "a1_sorted", "x1_explode",
+                 "x2_collect")
+
+
+def warm_runs(label: str, seg_agg, spark, name: str, query, first_rows,
+              first_launches: dict, dev: str) -> None:
+    """A query's warm runs: one with its traced stages run eagerly, the
+    capture run (timed on its own: each traced stage warmed up and
+    captured into a CUDA graph, its rows the warm-up's), then 3 replays.
+    Each prints its stages run traced and blocking, graphs captured and
+    the capture ms, its wall, hand-kernel launches and host syncs (inside
+    stages, in blocking operators, outside the engine: planning and the
+    copies of the result); its rows must equal the first run's bit for
+    bit and every traced stage of a replay must replay a graph. The
+    hand-kernel runs are read on the card (``seg_agg.device_runs``: each
+    kernel counts its own runs there): in the eager and capture runs they
+    must equal the wrappers' launches, and in each replay, which launches
+    through no wrapper, the capture run's (for ``SAME_LAUNCHES`` also the
+    first run's). The kernel-wrapper calls the captures recorded are held
+    against the plain versions on their own tensors, which hold the last
+    replay's values."""
+    from spark_tpu_torch.physical import graphs, planner
+
+    def one_run():
+        before = mode_launches(seg_agg)
+        runs = device_runs(seg_agg, dev)
+        t0 = time.perf_counter()
+        got, syncs = collect_split_syncs(spark, query, dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        after = mode_launches(seg_agg)
+        check(row_bits(got) == row_bits(first_rows),
+              f"{name}: a warm run differs from the first run")
+        return wall, syncs, {m: after[m] - before[m] for m in after
+                             if after[m] != before[m]}, \
+            ran_since(seg_agg, runs), planner.last_run
+
+    first = {m: n for m, n in first_launches.items() if n}
+    with graphs.eager_stages():
+        wall, syncs, eager_launches, ran, run = one_run()
+    log(f"{label}: {name} eager warm run {wall:.1f} ms (traced stages run "
+        f"eagerly): stages traced {run.stages}, blocking nodes "
+        f"{dict(run.blocking)}; launches {eager_launches}; host syncs "
+        f"{syncs}")
+    check(dev != "cuda" or ran == eager_launches, f"{name}: the device ran "
+          f"{ran} in the eager warm run, the wrappers launched "
+          f"{eager_launches}")
+    with graphs.recording_calls() as calls:
+        wall, syncs, cap_launches, ran, run = one_run()
+        check(not run.first_run, f"{name}: the capture run bound no stats")
+        log(f"{label}: {name} capture run {wall:.1f} ms: stages traced "
+            f"{run.stages} (nodes {dict(run.traced)}), blocking "
+            f"{dict(run.blocking)}; graphs captured {run.captured} in "
+            f"{run.capture_ms:.1f} ms, replayed {run.replayed}; launches "
+            f"{cap_launches}; host syncs {syncs}")
+        if dev == "cuda":
+            check(run.stages >= 1
+                  and run.captured + run.replayed == run.stages,
+                  f"{name}: {run.stages} traced stages, {run.captured} "
+                  f"captured, {run.replayed} replayed")
+            check(ran == cap_launches, f"{name}: the device ran {ran} in "
+                  f"the capture run, the wrappers launched {cap_launches}")
+        check(cap_launches == eager_launches, f"{name}: the capture run "
+              f"launched {cap_launches}, the eager warm run {eager_launches}")
+        if name in SAME_LAUNCHES:
+            check(cap_launches == first, f"{name}: the capture run "
+                  f"launched {cap_launches}, the first run {first}")
+        walls, warm_syncs = [], []
+        for _ in range(3):
+            wall, syncs, wrapped, ran, run = one_run()
+            walls.append(wall)
+            warm_syncs.append(syncs)
+            if dev == "cuda":
+                check(run.captured == 0 and run.replayed == run.stages >= 1,
+                      f"{name}: a warm run replayed {run.replayed} of "
+                      f"{run.stages} stages, captured {run.captured}")
+                check(ran == cap_launches, f"{name}: the device ran {ran} "
+                      f"in a replay, the capture run launched "
+                      f"{cap_launches}")
+    log(f"{label}: {name} replay walls ms on the card {walls} (median "
+        f"{statistics.median(walls):.1f}); per warm run: stages traced "
+        f"{run.stages}, blocking nodes {dict(run.blocking)}, hand-kernel "
+        f"runs counted on the card {ran} (through the wrappers, in "
+        f"blocking operators: {wrapped}), host syncs {warm_syncs[-1]}")
+    if calls:
+        hold_calls(seg_agg, calls, f"{label} {name} replay")
+
+
+def log_pool(label: str) -> None:
+    """The bytes the graphs' memory pool reserves, and the stages cached."""
+    from spark_tpu_torch.physical import graphs
+
+    if not torch.cuda.is_available():
+        return
+    held = graphs.pool_bytes()
+    log(f"{label}: graph pool "
+        f"{'not measured' if held is None else f'{held / 2 ** 20:.1f} MiB'}"
+        f" reserved, {graphs.cached_stages()} captured stages cached, "
+        "device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        " GiB")
 
 
 def join_order(spark, query: str) -> list:
@@ -1249,16 +1416,16 @@ def io_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     oracle_queries = {"q1": QUERIES[1], "q3": QUERIES[3], "q5": QUERIES[5],
                       "df_q1": QUERIES[1], "df_q3": QUERIES[3]}
 
-    # the in-memory runs on the card, whose rows and launches the
+    # the in-memory runs on the card, whose rows and kernel runs the
     # Parquet runs must repeat; their warm walls and profiles, taken
     # here, are the same-process comparison for the Parquet runs'
     mem_rows, mem_launches = {}, {}
     for name, q in queries.items():
-        before = mode_launches(seg_agg)
+        # counted on the card: q1 and q1-wide replay the slice phase's
+        # graphs, which launch through no wrapper
+        runs = device_runs(seg_agg, dev)
         mem_rows[name] = [tuple(r) for r in frame(gpu, q).collect()]
-        after = mode_launches(seg_agg)
-        mem_launches[name] = {m: after[m] - before[m] for m in after
-                              if after[m] > before[m]}
+        mem_launches[name] = ran_since(seg_agg, runs) or {}
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()

@@ -64,6 +64,33 @@ ANALYSIS_LEVEL = register(
     "ported.)", str)
 
 
+JIT_STAGE_CACHE_ENTRIES = register(
+    "spark.tpu.jit.stageCacheEntries", 512,
+    "Entry cap for the captured-stage cache (physical/graphs._STAGE_CACHE: "
+    "one CUDA graph per fused stage and leaf tensors). Graphs beyond the "
+    "cap are dropped LRU; an evicted stage is captured again on next "
+    "use.", int)
+
+ADAPTIVE_CAPACITY_BUCKET = register(
+    "spark.tpu.adaptive.capacityBucket", 1024,
+    "Compaction capacities between stages and of a result before its "
+    "copy to the host are the recorded live count rounded UP to a "
+    "multiple of this, so re-executions land on a small set of "
+    "capacities (reference analogue: "
+    "spark.sql.adaptive.coalescePartitions.*).", int)
+
+
+def active_int(entry: ConfigEntry, conf=None) -> int:
+    """An integer setting from ``conf``, else the active session's, else
+    its default."""
+    if conf is None:
+        from spark_tpu_torch.api.session import SparkSession
+
+        sess = SparkSession.getActiveSession()
+        conf = None if sess is None else sess.conf
+    return int(entry.default if conf is None else conf.get(entry))
+
+
 class RuntimeConf:
     """Session-scoped mutable view over the registry."""
 

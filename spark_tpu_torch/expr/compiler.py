@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from spark_tpu_torch import types as T
-from spark_tpu_torch.device import torch_dtype
+from spark_tpu_torch.device import device_table, torch_dtype
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.types import DataType
 
@@ -165,8 +165,9 @@ def _dict_table(dictionary: Tuple[str, ...], fn) -> np.ndarray:
 
 
 def _gather(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
-    """Host lookup table indexed by device codes."""
-    return torch.as_tensor(table, device=codes.device)[codes.long()]
+    """Host lookup table indexed by device codes (the table copied to the
+    codes' device once, ``device_table``)."""
+    return device_table(table, codes.device)[codes.long()]
 
 
 def _gather_or_false(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
@@ -1026,9 +1027,12 @@ def _days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor):
     return era * 146097 + doe - 719468
 
 
+_MONTH_DAYS = np.array([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
+                       dtype=np.int64)
+
+
 def _days_in_month(y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    lengths = torch.tensor([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
-                           dtype=torch.int64, device=y.device)
+    lengths = device_table(_MONTH_DAYS, y.device)
     leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
     base = lengths[m - 1]
     return torch.where((m == 2) & leap, base + 1, base)

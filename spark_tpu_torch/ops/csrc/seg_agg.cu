@@ -78,6 +78,10 @@ constexpr int kMaxDevices = 16;
 
 enum Mode { kCount = 0, kSumI64 = 1, kMin = 2, kMax = 3, kSumF32 = 4 };
 
+// Runs of each kernel on the device, by mode: block 0 of every launch adds
+// one, so a launch a CUDA graph replays counts as one made directly.
+__device__ unsigned long long g_runs[5];
+
 // In: the data type read per row; T: the shared accumulator; G: the output
 // word the blocks merge into; kLoads: 16-byte seg loads per lane per step.
 template <int M> struct Traits;
@@ -226,6 +230,7 @@ seg_atomic_kernel(const typename Traits<M>::In* __restrict__ data,
   constexpr int kRows = Shape<M>::kRows;
   constexpr int kChunk = Shape<M>::kChunk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs[M], 1ull);
   T* hist = reinterpret_cast<T*>(smem_raw);  // [copies][K]
   for (int i = threadIdx.x; i < copies * K; i += kThreads) hist[i] = T(0);
   __syncthreads();
@@ -291,6 +296,8 @@ seg_sum_f32_kernel(const float* __restrict__ data, const int* __restrict__ seg,
   float* hist = reinterpret_cast<float*>(smem_raw);  // [kWarps][K]
   __shared__ float stage[kWarps][32];
   __shared__ bool last;
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&g_runs[kSumF32], 1ull);
   for (int i = threadIdx.x; i < kWarps * K; i += kThreads) hist[i] = 0.0f;
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -457,6 +464,12 @@ int seg_minmax_launch(const float* data, const int* seg,
                       int is_max, void* out, void* stream) {
   if (is_max) return launch_atomic<kMax>(data, seg, mask, n, K, out, stream);
   return launch_atomic<kMin>(data, seg, mask, n, K, out, stream);
+}
+
+// The device's run counts (unsigned long long[5], indexed count, int64 sum,
+// min, max, float32 sum) on the current device; waits for the device.
+int seg_agg_runs(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs));
 }
 
 }  // extern "C"

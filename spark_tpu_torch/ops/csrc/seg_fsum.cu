@@ -98,6 +98,11 @@ constexpr int kChunk = 32 * kRows;       // rows a warp takes a step
 constexpr int kWin = 12;                 // half-digits a group's window keeps
 constexpr int kPrivMax = 1024;           // groups privatized in a block
 constexpr int kCopyGroups = 256;         // per-warp copies while they fit
+
+// Runs of the digit kernel on the device (float64, float32): block 0 of
+// every launch adds one, so a launch a CUDA graph replays counts as one
+// made directly.
+__device__ unsigned long long g_runs[2];
 constexpr int kStride = kWin + 1;        // odd: groups spread over the banks
 constexpr int kGroupBytes = kStride * 4 + 8;  // window, base and flags
 constexpr int kBlockRows = 1 << 15;      // rows a block takes at most
@@ -341,6 +346,8 @@ fsum_digit_kernel(const typename Fmt<In>::Bits* __restrict__ data,
   int* bases = win + (size_t)groups * kStride;
   int* s_flags = bases + groups;
   const long long first = (long long)blockIdx.x * chunk_steps * kWarps * kChunk;
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&g_runs[sizeof(In) == 8 ? 0 : 1], 1ull);
   for (int i = threadIdx.x; i < groups * kStride; i += kThreads) win[i] = 0;
   for (int i = threadIdx.x; i < groups; i += kThreads) {
     bases[i] = -1;
@@ -672,6 +679,12 @@ int seg_fsum_launch(const void* data, int is_f64, const int* seg,
                        K, sc, reinterpret_cast<double*>(out), st);
   return launch_fsum(reinterpret_cast<const float*>(data), seg, mask, n, K,
                      sc, reinterpret_cast<float*>(out), st);
+}
+
+// The device's run counts (unsigned long long[2]: float64, float32) on the
+// current device; waits for the device.
+int seg_fsum_runs(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs));
 }
 
 }  // extern "C"

@@ -40,7 +40,14 @@ words).
 A wrapper given CPU tensors computes the plain version; given CUDA
 tensors it launches the kernel or raises. Each wrapper counts its kernel
 launches in ``<wrapper>.launches`` and, by mode, in
-``<wrapper>.mode_launches``; ``reset_launches()`` sets all to 0.
+``<wrapper>.mode_launches``; ``reset_launches()`` sets all to 0. A call
+made while the current stream captures a CUDA graph (``physical/graphs.py``)
+runs nothing then and is not counted: the graph runs its launch at each
+replay, without the wrapper. The kernels count their own runs on the
+device (block 0 of every launch adds one), so ``device_runs()`` reads the
+launches that ran, replayed ones included. Where ``call_log`` is a list,
+each call appends its arguments and result there, so the calls a graph
+replays can be held against the plain versions.
 """
 
 from __future__ import annotations
@@ -240,6 +247,8 @@ def _lib():
         lib.seg_sum_launch.restype = i
         lib.seg_minmax_launch.argtypes = [p, p, p, ll, i, i, p, p]
         lib.seg_minmax_launch.restype = i
+        lib.seg_agg_runs.argtypes = [p]
+        lib.seg_agg_runs.restype = i
         lib.f32_blocks = lib.seg_sum_f32_blocks()
         lib._typed = True
     return lib
@@ -253,6 +262,8 @@ def _fsum_lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.seg_fsum_launch.argtypes = [p, i, p, p, ll, i, p, p, p]
         lib.seg_fsum_launch.restype = i
+        lib.seg_fsum_runs.argtypes = [p]
+        lib.seg_fsum_runs.restype = i
         lib._typed = True
     return lib
 
@@ -299,8 +310,9 @@ def seg_sum(data: Optional[torch.Tensor], seg: torch.Tensor,
             out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"seg_sum_launch ({mode}) failed: CUDA error {rc}")
-    seg_sum.launches += 1
-    seg_sum.mode_launches[mode] += 1
+    _count(seg_sum, mode)
+    _log("seg_sum", out[:k], data=data, seg=seg, mask=mask, num_segments=k,
+         exact_int=exact_int)
     return out[:k]
 
 
@@ -322,8 +334,9 @@ def seg_minmax(data: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
             num_segments, int(is_max), out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"seg_minmax_launch failed: CUDA error {rc}")
-    seg_minmax.launches += 1
-    seg_minmax.mode_launches["max" if is_max else "min"] += 1
+    _count(seg_minmax, "max" if is_max else "min")
+    _log("seg_minmax", out[:num_segments], data=data, seg=seg, mask=mask,
+         num_segments=num_segments, is_max=is_max)
     return out[:num_segments]
 
 
@@ -354,8 +367,49 @@ def seg_fsum(data: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
             seg.shape[0], k, scratch.data_ptr(), out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"seg_fsum_launch failed: CUDA error {rc}")
-    seg_fsum.launches += 1
-    seg_fsum.mode_launches["fsum_f64" if is_f64 else "fsum_f32"] += 1
+    _count(seg_fsum, "fsum_f64" if is_f64 else "fsum_f32")
+    _log("seg_fsum", out, data=data, seg=seg, mask=mask, num_segments=k)
+    return out
+
+
+#: where a list, each launch appends (wrapper name, its arguments by
+#: name, its result): the tensors themselves, not copies
+call_log = None
+
+
+def _log(name: str, out: torch.Tensor, **args) -> None:
+    if call_log is not None:
+        call_log.append((name, args, out))
+
+
+def _count(fn, mode: str) -> None:
+    """One launch of ``fn``'s kernel in ``mode``, unless a graph capture
+    only recorded it."""
+    if not torch.cuda.is_current_stream_capturing():
+        fn.launches += 1
+        fn.mode_launches[mode] += 1
+
+
+#: ``device_runs`` keys, in the order of each library's counter array
+_AGG_RUN_MODES = ("count", "sum_i64", "min", "max", "sum_f32")
+_FSUM_RUN_MODES = ("fsum_f64", "fsum_f32")
+
+
+def device_runs(dev=None) -> dict:
+    """Runs of each kernel on ``dev`` (default: the current device), by
+    mode, as the kernels counted them there since their library was
+    loaded in this process. Waits for the device."""
+    dev = torch.device("cuda" if dev is None else dev)
+    out = {}
+    for lib, fn, modes in ((_lib(), "seg_agg_runs", _AGG_RUN_MODES),
+                           (_fsum_lib(), "seg_fsum_runs", _FSUM_RUN_MODES)):
+        buf = (ctypes.c_ulonglong * len(modes))()
+        with torch.cuda.device(dev):
+            torch.cuda.synchronize()
+            rc = getattr(lib, fn)(buf)
+        if rc != 0:
+            raise RuntimeError(f"{fn} failed: CUDA error {rc}")
+        out.update(zip(modes, buf))
     return out
 
 

@@ -42,6 +42,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from spark_tpu_torch.device import device_table, host_side
 from spark_tpu_torch.ops import seg_agg
 
 MIN_ENGINE_K = 64                # _MASKED_SEG_LIMIT / pallas MIN_ENGINE_K
@@ -200,10 +201,10 @@ def _scatter_minmax(masked, seg, num_segments: int, is_max: bool):
     out.scatter_reduce_(0, idx, masked, "amax" if is_max else "amin",
                         include_self=True)
     if masked.is_floating_point():
-        has_nan = torch.zeros(num_segments, dtype=torch.bool,
-                              device=masked.device)
-        has_nan[idx[torch.isnan(masked)]] = True
-        out = out.masked_fill(has_nan, float("nan"))
+        has_nan = torch.zeros(num_segments, dtype=torch.int32,
+                              device=masked.device).scatter_reduce_(
+            0, idx, torch.isnan(masked).to(torch.int32), "amax")
+        out = out.masked_fill(has_nan > 0, float("nan"))
     return out
 
 
@@ -225,6 +226,17 @@ def seg_scan(seg: torch.Tensor, x: torch.Tensor, combine) -> torch.Tensor:
     return out
 
 
+def _wrapper(name: str, *args, **kwargs):
+    """Call the seg_agg wrapper ``name``. On CPU tensors its plain
+    version stands in for the card's kernel: host work the card does not
+    do (``device.host_side``)."""
+    fn = getattr(seg_agg, name)
+    if args[1].is_cuda:
+        return fn(*args, **kwargs)
+    with host_side():
+        return fn(*args, **kwargs)
+
+
 def _fsum_on(t: torch.Tensor) -> bool:
     """Whether a float sum over more than one group takes
     ``seg_agg.seg_fsum``: on a CUDA tensor always, and nothing falls back
@@ -241,13 +253,13 @@ def seg_sum(data, seg, mask, num_segments: int, sorted_seg: bool = False):
     path = select_path(num_segments, sorted_seg,
                        kernel_eligible("sum", data.dtype))
     if path == "kernel":
-        return seg_agg.seg_sum(data.contiguous(),
-                               seg.to(torch.int32).contiguous(),
-                               mask.contiguous(), num_segments)
+        return _wrapper("seg_sum", data.contiguous(),
+                        seg.to(torch.int32).contiguous(), mask.contiguous(),
+                        num_segments)
     if data.is_floating_point() and path != "single" and _fsum_on(data):
-        return seg_agg.seg_fsum(data.contiguous(),
-                                seg.to(torch.int32).contiguous(),
-                                mask.contiguous(), num_segments)
+        return _wrapper("seg_fsum", data.contiguous(),
+                        seg.to(torch.int32).contiguous(), mask.contiguous(),
+                        num_segments)
     zero = torch.zeros((), dtype=data.dtype, device=data.device)
     if path == "masked" and not data.is_floating_point():
         return _masked_reduce(data, seg, mask, num_segments, torch.sum, zero)
@@ -265,9 +277,8 @@ def seg_count(seg, mask, num_segments: int, sorted_seg: bool = False):
     path = select_path(num_segments, sorted_seg,
                        kernel_eligible("count", None))
     if path == "kernel":
-        return seg_agg.seg_sum(None, seg.to(torch.int32).contiguous(),
-                               mask.contiguous(), num_segments,
-                               exact_int=True)
+        return _wrapper("seg_sum", None, seg.to(torch.int32).contiguous(),
+                        mask.contiguous(), num_segments, exact_int=True)
     ones = mask.to(torch.int64)
     if path == "single":
         return ones.sum().reshape(1)
@@ -286,11 +297,11 @@ def _seg_minmax(data, seg, mask, num_segments: int, sorted_seg: bool,
                        kernel_eligible("max" if is_max else "min",
                                        data.dtype))
     if path == "kernel":
-        return seg_agg.seg_minmax(data.contiguous(),
-                                  seg.to(torch.int32).contiguous(),
-                                  mask.contiguous(), num_segments, is_max)
+        return _wrapper("seg_minmax", data.contiguous(),
+                        seg.to(torch.int32).contiguous(), mask.contiguous(),
+                        num_segments, is_max)
     ident = _neg_sentinel(data.dtype) if is_max else _pos_sentinel(data.dtype)
-    ident_t = torch.tensor(ident, dtype=data.dtype, device=data.device)
+    ident_t = torch.full((), ident, dtype=data.dtype, device=data.device)
     red = _nan_max if is_max else _nan_min
     if path == "masked":
         return _masked_reduce(data, seg, mask, num_segments, red, ident_t)
@@ -304,12 +315,16 @@ def _seg_minmax(data, seg, mask, num_segments: int, sorted_seg: bool,
 
 def _nan_min(x):
     return x.amin() if not x.is_floating_point() else \
-        torch.where(torch.isnan(x).any(), x.new_tensor(float("nan")), x.amin())
+        torch.where(torch.isnan(x).any(), _nan_like(x), x.amin())
 
 
 def _nan_max(x):
     return x.amax() if not x.is_floating_point() else \
-        torch.where(torch.isnan(x).any(), x.new_tensor(float("nan")), x.amax())
+        torch.where(torch.isnan(x).any(), _nan_like(x), x.amax())
+
+
+def _nan_like(x):
+    return torch.full((), float("nan"), dtype=x.dtype, device=x.device)
 
 
 def seg_min(data, seg, mask, num_segments: int, sorted_seg: bool = False):
@@ -471,12 +486,12 @@ def orderable_int64(
     IEEE754 sign-flip trick; dictionary-coded strings go through a rank
     table."""
     if rank_table is not None:
-        y = torch.as_tensor(rank_table, dtype=torch.int64,
-                            device=data.device)[data.long()]
+        y = device_table(np.asarray(rank_table, dtype=np.int64),
+                         data.device)[data.long()]
     elif data.is_floating_point():
         bits = data.to(torch.float64).view(torch.int64)
         sign = bits < 0
-        top = torch.tensor(INT64_MIN, dtype=torch.int64, device=data.device)
+        top = torch.full((), INT64_MIN, dtype=torch.int64, device=data.device)
         u = torch.where(sign, ~bits, bits | top)
         y = u ^ top
     else:
@@ -528,10 +543,9 @@ def make_join_index(build_key: torch.Tensor, build_ok: torch.Tensor,
     (stable, so equal keys keep build order and pairs come out in the
     reference's order), the sorted key with dead rows at the +inf
     sentinel, and, when the packed key domain is small enough, dense
-    lo/cnt lookup tables over the whole domain. The port's join path
-    passes ``domain=None`` (``build_join_ranges``); only the tests reach
-    the dense tables until the join-index cache that reuses them is
-    ported (ROADMAP A11).
+    lo/cnt lookup tables over the whole domain. A join's first run
+    caches it (``operators._JOIN_INDEX``, with the packed domain) for its
+    traced re-executions; ``build_join_ranges`` passes ``domain=None``.
 
     Returns (perm int32[bcap], sorted_key[bcap], lo_table|None,
     cnt_table|None)."""

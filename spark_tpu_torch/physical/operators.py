@@ -1,11 +1,11 @@
-"""Physical operators, run eagerly over torch tensors.
+"""Physical operators over torch tensors.
 
 The port of the single-device main path of
 ``spark_tpu/physical/operators.py``: scan, range, filter, project, sort,
 limit, compaction, the grouping-sets expand, union, grouped aggregation
 (with collect_list/collect_set), the sorted-build equi-join
-(``JoinExec``, its blocking path), ``GenerateExec`` (explode) and
-``SampleExec``; the window operator is ``physical/window.py``.
+(``JoinExec``), ``GenerateExec`` (explode) and ``SampleExec``; the
+window operator is ``physical/window.py``.
 
 An array column is 2-D (capacity, max_len): every row operator gathers
 and concatenates it along rows, pads widths to the widest where inputs
@@ -13,17 +13,25 @@ meet, and moves its lengths twice, in the TV (``TV.lengths``) and as the
 ``<col>#len`` companion column that results and batches carry.
 
 A pipeline carries ``(cols: {name: TV}, row_mask)``; filters flip mask
-bits, projections rebuild the dict — shapes never change mid-stage. The
-reference fuses traceable operators
-into one XLA program; here every operator runs eagerly
-(``execute(child_pipes) -> Pipe``) and the planner evaluates the tree
-recursively. ``traceable`` keeps the reference's meaning: the operator
-needs no host sync, so the planner does not compact its inputs.
+bits, projections rebuild the dict — shapes never change mid-stage.
+``execute(child_pipes) -> Pipe`` is the reference's ``trace``: for an
+operator whose ``traceable`` is true it makes no host sync and copies
+nothing from the host, so the planner fuses a maximal traceable subtree
+into one stage (``physical/planner.py``), which the card captures into
+one CUDA graph (``physical/graphs.py``). ``execute_blocking`` may sync
+to size its output; on the first run of a plan it records the sizes
+(the adaptive statistics caches below, keyed on the plan and the ids of
+its leaf tensors), and with them bound a join, a sorted aggregate and
+an explode become traceable on the next run over the same leaves.
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
+import functools
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -83,19 +91,63 @@ class Pipe:
 class PhysicalPlan:
     """Base physical operator."""
 
-    #: True when ``execute`` needs no host sync (the reference's flag:
-    #: such operators fuse into one program there)
+    #: True when ``execute`` makes no host sync and copies nothing from
+    #: the host (the reference's flag: such operators fuse into one stage)
     traceable: bool = True
 
     def children(self) -> Tuple["PhysicalPlan", ...]:
         return ()
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         raise NotImplementedError
 
     def execute(self, child_pipes: List[Pipe]) -> Pipe:
         raise NotImplementedError
+
+    def execute_blocking(self, child_pipes: List[Pipe]) -> Pipe:
+        """Eager execution with host syncs allowed; an operator that sizes
+        its output records the size here (first runs)."""
+        return self.execute(child_pipes)
+
+    def stats_key(self) -> tuple:
+        """Identity for adaptive runtime stats: plan structure + the ids
+        of the leaf scans' column tensors (the engine never writes a leaf
+        in place, so equal ids mean equal data while the tensors live).
+        Returns (key, tensors): the caches weakref ``tensors`` and drop
+        the entry when any dies, so a recycled id never aliases a live
+        entry. Memoized per plan instance (nodes are rebuilt per run)."""
+        cached = self.__dict__.get("_stats_key_memo")
+        if cached is not None:
+            return cached
+        scans: List["BatchScanExec"] = []
+
+        def collect(p: PhysicalPlan) -> None:
+            if isinstance(p, BatchScanExec):
+                if not p.aux:  # derived data, not identity
+                    scans.append(p)
+                return
+            for c in p.children():
+                collect(c)
+
+        collect(self)
+        pins = tuple(cd.data for s in scans for cd in s.batch.data.columns)
+        out = ((self.plan_key(), tuple(id(a) for a in pins)), pins)
+        self.__dict__["_stats_key_memo"] = out
+        return out
+
+    def plan_key(self) -> tuple:
+        """Structural key: equal for plans that compute the same function
+        of their leaves. Memoized per plan instance, as ``stats_key``; the
+        adaptive fields the planner binds later are not part of it."""
+        key = self.__dict__.get("_plan_key_memo")
+        if key is None:
+            key = self.__dict__["_plan_key_memo"] = self._key()
+        return key
+
+    def _key(self) -> tuple:
+        return (type(self).__name__,) + tuple(
+            c.plan_key() for c in self.children())
 
     def tree_string(self, indent: int = 0) -> str:
         line = "  " * indent + self.node_string()
@@ -117,8 +169,11 @@ class BatchScanExec(PhysicalPlan):
     """Scan over an in-memory device batch."""
 
     batch: Batch
+    #: aux scans carry derived device data (cached join indexes) fully
+    #: determined by the real leaves: excluded from stats_key identity
+    aux: bool = False
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return self.batch.schema
 
@@ -127,6 +182,34 @@ class BatchScanExec(PhysicalPlan):
 
     def node_string(self):
         return f"BatchScan{list(self.schema.names)}"
+
+    def _key(self):
+        fields = self.batch.schema.fields
+        return ("BatchScan", self.batch.capacity,
+                tuple((f.name, repr(f.dtype)) for f in fields),
+                tuple(_dictionary_hash(f) for f in fields))
+
+
+#: id(field) -> (weakref to a string field, the hash of its dictionary):
+#: a dictionary of 150k entries hashes in about a millisecond, and every
+#: run's scans key on theirs; an entry whose field died is never hit
+#: (the weakref no longer points at the field asked about)
+_DICT_HASHES: Dict[int, tuple] = {}
+
+
+def _dictionary_hash(field: Field) -> Optional[int]:
+    if field.dictionary is None:
+        return None
+    hit = _DICT_HASHES.get(id(field))
+    if hit is not None and hit[0]() is field:
+        return hit[1]
+    if len(_DICT_HASHES) > 4096:
+        for k in [k for k, (ref, _) in _DICT_HASHES.items()
+                  if ref() is None]:
+            del _DICT_HASHES[k]
+    h = hash(field.dictionary)
+    _DICT_HASHES[id(field)] = (weakref.ref(field), h)
+    return h
 
 
 @dataclass(eq=False)
@@ -140,7 +223,7 @@ class RangeExec(PhysicalPlan):
     col_name: str
     device: object
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return Schema((Field(self.col_name, T.INT64, nullable=False),))
 
@@ -155,6 +238,9 @@ class RangeExec(PhysicalPlan):
     def node_string(self):
         return f"Range({self.start}, {self.end}, {self.step})"
 
+    def _key(self):
+        return ("Range", self.start, self.end, self.step, self.col_name)
+
 
 # ---- pipelined unary ops ----------------------------------------------------
 
@@ -167,7 +253,7 @@ class ProjectExec(PhysicalPlan):
     def children(self):
         return (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return projection_schema(self.exprs, self.child.schema)
 
@@ -194,6 +280,10 @@ class ProjectExec(PhysicalPlan):
 
     def node_string(self):
         return f"Project[{', '.join(str(e) for e in self.exprs)}]"
+
+    def _key(self):
+        return ("Project", tuple(E.expr_key(e) for e in self.exprs),
+                self.child.plan_key())
 
 
 def with_companion_cols(cols: Dict[str, TV], order: Sequence[str]):
@@ -235,7 +325,7 @@ class FilterExec(PhysicalPlan):
     def children(self):
         return (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return self.child.schema
 
@@ -247,6 +337,9 @@ class FilterExec(PhysicalPlan):
 
     def node_string(self):
         return f"Filter[{self.condition}]"
+
+    def _key(self):
+        return ("Filter", E.expr_key(self.condition), self.child.plan_key())
 
 
 def _take(tv: TV, perm: torch.Tensor) -> TV:
@@ -267,7 +360,7 @@ class SortExec(PhysicalPlan):
     def children(self):
         return (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return self.child.schema
 
@@ -286,6 +379,12 @@ class SortExec(PhysicalPlan):
     def node_string(self):
         return f"Sort[{', '.join(map(str, self.orders))}]"
 
+    def _key(self):
+        return ("Sort",
+                tuple((E.expr_key(o.child), o.ascending,
+                       o.nulls_first_resolved) for o in self.orders),
+                self.child.plan_key())
+
 
 @dataclass(eq=False)
 class LimitExec(PhysicalPlan):
@@ -298,7 +397,7 @@ class LimitExec(PhysicalPlan):
     def children(self):
         return (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return self.child.schema
 
@@ -310,12 +409,17 @@ class LimitExec(PhysicalPlan):
     def node_string(self):
         return f"Limit[{self.n}]"
 
+    def _key(self):
+        return ("Limit", self.n, self.offset, self.child.plan_key())
+
 
 @dataclass(eq=False)
 class CompactExec(PhysicalPlan):
-    """Gather live rows to the front and truncate to a bucketed capacity
-    (reference analogue: AQE's CoalesceShufflePartitions.scala). Stable
-    compaction preserves sorted row order."""
+    """Gather live rows to the front and truncate to a recorded bucketed
+    capacity (reference analogue: AQE's CoalesceShufflePartitions.scala):
+    between stages, where the planner replays a first run's compaction,
+    and at the root, so the copy to the host moves ``bucket(live)`` rows.
+    Stable compaction preserves sorted row order."""
 
     child: PhysicalPlan
     cap: int
@@ -323,7 +427,7 @@ class CompactExec(PhysicalPlan):
     def children(self):
         return (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return self.child.schema
 
@@ -337,6 +441,13 @@ class CompactExec(PhysicalPlan):
 
     def node_string(self):
         return f"Compact[{self.cap}]"
+
+    def _key(self):
+        # transparent: stats recorded on a blocking run (where the
+        # planner compacts between stages unseen) are found when the
+        # replayed plan carries explicit CompactExec nodes; the stage
+        # cache tells compactions apart by planner._adaptive_snapshot
+        return self.child.plan_key()
 
 
 @dataclass(eq=False)
@@ -353,7 +464,7 @@ class ExpandExec(PhysicalPlan):
     def children(self):
         return (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return expand_schema(self.projections, self.names, self.child.schema)
 
@@ -374,6 +485,12 @@ class ExpandExec(PhysicalPlan):
 
     def node_string(self):
         return f"Expand[{len(self.projections)} sets]"
+
+    def _key(self):
+        return ("Expand",
+                tuple(tuple(E.expr_key(e) for e in p)
+                      for p in self.projections),
+                self.names, self.child.plan_key())
 
 
 def _stack_tvs(tvs: Sequence[TV], out_dt) -> TV:
@@ -413,7 +530,7 @@ class UnionExec(PhysicalPlan):
     def children(self):
         return (self.left, self.right)
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return self.left.schema
 
@@ -431,6 +548,9 @@ class UnionExec(PhysicalPlan):
     def node_string(self):
         return "Union"
 
+    def _key(self):
+        return ("Union", self.left.plan_key(), self.right.plan_key())
+
 
 @dataclass(eq=False)
 class GenerateExec(PhysicalPlan):
@@ -439,35 +559,61 @@ class GenerateExec(PhysicalPlan):
     (reference: ``spark_tpu/physical/operators.py:498``,
     execution/GenerateExec.scala): each row's element offset by a
     cumulative sum, each output row's input row by a binary search of the
-    offsets, its element by a gather. One host sync sizes the output."""
+    offsets, its element by a gather. The first run syncs to size the
+    output and records the bucketed size in ``_GEN_STATS``; bound
+    (``adaptive``), a later run over the same leaves expands at that
+    capacity with no sync."""
 
     generator: E.Explode
     out_name: str
     pos_name: Optional[str]
     child: PhysicalPlan
-    traceable = False
+    adaptive: Optional[int] = None
 
     def children(self):
         return (self.child,)
 
     @property
+    def traceable(self) -> bool:  # type: ignore[override]
+        return self.adaptive is not None
+
+    @functools.cached_property
     def schema(self) -> Schema:
         return generate_schema(self.generator, self.out_name, self.pos_name,
                                self.child.schema)
 
-    def execute(self, child_pipes: List[Pipe]) -> Pipe:
-        pipe = child_pipes[0]
+    def _counts(self, pipe: Pipe):
         tv = C._array_tv(C.evaluate(self.generator.child, pipe.env()),
                          "explode()")
+        ok = pipe.mask & tv.valid_or_true(pipe.capacity)
+        counts = torch.where(ok, tv.lengths.to(torch.int64),
+                             torch.zeros((), dtype=torch.int64,
+                                         device=pipe.mask.device))
+        return tv, counts, torch.cumsum(counts, 0)
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        if self.adaptive is None:
+            return self._blocking(child_pipes[0], record=False)
+        return self._expand(child_pipes[0], self.adaptive)
+
+    def execute_blocking(self, child_pipes: List[Pipe]) -> Pipe:
+        return self._blocking(child_pipes[0], record=True)
+
+    def _blocking(self, pipe: Pipe, record: bool) -> Pipe:
+        tv, counts, ends = self._counts(pipe)
+        cap = K.bucket(int(ends[-1]))  # host sync: output sizing
+        if record:
+            sk = self.stats_key()
+            if sk not in _GEN_STATS:
+                _GEN_STATS.put(sk, cap)
+        return self._expand(pipe, cap, (tv, counts, ends))
+
+    def _expand(self, pipe: Pipe, cap: int, sized=None) -> Pipe:
+        tv, counts, ends = sized if sized is not None else self._counts(pipe)
         cap_in = pipe.capacity
         dev = pipe.mask.device
-        ok = pipe.mask & tv.valid_or_true(cap_in)
-        counts = torch.where(ok, tv.lengths.to(torch.int64),
-                             torch.zeros((), dtype=torch.int64, device=dev))
-        ends = torch.cumsum(counts, 0)
         offsets = ends - counts
-        total = int(ends[-1])  # host sync: output sizing
-        cap = K.bucket(total)
+        total = ends[-1]
         j = torch.arange(cap, dtype=torch.int64, device=dev)
         # the input row of output row j: the last row whose offset <= j
         # (rows with no element share the next row's offset, which wins)
@@ -488,6 +634,10 @@ class GenerateExec(PhysicalPlan):
     def node_string(self):
         return f"Generate[{self.generator} AS {self.out_name}]"
 
+    def _key(self):
+        return ("Generate", E.expr_key(self.generator), self.out_name,
+                self.pos_name, self.child.plan_key())
+
 
 @dataclass(eq=False)
 class SampleExec(PhysicalPlan):
@@ -504,7 +654,7 @@ class SampleExec(PhysicalPlan):
     def children(self):
         return (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return self.child.schema
 
@@ -517,6 +667,9 @@ class SampleExec(PhysicalPlan):
 
     def node_string(self):
         return f"Sample[{self.fraction}, seed={self.seed}]"
+
+    def _key(self):
+        return ("Sample", self.fraction, self.seed, self.child.plan_key())
 
 
 # ---- aggregation ------------------------------------------------------------
@@ -810,19 +963,34 @@ class HashAggregateExec(PhysicalPlan):
       group ids -> segment reductions. No sort, no host sync.
     - **sorted**: sort rows by keys, change-flag cumsum assigns group
       ids, and the group count comes to the host to size the output
-      (``num_segments = bucket(groups, 256)``).
+      (``num_segments = bucket(groups, 256)``). The first run records
+      the count in ``_AGG_STATS``; bound (``adaptive``), a later run over
+      the same leaves takes its capacity from it and keeps the count on
+      the device (``out_mask = arange < ng``).
+
+    collect_list/collect_set size their arrays by the largest group: an
+    aggregate holding one stays blocking, as in the reference.
     """
 
     groupings: Tuple[E.Expression, ...]
     aggregates: Tuple[E.Expression, ...]
     child: PhysicalPlan
+    #: bound by the planner from _AGG_STATS: the group count observed on
+    #: the first run over these leaves
+    adaptive: Optional[int] = None
 
     def children(self):
         return (self.child,)
 
     @property
     def traceable(self) -> bool:  # type: ignore[override]
-        return self._static_direct_ok()
+        if self.has_collect():
+            return False  # output width = largest group: blocking only
+        return self._static_direct_ok() or self.adaptive is not None
+
+    def has_collect(self) -> bool:
+        return any(isinstance(a, E.Collect) for e in self.aggregates
+                   for a in E.collect_aggregates(e))
 
     def _static_direct_ok(self) -> bool:
         """Can we guarantee the direct path from schema info alone?"""
@@ -844,7 +1012,7 @@ class HashAggregateExec(PhysicalPlan):
                 return False
         return True
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         cs = self.child.schema
         fields = []
@@ -876,7 +1044,13 @@ class HashAggregateExec(PhysicalPlan):
         pipe = child_pipes[0]
         if self._static_direct_ok():
             return self._execute_direct(pipe)
-        return self._execute_sorted(pipe)
+        return self._execute_sorted(pipe, self.adaptive)
+
+    def execute_blocking(self, child_pipes: List[Pipe]) -> Pipe:
+        pipe = child_pipes[0]
+        if self._static_direct_ok():
+            return self._execute_direct(pipe)
+        return self._execute_sorted(pipe, self.adaptive, record=True)
 
     # -- direct (packed-key) path --------------------------------------------
 
@@ -916,15 +1090,25 @@ class HashAggregateExec(PhysicalPlan):
 
     # -- sort-based path ------------------------------------------------------
 
-    def _execute_sorted(self, pipe: Pipe) -> Pipe:
+    def _execute_sorted(self, pipe: Pipe, groups: Optional[int] = None,
+                        record: bool = False) -> Pipe:
+        """The sorted path at ``bucket(groups, 256)`` segments, ``groups``
+        recorded by a first run (traced: no sync), or, where None, the
+        count read from the device (recorded in ``_AGG_STATS`` when
+        ``record``)."""
         env = pipe.env()
         cap = pipe.capacity
         key_tvs = [C.evaluate(g, env) for g in self.groupings]
         pipe2, sorted_keys, seg, ng = sorted_groups(pipe, key_tvs)
-        n_groups = int(ng)  # host sync: output sizing
-        # an empty input has no group; the reference sizes with
-        # max(1, groups) and so emits one empty group (ROADMAP C)
-        num_segments = K.bucket(max(1, n_groups), 256)
+        n_groups = ng
+        if groups is None:
+            n_groups = int(ng)  # host sync: output sizing
+            groups = max(1, n_groups)
+            if record:
+                _AGG_STATS.put(self.stats_key(), groups)
+        # an empty input has no group (out_mask all False); the reference
+        # emits one empty group there (ROADMAP C)
+        num_segments = K.bucket(groups, 256)
         env2 = pipe2.env()
         _, agg_calls = rewrite_agg_outputs(self.groupings, self.aggregates)
         agg_tvs = [_compute_agg(a, env2, seg, pipe2.mask, num_segments, cap,
@@ -938,6 +1122,131 @@ class HashAggregateExec(PhysicalPlan):
     def node_string(self):
         return (f"HashAggregate[keys=[{', '.join(map(str, self.groupings))}], "
                 f"out=[{', '.join(str(e) for e in self.aggregates)}]]")
+
+    def _key(self):
+        return ("HashAggregate",
+                tuple(E.expr_key(g) for g in self.groupings),
+                tuple(E.expr_key(a) for a in self.aggregates),
+                self.child.plan_key())
+
+
+# ---- adaptive runtime statistics -------------------------------------------
+
+#: Gate for stats RECORDING (reads stay enabled): a plan run once over
+#: leaves that never recur skips the syncs that feed the caches and does
+#: not flood them. A ContextVar, so one thread's window neither leaks
+#: into nor is clobbered by another's.
+_STATS_RECORDING = contextvars.ContextVar("stats_recording", default=True)
+
+
+class stats_recording_disabled:
+    """Context manager: suppress adaptive-stat recording (and the host
+    syncs that feed it) for single-shot plan executions."""
+
+    def __enter__(self):
+        self._token = _STATS_RECORDING.set(False)
+
+    def __exit__(self, *exc):
+        _STATS_RECORDING.reset(self._token)
+        return False
+
+
+def stats_recording() -> bool:
+    return _STATS_RECORDING.get()
+
+
+class _AdaptiveStatsCache:
+    """Bounded stats cache whose keys embed the ids of leaf tensors
+    (``PhysicalPlan.stats_key``). Entries hold weakrefs to the tensors
+    and are dropped the moment any dies, so no device memory is pinned
+    and a recycled id never aliases a live entry; LRU beyond
+    ``maxsize`` entries and, where ``max_bytes`` is set, beyond that many
+    bytes of values (``nbytes``; one entry past it is kept). ``put``
+    records only under ``stats_recording``; ``insert`` always does."""
+
+    def __init__(self, maxsize: int = 256, max_bytes: Optional[int] = None):
+        self._data: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._maxsize = maxsize
+        self.max_bytes = max_bytes
+
+    @staticmethod
+    def nbytes(value) -> int:
+        return 0
+
+    def total_bytes(self) -> int:
+        return sum(self.nbytes(v) for v, _ in self._data.values())
+
+    def _alive(self, key) -> bool:
+        v = self._data.get(key)
+        if v is None:
+            return False
+        if any(r() is None for r in v[1]):
+            del self._data[key]
+            return False
+        return True
+
+    def get(self, key_and_pins):
+        key, _ = key_and_pins
+        if not self._alive(key):
+            return None
+        self._data.move_to_end(key)
+        return self._data[key][0]
+
+    def put(self, key_and_pins, value) -> None:
+        if _STATS_RECORDING.get():
+            self.insert(key_and_pins, value)
+
+    def insert(self, key_and_pins, value) -> None:
+        key, pins = key_and_pins
+        refs = tuple(weakref.ref(a) for a in pins)
+        # sweep entries whose leaves died: never hit again, but they would
+        # pin their values (device memory, for _JoinIndexCache)
+        for k in [k for k, (_, rs) in self._data.items()
+                  if any(r() is None for r in rs)]:
+            del self._data[k]
+        self._data[key] = (value, refs)
+        self._data.move_to_end(key)
+        while len(self._data) > self._maxsize:
+            self._data.popitem(last=False)
+        if self.max_bytes is not None:
+            total = self.total_bytes()
+            while total > self.max_bytes and len(self._data) > 1:
+                _, (v, _) = self._data.popitem(last=False)
+                total -= self.nbytes(v)
+
+    def __contains__(self, key_and_pins) -> bool:
+        return self._alive(key_and_pins[0])
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+
+class _JoinIndexCache(_AdaptiveStatsCache):
+    """Join-index cache bounded by device bytes, not entries: a
+    lineitem-scale index holds ~100 MB while a dimension table's holds a
+    few KB. Values are (orient, index batch, tables batch | None). An
+    evicted index is recorded again only by a later blocking run; until
+    then the traced join builds its ranges live."""
+
+    def __init__(self, max_bytes: int = 1 << 30):
+        super().__init__(maxsize=1 << 62, max_bytes=max_bytes)
+
+    @staticmethod
+    def nbytes(value) -> int:
+        return sum(b.device_nbytes() for b in value[1:] if b is not None)
+
+
+#: per (join, leaves): (packing, unique build, unique probe, bucketed
+#: output capacity or None). packing is the tuple of per-key (min,
+#: range) or "hash" (reference: adaptive/AdaptiveSparkPlanExec.scala:247,
+#: here between executions instead of between stages)
+_JOIN_STATS = _AdaptiveStatsCache()
+#: cached build indexes (kernels.make_join_index outputs as aux batches)
+_JOIN_INDEX = _JoinIndexCache()
+#: per (explode, leaves): the bucketed output capacity
+_GEN_STATS = _AdaptiveStatsCache()
+#: per (sorted aggregate, leaves): the group count, at least 1
+_AGG_STATS = _AdaptiveStatsCache()
 
 
 # ---- join ------------------------------------------------------------------
@@ -964,6 +1273,39 @@ def _verify_key_pairs(prepped, p_idx, b_idx, cap):
     return ok
 
 
+def _take_valid(tv: TV, idx: torch.Tensor, has: torch.Tensor) -> TV:
+    """The rows ``idx`` of ``tv``, NULL where ``has`` is False."""
+    return _mask_valid(_take(tv, idx), has)
+
+
+def _mask_valid(tv: TV, keep: torch.Tensor) -> TV:
+    """``tv`` NULL where ``keep`` is False (an array's length 0 there,
+    as an outer join's padding rows have)."""
+    lengths = tv.lengths
+    if lengths is not None:
+        lengths = torch.where(keep, lengths, torch.zeros_like(lengths))
+    return TV(tv.data, tv.valid_or_true(keep.shape[0]) & keep, tv.dtype,
+              tv.dictionary, lengths)
+
+
+def _layout_stable(p: PhysicalPlan) -> bool:
+    """Whether ``p`` lays its rows out the same on the blocking and the
+    traced path (no join or sorted aggregate below)."""
+    if isinstance(p, (JoinExec, HashAggregateExec)):
+        return False
+    return all(_layout_stable(c) for c in p.children())
+
+
+def _aux_batch(named) -> Batch:
+    """Non-null integer tensors of one length as a batch."""
+    fields = tuple(Field(name, T.INT32 if a.dtype == torch.int32 else T.INT64,
+                         nullable=False) for name, a in named)
+    cols = tuple(ColumnData(a, None) for _, a in named)
+    mask = torch.ones((named[0][1].shape[0],), dtype=torch.bool,
+                      device=named[0][1].device)
+    return Batch(Schema(fields), BatchData(cols, mask))
+
+
 def _gather_pairs(lpipe: Pipe, rpipe: Pipe, p_idx, b_idx
                   ) -> Tuple[Dict[str, TV], List[str]]:
     """Both sides' columns gathered at the pair indices, under the
@@ -983,9 +1325,14 @@ class JoinExec(PhysicalPlan):
     """Equi-join via sorted-build + searchsorted ranges (reference:
     ShuffledHashJoinExec.scala:38 / BroadcastHashJoinExec.scala:40 +
     HashedRelation.scala — rebuilt without hash tables, see
-    kernels.build_join_ranges). Blocking: the output capacity is the
-    host-synced match count. The reference's traced re-execution path
-    and its adaptive statistics caches are not ported."""
+    kernels.build_join_ranges). Blocking on the first run: the key
+    ranges and the output capacity are host-synced, and ``_JOIN_STATS``
+    records the key packing, whether either side matched each row at
+    most once, and the bucketed capacity. Bound (``adaptive``), an inner,
+    left, semi or anti equi-join over the same leaves runs traced
+    (``_strategy``), with the build index the first run cached
+    (``_JOIN_INDEX``) where its layout holds. Right, full, cross and
+    condition-only joins stay blocking."""
 
     left: PhysicalPlan
     right: PhysicalPlan
@@ -993,41 +1340,107 @@ class JoinExec(PhysicalPlan):
     left_keys: Tuple[E.Expression, ...]
     right_keys: Tuple[E.Expression, ...]
     condition: Optional[E.Expression] = None
-    traceable = False
-
-    def children(self):
-        return (self.left, self.right)
+    #: bound by the planner from _JOIN_STATS
+    adaptive: Optional[tuple] = None
+    #: bound by the planner from _JOIN_INDEX: aux scans over the cached
+    #: build permutation and sorted key, and the dense lo/cnt tables.
+    #: Derived data: outside plan_key and stats_key; the stage cache
+    #: tells them apart by planner._adaptive_snapshot
+    index_scan: Optional[PhysicalPlan] = None
+    table_scan: Optional[PhysicalPlan] = None
+    #: the orientation the cached index was built for: 'fwd' = build on
+    #: the right (every strategy but swap), 'rev' = build on the left
+    index_orient: Optional[str] = None
 
     @property
+    def traceable(self) -> bool:  # type: ignore[override]
+        if self.adaptive is None:
+            return False
+        _, unique_build, unique_probe, cap = self.adaptive
+        if self.how not in ("inner", "left", "left_semi", "left_anti"):
+            return False
+        if unique_build or cap is not None:
+            return True
+        # a unique probe side plays the build role of an inner join
+        if unique_probe and self.how == "inner":
+            return True
+        # semi/anti membership without condition or hash sizes itself
+        return (self.how in ("left_semi", "left_anti")
+                and self.condition is None and self.adaptive[0] != "hash")
+
+    def children(self):
+        out = (self.left, self.right)
+        if self.index_scan is not None:
+            out += (self.index_scan,)
+        if self.table_scan is not None:
+            out += (self.table_scan,)
+        return out
+
+    @functools.cached_property
     def schema(self) -> Schema:
         return join_schema(self.how, self.left.schema, self.right.schema)
 
+    def _strategy(self, unique_build: bool, unique_probe: bool,
+                  sized_cap, lcap: int, rcap: int):
+        """Traced strategy and the orientation its ranges need, chosen by
+        OUTPUT capacity: every operator above the join runs at the
+        capacity chosen here, so a selective join must shrink the
+        pipeline even where a gather is locally cheaper; expansion pays
+        an offsets search and a pair mask, so it must be about 2x
+        smaller to win. Shared with the recorder, so the cached index
+        has the orientation the next run picks. Returns (strategy,
+        'fwd'|'rev')."""
+        if self.how == "inner":
+            cands = []
+            if unique_build:
+                cands.append((lcap, 0, "build"))
+            if unique_probe:
+                cands.append((rcap, 1, "swap"))
+            if sized_cap is not None:
+                cands.append((sized_cap * 2, 2, "expand"))
+            if not cands:
+                return None, "fwd"
+            strat = min(cands)[2]
+            return strat, ("rev" if strat == "swap" else "fwd")
+        if unique_build:
+            return "build", "fwd"
+        if sized_cap is None:
+            return "member", "fwd"
+        return "expand", "fwd"
+
+    def _indexed_ranges(self, build_key, build_ok, probe_key, probe_ok,
+                        child_pipes: List[Pipe], want: str):
+        """Join ranges from the cached index where one of the wanted
+        orientation is bound and its layout matches; built live
+        otherwise. The index is positional, recorded against the build
+        side as the first run saw it; a recorded compaction always
+        changes the capacity, so equal lengths are the invariant."""
+        if self.index_scan is not None and self.index_orient == want:
+            ipipe = child_pipes[2]
+            perm = ipipe.cols["perm"].data
+            if perm.shape[0] == build_key.shape[0]:
+                lo_t = cnt_t = None
+                if self.table_scan is not None:
+                    tpipe = child_pipes[3]
+                    lo_t = tpipe.cols["lo"].data
+                    cnt_t = tpipe.cols["cnt"].data
+                return K.ranges_from_index(perm, ipipe.cols["skey"].data,
+                                           lo_t, cnt_t, probe_key, probe_ok)
+        return K.build_join_ranges(build_key, build_ok, probe_key, probe_ok)
+
     # -- key normalization ----------------------------------------------------
 
-    def _combined_keys(self, lpipe: Pipe, rpipe: Pipe):
-        """Evaluate equi-join keys on both sides and pack them into one
-        int64 key per row; strings go through a unified dictionary, ints
-        through range compression on min/max stats that come to the host
-        in ONE copy for all keys. Returns (left key, left key-valid,
-        right key, right key-valid, hashed, per-key (left, right) data):
-        ``hashed`` when the packed range would pass 2^62 and the keys
-        were hashed instead, so pairs must be verified."""
+    def _key_columns(self, lpipe: Pipe, rpipe: Pipe):
+        """Both sides' key columns and their int64 data: strings re-coded
+        into one unified dictionary, whose size is their range. Returns
+        (left TVs, right TVs, [(left data, right data, string range or
+        None)])."""
         lenv, renv = lpipe.env(), rpipe.env()
         lks = [_scalar_column(C.evaluate(k, lenv), "join key")
                for k in self.left_keys]
         rks = [_scalar_column(C.evaluate(k, renv), "join key")
                for k in self.right_keys]
-        dev = lpipe.mask.device
-        i64max = torch.full((), K.INT64_MAX, dtype=torch.int64, device=dev)
-        i64min = torch.full((), K.INT64_MIN, dtype=torch.int64, device=dev)
-
-        lcomb = torch.zeros((lpipe.capacity,), dtype=torch.int64, device=dev)
-        rcomb = torch.zeros((rpipe.capacity,), dtype=torch.int64, device=dev)
-        lvalid = torch.ones((lpipe.capacity,), dtype=torch.bool, device=dev)
-        rvalid = torch.ones((rpipe.capacity,), dtype=torch.bool, device=dev)
-
-        prepped = []  # (ld, rd, rg_or_None, stat_index_or_None)
-        stats = []
+        prepped = []
         for lt, rt in zip(lks, rks):
             if isinstance(lt.dtype, T.StringType) \
                     or isinstance(rt.dtype, T.StringType):
@@ -1037,53 +1450,104 @@ class JoinExec(PhysicalPlan):
                       else lt.data)
                 rd = (C._gather(tr, rt.data) if len(rt.dictionary or ())
                       else rt.data)
-                prepped.append((ld, rd, max(1, len(union)), None))
+                prepped.append((ld, rd, max(1, len(union))))
             else:
-                ld = lt.data.to(torch.int64)
-                rd = rt.data.to(torch.int64)
+                prepped.append((lt.data.to(torch.int64),
+                                rt.data.to(torch.int64), None))
+        return lks, rks, prepped
+
+    def _packing(self, lpipe: Pipe, rpipe: Pipe, lks, rks, prepped):
+        """Per-key (min, range) from the live keys' min/max, which come
+        to the host in ONE copy for all keys; "hash" when the packed
+        range would pass 2^62."""
+        dev = lpipe.mask.device
+        i64max = torch.full((), K.INT64_MAX, dtype=torch.int64, device=dev)
+        i64min = torch.full((), K.INT64_MIN, dtype=torch.int64, device=dev)
+        stats = []
+        for lt, rt, (ld, rd, rg) in zip(lks, rks, prepped):
+            if rg is None:
                 lok = lpipe.mask & lt.valid_or_true(lpipe.capacity)
                 rok = rpipe.mask & rt.valid_or_true(rpipe.capacity)
                 lo = torch.minimum(torch.where(lok, ld, i64max).min(),
                                    torch.where(rok, rd, i64max).min())
                 hi = torch.maximum(torch.where(lok, ld, i64min).max(),
                                    torch.where(rok, rd, i64min).max())
-                prepped.append((ld, rd, None, len(stats)))
                 stats.append(torch.stack([lo, hi]))
         # host sync: every key's (min, max) in one copy
-        fetched = torch.stack(stats).tolist() if stats else []
-
+        fetched = iter(torch.stack(stats).tolist() if stats else [])
         total_range = 1
-        hashed = False
-        for ld, rd, rg, si in prepped:
+        packing = []
+        for _, _, rg in prepped:
             mn = 0
             if rg is None:
-                mn, mx = fetched[si]
+                mn, mx = next(fetched)
                 if mn > mx:
                     mn, mx = 0, 0
                 rg = mx - mn + 1
             if total_range * rg > (1 << 62):  # incl. single wide key
-                hashed = True
-                break
-            lcomb = lcomb * rg + (ld - mn).clamp(0, rg - 1)
-            rcomb = rcomb * rg + (rd - mn).clamp(0, rg - 1)
+                return "hash"
             total_range *= rg
+            packing.append((mn, rg))
+        return tuple(packing)
+
+    def _pack(self, lpipe: Pipe, rpipe: Pipe, lks, rks, prepped, packing):
+        """One int64 key per row: range packing, or where the range would
+        overflow (e.g. two hash-like int64 ids) the keys hash-combined, so
+        pairs must be verified by exact key equality (reference:
+        HashedRelation.scala:208 — probe by hash, confirm by key).
+        Returns (left key, left key-valid, right key, right key-valid,
+        hashed, per-key (left, right) data)."""
+        pairs = [(ld, rd) for ld, rd, _ in prepped]
+        hashed = packing == "hash"
         if hashed:
-            # exact range packing impossible (e.g. two hash-like int64
-            # ids): hash-combine the keys and VERIFY pairs after
-            # expansion (reference: HashedRelation.scala:208 — probe by
-            # hash, confirm by key equality)
-            lcomb, rcomb = _hash_keys([p[0] for p in prepped],
-                                      [p[1] for p in prepped])
+            lcomb, rcomb = _hash_keys([p[0] for p in pairs],
+                                      [p[1] for p in pairs])
+        else:
+            dev = lpipe.mask.device
+            lcomb = torch.zeros((lpipe.capacity,), dtype=torch.int64,
+                                device=dev)
+            rcomb = torch.zeros((rpipe.capacity,), dtype=torch.int64,
+                                device=dev)
+            for (ld, rd), (mn, rg) in zip(pairs, packing):
+                lcomb = lcomb * rg + (ld - mn).clamp(0, rg - 1)
+                rcomb = rcomb * rg + (rd - mn).clamp(0, rg - 1)
+        lvalid = lpipe.mask.new_ones((lpipe.capacity,))
+        rvalid = rpipe.mask.new_ones((rpipe.capacity,))
         for lt, rt in zip(lks, rks):
             if lt.validity is not None:
                 lvalid = lvalid & lt.validity
             if rt.validity is not None:
                 rvalid = rvalid & rt.validity
-        return lcomb, lvalid, rcomb, rvalid, hashed, \
-            [(p[0], p[1]) for p in prepped]
+        return lcomb, lvalid, rcomb, rvalid, hashed, pairs
+
+    def _combined_keys(self, lpipe: Pipe, rpipe: Pipe):
+        """Blocking key packing (one host sync). Returns (left key, left
+        key-valid, right key, right key-valid, packing, per-key data)."""
+        lks, rks, prepped = self._key_columns(lpipe, rpipe)
+        packing = self._packing(lpipe, rpipe, lks, rks, prepped)
+        lkey, lvalid, rkey, rvalid, _, pairs = self._pack(
+            lpipe, rpipe, lks, rks, prepped, packing)
+        return lkey, lvalid, rkey, rvalid, packing, pairs
+
+    def _traced_keys(self, lpipe: Pipe, rpipe: Pipe):
+        """Key packing with the recorded per-key (min, range): no sync.
+        Sound because the planner binds only stats recorded for these
+        leaves."""
+        lks, rks, prepped = self._key_columns(lpipe, rpipe)
+        return self._pack(lpipe, rpipe, lks, rks, prepped, self.adaptive[0])
+
+    # -- execution ------------------------------------------------------------
 
     def execute(self, child_pipes: List[Pipe]) -> Pipe:
-        lpipe, rpipe = child_pipes
+        if self.traceable:
+            return self._trace(child_pipes)
+        return self._blocking(child_pipes, record=False)
+
+    def execute_blocking(self, child_pipes: List[Pipe]) -> Pipe:
+        return self._blocking(child_pipes, record=True)
+
+    def _blocking(self, child_pipes: List[Pipe], record: bool) -> Pipe:
+        lpipe, rpipe = child_pipes[:2]
         how = self.how
         if how == "cross" and self.condition is None:
             return self._cross(lpipe, rpipe)
@@ -1093,25 +1557,174 @@ class JoinExec(PhysicalPlan):
             # BroadcastNestedLoopJoinExec)
             return self._nested_loop(lpipe, rpipe, how)
 
-        lkey, lvalid, rkey, rvalid, hashed, prepped = self._combined_keys(
+        lkey, lvalid, rkey, rvalid, packing, prepped = self._combined_keys(
             lpipe, rpipe)
+        hashed = packing == "hash"
         # probe = left, build = right (left-side row order is preserved,
         # matching streamed-side semantics)
         ranges = K.build_join_ranges(rkey, rpipe.mask & rvalid,
                                      lkey, lpipe.mask & lvalid)
+        sk = (self.stats_key()
+              if how in ("inner", "left", "left_semi", "left_anti") else None)
+        record = record and sk is not None and sk not in _JOIN_STATS
         if how in ("left_semi", "left_anti") and self.condition is None \
                 and not hashed:
+            if record:
+                maxc = int(ranges.counts.max())  # host sync: first run
+                _JOIN_STATS.put(sk, (packing, maxc <= 1, False, None))
+                self._record_index(sk, "fwd", rkey, rpipe.mask & rvalid,
+                                   packing)
             has_match = ranges.counts > 0
             keep = lpipe.mask & (has_match if how == "left_semi"
                                  else ~has_match)
             return Pipe(lpipe.cols, keep, lpipe.order)
-        total = int(ranges.counts.sum())  # host sync: output sizing
-        return self._pairs_pipe(lpipe, rpipe, ranges, hashed, prepped,
-                                K.bucket(total))
+        if record:
+            # host sync: the output size and, on the first run only, the
+            # most matches of a probe row and of a build row; either side
+            # unique makes the join traceable, and the bucketed capacity
+            # makes even a many-to-many join replay at a static size
+            rev = K.build_join_ranges(lkey, lpipe.mask & lvalid,
+                                      rkey, rpipe.mask & rvalid)
+            total, maxc, maxb = torch.stack(
+                [ranges.counts.sum(), ranges.counts.max(),
+                 rev.counts.max()]).tolist()
+            cap = K.bucket(total)
+            _JOIN_STATS.put(sk, (packing, maxc <= 1, maxb <= 1, cap))
+            # cache the build index in the orientation the next (traced)
+            # run picks, so it skips the argsort and the searches
+            _, orient = self._strategy(maxc <= 1, maxb <= 1, cap,
+                                       lpipe.capacity, rpipe.capacity)
+            if orient == "rev":
+                self._record_index(sk, "rev", lkey, lpipe.mask & lvalid,
+                                   packing)
+            else:
+                self._record_index(sk, "fwd", rkey, rpipe.mask & rvalid,
+                                   packing)
+        else:
+            st = _JOIN_STATS.get(sk) if sk is not None else None
+            if st is not None and st[3] is not None:
+                cap = st[3]  # recorded for these leaves: no sync
+            else:
+                cap = K.bucket(int(ranges.counts.sum()))  # host sync
+        return self._pairs_pipe(lpipe, rpipe, ranges, hashed, prepped, cap)
+
+    def _trace(self, child_pipes: List[Pipe]) -> Pipe:
+        """The traced join, with no host sync: strategy by output
+        capacity (``_strategy``)."""
+        lpipe, rpipe = child_pipes[:2]
+        _, unique_build, unique_probe, sized_cap = self.adaptive
+        lcomb, lvalid, rcomb, rvalid, hashed, prepped = self._traced_keys(
+            lpipe, rpipe)
+        strat, _ = self._strategy(unique_build, unique_probe, sized_cap,
+                                  lpipe.capacity, rpipe.capacity)
+        if strat == "swap":
+            return self._trace_swapped(lpipe, rpipe, lcomb, lvalid, rcomb,
+                                       rvalid, hashed, prepped, child_pipes)
+        ranges = self._indexed_ranges(rcomb, rpipe.mask & rvalid,
+                                      lcomb, lpipe.mask & lvalid,
+                                      child_pipes, "fwd")
+        if strat == "expand":
+            return self._pairs_pipe(lpipe, rpipe, ranges, hashed, prepped,
+                                    sized_cap)
+        has = ranges.counts > 0
+        if strat == "member":
+            # semi/anti without condition or hash: membership only
+            keep = lpipe.mask & (has if self.how == "left_semi" else ~has)
+            return Pipe(lpipe.cols, keep, lpipe.order)
+        # 'build': each probe row has at most one match, so the output
+        # is a gather at probe capacity (the PK-FK path)
+        lcap, rcap = lpipe.capacity, rpipe.capacity
+        b_idx = ranges.build_perm[ranges.lo.clamp(0, rcap - 1)]
+        if hashed:
+            p_idx = torch.arange(lcap, device=lpipe.mask.device)
+            has = has & _verify_key_pairs(prepped, p_idx, b_idx, lcap)
+        if self.how in ("left_semi", "left_anti") and self.condition is None:
+            keep = lpipe.mask & (has if self.how == "left_semi" else ~has)
+            return Pipe(lpipe.cols, keep, lpipe.order)
+        pair_names = E.dedup_pair_names(lpipe.order, rpipe.order)
+        n_l = len(lpipe.order)
+        cols: Dict[str, TV] = {}
+        for out_name, src in zip(pair_names[:n_l], lpipe.order):
+            cols[out_name] = lpipe.cols[src]
+        for out_name, src in zip(pair_names[n_l:], rpipe.order):
+            cols[out_name] = _take_valid(rpipe.cols[src], b_idx, has)
+        pair_ok = lpipe.mask & has
+        if self.condition is not None:
+            ctv = C.evaluate(self.condition,
+                             Env(cols, lcap, device=pair_ok.device))
+            pair_ok = pair_ok & ctv.data & ctv.valid_or_true(lcap)
+        if self.how == "left_semi":
+            return Pipe(lpipe.cols, pair_ok, lpipe.order)
+        if self.how == "left_anti":
+            return Pipe(lpipe.cols, lpipe.mask & ~pair_ok, lpipe.order)
+        if self.how == "inner":
+            return Pipe(cols, pair_ok, pair_names)
+        # left outer: every live left row, the right side NULL where the
+        # (condition-passing) match is absent
+        for out_name in pair_names[n_l:]:
+            cols[out_name] = _mask_valid(cols[out_name], pair_ok)
+        return Pipe(cols, lpipe.mask, pair_names)
+
+    def _trace_swapped(self, lpipe: Pipe, rpipe: Pipe, lcomb, lvalid,
+                       rcomb, rvalid, hashed, prepped,
+                       child_pipes: List[Pipe]) -> Pipe:
+        """Inner join with a unique LEFT side: build on the left, stream
+        the right; each right row gathers its single left match, so rows
+        come out in the right side's order."""
+        ranges = self._indexed_ranges(lcomb, lpipe.mask & lvalid,
+                                      rcomb, rpipe.mask & rvalid,
+                                      child_pipes, "rev")
+        has = ranges.counts > 0
+        rcap = rpipe.capacity
+        l_idx = ranges.build_perm[ranges.lo.clamp(0, lpipe.capacity - 1)]
+        if hashed:
+            # verify with the sides swapped: the left is the build
+            swapped = [(rd, ld) for ld, rd in prepped]
+            has = has & _verify_key_pairs(
+                swapped, torch.arange(rcap, device=has.device), l_idx, rcap)
+        pair_names = E.dedup_pair_names(lpipe.order, rpipe.order)
+        n_l = len(lpipe.order)
+        cols: Dict[str, TV] = {}
+        for out_name, src in zip(pair_names[:n_l], lpipe.order):
+            cols[out_name] = _take_valid(lpipe.cols[src], l_idx, has)
+        for out_name, src in zip(pair_names[n_l:], rpipe.order):
+            cols[out_name] = rpipe.cols[src]
+        pair_ok = rpipe.mask & has
+        if self.condition is not None:
+            ctv = C.evaluate(self.condition,
+                             Env(cols, rcap, device=pair_ok.device))
+            pair_ok = pair_ok & ctv.data & ctv.valid_or_true(rcap)
+        return Pipe(cols, pair_ok, pair_names)
+
+    def _record_index(self, sk, orient: str, build_key, build_ok,
+                      packing) -> None:
+        """Build and cache the join index (permutation and sorted key,
+        and the dense lo/cnt tables where the packed domain is small) for
+        these leaves: one-time work on the blocking run, read by later
+        traced runs through aux scans. The index is positional, so the
+        build side's row layout must be the same in the blocking and the
+        traced run; joins and sorted aggregates lay their output out
+        differently on the two paths, so a build side holding one is not
+        indexed."""
+        build_side = self.left if orient == "rev" else self.right
+        if not _layout_stable(build_side):
+            return
+        domain = None
+        if packing != "hash":
+            domain = 1
+            for _, rg in packing:
+                domain *= rg
+        perm, skey, lo_t, cnt_t = K.make_join_index(build_key, build_ok,
+                                                    domain)
+        ib = _aux_batch((("perm", perm), ("skey", skey)))
+        tb = (_aux_batch((("lo", lo_t), ("cnt", cnt_t)))
+              if lo_t is not None else None)
+        _JOIN_INDEX.put(sk, (orient, ib, tb))
 
     def _pairs_pipe(self, lpipe: Pipe, rpipe: Pipe, ranges, hashed,
                     prepped, cap: int) -> Pipe:
-        """General match expansion at a static capacity."""
+        """General match expansion at a static capacity: the blocking
+        tail and the traced 'expand' strategy alike."""
         how = self.how
         p_idx, b_idx, pair_mask = K.expand_join_pairs(ranges, cap)
         # The pair environment always carries BOTH sides (with '#2'
@@ -1240,6 +1853,13 @@ class JoinExec(PhysicalPlan):
         ks = ", ".join(f"{l}={r}" for l, r in zip(self.left_keys,
                                                   self.right_keys))
         return f"Join[{self.how}, ({ks}), cond={self.condition}]"
+
+    def _key(self):
+        return ("Join", self.how,
+                tuple(E.expr_key(k) for k in self.left_keys),
+                tuple(E.expr_key(k) for k in self.right_keys),
+                None if self.condition is None else E.expr_key(self.condition),
+                self.left.plan_key(), self.right.plan_key())
 
 
 def append_unmatched_left(cols, pair_ok, order, lpipe, matched):

@@ -14,6 +14,7 @@ no step reads a value back to the host.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -86,7 +87,7 @@ class WindowExec(PhysicalPlan):
     def children(self):
         return (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> Schema:
         return window_schema(self.window_exprs, self.child.schema)
 
@@ -420,6 +421,10 @@ class WindowExec(PhysicalPlan):
 
     def node_string(self):
         return f"Window[{', '.join(str(e) for e in self.window_exprs)}]"
+
+    def _key(self):
+        return ("Window", tuple(E.expr_key(e) for e in self.window_exprs),
+                self.child.plan_key())
 
 
 def _bounded_search(sorted_key, targets, seg_start, seg_end, cap: int,

@@ -24,6 +24,7 @@ observe an identical schema.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -104,6 +105,23 @@ def estimate_rows(plan: L.LogicalPlan) -> float:
 _REL_NDV_CAP = 1 << 22  # relations larger than this: no distinct count
 
 
+#: id -> (weakref to a column tensor, its distinct count): a relation's
+#: count is taken once (the engine never writes a leaf in place); an
+#: entry whose tensor died is dropped at the next count
+_NDV: Dict[int, tuple] = {}
+
+
+def _column_ndv(data: torch.Tensor) -> float:
+    hit = _NDV.get(id(data))
+    if hit is not None and hit[0]() is data:
+        return hit[1]
+    for k in [k for k, (ref, _) in _NDV.items() if ref() is None]:
+        del _NDV[k]
+    n = float(torch.unique(data).numel())  # host sync: once per column
+    _NDV[id(data)] = (weakref.ref(data), n)
+    return n
+
+
 def _atom_ndv(atom: L.LogicalPlan, expr: E.Expression) -> Optional[float]:
     """Distinct count of a join-key expression on an atom; None =
     unknown (callers fall back to rows, i.e. assume unique). A relation's
@@ -136,7 +154,7 @@ def _atom_ndv(atom: L.LogicalPlan, expr: E.Expression) -> Optional[float]:
                 or name not in node.batch.schema:
             return None
         data = node.batch.data.columns[node.batch.schema.index(name)].data
-        return float(torch.unique(data).numel())  # host sync
+        return _column_ndv(data)
     if isinstance(node, L.UnresolvedScan):
         return float(_scan_ndv(node.source, name))
     if isinstance(node, L.Range):

@@ -24,6 +24,7 @@ Supported shapes (the TPC-H dialect):
 
 from __future__ import annotations
 
+import contextvars
 import itertools
 from typing import List, Optional, Tuple
 
@@ -31,7 +32,13 @@ from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.plan import logical as L
 from spark_tpu_torch.plan.optimizer import combine_conjuncts, split_conjuncts
 
-_sq_counter = itertools.count()
+#: the names of one statement's rewritten subqueries count from 0, so a
+#: statement parsed again gets the same plan (and plan key) as before
+_SQ_NAMES = contextvars.ContextVar("subquery_names", default=None)
+
+
+def _next_sq() -> int:
+    return next(_SQ_NAMES.get())
 
 
 def _has_outer(e: E.Expression) -> bool:
@@ -234,7 +241,7 @@ def _apply_in(plan: L.LogicalPlan, isq: E.InSubquery) -> L.LogicalPlan:
             return joined
         corr_outer = outer_keys[1:]
         corr_inner = inner_keys[1:]
-        n_name = f"__nin{next(_sq_counter)}_n"
+        n_name = f"__nin{_next_sq()}_n"
         key_aliases = [E.Alias(k, f"{n_name}_k{j}")
                       for j, k in enumerate(corr_inner)]
         counts = L.Aggregate(tuple(corr_inner),
@@ -250,7 +257,7 @@ def _apply_in(plan: L.LogicalPlan, isq: E.InSubquery) -> L.LogicalPlan:
     # uncorrelated NOT IN: attach subquery row/non-null counts and apply
     # three-valued logic: empty subquery -> keep everything; any NULL in
     # the subquery -> keep nothing; NULL probe + non-empty -> drop row
-    i = next(_sq_counter)
+    i = _next_sq()
     n_name, nn_name = f"__nin{i}_n", f"__nin{i}_nn"
     counts = L.Aggregate(
         (), (E.Alias(E.Count(None), n_name),
@@ -268,7 +275,7 @@ def _apply_scalar(
     plan: L.LogicalPlan, sq: E.ScalarSubquery,
 ) -> Tuple[L.LogicalPlan, E.Expression]:
     """Returns (new_plan, replacement column expr)."""
-    i = next(_sq_counter)
+    i = _next_sq()
     out_name = f"__sq{i}"
     sub = rewrite_subqueries(sq.plan)
     stripped, corr, _ = _strip_correlated(sub)
@@ -383,6 +390,12 @@ def _rewrite_project(node: L.Project) -> L.LogicalPlan:
 def rewrite_subqueries(plan: L.LogicalPlan) -> L.LogicalPlan:
     """Remove every SubqueryExpression (bottom-up; nested subqueries are
     rewritten when their enclosing Filter/Project is processed)."""
+    if _SQ_NAMES.get() is None:
+        token = _SQ_NAMES.set(itertools.count())
+        try:
+            return rewrite_subqueries(plan)
+        finally:
+            _SQ_NAMES.reset(token)
 
     def fn(node: L.LogicalPlan) -> L.LogicalPlan:
         if isinstance(node, L.Filter) and E.contains_subquery(node.condition):

@@ -29,7 +29,10 @@ equal to their in-memory runs on the card bit for bit, with the same
 launches; the complex phase's queries, 2-D gathers, explode, a square
 collect and outer-join padding equal to the CPU run, X1 and X2 with
 their launches; the sampler's stream bit-identical on the card and the
-CPU.
+CPU; captured stages (``physical/graphs.py``): q1-wide, q3 and A1-168
+replayed bit for bit with the eager runs' launches, a replayed output
+that survives the next replay, a dead leaf's graph dropped, and a sync
+inside a capture raising.
 """
 
 import struct
@@ -662,3 +665,165 @@ def test_uniform_on_card_equals_cpu(cuda_device):
             want = uniform(seed, n, "cpu")
             assert torch.equal(got.view(torch.int64),
                                want.view(torch.int64))
+
+
+# ---- captured stages -------------------------------------------------------
+
+
+def _graph_session(dev):
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.tpch import generate_tables, register_views
+
+    spark = SparkSession(device=dev)
+    register_views(spark, generate_tables(0.02, seed=99))
+    return spark
+
+
+def _row_bits(rows):
+    return [tuple(struct.pack("<d", v) if isinstance(v, float) else v
+                  for v in r) for r in rows]
+
+
+def _wrapper_launches():
+    return dict(seg_agg.seg_sum.mode_launches,
+                **seg_agg.seg_minmax.mode_launches,
+                **seg_agg.seg_fsum.mode_launches)
+
+
+def _ran(before):
+    """The kernel runs the device counted since ``before``."""
+    after = seg_agg.device_runs()
+    return {m: after[m] - before[m] for m in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q1_wide", "q3", "a1_168"])
+def test_replay_equals_eager_run_bit_for_bit(cuda_device, name):
+    """The first (blocking) run, the capture run and three replays: the
+    same rows bit for bit, every replay's stages replayed from graphs, and
+    the hand-kernel runs the device counts in each replay equal to the
+    launches of the capture run (its warm-up), which for q1-wide and A1
+    equal the first run's. A capture itself runs, and counts, nothing."""
+    from spark_tpu_torch.physical import planner
+    from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
+    from spark_tpu_torch.tpch.queries import SCALAR_QUERIES
+
+    q = {"q1_wide": Q1_WIDE, "q3": QUERIES[3],
+         "a1_168": SCALAR_QUERIES["a1_168"]}[name]
+    spark = _graph_session("cuda")
+    seg_agg.reset_launches()
+    runs = seg_agg.device_runs()
+    first = _row_bits(tuple(r) for r in spark.sql(q).collect())
+    eager = _wrapper_launches()
+    assert _ran(runs) == eager
+    assert planner.last_run.first_run
+    seg_agg.reset_launches()
+    runs = seg_agg.device_runs()
+    assert _row_bits(tuple(r) for r in spark.sql(q).collect()) == first
+    assert planner.last_run.captured == planner.last_run.stages == 1
+    captured = _wrapper_launches()
+    assert _ran(runs) == captured
+    if name != "q3":
+        assert captured == eager and any(captured.values())
+    for _ in range(3):
+        seg_agg.reset_launches()
+        runs = seg_agg.device_runs()
+        assert _row_bits(tuple(r) for r in spark.sql(q).collect()) == first
+        run = planner.last_run
+        assert run.replayed == run.stages == 1 and run.captured == 0
+        assert _ran(runs) == captured
+        assert not any(_wrapper_launches().values())
+
+
+@pytest.mark.cuda
+def test_replayed_output_survives_the_next_replay(cuda_device):
+    from spark_tpu_torch.tpch import QUERIES
+
+    spark = _graph_session("cuda")
+    q = QUERIES[1]
+    first = spark.sql(q)._execute()
+    spark.sql(q).collect()  # capture
+    a = spark.sql(q)._execute()
+    b = spark.sql(q)._execute()
+    for x, y, z in zip(a.data.columns, b.data.columns, first.data.columns):
+        assert x.data.data_ptr() != y.data.data_ptr()
+        assert torch.equal(x.data, y.data)
+    assert a.result_columns() == first.result_columns()
+
+
+@pytest.mark.cuda
+def test_dead_leaf_evicts_its_graph(cuda_device):
+    import gc
+
+    from spark_tpu_torch.physical import graphs, planner
+
+    spark = _graph_session("cuda")
+    q = "select count(*) as n, sum(l_quantity) as s from lineitem " \
+        "where l_discount > 0.05"
+    want = [tuple(r) for r in spark.sql(q).collect()]
+    spark.sql(q).collect()
+    assert planner.last_run.captured == 1
+    old = [refs for _, refs in graphs._STAGE_CACHE._data.values()]
+    from spark_tpu_torch.tpch import generate_tables, register_views
+
+    register_views(spark, generate_tables(0.02, seed=99))  # new leaves
+    gc.collect()
+    assert [tuple(r) for r in spark.sql(q).collect()] == want
+    assert planner.last_run.first_run  # new leaves: no stats yet
+    assert [tuple(r) for r in spark.sql(q).collect()] == want
+    assert planner.last_run.captured == 1
+    # the capture swept every entry whose leaves died, this query's too
+    assert any(r() is None for refs in old for r in refs)
+    assert all(r() is not None for _, refs in
+               graphs._STAGE_CACHE._data.values() for r in refs)
+
+
+@pytest.mark.cuda
+def test_capture_keeps_the_tables_its_warm_up_copied(cuda_device,
+                                                     monkeypatch):
+    """A stage reads several host tables (dictionary predicates) whose
+    copies pass ``device.TABLE_BYTES``: the warm-up's copies are not
+    evicted before the capture reads them, and the replay equals the
+    blocking run."""
+    from spark_tpu_torch import device as PD
+    from spark_tpu_torch.physical import planner
+
+    spark = _graph_session("cuda")
+    q = ("select p_brand, count(*) as n from part "
+         "where p_type like '%BRASS' and p_container in ('SM BOX', 'LG CASE')"
+         " and p_brand <> 'Brand#45' and p_mfgr like '%3' "
+         "group by p_brand order by p_brand")
+    monkeypatch.setattr(PD, "TABLE_BYTES", 1)
+    with PD._TABLES_LOCK:
+        PD._TABLES.clear()
+    want = [tuple(r) for r in spark.sql(q).collect()]
+    assert want
+    assert [tuple(r) for r in spark.sql(q).collect()] == want
+    assert planner.last_run.captured == planner.last_run.stages >= 1
+    assert [tuple(r) for r in spark.sql(q).collect()] == want
+    assert planner.last_run.replayed == planner.last_run.stages
+
+
+@pytest.mark.cuda
+def test_a_stage_that_syncs_in_its_capture_raises(cuda_device):
+    """No fallback: a traced stage that reads a value on the host raises
+    in its capture instead of running eagerly."""
+    from spark_tpu_torch.physical import operators as P
+
+    spark = _graph_session("cuda")
+    q = "select l_returnflag, count(*) as n from lineitem " \
+        "group by l_returnflag order by l_returnflag"
+    spark.sql(q).collect()
+    real_sort = P.SortExec.execute
+
+    def syncing(self, child_pipes):
+        int(child_pipes[0].mask.sum())  # a host sync inside the stage
+        return real_sort(self, child_pipes)
+
+    P.SortExec.execute = syncing
+    try:
+        with pytest.raises(RuntimeError):
+            spark.sql(q).collect()
+    finally:
+        P.SortExec.execute = real_sort
+    torch.cuda.synchronize()
