@@ -71,7 +71,11 @@ no result line):
      copy to the card.
    - Window phase: window functions, ROLLUP, CUBE, INTERSECT, EXCEPT and
      UNION (``tpch/queries.py:WINDOW_QUERIES``; no launch; oracle, R1
-     and C1 through the UNION ALL of their GROUP BYs).
+     and C1 through the UNION ALL of their GROUP BYs), and W4
+     (``WINDOW_FLOAT_QUERIES``): float running and 7-row sliding sums
+     and averages over lineitem's 6M rows, within 1e-12 of each frame's
+     sum of |x| of the CPU run and of the host's numpy sums of each
+     frame's rows (ROADMAP C3).
    - TPC-H phase: the twelve other TPC-H queries (q2 one count launch,
      the others none; oracle for those of ``TPCH_ORACLE``).
    - Scalar phase (``tpch/queries.py:SCALAR_QUERIES``): grouped stddev,
@@ -111,6 +115,30 @@ no result line):
      (``COMPLEX_ORACLE_QUERIES``), Python's ``str.split`` for X4; then X6
      over its table written with ``df.write.parquet`` and read back on
      the card and the CPU, equal to the in-memory card run bit for bit.
+   - ooc phase (the out-of-memory tier, over the io phase's Parquet
+     files, on a fresh session on the card): each query of
+     ``tpch/queries.py:OOC_QUERIES`` resident, then chunked at a budget
+     one byte under its largest scan's estimate (q12: under the second
+     largest) at pipeline depths 0 and 2, 2^21 chunk rows (lineitem in
+     3 chunks): q1, q1-wide (the seg_sum count and int64 sum and
+     seg_minmax in every chunk and merge), F1 (float sums: seg_fsum), q3
+     (lineitem streamed through one sidecar, the host key filter), K1 (a
+     streamed top-k) through ``_ChunkedAgg``/``_ChunkedTopK``, q12
+     through the hybrid hash join and again through the grace hash join,
+     q18 through none (resident); q1-wide again at 2^19 chunk rows (12
+     chunks). Each chunked run: the tier asserted, launches counted from
+     0 and equal to the card's own count, every wrapper call held
+     against its plain version, rows equal to the resident run's (F1's
+     floats within 1e-12), the graph pool and the stage cache unchanged,
+     no ladder replan and no hybrid fallback; it prints its chunks, rows
+     in and kept, the pipeline's decode, filter, transfer, compute and
+     wait ms and overlap share, and its wall beside the resident walls.
+     Then a real device OOM in a subprocess (``--oom-child``): q1-wide
+     under ``set_per_process_memory_fraction`` below its resident peak
+     must replan through the ladder on ``torch.cuda.OutOfMemoryError``
+     to the uncapped rows; and ``cache()`` of a lineitem aggregate: one
+     materialization, a store hit, ``unpersist`` releasing the bytes.
+   Outside the ooc phase every query must run with no ladder replan.
    Warm runs (``warm_runs``): after its first run, which is blocking and
    records the plan's runtime statistics, each query runs once with its
    traced stages eagerly (no graph), then once to capture each traced
@@ -128,7 +156,10 @@ no result line):
    after each phase.
    A profiled run whose session recorded fewer hand-written kernel
    launches than the wrappers counted is taken again (up to five
-   sessions): the profiler now and then drops events.
+   sessions): the profiler now and then drops events. The profiler runs
+   with ``acc_events=True`` where torch has it, and the end of the run
+   prints how many profiled runs held every event in their first
+   session.
    In every query phase and the slice phase, every call of a kernel's
    wrapper on the main path is recorded (its arguments and result), and
    each is held against its plain PyTorch version on those same
@@ -657,15 +688,22 @@ def profile_query(spark, name: str, query) -> None:
     than the kernels counted runs on the device in that run
     (``seg_agg.device_runs``, replayed launches included) has dropped
     events (``profile_calls``) and is taken again, up to five sessions in
-    all; the device's own count is the measurement the checks use."""
+    all; the device's own count is the measurement the checks use. The
+    profiler is asked for ``acc_events=True`` where this torch has it;
+    ``_PROFILES`` counts the runs whose first session held every event
+    (logged at the end: whether the option ends the dropped events)."""
     from torch.profiler import ProfilerActivity, profile
 
     from spark_tpu_torch.ops import seg_agg
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for _ in range(5):
+    _PROFILES["all"] += 1
+    opts = ({"acc_events": True} if "acc_events"
+            in inspect.signature(profile.__init__).parameters else {})
+    _PROFILES["acc_events"] = bool(opts)
+    for attempt in range(5):
         before = sum(seg_agg.device_runs().values())
-        with profile(activities=acts) as prof:
+        with profile(activities=acts, **opts) as prof:
             t0 = time.perf_counter()
             frame(spark, query).collect()
             wall = (time.perf_counter() - t0) * 1e3
@@ -675,6 +713,7 @@ def profile_query(spark, name: str, query) -> None:
         events = _device_events(prof)
         seen = sum(e.count for e in events if _is_hand_kernel(e.key))
         if events and seen == ran:
+            _PROFILES["first"] += attempt == 0
             break
     else:
         log(f"profile {name}: the profiler recorded {seen} of the {ran} "
@@ -697,6 +736,11 @@ def profile_query(spark, name: str, query) -> None:
     for e in top:
         log(f"profile {name}:   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5} {e.key[:90]}")
+
+
+#: profiled runs, and those whose first profiler session recorded every
+#: hand-kernel run the card counted
+_PROFILES = {"all": 0, "first": 0, "acc_events": False}
 
 
 def _is_hand_kernel(name: str) -> bool:
@@ -814,6 +858,7 @@ def oracle_connection(tables):
 
 
 def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
+    from spark_tpu_torch import recovery
     from spark_tpu_torch.physical import graphs
     from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
     from spark_tpu_torch.tpch.oracle import assert_rows_match, run_oracle
@@ -834,6 +879,9 @@ def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
                   == {m: n for m, n in launches[name].items() if n},
                   f"{name}: the device ran {ran_since(seg_agg, runs)}, "
                   f"the wrappers launched {launches[name]}")
+            check(recovery.last_ladder.get("replans", 0) == 0,
+                  f"{name}: the OOM ladder replanned: "
+                  f"{recovery.last_ladder}")
     total = mode_launches(seg_agg)
     log(f"slice: kernel launches per query {launches}")
     if dev == "cuda":
@@ -939,6 +987,7 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
     then warm walls (3 runs, each bit-identical to the first run), peak
     device memory above the tables and one profiled run of each. Returns
     the launches of the path's run."""
+    from spark_tpu_torch import recovery
     from spark_tpu_torch.physical import graphs
     from spark_tpu_torch.tpch.oracle import assert_rows_match, run_oracle
 
@@ -960,6 +1009,9 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
                   == {m: n for m, n in launches[name].items() if n},
                   f"{name}: the device ran {ran_since(seg_agg, runs)}, "
                   f"the wrappers launched {launches[name]}")
+            check(recovery.last_ladder.get("replans", 0) == 0,
+                  f"{name}: the OOM ladder replanned: "
+                  f"{recovery.last_ladder}")
             if after_first is not None:
                 after_first(name)
     total = mode_launches(seg_agg)
@@ -1249,6 +1301,11 @@ def subquery_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     return total
 
 
+#: W4's float frame sums: within this much of each frame's sum of |x|,
+#: against the CPU run and the host's numpy sums
+W4_TOL = 1e-12
+
+
 def window_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     """The window slice at SF1 (``tpch/queries.py:WINDOW_QUERIES``):
     row_number top-N per customer over orders (W1), a running sum and a
@@ -1259,17 +1316,54 @@ def window_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     seg_agg kernel: the grouping-sets aggregates group by an int64 id and
     take the sorted path, UNION's DISTINCT is a sorted aggregate over an
     int64 key, the outer aggregates are masked (K <= 64) or single-group.
-    Every window sums decimals or integers (exact int64 arithmetic), so
-    the card's rows equal the CPU run's exactly. Each query equals the
+    W1-W3 sum decimals or integers (exact int64 arithmetic), so the
+    card's rows equal the CPU run's exactly. Each of these equals the
     sqlite oracle at SF1; R1 and C1 through the UNION ALL of the GROUP
-    BYs they stand for."""
-    from spark_tpu_torch.tpch.queries import (WINDOW_ORACLE_QUERIES,
-                                              WINDOW_QUERIES)
+    BYs they stand for. W4 (``WINDOW_FLOAT_QUERIES``): a float running
+    sum and a 7-row sliding sum and average over lineitem's 6M rows per
+    supplier (ROADMAP C3: frame sums of disjoint power-of-two blocks),
+    the rows of one order in a thousand: within ``W4_TOL`` of each
+    frame's sum of |x| of the CPU run and of the host's numpy sums of
+    each frame's rows (sqlite's sliding sums subtract: no oracle)."""
+    from spark_tpu_torch.columnar.arrow import to_arrow
+    from spark_tpu_torch.tpch.queries import (WINDOW_FLOAT_QUERIES,
+                                              WINDOW_ORACLE_QUERIES,
+                                              WINDOW_QUERIES, w4_host_frames)
 
     oracle_queries = {name: WINDOW_ORACLE_QUERIES.get(name, q)
                       for name, q in WINDOW_QUERIES.items()}
-    return run_phase("window", seg_agg, gpu, cpu, WINDOW_QUERIES, {},
-                     oracle, oracle_queries, dev)
+
+    def match(name, card, cpu_rows):
+        if name not in WINDOW_FLOAT_QUERIES:
+            check(card == cpu_rows, f"{name}: card != CPU run")
+            return
+        check(len(card) == len(cpu_rows) > 0, f"{name}: row counts differ")
+        t0 = time.perf_counter()
+        host = w4_host_frames(to_arrow(cpu.catalog.lookup("lineitem").batch),
+                              card)
+        worst_cpu = worst_host = 0.0
+        for g, c, (run, s7, a7, mrun, m7) in zip(card, cpu_rows, host):
+            # v itself may differ by an ulp: the card's sqrt and decimal
+            # descaling round as its own
+            check(g[:3] == c[:3], f"{name}: keys differ: {g} {c}")
+            for got, other, want, mag in ((g[3], c[3], g[3], abs(c[3])),
+                                          (g[4], c[4], run, mrun),
+                                          (g[5], c[5], s7, m7),
+                                          (g[6], c[6], a7, m7 / 7)):
+                mag = max(mag, 1e-300)
+                worst_cpu = max(worst_cpu, abs(got - other) / mag)
+                worst_host = max(worst_host, abs(got - want) / mag)
+        check(worst_cpu <= W4_TOL and worst_host <= W4_TOL,
+              f"{name}: {worst_cpu:.3g} of the frames' magnitude from the "
+              f"CPU run, {worst_host:.3g} from the host sums")
+        log(f"window: {name} {len(card)} rows: frame sums within "
+            f"{worst_cpu:.3g} of the CPU run's and {worst_host:.3g} of the "
+            f"host's numpy sums, of each frame's sum of |x| (bound "
+            f"{W4_TOL}; host check {time.perf_counter() - t0:.1f} s)")
+
+    return run_phase("window", seg_agg, gpu, cpu,
+                     {**WINDOW_QUERIES, **WINDOW_FLOAT_QUERIES}, {},
+                     oracle, oracle_queries, dev, match_cpu=match)
 
 
 #: the TPC-H queries the earlier phases do not run
@@ -1382,7 +1476,7 @@ def write_parquet(spark, root: str) -> None:
         f"{secs:.1f} s, {size} bytes on disk")
 
 
-def io_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
+def io_phase(seg_agg, gpu, cpu, oracle, dev="cuda", root=None):
     """The file scan at SF1: the tables written to Parquet by the port,
     read back with ``spark.read.parquet`` on a session on the card and
     one on the CPU; q1, q1-wide, q3 and q5 through SQL and q1, q3 and the
@@ -1394,9 +1488,8 @@ def io_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     (the flagship stage's floats within ``FLAGSHIP_TOL`` of each group's
     magnitude); the TPC-H queries equal sqlite. Each first run prints its
     scans: rows read against the table's rows, decode and transfer ms.
-    The files live in a temporary directory removed at the end."""
-    import tempfile
-
+    The files go to ``root``, a temporary directory the caller removes
+    (the ooc phase reads them too)."""
     import pyarrow  # the phase needs pyarrow's Parquet and dataset
     import pyarrow.dataset  # noqa: F401  modules: fail loudly without
     import pyarrow.parquet  # noqa: F401  them
@@ -1443,60 +1536,59 @@ def io_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
         check(mem_launches["df_flagship"] == {"fsum_f64": 2},
               f"in-memory flagship launched {mem_launches['df_flagship']}")
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as root:
-        write_parquet(gpu, root)
-        fgpu, fcpu = SparkSession(device=dev), SparkSession(device="cpu")
-        for spark in (fgpu, fcpu):
-            for name in IO_TABLES:
-                spark.read.parquet(os.path.join(root, name)) \
-                    .createOrReplaceTempView(name)
-        sources = {name: fgpu.table(name)._plan.source for name in IO_TABLES}
-        last = {name: src.last_read for name, src in sources.items()}
+    write_parquet(gpu, root)
+    fgpu, fcpu = SparkSession(device=dev), SparkSession(device="cpu")
+    for spark in (fgpu, fcpu):
+        for name in IO_TABLES:
+            spark.read.parquet(os.path.join(root, name)) \
+                .createOrReplaceTempView(name)
+    sources = {name: fgpu.table(name)._plan.source for name in IO_TABLES}
+    last = {name: src.last_read for name, src in sources.items()}
 
-        def scans(name):
-            read = False
-            for table, src in sources.items():
-                if src.last_read is last[table]:
-                    continue
-                last[table] = r = src.last_read
-                read = True
-                log(f"io: {name} scan of {table}: {r['rows']} of "
-                    f"{src.count_rows()} rows read, decode "
-                    f"{r['decode_ms']:.1f} ms, transfer "
-                    f"{r['transfer_ms']:.1f} ms")
-            if not read:
-                log(f"io: {name}: every scan served from the sources' "
-                    "cache of device batches")
+    def scans(name):
+        read = False
+        for table, src in sources.items():
+            if src.last_read is last[table]:
+                continue
+            last[table] = r = src.last_read
+            read = True
+            log(f"io: {name} scan of {table}: {r['rows']} of "
+                f"{src.count_rows()} rows read, decode "
+                f"{r['decode_ms']:.1f} ms, transfer "
+                f"{r['transfer_ms']:.1f} ms")
+        if not read:
+            log(f"io: {name}: every scan served from the sources' "
+                "cache of device batches")
 
-        bounds = {tuple(r)[0]: tuple(r)[1] for r in fcpu.sql(
-            "select tag, sum(abs(v * 2.0)) as b from flagship where k > 10 "
-            "group by tag").collect()}
+    bounds = {tuple(r)[0]: tuple(r)[1] for r in fcpu.sql(
+        "select tag, sum(abs(v * 2.0)) as b from flagship where k > 10 "
+        "group by tag").collect()}
 
-        def match(name, card, cpu_rows):
-            check(row_bits(card) == row_bits(mem_rows[name]),
-                  f"{name}: rows from Parquet != the in-memory rows")
-            if name != "df_flagship":
-                check(card == cpu_rows, f"{name}: card != CPU run")
-                return
-            check(len(card) == len(cpu_rows) == len(bounds),
-                  "df_flagship: row counts differ")
-            by_tag = {r[0]: r for r in cpu_rows}
-            worst = 0.0
-            for g in card:
-                c = by_tag.get(g[0])
-                check(c is not None and g[2] == c[2],
-                      f"df_flagship: keys or counts differ: {g} {c}")
-                mag = bounds[g[0]]
-                worst = max(worst, abs(g[1] - c[1]) / mag,
-                            abs(g[3] - c[3]) * g[2] / mag)
-            check(worst <= FLAGSHIP_TOL, f"df_flagship: card {card} "
-                  f"against CPU {cpu_rows}: {worst:.3g} of the magnitude")
-            log(f"io: df_flagship floats within {worst:.3g} of each "
-                f"group's magnitude of the CPU run's (bound {FLAGSHIP_TOL})")
+    def match(name, card, cpu_rows):
+        check(row_bits(card) == row_bits(mem_rows[name]),
+              f"{name}: rows from Parquet != the in-memory rows")
+        if name != "df_flagship":
+            check(card == cpu_rows, f"{name}: card != CPU run")
+            return
+        check(len(card) == len(cpu_rows) == len(bounds),
+              "df_flagship: row counts differ")
+        by_tag = {r[0]: r for r in cpu_rows}
+        worst = 0.0
+        for g in card:
+            c = by_tag.get(g[0])
+            check(c is not None and g[2] == c[2],
+                  f"df_flagship: keys or counts differ: {g} {c}")
+            mag = bounds[g[0]]
+            worst = max(worst, abs(g[1] - c[1]) / mag,
+                        abs(g[3] - c[3]) * g[2] / mag)
+        check(worst <= FLAGSHIP_TOL, f"df_flagship: card {card} "
+              f"against CPU {cpu_rows}: {worst:.3g} of the magnitude")
+        log(f"io: df_flagship floats within {worst:.3g} of each "
+            f"group's magnitude of the CPU run's (bound {FLAGSHIP_TOL})")
 
-        return run_phase("io", seg_agg, fgpu, fcpu, queries, mem_launches,
-                         oracle, oracle_queries, dev, match_cpu=match,
-                         after_first=scans)
+    return run_phase("io", seg_agg, fgpu, fcpu, queries, mem_launches,
+                     oracle, oracle_queries, dev, match_cpu=match,
+                     after_first=scans)
 
 
 #: seg_agg launches each complex-phase query makes on the card, by mode
@@ -1569,7 +1661,318 @@ def complex_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     return total
 
 
+#: the ooc phase's chunk rows (lineitem's 6M rows stream in 3 chunks),
+#: and the smaller chunks of its one run at 12 chunks
+OOC_CHUNK_ROWS = 1 << 21
+OOC_SMALL_CHUNK_ROWS = 1 << 19
+#: F1's float sums and averages: the chunked rows within this much of
+#: each value's magnitude of the resident rows' (another summation order:
+#: seg_fsum rounds each partial once)
+OOC_TOL = 1e-12
+
+
+def _ooc_session(root: str, dev: str):
+    from spark_tpu_torch.api.session import SparkSession
+
+    spark = SparkSession(device=dev)
+    for name in IO_TABLES:
+        spark.read.parquet(os.path.join(root, name)) \
+            .createOrReplaceTempView(name)
+    return spark
+
+
+def _ooc_rows_equal(name: str, got, want) -> float:
+    """Chunked rows against resident rows: exact, F1's floats within
+    ``OOC_TOL`` of their magnitude; the worst relative gap."""
+    if name != "f1_168":
+        check(got == want, f"ooc {name}: chunked rows != resident rows")
+        return 0.0
+    check(len(got) == len(want), f"ooc {name}: row counts differ")
+    worst = 0.0
+    for g, w in zip(got, want):
+        check(g[:5] == w[:5], f"ooc {name}: keys or counts differ")
+        for a, b in zip(g[5:], w[5:]):
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-300))
+    check(worst <= OOC_TOL, f"ooc {name}: floats {worst:.3g} apart")
+    return worst
+
+
+def ooc_run(seg_agg, spark, name: str, query, tier, over: int, depth: int,
+            chunk_rows: int, want_rows, settings=None, dev="cuda") -> dict:
+    """One chunked run of ``query`` on ``spark`` at the budget one byte
+    under the ``over``-th largest scan: the tier ``find_chunkable`` picks
+    must be ``tier``; launch counters set to 0 before and read after, the
+    card's own kernel runs equal to the wrappers' launches and every
+    wrapper call held against its plain version; rows equal to
+    ``want_rows``; the graph pool and the stage cache unchanged; no
+    ladder replan and no hybrid fallback. Returns the launches by mode."""
+    from spark_tpu_torch import recovery
+    from spark_tpu_torch.physical import chunked, graphs
+    from spark_tpu_torch.plan.optimizer import optimize
+    from spark_tpu_torch.tpch.queries import ooc_budget
+
+    df = spark.sql(query)
+    budget = ooc_budget(optimize(df._plan, spark.conf), over)
+    conf = {"spark.tpu.maxDeviceBatchBytes": budget,
+            "spark.tpu.chunkRows": chunk_rows,
+            "spark.tpu.pipelineDepth": depth, **(settings or {})}
+    for key, val in conf.items():
+        spark.conf.set(key, val)
+    try:
+        found = chunked.find_chunkable(optimize(df._plan, spark.conf),
+                                       spark.conf)
+        got_tier = None if found is None else type(found).__name__
+        check(got_tier == tier, f"ooc {name}: tier {got_tier}, want {tier}")
+        def pool():
+            return graphs.pool_bytes() if dev == "cuda" else None
+
+        pool0, stages0 = pool(), graphs.cached_stages()
+        rec0 = chunked.last_run
+        seg_agg.reset_launches()
+        runs = device_runs(seg_agg, dev)
+        with recording_calls(seg_agg) as calls:
+            t0 = time.perf_counter()
+            rows = [tuple(r) for r in df.collect()]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        launches = {m: n for m, n in mode_launches(seg_agg).items() if n}
+        if dev == "cuda":  # on the CPU the wrappers take plain versions
+            ran = ran_since(seg_agg, runs)
+            check(ran == launches, f"ooc {name}: the card ran {ran}, the "
+                  f"wrappers launched {launches}")
+            check(len(calls) == sum(launches.values()),
+                  f"ooc {name}: {len(calls)} wrapper calls, {launches}")
+        hold_calls(seg_agg, calls, f"ooc {name}")
+        check(pool() == pool0 and graphs.cached_stages() == stages0,
+              f"ooc {name}: the graph pool or the stage cache changed "
+              f"({pool0} -> {pool()} bytes, {stages0} -> "
+              f"{graphs.cached_stages()} stages)")
+        check(recovery.last_ladder.get("replans") == 0,
+              f"ooc {name}: the ladder replanned: {recovery.last_ladder}")
+    finally:
+        for key in conf:
+            spark.conf.unset(key)
+    worst = _ooc_rows_equal(name, rows, want_rows)
+    rec = chunked.last_run
+    if tier is None:
+        check(rec is rec0, f"ooc {name}: a tier ran: {rec}")
+        log(f"ooc: {name} depth {depth}: no tier (runs resident), "
+            f"{wall:.1f} ms, rows equal the resident run's; launches "
+            f"{launches}")
+        return launches
+    check(rec is not rec0 and rec["tier"] == tier,
+          f"ooc {name}: the run recorded {rec and rec['tier']}")
+    check(rec.get("fallback") is None,
+          f"ooc {name}: the hybrid join fell back: {rec}")
+    log(f"ooc: {name} {tier} depth {depth} budget {budget} chunk rows "
+        f"{chunk_rows}: {wall:.1f} ms chunked; chunks {rec['chunks']}, "
+        + (f"rows in {rec['rows_in']} kept {rec['rows_kept']}, "
+           if "rows_in" in rec else f"partitions {rec['partitions']}, ")
+        + f"pipeline decode {rec['decode_ms']:.1f} ms, filter "
+        f"{rec['filter_ms']:.1f} ms, transfer {rec['transfer_ms']:.1f} ms, "
+        f"compute {rec['compute_ms']:.1f} ms, consumer wait "
+        f"{rec['stall_consumer_ms']:.1f} ms, overlap "
+        f"{rec['overlap_ms']:.1f} ms ({rec['overlap_ratio']:.1%} of the "
+        f"tier's {rec['wall_ms']:.1f} ms), most in flight "
+        f"{rec['max_inflight_chunks']} chunks / "
+        f"{rec['max_inflight_bytes'] / 2 ** 20:.1f} MiB; launches "
+        f"{launches} ({len(calls)} wrapper calls held against the plain "
+        f"versions); rows equal the resident run's"
+        + (f" (floats within {worst:.3g})" if worst else ""))
+    if "sidecars" in rec:
+        log(f"ooc: {name} sidecars {rec['sidecars']}, host key filters "
+            f"{rec['key_filters']}, sidecar ms {rec['sidecar_ms']:.1f}")
+    if "spilled_parts" in rec:
+        log(f"ooc: {name} hybrid: granted {rec['granted_bytes']} bytes, "
+            f"staged {rec['staged_bytes']}, spilled partitions "
+            f"{rec['spilled_parts']}, recursion depth {rec['depth']}, key "
+            f"NDV estimate {rec['ndv']}")
+    return launches
+
+
+def ooc_phase(seg_agg, gpu, cpu, oracle, dev="cuda", root=None):
+    """The out-of-memory tier at SF1, over the io phase's Parquet tables
+    (``root``) on a fresh session on the card: each query of
+    ``tpch/queries.py:OOC_QUERIES`` resident (its rows, its first wall
+    and its warm wall), then chunked at the budget one byte under its
+    largest scan's estimate (q12: under the second largest, so both its
+    scans are over it) at pipeline depths 0 and 2 (``ooc_run``: the
+    tier asserted, launches counted on the card, rows equal to the
+    resident run's, graph pool and stage cache unchanged, no replan);
+    q12 again with ``spark.tpu.join.hybrid.enabled`` off (the grace hash
+    join) and q1-wide at 2^19 chunk rows (12 chunks). q1-wide must run
+    the seg_sum count and int64 sum and seg_minmax in its chunks and
+    merges, F1 seg_fsum. Then a real device OOM in a subprocess
+    (``oom_child``: the ladder must replan on ``torch.cuda.
+    OutOfMemoryError`` to the resident rows) and ``cache()`` of a
+    lineitem aggregate (one materialization, store bytes, hits,
+    ``unpersist`` releasing the bytes). Returns the launches of the
+    chunked runs."""
+    from spark_tpu_torch.tpch.queries import OOC_QUERIES
+
+    spark = _ooc_session(root, dev)
+    total = {m: 0 for m in mode_launches(seg_agg)}
+
+    def add(launches):
+        for m, n in launches.items():
+            total[m] += n
+
+    resident = {}
+    for name, (query, tier, over) in OOC_QUERIES.items():
+        t0 = time.perf_counter()
+        resident[name] = [tuple(r) for r in spark.sql(query).collect()]
+        first = (time.perf_counter() - t0) * 1e3
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            spark.sql(query).collect()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        check(resident[name], f"ooc {name}: no rows")
+        log(f"ooc: {name} resident: first run {first:.1f} ms (reads the "
+            f"files), warm {walls} ms, {len(resident[name])} rows")
+        for depth in (0, 2):
+            launches = ooc_run(seg_agg, spark, name, query, tier, over,
+                               depth, OOC_CHUNK_ROWS, resident[name],
+                               dev=dev)
+            add(launches)
+            if name == "q1_wide" and dev == "cuda":
+                check(all(launches.get(m) for m in
+                          ("count", "sum_i64", "min", "max")),
+                      f"ooc q1_wide launched {launches}")
+            if name == "f1_168" and dev == "cuda":
+                check(launches.get("fsum_f64", 0) >= 1,
+                      f"ooc f1_168 launched {launches}")
+    query, _, over = OOC_QUERIES["q12"]
+    add(ooc_run(seg_agg, spark, "q12", query, "_GraceHashAgg", over, 2,
+                OOC_CHUNK_ROWS, resident["q12"],
+                {"spark.tpu.join.hybrid.enabled": False}, dev))
+    query, tier, over = OOC_QUERIES["q1_wide"]
+    add(ooc_run(seg_agg, spark, "q1_wide", query, tier, over, 2,
+                OOC_SMALL_CHUNK_ROWS, resident["q1_wide"], dev=dev))
+    if dev == "cuda":  # a CUDA OOM needs the card's allocator
+        oom_check(root)
+    cache_check(spark)
+    return total
+
+
+def oom_check(root: str) -> None:
+    """Run ``oom_child`` in a subprocess (its memory cap is its own) and
+    check what it reports: at least one ladder replan on a real
+    ``torch.cuda.OutOfMemoryError``, rows equal to the uncapped run's."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--oom-child", root], capture_output=True,
+                          text=True, timeout=600)
+    for line in proc.stderr.splitlines():
+        log(f"ooc oom child: {line}")
+    check(proc.returncode == 0, f"the OOM subprocess exited "
+          f"{proc.returncode}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(got["replans"] >= 1 and got["oom_seen"] and got["rows_equal"],
+          f"the OOM subprocess reported {got}")
+    log(f"ooc: real OOM in a subprocess ({time.perf_counter() - t0:.1f} s): "
+        f"resident peak {got['peak'] / 2 ** 20:.1f} MiB, cap "
+        f"{got['cap'] / 2 ** 20:.1f} MiB; {got['replans']} replans on "
+        f"{got['error'][:80]!r}, budgets tried {got['budgets']}, final "
+        f"budget {got['budgets'][-1]}, captured stages dropped "
+        f"{got['stages_dropped']}, allocator cache emptied "
+        f"{got['cache_emptied']}; {got['chunks']} chunks; rows equal the "
+        "uncapped run's")
+
+
+def oom_child(root: str) -> int:
+    """q1-wide from Parquet resident on a session on the card, its peak
+    allocation read; then on a fresh session (new sources, so the same
+    blocking first-run path) under ``set_per_process_memory_fraction`` at
+    60% of the way from the baseline to that peak: the resident run must
+    die of a CUDA OOM and the ladder replan it through the chunked tier.
+    Prints one JSON line."""
+    import gc
+
+    from spark_tpu_torch import recovery
+    from spark_tpu_torch.ops import _build
+    from spark_tpu_torch.physical import chunked, graphs
+    from spark_tpu_torch.tpch import Q1_WIDE
+
+    os.environ["TZ"] = "UTC"
+    time.tzset()
+    _build.libraries(("seg_agg", "seg_fsum"))
+    spark = _ooc_session(root, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want = [tuple(r) for r in spark.sql(Q1_WIDE).collect()]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del spark
+    gc.collect()
+    graphs.drop_stages()
+    torch.cuda.empty_cache()
+    spark = _ooc_session(root, "cuda")
+    base2 = torch.cuda.memory_allocated()
+    cap = base2 + int(0.6 * (peak - base))
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    print(f"baseline {base} bytes, peak {peak}, cap {cap} of {total}",
+          file=sys.stderr, flush=True)
+    rows = [tuple(r) for r in spark.sql(Q1_WIDE).collect()]
+    rec = recovery.last_ladder
+    out = {"peak": peak - base, "cap": cap - base2,
+           "replans": rec.get("replans", 0), "budgets": rec.get("budgets"),
+           "error": rec.get("error") or "",
+           "oom_seen": "OutOfMemoryError" in (rec.get("error") or ""),
+           "stages_dropped": rec.get("stages_dropped"),
+           "cache_emptied": rec.get("cache_emptied"),
+           "chunks": (chunked.last_run or {}).get("chunks"),
+           "rows_equal": rows == want}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def cache_check(spark) -> None:
+    """``cache()`` of a lineitem aggregate read from Parquet, two queries
+    over it: one materialization, the store's bytes up by the cached
+    batch's, a store hit for the second query, rows equal to the
+    uncached plan's; ``unpersist()`` gives the bytes back."""
+    from spark_tpu_torch.api import functions as F
+
+    agg = spark.sql("select l_returnflag, l_linestatus, l_shipmode, "
+                    "count(*) as n, sum(l_quantity) as q from lineitem "
+                    "group by l_returnflag, l_linestatus, l_shipmode")
+    want_n = sorted(tuple(r) for r in agg.filter(F.col("n") > 1000)
+                    .collect())
+    want_q = [tuple(r) for r in agg.groupBy("l_returnflag")
+              .agg(F.sum("q").alias("q")).orderBy("l_returnflag").collect()]
+    store, manager = spark.memory_store, spark.cache_manager
+    bytes0, hits0 = store.bytes_used(), store.stats()["hits"]
+    mats0 = manager.materializations
+    agg.cache()
+    t0 = time.perf_counter()
+    got_n = sorted(tuple(r) for r in agg.filter(F.col("n") > 1000).collect())
+    first = (time.perf_counter() - t0) * 1e3
+    cached = store.bytes_used() - bytes0
+    t0 = time.perf_counter()
+    got_q = [tuple(r) for r in agg.groupBy("l_returnflag")
+             .agg(F.sum("q").alias("q")).orderBy("l_returnflag").collect()]
+    second = (time.perf_counter() - t0) * 1e3
+    hits = store.stats()["hits"] - hits0
+    check(got_n == want_n and got_q == want_q,
+          "cache: rows over the cached aggregate differ")
+    check(manager.materializations - mats0 == 1 and cached > 0
+          and hits >= 1, f"cache: {manager.materializations - mats0} "
+          f"materializations, {cached} bytes stored, {hits} hits")
+    agg.unpersist()
+    check(store.bytes_used() == bytes0,
+          f"cache: unpersist left {store.bytes_used() - bytes0} bytes")
+    log(f"ooc: cache of a lineitem aggregate: materialized once "
+        f"({first:.1f} ms, {cached} bytes in the store), the second query "
+        f"a store hit ({second:.1f} ms, {hits} hits); rows equal the "
+        "uncached plan's; unpersist released the bytes")
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--oom-child":
+        return oom_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -1629,15 +2032,26 @@ def main() -> int:
         spark.createDataFrame(nested).createOrReplaceTempView("nested")
     oracle = oracle_connection(tables)
     by_path = {}
-    for path, phase in (("aggregate", slice_phase), ("join", join_phase),
-                        ("subquery", subquery_phase),
-                        ("window", window_phase), ("tpch", tpch_phase),
-                        ("scalar", scalar_phase), ("io", io_phase),
-                        ("complex", complex_phase)):
-        t0 = time.perf_counter()
-        by_path[path] = phase(seg_agg, gpu, cpu, oracle)
-        log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
+    import functools
+    import tempfile
+
+    # the io phase's Parquet files, which the ooc phase reads too
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as root:
+        for path, phase in (
+                ("aggregate", slice_phase), ("join", join_phase),
+                ("subquery", subquery_phase), ("window", window_phase),
+                ("tpch", tpch_phase), ("scalar", scalar_phase),
+                ("io", functools.partial(io_phase, root=root)),
+                ("complex", complex_phase),
+                ("ooc", functools.partial(ooc_phase, root=root))):
+            t0 = time.perf_counter()
+            by_path[path] = phase(seg_agg, gpu, cpu, oracle)
+            log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
     oracle.close()
+    log(f"profiler (acc_events={_PROFILES['acc_events']}): "
+        f"{_PROFILES['first']} of "
+        f"{_PROFILES['all']} profiled runs recorded every hand-kernel run "
+        "the card counted in their first session")
     check(by_path["join"]["count"] >= 1,
           "the join path launched no seg_sum kernel")
     check(by_path["scalar"]["fsum_f64"] >= 1,
@@ -1648,8 +2062,11 @@ def main() -> int:
           and by_path["complex"]["min"] >= 1,
           "the complex path launched no seg_sum count or seg_minmax min")
     check(not any(p["fsum_f64"] + p["fsum_f32"] for path, p in
-                  by_path.items() if path not in ("scalar", "io")),
+                  by_path.items() if path not in ("scalar", "io", "ooc")),
           "an earlier path summed floats on a grouped path")
+    check(by_path["ooc"]["count"] >= 1 and by_path["ooc"]["min"] >= 1
+          and by_path["ooc"]["fsum_f64"] >= 1,
+          "the ooc path launched no seg_sum, seg_minmax or seg_fsum kernel")
 
     kernels = []
     for name, modes, headline, replaces, source, stats in (

@@ -6,9 +6,16 @@ A DataFrame is a (session, logical plan) pair. Transformations build new
 plans; actions optimize under the session's settings, plan and execute
 eagerly on the session's device (``physical/planner.py``).
 
+An action runs through the out-of-memory tier: the optimized plan goes
+to ``recovery.run_plan_with_oom_degradation`` (chunked when a scan
+exceeds ``spark.tpu.maxDeviceBatchBytes``, replanned there on a device
+OOM), retried on a transient failure (``run_stage_with_recovery``),
+with the session's cached plans substituted and pinned for the query
+(``CacheManager``, ``storage.pin_scope``).
+
 Not ported yet, each raising ``NotImplementedError``: ``sampleBy``
-(with ``na``/``stat``), ``repartition``/``coalesce`` (A10), ``cache``/``persist``/``checkpoint``
-(A9), ``na``/``stat``/``describe``/``corr`` and the rest of
+(with ``na``/``stat``), ``repartition``/``coalesce`` (A10),
+``na``/``stat``/``describe``/``corr`` and the rest of
 ``api/na_stat.py``, ``rdd``, ``writeStream`` and ``withWatermark``.
 """
 
@@ -294,10 +301,39 @@ class DataFrame:
     # ---- actions -----------------------------------------------------------
 
     def _execute(self) -> Batch:
+        """Run the plan on the session's device: cached subtrees read
+        from the store (pinned while the query runs), the optimized plan
+        through the degradation ladder, a transient failure retried
+        from the logical plan."""
+        from spark_tpu_torch.api.session import _EXECUTING
         from spark_tpu_torch.physical.planner import execute_logical
+        from spark_tpu_torch.plan.optimizer import optimize
+        from spark_tpu_torch.recovery import (run_plan_with_oom_degradation,
+                                              run_stage_with_recovery)
+        from spark_tpu_torch.storage import pin_scope
 
-        return execute_logical(self._plan, device=self._session.device,
-                               conf=self._session.conf)
+        sess = self._session
+        conf, dev = sess.conf, sess.device
+
+        def run(lp):
+            return execute_logical(lp, optimize=False, device=dev, conf=conf)
+
+        def run_full(plan):
+            """The engine with the chunking decision and the OOM ladder;
+            cached plans materialize through it too, so a cached big
+            aggregate chunks."""
+            return run_plan_with_oom_degradation(
+                optimize(plan, conf), conf, run, dev, sess.memory_manager)
+
+        token = _EXECUTING.set(sess)
+        try:
+            with pin_scope():
+                plan = sess.cache_manager.apply(self._plan, run_full)
+                return run_stage_with_recovery(
+                    lambda: run_full(plan), conf=conf,
+                    label=type(self._plan).__name__)
+        finally:
+            _EXECUTING.reset(token)
 
     def collect(self) -> List[Row]:
         """The rows; an array's ``#len`` companion is hidden and a map's
@@ -363,16 +399,50 @@ class DataFrame:
     def createOrReplaceTempView(self, name: str) -> None:
         self._session.catalog._register_view(name, self._plan)
 
+    # ---- caching and checkpoints --------------------------------------------
+
+    def cache(self) -> "DataFrame":
+        """Mark this plan cached: lazily materialized on first use into
+        the session's MemoryStore and read by any query containing it
+        (reference: CacheManager.scala / InMemoryRelation)."""
+        self._session.cache_manager.add(self._plan)
+        return self
+
+    def persist(self, storageLevel=None) -> "DataFrame":
+        """``cache()``: the device store is the one storage level."""
+        return self.cache()
+
+    def unpersist(self, blocking: bool = False) -> "DataFrame":
+        """Drop the plan from the cache and its batch from the store."""
+        self._session.cache_manager.drop(self._plan)
+        return self
+
+    @property
+    def is_cached(self) -> bool:
+        return self._session.cache_manager.is_cached(self._plan)
+
+    def checkpoint(self, eager: bool = True) -> "DataFrame":
+        """Durable checkpoint: Parquet under ``spark.checkpoint.dir`` and
+        a DataFrame over the files, lineage truncated (reference:
+        Dataset.checkpoint, ReliableCheckpointRDD)."""
+        from spark_tpu_torch.recovery import checkpoint_dataframe
+
+        return checkpoint_dataframe(self, eager=eager)
+
+    def localCheckpoint(self, eager: bool = True) -> "DataFrame":
+        """In-memory lineage truncation: the plan cached, and
+        materialized now when ``eager`` (reference:
+        Dataset.localCheckpoint)."""
+        df = self.cache()
+        if eager:
+            df.count()
+        return df
+
     # ---- later slices --------------------------------------------------------
 
     sampleBy = _later("sampleBy (api/na_stat.py)", "A6")
     repartition = _later("repartition", "A10")
     coalesce = _later("coalesce", "A10")
-    cache = _later("cache", "A9")
-    persist = _later("persist", "A9")
-    unpersist = _later("unpersist", "A9")
-    checkpoint = _later("checkpoint", "A9")
-    localCheckpoint = _later("localCheckpoint", "A9")
     na = property(_later("na (api/na_stat.py)", "A6"))
     stat = property(_later("stat (api/na_stat.py)", "A6"))
     dropna = _later("dropna (api/na_stat.py)", "A6")

@@ -4,6 +4,9 @@
 .getOrCreate()``; ``createDataFrame`` from a ``pyarrow.Table``, a
 ``pandas.DataFrame`` or a list of dicts or tuples; ``read`` (Parquet,
 CSV, JSON, ORC); ``range``; temp views; ``sql``; ``table``; ``conf``.
+A session owns one ``UnifiedMemoryManager`` (``memory_manager``), the
+``MemoryStore`` on it (``memory_store``) and the ``CacheManager`` of
+``DataFrame.cache()`` over that store (``cache_manager``).
 The device defaults to ``"cuda"``; without a usable CUDA device the
 session raises unless the caller asked for ``"cpu"``. Every relation the
 session creates, and every file it reads, lives on its device.
@@ -11,7 +14,9 @@ session creates, and every file it reads, lives on its device.
 
 from __future__ import annotations
 
+import contextvars
 import sys
+import threading
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import pyarrow as pa
@@ -23,6 +28,118 @@ from spark_tpu_torch.conf import RuntimeConf
 from spark_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from spark_tpu_torch.plan import logical as L
 from spark_tpu_torch.types import Schema
+
+
+#: the session whose query runs in this context (``DataFrame._execute``
+#: sets it): the file scan promotes hot reads into its store
+_EXECUTING: contextvars.ContextVar[Optional["SparkSession"]] = \
+    contextvars.ContextVar("spark_tpu_torch_executing", default=None)
+
+
+def executing_session() -> Optional["SparkSession"]:
+    """The session whose query runs in this context, or None."""
+    return _EXECUTING.get()
+
+
+class CacheManager:
+    """Lazy plan cache (reference: CacheManager.scala and
+    InMemoryRelation; the port of ``spark_tpu/api/session.py``'s):
+    ``cache()`` registers a logical plan; its first use materializes it
+    into a device batch held in the session's MemoryStore, and every
+    later query whose tree contains the plan reads the stored batch.
+    Identity is ``structural_key()``: the plan's structure and the
+    identity of its leaf batches and sources.
+
+    The batches live in the byte-accounted store, so they are evictable:
+    an execution grant or storage pressure may drop an unpinned entry,
+    and the next query that needs it materializes it again (the
+    registration survives; only the bytes go). ``drop``/``clear``
+    remove the store entry too, releasing its bytes at once.
+
+    Thread-safe: the registry changes under a lock, and each entry
+    materializes under its own lock (single-flight: two queries meeting
+    the same cold plan materialize it once), without the registry lock,
+    so unrelated queries proceed. The materialized views of the
+    reference come with ROADMAP A12."""
+
+    def __init__(self, store):
+        self._store = store
+        # key -> [plan, entry lock]
+        self._entries: Dict[Any, list] = {}
+        self._lock = threading.Lock()
+        #: materializations run (a store hit is not one)
+        self.materializations = 0
+
+    @staticmethod
+    def _key(plan: L.LogicalPlan):
+        return plan.structural_key()
+
+    @staticmethod
+    def _skey(key):
+        # apart from the auto-cached scans, which share the store
+        return ("cache", key)
+
+    def add(self, plan: L.LogicalPlan) -> None:
+        with self._lock:
+            self._entries.setdefault(self._key(plan),
+                                     [plan, threading.Lock()])
+
+    def drop(self, plan: L.LogicalPlan) -> bool:
+        key = self._key(plan)
+        with self._lock:
+            entry = self._entries.pop(key, None)
+        if entry is None:
+            return False
+        self._store.remove(self._skey(key))  # releases the bytes
+        return True
+
+    def clear(self) -> None:
+        with self._lock:
+            keys = list(self._entries)
+            self._entries.clear()
+        for key in keys:
+            self._store.remove(self._skey(key))
+
+    def is_cached(self, plan: L.LogicalPlan) -> bool:
+        with self._lock:
+            return self._key(plan) in self._entries
+
+    def apply(self, plan: L.LogicalPlan, run) -> L.LogicalPlan:
+        """``plan`` with its cached subtrees replaced by their batches,
+        the largest first (top-down, as the reference's CacheManager
+        matches the outermost plans first)."""
+        with self._lock:
+            if not self._entries:
+                return plan
+
+        def go(node: L.LogicalPlan) -> L.LogicalPlan:
+            with self._lock:
+                entry = self._entries.get(self._key(node))
+            if entry is not None:
+                return L.Relation(self._materialize(node, entry, run))
+            children = tuple(go(c) for c in node.children())
+            return node.with_children(children) if children else node
+
+        return go(plan)
+
+    def _materialize(self, node: L.LogicalPlan, entry: list, run):
+        """A store hit, or a single-flight materialization; either is
+        pinned for the enclosing query's ``pin_scope``."""
+        skey = self._skey(self._key(node))
+        batch = self._store.get(skey, pin=True)
+        if batch is not None:
+            return batch
+        with entry[1]:
+            batch = self._store.get(skey, pin=True)
+            if batch is not None:
+                return batch
+            batch = run(entry[0])
+            with self._lock:
+                self.materializations += 1
+            # a rejected put still serves this query its batch; the entry
+            # stays recomputable
+            self._store.put(skey, batch, pin=True)
+            return batch
 
 
 class Catalog:
@@ -91,9 +208,15 @@ class SparkSession:
 
     def __init__(self, device=DEFAULT_DEVICE,
                  conf: Optional[Dict[str, Any]] = None):
+        from spark_tpu_torch.storage import MemoryStore, UnifiedMemoryManager
+
         self.device = resolve_device(device)
         self.conf = RuntimeConf(conf)
         self.catalog = Catalog()
+        # storage and execution share one device byte budget
+        self.memory_manager = UnifiedMemoryManager(conf=self.conf)
+        self.memory_store = MemoryStore(self.memory_manager)
+        self.cache_manager = CacheManager(store=self.memory_store)
 
     class _BuilderDescriptor:
         def __get__(self, obj, cls):

@@ -222,14 +222,11 @@ def round_capacity(n: int, multiple: int = 1024) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
-def from_numpy(
-    schema: Schema,
-    arrays: Sequence[np.ndarray],
-    validities: Optional[Sequence[Optional[np.ndarray]]] = None,
-    capacity: Optional[int] = None,
-    device="cuda",
-) -> Batch:
-    """Build a device batch from host numpy columns, padding to capacity."""
+def pad_host(schema: Schema, arrays: Sequence[np.ndarray],
+             validities: Optional[Sequence[Optional[np.ndarray]]] = None,
+             capacity: Optional[int] = None):
+    """Host columns padded to one capacity, in the schema's dtypes:
+    (datas, validities, row_mask), ready for ``from_host_arrays``."""
     n = int(arrays[0].shape[0]) if arrays else 0
     for a in arrays:
         if a.shape[0] != n:
@@ -254,6 +251,18 @@ def from_numpy(
             valids.append(pv)
     row_mask = np.zeros((cap,), dtype=bool)
     row_mask[:n] = True
+    return datas, valids, row_mask
+
+
+def from_numpy(
+    schema: Schema,
+    arrays: Sequence[np.ndarray],
+    validities: Optional[Sequence[Optional[np.ndarray]]] = None,
+    capacity: Optional[int] = None,
+    device="cuda",
+) -> Batch:
+    """Build a device batch from host numpy columns, padding to capacity."""
+    datas, valids, row_mask = pad_host(schema, arrays, validities, capacity)
     return from_host_arrays(schema, datas, valids, row_mask, device)
 
 

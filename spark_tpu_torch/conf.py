@@ -4,8 +4,9 @@ Typed entries with defaults and docs, and a session-scoped mutable view
 over them (Spark: ConfigEntry.scala:74 and
 SQLConf.scala:56). Only the keys that ported code reads are registered
 here; the runtime-filter keys are registered by ``plan/optimizer.py``,
-which reads them, as in the reference. Keys of tiers that are not ported
-yet come with those tiers (ROADMAP queue A).
+and those of the out-of-memory tier by ``physical/chunked.py`` and
+``recovery.py``, which read them, as in the reference. Keys of tiers
+that are not ported yet come with those tiers (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -78,6 +79,58 @@ ADAPTIVE_CAPACITY_BUCKET = register(
     "multiple of this, so re-executions land on a small set of "
     "capacities (reference analogue: "
     "spark.sql.adaptive.coalescePartitions.*).", int)
+
+
+# ---- the out-of-memory tier (physical/pipeline.py, storage/) --------------
+# The defaults below are the reference's, so both packages pick the same
+# tier for the same plan; they are not sized for the port's card yet
+# (ROADMAP A9).
+
+PIPELINE_DEPTH = register(
+    "spark.tpu.pipelineDepth", 2,
+    "Out-of-memory chunk pipeline depth: how many prepared chunks the "
+    "producer thread (Arrow decode, host key filter, staging in pinned "
+    "host memory and the copy to the device on a side stream) may run "
+    "ahead of device compute. 0 runs the serial loop on the caller's "
+    "thread. Rows are identical at every depth: chunks are consumed in "
+    "source order. Default: the reference's.", int)
+
+PREFETCH_BYTES_MAX = register(
+    "spark.tpu.prefetchBytesMax", 1 << 30,
+    "Byte cap on prepared but unconsumed pipeline chunks (their device "
+    "bytes). The producer stalls before the next chunk once in-flight "
+    "bytes reach it; one chunk is always admitted, so a cap below one "
+    "chunk degrades to serial and never deadlocks. Default: the "
+    "reference's.", int)
+
+SCHEDULER_HBM_BUDGET = register(
+    "spark.tpu.scheduler.hbmBudgetBytes", 2 << 30,
+    "The device-bytes budget that storage (cached batches in the "
+    "session's MemoryStore) and execution grants (the hybrid hash "
+    "join's build staging) share through the UnifiedMemoryManager. "
+    "Default: the reference's, not yet sized for the port's card.", int)
+
+STORAGE_MAX_BYTES = register(
+    "spark.tpu.storage.maxBytes", 1 << 30,
+    "Cap on the storage region of the unified budget: the device bytes "
+    "the MemoryStore may hold. The effective cap is min(this, "
+    "hbmBudgetBytes - execution grants) (reference: "
+    "spark.memory.fraction / UnifiedMemoryManager). Default: the "
+    "reference's.", int)
+
+STORAGE_MIN_BYTES = register(
+    "spark.tpu.storage.minBytes", 64 * 1024 * 1024,
+    "Protected storage region: an execution grant may evict unpinned "
+    "cached batches, but never below this many bytes (reference: "
+    "spark.memory.storageFraction). Default: the reference's.", int)
+
+STORAGE_AUTOCACHE_THRESHOLD = register(
+    "spark.tpu.storage.autoCacheThreshold", 2,
+    "A (source, columns, filters) file scan read this many times in the "
+    "session is promoted into the session's MemoryStore "
+    "(byte-accounted, LRU-evictable), so later reads skip the decode, "
+    "the encoding and the copy to the device. 0 disables it; "
+    "DataFrame.cache() is unaffected. Default: the reference's.", int)
 
 
 def active_int(entry: ConfigEntry, conf=None) -> int:

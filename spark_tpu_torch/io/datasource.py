@@ -183,6 +183,8 @@ class FileSource:
         # (device, columns, filter keys) -> device batch, LRU order
         self._cache: Dict[tuple, Batch] = {}
         self._count_cache: Dict[tuple, int] = {}
+        # (device, columns, filter keys) -> reads asked for (auto-cache)
+        self._read_counts: Dict[tuple, int] = {}
         # column -> distinct count (plan/join_reorder.py's _scan_ndv)
         self._ndv_cache: Dict[str, int] = {}
         self.last_read: Optional[Dict[str, Any]] = None
@@ -268,17 +270,52 @@ class FileSource:
 
     # -- scanning ------------------------------------------------------------
 
+    def _session_store(self, device):
+        """The MemoryStore of the session whose query is running, and its
+        auto-cache threshold; (None, 0) outside a query, for another
+        device than the session's, or with auto-caching off."""
+        from spark_tpu_torch import conf as CF
+        from spark_tpu_torch.api.session import executing_session
+
+        sess = executing_session()
+        if sess is None or sess.device != torch.device(device):
+            return None, 0
+        thr = int(sess.conf.get(CF.STORAGE_AUTOCACHE_THRESHOLD))
+        return (sess.memory_store, thr) if thr > 0 else (None, 0)
+
+    def _store_key(self, key) -> tuple:
+        # the fingerprint is in the key: a rewritten file misses, and
+        # the stale entry ages out
+        return ("scan", self.fmt, tuple(self.paths), self._fp, key)
+
     def read(self, columns: Optional[Tuple[str, ...]] = None,
              filters: Tuple[E.Expression, ...] = (),
              device="cuda") -> Batch:
         """The scan as a batch on ``device``, reading only ``columns``
         and pruning and filtering rows by ``filters`` (exactly). The four
         newest reads stay cached, keyed by device, columns and filters,
-        until the files change."""
+        until the files change.
+
+        Hot scans are promoted: once the same (columns, filters) read has
+        been asked for ``spark.tpu.storage.autoCacheThreshold`` times, its
+        batch moves into the running session's MemoryStore
+        (byte-accounted, LRU-evictable, pinned while the query reads it)
+        and later reads are served from there (reference:
+        ``spark_tpu/io/datasource.py`` ``read``)."""
         ds = self._open()  # first: the freshness check may clear the cache
         key = (str(device), columns, tuple(E.expr_key(f) for f in filters))
+        self._read_counts[key] = self._read_counts.get(key, 0) + 1
+        store, threshold = self._session_store(device)
+        skey = self._store_key(key) if store is not None else None
+        if store is not None:
+            hit = store.get(skey, pin=True)
+            if hit is not None:
+                return hit
+        hot = store is not None and self._read_counts[key] >= threshold
         hit = self._cache.pop(key, None)
         if hit is not None:
+            if hot and store.put(skey, hit, pin=True):
+                return hit  # now owned by the store
             self._cache[key] = hit  # most recently used
             return hit
         t0 = time.perf_counter()
@@ -304,6 +341,8 @@ class FileSource:
         self.last_read = {"rows": table.num_rows,
                           "decode_ms": (t1 - t0) * 1e3,
                           "transfer_ms": (t2 - t1) * 1e3}
+        if hot and store.put(skey, batch, pin=True):
+            return batch
         while len(self._cache) >= _CACHE_ENTRIES:
             self._cache.pop(next(iter(self._cache)))
         self._cache[key] = batch

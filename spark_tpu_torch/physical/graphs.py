@@ -423,6 +423,15 @@ def cached_stages() -> int:
     return len(_STAGE_CACHE)
 
 
+def drop_stages() -> int:
+    """Drop every captured stage (their graphs and cached outputs), so
+    the graph pool's memory can be returned to the allocator; the number
+    dropped. The OOM ladder calls this before its first replan."""
+    n = len(_STAGE_CACHE)
+    _STAGE_CACHE._data.clear()
+    return n
+
+
 def pool_bytes(dev=None) -> Optional[int]:
     """Bytes the device's graph pool reserves (None without a pool or
     where the allocator's snapshot does not name pools)."""

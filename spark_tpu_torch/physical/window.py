@@ -345,26 +345,46 @@ class WindowExec(PhysicalPlan):
                                  zero)
             return torch.where(empty, zero, csum[hic] - pre_lo)
 
+        def block_sum(x):
+            """[lo, hi] sums of float rows, without a subtraction: each
+            frame is the disjoint power-of-two blocks of its rows, taken
+            low bit of its length first, so only the frame's own rows
+            are added and the result does not depend on the rows around
+            it (ROADMAP C3). Level k is ``b[i] = b[i] + b[i + 2^(k-1)]``
+            of level k - 1; two levels are alive at a time. NaN and
+            infinities follow IEEE addition inside the frame."""
+            zero = torch.zeros((), dtype=x.dtype, device=x.device)
+            blk = torch.where(ok, x, zero)
+            length = torch.where(empty, torch.zeros_like(lo), hic - lo + 1)
+            pos = lo.clamp(0, cap - 1)
+            acc = torch.zeros_like(blk)
+            for k in range(levels):
+                take = ((length >> k) & 1).bool()
+                acc = torch.where(take, acc + blk[pos.clamp(0, cap - 1)],
+                                  acc)
+                pos = pos + (take.to(pos.dtype) << k)
+                if k + 1 < levels:
+                    half = 1 << k
+                    shifted = torch.zeros_like(blk)
+                    shifted[:cap - half] = blk[half:]
+                    blk = blk + shifted
+            return acc
+
+        # static: bits of the longest frame (a ROWS frame of n preceding
+        # and m following rows holds at most n + m + 1 rows)
+        longest = cap
+        if w.frame is not None and w.frame[0] == "rows" \
+                and w.frame[1] is not None and w.frame[2] is not None:
+            longest = min(cap, max(1, int(w.frame[2]) - int(w.frame[1]) + 1))
+        levels = max(1, longest.bit_length())
+
         def ranged_sum(x):
-            """Per-row frame sums. NaN and infinities stay out of the
-            float prefix sum, which they would poison for every later
-            frame (the reference's fault, ROADMAP C): each frame counts
-            them apart and takes NaN, +inf or -inf as IEEE addition
-            would."""
-            if not x.is_floating_point():
-                return prefix_diff(x)
-            s = prefix_diff(torch.where(torch.isfinite(x), x,
-                                        torch.zeros((), dtype=x.dtype,
-                                                    device=x.device)))
-
-            def holds(flag):
-                return prefix_diff(flag.to(torch.int64)) > 0
-
-            pinf, ninf = holds(x == float("inf")), holds(x == float("-inf"))
-            s = torch.where(pinf, float("inf"), s)
-            s = torch.where(ninf, float("-inf"), s)
-            return torch.where(holds(torch.isnan(x)) | (pinf & ninf),
-                               float("nan"), s)
+            """Per-row frame sums: integers and decimals (and counts) as
+            differences of a prefix sum, which is exact for them; floats
+            as block sums, which add only the frame's rows."""
+            if x.is_floating_point():
+                return block_sum(x)
+            return prefix_diff(x)
 
         cnt = ranged_sum(torch.ones((cap,), dtype=torch.int64,
                                     device=lo.device))

@@ -92,8 +92,29 @@ class LogicalPlan:
     def node_string(self) -> str:
         return type(self).__name__
 
+    def structural_key(self) -> tuple:
+        """Injective structural identity: the node types, their fields
+        and expressions, and the identity of leaf batches and sources
+        (``node_string`` is for display and may omit fields)."""
+        parts: list = [type(self).__name__]
+        for f in dataclasses.fields(self):
+            parts.append(_field_key(getattr(self, f.name)))
+        return tuple(parts)
+
     def __repr__(self):
         return self.tree_string()
+
+
+def _field_key(v):
+    if isinstance(v, LogicalPlan):
+        return v.structural_key()
+    if isinstance(v, E.Expression):
+        return E.expr_key(v)
+    if isinstance(v, tuple):
+        return tuple(_field_key(x) for x in v)
+    if v.__class__.__module__ == "builtins" and not callable(v):
+        return repr(v)
+    return ("obj", id(v))  # sources and batches: identity
 
 
 def collect_nodes(plan: LogicalPlan, cls) -> list:

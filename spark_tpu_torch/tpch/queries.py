@@ -2,8 +2,10 @@
 specification (rev 2.18, default substitution parameters), copied from
 the reference package's query set (``spark_tpu/tpch/queries.py``),
 ``Q1_WIDE``, the queries of ``chip_smoke.py``'s window phase
-(``WINDOW_QUERIES``) and scalar phase (``SCALAR_QUERIES``), and its io
-phase's queries written with the DataFrame API (``DATAFRAME_QUERIES``).
+(``WINDOW_QUERIES``, and W4's float frames in ``WINDOW_FLOAT_QUERIES``)
+and scalar phase (``SCALAR_QUERIES``), its io
+phase's queries written with the DataFrame API (``DATAFRAME_QUERIES``),
+and its ooc phase's queries and tiers (``OOC_QUERIES``).
 
 ``Q1_WIDE`` is a q1-shaped aggregate grouped by four dictionary columns
 (3 * 2 * 7 * 4 = 168 packed groups), so HashAggregate's direct path runs
@@ -801,6 +803,61 @@ from (select l_orderkey from lineitem where l_shipmode = 'AIR'
 """,
 }
 
+# W4: float window sums over lineitem's 6M rows (ROADMAP C3): a running
+# sum and a 7-row sliding sum and average of a double expression of both
+# signs, per supplier (about 600 rows a partition), the rows of one order
+# in a thousand returned. sqlite's sliding sums subtract, so it is no
+# oracle here: ``w4_host_frames`` adds each frame's rows on the host.
+_W4_V = "sqrt(l_extendedprice) - sqrt(l_quantity)"
+_W4_SPEC = "partition by l_suppkey order by l_orderkey, l_linenumber"
+WINDOW_FLOAT_QUERIES = {
+    "w4_float": f"""
+select l_orderkey, l_linenumber, l_suppkey, v, run, s7, a7
+from (select l_orderkey, l_linenumber, l_suppkey, {_W4_V} as v,
+             sum({_W4_V}) over ({_W4_SPEC}
+                 rows between unbounded preceding and current row) as run,
+             sum({_W4_V}) over ({_W4_SPEC}
+                 rows between 6 preceding and current row) as s7,
+             avg({_W4_V}) over ({_W4_SPEC}
+                 rows between 6 preceding and current row) as a7
+      from lineitem) t
+where l_orderkey % 1000 = 1
+order by l_orderkey, l_linenumber
+""",
+}
+
+
+def w4_host_frames(lineitem, rows):
+    """For each W4 row (l_orderkey, l_linenumber, l_suppkey, ...): its
+    frames' sums added on the host with numpy from lineitem's columns (a
+    pyarrow table), and each frame's sum of |x|: a list of (run, s7, a7,
+    |run|, |s7|)."""
+    import numpy as np
+
+    def col(name):
+        c = lineitem.column(name).combine_chunks()
+        return np.asarray(c.cast("float64") if name in (
+            "l_extendedprice", "l_quantity") else c)
+
+    ok, ln, sk = col("l_orderkey"), col("l_linenumber"), col("l_suppkey")
+    v = np.sqrt(col("l_extendedprice")) - np.sqrt(col("l_quantity"))
+    order = np.lexsort((ln, ok, sk))
+    pos = np.empty_like(order)
+    pos[order] = np.arange(len(order))
+    sv, ssk = v[order], sk[order]
+    start = np.searchsorted(ssk, ssk, side="left")
+    at = {(int(a), int(b)): i for i, (a, b) in enumerate(zip(ok, ln))}
+    out = []
+    for r in rows:
+        p = int(pos[at[(int(r[0]), int(r[1]))]])
+        run = sv[start[p]:p + 1]
+        win = sv[max(start[p], p - 6):p + 1]
+        out.append((float(np.sum(run)), float(np.sum(win)),
+                    float(np.sum(win)) / len(win),
+                    float(np.abs(run).sum()), float(np.abs(win).sum())))
+    return out
+
+
 # sqlite has no ROLLUP or CUBE: the UNION ALL of the GROUP BYs that each
 # grouping-sets query stands for; the other window-phase queries run in
 # sqlite as written
@@ -1253,3 +1310,53 @@ def nested_table(orders, lineitem):
         mask=pa.array(okey % 97 == 0))
     return pa.table({"o_orderkey": pa.array(okey, pa.int64()),
                      "items": items, "tags": tags, "info": info})
+
+
+# chip_smoke.py's ooc phase: queries that the out-of-memory tier
+# (physical/chunked.py) runs chunked from Parquet once the device budget
+# is set under their scans' estimates. K1 is a streamed top-k. F1 stands
+# in for the scalar phase's A1 at K = 168: A1's stddev and variance are
+# not mergeable accumulators, so neither package chunks it; F1's float
+# sums and averages are, and each chunk's partials and each merge sum
+# floats through seg_fsum.
+OOC_K1 = """
+select l_orderkey, l_linenumber, l_extendedprice
+from lineitem where l_shipdate > date '1995-01-01'
+order by l_extendedprice desc, l_orderkey, l_linenumber limit 10
+"""
+
+OOC_F1 = f"""
+select {_FLAGS}, count(*) as n,
+       sum(sqrt(l_extendedprice)) as s_sqrt_price,
+       avg(sqrt(l_quantity)) as a_sqrt_qty,
+       sum(cast(l_discount as double)) as s_disc
+from lineitem where l_shipdate <= date '1998-09-02'
+group by {_FLAGS} order by {_FLAGS}
+"""
+
+#: name -> (query, the tier ``find_chunkable`` picks, how many scans the
+#: budget is set under: 1, one byte under the largest scan's estimate,
+#: or 2, under the second largest). q3 streams lineitem through its join
+#: with one sidecar (orders joined with customer); q12's two scans are
+#: both over the budget; q18 reads lineitem twice and no single join
+#: separates the two scans, so it runs resident.
+OOC_QUERIES = {
+    "q1": (QUERIES[1], "_ChunkedAgg", 1),
+    "q1_wide": (Q1_WIDE, "_ChunkedAgg", 1),
+    "f1_168": (OOC_F1, "_ChunkedAgg", 1),
+    "q3": (QUERIES[3], "_ChunkedAgg", 1),
+    "q12": (QUERIES[12], "_HybridHashJoinAgg", 2),
+    "k1_topk": (OOC_K1, "_ChunkedTopK", 1),
+    "q18": (QUERIES[18], None, 1),
+}
+
+
+def ooc_budget(plan, over: int) -> int:
+    """A device budget one byte under the ``over``-th largest scan
+    estimate of an optimized plan (``physical/chunked._est_scan``)."""
+    from spark_tpu_torch.physical.chunked import _est_scan
+    from spark_tpu_torch.plan import logical as L
+
+    ests = sorted((_est_scan(s) for s in
+                   L.collect_nodes(plan, L.UnresolvedScan)), reverse=True)
+    return ests[over - 1] - 1

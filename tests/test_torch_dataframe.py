@@ -10,10 +10,11 @@ v * 2``, sum/count/avg by tag, sort by ``s`` desc), written with the
 DataFrame API over a Parquet file, equals the same stage run by the
 reference's physical operators.
 
-``test_cache`` of tests/test_dataframe.py waits for the port's memory
-store (ROADMAP A9): here ``cache()`` must raise "not ported yet";
-``sample``, ``F.explode`` and ``F.collect_list``, which that test also
-held as refusals before the nested-type slice, have parity cases.
+``test_cache`` of tests/test_dataframe.py is a parity case here, as
+are ``persist`` and ``localCheckpoint`` (the out-of-memory slice ported
+the memory store); ``sample``, ``F.explode`` and ``F.collect_list``,
+which the refusal test also held before the nested-type slice, have
+parity cases too.
 """
 
 import datetime
@@ -276,9 +277,6 @@ def test_temp_view_and_table(engines):
 def test_cache_waits_for_memory_store(engines):
     port = engines["port"][0]
     people = port.createDataFrame(PEOPLE)
-    for fn in (people.cache, people.persist, people.checkpoint):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            fn()
     for name in ("na", "stat", "rdd", "writeStream"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             getattr(people, name)
@@ -287,6 +285,19 @@ def test_cache_waits_for_memory_store(engines):
                  lambda: people.write.saveAsTable("t")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             call()
+
+
+@pytest.mark.parametrize("how", ["cache", "persist", "localCheckpoint"])
+def test_cache(engines, how):
+    """``cache`` (tests/test_dataframe.py::test_cache), ``persist`` and
+    ``localCheckpoint``: the counts of the cached frame and of a query
+    over it, as in the reference; ``unpersist`` drops the entry."""
+    def case(s, F, W):
+        c = getattr(s.createDataFrame(PEOPLE), how)()
+        out = [c.count(), c.groupBy("dept").count().count()]
+        c.unpersist()
+        return [tuple(out)]
+    assert _both(engines, case) == [(5, 3)]
 
 
 def test_sample(engines):

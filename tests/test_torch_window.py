@@ -11,11 +11,15 @@ operations, ``Range`` and FROM-less SELECT in ``spark_tpu_torch``.
 - The sparse table's refusal of bounded min/max frames over batches
   past ``SPARSE_TABLE_MAX_ROWS`` (4M rows; lowered in the test only).
 - The segmented scan and the exact floor(log2) of the sparse table.
+- ROADMAP C3: float frame sums add only the frame's rows (disjoint
+  power-of-two blocks, no subtraction): both of C3's inputs exactly,
+  running, bounded and RANGE frames against the frame's rows added in
+  order on the host, and the same rows in another layout bit for bit.
 
 Tolerances: integers, decimals, strings, dates and validity exact;
-float64 window sums and averages rel 1e-9 against the reference and
-sqlite (differences of a cumulative sum over the batch, whose additions
-XLA and torch may associate differently; sqlite adds each frame).
+float64 window sums and averages rel 1e-9 against the reference (which
+takes differences of a cumulative sum over the batch) and sqlite (which
+adds each frame), and 1e-12 of the frame's sum of |x| against the host.
 """
 
 import decimal
@@ -527,3 +531,148 @@ def test_segmented_scan_restarts_at_segments(dtype):
             idx = (seg == s).numpy()
             want[idx] = np_acc(x.numpy()[idx])
         assert np.array_equal(got, want.astype(got.dtype), equal_nan=True)
+
+
+# ---- ROADMAP C3: float frame sums add only the frame's rows -----------------
+
+_C3_ROWS = {"p": [0, 1, 1, 1], "o": [0, 1, 2, 3], "v": [1e17, 1.0, 1.0, 1.0]}
+
+
+@pytest.mark.parametrize("partition,want", [
+    ("partition by p", [1e17, 1.0, 2.0, 2.0]),
+    ("", [1e17, 1e17, 2.0, 2.0]),
+])
+def test_float_frame_sums_do_not_cancel(port, partition, want):
+    """ROADMAP C3's inputs 1 and 2: a frame's float sum adds its own rows
+    only (the reference gives 1e17, 0, 0, 0 and 1e17, 1e17, 0, 0: the
+    difference of one prefix sum over the batch)."""
+    port.createDataFrame(pa.table({
+        "p": pa.array(_C3_ROWS["p"], pa.int64()),
+        "o": pa.array(_C3_ROWS["o"], pa.int64()),
+        "v": pa.array(_C3_ROWS["v"], pa.float64())})) \
+        .createOrReplaceTempView("c3")
+    rows = port.sql(f"select sum(v) over ({partition} order by o rows "
+                    "between 1 preceding and current row) as s from c3 "
+                    "order by o").collect()
+    assert [r["s"] for r in rows] == want
+
+
+def _frame_table(port, rng, n=600, parts=7):
+    """Rows (p, o, v) with v spread over 30 orders of magnitude and both
+    signs, registered as ``fr``; the host columns."""
+    p = rng.integers(0, parts, n)
+    o = rng.permutation(n)
+    v = rng.choice([-1.0, 1.0], n) * 10.0 ** rng.uniform(-15, 15, n)
+    port.createDataFrame(pa.table({
+        "p": pa.array(p, pa.int64()), "o": pa.array(o, pa.int64()),
+        "v": pa.array(v, pa.float64())})).createOrReplaceTempView("fr")
+    return p, o, v
+
+
+def _host_frames(p, o, v, lo_off, hi_off, by="rows"):
+    """Per row (keyed by o): its frame's rows in sort order, added in
+    order on the host, and the frame's sum of |x|."""
+    out = {}
+    for part in np.unique(p):
+        idx = np.where(p == part)[0]
+        idx = idx[np.argsort(o[idx])]
+        ov = o[idx]
+        for i in range(len(idx)):
+            if by == "rows":
+                lo = 0 if lo_off is None else max(0, i + lo_off)
+                hi = len(idx) - 1 if hi_off is None \
+                    else min(len(idx) - 1, i + hi_off)
+                sel = idx[lo:hi + 1]
+            else:  # RANGE over o
+                sel = idx[(ov >= ov[i] + lo_off) & (ov <= ov[i] + hi_off)]
+            s = 0.0
+            for x in v[sel]:
+                s += x
+            out[o[idx[i]]] = (s, float(np.abs(v[sel]).sum()), len(sel))
+    return out
+
+
+@pytest.mark.parametrize("frame,lo,hi,by", [
+    ("rows between unbounded preceding and current row", None, 0, "rows"),
+    ("rows between 3 preceding and 2 following", -3, 2, "rows"),
+    ("rows between 6 preceding and current row", -6, 0, "rows"),
+    ("range between 40 preceding and 25 following", -40, 25, "range"),
+])
+def test_float_frame_sums_match_host_frames(port, frame, lo, hi, by):
+    """Running, bounded ROWS and RANGE frames, SUM and AVG: each frame's
+    result within 1e-12 of its sum of |x| of the frame's rows added in
+    order on the host."""
+    p, o, v = _frame_table(port, np.random.default_rng(29))
+    rows = port.sql(f"select o, sum(v) over (partition by p order by o "
+                    f"{frame}) as s, avg(v) over (partition by p order by "
+                    f"o {frame}) as a from fr").collect()
+    want = _host_frames(p, o, v, lo, hi, by)
+    assert len(rows) == len(want)
+    for r in rows:
+        s, mag, cnt = want[r["o"]]
+        assert abs(r["s"] - s) <= 1e-12 * mag, (r, s)
+        assert abs(r["a"] - s / cnt) <= 1e-12 * mag / cnt, (r, s / cnt)
+
+
+def test_float_frame_sums_do_not_depend_on_the_layout(port):
+    """The same rows in another input order and under other partition
+    labels (so the sorted batch holds the partitions in another order):
+    every row's frame sums are bit for bit the same."""
+    rng = np.random.default_rng(31)
+    p, o, v = _frame_table(port, rng)
+    sql = ("select o, sum(v) over (partition by p order by o rows between "
+           "4 preceding and 1 following) as s, sum(v) over (partition by p "
+           "order by o) as r from fr")
+    first = {r["o"]: (r["s"], r["r"]) for r in port.sql(sql).collect()}
+    perm = rng.permutation(len(p))
+    relabel = rng.permutation(int(p.max()) + 1)
+    port.createDataFrame(pa.table({
+        "p": pa.array(relabel[p[perm]], pa.int64()),
+        "o": pa.array(o[perm], pa.int64()),
+        "v": pa.array(v[perm], pa.float64())})).createOrReplaceTempView("fr")
+    again = {r["o"]: (r["s"], r["r"]) for r in port.sql(sql).collect()}
+    assert again == first
+
+
+def test_integer_and_decimal_frame_sums_stay_exact(port):
+    """Integer, decimal and count frames stay on the prefix-sum
+    differences, exact for them."""
+    vals = [2 ** 62, 1, -(2 ** 62), 3, 5]
+    port.createDataFrame(pa.table({
+        "o": pa.array(range(5), pa.int64()),
+        "i": pa.array(vals, pa.int64()),
+        "d": pa.array([decimal.Decimal("1.25"), decimal.Decimal("-0.50"),
+                       decimal.Decimal("3.00"), decimal.Decimal("0.01"),
+                       decimal.Decimal("7.77")], pa.decimal128(12, 2))})) \
+        .createOrReplaceTempView("ix")
+    rows = port.sql("select sum(i) over (order by o rows between 1 "
+                    "preceding and current row) as s, sum(d) over (order by "
+                    "o rows between 1 preceding and current row) as e, "
+                    "count(i) over (order by o rows between 2 preceding and "
+                    "current row) as c from ix order by o").collect()
+    assert [r["s"] for r in rows] == [vals[0]] + [
+        vals[i - 1] + vals[i] for i in range(1, 5)]
+    assert [r["e"] for r in rows] == [
+        decimal.Decimal(x) for x in ("1.25", "0.75", "2.50", "3.01", "7.78")]
+    assert [r["c"] for r in rows] == [1, 2, 3, 3, 3]
+
+
+def test_w4_float_frames_match_host_sums():
+    """chip_smoke.py's W4 at sf 0.01: every returned row's running and
+    7-row frame sums and averages within 1e-12 of the frame's sum of |x|
+    of the host's numpy sums over lineitem's columns."""
+    from spark_tpu_torch.tpch import generate_tables, register_views
+    from spark_tpu_torch.tpch.queries import (WINDOW_FLOAT_QUERIES,
+                                              w4_host_frames)
+
+    tables = generate_tables(0.01, seed=99)
+    spark = PortSession(device="cpu")
+    register_views(spark, tables)
+    rows = [tuple(r) for r in
+            spark.sql(WINDOW_FLOAT_QUERIES["w4_float"]).collect()]
+    assert len(rows) > 50
+    host = w4_host_frames(tables["lineitem"], rows)
+    for r, (run, s7, a7, mrun, m7) in zip(rows, host):
+        assert abs(r[4] - run) <= 1e-12 * mrun, (r, run)
+        assert abs(r[5] - s7) <= 1e-12 * m7, (r, s7)
+        assert abs(r[6] - a7) <= 1e-12 * m7, (r, a7)
