@@ -842,6 +842,20 @@ def sessions(tables, dev="cuda"):
     return out
 
 
+#: sqlite answers by statement: the mesh phase holds the TPC-H queries the
+#: earlier phases already asked the oracle
+_ORACLE_ROWS: dict = {}
+
+
+def oracle_rows(oracle, sql: str) -> list:
+    """The sqlite oracle's rows for ``sql``, asked once per statement."""
+    if sql not in _ORACLE_ROWS:
+        from spark_tpu_torch.tpch.oracle import run_oracle
+
+        _ORACLE_ROWS[sql] = run_oracle(oracle, sql)
+    return _ORACLE_ROWS[sql]
+
+
 def oracle_connection(tables):
     """The sqlite oracle over every column of the eight tables, its key
     columns indexed (``tpch/oracle.py:index_keys``) and LIKE made
@@ -861,7 +875,7 @@ def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     from spark_tpu_torch import recovery
     from spark_tpu_torch.physical import graphs
     from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
-    from spark_tpu_torch.tpch.oracle import assert_rows_match, run_oracle
+    from spark_tpu_torch.tpch.oracle import assert_rows_match
 
     queries = {"q1": QUERIES[1], "q1_wide": Q1_WIDE}
 
@@ -914,7 +928,7 @@ def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     log(f"slice: CPU runs took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    assert_rows_match(gpu_rows["q1"], run_oracle(oracle, QUERIES[1]),
+    assert_rows_match(gpu_rows["q1"], oracle_rows(oracle, QUERIES[1]),
                       label="q1[sqlite]")
     log(f"slice: q1 equals the sqlite oracle "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -989,7 +1003,7 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
     the launches of the path's run."""
     from spark_tpu_torch import recovery
     from spark_tpu_torch.physical import graphs
-    from spark_tpu_torch.tpch.oracle import assert_rows_match, run_oracle
+    from spark_tpu_torch.tpch.oracle import assert_rows_match
 
     seg_agg.reset_launches()
     rows, launches, syncs = {}, {}, {}
@@ -1043,7 +1057,7 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
         sql, cols = q if isinstance(q, tuple) else (q, None)
         held = rows[name] if cols is None else [
             tuple(r[i] for i in cols) for r in rows[name]]
-        assert_rows_match(held, run_oracle(oracle, sql),
+        assert_rows_match(held, oracle_rows(oracle, sql),
                           label=f"{name}[sqlite]")
         log(f"{label}: {name} equals the sqlite oracle "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -1970,6 +1984,330 @@ def cache_check(spark) -> None:
         "uncached plan's; unpersist released the bytes")
 
 
+#: the mesh phase's TPC-H queries on mesh[1] (all 22 run on mesh[4])
+MESH1_QUERIES = (1, 3, 5, 18)
+#: grouped float sums at K = 168 packed dictionary groups, beside each
+#: group's sum of |x| (the bound its sums are held to): on the mesh a
+#: PSumAgg whose ranks sum with seg_fsum and count with seg_sum
+MESH_F168 = """select l_returnflag, l_linestatus, l_shipmode, l_shipinstruct,
+       sum(l_extendedprice * (l_discount - 0.05) * 1.0) as s,
+       sum(abs(l_extendedprice * (l_discount - 0.05) * 1.0)) as m,
+       count(*) as n
+from lineitem
+group by l_returnflag, l_linestatus, l_shipmode, l_shipinstruct
+order by l_returnflag, l_linestatus, l_shipmode, l_shipinstruct"""
+#: floats of a mesh run against the single-device card run: within this
+#: much of the magnitude (the f168 query: each group's sum of |x|; the
+#: TPC-H queries, whose floats are quotients of exact decimal sums: the
+#: value)
+MESH_TOL = 1e-12
+
+
+def mesh_session(gpu, ranks: int, dev: str):
+    """A ``mesh[ranks]`` session whose ranks share ``gpu``'s device, over
+    ``gpu``'s registered tables (the same batches: no copy)."""
+    from spark_tpu_torch import conf as CF
+    from spark_tpu_torch.api.session import SparkSession
+
+    spark = SparkSession(device=dev, conf={CF.MESH_DEVICES.key: ranks},
+                         mesh_devices=[str(gpu.device)] * ranks)
+    spark.catalog._views.update(gpu.catalog._views)
+    return spark
+
+
+def match_mesh(name: str, got, want, mag_col=None) -> float:
+    """Mesh rows against the single-device card run's: equal but for
+    floats, within MESH_TOL of the value (or of column ``mag_col``, each
+    group's sum of |x|). Returns the largest float difference seen, as a
+    share of its bound."""
+    check(len(got) == len(want), f"{name}: {len(got)} rows on the mesh, "
+          f"{len(want)} on one device")
+    worst = 0.0
+    for g, w in zip(got, want):
+        check(len(g) == len(w), f"{name}: arity")
+        for j, (a, b) in enumerate(zip(g, w)):
+            if isinstance(a, float) and isinstance(b, float):
+                mag = abs(w[mag_col]) if mag_col is not None \
+                    else max(abs(a), abs(b))
+                err = abs(a - b) / max(mag, 1.0)
+                check(err <= MESH_TOL, f"{name}: mesh {g} against one "
+                      f"device {w}: {err:.3g} of the bound")
+                worst = max(worst, err)
+            else:
+                check(a == b, f"{name}: mesh {g} != one device {w}")
+    return worst
+
+
+def mesh_run(seg_agg, spark, name: str, query, dev: str):
+    """One mesh run of ``query``: its rows, wall ms, kernel launches (all
+    ranks' wrappers, checked against the card's own run counts) and the
+    executor's record of the run."""
+    before = mode_launches(seg_agg)
+    runs = device_runs(seg_agg, dev)
+    t0 = time.perf_counter()
+    rows = [tuple(r) for r in frame(spark, query).collect()]
+    wall = (time.perf_counter() - t0) * 1e3
+    after = mode_launches(seg_agg)
+    launches = {m: after[m] - before[m] for m in after
+                if after[m] != before[m]}
+    check(dev != "cuda" or ran_since(seg_agg, runs) == launches,
+          f"{name}: the device ran {ran_since(seg_agg, runs)}, the "
+          f"wrappers launched {launches}")
+    return rows, wall, launches, spark.mesh_executor.last_run
+
+
+def log_exchanges(label: str, name: str, record: dict) -> None:
+    ex = record["exchanges"]
+    moved = sum(e["moved_rows"] or 0 for e in ex)
+    nbytes = sum(e["moved_bytes"] or 0 for e in ex)
+    per = [(e["op"], e["rows"], e["moved_rows"], e["moved_bytes"])
+           for e in ex]
+    ranks = [round(sum(s["rank_ms"][r] for s in record["stages"]), 1)
+             for r in range(len(record["stages"][0]["rank_ms"]))] \
+        if record["stages"] else []
+    log(f"{label}: {name} {len(record['stages'])} stages, {len(ex)} "
+        f"exchanges moving {moved} rows / {nbytes} bytes between ranks "
+        f"(op, live rows, moved rows, moved bytes each: {per}); per-rank "
+        f"stage wall ms {ranks}")
+
+
+#: mesh[4] queries profiled for their device ms by rank
+MESH_PROFILED = ("q1_wide", "q5", "q18")
+
+
+def profile_mesh(spark, name: str, query) -> None:
+    """One mesh run under torch.profiler: its wall, the card's device
+    time (every kernel the ranks launched: the device events of the
+    profile) and the card's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        frame(spark, query).collect()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    n_kernels = sum(e.count for e in events if _is_kernel(e.key))
+    if dev_ms <= 0:
+        log(f"mesh profile {name}: wall {wall:.1f} ms; device time not "
+            "measured (the profiler recorded none)")
+        return
+    log(f"mesh profile {name}: wall {wall:.1f} ms, device {dev_ms:.3f} ms "
+        f"over {n_kernels} kernel launches (busy {dev_ms / wall:.1%} of "
+        "the wall)")
+
+
+def mesh_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
+    """TPC-H over a mesh of ranks sharing the card, at SF1 over the same
+    tables: all 22 queries on ``mesh[4]`` and q1, q3, q5, q18 on
+    ``mesh[1]``, with q1-wide (K = 168: seg_sum counts and int64 sums,
+    seg_minmax) and MESH_F168 (seg_fsum on every rank, merged in rank
+    order) beside them on both. Each mesh run: rows equal to the
+    single-device card run (``match_mesh``) and the TPC-H queries to the
+    sqlite oracle, a second mesh[4] run bit-identical, every kernel-
+    wrapper call held against its plain version, the card's kernel runs
+    equal to the wrappers' launches, q1-wide and f168 on mesh[4] launching
+    4 times what mesh[1] does; its wall beside the single-device wall,
+    its stages and every exchange's rows and bytes. Returns the path's
+    launches (mesh[4] and mesh[1])."""
+    from spark_tpu_torch.physical import graphs
+    from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
+    from spark_tpu_torch.tpch.oracle import assert_rows_match
+
+    queries = {f"q{q}": QUERIES[q] for q in sorted(QUERIES)}
+    queries.update(q1_wide=Q1_WIDE, f168=MESH_F168)
+    extra = ("q1_wide", "f168")
+    # the single-device card runs first, outside the recorded window (a
+    # stage captured there records its calls before they run)
+    one, one_walls = {}, {}
+    for name, q in queries.items():
+        t0 = time.perf_counter()
+        one[name] = [tuple(r) for r in gpu.sql(q).collect()]
+        one_walls[name] = (time.perf_counter() - t0) * 1e3
+    pools = graphs.pool_bytes() if dev == "cuda" else None
+    cached = graphs.cached_stages()
+    seg_agg.reset_launches()
+    ratios, launches = {}, {}
+    with recording_calls(seg_agg) as calls:
+        for ranks, names in ((1, [f"q{q}" for q in MESH1_QUERIES]
+                              + list(extra)), (4, list(queries))):
+            spark = mesh_session(gpu, ranks, dev)
+            for name in names:
+                q, one_wall = queries[name], one_walls[name]
+                rows, wall, launched, record = mesh_run(
+                    seg_agg, spark, name, q, dev)
+                launches[(ranks, name)] = launched
+                worst = match_mesh(name, rows, one[name],
+                                   5 if name == "f168" else None)
+                if ranks == 4:
+                    again, wall2, _, _ = mesh_run(seg_agg, spark, name, q,
+                                                  dev)
+                    check(row_bits(again) == row_bits(rows),
+                          f"{name}: two mesh[4] runs differ")
+                    ratios[name] = (wall, one_wall)
+                if name not in extra:
+                    assert_rows_match(rows, oracle_rows(oracle, q),
+                                      label=f"{name}[mesh {ranks}]")
+                log(f"mesh: {name} mesh[{ranks}] {wall:.1f} ms"
+                    + (f" (again {wall2:.1f} ms)" if ranks == 4 else "")
+                    + f", one device {one_wall:.1f} ms; {len(rows)} rows "
+                    f"equal to one device (floats within {worst:.3g} of "
+                    f"the bound {MESH_TOL})"
+                    + ("" if name in extra else " and to sqlite")
+                    + f"; launches {launched}")
+                log_exchanges("mesh", f"{name} mesh[{ranks}]", record)
+                if dev == "cuda" and ranks == 4 and name in MESH_PROFILED:
+                    profile_mesh(spark, name, q)
+    hold_calls(seg_agg, calls, "mesh")
+    total = mode_launches(seg_agg)
+    if dev == "cuda":
+        check(len(calls) == sum(total.values()),
+              f"{len(calls)} wrapper calls, {total} launches")
+        for name in extra:
+            one, four = launches[(1, name)], launches[(4, name)]
+            check(four == {m: 4 * n for m, n in one.items()} and one,
+                  f"{name}: mesh[4] launched {four}, mesh[1] {one}")
+        for m in ("count", "sum_i64", "min", "max", "fsum_f64"):
+            check(total[m] >= 1, f"the mesh path launched no {m} kernel")
+        check(graphs.pool_bytes() == pools
+              and graphs.cached_stages() == cached,
+              "a mesh run changed the graph pool or the stage cache")
+    tpch = [n for n in ratios if n not in extra]
+    mesh_ms = sum(ratios[n][0] for n in tpch)
+    one_ms = sum(ratios[n][1] for n in tpch)
+    log(f"mesh: the 22 TPC-H queries took {mesh_ms:.1f} ms on mesh[4] "
+        f"(first runs) and {one_ms:.1f} ms on one device (warm runs): "
+        f"ratio {mesh_ms / max(one_ms, 1e-9):.2f}; by query "
+        + ", ".join(f"{n} {w / max(o, 1e-9):.1f}x"
+                    for n, (w, o) in ratios.items()))
+    return total
+
+
+#: the frontend phase's tensor UDFs inside a grouped aggregate at K =
+#: 168: their float sums take seg_fsum, their counts seg_sum
+FRONTEND_LAUNCHES = {"u168": {"count": 3, "fsum_f64": 2}}
+FRONTEND_TOL = 1e-12
+
+
+def _scaled(price, disc):
+    return price.to(torch.float64) * (disc.to(torch.float64) - 5.0)
+
+
+def _magnitude(price, disc):
+    return torch.abs(_scaled(price, disc))
+
+
+def frontend_udf_query(spark):
+    """A tensor UDF (torch ops on the stage's device, over the columns'
+    stored values) summed per group of lineitem's four dictionary keys,
+    and its absolute value's sum: each group's bound."""
+    from spark_tpu_torch import types as PT
+    from spark_tpu_torch.api import functions as F
+
+    scaled = F.udf(_scaled, returnType=PT.FLOAT64)
+    magnitude = F.udf(_magnitude, returnType=PT.FLOAT64)
+    df = spark.table("lineitem")
+    keys = ["l_returnflag", "l_linestatus", "l_shipmode", "l_shipinstruct"]
+    args = (F.col("l_extendedprice"), F.col("l_discount"))
+    return df.groupBy(*keys).agg(F.sum(scaled(*args)).alias("s"),
+                                 F.sum(magnitude(*args)).alias("m")) \
+        .orderBy(*keys)
+
+
+def frontend_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
+    """The front end over SF1 on the card against the CPU run: describe,
+    corr, approxQuantile and na.fill over lineitem; a tensor UDF inside a
+    grouped aggregate run through ``run_phase`` (launches, every wrapper
+    call held, the second run captured and replayed: no host sync inside
+    its stages); create/drop temp view; saveAsTable read back by a fresh
+    session on the card, equal to the source rows. Returns the launches
+    of the path."""
+    import tempfile
+
+    from spark_tpu_torch import conf as CF
+    from spark_tpu_torch.api.session import SparkSession
+
+    num = ["l_orderkey", "l_partkey", "l_suppkey", "l_linenumber"]
+    for label, fn in (
+            ("describe", lambda s: [tuple(r) for r in s.table("lineitem")
+                                    .describe(*num).collect()]),
+            ("corr", lambda s: [(s.table("lineitem").corr("l_orderkey",
+                                                          "l_partkey"),)]),
+            ("approxQuantile", lambda s: [tuple(s.table("lineitem")
+                                                .approxQuantile(
+                "l_partkey", [0.1, 0.5, 0.9]))]),
+            ("na.fill", lambda s: [(s.table("customer").na.fill(
+                {"c_comment": "none"}).count(),)])):
+        t0 = time.perf_counter()
+        got = fn(gpu)
+        wall = (time.perf_counter() - t0) * 1e3
+        want = fn(cpu)
+        worst = 0.0
+        check(len(got) == len(want), f"{label}: rows differ")
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if a is not None and b is not None and a != b:
+                    a, b = float(a), float(b)  # describe's strings
+                    worst = max(worst, abs(a - b) / max(abs(b), 1.0))
+                else:
+                    check(a == b, f"{label}: card {g} != CPU {w}")
+        check(worst <= 1e-9, f"{label}: card {got} against CPU {want}")
+        log(f"frontend: {label} on the card {wall:.1f} ms, equal to the "
+            f"CPU run (floats within {worst:.3g} relative; bound 1e-9: "
+            f"moments of 6M rows summed in another order)")
+
+    def match(name, card, cpu_rows):
+        check(len(card) == len(cpu_rows), f"{name}: row counts differ")
+        worst = 0.0
+        for g, c in zip(card, cpu_rows):
+            check(g[:4] == c[:4], f"{name}: keys differ {g} {c}")
+            mag = max(abs(c[5]), 1.0)
+            worst = max(worst, abs(g[4] - c[4]) / mag,
+                        abs(g[5] - c[5]) / mag)
+            check(worst <= FRONTEND_TOL, f"{name}: card {g}, CPU {c}")
+        log(f"frontend: {name} floats within {worst:.3g} of each group's "
+            f"sum of |x| of the CPU run's (bound {FRONTEND_TOL})")
+
+    total = run_phase("frontend", seg_agg, gpu, cpu,
+                      {"u168": frontend_udf_query}, FRONTEND_LAUNCHES,
+                      oracle, {}, dev, match_cpu=match)
+
+    view = ("create or replace temp view fe_late as select l_orderkey, "
+            "l_shipmode from lineitem where l_receiptdate > l_commitdate")
+    q = ("select l_shipmode, count(*) as n from fe_late group by "
+         "l_shipmode order by l_shipmode")
+    got = []
+    for s in (gpu, cpu):
+        check(s.sql(view).collect() == [], "create view returned rows")
+        got.append([tuple(r) for r in s.sql(q).collect()])
+        s.sql("drop view fe_late")
+        check(not s.catalog.tableExists("fe_late"), "view not dropped")
+    check(got[0] == got[1] and got[0], "a query over the view: card != CPU")
+    log(f"frontend: create/drop temp view: {len(got[0])} rows over the "
+        "view, equal to the CPU run")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wh_") as wh:
+        gpu.conf.set(CF.WAREHOUSE_DIR.key, wh)
+        src = [tuple(r) for r in gpu.table("customer")
+               .orderBy("c_custkey").collect()]
+        t0 = time.perf_counter()
+        gpu.table("customer").write.saveAsTable("fe_customer")
+        write_s = time.perf_counter() - t0
+        fresh = SparkSession(device=dev, conf={CF.WAREHOUSE_DIR.key: wh})
+        t0 = time.perf_counter()
+        back = [tuple(r) for r in fresh.table("fe_customer")
+                .orderBy("c_custkey").collect()]
+        read_ms = (time.perf_counter() - t0) * 1e3
+        gpu.conf.unset(CF.WAREHOUSE_DIR.key)
+    check(row_bits(back) == row_bits(src),
+          "saveAsTable: the table read back differs from its source")
+    log(f"frontend: saveAsTable of customer ({len(src)} rows) written in "
+        f"{write_s:.1f} s, read back by a fresh session on the card in "
+        f"{read_ms:.1f} ms, equal to the source rows")
+    return total
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--oom-child":
         return oom_child(sys.argv[2])
@@ -2043,7 +2381,8 @@ def main() -> int:
                 ("tpch", tpch_phase), ("scalar", scalar_phase),
                 ("io", functools.partial(io_phase, root=root)),
                 ("complex", complex_phase),
-                ("ooc", functools.partial(ooc_phase, root=root))):
+                ("ooc", functools.partial(ooc_phase, root=root)),
+                ("mesh", mesh_phase), ("frontend", frontend_phase)):
             t0 = time.perf_counter()
             by_path[path] = phase(seg_agg, gpu, cpu, oracle)
             log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
@@ -2062,8 +2401,12 @@ def main() -> int:
           and by_path["complex"]["min"] >= 1,
           "the complex path launched no seg_sum count or seg_minmax min")
     check(not any(p["fsum_f64"] + p["fsum_f32"] for path, p in
-                  by_path.items() if path not in ("scalar", "io", "ooc")),
+                  by_path.items()
+                  if path not in ("scalar", "io", "ooc", "mesh", "frontend")),
           "an earlier path summed floats on a grouped path")
+    check(by_path["frontend"]["fsum_f64"] >= 1
+          and by_path["frontend"]["count"] >= 1,
+          "the frontend path launched no seg_fsum or seg_sum kernel")
     check(by_path["ooc"]["count"] >= 1 and by_path["ooc"]["min"] >= 1
           and by_path["ooc"]["fsum_f64"] >= 1,
           "the ooc path launched no seg_sum, seg_minmax or seg_fsum kernel")

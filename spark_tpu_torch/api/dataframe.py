@@ -13,10 +13,11 @@ OOM), retried on a transient failure (``run_stage_with_recovery``),
 with the session's cached plans substituted and pinned for the query
 (``CacheManager``, ``storage.pin_scope``).
 
-Not ported yet, each raising ``NotImplementedError``: ``sampleBy``
-(with ``na``/``stat``), ``repartition``/``coalesce`` (A10),
-``na``/``stat``/``describe``/``corr`` and the rest of
-``api/na_stat.py``, ``rdd``, ``writeStream`` and ``withWatermark``.
+``na``, ``stat``, ``describe`` and the rest of the statistics are
+``api/na_stat.py``'s. On a session with a mesh (``master("mesh[N]")``)
+an action runs through ``parallel/executor.MeshExecutor``. Not ported
+yet, each raising ``NotImplementedError``: ``rdd``, ``writeStream`` and
+``withWatermark``.
 """
 
 from __future__ import annotations
@@ -314,6 +315,7 @@ class DataFrame:
 
         sess = self._session
         conf, dev = sess.conf, sess.device
+        mesh = sess.mesh_executor
 
         def run(lp):
             return execute_logical(lp, optimize=False, device=dev, conf=conf)
@@ -321,7 +323,11 @@ class DataFrame:
         def run_full(plan):
             """The engine with the chunking decision and the OOM ladder;
             cached plans materialize through it too, so a cached big
-            aggregate chunks."""
+            aggregate chunks. A mesh session runs the mesh executor (the
+            out-of-memory tier's mesh cases are not ported yet)."""
+            if mesh is not None:
+                return mesh.execute_logical(optimize(plan, conf),
+                                            optimize=False)
             return run_plan_with_oom_degradation(
                 optimize(plan, conf), conf, run, dev, sess.memory_manager)
 
@@ -438,23 +444,68 @@ class DataFrame:
             df.count()
         return df
 
+    # ---- repartitioning, null handling and statistics ------------------------
+
+    def repartition(self, num_partitions: int,
+                    *cols: ColumnOrName) -> "DataFrame":
+        """A hash exchange on ``cols`` (round-robin without them) on a
+        mesh; on one device the rows stay as they are."""
+        return self._with(L.Repartition(
+            num_partitions, tuple(_c(c) for c in cols), self._plan))
+
+    def coalesce(self, num_partitions: int) -> "DataFrame":
+        return self._with(L.Repartition(num_partitions, (), self._plan))
+
+    @property
+    def na(self):
+        """Null handling (reference: DataFrameNaFunctions.scala)."""
+        from spark_tpu_torch.api.na_stat import DataFrameNaFunctions
+
+        return DataFrameNaFunctions(self)
+
+    @property
+    def stat(self):
+        """Statistics (reference: DataFrameStatFunctions.scala)."""
+        from spark_tpu_torch.api.na_stat import DataFrameStatFunctions
+
+        return DataFrameStatFunctions(self)
+
+    def dropna(self, how: str = "any", thresh=None, subset=None):
+        return self.na.drop(how, thresh, subset)
+
+    def fillna(self, value, subset=None):
+        return self.na.fill(value, subset)
+
+    def replace(self, to_replace, value=None, subset=None):
+        return self.na.replace(to_replace, value, subset)
+
+    def describe(self, *cols: str):
+        from spark_tpu_torch.api.na_stat import describe
+
+        return describe(self, list(cols) or None)
+
+    summary = describe
+
+    def corr(self, col1: str, col2: str, method: str = "pearson") -> float:
+        return self.stat.corr(col1, col2, method)
+
+    def cov(self, col1: str, col2: str) -> float:
+        return self.stat.cov(col1, col2)
+
+    def approxQuantile(self, col, probabilities, relativeError=0.0):
+        return self.stat.approxQuantile(col, probabilities, relativeError)
+
+    def crosstab(self, col1: str, col2: str):
+        return self.stat.crosstab(col1, col2)
+
+    def freqItems(self, cols, support: float = 0.01):
+        return self.stat.freqItems(cols, support)
+
+    def sampleBy(self, col: str, fractions, seed: int = 42):
+        return self.stat.sampleBy(col, fractions, seed)
+
     # ---- later slices --------------------------------------------------------
 
-    sampleBy = _later("sampleBy (api/na_stat.py)", "A6")
-    repartition = _later("repartition", "A10")
-    coalesce = _later("coalesce", "A10")
-    na = property(_later("na (api/na_stat.py)", "A6"))
-    stat = property(_later("stat (api/na_stat.py)", "A6"))
-    dropna = _later("dropna (api/na_stat.py)", "A6")
-    fillna = _later("fillna (api/na_stat.py)", "A6")
-    replace = _later("replace (api/na_stat.py)", "A6")
-    describe = _later("describe (api/na_stat.py)", "A6")
-    summary = _later("summary (api/na_stat.py)", "A6")
-    corr = _later("corr (api/na_stat.py)", "A6")
-    cov = _later("cov (api/na_stat.py)", "A6")
-    approxQuantile = _later("approxQuantile (api/na_stat.py)", "A6")
-    crosstab = _later("crosstab (api/na_stat.py)", "A6")
-    freqItems = _later("freqItems (api/na_stat.py)", "A6")
     rdd = property(_later("rdd (the RDD tier)", "A12"))
     writeStream = property(_later("writeStream (streaming)", "A12"))
     withWatermark = _later("withWatermark (streaming)", "A12")

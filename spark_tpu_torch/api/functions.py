@@ -4,8 +4,8 @@ Columns are expression trees: every function builds an
 ``expr/expressions.py`` node, and the functions the SQL parser composes
 out of other nodes come from ``sql/functions.py``.
 
-The streaming windows and UDFs raise ``NotImplementedError("not ported
-yet: ...")`` (the later tiers of ROADMAP queue A).
+``udf`` and ``arrow_udf`` are ``api/udf.py``'s. The streaming windows
+raise ``NotImplementedError("not ported yet: ...")`` (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import re
 from typing import Any, Union
 
 from spark_tpu_torch import types as T
+from spark_tpu_torch.api.udf import arrow_udf, udf  # noqa: F401
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.sql import functions as SF
 
@@ -601,9 +602,6 @@ def posexplode(c: ColumnOrName) -> Column:
     return SF.posexplode(_c(c))
 
 
-# the reference's builders of the later tiers: the streaming windows and
-# the UDFs
+# the reference's builders of a later tier: the streaming windows
 window = _refuse("window", "streaming window")
 session_window = _refuse("session_window", "streaming window")
-udf = _refuse("udf", "user-defined function")
-arrow_udf = _refuse("arrow_udf", "user-defined function")

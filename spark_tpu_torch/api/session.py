@@ -1,7 +1,9 @@
 """SparkSession for the port: the entry point a user calls.
 
 ``SparkSession.builder.device("cuda"|"cpu").config(key, value)
-.getOrCreate()``; ``createDataFrame`` from a ``pyarrow.Table``, a
+.getOrCreate()``, with ``.master("mesh[N]")`` (and ``.meshDevices([...])``
+to list the ranks' devices) for a session whose queries run over a
+mesh; ``createDataFrame`` from a ``pyarrow.Table``, a
 ``pandas.DataFrame`` or a list of dicts or tuples; ``read`` (Parquet,
 CSV, JSON, ORC); ``range``; temp views; ``sql``; ``table``; ``conf``.
 A session owns one ``UnifiedMemoryManager`` (``memory_manager``), the
@@ -143,22 +145,74 @@ class CacheManager:
 
 
 class Catalog:
-    """Temp-view registry."""
+    """Temp views and persistent tables (reference:
+    sql/catalyst/.../catalog/SessionCatalog.scala:61). A table written by
+    ``df.write.saveAsTable`` lives as
+    ``<spark.sql.warehouse.dir>/<name>/{_table.json,data/}`` and any
+    session pointing at that warehouse reads it back; the layout is the
+    reference's."""
 
-    def __init__(self):
+    def __init__(self, session: Optional["SparkSession"] = None):
+        self._session = session
         self._views: Dict[str, L.LogicalPlan] = {}
 
     def _register_view(self, name: str, plan: L.LogicalPlan) -> None:
         self._views[name.lower()] = plan
 
     def lookup(self, name: str) -> L.LogicalPlan:
-        try:
-            return self._views[name.lower()]
-        except KeyError:
-            raise KeyError(f"table or view not found: {name}") from None
+        key = name.lower()
+        plan = self._views.get(key)
+        if plan is None:
+            plan = self._load_persistent(key)
+        if plan is None:
+            raise KeyError(f"table or view not found: {name}")
+        return plan
+
+    def _warehouse(self) -> Optional[str]:
+        if self._session is None:
+            return None
+        from spark_tpu_torch import conf as CF
+
+        return self._session.conf.get(CF.WAREHOUSE_DIR)
+
+    def _load_persistent(self, key: str) -> Optional[L.LogicalPlan]:
+        """The saveAsTable tier: a scan of ``<warehouse>/<key>/data`` in
+        the format ``_table.json`` names, memoized for the session."""
+        import json
+        import os
+
+        wh = self._warehouse()
+        meta_path = None if wh is None else os.path.join(wh, key,
+                                                         "_table.json")
+        if meta_path is None or not os.path.exists(meta_path):
+            return None
+        with open(meta_path) as f:
+            meta = json.load(f)
+        from spark_tpu_torch.io.datasource import FileSource
+
+        options = dict(meta.get("options") or {})
+        if meta.get("partition_by"):
+            options["partitioning"] = "hive"
+        src = FileSource(meta.get("format", "parquet"),
+                         [os.path.join(wh, key, "data")], options=options)
+        plan = L.UnresolvedScan(src)
+        self._views[key] = plan
+        return plan
+
+    def refresh_persistent(self, key: str) -> None:
+        """Forget the memoized plan: the next lookup reads the table as
+        it is now on disk."""
+        self._views.pop(key, None)
 
     def listTables(self) -> List[str]:
-        return sorted(self._views)
+        import os
+
+        names = set(self._views)
+        wh = self._warehouse()
+        if wh is not None and os.path.isdir(wh):
+            names |= {d for d in os.listdir(wh)
+                      if os.path.exists(os.path.join(wh, d, "_table.json"))}
+        return sorted(names)
 
     def dropTempView(self, name: str) -> bool:
         return self._views.pop(name.lower(), None) is not None
@@ -171,10 +225,37 @@ class SparkSessionBuilder:
     def __init__(self):
         self._device = DEFAULT_DEVICE
         self._conf: Dict[str, Any] = {}
+        self._mesh_devices: Optional[List[str]] = None
 
     def device(self, name) -> "SparkSessionBuilder":
         """``"cuda"`` (the default) or ``"cpu"``."""
         self._device = name
+        return self
+
+    def master(self, url: str) -> "SparkSessionBuilder":
+        """The master URL (reference: SparkContext's master parsing):
+        ``local``, ``local[*]`` or ``local[N]`` run on the session's one
+        device; ``mesh[N]`` (``mesh[*]``: every CUDA device) runs every
+        query over an N-rank mesh (``parallel/executor.py``)."""
+        from spark_tpu_torch import conf as CF
+
+        if url.startswith("mesh"):
+            n = -1
+            if "[" in url:
+                inner = url[url.index("[") + 1:url.index("]")]
+                n = -1 if inner == "*" else int(inner)
+            self._conf[CF.MESH_DEVICES.key] = n
+        elif url.startswith("local"):
+            self._conf[CF.MESH_DEVICES.key] = None
+        else:
+            raise ValueError(f"unsupported master URL {url!r}: use "
+                             "local, local[*] or mesh[N]")
+        return self
+
+    def meshDevices(self, devices) -> "SparkSessionBuilder":
+        """The mesh's devices, one per rank (``["cuda:0"] * 4``, ``["cpu"]
+        * 8``); a device may repeat only when listed here."""
+        self._mesh_devices = [str(d) for d in devices]
         return self
 
     def config(self, key: str, value: Any) -> "SparkSessionBuilder":
@@ -182,13 +263,19 @@ class SparkSessionBuilder:
         return self
 
     def getOrCreate(self) -> "SparkSession":
-        """The active session when it runs on the requested device, with
-        this builder's settings applied to it; else a new session with
-        them, which becomes the active one."""
+        """The active session when it runs on the requested device and
+        mesh, with this builder's settings applied to it; else a new
+        session with them, which becomes the active one."""
+        from spark_tpu_torch import conf as CF
+
         dev = resolve_device(self._device)
         active = SparkSession._active
-        if active is None or active.device != dev:
-            active = SparkSession(dev, self._conf)
+        n = self._conf.get(CF.MESH_DEVICES.key,
+                           None if active is None
+                           else active.conf.get(CF.MESH_DEVICES))
+        if active is None or active.device != dev \
+                or active._mesh_spec != (n, self._mesh_devices):
+            active = SparkSession(dev, self._conf, self._mesh_devices)
             SparkSession._active = active
         else:
             for key, value in self._conf.items():
@@ -207,12 +294,24 @@ class SparkSession:
     _active: Optional["SparkSession"] = None
 
     def __init__(self, device=DEFAULT_DEVICE,
-                 conf: Optional[Dict[str, Any]] = None):
+                 conf: Optional[Dict[str, Any]] = None,
+                 mesh_devices: Optional[Sequence] = None):
+        from spark_tpu_torch import conf as CF
         from spark_tpu_torch.storage import MemoryStore, UnifiedMemoryManager
 
         self.device = resolve_device(device)
         self.conf = RuntimeConf(conf)
-        self.catalog = Catalog()
+        n = self.conf.get(CF.MESH_DEVICES)
+        self._mesh_spec = (n, None if mesh_devices is None
+                           else [str(d) for d in mesh_devices])
+        self._mesh = None
+        self._mesh_executor = None
+        if n is not None:
+            from spark_tpu_torch.parallel.mesh import make_mesh
+
+            self._mesh = make_mesh(None if n == -1 else int(n),
+                                   devices=mesh_devices)
+        self.catalog = Catalog(self)
         # storage and execution share one device byte budget
         self.memory_manager = UnifiedMemoryManager(conf=self.conf)
         self.memory_store = MemoryStore(self.memory_manager)
@@ -227,6 +326,17 @@ class SparkSession:
     @classmethod
     def getActiveSession(cls) -> Optional["SparkSession"]:
         return cls._active
+
+    @property
+    def mesh_executor(self):
+        """The mesh executor under a ``mesh[N]`` master, else None."""
+        if self._mesh is None:
+            return None
+        if self._mesh_executor is None:
+            from spark_tpu_torch.parallel.executor import MeshExecutor
+
+            self._mesh_executor = MeshExecutor(self._mesh, conf=self.conf)
+        return self._mesh_executor
 
     @property
     def read(self):
@@ -288,4 +398,5 @@ class SparkSession:
         return df
 
     def __repr__(self):
-        return f"SparkSession(device={self.device})"
+        mesh = "" if self._mesh is None else f", mesh={self._mesh}"
+        return f"SparkSession(device={self.device}{mesh})"

@@ -57,7 +57,7 @@ class BatchData(NamedTuple):
 class Batch:
     """Host-level pairing of a Schema with BatchData."""
 
-    __slots__ = ("schema", "data")
+    __slots__ = ("schema", "data", "__weakref__")
 
     def __init__(self, schema: Schema, data: BatchData):
         if len(schema) != len(data.columns):

@@ -65,6 +65,21 @@ ANALYSIS_LEVEL = register(
     "ported.)", str)
 
 
+WAREHOUSE_DIR = register(
+    "spark.sql.warehouse.dir", "spark-warehouse",
+    "Directory of the persistent (saveAsTable) tables: each is "
+    "<dir>/<name>/{_table.json,data/}, the reference's layout, so either "
+    "package reads what the other wrote (reference: StaticSQLConf "
+    "WAREHOUSE_PATH).", str)
+
+MESH_DEVICES = register(
+    "spark_tpu.mesh.devices", None,
+    "The mesh size SparkSession.builder.master('mesh[N]') asks for: N "
+    "ranks, -1 for every CUDA device, None (unset) for one device. The "
+    "ranks run on cuda:0 .. cuda:N-1 unless the builder lists the "
+    "devices (meshDevices), which may repeat one.",
+    lambda v: v if v is None else int(v))
+
 JIT_STAGE_CACHE_ENTRIES = register(
     "spark.tpu.jit.stageCacheEntries", 512,
     "Entry cap for the captured-stage cache (physical/graphs._STAGE_CACHE: "

@@ -421,6 +421,18 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
     if isinstance(expr, E.Alias):
         return evaluate(expr.child, env)
 
+    if isinstance(expr, E.TensorUdf):
+        tvs = [evaluate(a, env) for a in expr.args]
+        validity = None
+        for tv in tvs:
+            validity = _and_validity(validity, tv.validity)
+        out = expr.fn(*[tv.data for tv in tvs])
+        return TV(out.to(_torch_dtype(expr.return_type)), validity,
+                  expr.return_type, None)
+
+    if isinstance(expr, E.ArrowUdf):
+        return _eval_arrow_udf(expr, env)
+
     if isinstance(expr, E.Neg):
         tv = evaluate(expr.child, env)
         return TV(-tv.data, tv.validity, tv.dtype, None)
@@ -653,6 +665,35 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
 
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not ported yet: {expr}")
+
+
+def _eval_arrow_udf(expr, env: Env) -> TV:
+    """A host UDF over this batch: its arguments come to the host as
+    pyarrow arrays (NULL for NULL and dead rows, strings decoded), its
+    result goes back to the device (strings dictionary-encoded)."""
+    import pyarrow as pa
+
+    from spark_tpu_torch.columnar.arrow import from_arrow, to_arrow
+    from spark_tpu_torch.columnar.batch import Batch, BatchData, ColumnData
+    from spark_tpu_torch.types import Field, Schema
+
+    n = env.capacity
+    live = (env.mask if env.mask is not None
+            else torch.ones((n,), dtype=torch.bool, device=env.device))
+    arrays = []
+    for a in expr.args:
+        tv = evaluate(a, env)
+        batch = Batch(Schema((Field("x", tv.dtype, True, tv.dictionary),)),
+                      BatchData((ColumnData(tv.data, live & tv.valid_or_true(
+                          n)),), torch.ones_like(live)))
+        arrays.append(to_arrow(batch).column(0).combine_chunks())
+    out = expr.fn(*arrays)
+    if len(out) != n:
+        raise ValueError(f"arrow UDF returned {len(out)} rows, expected {n}")
+    cd = from_arrow(pa.table({"x": out}), capacity=n, device=env.device)
+    col = cd.data.columns[0]
+    return TV(col.data.to(_torch_dtype(expr.return_type)), col.validity,
+              expr.return_type, cd.schema.fields[0].dictionary)
 
 
 def _eval_col(name: str, env: Env) -> TV:

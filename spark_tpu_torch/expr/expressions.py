@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 from spark_tpu_torch import types as T
 from spark_tpu_torch.types import DataType, Schema
@@ -35,6 +35,10 @@ from spark_tpu_torch.types import DataType, Schema
 
 class Expression:
     """Base class. Subclasses are frozen dataclasses."""
+
+    #: True for a host-only node (an arrow UDF): an operator holding one
+    #: runs blocking, outside traced stages (``contains_blocking``)
+    blocks_trace: bool = False
 
     def children(self) -> Tuple["Expression", ...]:
         return ()
@@ -1645,10 +1649,66 @@ class Percentile(AggregateExpression):
         return self.name
 
 
+@dataclass(eq=False, frozen=True)
+class TensorUdf(Expression):
+    """Device UDF (``api/udf.py``'s ``udf``): fn(*tensors) -> tensor,
+    evaluated in the stage."""
+
+    fn: Callable
+    return_type: DataType
+    args: Tuple[Expression, ...]
+    fn_name: str = "udf"
+
+    def children(self):
+        return self.args
+
+    def data_type(self, schema):
+        return self.return_type
+
+    @property
+    def name(self):
+        return f"{self.fn_name}({', '.join(str(a) for a in self.args)})"
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass(eq=False, frozen=True)
+class ArrowUdf(Expression):
+    """Host UDF over pyarrow arrays (``api/udf.py``'s ``arrow_udf``);
+    evaluated eagerly, between stages."""
+
+    fn: Callable
+    return_type: DataType
+    args: Tuple[Expression, ...]
+    fn_name: str = "arrow_udf"
+    blocks_trace = True
+
+    def children(self):
+        return self.args
+
+    def data_type(self, schema):
+        return self.return_type
+
+    @property
+    def name(self):
+        return f"{self.fn_name}({', '.join(str(a) for a in self.args)})"
+
+    def __str__(self):
+        return self.name
+
+
 def strip_alias(e: Expression) -> Expression:
     while isinstance(e, Alias):
         e = e.child
     return e
+
+
+def contains_blocking(e: Expression) -> bool:
+    """Whether a host-only expression (an arrow UDF) lies below ``e``:
+    the operator holding it runs blocking."""
+    return e.blocks_trace or any(contains_blocking(c)
+                                 for c in e.children())
 
 
 def contains_aggregate(e: Expression) -> bool:

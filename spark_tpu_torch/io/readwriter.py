@@ -4,9 +4,9 @@ sql/core/.../DataFrameReader.scala, DataFrameWriter.scala).
 
 Reads go through ``io.datasource.FileSource`` (pyarrow.dataset). Writes
 take the query's rows as Arrow and write a directory of part files, as
-Spark does, with Spark's save modes and hive-style ``partitionBy``.
-``saveAsTable`` needs the persistent catalog, which is not ported yet
-(ROADMAP A6).
+Spark does, with Spark's save modes and hive-style ``partitionBy``;
+``saveAsTable`` writes a persistent table under
+``spark.sql.warehouse.dir`` that the session catalog reads back.
 """
 
 from __future__ import annotations
@@ -150,9 +150,27 @@ class DataFrameWriter:
         self._write_table(self._df.toArrow(), path)
 
     def saveAsTable(self, name: str) -> None:
-        raise NotImplementedError(
-            "not ported yet: saveAsTable (the persistent catalog, "
-            "ROADMAP A6)")
+        """A persistent table under spark.sql.warehouse.dir (reference:
+        DataFrameWriter.saveAsTable and SessionCatalog.scala:61): the rows
+        in this writer's format under ``<warehouse>/<name>/data`` and a
+        ``_table.json`` naming the format, the partition columns and the
+        options, which any later session on that warehouse reads back.
+        The layout is the reference's."""
+        import json
+
+        from spark_tpu_torch import conf as CF
+
+        session = self._df._session
+        wh = session.conf.get(CF.WAREHOUSE_DIR)
+        os.makedirs(wh, exist_ok=True)
+        path = os.path.join(wh, name.lower())
+        self.save(os.path.join(path, "data"))
+        meta = {"name": name.lower(), "format": self._format,
+                "partition_by": self._partition_by,
+                "options": {k: str(v) for k, v in self._options.items()}}
+        with open(os.path.join(path, "_table.json"), "w") as f:
+            json.dump(meta, f)
+        session.catalog.refresh_persistent(name.lower())
 
     def _write_table(self, table: pa.Table, path: str) -> None:
         import pyarrow.dataset as pads

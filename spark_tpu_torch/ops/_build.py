@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -28,6 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _loaded: dict = {}
+#: one build at a time: the ranks of a mesh reach their first kernel
+#: launch from threads of their own
+_BUILD_LOCK = threading.RLock()
 #: the compiler's output of each library built by this process, by
 #: library name (for nvcc, ``-Xptxas -v``: registers, shared memory,
 #: spills)
@@ -101,12 +105,14 @@ def library(name: str) -> ctypes.CDLL:
 def libraries(names) -> list:
     """The CUDA libraries of ``names`` (``ops/csrc/<name>.cu``), their
     builds started together, one ``nvcc`` each."""
-    missing = [name for name in names if name not in _loaded]
-    nvcc = _nvcc() if missing else None
-    started = {name: _start(name, CSRC / f"{name}.cu", nvcc, NVCC_FLAGS)
-               for name in missing}
-    for name, (out, proc) in started.items():
-        _finish(name, CSRC / f"{name}.cu", nvcc, out, proc)
+    if any(name not in _loaded for name in names):
+        with _BUILD_LOCK:
+            missing = [name for name in names if name not in _loaded]
+            nvcc = _nvcc() if missing else None
+            started = {name: _start(name, CSRC / f"{name}.cu", nvcc,
+                                    NVCC_FLAGS) for name in missing}
+            for name, (out, proc) in started.items():
+                _finish(name, CSRC / f"{name}.cu", nvcc, out, proc)
     return [_loaded[name] for name in names]
 
 
@@ -114,7 +120,10 @@ def host_library(name: str, src: Path) -> ctypes.CDLL:
     """The host library built from the C++ source ``src`` with g++."""
     if name in _loaded:
         return _loaded[name]
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError(f"g++ not found on PATH: cannot build {src}")
-    return _compile(name, src, gxx, GXX_FLAGS)
+    with _BUILD_LOCK:
+        if name in _loaded:
+            return _loaded[name]
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found on PATH: cannot build {src}")
+        return _compile(name, src, gxx, GXX_FLAGS)

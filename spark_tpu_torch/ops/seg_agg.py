@@ -53,9 +53,14 @@ replays can be held against the plain versions.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
+
+#: the libraries' first load and typing, and the launch counters, are
+#: shared by the ranks of a mesh, which launch from threads of their own
+_LOCK = threading.Lock()
 
 MAX_K = 1024     # shared-memory accumulator bound, as the reference's _MAX_K
 MAX_ROWS = 1 << 31
@@ -239,18 +244,21 @@ def _lib():
     from spark_tpu_torch.ops._build import library
 
     lib = library("seg_agg")
-    if not getattr(lib, "_typed", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.seg_sum_f32_blocks.argtypes = []
-        lib.seg_sum_f32_blocks.restype = i
-        lib.seg_sum_launch.argtypes = [p, p, p, ll, i, i, p, p, p]
-        lib.seg_sum_launch.restype = i
-        lib.seg_minmax_launch.argtypes = [p, p, p, ll, i, i, p, p]
-        lib.seg_minmax_launch.restype = i
-        lib.seg_agg_runs.argtypes = [p]
-        lib.seg_agg_runs.restype = i
-        lib.f32_blocks = lib.seg_sum_f32_blocks()
-        lib._typed = True
+    if getattr(lib, "_typed", False):
+        return lib
+    with _LOCK:
+        if not getattr(lib, "_typed", False):
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.seg_sum_f32_blocks.argtypes = []
+            lib.seg_sum_f32_blocks.restype = i
+            lib.seg_sum_launch.argtypes = [p, p, p, ll, i, i, p, p, p]
+            lib.seg_sum_launch.restype = i
+            lib.seg_minmax_launch.argtypes = [p, p, p, ll, i, i, p, p]
+            lib.seg_minmax_launch.restype = i
+            lib.seg_agg_runs.argtypes = [p]
+            lib.seg_agg_runs.restype = i
+            lib.f32_blocks = lib.seg_sum_f32_blocks()
+            lib._typed = True
     return lib
 
 
@@ -258,13 +266,16 @@ def _fsum_lib():
     from spark_tpu_torch.ops._build import library
 
     lib = library("seg_fsum")
-    if not getattr(lib, "_typed", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.seg_fsum_launch.argtypes = [p, i, p, p, ll, i, p, p, p]
-        lib.seg_fsum_launch.restype = i
-        lib.seg_fsum_runs.argtypes = [p]
-        lib.seg_fsum_runs.restype = i
-        lib._typed = True
+    if getattr(lib, "_typed", False):
+        return lib
+    with _LOCK:
+        if not getattr(lib, "_typed", False):
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.seg_fsum_launch.argtypes = [p, i, p, p, ll, i, p, p, p]
+            lib.seg_fsum_launch.restype = i
+            lib.seg_fsum_runs.argtypes = [p]
+            lib.seg_fsum_runs.restype = i
+            lib._typed = True
     return lib
 
 
@@ -386,8 +397,9 @@ def _count(fn, mode: str) -> None:
     """One launch of ``fn``'s kernel in ``mode``, unless a graph capture
     only recorded it."""
     if not torch.cuda.is_current_stream_capturing():
-        fn.launches += 1
-        fn.mode_launches[mode] += 1
+        with _LOCK:
+            fn.launches += 1
+            fn.mode_launches[mode] += 1
 
 
 #: ``device_runs`` keys, in the order of each library's counter array

@@ -110,6 +110,27 @@ class PhysicalPlan:
         its output records the size here (first runs)."""
         return self.execute(child_pipes)
 
+    def has_blocking_exprs(self) -> bool:
+        """Whether a field of this node holds a host-only expression (an
+        arrow UDF): such a node runs blocking, whatever ``traceable``
+        says. Memoized per plan instance, as ``plan_key``."""
+        memo = self.__dict__.get("_blocking_memo")
+        if memo is not None:
+            return memo
+
+        def scan(v) -> bool:
+            if isinstance(v, E.Expression):
+                return E.contains_blocking(v)
+            if isinstance(v, tuple):
+                return any(scan(x) for x in v)
+            return False
+
+        fields = dataclasses.fields(self) \
+            if dataclasses.is_dataclass(self) else ()
+        memo = any(scan(getattr(self, f.name)) for f in fields)
+        self.__dict__["_blocking_memo"] = memo
+        return memo
+
     def stats_key(self) -> tuple:
         """Identity for adaptive runtime stats: plan structure + the ids
         of the leaf scans' column tensors (the engine never writes a leaf

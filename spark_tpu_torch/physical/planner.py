@@ -70,7 +70,9 @@ def plan_physical(plan: L.LogicalPlan,
     if isinstance(plan, L.Distinct):
         cols = tuple(E.Col(n) for n in plan.schema.names)
         return P.HashAggregateExec(cols, cols, go(plan.child))
-    if isinstance(plan, L.SubqueryAlias):
+    if isinstance(plan, (L.SubqueryAlias, L.Repartition)):
+        # a repartition changes nothing on one device; a mesh plans it
+        # as an exchange (parallel/executor.py)
         return go(plan.child)
     if isinstance(plan, L.Window):
         return WindowExec(plan.window_exprs, go(plan.child))
@@ -92,8 +94,8 @@ def plan_physical(plan: L.LogicalPlan,
 
 
 def _fully_traceable(plan: P.PhysicalPlan) -> bool:
-    return plan.traceable and all(_fully_traceable(c)
-                                  for c in plan.children())
+    return (plan.traceable and not plan.has_blocking_exprs()
+            and all(_fully_traceable(c) for c in plan.children()))
 
 
 def node_label(plan: P.PhysicalPlan) -> str:
@@ -260,7 +262,7 @@ def _execute(plan: P.PhysicalPlan, run: RunStats, conf) -> P.Pipe:
     pipes = [_maybe_compact(_execute(c, run, conf), c, conf)
              for c in plan.children()]
     run.blocking[node_label(plan)] += 1
-    if not plan.traceable:
+    if not plan.traceable or plan.has_blocking_exprs():
         run.untraceable[node_label(plan)] += 1
     return plan.execute_blocking(pipes)
 

@@ -47,19 +47,35 @@ def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def random_bits64(seed: int, n: int, device) -> torch.Tensor:
-    """``jax.random.bits(PRNGKey(seed), (n,), uint64)`` as int64 (the same
-    64 bits, read signed)."""
+def prng_key(seed: int):
+    """``jax.random.PRNGKey(seed)``: the seed's high and low 32-bit
+    words."""
     seed &= (1 << 64) - 1
+    return seed >> 32, seed & _MASK32
+
+
+def fold_in(key, data: int):
+    """``jax.random.fold_in(key, data)``: Threefry-2x32 of the counter
+    pair (0, data as uint32) under ``key``, as JAX's
+    ``threefry_2x32(key, threefry_seed(uint32(data)))``. Host ints in,
+    the new key's two words out (the mesh folds each rank in)."""
+    return threefry2x32(key[0], key[1], 0, data & _MASK32)
+
+
+def random_bits64(seed: int, n: int, device, key=None) -> torch.Tensor:
+    """``jax.random.bits(PRNGKey(seed), (n,), uint64)`` (or of ``key``, a
+    pair of 32-bit words, where given) as int64 (the same 64 bits, read
+    signed)."""
+    k0, k1 = prng_key(seed) if key is None else key
     i = torch.arange(n, dtype=torch.int64, device=device)
-    hi, lo = threefry2x32(seed >> 32, seed & _MASK32, i >> 32, i & _MASK32)
+    hi, lo = threefry2x32(k0, k1, i >> 32, i & _MASK32)
     return (hi << 32) | lo
 
 
-def uniform(seed: int, n: int, device) -> torch.Tensor:
-    """``jax.random.uniform(PRNGKey(seed), (n,), float64)``: n draws in
-    [0, 1)."""
-    bits = random_bits64(seed, n, device)
+def uniform(seed: int, n: int, device, key=None) -> torch.Tensor:
+    """``jax.random.uniform(PRNGKey(seed), (n,), float64)`` (or of
+    ``key``, where given): n draws in [0, 1)."""
+    bits = random_bits64(seed, n, device, key)
     # a logical shift right by 12: the arithmetic shift, masked
     mantissa = (bits >> 12) & _MANTISSA
     return (mantissa | _ONE_BITS).view(torch.float64) - 1.0

@@ -498,6 +498,25 @@ class Sample(LogicalPlan):
 
 
 @dataclass(eq=False, frozen=True)
+class Repartition(LogicalPlan):
+    """repartition(n[, keys]) / coalesce(n): an explicit exchange request
+    (reference: Repartition + RepartitionByExpression). One device runs
+    its child unchanged; a mesh plans it as a hash exchange on ``keys``,
+    or a round-robin one without keys (``parallel/executor.py``)."""
+
+    num_partitions: int
+    keys: Tuple[E.Expression, ...]
+    child: LogicalPlan
+
+    def children(self):
+        return (self.child,)
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+
+@dataclass(eq=False, frozen=True)
 class Sort(LogicalPlan):
     orders: Tuple[E.SortOrder, ...]
     child: LogicalPlan

@@ -451,7 +451,7 @@ def prune_columns(plan: L.LogicalPlan) -> L.LogicalPlan:
             return dataclasses.replace(
                 node, child=prune(node.child, child_req))
         if isinstance(node, (L.Sort, L.Limit, L.Distinct, L.SubqueryAlias,
-                             L.Sample)):
+                             L.Repartition, L.Sample)):
             child_req = set(required)
             for e in node.expressions():
                 child_req |= e.references()

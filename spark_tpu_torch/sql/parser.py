@@ -26,8 +26,8 @@ resolves to its ``#keys`` half (``E.MapHandle``), and a selected map
 keeps both halves. A subquery resolves names it cannot find in its own
 FROM clause against the enclosing query's (``OuterRef``); ``parse_sql``
 hands the plan to ``plan/subquery.py``, which rewrites every subquery
-into joins. CREATE/DROP VIEW, which the reference parses, raises
-``NotImplementedError``; anything else unknown is a parse error. The reference parses with an
+into joins. ``CREATE [OR REPLACE] [TEMP] VIEW ... AS`` and ``DROP
+VIEW`` change the catalog; anything else unknown is a parse error. The reference parses with an
 ANTLR grammar (reference:
 sql/catalyst/src/main/antlr4/.../SqlBaseParser.g4:1 +
 parser/AstBuilder.scala); name resolution happens during parsing
@@ -110,10 +110,6 @@ _RESERVED_STOP = {
     "THEN", "WHEN", "ELSE", "END", "USING", "SEMI", "ANTI", "NULLS",
     "LATERAL",
 }
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {what} (ROADMAP queue A)")
 
 
 
@@ -1434,11 +1430,31 @@ def _null_safe_setop_keys(plan: L.LogicalPlan) -> tuple:
 
 
 def parse_sql(query: str, catalog) -> L.LogicalPlan:
-    """Parse one SELECT statement against ``catalog``'s temp views, with
-    every subquery rewritten into joins (``plan/subquery.py``)."""
+    """Parse one statement against ``catalog``'s temp views: a SELECT
+    query, with every subquery rewritten into joins
+    (``plan/subquery.py``), or ``CREATE [OR REPLACE] [TEMP|TEMPORARY]
+    VIEW name AS <query>`` / ``DROP VIEW [IF EXISTS] name``, which change
+    the catalog at once and return an empty plan, as the reference's."""
     p = _StmtParser(tokenize(query), catalog)
-    if p.at_keyword("CREATE", "DROP"):
-        raise _not_ported("CREATE/DROP VIEW statements")
+    if p.at_keyword("CREATE"):
+        p.next()
+        p.accept("OR")
+        p.accept("REPLACE")
+        p.accept("TEMP")
+        p.accept("TEMPORARY")
+        p.expect("VIEW")
+        name = p.next().value
+        p.expect("AS")
+        catalog._register_view(name, p.parse_query())
+        return L.Range(0, 0, 1, "__ok")  # DDL: empty result
+    if p.at_keyword("DROP"):
+        p.next()
+        p.expect("VIEW")
+        if p.accept("IF"):
+            p.expect("EXISTS")
+        name = p.next().value
+        catalog.dropTempView(name)
+        return L.Range(0, 0, 1, "__ok")
     plan = p.parse_query()
     t = p.peek()
     if not (t.kind == "eof" or (t.kind == "op" and t.value == ";")):

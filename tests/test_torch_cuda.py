@@ -32,7 +32,10 @@ their launches; the sampler's stream bit-identical on the card and the
 CPU; captured stages (``physical/graphs.py``): q1-wide, q3 and A1-168
 replayed bit for bit with the eager runs' launches, a replayed output
 that survives the next replay, a dead leaf's graph dropped, and a sync
-inside a capture raising.
+inside a capture raising; on a mesh of 1 and 4 ranks sharing the card,
+q1-wide and a float sum with every logged kernel call equal to its plain
+version, rows equal to the CPU run (float sums within 1e-12 of each
+group's sum of |x|) and bit-identical across two mesh runs.
 """
 
 import struct
@@ -827,3 +830,79 @@ def test_a_stage_that_syncs_in_its_capture_raises(cuda_device):
     finally:
         P.SortExec.execute = real_sort
     torch.cuda.synchronize()
+
+
+# ---- the mesh: ranks sharing the card ----------------------------------------------
+
+
+def _mesh_sessions(ranks: int):
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.tpch import generate_tables, register_views
+
+    tables = generate_tables(0.02, seed=99)
+    mesh = SparkSession(device="cuda", conf={"spark_tpu.mesh.devices": ranks},
+                        mesh_devices=["cuda:0"] * ranks)
+    cpu = SparkSession(device="cpu")
+    register_views(mesh, tables)
+    register_views(cpu, tables)
+    return mesh, cpu
+
+
+def _hold_logged(calls):
+    """Each logged wrapper call against its plain version on the same
+    tensors: integers equal, min/max equal with NaN in the same groups,
+    seg_fsum bit for bit."""
+    assert calls
+    for name, args, got in calls:
+        want = getattr(seg_agg, f"{name}_plain")(**args)
+        if name == "seg_fsum":
+            assert torch.equal(_bits(got), _bits(want)), name
+        elif not got.is_floating_point():
+            assert torch.equal(got, want), name
+        else:
+            nan = torch.isnan(got)
+            assert torch.equal(nan, torch.isnan(want))
+            assert torch.equal(got[~nan], want[~nan]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [1, 4])
+def test_mesh_on_card_kernels_match_plain_and_cpu(cuda_device, ranks):
+    """q1-wide (K = 168 direct groups: PSumAgg's counts take seg_sum, its
+    min/max seg_minmax) and a float sum on the sorted path (seg_fsum in
+    the partial and the final aggregate) on a mesh of ranks sharing
+    cuda:0: every logged kernel call equal to its plain version, rows
+    equal to the CPU's single-device run (the float sums within 1e-12 of
+    each group's sum of |x|: the card rounds each rank's partial once,
+    the CPU adds in row order), and bit-identical across two mesh
+    runs."""
+    from spark_tpu_torch.tpch import Q1_WIDE
+
+    mesh, cpu = _mesh_sessions(ranks)
+    fsum = ("select l_suppkey, sum(l_extendedprice * 1.0 * "
+            "(l_discount - 0.05)) as s, sum(abs(l_extendedprice * 1.0 * "
+            "(l_discount - 0.05))) as m from lineitem group by l_suppkey "
+            "order by l_suppkey")
+    for q in (Q1_WIDE, fsum):
+        seg_agg.reset_launches()
+        seg_agg.call_log = []
+        try:
+            got = [tuple(r) for r in mesh.sql(q).collect()]
+            calls = seg_agg.call_log
+        finally:
+            seg_agg.call_log = None
+        _hold_logged(calls)
+        again = [tuple(r) for r in mesh.sql(q).collect()]
+        assert [tuple(struct.pack("<d", v) if isinstance(v, float) else v
+                      for v in r) for r in got] == \
+            [tuple(struct.pack("<d", v) if isinstance(v, float) else v
+                   for v in r) for r in again]
+        want = [tuple(r) for r in cpu.sql(q).collect()]
+        assert got and len(got) == len(want)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(a, float):  # f sums: within 1e-12 of sum |x|
+                    bound = abs(w[-1]) if q is fsum else abs(b)
+                    assert abs(a - b) <= 1e-12 * max(1.0, bound), (g, w)
+                else:
+                    assert a == b, (g, w)

@@ -8,8 +8,8 @@ seed 99, as tests/test_tpch.py). The subquery slice's TPC-H queries run
 in tests/test_torch_subquery.py and the window slice's and the other
 TPC-H queries in tests/test_torch_tpch.py, files of their own so that
 the test workers split the reference engine's compile time. SQL that
-the reference parses and the port has not ported (view DDL) raises
-``NotImplementedError`` naming what it refuses; the array, map,
+the port refuses raises ``NotImplementedError`` naming what it refuses;
+the array, map,
 higher-order, collect and generator constructs it refused before the
 nested-type slice equal the reference's rows.
 
@@ -304,12 +304,12 @@ def test_sql_shapes_match_reference(engines, query):
     "select c_custkey from customer where c_custkey not in "
     "(select case when o_totalprice > 1000 then o_custkey end from orders "
     "where o_orderkey = c_custkey)",
-    "create view v as select * from nation",
 ])
 def test_unported_sql_raises(engines, query):
     """A correlated NOT IN over a nullable subquery column (which the
-    reference refuses too) and view DDL are refused instead of being run
-    wrongly."""
+    reference refuses too) is refused instead of being run wrongly. View
+    DDL, refused here before, is held against the reference in
+    tests/test_torch_views.py."""
     _, port, _ = engines
     with pytest.raises(NotImplementedError, match="not ported"):
         port.sql(query).collect()
