@@ -138,6 +138,28 @@ no result line):
      must replan through the ladder on ``torch.cuda.OutOfMemoryError``
      to the uncapped rows; and ``cache()`` of a lineitem aggregate: one
      materialization, a store hit, ``unpersist`` releasing the bytes.
+   - Mesh phase (``parallel/``, ranks sharing the card): the 22 TPC-H
+     queries on ``mesh[4]`` twice (bit-identical) and q1, q3, q5, q18 on
+     ``mesh[1]``, with q1-wide and MESH_F168, against the single-device
+     run and sqlite; launches, stages and exchanges printed.
+   - Frontend phase: describe, corr, approxQuantile and na.fill against
+     the CPU run, a tensor UDF in a K = 168 aggregate (``run_phase``), a
+     view, saveAsTable read back by a fresh session.
+   - aqe phase (adaptive execution over the mesh): a check that the mesh
+     phase's sessions run with adaptive execution off; the 22 TPC-H
+     queries on ``mesh[4]`` off, adaptive and fused, each run twice,
+     every mode bit for bit the off run's and the sqlite oracle's, each
+     run's walls, rank stages, host reads, decisions and exchanges
+     (rows, capacity in and out, bytes) printed; one cell per
+     aggregation strategy (``AQE_CELLS``: hash, bypass, sort with its
+     ORDER BY elided, presplit, partial) whose pick ``auto`` must make,
+     each bit for bit its off run; a join whose runtime broadcast switch
+     flips (``AQE_BROADCAST``: measured bytes under the threshold, the
+     static estimate over it); every wrapper call held, the card's runs
+     equal the wrappers' launches, a fused run with fewer rank stages
+     than its staged run, the graph pool and the stage cache unchanged;
+     the stats stages' B1 count at K = 1024 and B2 max at K = 512 timed
+     against their bounds, plain versions and library calls.
    Outside the ooc phase every query must run with no ladder replan.
    Warm runs (``warm_runs``): after its first run, which is blocking and
    records the plan's runtime statistics, each query runs once with its
@@ -2308,6 +2330,341 @@ def frontend_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     return total
 
 
+#: the aqe phase's modes on mesh[4]: adaptive execution off (the mesh
+#: phase's path), on, and on with whole-query fusion
+AQE_MODES = ("off", "adaptive", "fused")
+#: the runtime broadcast switch's threshold: the reference's default,
+#: 8 MiB of measured build-side bytes (a rehearsal at a smaller scale
+#: lowers it with the static threshold beside it)
+AQE_BROADCAST_BYTES = 8 * 1024 * 1024
+#: one cell per aggregation strategy, over SF1 lineitem or part: name ->
+#: (SQL, the strategy ``auto`` must pick, the cell's settings). hash:
+#: lineitem's four dictionary keys, one of them through substr (a
+#: computed key, so the static direct path does not take the group-by),
+#: K = 3 * 2 * 7 * 4 = 168 measured packed codes; bypass: part by its
+#: all-distinct p_partkey (domain 200,001 < sortDomainWidth); sort:
+#: lineitem by (l_orderkey, l_linenumber), all distinct over a domain past
+#: 2^20, ordered by the same keys (the sort is elided); presplit: a key
+#: that 64% of lineitem's rows share (l_linenumber <= 3) over a
+#: near-distinct tail: the hot key must pass presplitFactor times the
+#: fair share rows / 4, so more than half the rows share it, and then
+#: the NDV ratio is below the default bypassNdvRatio of 0.5: both are set
+#: for the cell (factor 2, ratio 0.25); partial: a float sum, pinned.
+AQE_CELLS = {
+    "hash": ("""select l_returnflag, l_linestatus,
+       substr(l_shipmode, 1, 10) as shipmode, l_shipinstruct,
+       count(*) as n, sum(l_quantity) as q, min(l_linenumber) as lo,
+       max(l_linenumber) as hi
+from lineitem
+group by l_returnflag, l_linestatus, substr(l_shipmode, 1, 10),
+         l_shipinstruct
+order by l_returnflag, l_linestatus, shipmode, l_shipinstruct""",
+             "hash", {}),
+    "bypass": ("""select p_partkey, count(*) as n, sum(p_size) as s,
+       min(p_size) as lo, max(p_size) as hi
+from part group by p_partkey order by p_partkey""", "bypass", {}),
+    "sort": ("""select l_orderkey, l_linenumber, count(*) as n,
+       sum(l_quantity) as q
+from lineitem group by l_orderkey, l_linenumber
+order by l_orderkey, l_linenumber""", "sort", {}),
+    "presplit": ("""select hk, count(*) as n, sum(l_quantity) as q
+from (select case when l_linenumber <= 3 then 0
+                  else l_orderkey * 8 + l_linenumber end as hk,
+             l_quantity
+      from lineitem) t
+group by hk order by hk""", "presplit",
+                 {"spark.tpu.adaptive.agg.presplitFactor": 2,
+                  "spark.tpu.adaptive.agg.bypassNdvRatio": 0.25}),
+    "partial": ("""select l_suppkey, sum(l_extendedprice * 1.0) as s,
+       count(*) as n
+from lineitem group by l_suppkey order by l_suppkey""", "partial", {}),
+}
+#: a join whose build side (orders before 1994: about 30% of its rows,
+#: too many for the between-stage compaction) the static estimate
+#: (capacity x row width) puts past the threshold and the measured bytes
+#: under it
+AQE_BROADCAST = """select l_returnflag, count(*) as n, sum(l_quantity) as q
+from lineitem join orders on l_orderkey = o_orderkey
+where o_orderdate < date '1994-01-01'
+group by l_returnflag order by l_returnflag"""
+
+
+def aqe_sessions(gpu, dev: str, over=None) -> dict:
+    """A mesh[4] session per mode over ``gpu``'s tables."""
+    from spark_tpu_torch import conf as CF
+    from spark_tpu_torch.parallel.executor import BROADCAST_THRESHOLD
+
+    out = {}
+    for mode in AQE_MODES:
+        spark = mesh_session(gpu, 4, dev)
+        spark.conf.set(CF.ADAPTIVE_ENABLED.key, mode != "off")
+        spark.conf.set(CF.FUSION_ENABLED.key, mode == "fused")
+        spark.conf.set(CF.ADAPTIVE_BROADCAST_THRESHOLD.key,
+                       AQE_BROADCAST_BYTES)
+        spark.conf.set(BROADCAST_THRESHOLD.key, AQE_BROADCAST_BYTES)
+        for key, val in (over or {}).items():
+            spark.conf.set(key, val)
+        out[mode] = spark
+    return out
+
+
+def live_bits(batch) -> list:
+    """A result batch's live rows, column by column (data, validity),
+    floats as their bits: equal lists mean equal rows in equal order."""
+    m = batch.data.row_mask
+    out = []
+    for cd in batch.data.columns:
+        out.append(_bits(cd.data[m]))
+        out.append(None if cd.validity is None else cd.validity[m])
+    return out
+
+
+def same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x, y))
+        for x, y in zip(a, b))
+
+
+def _decision(e: dict) -> str:
+    kind = e["kind"]
+    if kind == "aqe":
+        rest = {k: v for k, v in e.items() if k not in ("kind", "decision")}
+        return f"aqe {e['decision']} {rest}"
+    if kind == "agg":
+        return (f"agg {e['strategy']} ({e['mode']}; ndv {e['ndv']} of "
+                f"{e['rows']} rows, ratio {e['ratio']}, domain "
+                f"{e['domain']}, hot keys {e['hot_keys']})")
+    if kind == "fusion_bailout":
+        return f"fusion_bailout {e['reason']}"
+    if kind == "fusion":
+        return f"fusion {e['spans']} spans, capacity {e['capacity']}"
+    if kind == "exchange":
+        return (f"exchange {e['op']} adaptive: {e['rows']} rows, capacity "
+                f"{e['capacity_before']} -> {e['capacity_after']}, slice "
+                f"{e['slice_capacity']}, buffer {e['buffer_bytes']} bytes")
+    return f"{kind} {e}"
+
+
+def log_aqe_run(name: str, mode: str, walls, record: dict) -> None:
+    ex = [(e["op"], e["rows"], e["capacity_in"], e["capacity_out"],
+           e["moved_bytes"]) for e in record["exchanges"]]
+    runs = " / ".join(f"{w:.1f}" for w in walls)
+    log(f"aqe: {name} {mode}: {runs} ms (first"
+        f"{' / second run' if len(walls) > 1 else ' run'}), "
+        f"{record['rank_stages']} rank stages, "
+        f"{record['host_reads']} host reads; decisions "
+        f"{[_decision(e) for e in record['events']]}; exchanges (op, live "
+        f"rows, capacity in, capacity out, moved bytes) {ex}")
+
+
+def aqe_kernel_times(seg_agg, calls, dev: str) -> dict:
+    """The stats stages' hand-kernel shapes, timed: B1's count at K =
+    cmWidth = 1024 (a Count-Min row) and B2's max at K = sketchRegisters
+    = 512 (the HLL registers), each on the tensors of its widest recorded
+    call (CUDA events, and the profiler's device ms on the card), beside
+    its plain version, one library call and its bound."""
+    out = {}
+    for mode, name, k, pick in (
+            ("count", "seg_sum", 1024,
+             lambda a: a["data"] is None and a["exact_int"]),
+            ("max", "seg_minmax", 512, lambda a: a["is_max"])):
+        found = [a for n, a, _ in calls if n == name
+                 and a["num_segments"] == k and pick(a)]
+        check(found, f"aqe: no {name} {mode} call at K = {k}")
+        a = max(found, key=lambda c: int(c["seg"].shape[0]))  # the widest
+        seg, mask = a["seg"], a["mask"]
+        n = int(seg.shape[0])
+        if mode == "count":
+            def kern():
+                return seg_agg.seg_sum(None, seg, mask, k, exact_int=True)
+
+            def plain():
+                return seg_agg.seg_sum_plain(None, seg, mask, k, True)
+            mask_f = mask.to(torch.float32)
+
+            def lib():
+                return torch.bincount(seg, weights=mask_f, minlength=k)
+        else:
+            data = a["data"]
+
+            def kern():
+                return seg_agg.seg_minmax(data, seg, mask, k, True)
+
+            def plain():
+                return seg_agg.seg_minmax_plain(data, seg, mask, k, True)
+            fill = torch.full((k,), float("-inf"), device=seg.device)
+            masked = torch.where(mask, data, fill.new_tensor(float("-inf")))
+            seg_l = seg.long()
+
+            def lib():
+                return fill.scatter_reduce(0, seg_l, masked, "amax",
+                                           include_self=True)
+        got, want = kern(), plain()
+        check(torch.equal(got, want), f"aqe: {mode} K={k} differs")
+        timer = cuda_ms if dev == "cuda" else host_ms
+        bnd, by = bound_ms(n * ROW_BYTES[mode] + k * got.element_size(),
+                           n * 3)
+        stats = dict(n=n, k=k, ms=timer(kern), plain_ms=timer(plain),
+                     library_ms=timer(lib), bound_ms=bnd, bound_by=by)
+        if dev == "cuda":
+            # events over back-to-back calls read the launch at this
+            # size; the profiler's kernel events give the device's own
+            dev_ms, per_call, _ = profile_calls(kern)
+            check(per_call == 1, f"aqe: {mode} K={k}: {per_call} kernels "
+                  "per call, want 1")
+            stats.update(device_ms=dev_ms, share=bnd / dev_ms)
+        log(f"aqe kernel {mode} N={n} K={k} (the stats stage's shape): "
+            + " ".join(f"{key}={val:.4f}" if isinstance(val, float)
+                       else f"{key}={val}" for key, val in stats.items()))
+        out[mode] = stats
+    return out
+
+
+def aqe_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
+    """Adaptive execution over the mesh at SF1 on mesh[4] (four ranks
+    sharing the card), after a check that the mesh phase's sessions run
+    with adaptive execution off (the default): all 22 TPC-H queries off,
+    adaptive and fused, each mode's rows bit for bit the off run's and
+    the sqlite oracle's; one cell per aggregation strategy, whose pick
+    ``auto`` must make (read from ``last_run``), each equal to its off
+    run; a join whose runtime broadcast switch flips. Every kernel-wrapper
+    call is held against its plain version, the card's kernel runs equal
+    the wrappers' launches in every run, the stats stages run B1's count
+    at K = 1024 and B2's max at K = 512 (timed against their bounds), a
+    fused plan runs fewer rank stages than its staged one, and the graph
+    pool and the stage cache stay unchanged. Returns the path's launches
+    (adaptive and fused runs; the off runs are the mesh path's)."""
+    from spark_tpu_torch import conf as CF
+    from spark_tpu_torch.physical import graphs
+    from spark_tpu_torch.tpch import QUERIES
+    from spark_tpu_torch.tpch.oracle import assert_rows_match
+
+    probe = mesh_session(gpu, 4, dev)
+    check(not probe.conf.get(CF.ADAPTIVE_ENABLED)
+          and not probe.conf.get(CF.FUSION_ENABLED),
+          "the mesh phase's sessions run with adaptive execution on")
+    sessions = aqe_sessions(gpu, dev)
+    pools = graphs.pool_bytes() if dev == "cuda" else None
+    cached = graphs.cached_stages()
+    seg_agg.reset_launches()
+    aqe_total = {m: 0 for m in mode_launches(seg_agg)}
+    stages = {}
+    with recording_calls(seg_agg) as calls:
+        def run(spark, name, mode, q):
+            rows, wall, launched, record = mesh_run(seg_agg, spark, name, q,
+                                                    dev)
+            if mode != "off":
+                for m, k in launched.items():
+                    aqe_total[m] += k
+            return rows, wall, record
+
+        for qn in sorted(QUERIES):
+            name, q = f"q{qn}", QUERIES[qn]
+            first = {}
+            for mode in AQE_MODES:
+                rows, wall, record = run(sessions[mode], name, mode, q)
+                again, wall2, _ = run(sessions[mode], name, mode, q)
+                check(row_bits(again) == row_bits(rows),
+                      f"{name} {mode}: two runs differ")
+                first[mode] = rows
+                stages[(name, mode)] = record["rank_stages"]
+                log_aqe_run(name, mode, (wall, wall2), record)
+            for mode in ("adaptive", "fused"):
+                check(row_bits(first[mode]) == row_bits(first["off"]),
+                      f"{name}: the {mode} rows differ from the off run's")
+            assert_rows_match(first["adaptive"], oracle_rows(oracle, q),
+                              label=f"{name}[aqe]")
+            log(f"aqe: {name} {len(first['off'])} rows: adaptive and fused "
+                "bit for bit the off run's, and the sqlite oracle's")
+
+        for cell, (sql, want, over) in AQE_CELLS.items():
+            cell_sessions = aqe_sessions(gpu, dev, over)
+            out = {}
+            for mode in ("off", "adaptive"):
+                spark = cell_sessions[mode]
+                before = mode_launches(seg_agg)
+                runs = device_runs(seg_agg, dev)
+                t0 = time.perf_counter()
+                batch = spark.sql(sql)._execute()
+                wall = (time.perf_counter() - t0) * 1e3
+                after = mode_launches(seg_agg)
+                launched = {m: after[m] - before[m] for m in after
+                            if after[m] != before[m]}
+                check(dev != "cuda" or ran_since(seg_agg, runs) == launched,
+                      f"{cell} {mode}: the device ran "
+                      f"{ran_since(seg_agg, runs)}, the wrappers launched "
+                      f"{launched}")
+                if mode == "adaptive":
+                    for m, k in launched.items():
+                        aqe_total[m] += k
+                record = spark.mesh_executor.last_run
+                out[mode] = (live_bits(batch), record)
+                log_aqe_run(f"cell {cell}", mode, (wall,), record)
+            check(same_bits(out["adaptive"][0], out["off"][0]),
+                  f"cell {cell}: the adaptive rows differ from the off run's")
+            events = out["adaptive"][1]["events"]
+            picks = [e["strategy"] for e in events if e["kind"] == "agg"]
+            check(picks and picks[0] == want,
+                  f"cell {cell}: auto picked {picks}, want {want}")
+            if cell == "sort":
+                check(any(e["kind"] == "aqe" and e["decision"] == "sort_elide"
+                          for e in events), "cell sort: the sort not elided")
+            rows = int(out["off"][0][0].shape[0])
+            log(f"aqe: cell {cell}: auto picked {want}; {rows} rows bit for "
+                "bit the off run's")
+
+        spark = sessions["adaptive"]
+        rows, wall, launched, record = mesh_run(seg_agg, spark,
+                                                "broadcast", AQE_BROADCAST,
+                                                dev)
+        for m, k in launched.items():
+            aqe_total[m] += k
+        off_rows = [tuple(r) for r in sessions["off"].sql(AQE_BROADCAST)
+                    .collect()]
+        check(row_bits(rows) == row_bits(off_rows),
+              "broadcast: the adaptive rows differ from the off run's")
+        switch = [e for e in record["events"] if e["kind"] == "aqe"
+                  and e["decision"] in ("broadcast_join", "exchange_join")]
+        check(switch and switch[0]["decision"] == "broadcast_join"
+              and switch[0]["measured_bytes"] <= AQE_BROADCAST_BYTES
+              < switch[0]["static_bytes"],
+              f"broadcast: the switch did not flip: {switch}")
+        assert_rows_match(rows, oracle_rows(oracle, AQE_BROADCAST),
+                          label="broadcast[aqe]")
+        log(f"aqe: broadcast switch flipped: measured "
+            f"{switch[0]['measured_bytes']} bytes, static estimate "
+            f"{switch[0]['static_bytes']} bytes, threshold "
+            f"{AQE_BROADCAST_BYTES}; {len(rows)} rows equal the off run's "
+            f"(a partitioned join) and the sqlite oracle's, {wall:.1f} ms")
+    hold_calls(seg_agg, calls, "aqe")
+    total = mode_launches(seg_agg)
+    if dev == "cuda":
+        check(len(calls) == sum(total.values()),
+              f"{len(calls)} wrapper calls, {total} launches")
+        check(graphs.pool_bytes() == pools
+              and graphs.cached_stages() == cached,
+              "an aqe run changed the graph pool or the stage cache")
+    times = aqe_kernel_times(seg_agg, calls, dev)
+    fewer = [n for (n, m), s in stages.items()
+             if m == "fused" and s < stages[(n, "adaptive")]]
+    check(fewer, "no fused run took fewer rank stages than its staged run")
+    check(all(stages[(n, "fused")] <= stages[(n, "adaptive")]
+              for n, _ in stages), "a fused run took more rank stages")
+    log("aqe: rank stages off / adaptive / fused: " + ", ".join(
+        f"{n} {stages[(n, 'off')]}/{stages[(n, 'adaptive')]}/"
+        f"{stages[(n, 'fused')]}" for n in dict.fromkeys(
+            n for n, _ in stages)) + f"; fewer when fused: {fewer}")
+    log(f"aqe: launches of the adaptive and fused runs {aqe_total}; all "
+        f"runs {total}; {len(calls)} wrapper calls held")
+    _AQE_KERNELS.update(times)
+    return aqe_total
+
+
+#: the aqe phase's timings of the stats stages' kernel shapes
+_AQE_KERNELS: dict = {}
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--oom-child":
         return oom_child(sys.argv[2])
@@ -2382,7 +2739,8 @@ def main() -> int:
                 ("io", functools.partial(io_phase, root=root)),
                 ("complex", complex_phase),
                 ("ooc", functools.partial(ooc_phase, root=root)),
-                ("mesh", mesh_phase), ("frontend", frontend_phase)):
+                ("mesh", mesh_phase), ("frontend", frontend_phase),
+                ("aqe", aqe_phase)):
             t0 = time.perf_counter()
             by_path[path] = phase(seg_agg, gpu, cpu, oracle)
             log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
@@ -2402,7 +2760,8 @@ def main() -> int:
           "the complex path launched no seg_sum count or seg_minmax min")
     check(not any(p["fsum_f64"] + p["fsum_f32"] for path, p in
                   by_path.items()
-                  if path not in ("scalar", "io", "ooc", "mesh", "frontend")),
+                  if path not in ("scalar", "io", "ooc", "mesh", "frontend",
+                                  "aqe")),
           "an earlier path summed floats on a grouped path")
     check(by_path["frontend"]["fsum_f64"] >= 1
           and by_path["frontend"]["count"] >= 1,
@@ -2410,6 +2769,10 @@ def main() -> int:
     check(by_path["ooc"]["count"] >= 1 and by_path["ooc"]["min"] >= 1
           and by_path["ooc"]["fsum_f64"] >= 1,
           "the ooc path launched no seg_sum, seg_minmax or seg_fsum kernel")
+    check(by_path["aqe"]["count"] >= 1 and by_path["aqe"]["max"] >= 1
+          and by_path["aqe"]["sum_i64"] >= 1,
+          "the aqe path launched no seg_sum count or int64 sum or seg_minmax "
+          "max kernel")
 
     kernels = []
     for name, modes, headline, replaces, source, stats in (
@@ -2426,13 +2789,18 @@ def main() -> int:
         # the top-level numbers are the mode the main path launches most
         top = {key: val for key, val in stats[headline].items()
                if not key.startswith("skew")}
+        # the aqe path's stats-stage shapes: B1 count at K = 1024 (the
+        # Count-Min rows), B2 max at K = 512 (the HLL registers)
+        stats_shape = {m: _AQE_KERNELS[m] for m in modes
+                       if m in _AQE_KERNELS}
         kernels.append(dict(
             name=name, route="cuda",
             source=f"spark_tpu_torch/ops/csrc/{source}", replaces=replaces,
             launches=sum(p[m] for p in by_path.values() for m in modes),
             launches_by_path={path: sum(p[m] for m in modes)
                               for path, p in by_path.items()},
-            mode=headline, **top, modes=per_mode))
+            mode=headline, **top, modes=per_mode,
+            aqe_stats_stage=stats_shape))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

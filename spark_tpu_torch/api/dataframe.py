@@ -318,18 +318,18 @@ class DataFrame:
         mesh = sess.mesh_executor
 
         def run(lp):
+            if mesh is not None:
+                return mesh.execute_logical(lp, optimize=False)
             return execute_logical(lp, optimize=False, device=dev, conf=conf)
 
         def run_full(plan):
             """The engine with the chunking decision and the OOM ladder;
             cached plans materialize through it too, so a cached big
-            aggregate chunks. A mesh session runs the mesh executor (the
-            out-of-memory tier's mesh cases are not ported yet)."""
-            if mesh is not None:
-                return mesh.execute_logical(optimize(plan, conf),
-                                            optimize=False)
+            aggregate chunks. A mesh session's engine is its mesh
+            executor, and its ladder starts with the adaptive retry."""
             return run_plan_with_oom_degradation(
-                optimize(plan, conf), conf, run, dev, sess.memory_manager)
+                optimize(plan, conf), conf, run, dev, sess.memory_manager,
+                mesh)
 
         token = _EXECUTING.set(sess)
         try:

@@ -92,8 +92,142 @@ ADAPTIVE_CAPACITY_BUCKET = register(
     "Compaction capacities between stages and of a result before its "
     "copy to the host are the recorded live count rounded UP to a "
     "multiple of this, so re-executions land on a small set of "
-    "capacities (reference analogue: "
-    "spark.sql.adaptive.coalescePartitions.*).", int)
+    "capacities; on a mesh with adaptive execution on, a post-exchange "
+    "capacity is the measured largest incoming live count rounded up "
+    "to it (reference analogue: spark.sql.adaptive.coalescePartitions.*)."
+    , int)
+
+# ---- adaptive query execution over the mesh (parallel/executor.py) --------
+# Names, defaults and meanings are the reference's (spark_tpu/conf.py).
+
+ADAPTIVE_ENABLED = register(
+    "spark.tpu.adaptive.enabled", False,
+    "Adaptive query execution over the mesh (reference: "
+    "spark.sql.adaptive.enabled / AdaptiveSparkPlanExec.scala:98): cut "
+    "the plan at exchange boundaries, measure per-rank live counts with "
+    "one psum/pmax stats stage, run the exchange at a compacted "
+    "bucket-rounded capacity, switch measured-small join builds to "
+    "broadcast, fan skewed destinations over the partial->final "
+    "aggregate merge, and choose the aggregation strategy at runtime. "
+    "Results are byte-identical on or off; the OOM-degradation ladder "
+    "also retries a failed mesh run with this forced on before it "
+    "chunks.", bool)
+
+ADAPTIVE_BROADCAST_THRESHOLD = register(
+    "spark.tpu.adaptive.autoBroadcastJoinThreshold", 8 * 1024 * 1024,
+    "Max MEASURED build-side bytes (live rows x row width, counted on "
+    "the device, not the static capacity estimate) for runtime "
+    "broadcast-join switching when adaptive execution is on (reference: "
+    "DynamicJoinSelection.scala:40 over MapOutputStatistics).", int)
+
+ADAPTIVE_SKEW_FACTOR = register(
+    "spark.tpu.adaptive.skewedPartitionFactor", 4,
+    "A hash-exchange destination whose measured incoming live count "
+    "exceeds this many times the median destination's is skewed: its "
+    "rows stay on their source rank (a local-shuffle-reader fan), are "
+    "pre-merged by the aggregate, and only the merged groups exchange "
+    "again (reference: OptimizeSkewedJoin.scala "
+    "SKEW_JOIN_SKEWED_PARTITION_FACTOR). Taken only when every "
+    "aggregate merge re-applies exactly (integer sum, non-float "
+    "min/max), so results stay byte-identical.", int)
+
+ADAPTIVE_SKEW_MIN_ROWS = register(
+    "spark.tpu.adaptive.skewMinRows", 4096,
+    "Absolute floor for the skew fan: the hottest destination must "
+    "expect at least this many incoming rows (the factor alone misfires "
+    "on tiny exchanges).", int)
+
+ADAPTIVE_AGG_ENABLED = register(
+    "spark.tpu.adaptive.agg.enabled", True,
+    "Runtime-adaptive aggregation (only with spark.tpu.adaptive.enabled "
+    "on): the exchange stats stage also sketches the group keys "
+    "(HyperLogLog register maxima, per-key min/max, a Count-Min heavy "
+    "hitter probe) and the executor picks partial->final, bypass, "
+    "hash-partial, the sort rung or hot-key pre-split. Results are "
+    "byte-identical across strategies; aggregates whose partials are "
+    "order-dependent (float Sum/Avg/Min/Max) pin to partial->final.",
+    bool)
+
+ADAPTIVE_AGG_STRATEGY = register(
+    "spark.tpu.adaptive.agg.strategy", "auto",
+    "Aggregation strategy override: 'auto' decides from the runtime "
+    "sketch; 'partial', 'bypass', 'hash', 'sort' or 'presplit' force one "
+    "(an illegal or unexecutable forced choice falls back to 'partial', "
+    "so results stay byte-identical). A test and debugging knob.", str)
+
+ADAPTIVE_AGG_BYPASS_NDV_RATIO = register(
+    "spark.tpu.adaptive.agg.bypassNdvRatio", 0.5,
+    "Partial-bypass threshold: when the sketched distinct-key estimate "
+    "is at least this fraction of the live rows, pre-aggregation cannot "
+    "shrink the exchange, so raw rows exchange straight to the final "
+    "aggregate.", float)
+
+ADAPTIVE_AGG_HASH_DOMAIN_LIMIT = register(
+    "spark.tpu.adaptive.agg.hashDomainLimit", 1024,
+    "Max packed key-code domain (product of the measured per-key value "
+    "ranges, NULL slots included) for the hash-partial strategy: its "
+    "dense segment reductions run the hand kernels up to 1024 groups "
+    "(physical/kernels.MAX_KERNEL_K). Beyond it the sort partial wins.",
+    int)
+
+ADAPTIVE_AGG_SKETCH_REGISTERS = register(
+    "spark.tpu.adaptive.agg.sketchRegisters", 512,
+    "HyperLogLog register count of the group-key distinct sketch in the "
+    "exchange stats stage (a power of two; 512 gives about 5% relative "
+    "error, enough to tell NDV ~ rows from NDV << rows).", int)
+
+ADAPTIVE_AGG_SORT_DOMAIN_WIDTH = register(
+    "spark.tpu.adaptive.agg.sortDomainWidth", 1 << 20,
+    "Sort/hash crossover: a high-NDV grouping whose measured packed key "
+    "domain exceeds this width takes the sort rung (raw rows range-"
+    "partitioned on the group keys, one sorted merge per rank, output "
+    "key-ordered across the mesh, so a matching global sort is elided); "
+    "below it the hash-exchange bypass.", int)
+
+ADAPTIVE_AGG_PRESPLIT_FACTOR = register(
+    "spark.tpu.adaptive.agg.presplitFactor", 4,
+    "Hot-key pre-split threshold: a group key whose Count-Min estimated "
+    "row count exceeds this multiple of the fair per-rank share "
+    "(rows / D) is salted across all ranks before the exchange (contrast "
+    "spark.tpu.adaptive.skewedPartitionFactor, which reacts to hot "
+    "destinations after routing).", int)
+
+ADAPTIVE_AGG_PRESPLIT_MIN_ROWS = register(
+    "spark.tpu.adaptive.agg.presplitMinRows", 4096,
+    "Absolute floor for the hot-key pre-split: the hottest key's "
+    "Count-Min estimate must reach this many rows.", int)
+
+ADAPTIVE_AGG_CM_DEPTH = register(
+    "spark.tpu.adaptive.agg.cmDepth", 4,
+    "Count-Min sketch depth (independent hash rows, at most 8) of the "
+    "heavy-hitter estimate in the exchange stats stage; the estimate is "
+    "the min over rows, so it never under-counts.", int)
+
+ADAPTIVE_AGG_CM_WIDTH = register(
+    "spark.tpu.adaptive.agg.cmWidth", 1024,
+    "Count-Min sketch width (counters per row, a power of two); the "
+    "over-count of an estimate is rows/width in expectation.", int)
+
+# ---- whole-query fusion ----------------------------------------------------
+
+FUSION_ENABLED = register(
+    "spark.tpu.fusion.enabled", False,
+    "Whole-query fusion (only with spark.tpu.adaptive.enabled on): an "
+    "adaptive exchange and its consumer whose only host dependency is "
+    "the capacity decision run as one span, in one rank stage with the "
+    "row-preserving operators between them, the capacity rung taken "
+    "from the exchange's own count read instead of a separate stats "
+    "stage. Decisions that need the host (broadcast switching on "
+    "measured bytes, the skew fan, the aggregation strategy, sort "
+    "elision, the OOM ladder) bail out to staged execution with a typed "
+    "reason. Results are byte-identical on or off.", bool)
+
+FUSION_MAX_BUCKET_VARIANTS = register(
+    "spark.tpu.fusion.maxBucketVariants", 4,
+    "Capacity-ladder rungs of one fused span: receive capacities from "
+    "the balanced load (rounded to spark.tpu.adaptive.capacityBucket, "
+    "plus one bucket) down by 4x, at most this many rungs, the last "
+    "always the worst case so any measured count is covered.", int)
 
 
 # ---- the out-of-memory tier (physical/pipeline.py, storage/) --------------

@@ -32,6 +32,9 @@ per (source, destination) and sizes the send slice by the largest cell
 their order are those of the reference's exchange; only the dead
 padding differs. The matrix also gives each exchange's statistics: live
 rows, rows moved to another rank, their bytes (``ThreadComm.events``).
+Adaptive execution passes the reference's measured bounds (a slice and
+a receive capacity) instead, and a fused span picks its receive
+capacity from the same matrix.
 """
 
 from __future__ import annotations
@@ -64,6 +67,8 @@ class Comm:
     call moves all of a pipe's columns."""
 
     size: int
+    #: reads of device values on the host, one per read all ranks make
+    host_reads: int = 0
 
     def all_to_all(self, rank: int, device, tensors: List[torch.Tensor]
                    ) -> List[torch.Tensor]:
@@ -99,6 +104,11 @@ class Comm:
 
     def record(self, event: dict) -> None:
         """Keep one exchange's statistics (called by one rank)."""
+
+    def note_host_read(self) -> None:
+        """Count one read of device values on the host (called by one
+        rank for the read every rank makes)."""
+        self.host_reads += 1
 
 
 class ThreadComm(Comm):
@@ -234,6 +244,14 @@ def axis_size() -> int:
     return current().comm.size
 
 
+def note_host_read() -> None:
+    """Count a read of device values on the host that every rank makes
+    (rank 0 counts it once for the stage)."""
+    ctx = current()
+    if ctx.rank == 0:
+        ctx.comm.note_host_read()
+
+
 # ---- row routing ------------------------------------------------------------
 
 _NULL_CODE = K._signed64(0xA5A5A5A5A5A5A5A5)
@@ -348,13 +366,24 @@ def _rebuild(pipe: Pipe, moved: list) -> Pipe:
     return Pipe(cols, mask, pipe.order)
 
 
-def exchange(pipe: Pipe, target: torch.Tensor, op: str = "hash") -> Pipe:
+def exchange(pipe: Pipe, target: torch.Tensor, op: str = "hash",
+             slice_capacity: Optional[int] = None,
+             out_capacity=None) -> Pipe:
     """Route each live row to rank ``target[row]``: sort by destination
     (stable), scatter into a (D, slice) send buffer, all_to_all, flatten.
     The slice is the largest (source, destination) live count of the
     all-gathered count matrix, so every rank agrees on it; a rank
     receives D slices, rank 0's first, each with its live rows first in
-    their source order."""
+    their source order.
+
+    Adaptive execution passes measured bounds (the reference's
+    ``slice_capacity``/``out_capacity``): the send slice is
+    ``slice_capacity`` rows, and the received rows compact to
+    ``out_capacity`` slots, live rows first in the same order.
+    ``out_capacity`` may be a function of the incoming live counts per
+    destination (a fused span picks its capacity rung from this one
+    count read). A bound below the measured counts raises: it would drop
+    live rows."""
     ctx = current()
     d, dev, cap = ctx.comm.size, ctx.device, pipe.capacity
     live = pipe.mask
@@ -363,14 +392,30 @@ def exchange(pipe: Pipe, target: torch.Tensor, op: str = "hash") -> Pipe:
     counts = torch.bincount(t, minlength=d + 1)[:d]
     matrix = torch.stack(ctx.comm.all_gather(ctx.rank, dev, [counts])[0])
     rows = matrix.tolist()  # host sync: the slice size
-    scap = K.bucket(max(max(r) for r in rows), SLICE_BUCKET)
+    note_host_read()
+    need = max(max(r) for r in rows)
+    if slice_capacity is None:
+        scap = K.bucket(need, SLICE_BUCKET)
+    elif need > int(slice_capacity):
+        raise RuntimeError(f"exchange slice capacity {slice_capacity} "
+                           f"below the measured largest slice {need}")
+    else:
+        scap = int(slice_capacity)
+    incoming = [sum(r[j] for r in rows) for j in range(d)]
+    ocap = out_capacity(incoming) if callable(out_capacity) \
+        else out_capacity
+    if ocap is not None and ocap < max(incoming):
+        raise RuntimeError(f"exchange out capacity {ocap} below the "
+                           f"measured largest incoming {max(incoming)}")
     if ctx.rank == 0:
         moved = sum(n for s, r in enumerate(rows) for j, n in enumerate(r)
                     if j != s)
         ctx.comm.record({"op": op, "ranks": d,
                          "rows": sum(map(sum, rows)), "moved_rows": moved,
                          "moved_bytes": moved * _row_bytes(pipe),
-                         "capacity_in": cap, "capacity_out": d * scap})
+                         "capacity_in": cap,
+                         "capacity_out": d * scap if ocap is None
+                         else min(d * scap, int(ocap))})
     order = torch.argsort(t, stable=True)
     st = t[order]
     starts = torch.searchsorted(st, torch.arange(d, device=dev))
@@ -387,7 +432,10 @@ def exchange(pipe: Pipe, target: torch.Tensor, op: str = "hash") -> Pipe:
         return buf[:d * scap]
 
     sent = [route(x) for x in _tensors(pipe)]
-    return _rebuild(pipe, ctx.comm.all_to_all(ctx.rank, dev, sent))
+    out = _rebuild(pipe, ctx.comm.all_to_all(ctx.rank, dev, sent))
+    if ocap is not None and int(ocap) < d * scap:
+        out = compact(out, int(ocap))
+    return out
 
 
 def compact(pipe: Pipe, new_capacity: int) -> Pipe:
@@ -405,6 +453,7 @@ def broadcast_gather(pipe: Pipe) -> Pipe:
     parts = ctx.comm.all_gather(ctx.rank, ctx.device, _tensors(pipe))
     if ctx.rank == 0:
         live = int(sum(int(m.sum()) for m in parts[0]))  # host sync
+        ctx.comm.note_host_read()
         ctx.comm.record({"op": "broadcast", "ranks": d, "rows": live,
                          "moved_rows": live * (d - 1),
                          "moved_bytes": d * (d - 1) * pipe.capacity

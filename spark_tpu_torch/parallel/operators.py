@@ -14,10 +14,13 @@ The aggregates reduce locally with the engine's grouped reductions
 ``seg_minmax`` and ``seg_fsum``) and merge across ranks with
 ``psum``/``pmin``/``pmax``.
 
-Not ported yet (they serve only the mesh's adaptive and fused paths,
-which are off by default): ``ExchangeStatsExec``, ``capacity_ladder``
-and ``FusedSpanExec``. ``DistHashPartialAggExec`` is ported; the
-adaptive aggregation that plans it waits.
+Adaptive execution (``parallel/executor.py``) measures an exchange with
+``ExchangeStatsExec`` (its Count-Min tables and HyperLogLog registers
+are grouped reductions too, so on the card they run the hand kernels)
+and runs it at the measured capacities; a fused span
+(``FusedSpanExec``) runs an exchange, its consumer and the
+row-preserving operators after it in one rank stage, its capacity rung
+(``capacity_ladder``) taken from the exchange's own count read.
 """
 
 from __future__ import annotations
@@ -97,16 +100,39 @@ class DistRangeExec(P.PhysicalPlan):
 # ---- exchanges --------------------------------------------------------------
 
 
+#: fixed odd 64-bit seeds of the Count-Min hash rows (the reference's,
+#: spark_tpu/parallel/operators.py:97), as int64 bits
+_CM_SEEDS = tuple(K._signed64(s) for s in (
+    0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+    0x27D4EB2F165667C5, 0x85EBCA77C2B2AE63, 0x2545F4914F6CDD1D,
+    0xD6E8FEB86659FD93, 0xA24BAED4963EE407))
+
+
 @dataclass(eq=False)
 class HashPartitionExchangeExec(P.PhysicalPlan):
     """Rows to rank hash(keys) mod D. ``key_union_dicts`` (per key,
     optional): a unified string dictionary the codes translate through
     before hashing, so two relations with different dictionaries route
-    equal strings to the same rank."""
+    equal strings to the same rank.
+
+    Adaptive fields, set by the executor from measured stats:
+    ``slice_capacity``/``out_capacity`` bound the send slice and the
+    received capacity (``exchange.exchange``); ``fan_destinations`` keeps
+    rows bound for skewed destinations on their own rank ahead of a
+    pre-merge (``exchange.fan_local``); ``presplit_hashes`` (Count-Min
+    heavy-hitter row hashes) salts the rows of hot keys round-robin over
+    all ranks before the exchange, legal only on a raw-row exchange
+    ahead of a partial->final pair whose accumulators are
+    partition-invariant (``legality.strategy_verdict``)."""
 
     keys: Tuple[E.Expression, ...]
     child: P.PhysicalPlan
     key_union_dicts: Optional[Tuple[Optional[Tuple[str, ...]], ...]] = None
+    slice_capacity: Optional[int] = None
+    out_capacity: Optional[int] = None
+    fan_destinations: Optional[Tuple[int, ...]] = None
+    presplit_hashes: Optional[Tuple[int, ...]] = None
+    op = "hash"
 
     def children(self):
         return (self.child,)
@@ -116,6 +142,8 @@ class HashPartitionExchangeExec(P.PhysicalPlan):
         return self.child.schema
 
     def _key_tvs(self, pipe: Pipe) -> List[TV]:
+        """The key columns after union-dictionary translation: what
+        routing hashes, and what the stats stage sketches."""
         env = pipe.env()
         tvs = [C.evaluate(k, env) for k in self.keys]
         if self.key_union_dicts is None:
@@ -131,17 +159,36 @@ class HashPartitionExchangeExec(P.PhysicalPlan):
             out.append(tv)
         return out
 
+    def _target(self, pipe: Pipe, d: int) -> torch.Tensor:
+        key_tvs = self._key_tvs(pipe)
+        target = X.hash_target(key_tvs, pipe.mask, d)
+        if self.presplit_hashes:
+            h = X.hash_rows(key_tvs)
+            hot = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
+            for ph in self.presplit_hashes:
+                hot = hot | (h == K._signed64(int(ph) % (1 << 64)))
+            hot = hot & pipe.mask
+            # hot rows round-robin over every rank, offset by the source
+            # rank so the D salted streams interleave
+            rank = torch.cumsum(hot.to(torch.int64), 0) - 1
+            target = torch.where(hot, (rank + X.axis_index()) % d, target)
+        if self.fan_destinations:
+            target = X.fan_local(target, self.fan_destinations)
+        return target
+
     def execute(self, child_pipes: List[Pipe]) -> Pipe:
         pipe = child_pipes[0]
-        target = X.hash_target(self._key_tvs(pipe), pipe.mask, X.axis_size())
-        return X.exchange(pipe, target, "hash")
+        return X.exchange(pipe, self._target(pipe, X.axis_size()), self.op,
+                          self.slice_capacity, self.out_capacity)
 
     def node_string(self):
         return f"Exchange[hash({', '.join(map(str, self.keys))})]"
 
     def _key(self):
         return ("HashExchange", tuple(E.expr_key(k) for k in self.keys),
-                self.key_union_dicts, self.child.plan_key())
+                self.key_union_dicts, self.slice_capacity,
+                self.out_capacity, self.fan_destinations,
+                self.presplit_hashes, self.child.plan_key())
 
 
 @dataclass(eq=False)
@@ -149,6 +196,9 @@ class RoundRobinExchangeExec(P.PhysicalPlan):
     """Balanced redistribution (RoundRobinPartitioning)."""
 
     child: P.PhysicalPlan
+    slice_capacity: Optional[int] = None
+    out_capacity: Optional[int] = None
+    op = "roundrobin"
 
     def children(self):
         return (self.child,)
@@ -157,14 +207,18 @@ class RoundRobinExchangeExec(P.PhysicalPlan):
     def schema(self) -> Schema:
         return self.child.schema
 
+    def _target(self, pipe: Pipe, d: int) -> torch.Tensor:
+        rank = torch.cumsum(pipe.mask.to(torch.int64), 0) - 1
+        return (rank + X.axis_index()) % d
+
     def execute(self, child_pipes: List[Pipe]) -> Pipe:
         pipe = child_pipes[0]
-        rank = torch.cumsum(pipe.mask.to(torch.int64), 0) - 1
-        return X.exchange(pipe, (rank + X.axis_index()) % X.axis_size(),
-                          "roundrobin")
+        return X.exchange(pipe, self._target(pipe, X.axis_size()), self.op,
+                          self.slice_capacity, self.out_capacity)
 
     def _key(self):
-        return ("RoundRobinExchange", self.child.plan_key())
+        return ("RoundRobinExchange", self.slice_capacity,
+                self.out_capacity, self.child.plan_key())
 
 
 @dataclass(eq=False)
@@ -175,6 +229,9 @@ class RangeExchangeExec(P.PhysicalPlan):
 
     orders: Tuple[E.SortOrder, ...]
     child: P.PhysicalPlan
+    slice_capacity: Optional[int] = None
+    out_capacity: Optional[int] = None
+    op = "range"
 
     def children(self):
         return (self.child,)
@@ -183,13 +240,16 @@ class RangeExchangeExec(P.PhysicalPlan):
     def schema(self) -> Schema:
         return self.child.schema
 
-    def execute(self, child_pipes: List[Pipe]) -> Pipe:
-        pipe = child_pipes[0]
+    def _target(self, pipe: Pipe, d: int) -> torch.Tensor:
         o = self.orders[0]
         key = P._scalar_column(C.evaluate(o.child, pipe.env()), "ORDER BY")
-        target = X.range_target(key, o.ascending, o.nulls_first_resolved,
-                                X.axis_size(), pipe.mask)
-        return X.exchange(pipe, target, "range")
+        return X.range_target(key, o.ascending, o.nulls_first_resolved, d,
+                              pipe.mask)
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        pipe = child_pipes[0]
+        return X.exchange(pipe, self._target(pipe, X.axis_size()), self.op,
+                          self.slice_capacity, self.out_capacity)
 
     def node_string(self):
         return f"Exchange[range({', '.join(map(str, self.orders))})]"
@@ -198,7 +258,153 @@ class RangeExchangeExec(P.PhysicalPlan):
         return ("RangeExchange",
                 tuple((E.expr_key(o.child), o.ascending,
                        o.nulls_first_resolved) for o in self.orders),
+                self.slice_capacity, self.out_capacity,
                 self.child.plan_key())
+
+
+@dataclass(eq=False)
+class ExchangeStatsExec(P.PhysicalPlan):
+    """Measure an exchange without running it: the routing targets the
+    exchange itself computes, reduced to ``__incoming`` (psum of the
+    per-destination live counts: the rows each rank will receive) and
+    ``__maxslice`` (pmax: the largest (source, destination) cell). The
+    reference's MapOutputStatistics (MapOutputTrackerMaster.getStatistics,
+    read by AdaptiveSparkPlanExec between stages). One output row block,
+    live on rank 0 only; the executor reads it once.
+
+    Optional, hash exchanges only (reference:
+    spark_tpu/parallel/operators.py:267-438):
+
+    - ``sketch_registers`` > 0 adds ``__ndvreg``: HyperLogLog register
+      maxima over the exchange keys. Index and rank come from the row
+      hash routing uses; the ranks (float32) reduce per register with
+      ``kernels.seg_max`` (the card's B2 max kernel at 64 < R <= 1024)
+      and pmax across the ranks.
+    - ``key_stats`` > 0 adds ``__kmin``/``__kmax``/``__knull``: each key's
+      global min, max and NULL count over the translated key columns
+      (the measured domain of the hash-partial strategy).
+    - ``cm_depth``/``cm_width`` > 0 add ``__hothash``/``__hotest``: a
+      Count-Min heavy-hitter probe over the same row hashes. Each depth
+      rehashes with a fixed seed into a ``cm_width``-wide table
+      (``kernels.seg_count``, the card's B1 count kernel at width <= 1024;
+      psum across the ranks); a row's estimate is the min over depths,
+      dead rows estimate -1, and each rank publishes its first argmax row
+      (its full hash and estimate) at its own slot through a one-hot psum.
+    """
+
+    exchange: P.PhysicalPlan  # Hash/RoundRobin/Range exchange exec
+    sketch_registers: int = 0    # power of two; 0 = no distinct sketch
+    key_stats: int = 0           # number of keys to min/max; 0 = none
+    cm_depth: int = 0            # Count-Min hash rows; 0 = no CM probe
+    cm_width: int = 0            # power of two; 0 = no CM probe
+
+    def children(self):
+        return self.exchange.children()
+
+    @functools.cached_property
+    def schema(self) -> Schema:
+        names = ["__incoming", "__maxslice"]
+        if self.sketch_registers:
+            names.append("__ndvreg")
+        if self.key_stats:
+            names += ["__kmin", "__kmax", "__knull"]
+        if self.cm_depth and self.cm_width:
+            names += ["__hothash", "__hotest"]
+        return Schema(tuple(Field(n, T.INT64, nullable=False)
+                            for n in names))
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        pipe = child_pipes[0]
+        d, me = X.axis_size(), X.axis_index()
+        dev = pipe.mask.device
+        i64 = torch.int64
+        target = self.exchange._target(pipe, d)
+        local = K.seg_count(target.clamp(0, d - 1).to(torch.int32),
+                            pipe.mask, d)
+        cap = max(d, self.sketch_registers or 0, self.key_stats or 0)
+
+        def padded(v: torch.Tensor) -> TV:
+            v = v.to(i64)
+            data = torch.cat([v, torch.zeros((cap - v.shape[0],), dtype=i64,
+                                             device=dev)])
+            return TV(data, None, T.INT64, None)
+
+        cols = {"__incoming": padded(X.psum(local)),
+                "__maxslice": padded(X.pmax(local))}
+        cm = bool(self.cm_depth and self.cm_width)
+        if self.sketch_registers or self.key_stats or cm:
+            key_tvs = self.exchange._key_tvs(pipe)
+            h = X.hash_rows(key_tvs)
+
+        if self.sketch_registers:
+            r = int(self.sketch_registers)
+            p = r.bit_length() - 1  # r = 2 ** p (the caller checks)
+            idx = (h & (r - 1)).to(torch.int32)
+            w = K.shift_right_logical(h, p)
+            # the rank (leading zeros of the 64 - p bit suffix, plus 1)
+            # through the float64 highest-set-bit of the reference, so the
+            # registers are its own: a suffix within half an ulp below a
+            # power of two rounds up and ranks one low, as there
+            hb = torch.floor(torch.log2(w.to(torch.float64).clamp(min=1.0)))
+            rho = torch.where(w == 0,
+                              torch.full((), 64 - p + 1, dtype=torch.float64,
+                                         device=dev),
+                              (64 - p) - hb)
+            reg = K.seg_max(rho.to(torch.float32), idx, pipe.mask, r)
+            cols["__ndvreg"] = padded(X.pmax(reg).clamp(min=0.0))
+
+        if self.key_stats:
+            big = torch.full((1,), K.INT64_MAX, dtype=i64, device=dev)
+            small = torch.full((1,), K.INT64_MIN, dtype=i64, device=dev)
+            mins, maxs, nulls = [], [], []
+            for tv in key_tvs[:self.key_stats]:
+                data = tv.data.to(i64)
+                valid = pipe.mask if tv.validity is None                     else pipe.mask & tv.validity
+                mins.append(torch.cat([torch.where(valid, data, big),
+                                       big]).min())
+                maxs.append(torch.cat([torch.where(valid, data, small),
+                                       small]).max())
+                nulls.append(torch.zeros((), dtype=i64, device=dev)
+                             if tv.validity is None
+                             else (pipe.mask & ~tv.validity).sum())
+            cols["__kmin"] = padded(X.pmin(torch.stack(mins)))
+            cols["__kmax"] = padded(X.pmax(torch.stack(maxs)))
+            cols["__knull"] = padded(X.psum(torch.stack(nulls)))
+
+        if cm:
+            width = int(self.cm_width)  # a power of two (the caller)
+            est = None
+            for seed in _CM_SEEDS[:int(self.cm_depth)]:
+                idx = (K.hash64(h ^ seed) & (width - 1)).to(torch.int32)
+                table = X.psum(K.seg_count(idx, pipe.mask, width))
+                e = table[idx.long()]
+                est = e if est is None else torch.minimum(est, e)
+            # dead rows estimate -1, so a live row is the candidate
+            # whenever one exists; the host drops estimates <= 0 anyway
+            est = torch.where(pipe.mask, est, torch.full_like(est, -1))
+            if pipe.capacity:
+                cand = torch.argmax(est)  # the first maximal row
+                cand_h, cand_e = h[cand], est[cand]
+            else:
+                cand_h = torch.zeros((), dtype=i64, device=dev)
+                cand_e = torch.full((), -1, dtype=i64, device=dev)
+            slot = torch.arange(cap, device=dev) == me
+            zero = torch.zeros((), dtype=i64, device=dev)
+            cols["__hothash"] = TV(X.psum(torch.where(slot, cand_h, zero)),
+                                   None, T.INT64, None)
+            cols["__hotest"] = TV(X.psum(torch.where(slot, cand_e, zero)),
+                                  None, T.INT64, None)
+
+        # replicated reductions: rank 0 keeps the one live copy
+        mask = torch.full((cap,), me == 0, dtype=torch.bool, device=dev)
+        return Pipe(cols, mask, list(self.schema.names))
+
+    def node_string(self):
+        return f"ExchangeStats[{self.exchange.node_string()}]"
+
+    def _key(self):
+        return ("ExchangeStats", self.sketch_registers, self.key_stats,
+                self.cm_depth, self.cm_width, self.exchange.plan_key())
 
 
 @dataclass(eq=False)
@@ -471,6 +677,7 @@ class DistSortAggExec(P.PhysicalPlan):
         # every rank's output has the same capacity, and a float sum's
         # seg_fsum scratch grows with the groups, not the rows
         groups = int(X.pmax(ng.reshape(1).to(torch.int64))[0])
+        X.note_host_read()
         k = K.bucket(max(1, groups), 256)
         env2 = spipe.env()
         _, agg_calls = rewrite_agg_outputs(self.groupings, self.aggregates)
@@ -507,6 +714,168 @@ class DistRangeAggExec(DistSortAggExec):
         return ("DistRangeAgg",) + super()._key()[1:]
 
 
+# ---- fused spans ------------------------------------------------------------
+
+
+def capacity_ladder(bucket: int, variants: int, worst: int,
+                    devices: int = 1) -> Tuple[int, ...]:
+    """The capacity rungs of one fused span, anchored at the balanced
+    receive load: a well-spread exchange over ``devices`` destinations
+    delivers about worst/devices rows to the hottest, so the top working
+    rung is ceil(worst/devices) rounded up to ``bucket`` plus one bucket
+    of headroom; below it the rungs shrink by 4 (bucket-rounded, the same
+    headroom); the worst case (every live row to one destination) is
+    always the last rung, so any measured incoming count is covered. The
+    reference's ladder (spark_tpu/parallel/operators.py:783), rung for
+    rung."""
+    bucket = max(1, int(bucket))
+    variants = max(1, int(variants))
+    worst = max(1, int(worst))
+    d = max(1, int(devices))
+    anchor = -(-worst // d)                            # balanced load
+    anchor = -(-anchor // bucket) * bucket + bucket    # round up + headroom
+    rungs: List[int] = [worst]
+    c = min(anchor, worst)
+    while len(rungs) < variants and c < rungs[-1]:
+        rungs.append(c)
+        nxt = -(-c // 4)                               # ceil(c / 4)
+        nxt = -(-nxt // bucket) * bucket + bucket
+        if nxt >= c:
+            break
+        c = nxt
+    return tuple(reversed(rungs))
+
+
+def _slice_pipe(pipe: Pipe, capacity: int) -> Pipe:
+    """A pipe's first ``capacity`` slots (live rows past the cut are lost:
+    the caller detects that and re-runs; see FusedSpanExec)."""
+    cols = {name: TV(tv.data[:capacity],
+                     None if tv.validity is None else tv.validity[:capacity],
+                     tv.dtype, tv.dictionary,
+                     None if tv.lengths is None else tv.lengths[:capacity])
+            for name, tv in pipe.cols.items()}
+    return Pipe(cols, pipe.mask[:capacity], pipe.order)
+
+
+def _pad_pipe(pipe: Pipe, capacity: int) -> Pipe:
+    """A pipe grown to ``capacity`` slots with dead rows (mask False)."""
+    n = int(capacity) - pipe.capacity
+    if n <= 0:
+        return pipe
+
+    def grow(x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x, x.new_zeros((n,) + tuple(x.shape[1:]))])
+
+    cols = {name: TV(grow(tv.data),
+                     None if tv.validity is None else grow(tv.validity),
+                     tv.dtype, tv.dictionary,
+                     None if tv.lengths is None else grow(tv.lengths))
+            for name, tv in pipe.cols.items()}
+    return Pipe(cols, grow(pipe.mask), pipe.order)
+
+
+@dataclass(eq=False)
+class FusedSpanExec(P.PhysicalPlan):
+    """An adaptive exchange and its consumer in one rank stage (the
+    reference's fusion building block, spark_tpu/parallel/operators.py:822).
+
+    Staged, an adaptive exchange takes a producer stage, a stats stage
+    (``ExchangeStatsExec``) and its host read, the exchange stage at the
+    measured capacities and the consumer's stage. The reference fuses
+    them into one XLA program whose ``lax.switch`` over the capacity
+    ladder picks the rung on the device. The port's ranks run eagerly,
+    and its exchange already reads the all-gathered count matrix on the
+    host to size its send slice: here the rung is taken from that same
+    read (the first rung of ``capacity_ladder`` that covers the largest
+    incoming count), the exchange compacts its received rows to it, and
+    the consumer and ``tail`` run on in the same stage, with no stats
+    stage and no stage boundary.
+
+    Byte identity with the staged path: the exchange's live rows and
+    their order do not depend on its capacities (stable routing, stable
+    compaction), and the consumers a span takes (SortExec,
+    DistSortAggExec) and the interstitials (Project, Filter) depend only
+    on live rows and their order.
+
+    ``tail``: downstream operators run inside this span, in dataflow
+    order: row-preserving interstitials and further FusedSpanExec pairs
+    (a chain of pairs is one span). ``speculate`` (the plan's root only):
+    the output is cut to the ladder's anchor rung plus an eighth, in
+    bucket multiples, and one sentinel slot whose mask bit says that live
+    rows were cut off; the executor reads it and re-runs the staged path
+    (a typed ``overflow`` bailout). A span that is not the root returns
+    its consumer's output as it is (eager ranks need no common shape
+    across rungs)."""
+
+    consumer: P.PhysicalPlan
+    exchange: P.PhysicalPlan
+    bucket: int
+    variants: int
+    tail: Tuple[P.PhysicalPlan, ...] = ()
+    speculate: bool = False
+
+    def children(self):
+        return self.exchange.children()
+
+    @functools.cached_property
+    def schema(self) -> Schema:
+        return self.tail[-1].schema if self.tail else self.consumer.schema
+
+    def execute(self, child_pipes: List[Pipe]) -> Pipe:
+        pipe = child_pipes[0]
+        d = X.axis_size()
+        f_out = None
+        if self.speculate:
+            worst0 = d * pipe.capacity
+            ladder0 = capacity_ladder(self.bucket, self.variants, worst0, d)
+            if len(ladder0) > 1:  # else the output keeps its capacity
+                b = max(1, int(self.bucket))
+                f_out = min(worst0, -(-(ladder0[-2] * 9 // 8) // b) * b)
+
+        def run_ops(p: Pipe, ops) -> Pipe:
+            for i, op in enumerate(ops):
+                if isinstance(op, FusedSpanExec):
+                    return pair(p, op, ops[i + 1:])
+                p = op.execute_blocking([p])
+            return p
+
+        def pair(p: Pipe, span: "FusedSpanExec", rest) -> Pipe:
+            ladder = capacity_ladder(span.bucket, span.variants,
+                                     d * p.capacity, d)
+
+            def rung(incoming) -> int:
+                most = max(incoming)
+                return next((c for c in ladder if c >= most), ladder[-1])
+
+            sub = X.exchange(p, span.exchange._target(p, d),
+                             span.exchange.op, None, rung)
+            return run_ops(span.consumer.execute_blocking([sub]), rest)
+
+        out = pair(pipe, self, tuple(self.tail))
+        if f_out is None:
+            return out
+        over = out.mask[f_out:].any() if out.capacity > f_out \
+            else torch.zeros((), dtype=torch.bool, device=out.mask.device)
+        out = _pad_pipe(_slice_pipe(out, f_out), f_out + 1)
+        mask = out.mask.clone()
+        mask[f_out] = over
+        return Pipe(out.cols, mask, out.order)
+
+    def node_string(self):
+        chain = "".join(" -> " + (t.consumer.node_string()
+                                  if isinstance(t, FusedSpanExec)
+                                  else t.node_string())
+                        for t in self.tail)
+        return (f"FusedSpan[bucket={self.bucket}, "
+                f"variants={self.variants}, "
+                f"consumer={self.consumer.node_string()}{chain}]")
+
+    def _key(self):
+        return ("FusedSpan", self.bucket, self.variants, self.speculate,
+                self.consumer.plan_key(), self.exchange.plan_key(),
+                tuple(t.plan_key() for t in self.tail))
+
+
 @dataclass(eq=False)
 class DistHashPartialAggExec(P.PhysicalPlan):
     """Partial aggregation over a measured key domain: each key's global
@@ -517,8 +886,8 @@ class DistHashPartialAggExec(P.PhysicalPlan):
     partial's (key aliases, then partial accumulators), so the exchange
     and the final merge that follow do not depend on the strategy; only
     the row order and the capacity differ. Each rank keeps its own
-    groups (no merge here). The reference's adaptive aggregation plans
-    it from measured stats, which waits (ROADMAP A10)."""
+    groups (no merge here). The executor's adaptive aggregation plans it
+    from the measured key domain (the ``hash`` strategy)."""
 
     groupings: Tuple[E.Expression, ...]
     aggregates: Tuple[E.Expression, ...]

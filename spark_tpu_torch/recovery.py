@@ -24,10 +24,16 @@ the ladder is real. The graph pool's memory is not freed by
 ``empty_cache()``: before its first replan the ladder drops the captured
 stages (``graphs.drop_stages``) and then empties the allocator's cache.
 
-Waiting for later slices (ROADMAP): the ladder's rung 0, which forces
-adaptive execution on a mesh (A10); planned chunking from measured bytes
-and the admission feedback (A12); the shared retry budget, deadlines,
-fault injection, trace spans and the heartbeat monitor (A10, A12).
+The ladder's rung 0 (reference: ``spark_tpu/recovery.py:476-512``): on a
+mesh session whose run ran out of memory with adaptive execution off,
+the run is retried once with ``parallel/executor.FORCE_ADAPTIVE`` set
+(measured post-exchange capacities shrink the receive buffers an
+exchange-heavy plan runs out on, with the same rows), before the
+chunked replans.
+
+Waiting for later slices (ROADMAP A12): planned chunking from measured
+bytes and the admission feedback; the shared retry budget, deadlines,
+fault injection, trace spans and the heartbeat monitor.
 """
 
 from __future__ import annotations
@@ -156,11 +162,13 @@ def _release_device_memory(device) -> Dict[str, Any]:
 
 
 def run_plan_with_oom_degradation(lp, conf, run_fn, device="cuda",
-                                  manager=None):
+                                  manager=None, mesh=None):
     """Run an optimized logical plan with the degradation ladder: a plan
     whose scans exceed the device budget runs chunked; a run that dies of
-    an OOM replans through ``find_chunkable``/``execute_chunked`` at a
-    halved budget, down to the floor. Every replan counts in
+    an OOM on a mesh (``mesh``: the session's mesh executor) with
+    adaptive execution off is retried once with it forced on (rung 0);
+    then the plan replans through ``find_chunkable``/``execute_chunked``
+    at a halved budget, down to the floor. Every replan counts in
     ``last_ladder`` and chains the OOM that caused it as ``__cause__``.
     ``run_fn(plan) -> Batch`` is the engine."""
     from spark_tpu_torch.conf import RuntimeConf
@@ -169,7 +177,8 @@ def run_plan_with_oom_degradation(lp, conf, run_fn, device="cuda",
                                                   find_chunkable)
 
     global last_ladder
-    record: Dict[str, Any] = {"replans": 0, "budgets": [],
+    record: Dict[str, Any] = {"replans": 0, "adaptive_retries": 0,
+                              "budgets": [],
                               "stages_dropped": 0, "cache_emptied": False,
                               "exhausted": False, "error": None}
     last_ladder = record
@@ -184,6 +193,26 @@ def run_plan_with_oom_degradation(lp, conf, run_fn, device="cuda",
         last = e
     record["error"] = repr(last)
     record.update(_release_device_memory(device))
+
+    if mesh is not None:
+        # rung 0: adaptive execution, cheaper than chunking (no re-decode)
+        from spark_tpu_torch.parallel import executor as mex
+
+        if not (mex.FORCE_ADAPTIVE.get()
+                or bool(conf.get(mex.ADAPTIVE_ENABLED))):
+            record["replans"] += 1
+            record["adaptive_retries"] += 1
+            token = mex.FORCE_ADAPTIVE.set(True)
+            try:
+                return run_fn(lp)
+            except Exception as e2:  # noqa: BLE001 - re-raised unless OOM
+                if not is_oom(e2):
+                    raise
+                if e2.__cause__ is None and e2 is not last:
+                    e2.__cause__ = last
+                last = e2  # compaction was not enough: chunk
+            finally:
+                mex.FORCE_ADAPTIVE.reset(token)
 
     budget = int(conf.get(MAX_DEVICE_BATCH_BYTES))
     floor = max(1, int(conf.get(OOM_DEGRADE_FLOOR)))

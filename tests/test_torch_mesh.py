@@ -15,7 +15,8 @@ reference's suite uses 8 virtual XLA CPU devices for the same role).
   equal to the reference's at 8 ranks.
 - A rank that raises fails the query within the stage's own timeout,
   and no rank thread outlives it; a mesh that asks for the card raises
-  without one; the adaptive and fusion settings raise on a mesh.
+  without one; the adaptive and fusion settings run on a mesh and give
+  the adaptive-off rows.
 """
 
 import sqlite3
@@ -43,6 +44,7 @@ from spark_tpu_torch.columnar.arrow import from_arrow
 from spark_tpu_torch.parallel import exchange as X
 from spark_tpu_torch.parallel.executor import (ADAPTIVE_ENABLED,
                                                BROADCAST_THRESHOLD,
+                                               FUSION_ENABLED,
                                                SKEW_MIN_PAIRS, MeshExecutor)
 from spark_tpu_torch.parallel.mesh import make_mesh
 from spark_tpu_torch.physical.planner import execute_logical
@@ -459,10 +461,21 @@ def test_session_mesh_master():
 
 
 def test_adaptive_and_fusion_raise_on_a_mesh(executors, tables):
-    ex = _mesh_ex(2)
-    ex.conf.set(ADAPTIVE_ENABLED.key, True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ex.execute_logical(L.Filter(E.Col("k") > 1, _rel(tables, "main")))
+    """The adaptive and fusion settings, which raised on a mesh before
+    they were ported, run and give the adaptive-off run's rows (the
+    adaptive suites are tests/test_torch_aqe.py, test_torch_fusion.py and
+    test_torch_agg_adaptive.py)."""
+    rel = _rel(tables, "main")
+    plan = L.Sort((E.SortOrder(E.Col("k")),), L.Aggregate(
+        (E.Col("k"),), (E.Col("k"), E.Alias(E.Sum(E.Col("v")), "s"),
+                        E.Alias(E.Count(None), "n")), rel))
+    want = _rows(_mesh_ex(2).execute_logical(plan), ordered=True)
+    for fusion in (False, True):
+        ex = _mesh_ex(2)
+        ex.conf.set(ADAPTIVE_ENABLED.key, True)
+        ex.conf.set(FUSION_ENABLED.key, fusion)
+        assert _rows(ex.execute_logical(plan), ordered=True) == want
+        assert ex.last_run["events"]
 
 
 def test_failing_rank_fails_query_without_leftover_threads(tables):
