@@ -160,7 +160,36 @@ no result line):
      than its staged run, the graph pool and the stage cache unchanged;
      the stats stages' B1 count at K = 1024 and B2 max at K = 512 timed
      against their bounds, plain versions and library calls.
-   Outside the ooc phase every query must run with no ladder replan.
+   - obs phase (observability and faults): q1-wide, q3, q5 and q18 on the
+     card session with tracing on (the default) and off
+     (``spark.tpu.trace.enabled``), alternating, 5 warm runs each: rows
+     bit for bit, every stage a replay, no host sync inside a stage
+     (``graphs.guarding_stages``), the card's hand-kernel runs a
+     replay's; with tracing on, one ``stage`` event per stage stamped
+     with the query's trace id and a ``trace_breakdown`` whose parts sum
+     to its wall; the median walls on and off printed, and q3's
+     ``format_trace`` and query profile. ``tracing.trace(dir)`` around
+     one q1-wide run: its Chrome trace holds the ``annotate`` region and
+     one CUDA kernel event per hand-kernel run (7 + 2 + 1 + 1). q3 and
+     q18 on ``mesh[4]`` with adaptive execution: every rank's
+     ``stage.device`` span and every ``exchange.stats`` span carry the
+     query's trace id; the exchange and aggregation profiles of the five
+     strategy cells. A seeded chaos campaign (8 schedules over mesh[4]
+     q3's fault points) passing its contract; the status UI answering
+     /api/v1/queries, /api/v1/exchange and /trace/<id>. Last, the fault
+     matrix, each cell's point firing and its rows bit for bit the clean
+     run's: ``execute.device`` transient (q1-wide, retried) and oom
+     (q1-wide over Parquet, replanned chunked by the ladder),
+     ``pipeline.decode``/``pipeline.transfer`` transient (the ooc
+     phase's chunked q1, the chunk retry), ``join.spill`` transient and
+     corrupt (hybrid q12 spilling, the spill retry and the grace
+     fallback), ``exchange.all_to_all`` transient (mesh[4] q3),
+     ``agg.strategy``, ``agg.presplit`` and ``fusion.decide`` on their
+     aqe cells; retry draws within the budget, the fault profile
+     printed. Every wrapper call held; the graph pool and the stage
+     cache do not grow.
+   Outside the ooc and obs phases every query must run with no ladder
+   replan.
    Warm runs (``warm_runs``): after its first run, which is blocking and
    records the plan's runtime statistics, each query runs once with its
    traced stages eagerly (no graph), then once to capture each traced
@@ -2536,6 +2565,7 @@ def aqe_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     pool and the stage cache stay unchanged. Returns the path's launches
     (adaptive and fused runs; the off runs are the mesh path's)."""
     from spark_tpu_torch import conf as CF
+    from spark_tpu_torch import metrics
     from spark_tpu_torch.physical import graphs
     from spark_tpu_torch.tpch import QUERIES
     from spark_tpu_torch.tpch.oracle import assert_rows_match
@@ -2598,6 +2628,8 @@ def aqe_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
                 if mode == "adaptive":
                     for m, k in launched.items():
                         aqe_total[m] += k
+                    # the obs phase prints this run's profiles
+                    _AQE_CELL_EVENTS[cell] = metrics.last_query()
                 record = spark.mesh_executor.last_run
                 out[mode] = (live_bits(batch), record)
                 log_aqe_run(f"cell {cell}", mode, (wall,), record)
@@ -2663,6 +2695,597 @@ def aqe_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
 
 #: the aqe phase's timings of the stats stages' kernel shapes
 _AQE_KERNELS: dict = {}
+#: the events of each strategy cell's adaptive run in the aqe phase
+_AQE_CELL_EVENTS: dict = {}
+
+
+# ---- obs phase: observability and faults -----------------------------------
+
+#: the single-device queries the obs phase traces on and off
+OBS_QUERIES = ("q1_wide", "q3", "q5", "q18")
+#: hand-kernel runs a replay of each makes on the card (q1-wide: B1's
+#: count 7 times and int64 sum twice, B2's min and max once)
+OBS_REPLAY_RUNS = {"q1_wide": {"count": 7, "sum_i64": 2, "min": 1, "max": 1}}
+#: warm runs of each mode for the on/off walls
+OBS_REPS = 5
+#: the chaos campaign's seed and schedules (over mesh[4] q3)
+OBS_CHAOS_SEED = 20261018
+OBS_CHAOS_SCHEDULES = 8
+#: the device budget (``spark.tpu.scheduler.hbmBudgetBytes``) that makes
+#: the ooc phase's hybrid q12 spill partitions: its staged sides are larger
+OBS_SPILL_BUDGET = 4 << 20
+
+
+def _obs_query(name: str):
+    from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
+
+    return Q1_WIDE if name == "q1_wide" else QUERIES[int(name[1:])]
+
+
+def _kinds_since(events, *kinds) -> list:
+    return [e for e in events if e["kind"] in kinds]
+
+
+def _root_trace(events):
+    spans = [e for e in events if e["kind"] == "span"]
+    ids = {e["span_id"] for e in spans}
+    roots = [e for e in spans if e.get("parent_id") not in ids]
+    return roots[0] if len(roots) == 1 else None
+
+
+def obs_traced_runs(seg_agg, gpu, dev: str) -> dict:
+    """q1-wide, q3, q5 and q18 on the single-device session with tracing
+    on, then off (``spark.tpu.trace.enabled``), alternating, OBS_REPS
+    warm runs each (replays of the graphs the earlier phases captured,
+    under ``graphs.guarding_stages``): rows equal bit for bit, every
+    traced stage replayed, no host sync inside a stage, the card's
+    hand-kernel runs those of a replay; with tracing on, one ``stage``
+    event per stage stamped with the query's trace id and a breakdown
+    whose parts sum to its wall. Returns the median walls on and off."""
+    from spark_tpu_torch import metrics, tracing
+    from spark_tpu_torch.physical import graphs, planner
+
+    walls = {}
+    for name in OBS_QUERIES:
+        q = _obs_query(name)
+        want_runs = OBS_REPLAY_RUNS.get(name, {})
+        first = None
+        on, off = [], []
+        for rep in range(OBS_REPS):
+            for traced, sink in ((True, on), (False, off)):
+                gpu.conf.set("spark.tpu.trace.enabled", traced)
+                runs = device_runs(seg_agg, dev)
+                metrics.reset()
+                t0 = time.perf_counter()
+                with graphs.guarding_stages():
+                    rows, syncs = collect_split_syncs(gpu, q, dev)
+                sink.append((time.perf_counter() - t0) * 1e3)
+                run = planner.last_run
+                if first is None:
+                    first = rows
+                check(row_bits(rows) == row_bits(first),
+                      f"obs: {name} traced={traced}: rows differ")
+                if dev == "cuda":
+                    check(run.replayed == run.stages >= 1
+                          and run.captured == 0,
+                          f"obs: {name} traced={traced}: replayed "
+                          f"{run.replayed} of {run.stages} stages, "
+                          f"captured {run.captured}")
+                    check(syncs["in stages"] == 0,
+                          f"obs: {name} traced={traced}: host syncs inside "
+                          f"stages {syncs}")
+                    ran = ran_since(seg_agg, runs)
+                    check(ran == want_runs, f"obs: {name} traced={traced}: "
+                          f"the card ran {ran}, a replay runs {want_runs}")
+                evs = metrics.last_query()
+                stages = _kinds_since(evs, "stage")
+                n_stages = run.stages + sum(run.blocking.values())
+                spans = _kinds_since(evs, "span")
+                if not traced:
+                    check(not spans, f"obs: {name}: spans with tracing off")
+                    continue
+                root = _root_trace(evs)
+                check(root is not None and root["name"] == "query.execute",
+                      f"obs: {name}: not one trace root")
+                tid = root["trace_id"]
+                check(len(stages) == n_stages
+                      and all(e["trace_id"] == tid for e in stages),
+                      f"obs: {name}: {len(stages)} stage events for "
+                      f"{n_stages} stages, or not all of trace {tid}")
+                bd = tracing.trace_breakdown(evs)
+                parts = bd["queue_ms"] + bd["device_ms"] \
+                    + bd["transfer_ms"] + bd["host_ms"]
+                check(abs(parts - bd["wall_ms"]) <= 0.01,
+                      f"obs: {name}: breakdown {bd} does not sum to wall")
+                if rep == 0 and name == "q3":
+                    log("obs: q3 trace:\n" + tracing.format_trace(evs))
+                    log("obs: q3 query profile:\n"
+                        + tracing.format_profile(tracing.query_profile(evs)))
+                    log(f"obs: q3 breakdown {bd}")
+        gpu.conf.unset("spark.tpu.trace.enabled")
+        walls[name] = (statistics.median(on), statistics.median(off))
+        log(f"obs: {name} warm walls ms, tracing on {[round(w, 3) for w in on]}"
+            f" (median {walls[name][0]:.3f}), off "
+            f"{[round(w, 3) for w in off]} (median {walls[name][1]:.3f}): "
+            f"rows bit for bit, every stage replayed, no host sync inside "
+            f"a stage, the card's runs {want_runs or 'none'} each")
+    return walls
+
+
+def obs_device_trace(seg_agg, gpu, dev: str, root: str) -> None:
+    """``tracing.trace(dir)`` around one q1-wide run with an ``annotate``
+    region: the Chrome trace it writes must hold the region and, on the
+    card, CUDA kernel events, one for each hand-kernel run the card
+    counted (7 + 2 + 1 + 1). A session that dropped kernel events is
+    taken again, up to five in all (as ``profile_query``)."""
+    from spark_tpu_torch import tracing
+
+    q = _obs_query("q1_wide")
+    for attempt in range(5):
+        d = os.path.join(root, f"obs_trace_{attempt}")
+        runs = device_runs(seg_agg, dev)
+        with tracing.trace(d, cuda=dev == "cuda") as session:
+            with tracing.annotate("obs:q1_wide"):
+                frame(gpu, q).collect()
+        ran = ran_since(seg_agg, runs)
+        with open(session.path) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        check("obs:q1_wide" in names,
+              "obs: the device trace lacks the annotate region")
+        if dev != "cuda":
+            log(f"obs: device trace {session.path}: "
+                f"{len(events)} events, the annotate region in it")
+            return
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        check(kernels, "obs: the profiler recorded no CUDA kernel event "
+              "(a CPU-only session)")
+        hand = sum(1 for e in kernels if _is_hand_kernel(e.get("name", "")))
+        want = sum(ran.values())
+        log(f"obs: device trace {session.path} (session "
+            f"{attempt + 1}): {len(events)} events, {len(kernels)} kernel "
+            f"events, {hand} of B1/B2, the card ran {ran}")
+        if hand == want == sum(OBS_REPLAY_RUNS["q1_wide"].values()):
+            return
+    check(False, f"obs: the device trace held {hand} hand-kernel events "
+          f"for {want} runs in each of five sessions")
+
+
+def obs_mesh_traced(seg_agg, gpu, dev: str) -> None:
+    """q3 and q18 on mesh[4], adaptive on, the trace sampled: every rank
+    stage's ``stage.device`` spans (one per rank, from the rank threads)
+    and every ``exchange.stats`` span carry the query's trace id; their
+    walls with tracing on and off, 3 of each in turns; then the exchange
+    and aggregation profiles of the five strategy cells of
+    the aqe phase, folded from the events of each cell's adaptive run
+    there (traced: tracing is on by default)."""
+    from spark_tpu_torch import metrics, tracing
+
+    spark = aqe_sessions(gpu, dev)["adaptive"]
+    for name in ("q3", "q18"):
+        metrics.reset()
+        rows, wall, launched, record = mesh_run(seg_agg, spark, name,
+                                                _obs_query(name), dev)
+        evs = metrics.last_query()
+        root = _root_trace(evs)
+        check(root is not None, f"obs: mesh {name}: not one trace root")
+        tid = root["trace_id"]
+        spans = _kinds_since(evs, "span")
+        dev_spans = [e for e in spans if e["name"] == "stage.device"]
+        stats = [e for e in spans if e["name"] == "exchange.stats"]
+        check(len(dev_spans) == 4 * record["rank_stages"],
+              f"obs: mesh {name}: {len(dev_spans)} stage.device spans for "
+              f"{record['rank_stages']} rank stages of 4 ranks")
+        check(stats and all(e["trace_id"] == tid
+                            for e in dev_spans + stats),
+              f"obs: mesh {name}: a rank span outside trace {tid}")
+        check(len({e["tid"] for e in dev_spans}) >= 2,
+              f"obs: mesh {name}: stage.device spans from one thread")
+        bd = tracing.trace_breakdown(evs)
+        per_rank = {r: round(sum(e["ms"] for e in dev_spans
+                                 if e["rank"] == r), 3) for r in range(4)}
+        log(f"obs: mesh {name} traced {wall:.1f} ms: {record['rank_stages']} "
+            f"rank stages, {len(dev_spans)} stage.device and {len(stats)} "
+            f"exchange.stats spans of trace {tid}; stage.device ms by rank "
+            f"{per_rank} (the ranks share one stream: each also covers the "
+            f"others' queued work), their union {bd['device_ms']} ms of the "
+            f"{bd['wall_ms']} ms wall")
+    # the cost of the sampled trace on a mesh (a span and a device sync
+    # for each rank of each stage): warm walls on against off, in turns
+    for name in ("q3", "q18"):
+        on, off = [], []
+        for _ in range(3):
+            for traced, sink in ((True, on), (False, off)):
+                spark.conf.set("spark.tpu.trace.enabled", traced)
+                t0 = time.perf_counter()
+                frame(spark, _obs_query(name)).collect()
+                sink.append((time.perf_counter() - t0) * 1e3)
+        spark.conf.unset("spark.tpu.trace.enabled")
+        log(f"obs: mesh {name} walls ms, tracing on "
+            f"{[round(w, 1) for w in on]} (median {statistics.median(on):.1f})"
+            f", off {[round(w, 1) for w in off]} (median "
+            f"{statistics.median(off):.1f})")
+    for cell in AQE_CELLS:
+        evs = _AQE_CELL_EVENTS[cell]
+        check(_root_trace(evs) is not None
+              and _kinds_since(evs, "agg", "exchange"),
+              f"obs: cell {cell}: the aqe run's events hold no trace")
+        log(f"obs: cell {cell} exchange profile:\n"
+            + tracing.format_exchange_profile(tracing.exchange_profile(evs)))
+        log(f"obs: cell {cell} aggregation profile:\n"
+            + tracing.format_aggregation_profile(
+                tracing.aggregation_profile(evs)))
+
+
+class _Armed:
+    """Arm settings (fault specs) on a session for a block, then unset
+    them and drop the arming counters."""
+
+    def __init__(self, spark, settings: dict):
+        self.spark, self.settings = spark, settings
+
+    def __enter__(self):
+        from spark_tpu_torch import faults
+
+        for k, v in self.settings.items():
+            self.spark.conf.set(k, v)
+        faults.reset(self.spark.conf)
+        return self
+
+    def __exit__(self, *exc):
+        from spark_tpu_torch import faults
+
+        for k in self.settings:
+            self.spark.conf.unset(k)
+        faults.reset(self.spark.conf)
+        return False
+
+
+def _grab_rows(spark, query):
+    """A run's rows, floats as their bits (for results of a few rows,
+    and across tiers whose string dictionaries may differ)."""
+    return row_bits([tuple(r) for r in frame(spark, query).collect()])
+
+
+def _grab_bits(spark, query):
+    """A run's live rows column by column, as ``live_bits`` (for large
+    results of one session's tables)."""
+    return live_bits(frame(spark, query)._execute())
+
+
+def _same(a, b) -> bool:
+    return same_bits(a, b) if a and torch.is_tensor(a[0]) else a == b
+
+
+def obs_fault_cell(seg_agg, spark, cell: str, point: str, spec: str, query,
+                   clean, grab, dev: str, expect, faulted: list,
+                   settings=None, runs_want=None) -> None:
+    """One fault cell: ``point`` armed with ``spec`` (and ``settings``)
+    for one run of ``query``. The point must fire; the run must give the
+    clean run's rows bit for bit (``grab(spark, query)`` against
+    ``clean``), and ``expect(events)`` checks the recovery the reference
+    performs (a cell whose reference raises a typed error would check it
+    here; none of this matrix's cells does). The card's hand-kernel runs
+    must equal the wrappers' launches (``runs_want``: a replay's runs,
+    which go through no wrapper), and the retry budget's draws stay in
+    its pool; ``tracing.fault_profile`` of the run counts the injection
+    and a recovery. The run's events are added to ``faulted``."""
+    from spark_tpu_torch import faults, metrics, recovery, tracing
+
+    before = mode_launches(seg_agg)
+    runs = device_runs(seg_agg, dev)
+    draws0 = metrics.retry_budget_stats()
+    metrics.reset()
+    t0 = time.perf_counter()
+    with _Armed(spark, dict(settings or {}, **{
+            f"spark.tpu.faultInjection.{point}": spec})):
+        got = grab(spark, query)
+        fired = faults.fire_count(spark.conf, point)
+    wall = (time.perf_counter() - t0) * 1e3
+    check(fired >= 1, f"obs fault {cell}: {point} never fired")
+    check(_same(got, clean), f"obs fault {cell}: rows differ from the clean "
+          "run")
+    evs = metrics.recent(4096)
+    expect(evs)
+    # the fault profile counts the injection at its point and a recovery
+    prof = tracing.fault_profile(evs)
+    check(prof.get("fault_injected", {}).get("points") == {point: fired}
+          and any(prof.get(k) for k in (
+              "fault_recovered", "stage_retry", "chunk_retry",
+              "degraded_to_chunked", "degraded_to_adaptive")),
+          f"obs fault {cell}: the fault profile {prof}")
+    faulted.extend(evs)
+    after = mode_launches(seg_agg)
+    launched = {m: after[m] - before[m] for m in after
+                if after[m] != before[m]}
+    want_ran = launched if runs_want is None else runs_want
+    check(dev != "cuda" or ran_since(seg_agg, runs) == want_ran,
+          f"obs fault {cell}: the device ran {ran_since(seg_agg, runs)}, "
+          f"want {want_ran} (wrappers launched {launched})")
+    draws1 = metrics.retry_budget_stats()
+    draws = draws1["draws"] - draws0["draws"]
+    pool = int(spark.conf.get(recovery.RETRY_BUDGET_ATTEMPTS))
+    check(draws - (draws1["floor_draws"] - draws0["floor_draws"]) <= pool,
+          f"obs fault {cell}: {draws} retry draws past the pool of {pool}")
+    kinds = sorted({e["kind"] for e in evs if e["kind"] in (
+        "fault_injected", "fault_recovered", "stage_retry", "chunk_retry",
+        "degraded_to_chunked", "degraded_to_adaptive", "fusion_bailout")})
+    log(f"obs fault {cell}: {point}={spec} fired {fired}x: rows bit for bit "
+        f"the clean run's in {wall:.1f} ms; events {kinds}; retry draws "
+        f"{draws}; launches {launched}")
+
+
+def obs_fault_matrix(seg_agg, gpu, dev: str, root: str) -> None:
+    """The fault matrix, each cell against its clean run (``obs_fault_
+    cell``), then ``tracing.fault_profile`` of every cell's run holding
+    one injection a cell."""
+    from spark_tpu_torch import faults, metrics, recovery, tracing
+    from spark_tpu_torch.physical import chunked
+    from spark_tpu_torch.plan.optimizer import optimize
+    from spark_tpu_torch.tpch.queries import OOC_QUERIES, ooc_budget
+
+    def has(*kinds):
+        def expect(evs):
+            got = {e["kind"] for e in evs}
+            check(all(k in got for k in kinds),
+                  f"obs: events {sorted(got)} lack {kinds}")
+        return expect
+
+    cells = []  # (cell, point) of every cell run
+    faulted: list = []  # every cell's events
+
+    def cell(name, spark, point, spec, query, clean, expect,
+             grab=_grab_rows, **kw):
+        obs_fault_cell(seg_agg, spark, name, point, spec, query, clean,
+                       grab, dev, expect, faulted, **kw)
+        cells.append((name, point))
+
+    # execute.device: transient on q1-wide on the card session (retried
+    # from the plan), oom on q1-wide over Parquet (replanned chunked)
+    q1w = _obs_query("q1_wide")
+    clean = _grab_rows(gpu, q1w)
+    # the retried run replays q1-wide's graphs: its kernels run through no
+    # wrapper
+    cell("execute.device transient", gpu, "execute.device",
+         "nth:1:transient", q1w, clean,
+         has("fault_injected", "stage_retry", "fault_recovered"),
+         runs_want=OBS_REPLAY_RUNS["q1_wide"])
+    ooc = _ooc_session(root, dev)
+    clean_pq = _grab_rows(ooc, q1w)
+    check(clean_pq == clean, "obs: q1-wide from Parquet differs from the "
+          "in-memory run")
+
+    def replanned(evs):
+        has("fault_injected", "degraded_to_chunked", "fault_recovered")(evs)
+        check(recovery.last_ladder["replans"] >= 1
+              and not _kinds_since(evs, "stage_retry"),
+              f"obs: the oom was not replanned by the ladder: "
+              f"{recovery.last_ladder}")
+
+    cell("execute.device oom", ooc, "execute.device", "nth:1:oom", q1w,
+         clean_pq, replanned, settings={
+             "spark.tpu.chunkRows": OOC_CHUNK_ROWS})
+    # pipeline.decode / pipeline.transfer: the ooc phase's chunked q1 at
+    # depth 2, the chunk retry taking the fault
+    q1, tier, over = OOC_QUERIES["q1"]
+    chunk = {"spark.tpu.maxDeviceBatchBytes": ooc_budget(
+                 optimize(ooc.sql(q1)._plan, ooc.conf), over),
+             "spark.tpu.chunkRows": OOC_CHUNK_ROWS,
+             "spark.tpu.pipelineDepth": 2}
+    with _Armed(ooc, chunk):
+        clean_q1 = _grab_rows(ooc, q1)
+        check(chunked.last_run["tier"] == tier, "obs: q1 did not chunk")
+
+    def chunk_retried(evs):
+        has("fault_injected", "chunk_retry", "fault_recovered")(evs)
+        check(not _kinds_since(evs, "stage_retry"),
+              "obs: the chunk fault restarted the query")
+
+    for point in ("pipeline.decode", "pipeline.transfer"):
+        cell(f"{point} transient", ooc, point, "nth:2:transient", q1,
+             clean_q1, chunk_retried, settings=chunk)
+    # join.spill: the hybrid q12 with partitions spilled, transient (the
+    # spill retry) and corrupt (one rung down: the grace join)
+    q12, tier12, over12 = OOC_QUERIES["q12"]
+    spill = {"spark.tpu.maxDeviceBatchBytes": ooc_budget(
+                 optimize(ooc.sql(q12)._plan, ooc.conf), over12),
+             "spark.tpu.chunkRows": OOC_CHUNK_ROWS,
+             "spark.tpu.scheduler.hbmBudgetBytes": OBS_SPILL_BUDGET}
+    with _Armed(ooc, spill):
+        clean_q12 = _grab_rows(ooc, q12)
+        rec = chunked.last_run
+        check(rec["tier"] == tier12 and rec["spilled_parts"] >= 1,
+              f"obs: q12 spilled nothing at {OBS_SPILL_BUDGET} bytes: {rec}")
+        log(f"obs: q12 hybrid at a {OBS_SPILL_BUDGET}-byte budget: "
+            f"{rec['spilled_parts']} partitions spilled, "
+            f"{rec['spill_writes']} writes, {rec['spill_reads']} reads")
+
+    def spill_retried(evs):
+        has("fault_injected", "stage_retry")(evs)
+        check(chunked.last_run["spill_retries"] == 1
+              and chunked.last_run["fallback"] is None,
+              f"obs: the spill retry did not take it: {chunked.last_run}")
+
+    def spill_fell_back(evs):
+        has("fault_injected", "fault_recovered")(evs)
+        check(chunked.last_run["fallback"] == "grace",
+              f"obs: no grace fallback: {chunked.last_run}")
+
+    cell("join.spill transient", ooc, "join.spill", "nth:1:transient", q12,
+         clean_q12, spill_retried, settings=spill)
+    cell("join.spill corrupt", ooc, "join.spill", "nth:1:corrupt", q12,
+         clean_q12, spill_fell_back, settings=spill)
+    # exchange.all_to_all: transient on mesh[4] q3 (adaptive off)
+    q3 = _obs_query("q3")
+    mesh_off = aqe_sessions(gpu, dev)["off"]
+    clean_q3 = _grab_rows(mesh_off, q3)
+    cell("exchange.all_to_all transient", mesh_off, "exchange.all_to_all",
+         "nth:1:transient", q3, clean_q3,
+         has("fault_injected", "stage_retry", "fault_recovered"))
+    # agg.strategy / agg.presplit / fusion.decide on their aqe cells
+    for name, point, spec, mode, want in (
+            ("hash", "agg.strategy", "nth:1:corrupt", "adaptive",
+             ("partial", "fallback")),
+            ("presplit", "agg.presplit", "nth:1:transient", "adaptive",
+             ("partial", "presplit_fallback")),
+            ("partial", "fusion.decide", "nth:1:transient", "fused", None)):
+        sql, _, over_cell = AQE_CELLS[name]
+        ss = aqe_sessions(gpu, dev, over_cell)
+        clean_cell = _grab_bits(ss["off"], sql)
+
+        def decided(evs, want=want):
+            has("fault_injected", "fault_recovered")(evs)
+            if want is None:
+                bail = _kinds_since(evs, "fusion_bailout")
+                check(bail and bail[0]["reason"] == "fault_injected",
+                      f"obs: fusion.decide: no fault bailout: {bail}")
+                return
+            agg = _kinds_since(evs, "agg")
+            check(agg and (agg[0]["strategy"], agg[0]["mode"]) == want,
+                  f"obs: agg decision {agg[:1]}, want {want}")
+
+        cell(f"{point} ({name} cell)", ss[mode], point, spec, sql,
+             clean_cell, decided, grab=_grab_bits)
+    prof = tracing.fault_profile(faulted)
+    check(prof["fault_injected"]["count"] == len(cells),
+          f"obs: {prof['fault_injected']['count']} injections in "
+          f"{len(cells)} cells")
+    log("obs: fault profile of every cell's run:\n"
+        + tracing.format_fault_profile(prof))
+    log(f"obs: fault cells {[c for c, _ in cells]}; retry budget "
+        f"{metrics.retry_budget_stats()}")
+    check(faults.WIRED_POINTS and {p for _, p in cells}
+          == set(faults.WIRED_POINTS),
+          f"obs: cells cover {sorted({p for _, p in cells})}, the wired "
+          f"points are {faults.WIRED_POINTS}")
+
+
+def obs_chaos(seg_agg, gpu, dev: str) -> None:
+    """A seeded chaos campaign (OBS_CHAOS_SCHEDULES schedules) over mesh[4]
+    q3 with adaptive execution, adaptive aggregation and fusion on, over
+    the points q3's mesh path reaches: every schedule byte-identical or
+    typed, none hangs, retry draws within the budget, the memory
+    invariant kept."""
+    from spark_tpu_torch import chaos
+
+    spark = aqe_sessions(gpu, dev)["fused"]
+    q3 = _obs_query("q3")
+
+    def ipc():
+        import pyarrow as pa
+
+        table = frame(spark, q3).toArrow()
+        sink = pa.BufferOutputStream()
+        with pa.ipc.new_stream(sink, table.schema) as w:
+            w.write_table(table)
+        return sink.getvalue().to_pybytes()
+
+    points = ("execute.device", "exchange.all_to_all", "agg.strategy",
+              "agg.presplit", "fusion.decide")
+    schedules = chaos.generate_campaign(OBS_CHAOS_SEED, OBS_CHAOS_SCHEDULES,
+                                        points=points, max_points=2)
+    before = mode_launches(seg_agg)
+    runs = device_runs(seg_agg, dev)
+    clean = ipc()
+    report = chaos.run_campaign(spark.conf, ipc, schedules, clean_bytes=clean,
+                                alarm_s=120.0, memory_manager=spark.memory_manager,
+                                log=lambda m: log(f"obs chaos: {m}"))
+    after = mode_launches(seg_agg)
+    launched = {m: after[m] - before[m] for m in after
+                if after[m] != before[m]}
+    check(dev != "cuda" or ran_since(seg_agg, runs) == launched,
+          f"obs chaos: the device ran {ran_since(seg_agg, runs)}, the "
+          f"wrappers launched {launched}")
+    check(report.ok, f"obs chaos: {[r.to_dict() for r in report.failures]}")
+    check(ipc() == clean, "obs chaos: the campaign left a fault armed")
+    log(f"obs chaos: {report.summary()}")
+
+
+def obs_ui(gpu) -> None:
+    """The status server on 127.0.0.1: /api/v1/queries, /api/v1/exchange
+    and /trace/<id> of the last traced query answer JSON (the last a
+    Chrome trace)."""
+    import urllib.request
+
+    from spark_tpu_torch import metrics, ui
+
+    frame(gpu, _obs_query("q3")).collect()
+    tid = _root_trace(metrics.last_query())["trace_id"]
+    srv = ui.StatusServer(gpu, port=0)
+    try:
+        got = {}
+        for path in ("/api/v1/queries", "/api/v1/exchange", f"/trace/{tid}"):
+            with urllib.request.urlopen(srv.url + path, timeout=30) as r:
+                check(r.status == 200, f"obs ui: {path} answered {r.status}")
+                got[path] = json.loads(r.read())
+        check(isinstance(got["/api/v1/queries"], list)
+              and got["/api/v1/queries"], "obs ui: no queries")
+        check("profile" in got["/api/v1/exchange"], "obs ui: no exchange")
+        xs = [e for e in got[f"/trace/{tid}"]["traceEvents"]
+              if e.get("ph") == "X"]
+        check(xs, "obs ui: the Chrome trace holds no span")
+        log(f"obs ui: {srv.url} answered /api/v1/queries "
+            f"({len(got['/api/v1/queries'])} queries), /api/v1/exchange and "
+            f"/trace/{tid} ({len(xs)} spans)")
+    finally:
+        srv.stop()
+
+
+def obs_phase(seg_agg, gpu, cpu, oracle, dev="cuda", root=None):
+    """Observability and faults at SF1: tracing on against off on the
+    single-device session (``obs_traced_runs``), the device trace of one
+    q1-wide run (``obs_device_trace``), the mesh under trace
+    (``obs_mesh_traced``), the fault matrix (``obs_fault_matrix``), a
+    chaos campaign (``obs_chaos``) and the status UI (``obs_ui``). Every
+    wrapper call is recorded and held against its plain version, the
+    card's runs equal the wrappers' launches in every run, and the graph
+    pool and the stage cache do not grow. Returns the launches of the
+    phase's wrappers (every one of them held)."""
+    from spark_tpu_torch.physical import graphs
+
+    pools = graphs.pool_bytes() if dev == "cuda" else None
+    cached = graphs.cached_stages()
+    seg_agg.reset_launches()
+    with recording_calls(seg_agg) as calls:
+        t0 = time.perf_counter()
+        walls = obs_traced_runs(seg_agg, gpu, dev)
+        log(f"obs: traced runs {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        obs_device_trace(seg_agg, gpu, dev, root)
+        log(f"obs: device trace {time.perf_counter() - t0:.1f} s")
+        # graphs captured by now: the rest may add none
+        if dev == "cuda":
+            check(graphs.pool_bytes() == pools
+                  and graphs.cached_stages() == cached,
+                  "obs: the traced runs changed the graph pool or the stage "
+                  "cache")
+        t0 = time.perf_counter()
+        obs_mesh_traced(seg_agg, gpu, dev)
+        log(f"obs: mesh under trace {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        obs_chaos(seg_agg, gpu, dev)
+        log(f"obs: chaos campaign {time.perf_counter() - t0:.1f} s")
+        obs_ui(gpu)
+        t0 = time.perf_counter()
+        # last: the oom cell's ladder drops the captured stages
+        obs_fault_matrix(seg_agg, gpu, dev, root)
+        log(f"obs: fault matrix {time.perf_counter() - t0:.1f} s")
+    hold_calls(seg_agg, calls, "obs")
+    wrapped = mode_launches(seg_agg)
+    if dev == "cuda":
+        check(len(calls) == sum(wrapped.values()),
+              f"obs: {len(calls)} wrapper calls, {wrapped} launches")
+        held = graphs.pool_bytes()
+        check((held or 0) <= (pools or 0)
+              and graphs.cached_stages() <= cached,
+              "obs: the graph pool or the stage cache grew")
+    log("obs: warm walls ms, tracing on / off (median of "
+        f"{OBS_REPS}): " + ", ".join(
+            f"{n} {on:.3f} / {off:.3f} ({on - off:+.3f})"
+            for n, (on, off) in walls.items()))
+    log(f"obs: launches through the wrappers {wrapped}; {len(calls)} "
+        "wrapper calls held against the plain versions")
+    return wrapped
 
 
 def main() -> int:
@@ -2740,7 +3363,8 @@ def main() -> int:
                 ("complex", complex_phase),
                 ("ooc", functools.partial(ooc_phase, root=root)),
                 ("mesh", mesh_phase), ("frontend", frontend_phase),
-                ("aqe", aqe_phase)):
+                ("aqe", aqe_phase),
+                ("obs", functools.partial(obs_phase, root=root))):
             t0 = time.perf_counter()
             by_path[path] = phase(seg_agg, gpu, cpu, oracle)
             log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
@@ -2761,7 +3385,7 @@ def main() -> int:
     check(not any(p["fsum_f64"] + p["fsum_f32"] for path, p in
                   by_path.items()
                   if path not in ("scalar", "io", "ooc", "mesh", "frontend",
-                                  "aqe")),
+                                  "aqe", "obs")),
           "an earlier path summed floats on a grouped path")
     check(by_path["frontend"]["fsum_f64"] >= 1
           and by_path["frontend"]["count"] >= 1,
@@ -2773,6 +3397,9 @@ def main() -> int:
           and by_path["aqe"]["sum_i64"] >= 1,
           "the aqe path launched no seg_sum count or int64 sum or seg_minmax "
           "max kernel")
+    check(by_path["obs"]["count"] >= 1 and by_path["obs"]["max"] >= 1
+          and by_path["obs"]["min"] >= 1,
+          "the obs path launched no seg_sum count or seg_minmax kernel")
 
     kernels = []
     for name, modes, headline, replaces, source, stats in (

@@ -1,7 +1,7 @@
 """Transform legality: may an aggregate be re-applied, decomposed or
 switched between strategies without changing its result? (The port of
-``spark_tpu/analysis/legality.py``'s rules; the static analyzer that
-reports them before a plan runs comes with ROADMAP A12.)
+``spark_tpu/analysis/legality.py``'s rules; ``analyzer.py`` reports them
+before a plan runs.)
 
 Three questions, one rule set:
 

@@ -77,10 +77,20 @@ class DataFrame:
     def sparkSession(self):
         return self._session
 
-    def explain(self, extended: bool = False) -> None:
+    def explain(self, extended: bool = False,
+                mode: Optional[str] = None) -> None:
+        """The logical, optimized and physical plans; ``mode="lint"``
+        prints the static plan analysis instead, without executing
+        (reference: Dataset.explain(mode), with the reference's extra
+        "lint" mode)."""
         from spark_tpu_torch.physical.planner import plan_physical
         from spark_tpu_torch.plan.optimizer import optimize
 
+        if mode == "lint" or extended == "lint":
+            from spark_tpu_torch import analysis
+
+            print(analysis.analyze(self._plan, self._session.conf).format())
+            return
         print("== Logical Plan ==")
         print(self._plan.tree_string())
         opt = optimize(self._plan, self._session.conf)
@@ -305,12 +315,17 @@ class DataFrame:
         """Run the plan on the session's device: cached subtrees read
         from the store (pinned while the query runs), the optimized plan
         through the degradation ladder, a transient failure retried
-        from the logical plan."""
+        from the logical plan. The query runs in a ``query.execute``
+        span (the trace root when standalone), under the default
+        deadline (``spark.tpu.deadline.defaultTimeoutS``) and a fresh
+        retry budget unless the caller bound them, behind the analyzer
+        gate (``spark.tpu.analysis.level``), and marks its start in the
+        event log (``metrics.query_start``)."""
+        from spark_tpu_torch import deadline, metrics, recovery, trace
+        from spark_tpu_torch.analysis import maybe_gate
         from spark_tpu_torch.api.session import _EXECUTING
         from spark_tpu_torch.physical.planner import execute_logical
         from spark_tpu_torch.plan.optimizer import optimize
-        from spark_tpu_torch.recovery import (run_plan_with_oom_degradation,
-                                              run_stage_with_recovery)
         from spark_tpu_torch.storage import pin_scope
 
         sess = self._session
@@ -327,17 +342,26 @@ class DataFrame:
             cached plans materialize through it too, so a cached big
             aggregate chunks. A mesh session's engine is its mesh
             executor, and its ladder starts with the adaptive retry."""
-            return run_plan_with_oom_degradation(
+            return recovery.run_plan_with_oom_degradation(
                 optimize(plan, conf), conf, run, dev, sess.memory_manager,
                 mesh)
 
         token = _EXECUTING.set(sess)
         try:
-            with pin_scope():
-                plan = sess.cache_manager.apply(self._plan, run_full)
-                return run_stage_with_recovery(
-                    lambda: run_full(plan), conf=conf,
-                    label=type(self._plan).__name__)
+            with deadline.bind_default(conf), \
+                    recovery.bind_default_budget(conf), \
+                    trace.span("query.execute",
+                               plan=type(self._plan).__name__):
+                with trace.span("query.analysis"):
+                    maybe_gate(self._plan, conf)
+                metrics.query_start(self._plan.node_string())
+                # every store entry the query reads stays pinned until
+                # it finishes
+                with trace.span("storage.pin"), pin_scope():
+                    plan = sess.cache_manager.apply(self._plan, run_full)
+                    return recovery.run_stage_with_recovery(
+                        lambda: run_full(plan), conf=conf,
+                        label=type(self._plan).__name__)
         finally:
             _EXECUTING.reset(token)
 

@@ -12,28 +12,40 @@ A session owns one ``UnifiedMemoryManager`` (``memory_manager``), the
 The device defaults to ``"cuda"``; without a usable CUDA device the
 session raises unless the caller asked for ``"cpu"``. Every relation the
 session creates, and every file it reads, lives on its device.
+
+A session also owns its ``extensions`` (``extensions.py``: optimizer
+rules, functions, parser hooks and the ``spark.plugins`` plugins, which
+``stop()`` shuts down; ``builder.withExtensions(fn)`` registers them),
+and, with ``spark.ui.enabled``, the live status server (``ui.py``) at
+``uiWebUrl``.
 """
 
 from __future__ import annotations
 
 import contextvars
 import sys
-import threading
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import pyarrow as pa
 
+# faults, recovery, the chunk pipeline, trace, deadline, extensions and
+# ui register their settings at import
+from spark_tpu_torch import deadline, faults, locks, recovery, trace, ui  # noqa: F401
 from spark_tpu_torch.api.dataframe import DataFrame
 from spark_tpu_torch.columnar.arrow import from_arrow
 from spark_tpu_torch.columnar.batch import round_capacity
 from spark_tpu_torch.conf import RuntimeConf
 from spark_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from spark_tpu_torch.extensions import Extensions
+from spark_tpu_torch.physical import pipeline  # noqa: F401
 from spark_tpu_torch.plan import logical as L
 from spark_tpu_torch.types import Schema
 
 
-#: the session whose query runs in this context (``DataFrame._execute``
-#: sets it): the file scan promotes hot reads into its store
+#: the session whose query runs, or whose SQL is parsed, in this context
+#: (``DataFrame._execute`` and ``SparkSession.sql`` set it): the file
+#: scan promotes hot reads into its store, and injected functions and
+#: rules, fault points and trace sampling resolve against it
 _EXECUTING: contextvars.ContextVar[Optional["SparkSession"]] = \
     contextvars.ContextVar("spark_tpu_torch_executing", default=None)
 
@@ -68,7 +80,7 @@ class CacheManager:
         self._store = store
         # key -> [plan, entry lock]
         self._entries: Dict[Any, list] = {}
-        self._lock = threading.Lock()
+        self._lock = locks.named_lock("session.cache.registry")
         #: materializations run (a store hit is not one)
         self.materializations = 0
 
@@ -84,7 +96,8 @@ class CacheManager:
     def add(self, plan: L.LogicalPlan) -> None:
         with self._lock:
             self._entries.setdefault(self._key(plan),
-                                     [plan, threading.Lock()])
+                                     [plan, locks.named_lock(
+                                         "session.cache.entry")])
 
     def drop(self, plan: L.LogicalPlan) -> bool:
         key = self._key(plan)
@@ -136,12 +149,13 @@ class CacheManager:
             if batch is not None:
                 return batch
             batch = run(entry[0])
-            with self._lock:
-                self.materializations += 1
             # a rejected put still serves this query its batch; the entry
             # stays recomputable
             self._store.put(skey, batch, pin=True)
-            return batch
+        # the registry lock ranks outside the entry lock: count after it
+        with self._lock:
+            self.materializations += 1
+        return batch
 
 
 class Catalog:
@@ -226,6 +240,14 @@ class SparkSessionBuilder:
         self._device = DEFAULT_DEVICE
         self._conf: Dict[str, Any] = {}
         self._mesh_devices: Optional[List[str]] = None
+        self._ext_fns: list = []
+
+    def withExtensions(self, fn) -> "SparkSessionBuilder":
+        """``fn(extensions)`` registers injection points on the session
+        this builder returns (reference:
+        SparkSession.Builder.withExtensions)."""
+        self._ext_fns.append(fn)
+        return self
 
     def device(self, name) -> "SparkSessionBuilder":
         """``"cuda"`` (the default) or ``"cpu"``."""
@@ -280,6 +302,9 @@ class SparkSessionBuilder:
         else:
             for key, value in self._conf.items():
                 active.conf.set(key, value)
+        for fn in self._ext_fns:
+            fn(active.extensions)
+        self._ext_fns = []
         return active
 
 
@@ -311,11 +336,21 @@ class SparkSession:
 
             self._mesh = make_mesh(None if n == -1 else int(n),
                                    devices=mesh_devices)
+        # runtime lock-order validation (spark.tpu.debug.lockOrder)
+        locks.configure(self.conf)
         self.catalog = Catalog(self)
         # storage and execution share one device byte budget
         self.memory_manager = UnifiedMemoryManager(conf=self.conf)
         self.memory_store = MemoryStore(self.memory_manager)
         self.cache_manager = CacheManager(store=self.memory_store)
+        self.extensions = Extensions()
+        self.app_name = "spark-tpu-torch"
+        self._stopped = False
+        # the live status server (reference: SparkUI.scala:40), gated on
+        # spark.ui.enabled
+        self._ui = ui.maybe_start(self)
+        # last: a plugin's init(session) may use any of the session
+        self.extensions.load_plugins(self)
 
     class _BuilderDescriptor:
         def __get__(self, obj, cls):
@@ -326,6 +361,23 @@ class SparkSession:
     @classmethod
     def getActiveSession(cls) -> Optional["SparkSession"]:
         return cls._active
+
+    @property
+    def uiWebUrl(self) -> Optional[str]:
+        """The live status server's URL with ``spark.ui.enabled``, else
+        None (reference: SparkContext.uiWebUrl)."""
+        return self._ui.url if self._ui is not None else None
+
+    def stop(self) -> None:
+        """Stop the status server and shut the plugins down; the session
+        stops being the active one."""
+        self._stopped = True
+        if self._ui is not None:
+            self._ui.stop()
+            self._ui = None
+        self.extensions.shutdown_plugins()
+        if SparkSession._active is self:
+            SparkSession._active = None
 
     @property
     def mesh_executor(self):
@@ -358,7 +410,13 @@ class SparkSession:
     def sql(self, query: str) -> DataFrame:
         from spark_tpu_torch.sql.parser import parse_sql
 
-        return DataFrame(self, parse_sql(query, self.catalog))
+        token = _EXECUTING.set(self)
+        try:
+            # injected parser hooks first (reference: injectParser:318)
+            plan = self.extensions.parse(query, self.catalog, parse_sql)
+        finally:
+            _EXECUTING.reset(token)
+        return DataFrame(self, plan)
 
     def createDataFrame(
         self,

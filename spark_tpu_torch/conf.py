@@ -59,11 +59,41 @@ CBO_JOIN_REORDER = register(
 
 ANALYSIS_LEVEL = register(
     "spark.tpu.analysis.level", "off",
-    "Governs conf.set of undeclared keys: off accepts them silently, "
-    "warn emits a warning, error raises. (In the reference it also "
-    "gates a static plan analysis before execution, which is not "
-    "ported.)", str)
+    "Pre-execution static plan analysis gate (analysis/analyzer.py): "
+    "off (default, no analysis on the submit path), warn (analyze every "
+    "submitted plan and record its diagnostics as events and metrics) "
+    "or error (also raise PlanAnalysisError when an error-level "
+    "diagnostic fires, before anything touches the device). The same "
+    "level governs conf.set of undeclared keys: warn emits a warning, "
+    "error raises.", str)
 
+ANALYSIS_DIVERGENCE_FACTOR = register(
+    "spark.tpu.analysis.divergenceFactor", 16.0,
+    "The analyzer's static byte estimate is cross-checked against a "
+    "measured byte count of the same plan where one exists; when the "
+    "two differ by more than this factor either way the plan gets a "
+    "PLAN-EST-DIVERGE diagnostic. Default: the reference's.", float)
+
+ANALYSIS_ERROR_CODES = register(
+    "spark.tpu.analysis.errorCodes", "",
+    "Comma-separated diagnostic codes escalated to error level at the "
+    "submit-time gate (e.g. 'PLAN-DTYPE-F64,PLAN-RECOMPILE-SHAPE').",
+    str)
+
+DEBUG_LOCK_ORDER = register(
+    "spark.tpu.debug.lockOrder", False,
+    "Runtime cross-check of the lock hierarchy (locks.py): when true, "
+    "every named lock records the per-thread held stack on acquire and "
+    "locks.order_report() lists the observed acquisition edges and any "
+    "rank inversions or cycles. Off by default (one flag check per "
+    "acquire either way).", bool)
+
+
+EVENT_LOG_DIR = register(
+    "spark.eventLog.dir", "",
+    "When set, every event of the metrics ring (metrics.py) is appended "
+    "as JSONL to events.jsonl under this directory (reference: "
+    "EventLoggingListener.scala:48).", str)
 
 WAREHOUSE_DIR = register(
     "spark.sql.warehouse.dir", "spark-warehouse",

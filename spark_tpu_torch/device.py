@@ -16,11 +16,12 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import hashlib
-import threading
 from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from spark_tpu_torch import locks
 
 DEFAULT_DEVICE = "cuda"
 
@@ -59,7 +60,7 @@ def torch_dtype(np_dtype) -> torch.dtype:
 #: ``collecting_tables`` block holds (a captured stage holds the tables
 #: its graph reads itself, so an eviction never frees one under a graph)
 _TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
-_TABLES_LOCK = threading.Lock()
+_TABLES_LOCK = locks.named_lock("device.tables")
 TABLE_BYTES = 1 << 28
 
 #: True while host work runs that the card does not do (a copy through

@@ -43,13 +43,13 @@ import datetime
 import decimal
 import operator
 import re
-import threading
 from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from spark_tpu_torch import locks
 from spark_tpu_torch import types as T
 from spark_tpu_torch.device import device_table, torch_dtype
 from spark_tpu_torch.expr import expressions as E
@@ -249,7 +249,7 @@ def unify_dictionaries(
 #: and one query may transform it more than once (q22's substring)
 _ARROW_DICTS: "OrderedDict[int, tuple]" = OrderedDict()
 _ARROW_DICTS_MAX = 32
-_ARROW_DICTS_LOCK = threading.Lock()
+_ARROW_DICTS_LOCK = locks.named_lock("expr.arrow_dicts")
 
 
 def _arrow_dictionary(dictionary: Tuple[str, ...]):

@@ -23,6 +23,7 @@ import pyarrow.compute as pc
 import pyarrow.dataset as pads
 import torch
 
+from spark_tpu_torch import metrics
 from spark_tpu_torch import types as T
 from spark_tpu_torch.columnar.arrow import (dtype_to_arrow_type, from_arrow,
                                             schema_from_arrow, source_column)
@@ -341,6 +342,9 @@ class FileSource:
         self.last_read = {"rows": table.num_rows,
                           "decode_ms": (t1 - t0) * 1e3,
                           "transfer_ms": (t2 - t1) * 1e3}
+        metrics.record("scan", fmt=self.fmt, rows=table.num_rows,
+                       decode_ms=round(self.last_read["decode_ms"], 2),
+                       transfer_ms=round(self.last_read["transfer_ms"], 2))
         if hot and store.put(skey, batch, pin=True):
             return batch
         while len(self._cache) >= _CACHE_ENTRIES:

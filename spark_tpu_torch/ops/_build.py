@@ -18,8 +18,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
+
+from spark_tpu_torch import locks
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
@@ -31,7 +32,7 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _loaded: dict = {}
 #: one build at a time: the ranks of a mesh reach their first kernel
 #: launch from threads of their own
-_BUILD_LOCK = threading.RLock()
+_BUILD_LOCK = locks.named_rlock("ops.build")
 #: the compiler's output of each library built by this process, by
 #: library name (for nvcc, ``-Xptxas -v``: registers, shared memory,
 #: spills)

@@ -53,14 +53,15 @@ replays can be held against the plain versions.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 
+from spark_tpu_torch import locks
+
 #: the libraries' first load and typing, and the launch counters, are
 #: shared by the ranks of a mesh, which launch from threads of their own
-_LOCK = threading.Lock()
+_LOCK = locks.named_lock("ops.seg_agg")
 
 MAX_K = 1024     # shared-memory accumulator bound, as the reference's _MAX_K
 MAX_ROWS = 1 << 31

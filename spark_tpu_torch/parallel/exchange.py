@@ -46,6 +46,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
+from spark_tpu_torch import faults, locks
 from spark_tpu_torch.expr.compiler import TV
 from spark_tpu_torch.physical import kernels as K
 from spark_tpu_torch.physical.operators import Pipe
@@ -120,7 +121,7 @@ class ThreadComm(Comm):
         self.timeout = timeout
         self._barrier = threading.Barrier(size)
         self._slots: list = [None] * size
-        self._lock = threading.Lock()
+        self._lock = locks.named_lock("exchange.thread_comm")
         #: one dict per exchange run on this communicator
         self.events: List[dict] = []
 
@@ -383,7 +384,12 @@ def exchange(pipe: Pipe, target: torch.Tensor, op: str = "hash",
     ``out_capacity`` may be a function of the incoming live counts per
     destination (a fused span picks its capacity rung from this one
     count read). A bound below the measured counts raises: it would drop
-    live rows."""
+    live rows.
+
+    The fault point ``exchange.all_to_all`` fires on each rank's arrival
+    (an nth spec on the first rank to arrive; the collectives abort and
+    the stage re-raises the typed fault)."""
+    faults.inject("exchange.all_to_all")
     ctx = current()
     d, dev, cap = ctx.comm.size, ctx.device, pipe.capacity
     live = pipe.mask

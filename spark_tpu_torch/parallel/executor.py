@@ -32,7 +32,22 @@ extended stats stage; a join's broadcast decision takes the build
 side's measured bytes. Whole-query fusion (``spark.tpu.fusion.enabled``)
 runs every exchange whose only adaptive decision is its capacity as a
 ``FusedSpanExec`` inside one rank stage. Every decision is listed in
-``last_run["events"]`` with the reference's metrics fields.
+``last_run["events"]`` and recorded in the event log (``metrics.py``)
+under the reference's kinds and fields.
+
+Observability and faults (the reference's seams): each rank stage runs in
+a ``stage.run`` span and records a ``stage`` and a ``stage_bytes`` event;
+with a sampled trace, each rank's share of a stage runs in a
+``stage.device`` span closed by a sync of the rank's device (ranks that
+share one card share its stream, so a rank's span also covers the other
+ranks' queued work: it bounds the stage's device time, it is not a
+per-rank device time). The stats stages run in ``exchange.stats`` and
+``agg.decide`` spans, the sort and pre-split rungs in ``agg.sort`` and
+``agg.presplit``, a fused plan in ``stage.fused``. The fault points
+``agg.strategy`` and ``agg.presplit`` (any kind degrades the aggregate to
+the static partial->final strategy) and ``fusion.decide`` (any kind
+degrades to staged execution) sit at the decisions; ``exchange.all_to_all``
+sits in ``exchange.exchange``.
 """
 
 from __future__ import annotations
@@ -50,7 +65,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_tpu_torch import locks
 from spark_tpu_torch import conf as CF
+from spark_tpu_torch import faults, metrics, trace
 from spark_tpu_torch import types as T
 from spark_tpu_torch.columnar.batch import Batch
 from spark_tpu_torch.expr import compiler as C
@@ -328,7 +345,9 @@ class MeshExecutor:
       ``rows``, ``ratio``, ``domain``, ``hot_keys``; ``fusion`` and
       ``fusion_bailout`` with its ``reason``; ``exchange`` with ``mode``
       adaptive, ``capacity_before``/``capacity_after`` and
-      ``buffer_bytes``; the skew join's re-plans)."""
+      ``buffer_bytes``; the skew join's re-plans). The same dicts go to
+      the event log (``metrics.record``; an exchange through
+      ``metrics.record_exchange``), stamped with the query's trace."""
 
     def __init__(self, mesh: Mesh, conf=None):
         self.mesh = mesh
@@ -555,9 +574,15 @@ class MeshExecutor:
         return bool(self.conf.get(FUSION_ENABLED))
 
     def _note(self, kind: str, **fields) -> None:
-        """Record one decision in ``last_run["events"]``."""
+        """Record one decision in ``last_run["events"]`` and in the event
+        log (an ``exchange`` through ``metrics.record_exchange``, which
+        also sets the ``exchange.*`` gauges)."""
         if self._stats is not None:
             self._stats["events"].append(dict(kind=kind, **fields))
+        if kind == "exchange":
+            metrics.record_exchange(**fields)
+        else:
+            metrics.record(kind, **fields)
 
     def _host_read(self, n: int = 1) -> None:
         if self._stats is not None:
@@ -591,6 +616,17 @@ class MeshExecutor:
             # the root span: nothing above reads its sentinel slot, so
             # its output may be cut to the ladder's anchor
             fused = dataclasses.replace(fused, speculate=True)
+        try:
+            # fault point: the plan is judged fusible, the span not yet
+            # run; any kind degrades to staged execution (the staged
+            # path computes the same rows)
+            faults.inject("fusion.decide", self.conf)
+        except faults.InjectedFault as e:
+            metrics.note_fusion("fault_fallbacks")
+            metrics.record("fault_recovered", point="fusion.decide",
+                           fault=e.kind, action="staged")
+            self._fusion_bailout("fault_injected", e.kind)
+            return None
         return fused, n_spans
 
     def _fuse_rewrite(self, plan: P.PhysicalPlan):
@@ -683,19 +719,25 @@ class MeshExecutor:
         return rewrite(plan), spans[0]
 
     def _fusion_bailout(self, reason: str, detail: str = "") -> None:
+        metrics.note_fusion("bailouts")
         self._note("fusion_bailout", reason=reason, detail=detail)
 
     def _run_fused(self, plan: P.PhysicalPlan,
                    n_spans: int) -> Optional[ShardedBatch]:
         try:
-            sb = self._run_stage(plan)
+            with trace.span("stage.fused", spans=n_spans, devices=self.d):
+                sb = self._run_stage(plan)
         except _FusionOverflow:
             self._fusion_bailout(
                 "overflow", "live rows past the speculative output "
                 "capacity; staged re-run")
             return None
+        metrics.note_fusion("fused_programs")
+        metrics.note_fusion("fused_spans", n_spans)
         self._note("fusion", spans=n_spans, devices=self.d,
                    capacity=sb.per_device_capacity)
+        metrics.set_gauge("fusion.last_spans", n_spans)
+        metrics.set_gauge("fusion.last_devices", self.d)
         return sb
 
     # ---- adaptive execution (AQE over the mesh) -----------------------------
@@ -754,6 +796,7 @@ class MeshExecutor:
                 and _sorted_by_satisfies(child_sb.sorted_by, ex.orders)):
             self._note("aqe", decision="sort_elide", op="range",
                        orders=tuple(s[0] for s in child_sb.sorted_by))
+            metrics.note_agg("sort_elided")
             return child_sb
         return self._exchange_with_stats(ex, child_sb, consumer=consumer)
 
@@ -818,8 +861,11 @@ class MeshExecutor:
                              allow_skew: bool = True) -> ShardedBatch:
         d = self.d
         ex = dataclasses.replace(ex, child=D.ShardScanExec(child_sb))
-        stats_sb = self._run_stage(D.ExchangeStatsExec(ex))
-        incoming, maxslice = self._read_stats(stats_sb, (d, d))
+        # one span per stats stage and its host read: the round trip
+        # adaptive execution pays for measured capacities
+        with trace.span("exchange.stats", op=_exchange_op(ex)):
+            stats_sb = self._run_stage(D.ExchangeStatsExec(ex))
+            incoming, maxslice = self._read_stats(stats_sb, (d, d))
 
         if (allow_skew and consumer is not None and d > 1
                 and isinstance(ex, D.HashPartitionExchangeExec)
@@ -884,7 +930,11 @@ class MeshExecutor:
 
         Aggregates outside ``legality.strategy_verdict`` (float Sum/Avg
         partials, float Min/Max) pin to ``partial``; every legal strategy
-        gives the static plan's bytes."""
+        gives the static plan's bytes. An injected fault at
+        ``agg.strategy`` (between the sketch read and the pick) or at
+        ``agg.presplit`` (once presplit is picked), of any kind, drops
+        the sketches' advice: ``partial``, mode ``fallback`` or
+        ``presplit_fallback``, with a ``fault_recovered`` event."""
         from spark_tpu_torch.analysis import legality
 
         d = self.d
@@ -917,80 +967,118 @@ class MeshExecutor:
             cmw = 1 << (cmw.bit_length() - 1)
         use_cm = d > 1  # pre-splitting needs somewhere to spread to
 
-        stats_sb = self._run_stage(D.ExchangeStatsExec(
-            raw_ex, sketch_registers=r, key_stats=nk,
-            cm_depth=cmd if use_cm else 0, cm_width=cmw if use_cm else 0))
-        widths = [d, d, r] + [nk] * (3 if nk else 0) + \
-            [d, d] * int(use_cm)
-        cols = self._read_stats(stats_sb, widths)
-        incoming, maxslice, registers = cols[0], cols[1], cols[2]
-        rows = int(incoming.sum())
-        verdict = legality.strategy_verdict(partial.aggregates,
-                                            partial.child.schema)
-        forced = str(self.conf.get(CF.ADAPTIVE_AGG_STRATEGY)).lower()
+        with trace.span("agg.decide", node=final.node_string()):
+            stats_sb = self._run_stage(D.ExchangeStatsExec(
+                raw_ex, sketch_registers=r, key_stats=nk,
+                cm_depth=cmd if use_cm else 0,
+                cm_width=cmw if use_cm else 0))
+            widths = [d, d, r] + [nk] * (3 if nk else 0) + \
+                [d, d] * int(use_cm)
+            cols = self._read_stats(stats_sb, widths)
+            incoming, maxslice = cols[0], cols[1]
+            rows = int(incoming.sum())
+            verdict = legality.strategy_verdict(partial.aggregates,
+                                                partial.child.schema)
+            forced = str(self.conf.get(CF.ADAPTIVE_AGG_STRATEGY)).lower()
 
-        ndv = min(rows, int(round(self._hll_estimate(registers))))
-        ratio = (ndv / rows) if rows else 0.0
-        mins: Tuple[int, ...] = ()
-        ranges: Tuple[int, ...] = ()
-        domain = 0
-        ci = 3
-        if nk and rows:
-            kmin, kmax = cols[ci], cols[ci + 1]
-            if bool(np.all(kmin <= kmax)):
-                mins = tuple(int(v) for v in kmin)
-                ranges = tuple(int(mx) - int(mn) + 1
-                               for mn, mx in zip(kmin, kmax))
-                domain = 1
-                for rg in ranges:
-                    domain *= rg + 1  # and a NULL slot per key
-                    if domain > (1 << 62):
-                        domain = 1 << 62
-                        break
-        ci += 3 if nk else 0
-        hot_hashes: Tuple[int, ...] = ()
-        if use_cm and rows:
-            # hot: one key alone would overload a rank, its Count-Min
-            # estimate past the fair per-rank share times the factor (CM
-            # never under-counts, so a collision can only salt a cold key,
-            # which the partials' partition invariance makes free)
-            cut = max(int(self.conf.get(CF.ADAPTIVE_AGG_PRESPLIT_MIN_ROWS)),
-                      int(self.conf.get(CF.ADAPTIVE_AGG_PRESPLIT_FACTOR))
-                      * max(1, rows // d))
-            hot_hashes = tuple(sorted({int(h) for h, e in zip(
-                cols[ci], cols[ci + 1]) if int(e) >= cut}))
+            ndv = 0
+            ratio = 0.0
+            mins: Tuple[int, ...] = ()
+            ranges: Tuple[int, ...] = ()
+            domain = 0
+            hot_hashes: Tuple[int, ...] = ()
+            try:
+                # fault point: everything the sketches feed the decision
+                # is inside this block, so an injected failure of any
+                # kind degrades to the static plan, the estimates dropped
+                faults.inject("agg.strategy", self.conf)
+                ndv = min(rows, int(round(self._hll_estimate(cols[2]))))
+                ratio = (ndv / rows) if rows else 0.0
+                ci = 3
+                if nk and rows:
+                    kmin, kmax = cols[ci], cols[ci + 1]
+                    if bool(np.all(kmin <= kmax)):
+                        mins = tuple(int(v) for v in kmin)
+                        ranges = tuple(int(mx) - int(mn) + 1
+                                       for mn, mx in zip(kmin, kmax))
+                        domain = 1
+                        for rg in ranges:
+                            domain *= rg + 1  # and a NULL slot per key
+                            if domain > (1 << 62):
+                                domain = 1 << 62
+                                break
+                ci += 3 if nk else 0
+                if use_cm and rows:
+                    # hot: one key alone would overload a rank, its
+                    # Count-Min estimate past the fair per-rank share
+                    # times the factor (CM never under-counts, so a
+                    # collision can only salt a cold key, which the
+                    # partials' partition invariance makes free)
+                    cut = max(
+                        int(self.conf.get(CF.ADAPTIVE_AGG_PRESPLIT_MIN_ROWS)),
+                        int(self.conf.get(CF.ADAPTIVE_AGG_PRESPLIT_FACTOR))
+                        * max(1, rows // d))
+                    hot_hashes = tuple(sorted({int(h) for h, e in zip(
+                        cols[ci], cols[ci + 1]) if int(e) >= cut}))
+                sketch_ok = True
+            except faults.InjectedFault as e:
+                metrics.note_agg("sketch_failures")
+                metrics.record("fault_recovered", point="agg.strategy",
+                               fault=e.kind, action="static_partial_final")
+                sketch_ok = False
 
-        hash_ok = bool(ranges) and 0 < domain <= int(
-            self.conf.get(CF.ADAPTIVE_AGG_HASH_DOMAIN_LIMIT))
-        presplit_ok = bool(hot_hashes) and d > 1
-        if not verdict.ok:
-            strategy, mode = "partial", "pinned"
-        elif forced in ("partial", "bypass", "hash", "sort", "presplit"):
-            # an unexecutable forced choice falls back to partial
-            strategy = forced
-            if (forced == "hash" and not hash_ok) \
-                    or (forced == "presplit" and not presplit_ok):
-                strategy = "partial"
-            mode = "forced"
-        elif rows:
-            strategy = legality.strategy_crossover(
-                ratio, domain if ranges else -1,
-                float(self.conf.get(CF.ADAPTIVE_AGG_BYPASS_NDV_RATIO)),
-                int(self.conf.get(CF.ADAPTIVE_AGG_HASH_DOMAIN_LIMIT)),
-                int(self.conf.get(CF.ADAPTIVE_AGG_SORT_DOMAIN_WIDTH)))
-            mode = "auto"
-            # pre-splitting pays only where the chosen strategy exchanges
-            # raw rows; partial and hash collapse a hot key to one row
-            # per rank first
-            if strategy in ("bypass", "sort") and presplit_ok:
-                strategy = "presplit"
-        else:
-            strategy, mode = "partial", "auto"
+            hash_ok = bool(ranges) and 0 < domain <= int(
+                self.conf.get(CF.ADAPTIVE_AGG_HASH_DOMAIN_LIMIT))
+            presplit_ok = bool(hot_hashes) and d > 1
+            if not sketch_ok:
+                strategy, mode = "partial", "fallback"
+            elif not verdict.ok:
+                strategy, mode = "partial", "pinned"
+                metrics.note_agg("pinned")
+            elif forced in ("partial", "bypass", "hash", "sort",
+                            "presplit"):
+                # an unexecutable forced choice falls back to partial
+                strategy = forced
+                if (forced == "hash" and not hash_ok) \
+                        or (forced == "presplit" and not presplit_ok):
+                    strategy = "partial"
+                mode = "forced"
+                metrics.note_agg("forced")
+            elif rows:
+                strategy = legality.strategy_crossover(
+                    ratio, domain if ranges else -1,
+                    float(self.conf.get(CF.ADAPTIVE_AGG_BYPASS_NDV_RATIO)),
+                    int(self.conf.get(CF.ADAPTIVE_AGG_HASH_DOMAIN_LIMIT)),
+                    int(self.conf.get(CF.ADAPTIVE_AGG_SORT_DOMAIN_WIDTH)))
+                mode = "auto"
+                # pre-splitting pays only where the chosen strategy
+                # exchanges raw rows; partial and hash collapse a hot key
+                # to one row per rank first
+                if strategy in ("bypass", "sort") and presplit_ok:
+                    strategy = "presplit"
+            else:
+                strategy, mode = "partial", "auto"
+
+            if strategy == "presplit":
+                # second fault point: the candidate list is advice only,
+                # dropped whole on any injected fault
+                try:
+                    faults.inject("agg.presplit", self.conf)
+                except faults.InjectedFault as e:
+                    metrics.note_agg("presplit_failures")
+                    metrics.record("fault_recovered", point="agg.presplit",
+                                   fault=e.kind,
+                                   action="static_partial_final")
+                    strategy, mode = "partial", "presplit_fallback"
 
         self._note("agg", strategy=strategy, mode=mode, ndv=int(ndv),
                    rows=rows, ratio=round(ratio, 4), domain=int(domain),
                    devices=d, hot_keys=len(hot_hashes),
                    node=final.node_string())
+        metrics.note_agg(strategy)
+        metrics.set_gauge("agg.last_ndv", int(ndv))
+        metrics.set_gauge("agg.last_rows", rows)
+        metrics.set_gauge("agg.last_strategy", strategy)
 
         if strategy == "bypass":
             # raw rows to their group's rank under the measured bounds;
@@ -1000,23 +1088,27 @@ class MeshExecutor:
             return dataclasses.replace(partial, child=D.ShardScanExec(sb),
                                        phase=None)
         if strategy == "sort":
-            orders = tuple(E.SortOrder(E.strip_alias(g))
-                           for g in partial.groupings)
-            range_ex = D.RangeExchangeExec(orders, D.ShardScanExec(child_sb))
-            ex_sb = self._exchange_with_stats(range_ex, child_sb)
-            out_sb = self._run_stage(D.DistRangeAggExec(
-                tuple(partial.groupings), tuple(partial.aggregates),
-                D.ShardScanExec(ex_sb)))
-            out_sb.sorted_by = self._agg_sorted_by(partial)
+            with trace.span("agg.sort", rows=rows, ndv=int(ndv)):
+                orders = tuple(E.SortOrder(E.strip_alias(g))
+                               for g in partial.groupings)
+                range_ex = D.RangeExchangeExec(orders,
+                                               D.ShardScanExec(child_sb))
+                ex_sb = self._exchange_with_stats(range_ex, child_sb)
+                out_sb = self._run_stage(D.DistRangeAggExec(
+                    tuple(partial.groupings), tuple(partial.aggregates),
+                    D.ShardScanExec(ex_sb)))
+                out_sb.sorted_by = self._agg_sorted_by(partial)
             return D.ShardScanExec(out_sb)
         if strategy == "presplit":
-            salted = dataclasses.replace(raw_ex, presplit_hashes=hot_hashes)
-            salted_sb = self._exchange_with_stats(
-                salted, child_sb, consumer=None, allow_skew=False)
-            pre_sb = self._run_stage(dataclasses.replace(
-                partial, child=D.ShardScanExec(salted_sb)))
-            sb = self._exchange_with_stats(ex, pre_sb, consumer=None,
-                                           allow_skew=False)
+            with trace.span("agg.presplit", hot=len(hot_hashes), rows=rows):
+                salted = dataclasses.replace(raw_ex,
+                                             presplit_hashes=hot_hashes)
+                salted_sb = self._exchange_with_stats(
+                    salted, child_sb, consumer=None, allow_skew=False)
+                pre_sb = self._run_stage(dataclasses.replace(
+                    partial, child=D.ShardScanExec(salted_sb)))
+                sb = self._exchange_with_stats(ex, pre_sb, consumer=None,
+                                               allow_skew=False)
             return dataclasses.replace(final, child=D.ShardScanExec(sb))
         if strategy == "hash":
             pre: P.PhysicalPlan = D.DistHashPartialAggExec(
@@ -1071,21 +1163,50 @@ class MeshExecutor:
         return dataclasses.replace(plan, **fields) if changed else plan
 
     def _run_stage(self, plan: P.PhysicalPlan) -> ShardedBatch:
+        """One rank stage in a ``stage.run`` span, recorded as a ``stage``
+        event and its output's ``stage_bytes``."""
+        with trace.span("stage.run", op=type(plan).__name__), \
+                metrics.stage_timer("stage", mesh=self.d,
+                                    node=plan.node_string()):
+            sb = self._run_stage_inner(plan)
+        metrics.record("stage_bytes",
+                       bytes=int(sb.capacity) * _row_width(sb.schema))
+        return sb
+
+    def _run_stage_inner(self, plan: P.PhysicalPlan) -> ShardedBatch:
         """Run ``plan`` on every rank (one thread each, the caller's
         context copied into each), its collectives on one ThreadComm;
-        the first failure is raised here once every rank has stopped."""
+        the first failure is raised here once every rank has stopped.
+        With a sampled trace each rank runs in a ``stage.device`` span
+        that ends with a sync of its device."""
         _check_stage(plan)
         d = self.d
         comm = X.ThreadComm(d)
         outs: List[Optional[Batch]] = [None] * d
         walls = [0.0] * d
         failures: list = []  # (rank, exception), first failure first
-        lock = threading.Lock()
+        lock = locks.named_lock("mesh.rank_stage")
+        ctx = trace.current()
+        sampled = ctx is not None and ctx.sampled
+        op = type(plan).__name__
+
+        def run_on(r: int) -> Batch:
+            dev = self.mesh.devices[r]
+            if not sampled:
+                return run_rank(plan, r, comm, dev)
+            with trace.span("stage.device", op=op, rank=r):
+                out = run_rank(plan, r, comm, dev)
+                if torch.device(dev).type == "cuda":
+                    # device time, not launch time: only a sampled
+                    # trace pays the sync (the host reads the same
+                    # buffers right after anyway)
+                    torch.cuda.current_stream(dev).synchronize()
+                return out
 
         def rank_main(r: int) -> None:
             t0 = time.perf_counter()
             try:
-                outs[r] = run_rank(plan, r, comm, self.mesh.devices[r])
+                outs[r] = run_on(r)
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 with lock:
                     failures.append((r, e))
@@ -1132,6 +1253,17 @@ class MeshExecutor:
                 "node": plan.node_string(), "wall_ms": wall,
                 "rank_ms": walls, "exchanges": len(comm.events)})
             self._stats["exchanges"].extend(comm.events)
+        if comm.events and not self._adaptive_enabled():
+            # static mode: the stage's exchanges ran inside it at their
+            # own capacities; report the stage output as the post-exchange
+            # shape (the live rows were counted by the exchanges' reads)
+            p = sb.per_device_capacity
+            metrics.record_exchange(
+                op="fused", mode="fused", devices=d,
+                exchanges=len(comm.events),
+                rows=int(comm.events[-1]["rows"]),
+                capacity_before=p, capacity_after=p,
+                buffer_bytes=d * p * _row_width(sb.schema))
         if isinstance(plan, D.FusedSpanExec) and plan.speculate:
             # each shard's last slot is the overflow sentinel: read it
             # before any compaction could move it

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from spark_tpu_torch import conf as CF
+from spark_tpu_torch import deadline, faults, metrics, trace
 from spark_tpu_torch import types as T
 from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.plan import logical as L
@@ -481,11 +482,23 @@ def _finish(above, final: L.LogicalPlan, run) -> Any:
     return run(final)
 
 
+#: the event kind each tier records (the reference's names)
+_EVENT_KINDS = {"_ChunkedAgg": "chunked_agg",
+                "_GraceHashAgg": "grace_hash_agg",
+                "_HybridHashJoinAgg": "hybrid_hash_agg",
+                "_ChunkedTopK": "chunked_topk"}
+
+
 def _record(tier, **fields) -> Dict[str, Any]:
+    """Keep a tier's run in ``last_run`` and record it as the
+    reference's event (``tracing.pipeline_profile`` folds them)."""
     global last_run
     rec = {"tier": type(tier).__name__, **fields}
     tier.last_run = rec
     last_run = rec
+    metrics.record(_EVENT_KINDS.get(rec["tier"], "chunked"), **{
+        k: v for k, v in fields.items()
+        if isinstance(v, (int, float, str, bool, type(None)))})
     return rec
 
 
@@ -583,7 +596,8 @@ class _ChunkedAgg:
                                              tuple(scan.filters),
                                              chunk_rows),
                     make_prepare(scan_cols), depth=depth,
-                    byte_budget=prefetch_budget, stats=stats)
+                    byte_budget=prefetch_budget, stats=stats,
+                    conf=conf)
 
             # 1. each sidecar materializes once and stays on the device
             for pj in self.path_joins:
@@ -621,7 +635,8 @@ class _ChunkedAgg:
                     scan.source.iter_batches(read_cols, scan_filters,
                                              chunk_rows),
                     make_prepare(read_cols), depth=depth,
-                    byte_budget=prefetch_budget, stats=stats)
+                    byte_budget=prefetch_budget, stats=stats,
+                    conf=conf)
 
             for rel in pipe:
                 with stats.timed("compute"):
@@ -777,7 +792,8 @@ class _GraceHashAgg:
                                    ta, tb, cap_a, cap_b)
 
         pipe = ChunkPipeline(parts, prepare, depth=depth,
-                             byte_budget=prefetch_budget, stats=stats)
+                             byte_budget=prefetch_budget, stats=stats,
+                             conf=conf)
         try:
             for mapping in pipe:
                 with stats.timed("compute"):
@@ -826,27 +842,44 @@ class _HybridSpillAbort(Exception):
         self.kind = kind
 
 
-def _spill_seam(op: str, attempts: int, fn, counters: Dict[str, int]):
-    """Run one spill operation: a transient failure retries up to
-    ``attempts`` times, any other failure (or exhausted retries) aborts
-    the hybrid pass, and an OOM propagates so that the degradation
-    ladder stays the last resort. (The reference's fault-injection point
-    here comes with ROADMAP A12.)"""
+def _spill_seam(conf, op: str, attempts: int, fn,
+                counters: Dict[str, int]):
+    """Run one spill operation behind the ``join.spill`` fault point, in
+    a ``join.spill`` span: a transient failure retries up to
+    ``attempts`` times (each re-attempt drawn from the query's retry
+    budget and checked against its deadline), any other failure (or
+    exhausted retries) aborts the hybrid pass, an OOM propagates so that
+    the degradation ladder stays the last resort, and a passed deadline
+    surfaces as itself."""
     from spark_tpu_torch import recovery
 
     last: Optional[BaseException] = None
     for attempt in range(max(0, int(attempts)) + 1):
         try:
-            return fn()
+            with trace.span("join.spill", op=op, attempt=attempt):
+                faults.inject("join.spill", conf)
+                return fn()
+        except deadline.DeadlineExceeded:
+            # not a spill failure: the query's window closed, and the
+            # fallback to the grace join would only burn more time
+            raise
         except Exception as e:  # noqa: BLE001 - classified below
             if recovery.is_oom(e):
                 raise
             if recovery.is_transient(e) and attempt < attempts:
+                deadline.check(f"join.spill.{op}")
+                if not recovery.retry_allowed("join.spill"):
+                    raise recovery.RetryBudgetExhausted(
+                        "join.spill", recovery.current_budget()) from e
                 counters["spill_retries"] += 1
+                metrics.note_join("spill_retries")
+                metrics.record("stage_retry", label=f"join.spill.{op}",
+                               attempt=attempt, error=repr(e))
                 last = e
                 continue
-            raise _HybridSpillAbort(op, type(e).__name__) from e
-    raise _HybridSpillAbort(op, "exhausted") from last
+            raise _HybridSpillAbort(
+                op, getattr(e, "kind", type(e).__name__)) from e
+    raise _HybridSpillAbort(op, getattr(last, "kind", "exhausted")) from last
 
 
 class _HybridPart:
@@ -905,6 +938,9 @@ class _HybridHashJoinAgg:
         try:
             return self._execute_hybrid(ctx)
         except _HybridSpillAbort as e:
+            metrics.note_join("fallbacks")
+            metrics.record("fault_recovered", point="join.spill",
+                           fault=e.kind, op=e.op, action="grace_fallback")
             grace = _GraceHashAgg(self.above, self.agg, self.join,
                                   self.scan_a, self.scan_b, self.key_a,
                                   self.key_b, self.est_total)
@@ -976,7 +1012,7 @@ class _HybridHashJoinAgg:
                 for t in tables:
                     part.writer.write_table(t)
 
-            _spill_seam("write", retries, do, counters)
+            _spill_seam(conf, "write", retries, do, counters)
             counters["spill_writes"] += 1
             counters["spill_bytes"] += nbytes
 
@@ -1049,7 +1085,7 @@ class _HybridHashJoinAgg:
                 with pa.OSFile(part.path, "rb") as f:
                     return pa.ipc.open_stream(f).read_all()
 
-            tbl = _spill_seam("read", retries, do, counters)
+            tbl = _spill_seam(conf, "read", retries, do, counters)
             counters["spill_reads"] += 1
             return tbl
 
@@ -1067,11 +1103,13 @@ class _HybridHashJoinAgg:
         how = self.join.how
 
         try:
-            # the sides run one after the other: spill and grow decisions
-            # against the shared grant stay deterministic
-            partition_side("a", self.scan_a, self.key_a, parts_a)
-            partition_side("b", self.scan_b, self.key_b, parts_b)
-            close_writers()
+            with trace.span("join.partition", partitions=nparts,
+                            granted=granted0):
+                # the sides run one after the other: spill and grow
+                # decisions against the shared grant stay deterministic
+                partition_side("a", self.scan_a, self.key_a, parts_a)
+                partition_side("b", self.scan_b, self.key_b, parts_b)
+                close_writers()
 
             # one capacity ladder per side: the top level from the
             # largest bucket, sub-buckets on _chunk_capacity below it
@@ -1114,8 +1152,8 @@ class _HybridHashJoinAgg:
                     return (rehash(ta, self.key_a),
                             rehash(tb, self.key_b))
 
-                subs_a, subs_b = _spill_seam("repartition", retries, do,
-                                             counters)
+                subs_a, subs_b = _spill_seam(conf, "repartition", retries,
+                                             do, counters)
                 counters["recursive_repartitions"] += 1
                 counters["max_depth"] = max(counters["max_depth"],
                                             level + 1)
@@ -1133,7 +1171,8 @@ class _HybridHashJoinAgg:
                 return out or None
 
             pipe = ChunkPipeline(parts, prepare, depth=depth,
-                                 byte_budget=prefetch_budget, stats=stats)
+                                 byte_budget=prefetch_budget, stats=stats,
+                                 conf=conf)
             try:
                 for mappings in pipe:
                     for mapping in mappings:
@@ -1226,7 +1265,8 @@ class _ChunkedTopK:
         pipe = ChunkPipeline(
             self.big.source.iter_batches(self.big.columns, self.big.filters,
                                          chunk_rows),
-            prepare, depth=depth, byte_budget=prefetch_budget, stats=stats)
+            prepare, depth=depth, byte_budget=prefetch_budget, stats=stats,
+            conf=conf)
         try:
             for rel in pipe:
                 with stats.timed("compute"):

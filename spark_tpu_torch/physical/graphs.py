@@ -60,6 +60,7 @@ from torch.overrides import TorchFunctionMode
 
 from spark_tpu_torch import conf as CF
 from spark_tpu_torch import device as D
+from spark_tpu_torch import metrics
 from spark_tpu_torch.expr.compiler import TV
 from spark_tpu_torch.ops import seg_agg
 from spark_tpu_torch.physical import operators as P
@@ -386,6 +387,9 @@ def run_stage(plan: P.PhysicalPlan, snapshot: tuple, capture: bool,
         _STAGE_CACHE.put(key, entry, conf)
         run.captured += 1
         run.capture_ms += entry.capture_ms
+        # after the capture's checked region: host-only
+        metrics.record("stage_compile", node=plan.node_string(),
+                       ms=round(entry.capture_ms, 2))
         return warm
     entry.graph.replay()
     run.replayed += 1

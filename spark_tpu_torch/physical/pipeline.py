@@ -29,9 +29,18 @@ window of ShuffleBlockFetcherIterator.scala:78).
 - **Errors.** A producer error reaches the consumer even while the
   queue is full (a stop-aware blocking put).
 
+- **Retry.** One chunk's decode, filter and transfer retry up to
+  ``spark.tpu.chunkRetryAttempts`` times on a transient failure (each
+  re-attempt drawn from the query's retry budget and capped by its
+  deadline) before the error reaches the consumer; the retried chunk
+  keeps its place, so chunks still arrive in source order. The fault
+  points ``pipeline.decode`` and ``pipeline.transfer`` sit at the two
+  steps. The producer thread re-enters the caller's trace context,
+  deadline and retry budget, so its ``pipeline.decode`` and
+  ``pipeline.transfer`` spans join the query's trace.
+
 ``depth == 0`` runs the serial loop on the caller's thread with the same
-staging and timers. The retry of a failed chunk and the fault points of
-the reference come with ROADMAP A12.
+staging, timers and retries.
 """
 
 from __future__ import annotations
@@ -39,118 +48,26 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
+from typing import Any, Callable, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from spark_tpu_torch import conf as CF
+from spark_tpu_torch import deadline, faults, locks, metrics, trace
 from spark_tpu_torch.columnar.batch import (Batch, BatchData, ColumnData,
                                             pad_host)
+from spark_tpu_torch.metrics import PipelineStats
 from spark_tpu_torch.plan import logical as L
 
+CHUNK_RETRY_ATTEMPTS = CF.register(
+    "spark.tpu.chunkRetryAttempts", 3,
+    "Bounded attempts for one chunk's decode/prepare/transfer in the "
+    "out-of-memory pipeline before the failure is relayed to the "
+    "consumer (reference analogue: ShuffleBlockFetcherIterator retrying "
+    "one block fetch instead of failing the stage).", int)
+
 _SENTINEL = object()
-
-
-class PipelineStats:
-    """Wall-time accounting of one pipelined run: per-stage totals
-    (decode, filter, transfer, compute, sidecar), the producer's and
-    consumer's stalls, the most bytes and chunks in flight, and a
-    measured overlap: the wall time during which a producer stage
-    (decode, filter, transfer) and a consumer stage (compute, sidecar)
-    were both running. Host clock throughout."""
-
-    PRODUCER_STAGES = ("decode", "filter", "transfer")
-    CONSUMER_STAGES = ("compute", "sidecar")
-
-    def __init__(self):
-        self._t0 = time.perf_counter()
-        self._lock = threading.Lock()
-        self._ms: Dict[str, float] = {}
-        self._active = {"producer": 0, "consumer": 0}
-        self._both_since: Optional[float] = None
-        self._overlap_s = 0.0
-        self.max_inflight_bytes = 0
-        self.max_inflight_chunks = 0
-
-    def add(self, stage: str, ms: float) -> None:
-        with self._lock:
-            self._ms[stage] = self._ms.get(stage, 0.0) + ms
-
-    def timed(self, stage: str) -> "_StageTimer":
-        return _StageTimer(self, stage)
-
-    def _enter(self, role: str) -> None:
-        with self._lock:
-            self._active[role] += 1
-            if self._both_since is None and all(self._active.values()):
-                self._both_since = time.perf_counter()
-
-    def _exit(self, role: str) -> None:
-        with self._lock:
-            self._active[role] -= 1
-            if self._both_since is not None \
-                    and not all(self._active.values()):
-                self._overlap_s += time.perf_counter() - self._both_since
-                self._both_since = None
-
-    def note_inflight(self, nbytes: int, chunks: int) -> None:
-        with self._lock:
-            self.max_inflight_bytes = max(self.max_inflight_bytes,
-                                          int(nbytes))
-            self.max_inflight_chunks = max(self.max_inflight_chunks,
-                                           int(chunks))
-
-    def overlap_ms(self) -> float:
-        with self._lock:
-            s = self._overlap_s
-            if self._both_since is not None:
-                s += time.perf_counter() - self._both_since
-        return s * 1e3
-
-    def finish(self) -> Dict[str, Any]:
-        """Close the clock: the counters as a flat dict (``*_ms`` per
-        stage, ``wall_ms``, ``overlap_ms``, ``overlap_ratio``, stalls and
-        the in-flight maxima)."""
-        wall_ms = (time.perf_counter() - self._t0) * 1e3
-        overlap = self.overlap_ms()
-        with self._lock:
-            ms = dict(self._ms)
-        out: Dict[str, Any] = {
-            f"{s}_ms": ms.get(s, 0.0)
-            for s in ("decode", "filter", "transfer", "compute",
-                      "sidecar")}
-        out["wall_ms"] = wall_ms
-        out["overlap_ms"] = overlap
-        out["overlap_ratio"] = overlap / wall_ms if wall_ms else 0.0
-        out["stall_producer_ms"] = ms.get("stall_producer", 0.0)
-        out["stall_consumer_ms"] = ms.get("stall_consumer", 0.0)
-        out["max_inflight_bytes"] = self.max_inflight_bytes
-        out["max_inflight_chunks"] = self.max_inflight_chunks
-        return out
-
-
-class _StageTimer:
-    """One timed stage region, feeding the stage's total and the
-    producer/consumer overlap clock."""
-
-    def __init__(self, stats: PipelineStats, stage: str):
-        self._stats = stats
-        self._stage = stage
-        self._role = ("producer" if stage in PipelineStats.PRODUCER_STAGES
-                      else "consumer"
-                      if stage in PipelineStats.CONSUMER_STAGES else None)
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        if self._role is not None:
-            self._stats._enter(self._role)
-        return self
-
-    def __exit__(self, *exc):
-        if self._role is not None:
-            self._stats._exit(self._role)
-        self._stats.add(self._stage, (time.perf_counter() - self._t0) * 1e3)
-        return False
 
 
 # ---- staging host chunks on the device --------------------------------------
@@ -283,22 +200,37 @@ class ChunkPipeline:
     prepared results in source order, each ``Staged`` replaced by its
     adopted relation. With ``depth >= 1`` the producer starts at
     construction, so decoding can overlap work the caller does before
-    it starts consuming (the sidecars' materialization)."""
+    it starts consuming (the sidecars' materialization). ``conf``: the
+    settings the chunk retry and the fault points read (None: the
+    running session's)."""
 
     def __init__(self, source: Iterable[Any],
                  prepare: Callable[[Any], Optional[Any]],
                  *, depth: int, byte_budget: int, stats: PipelineStats,
-                 nbytes_of: Optional[Callable[[Any], int]] = None):
+                 nbytes_of: Optional[Callable[[Any], int]] = None,
+                 conf=None):
+        from spark_tpu_torch import recovery
+
         self._source = iter(source)
         self._prepare = prepare
         self._depth = max(0, int(depth))
         self._budget = max(1, int(byte_budget))
         self._stats = stats
         self._nbytes = nbytes_of or staged_nbytes
+        self._conf = faults._resolve_conf(conf)
+        self._retry_attempts = max(1, int(
+            self._conf.get(CHUNK_RETRY_ATTEMPTS) if self._conf is not None
+            else CHUNK_RETRY_ATTEMPTS.default))
+        # the producer thread re-enters the caller's span context,
+        # deadline and retry budget (context variables do not cross
+        # threads by themselves)
+        self._trace_ctx = trace.current()
+        self._deadline = deadline.current()
+        self._retry_budget = recovery.current_budget()
         self._thread: Optional[threading.Thread] = None
         if self._depth >= 1:
             self._queue: queue.Queue = queue.Queue(maxsize=self._depth)
-            self._cond = threading.Condition()
+            self._cond = locks.named_condition("pipeline.cond")
             self._inflight_bytes = 0
             self._inflight_chunks = 0
             self._stop = False
@@ -308,15 +240,49 @@ class ChunkPipeline:
 
     def _next_prepared(self) -> Any:
         """``(prepared, size)``, None for a skipped item, or _SENTINEL at
-        the end of the source."""
-        with self._stats.timed("decode"):
-            item = next(self._source, _SENTINEL)
-        if item is _SENTINEL:
-            return _SENTINEL
-        prepared = self._prepare(item)
-        if prepared is None:
-            return None
-        return prepared, self._nbytes(prepared)
+        the end of the source. One chunk's decode, filter and transfer
+        retry up to ``spark.tpu.chunkRetryAttempts`` times on a transient
+        failure before the error is relayed. A generator that raised is
+        exhausted, so a decode failure retries only when it is an
+        injected fault (which fires before the source is touched); once
+        the item is in hand, ``prepare`` is pure and always retryable."""
+        from spark_tpu_torch import recovery
+
+        st = self._stats
+        item: Any = _SENTINEL  # also "not pulled yet"
+        for attempt in range(self._retry_attempts):
+            try:
+                if item is _SENTINEL:
+                    with trace.span("pipeline.decode"), st.timed("decode"):
+                        faults.inject("pipeline.decode", self._conf)
+                        nxt = next(self._source, _SENTINEL)
+                    if nxt is _SENTINEL:
+                        return _SENTINEL
+                    item = nxt
+                with trace.span("pipeline.transfer"):
+                    faults.inject("pipeline.transfer", self._conf)
+                    prepared = self._prepare(item)
+                if attempt:
+                    metrics.record("fault_recovered", point="pipeline",
+                                   how="chunk_retry", attempts=attempt)
+                if prepared is None:
+                    return None
+                return prepared, self._nbytes(prepared)
+            except Exception as e:  # noqa: BLE001 - re-raised unless retried
+                retryable = recovery.is_transient(e) and (
+                    item is not _SENTINEL
+                    or isinstance(e, faults.InjectedFault))
+                if not retryable or attempt + 1 >= self._retry_attempts:
+                    raise
+                deadline.check("pipeline.chunk")
+                if not recovery.retry_allowed("pipeline.chunk"):
+                    raise recovery.RetryBudgetExhausted(
+                        "pipeline.chunk", recovery.current_budget()) from e
+                metrics.record("chunk_retry", attempt=attempt + 1,
+                               error=repr(e))
+                time.sleep(deadline.cap_sleep(min(0.05 * 2 ** attempt,
+                                                  0.5)))
+        raise AssertionError("unreachable")  # the loop returns or raises
 
     # ---- serial path (depth == 0) -------------------------------------------
 
@@ -337,6 +303,14 @@ class ChunkPipeline:
     # ---- threaded path ------------------------------------------------------
 
     def _produce(self) -> None:
+        from spark_tpu_torch import recovery
+
+        with trace.attach(self._trace_ctx), \
+                deadline.bind(self._deadline), \
+                recovery.bind_budget(self._retry_budget):
+            self._produce_traced()
+
+    def _produce_traced(self) -> None:
         st = self._stats
         try:
             while True:

@@ -29,6 +29,7 @@ import dataclasses
 from dataclasses import dataclass, field
 
 from spark_tpu_torch import conf as CF
+from spark_tpu_torch import metrics, trace
 from spark_tpu_torch.columnar.batch import Batch
 from spark_tpu_torch.device import DEFAULT_DEVICE
 from spark_tpu_torch.expr import expressions as E
@@ -253,18 +254,27 @@ def _replay_compactions(plan: P.PhysicalPlan) -> P.PhysicalPlan:
 
 
 def _execute(plan: P.PhysicalPlan, run: RunStats, conf) -> P.Pipe:
+    """Run one stage (a fused traceable tree, or a blocking operator over
+    its children's pipes) in a ``stage.run`` span, recording its
+    ``stage`` event. Host-only: neither reads a tensor's value, so a
+    captured stage stays capturable (the capacities are the pipes')."""
     if isinstance(plan, P.BatchScanExec):
         return plan.execute([])
     if _fully_traceable(plan):
         _count(plan, run.traced)
-        return graphs.run_stage(plan, _adaptive_snapshot(plan),
-                                not run.first_run, run, conf)
+        with trace.span("stage.run", op="fused"), \
+                metrics.stage_timer("fused", node=plan.node_string()):
+            return graphs.run_stage(plan, _adaptive_snapshot(plan),
+                                    not run.first_run, run, conf)
     pipes = [_maybe_compact(_execute(c, run, conf), c, conf)
              for c in plan.children()]
     run.blocking[node_label(plan)] += 1
     if not plan.traceable or plan.has_blocking_exprs():
         run.untraceable[node_label(plan)] += 1
-    return plan.execute_blocking(pipes)
+    with trace.span("stage.run", op=type(plan).__name__), \
+            metrics.stage_timer("blocking", node=plan.node_string(),
+                                cap_in=[p.capacity for p in pipes]):
+        return plan.execute_blocking(pipes)
 
 
 def _count(plan: P.PhysicalPlan, into: collections.Counter) -> None:

@@ -678,8 +678,9 @@ def optimize(plan: L.LogicalPlan,
     when ``spark.tpu.runtimeFilter.semiJoinReduction``; then one
     column-pruning pass (reference: RuleExecutor.execute,
     rules/RuleExecutor.scala). ``conf`` is the session's; without one,
-    every key takes its default. Session-injected rules are not ported
-    yet."""
+    every key takes its default. The rules injected into the running
+    session (``extensions.py``) run after the fixpoint, before the
+    pruning pass."""
     from spark_tpu_torch.plan.join_reorder import reorder_joins
 
     conf = conf if conf is not None else CF.RuntimeConf()
@@ -694,4 +695,15 @@ def optimize(plan: L.LogicalPlan,
     if conf.get(CF.CBO_JOIN_REORDER):
         plan = reorder_joins(plan)
     plan = inject_runtime_filters(plan, conf)
+    for rule in _extension_rules():
+        plan = rule(plan)
     return prune_columns(plan)
+
+
+def _extension_rules() -> Tuple[Rule, ...]:
+    """The optimizer rules injected into the running session (reference:
+    SparkSessionExtensions.injectOptimizerRule:268)."""
+    from spark_tpu_torch import metrics
+
+    ext = getattr(metrics._session(), "extensions", None)
+    return () if ext is None else tuple(ext.optimizer_rules())

@@ -752,6 +752,17 @@ class _ExprParser:
                     args.append(self.parse())
                 self.expect(")")
             return F.COMPOSED_FUNCTIONS[name](*args)
+        # session-injected functions (reference:
+        # SparkSessionExtensions.injectFunction:344)
+        builder = _extension_function(name)
+        if builder is not None:
+            args = []
+            if not self.accept(")"):
+                args.append(self.parse())
+                while self.accept(","):
+                    args.append(self.parse())
+                self.expect(")")
+            return builder(*args)
         raise SQLParseError(f"unknown function {name_tok.value!r} "
                             f"at {name_tok.pos}")
 
@@ -1427,6 +1438,16 @@ def _null_safe_setop_keys(plan: L.LogicalPlan) -> tuple:
 
 
 # ---- public entry point -------------------------------------------------------
+
+
+def _extension_function(name: str):
+    """The builder of a function injected into the session whose SQL is
+    parsed (or, outside one, the active session), or None."""
+    from spark_tpu_torch import metrics
+
+    sess = metrics._session()
+    ext = getattr(sess, "extensions", None)
+    return None if ext is None else ext.function(name)
 
 
 def parse_sql(query: str, catalog) -> L.LogicalPlan:

@@ -9,12 +9,13 @@ with a ``weigher``, beyond a byte cap. The live size is published in
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional
 
+from spark_tpu_torch import locks
+
 _GAUGES: Dict[str, int] = {}
-_GAUGES_LOCK = threading.Lock()
+_GAUGES_LOCK = locks.named_lock("storage.lru_gauges")
 
 
 def gauges() -> Dict[str, int]:
@@ -46,7 +47,7 @@ class LruDict:
         self._weigher = weigher
         self._weights: "OrderedDict[Any, int]" = OrderedDict()
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = locks.named_lock("storage.lru")
         self.evictions = 0
 
     def _conf_value(self, entry, fallback: int) -> int:

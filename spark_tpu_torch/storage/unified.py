@@ -21,9 +21,9 @@ draws on this budget comes with ROADMAP A12.
 
 from __future__ import annotations
 
-import threading
 from typing import Any, Dict, Optional
 
+from spark_tpu_torch import locks
 from spark_tpu_torch import conf as CF
 
 
@@ -45,7 +45,7 @@ class UnifiedMemoryManager:
         self._max_storage = max_storage_bytes
         #: one lock for both sides; the store shares it, so an eviction
         #: decision and the accounting it rests on are atomic
-        self.lock = threading.RLock()
+        self.lock = locks.named_rlock("storage.unified")
         self._execution = 0
         self._admitted = 0
         self._store = None  # a MemoryStore registers itself

@@ -1,0 +1,136 @@
+"""The port's chaos harness (``spark_tpu_torch/chaos.py``) on the inputs of
+tests/test_chaos.py: seeded campaigns over the fault points this slice
+wires (``faults.WIRED_POINTS``), on a CPU mesh and on one device, each
+schedule graded byte-identical or typed, with no hang, its retry draws
+within the budget and the memory invariant kept. The fleet cases (a
+replica killed and revived, the router's health) wait for the serving
+tier (ROADMAP A12 part 2).
+"""
+
+import json
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+
+from spark_tpu_torch import chaos, faults
+from spark_tpu_torch import conf as CF
+from spark_tpu_torch.api.session import SparkSession
+
+pytestmark = pytest.mark.timeout(240)
+
+
+def _ipc(table: pa.Table) -> bytes:
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_stream(sink, table.schema) as w:
+        w.write_table(table)
+    return sink.getvalue().to_pybytes()
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    s = SparkSession("cpu", {CF.MESH_DEVICES.key: 2,
+                             "spark.tpu.adaptive.enabled": True,
+                             "spark.tpu.adaptive.agg.enabled": True,
+                             "spark.tpu.fusion.enabled": True,
+                             "spark.tpu.faultInjection.hangSeconds": 0.02},
+                     ["cpu", "cpu"])
+    rng = np.random.default_rng(11)
+    n = 4_000
+    s.createDataFrame(pa.table({
+        "a": pa.array(rng.integers(0, 500, n), pa.int64()),
+        "b": pa.array(rng.integers(0, 100, n), pa.int64())})) \
+        .createOrReplaceTempView("chaos_t")
+    return s
+
+
+_QUERIES = ("SELECT a % 7 AS g, SUM(b) AS s, COUNT(*) AS c FROM chaos_t "
+            "GROUP BY a % 7 ORDER BY g",
+            "SELECT a, SUM(b) AS s FROM chaos_t GROUP BY a ORDER BY a")
+
+
+def _workload(s):
+    return b"\x00".join(_ipc(s.sql(q).toArrow()) for q in _QUERIES)
+
+
+@pytest.mark.parametrize("seed", [7, 2026])
+def test_mesh_campaign_passes_its_contract(mesh, seed):
+    clean = _workload(mesh)
+    schedules = chaos.generate_campaign(
+        seed, 4, points=faults.WIRED_POINTS, max_points=2)
+    report = chaos.run_campaign(
+        mesh.conf, lambda: _workload(mesh), schedules, clean_bytes=clean,
+        alarm_s=60.0, queries=len(_QUERIES),
+        memory_manager=mesh.memory_manager)
+    assert report.ok, [r.to_dict() for r in report.failures]
+    assert len(report.results) == 4
+    for r in report.results:
+        assert r.outcome in ("identical", "typed_error")
+    assert _workload(mesh) == clean  # every arm was taken off again
+    summary = report.summary()
+    assert summary["schedules"] == 4 and summary["ok"]
+
+
+def test_chunked_campaign_passes_its_contract(tmp_path):
+    rng = np.random.default_rng(3)
+    n = 30_000
+    path = str(tmp_path / "c.parquet")
+    pq.write_table(pa.table({
+        "k": pa.array(rng.integers(0, 40, n), pa.int64()),
+        "v": pa.array(rng.integers(0, 1000, n), pa.int64())}), path,
+        row_group_size=5_000)
+    s = SparkSession("cpu", {"spark.tpu.maxDeviceBatchBytes": 1 << 16,
+                             "spark.tpu.chunkRows": 8_192,
+                             "spark.tpu.oomDegrade.floorBytes": 1 << 12,
+                             "spark.tpu.faultInjection.hangSeconds": 0.02})
+    s.read.parquet(path).createOrReplaceTempView("cc")
+    q = "SELECT k, SUM(v) AS s, COUNT(*) AS c FROM cc GROUP BY k ORDER BY k"
+
+    def run():
+        return _ipc(s.sql(q).toArrow())
+
+    clean = run()
+    points = ("pipeline.decode", "pipeline.transfer", "execute.device")
+    report = chaos.run_campaign(
+        s.conf, run, chaos.generate_campaign(13, 3, points=points),
+        clean_bytes=clean, alarm_s=60.0, memory_manager=s.memory_manager)
+    assert report.ok, [r.to_dict() for r in report.failures]
+
+
+def test_mismatch_and_untyped_errors_fail_the_schedule():
+    sch = chaos.generate_campaign(1, 1, points=("execute.device",))[0]
+    conf = CF.RuntimeConf({})
+    bad = chaos.run_schedule(conf, lambda: b"x", sch, clean_bytes=b"y",
+                             alarm_s=5.0)
+    assert not bad.ok and bad.outcome == "mismatch"
+
+    def boom():
+        raise AttributeError("half-recovered path")
+
+    worse = chaos.run_schedule(conf, boom, sch, clean_bytes=b"y",
+                               alarm_s=5.0)
+    assert not worse.ok and worse.outcome == "untyped_error"
+    assert conf.entries()[sch.faults[0].conf_key()] == "none"
+
+
+def test_alarm_fails_a_hanging_schedule():
+    import time
+
+    sch = chaos.generate_campaign(1, 1, points=("execute.device",))[0]
+    res = chaos.run_schedule(CF.RuntimeConf({}),
+                             lambda: time.sleep(5) or b"", sch,
+                             clean_bytes=b"", alarm_s=0.2)
+    assert res.outcome == "hang" and not res.ok and res.elapsed_s < 2.0
+
+
+def test_failing_campaign_writes_replay_artifact(tmp_path):
+    art = str(tmp_path / "fail.json")
+    schedules = chaos.generate_campaign(3, 2, points=("join.spill",))
+    report = chaos.run_campaign(CF.RuntimeConf({}), lambda: b"a",
+                                schedules, clean_bytes=b"b", alarm_s=5.0,
+                                artifact_path=art)
+    assert not report.ok and len(report.failures) == 2
+    assert chaos.replay_artifact(art) == schedules[0]
+    with open(art) as f:
+        assert json.load(f)["outcome"] == "mismatch"

@@ -50,7 +50,16 @@ def test_set_get_unset_and_types(mod):
 
 def test_port_keys_match_the_reference():
     """Every key the port registers has the reference's default."""
+    # the reference registers these keys in the modules that read them,
+    # loaded lazily; the port's session loads its counterparts at import
+    import spark_tpu.deadline  # noqa: F401
+    import spark_tpu.extensions  # noqa: F401
+    import spark_tpu.faults  # noqa: F401
+    import spark_tpu.physical.pipeline  # noqa: F401
     import spark_tpu.plan.optimizer  # noqa: F401  (registers its keys)
+    import spark_tpu.recovery  # noqa: F401
+    import spark_tpu.trace  # noqa: F401
+    import spark_tpu.ui  # noqa: F401
 
     for key, entry in PC._REGISTRY.items():
         assert RC.is_registered(key), key
