@@ -20,10 +20,10 @@ The analyzer itself NEVER raises: an internal failure becomes a single
 ``spark.tpu.analysis.level=error`` and only for error-level findings.
 
 The materialized-view candidacy codes (PLAN-MVIEW-*) come with the
-mview tier (ROADMAP A12 part 3), and the measured-bytes side of
-PLAN-EST-DIVERGE with the scheduler's admission table (part 2): until
-then ``measured_bytes`` is 0 and the divergence check does not fire,
-as in the reference for a plan that has not run.
+mview tier (ROADMAP A12 part 3). PLAN-EST-DIVERGE holds the static
+estimate against the measured bytes admission keeps
+(``scheduler/admission.py``; the mesh records them), so it fires only
+for a plan that has run.
 
 Level policy: defect rules default to warn/info because a finding like
 float Sum is only FATAL relative to an intent — q1's sum(l_quantity)
@@ -43,6 +43,7 @@ from typing import List, Optional, Tuple
 from spark_tpu_torch import locks
 from spark_tpu_torch import conf as CF
 from spark_tpu_torch.plan import logical as L
+from spark_tpu_torch.scheduler import admission
 
 from spark_tpu_torch.analysis import hazards, legality, oracle
 from spark_tpu_torch.analysis.diagnostics import (AnalysisReport, Diagnostic,
@@ -106,33 +107,6 @@ def _legality_diags(plan: L.LogicalPlan,
 
     go(plan)
     return diags
-
-
-#: the smallest static estimate (the reference's admission floor,
-#: ``MIN_ESTIMATE_BYTES``)
-_MIN_ESTIMATE_BYTES = 64 * 1024
-
-
-def _admission_bytes(plan: L.LogicalPlan, conf) -> int:
-    """The reference's static admission estimate: the largest node's
-    estimated rows x 8-byte columns, at least 64 KiB; the device batch
-    budget when estimation fails."""
-    from spark_tpu_torch.physical.chunked import MAX_DEVICE_BATCH_BYTES
-    from spark_tpu_torch.plan.join_reorder import estimate_rows
-
-    def node_bytes(node) -> float:
-        try:
-            width = 8 * max(1, len(node.schema.names))
-        except Exception:
-            width = 8
-        own = estimate_rows(node) * width
-        return max([own] + [node_bytes(c) for c in node.children()])
-
-    try:
-        est = int(node_bytes(plan))
-    except Exception:
-        est = int(conf.get(MAX_DEVICE_BATCH_BYTES))
-    return max(_MIN_ESTIMATE_BYTES, est)
 
 
 def _aval_cross_check(optimized: L.LogicalPlan,
@@ -212,10 +186,10 @@ def analyze(plan: L.LogicalPlan, conf=None,
         diags.extend(hz)
         diags.extend(_legality_diags(optimized, intent))
 
-        # estimate-divergence: the static oracle vs a measured byte
-        # count of the same plan (none until the scheduler's table)
-        adm = _admission_bytes(plan, conf)
-        measured = 0
+        # estimate-divergence: the static oracle vs what admission
+        # control will believe (measured bytes preferred)
+        adm = int(admission.estimate_plan_bytes(plan, conf))
+        measured = int(admission.measured_plan_bytes(plan) or 0)
         if measured:
             factor = float(conf.get(CF.ANALYSIS_DIVERGENCE_FACTOR))
             lo, hi = sorted((max(1, peak), max(1, measured)))

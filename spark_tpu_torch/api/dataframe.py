@@ -320,7 +320,8 @@ class DataFrame:
         deadline (``spark.tpu.deadline.defaultTimeoutS``) and a fresh
         retry budget unless the caller bound them, behind the analyzer
         gate (``spark.tpu.analysis.level``), and marks its start in the
-        event log (``metrics.query_start``)."""
+        event log (``metrics.query_start``); its measured peak stage
+        bytes feed admission (``scheduler/admission.py``)."""
         from spark_tpu_torch import deadline, metrics, recovery, trace
         from spark_tpu_torch.analysis import maybe_gate
         from spark_tpu_torch.api.session import _EXECUTING
@@ -359,11 +360,29 @@ class DataFrame:
                 # it finishes
                 with trace.span("storage.pin"), pin_scope():
                     plan = sess.cache_manager.apply(self._plan, run_full)
-                    return recovery.run_stage_with_recovery(
+                    out = recovery.run_stage_with_recovery(
                         lambda: run_full(plan), conf=conf,
                         label=type(self._plan).__name__)
+                    if mesh is not None:  # only a mesh measures its stages
+                        self._note_measured_bytes()
+                    return out
         finally:
             _EXECUTING.reset(token)
+
+    def _note_measured_bytes(self) -> None:
+        """Feed admission the measured peak stage footprint of this query
+        (the largest ``stage_bytes`` event the mesh executor recorded),
+        keyed on the raw logical plan: the shape
+        ``QueryScheduler.submit_query`` estimates before execution, so
+        the next admission of this query uses measured bytes."""
+        try:
+            from spark_tpu_torch import recovery
+            from spark_tpu_torch.scheduler import admission
+
+            admission.note_measured_bytes(
+                self._plan, recovery.query_peak_stage_bytes())
+        except Exception:  # noqa: BLE001 - never fails the query
+            pass
 
     def collect(self) -> List[Row]:
         """The rows; an array's ``#len`` companion is hidden and a map's

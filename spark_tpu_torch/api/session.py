@@ -345,6 +345,18 @@ class SparkSession:
         self.cache_manager = CacheManager(store=self.memory_store)
         self.extensions = Extensions()
         self.app_name = "spark-tpu-torch"
+        #: the serving tier's attachments: the connect server's
+        #: ``QueryScheduler`` (the UI reads it), a ``HeartbeatMonitor``
+        #: for ``/health``, the result cache the in-process replicas
+        #: share and the fleet's invalidation log (``serve/``)
+        self.query_scheduler = None
+        self.heartbeat_monitor = None
+        self.serve_result_cache = None
+        self.serve_invalidation_log = None
+        #: the reference's AOT compile service; the port's compile tier
+        #: is not there yet, so the connect server's pre-warm hook finds
+        #: None
+        self.compile_service = None
         self._stopped = False
         # the live status server (reference: SparkUI.scala:40), gated on
         # spark.ui.enabled
@@ -369,9 +381,18 @@ class SparkSession:
         return self._ui.url if self._ui is not None else None
 
     def stop(self) -> None:
-        """Stop the status server and shut the plugins down; the session
-        stops being the active one."""
+        """Stop the session's services (the query scheduler's workers, a
+        heartbeat monitor, the status server) and shut the plugins down;
+        the session stops being the active one."""
         self._stopped = True
+        sched = self.query_scheduler
+        if sched is not None:
+            sched.stop()
+            self.query_scheduler = None
+        hb = self.heartbeat_monitor
+        if hb is not None:
+            hb.stop()
+            self.heartbeat_monitor = None
         if self._ui is not None:
             self._ui.stop()
             self._ui = None

@@ -27,6 +27,10 @@ Per schedule the harness asserts the fleet-grade resilience contract:
 - **memory invariant** — ``execution + storage <= hbmBudget`` from the
   UnifiedMemoryManager snapshot after every schedule.
 
+Over a serving fleet, ``kill_and_revive`` runs the replica arc: a
+replica dies mid-campaign, the fleet serves the same bytes, and the
+replica rejoins on its own port.
+
 A failing schedule is dumped as a replayable JSON artifact
 (``schedule.to_dict`` round-trips through ``ChaosSchedule.from_dict``)
 so one failing seed out of thousands re-runs in isolation.
@@ -372,6 +376,62 @@ def run_campaign(conf, run_bytes: Callable[[], bytes],
             if log is not None:
                 log(f"  replay artifact -> {artifact_path}")
     return CampaignReport(seed, results)
+
+
+def kill_and_revive(fleet, run_bytes: Callable[[], bytes], *,
+                    clean_bytes: bytes, victim: int = 0,
+                    open_s: float = 0.3) -> dict:
+    """The campaign's replica arc over an in-process fleet
+    (``serve/router.Fleet`` over one session): with the router's health
+    probes throttled, replica ``victim`` dies; the next dispatch that
+    finds it dead trips its breaker open at once, and the workload's
+    bytes through the death must equal ``clean_bytes``. The replica is
+    then revived on its own host, port and id (and put back in
+    ``fleet.replicas``, so ``fleet.stop()`` stops it); past the
+    breaker's ``open_s`` and a probe it must be healthy again and the
+    bytes equal. Returns what happened; raises ``AssertionError`` where
+    the contract fails. The session's probe and breaker settings are
+    restored."""
+    from spark_tpu_torch.connect.server import ConnectServer
+
+    fed = fleet.router.federation
+    conf = fleet.router.conf
+    keys = ("spark.tpu.serve.healthProbeSeconds",
+            "spark.tpu.serve.breaker.openSeconds")
+    saved = {k: conf._overrides.get(k) for k in keys}
+    conf.set(keys[0], 3600.0)
+    conf.set(keys[1], float(open_s))
+    t0 = time.perf_counter()
+    try:
+        fed.probe(force=True)
+        for r in fed.replicas:
+            r.breaker.reset()
+            r.last_probe = time.time()  # probes throttled from here
+        server = fleet.replicas[victim]
+        host, port, rid = server.host, server.port, server.replica_id
+        server.stop()
+        during = run_bytes()
+        assert during == clean_bytes, "bytes changed during replica death"
+        dead = next(r for r in fed.replicas if r.id == rid)
+        tripped = dead.breaker.state
+        assert tripped == "open", f"breaker {tripped} after the death"
+        revived = ConnectServer(server.session, host=host, port=port,
+                                replica_id=rid).start()
+        fleet.replicas[victim] = revived
+        time.sleep(float(open_s) + 0.05)  # past breaker.openSeconds
+        fed.probe(force=True)
+        after = run_bytes()
+        assert after == clean_bytes, "bytes changed after the revival"
+        assert dead.healthy, "the revived replica is not healthy"
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                conf.unset(k)
+            else:
+                conf.set(k, v)
+    return {"replica": rid, "breaker_after_death": tripped,
+            "healthy_after_revival": dead.healthy,
+            "elapsed_s": round(time.perf_counter() - t0, 3)}
 
 
 def replay_artifact(path: str) -> ChaosSchedule:

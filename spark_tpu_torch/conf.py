@@ -4,9 +4,11 @@ Typed entries with defaults and docs, and a session-scoped mutable view
 over them (Spark: ConfigEntry.scala:74 and
 SQLConf.scala:56). Only the keys that ported code reads are registered
 here; the runtime-filter keys are registered by ``plan/optimizer.py``,
-and those of the out-of-memory tier by ``physical/chunked.py`` and
-``recovery.py``, which read them, as in the reference. Keys of tiers
-that are not ported yet come with those tiers (ROADMAP queue A).
+those of the out-of-memory tier by ``physical/chunked.py`` and
+``recovery.py``, and the serve tier's breaker, brownout, ownership and
+fingerprint keys by ``serve/``, which read them, as in the reference.
+Keys of tiers that are not ported yet come with those tiers (ROADMAP
+queue A).
 """
 
 from __future__ import annotations
@@ -282,12 +284,154 @@ PREFETCH_BYTES_MAX = register(
     "chunk degrades to serial and never deadlocks. Default: the "
     "reference's.", int)
 
+# ---- the query scheduler (scheduler/) -------------------------------------
+
+SCHEDULER_MODE = register(
+    "spark.scheduler.mode", "FIFO",
+    "Query scheduling policy across pools: FIFO (global submit order) "
+    "or FAIR (weighted-fair device time across pools; reference: "
+    "TaskSchedulerImpl.scala + Pool.scala spark.scheduler.mode).", str)
+
+SCHEDULER_MAX_CONCURRENCY = register(
+    "spark.tpu.scheduler.maxConcurrency", 4,
+    "Scheduler worker threads: how many queries may run their host "
+    "stages (parse, optimize, Parquet decode) at once. Device execution "
+    "is gated by the admission budget besides. Default: the "
+    "reference's.", int)
+
+SCHEDULER_QUEUE_DEPTH = register(
+    "spark.tpu.scheduler.queueDepth", 64,
+    "Bound on queued (not yet dequeued) queries across all pools; a "
+    "submit at the bound is refused at once (the connect server answers "
+    "429 with Retry-After). Default: the reference's.", int)
+
 SCHEDULER_HBM_BUDGET = register(
     "spark.tpu.scheduler.hbmBudgetBytes", 2 << 30,
     "The device-bytes budget that storage (cached batches in the "
-    "session's MemoryStore) and execution grants (the hybrid hash "
-    "join's build staging) share through the UnifiedMemoryManager. "
-    "Default: the reference's, not yet sized for the port's card.", int)
+    "session's MemoryStore), execution grants (the hybrid hash join's "
+    "build staging) and the scheduler's admission share through the "
+    "UnifiedMemoryManager. A query over the whole budget still admits "
+    "alone. Default: the reference's, not yet sized for the port's "
+    "card.", int)
+
+SCHEDULER_RETRY_AFTER = register(
+    "spark.tpu.scheduler.retryAfterSeconds", 1.0,
+    "Retry-After hint (seconds) sent with a 429 when the scheduler "
+    "queue is full.", float)
+
+SCHEDULER_DEFAULT_POOL = register(
+    "spark.tpu.scheduler.defaultPool", "default",
+    "Pool a query lands in when its submit names none (reference: "
+    "spark.scheduler.pool).", str)
+
+#: free-form per-pool keys: spark.tpu.scheduler.pool.<name>.weight (int,
+#: default 1) and .minShare (int, default 0)
+SCHEDULER_POOL_PREFIX = register_prefix(
+    "spark.tpu.scheduler.pool.",
+    "Per-pool FAIR scheduling keys: "
+    "spark.tpu.scheduler.pool.<name>.{weight,minShare}.")
+
+# ---- the serving tier (serve/) ---------------------------------------------
+
+SERVE_POLICY = register(
+    "spark.tpu.serve.policy", "least_queued",
+    "Federation router replica choice: 'round_robin' cycles replicas, "
+    "'least_queued' takes the replica whose scheduler reported the "
+    "fewest queued plus running queries at the last health probe.", str)
+
+SERVE_RESULT_CACHE_ENABLED = register(
+    "spark.tpu.serve.resultCache.enabled", False,
+    "Serve repeated identical queries from the plan-keyed Arrow result "
+    "cache (serve/result_cache.py): keyed on the structural plan key "
+    "and the scan sources' stat fingerprints, one execution per key at "
+    "a time, byte-identical to an uncached run.", bool)
+
+SERVE_RESULT_CACHE_MAX_BYTES = register(
+    "spark.tpu.serve.resultCache.maxBytes", 256 * 1024 * 1024,
+    "Byte bound of the result cache; least recently used entries are "
+    "evicted past it, and a single result larger than it is served but "
+    "not cached.", int)
+
+SERVE_DISPATCH_RETRIES = register(
+    "spark.tpu.serve.dispatchRetries", 3,
+    "How many times the router re-dispatches one request to another "
+    "replica after a connection failure or an injected serve.dispatch "
+    "fault before it surfaces the error.", int)
+
+SERVE_HEALTH_PROBE_SECONDS = register(
+    "spark.tpu.serve.healthProbeSeconds", 0.5,
+    "Least age of a replica's cached /health answer before the router "
+    "probes it again; 0 probes on every dispatch.", float)
+
+SERVE_REPLICAS = register(
+    "spark.tpu.serve.replicas", 2,
+    "Replicas serve_fleet() starts when its caller names no count.", int)
+
+# ---- SLO-driven serving (slo/) ---------------------------------------------
+
+SLO_ENABLED = register(
+    "spark.tpu.slo.enabled", False,
+    "The SLO tier: per-plan latency prediction (slo/model.py), "
+    "earliest-deadline-first scheduling with reject-at-admission "
+    "(slo/edf.py), predictive brownout and auto-sized concurrency "
+    "(slo/controller.py). Off, the scheduler's FIFO/FAIR paths run as "
+    "without it.", bool)
+
+SLO_TARGET_P99_MS = register(
+    "spark.tpu.slo.targetP99Ms", 0.0,
+    "p99 latency target in ms. Above 0, the controller enters brownout "
+    "when the predicted p99 over the window crosses it, and leaves it "
+    "under exitRatio x target. 0 disables predictive brownout.", float)
+
+SLO_REJECT_ENABLED = register(
+    "spark.tpu.slo.rejectEnabled", True,
+    "Reject at admission (under spark.tpu.slo.enabled): a submit whose "
+    "predicted completion exceeds its deadline raises the typed "
+    "InfeasibleDeadline at once.", bool)
+
+SLO_REJECT_MARGIN = register(
+    "spark.tpu.slo.rejectMargin", 1.0,
+    "Factor on the predicted completion before it is compared with the "
+    "deadline.", float)
+
+SLO_MODEL_ALPHA = register(
+    "spark.tpu.slo.model.alpha", 0.3,
+    "EWMA factor of the per-fingerprint latency model.", float)
+
+SLO_MODEL_PATH = register(
+    "spark.tpu.slo.model.path", "",
+    "JSONL journal of the latency model; empty keeps it in memory (the "
+    "reference's default beside the compile store's history waits for "
+    "the port's compile tier).", str)
+
+SLO_MODEL_MAX_ENTRIES = register(
+    "spark.tpu.slo.model.maxEntries", 512,
+    "Plan fingerprints the latency model keeps (LRU past it; the "
+    "journal is compacted past twice as many lines).", int)
+
+SLO_WINDOW_SECONDS = register(
+    "spark.tpu.slo.controller.windowSeconds", 30.0,
+    "Window over which the controller takes the predicted p99.", float)
+
+SLO_MIN_PREDICTIONS = register(
+    "spark.tpu.slo.controller.minPredictions", 8,
+    "Predictions in the window before predictive brownout may enter.",
+    int)
+
+SLO_EXIT_RATIO = register(
+    "spark.tpu.slo.controller.exitRatio", 0.8,
+    "Brownout exits once the predicted p99 <= exitRatio x target.",
+    float)
+
+SLO_AUTOSIZE_ENABLED = register(
+    "spark.tpu.slo.autoConcurrency.enabled", True,
+    "Size the scheduler's effective concurrency from the observed "
+    "queue/run ratio (under spark.tpu.slo.enabled), between "
+    "autoConcurrency.min and maxConcurrency.", bool)
+
+SLO_AUTOSIZE_MIN = register(
+    "spark.tpu.slo.autoConcurrency.min", 1,
+    "Floor of the auto-sized effective concurrency.", int)
 
 STORAGE_MAX_BYTES = register(
     "spark.tpu.storage.maxBytes", 1 << 30,

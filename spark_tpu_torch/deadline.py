@@ -2,9 +2,10 @@
 ``spark_tpu/deadline.py``).
 
 One absolute deadline (epoch seconds), minted at the outermost entry
-point (``spark.tpu.deadline.defaultTimeoutS`` at ``DataFrame.collect``;
-with the serving tier, ROADMAP A12 part 2, the connect client's
-per-request timeout, carried hop to hop as the absolute time), is bound
+point (``spark.tpu.deadline.defaultTimeoutS`` at ``DataFrame.collect``,
+or the connect client's per-request timeout, carried hop to hop in
+``X-SparkTpu-Deadline`` as the absolute time: client, router, replica,
+scheduler ticket, worker thread), is bound
 for the query and checked at every retry and wait seam (the stage
 retry, the chunk pipeline's retry, the spill retry, every backoff
 sleep), so work stops the moment the caller can no longer use the
@@ -13,8 +14,8 @@ instead of the work grinding on against an absent caller. A relative
 timeout re-stamped at each hop would grant each hop a fresh budget;
 the absolute time does not.
 
-Contextvars do not cross threads: thread-hopping code (the
-chunk-pipeline producer) must capture :func:`current` and re-enter it
+Contextvars do not cross threads: thread-hopping code (scheduler
+workers, the chunk-pipeline producer) must capture :func:`current` and re-enter it
 with :func:`bind` — the exact discipline trace contexts already follow.
 The mesh's rank threads run in a copy of the caller's context, which
 carries the deadline with it.
@@ -37,6 +38,9 @@ from contextvars import ContextVar
 from typing import Iterator, Optional
 
 from spark_tpu_torch import conf as CF
+
+#: absolute epoch-seconds deadline, forwarded verbatim hop to hop
+DEADLINE_HEADER = "X-SparkTpu-Deadline"
 
 DEADLINE_DEFAULT_TIMEOUT = CF.register(
     "spark.tpu.deadline.defaultTimeoutS", 0.0,
@@ -143,3 +147,20 @@ def bind_default(conf) -> Iterator[Optional[float]]:
         timeout = 0.0
     with bind(mint(timeout)) as dl:
         yield dl
+
+
+def header_value() -> Optional[str]:
+    """Wire form of the bound deadline for ``X-SparkTpu-Deadline``."""
+    dl = _DEADLINE.get()
+    return f"{dl:.6f}" if dl is not None else None
+
+
+def from_header(value: Optional[str]) -> Optional[float]:
+    """Decode ``X-SparkTpu-Deadline``; a malformed value is dropped (a
+    bad peer loses its deadline, it does not break serving)."""
+    if not value:
+        return None
+    try:
+        return float(str(value).strip())
+    except (TypeError, ValueError):
+        return None

@@ -3,9 +3,10 @@
 
 Every point of the reference is registered here; the port wires the
 seams of the tiers it has (``pipeline.*``, ``execute.device``,
-``exchange.all_to_all``, ``agg.*``, ``join.spill`` and ``fusion.decide``),
-and the later tiers' seams (streaming, connect, scheduler, compile,
-serve, mview, slo) come with them (ROADMAP A12 parts 2 and 3).
+``exchange.all_to_all``, ``agg.*``, ``join.spill``, ``fusion.decide``,
+``connect.request``, ``scheduler.admit``, ``serve.*`` and ``slo.*``),
+and the later tiers' seams (``compile.background``, ``mview.refresh``,
+``streaming.commit``) come with them (ROADMAP A12 parts 2b and 3).
 
 The reference proves its recovery paths with chaos-style suites
 (FailureSuite.scala, DAGSchedulerSuite's MockBackend killing executors
@@ -189,7 +190,7 @@ POINTS = (
 )
 
 #: the points whose seam the port has (the rest arrive with their tiers,
-#: ROADMAP A12 parts 2 and 3); chaos campaigns draw from these
+#: ROADMAP A12 parts 2b and 3); chaos campaigns draw from these
 WIRED_POINTS = (
     "pipeline.decode",
     "pipeline.transfer",
@@ -199,6 +200,13 @@ WIRED_POINTS = (
     "agg.presplit",
     "join.spill",
     "fusion.decide",
+    "connect.request",
+    "scheduler.admit",
+    "serve.dispatch",
+    "serve.ownership",
+    "serve.invalidate",
+    "slo.predict",
+    "slo.reject",
 )
 
 KINDS = ("transient", "oom", "hang", "corrupt")

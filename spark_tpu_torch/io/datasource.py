@@ -200,14 +200,34 @@ class FileSource:
 
         return stat_paths(self.paths)
 
+    def _broadcast_change(self) -> None:
+        """A rewrite or append of this source was just detected: append
+        a ``source_changed`` record to the active session's fleet
+        invalidation log, where it has one (``serve/ownership.py``), so
+        every replica's cached results for these paths drop now. Reads
+        never depend on it."""
+        try:
+            from spark_tpu_torch.api.session import SparkSession
+
+            sess = SparkSession.getActiveSession()
+            log = getattr(sess, "serve_invalidation_log", None) \
+                if sess is not None else None
+            if log is not None:
+                log.append("source_changed", self.paths)
+        except Exception:  # noqa: BLE001 - best effort
+            pass
+
     def _open(self) -> pads.Dataset:
         fp = self._fingerprint()
         if self._fp != fp:
+            changed = self._fp is not None
             self._dataset = None
             self._cache.clear()
             self._count_cache.clear()
             self._ndv_cache.clear()
             self._fp = fp
+            if changed:
+                self._broadcast_change()
         if self._dataset is None:
             self._dataset = self._make_dataset()
         return self._dataset
@@ -312,7 +332,10 @@ class FileSource:
             hit = store.get(skey, pin=True)
             if hit is not None:
                 return hit
-        hot = store is not None and self._read_counts[key] >= threshold
+        # promotion is optional work: under fleet brownout the scan
+        # still serves (and store hits still hit), it stops promoting
+        hot = (store is not None and self._read_counts[key] >= threshold
+               and metrics.brownout_level() == 0)
         hit = self._cache.pop(key, None)
         if hit is not None:
             if hot and store.put(skey, hit, pin=True):

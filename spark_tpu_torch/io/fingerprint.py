@@ -1,5 +1,7 @@
 """Scan-source freshness fingerprints (the port of
-``spark_tpu/io/fingerprint.py``'s ``stat_paths``).
+``spark_tpu/io/fingerprint.py``'s ``stat_paths``, ``source_fingerprint``
+and ``plan_fingerprints``): the one stat walk the file scan's cache and
+the serve tier's result cache (``serve/result_cache.py``) both key on.
 
 A fingerprint is a tuple of ``(path, mtime_ns, size)`` triples in a
 deterministic order (sorted directory walks, paths in the order given),
@@ -9,7 +11,7 @@ so tuple equality is freshness equality and the tuple can key a cache.
 from __future__ import annotations
 
 import os
-from typing import Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 #: one stat triple: (path, st_mtime_ns, st_size)
 StatTriple = Tuple[str, int, int]
@@ -36,4 +38,30 @@ def stat_paths(paths: Sequence[str]) -> Tuple[StatTriple, ...]:
                     _stat(os.path.join(root, f), out)
         else:
             _stat(p, out)
+    return tuple(out)
+
+
+def source_fingerprint(source) -> Optional[Tuple[StatTriple, ...]]:
+    """Fingerprint of one datasource, None where the source has no file
+    identity (in-memory relations)."""
+    fpf = getattr(source, "_fingerprint", None)
+    if not callable(fpf):
+        return None
+    try:
+        return fpf()
+    except Exception:  # noqa: BLE001 - an unreadable source keys by id
+        return None
+
+
+def plan_fingerprints(plan) -> Tuple[Any, ...]:
+    """Freshness token over every scan source of ``plan``, in plan
+    order. A source without a file fingerprint keys by object identity,
+    which the structural plan key already embeds, so pairing this tuple
+    with ``structural_key()`` stays injective."""
+    from spark_tpu_torch.plan import logical as L
+
+    out = []
+    for scan in L.collect_nodes(plan, L.UnresolvedScan):
+        fp = source_fingerprint(scan.source)
+        out.append(fp if fp is not None else ("src", id(scan.source)))
     return tuple(out)

@@ -72,6 +72,14 @@ LOCK_RANKS: Dict[str, int] = {
     "recovery.retry_budget": 470,    # per-query RetryBudget pool state
     "recovery.checkpoint": 480,      # checkpoint dir init
     "faults.registry": 500,          # fault-injection spec table
+    "graphs.capture": 505,           # port: physical/graphs.py, one CUDA
+    #                                  graph capture (warm-up included)
+    #                                  at a time; held around the stage
+    #                                  function, so below every lock a
+    #                                  stage takes (ops.build on a
+    #                                  kernel's first load)
+    "graphs.replay": 507,            # port: a graph's replay and the
+    #                                  clones of its outputs
     "native.registry": 520,          # pallas kernel registry
     "ops.build": 525,                # port: ops/_build.py's library
     #                                  builds and loads (RLock; taken on
@@ -89,6 +97,9 @@ LOCK_RANKS: Dict[str, int] = {
     "ops.seg_agg": 840,              # port: ops/seg_agg.py's launch
     #                                  counters and library typing (taken
     #                                  on every kernel launch)
+    "physical.stats_cache": 850,     # port: physical/operators.py's
+    #                                  adaptive stats caches and the stage
+    #                                  cache (queries on several threads)
     # --- metrics (innermost: every layer records into them) ----------
     "metrics.registry": 900,         # metrics._LOCK: event/gauge tables
     "metrics.pipeline_stats": 910,   # PipelineStats._lock

@@ -46,12 +46,17 @@ runs nothing then and is not counted: the graph runs its launch at each
 replay, without the wrapper. The kernels count their own runs on the
 device (block 0 of every launch adds one), so ``device_runs()`` reads the
 launches that ran, replayed ones included. Where ``call_log`` is a list,
-each call appends its arguments and result there, so the calls a graph
+each call appends its arguments and result there; a capture logs its
+calls into its own list instead (``logging_calls_into``, bound to the
+capturing thread's context, so a launch another thread makes during a
+capture is not taken for one of the graph's), so the calls a graph
 replays can be held against the plain versions.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 from typing import Optional
 
@@ -388,10 +393,30 @@ def seg_fsum(data: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
 #: name, its result): the tensors themselves, not copies
 call_log = None
 
+_USE_CALL_LOG = object()
+#: this context's log where one is bound (a capture's list, or None for
+#: none), else ``call_log``
+_CONTEXT_LOG = contextvars.ContextVar("seg_agg_call_log",
+                                      default=_USE_CALL_LOG)
+
+
+@contextlib.contextmanager
+def logging_calls_into(calls: Optional[list]):
+    """While the block runs, this thread's calls append to ``calls``
+    (nowhere, where None) instead of ``call_log``."""
+    token = _CONTEXT_LOG.set(calls)
+    try:
+        yield calls
+    finally:
+        _CONTEXT_LOG.reset(token)
+
 
 def _log(name: str, out: torch.Tensor, **args) -> None:
-    if call_log is not None:
-        call_log.append((name, args, out))
+    log = _CONTEXT_LOG.get()
+    if log is _USE_CALL_LOG:
+        log = call_log
+    if log is not None:
+        log.append((name, args, out))
 
 
 def _count(fn, mode: str) -> None:

@@ -905,10 +905,11 @@ class _HybridHashJoinAgg:
 
     1. **Grant.** Before touching data it asks the session's
        UnifiedMemoryManager for an execution grant of the planner's
-       estimate (the reference first looks for a measured size of a
-       prior run of the plan; that feedback comes with A12's admission
-       control). The grant is what staging may keep resident; a zero
-       grant spills everything and still completes in one pass.
+       measured staging of an earlier run of the same plan shape
+       (``scheduler/admission.seeded_build_bytes``, noted at the end of
+       each hybrid run), else the planner's estimate. The grant is what
+       staging may keep resident; a zero grant spills everything and
+       still completes in one pass.
     2. **Partition pass.** Both scans stream once, bucketed by the grace
        hash. Partitions stay resident until the grant is spent; then
        the join grows the grant from the manager's free span
@@ -962,6 +963,7 @@ class _HybridHashJoinAgg:
         from spark_tpu_torch.columnar.batch import round_capacity
         from spark_tpu_torch.physical.pipeline import (ChunkPipeline,
                                                        PipelineStats)
+        from spark_tpu_torch.scheduler import admission
         from spark_tpu_torch.sketch import HyperLogLog
 
         conf, run_fn = ctx.conf, ctx.run
@@ -984,9 +986,10 @@ class _HybridHashJoinAgg:
         charge = 0
         resident_cap: Optional[int] = None  # None: ungoverned
         if manager is not None:
-            # nothing measured from a prior run: request the estimate
+            # the measured staging of an earlier run of this plan shape,
+            # else the planner's estimate
             charge = manager.acquire_execution(
-                max(_MIN_GRANT_REQUEST, int(self.est_total)))
+                admission.seeded_build_bytes(self.agg, self.est_total))
             resident_cap = charge
             counters["grants"] += 1
         granted0 = charge
@@ -1206,12 +1209,9 @@ class _HybridHashJoinAgg:
                 recursive_repartitions=counters["recursive_repartitions"],
                 fallback=None, chunks=state.chunks, pipeline_depth=depth,
                 **stats.finish())
+        # the next run of this plan shape asks for what staging took
+        admission.note_measured_bytes(self.agg, counters["staged"])
         return _finish_pair(self, spec, state, ctx)
-
-
-#: the smallest grant the hybrid join requests (the reference's
-#: admission floor, ``MIN_ESTIMATE_BYTES``)
-_MIN_GRANT_REQUEST = 64 * 1024
 
 
 @dataclasses.dataclass(eq=False)

@@ -20,8 +20,36 @@ planner hands such a stage to ``run_stage``:
 - On the CPU, and on a plan's first run, the same stage function runs
   eagerly.
 - There is no fallback: a capture that fails, or a stage that syncs with
-  the host inside its capture (``torch.cuda.set_sync_debug_mode("error")``
-  holds during it), raises.
+  the host inside its capture, raises.
+
+Several threads run stages on one card at once (the query scheduler's
+workers, ``scheduler/scheduler.py``). The design that keeps them apart:
+
+- A capture runs in CUDA's thread-local capture mode
+  (``capture_error_mode="thread_local"``): a sync or another unsafe
+  call on the capturing thread invalidates the capture and raises, while
+  other threads go on launching, allocating and syncing on their own
+  streams. The allocator sends only the capture stream's allocations to
+  the graph pool. The process-wide ``torch.cuda.set_sync_debug_mode``
+  is not touched: set to "error" around one thread's capture, it would
+  make another thread's legitimate sync raise.
+- Captures are serialized by ``_CAPTURE_LOCK`` (one capture at a time in
+  the process, with its warm-up), so they share the side stream and the
+  pool without overlapping.
+- A replay and the clones of its outputs are one step under
+  ``_REPLAY_LOCK``: graphs share the pool's blocks, so another graph's
+  replay enqueued between a replay and its clones would overwrite the
+  outputs before they are copied out. Replays and clones go to the
+  current stream; stages of different queries still run one after
+  another on the card, and their host work (planning, the copies of
+  results, blocking operators) overlaps.
+- The kernel-wrapper calls a capture records go to the capturing
+  context's list (``seg_agg.logging_calls_into``), not a module global
+  another thread's launches would append to.
+
+A run's counts (captured, replayed) are the planner's ``RunStats``,
+which a scheduler worker collects per query
+(``planner.recording_runs``).
 
 Memory: every graph captures into one pool per device
 (``torch.cuda.graph_pool_handle``), and replays run one at a time on the
@@ -60,7 +88,7 @@ from torch.overrides import TorchFunctionMode
 
 from spark_tpu_torch import conf as CF
 from spark_tpu_torch import device as D
-from spark_tpu_torch import metrics
+from spark_tpu_torch import locks, metrics
 from spark_tpu_torch.expr.compiler import TV
 from spark_tpu_torch.ops import seg_agg
 from spark_tpu_torch.physical import operators as P
@@ -85,6 +113,11 @@ class _StageCache(P._AdaptiveStatsCache):
     def nbytes(entry) -> int:
         return entry.nbytes
 
+    def holds_device(self, index) -> bool:
+        """Whether a cached graph was captured on device ``index``."""
+        with self._lock:
+            return any(e.dev_index == index for e, _ in self._data.values())
+
     def put(self, key_and_pins, entry, conf=None) -> None:
         """Insert ``entry`` under the entry cap ``conf`` sets (None: the
         active session's)."""
@@ -97,6 +130,10 @@ _STAGE_CACHE = _StageCache()
 #: per device index: the shared graph memory pool and the warm-up stream
 _POOLS: dict = {}
 _SIDE_STREAMS: dict = {}
+#: one capture (warm-up and capture) at a time in the process
+_CAPTURE_LOCK = locks.named_lock("graphs.capture")
+#: a replay and the clones of its outputs, as one step
+_REPLAY_LOCK = locks.named_lock("graphs.replay")
 
 _GUARD = contextvars.ContextVar("guard_stages", default=False)
 _CAPTURE = contextvars.ContextVar("capture", default=True)
@@ -273,7 +310,7 @@ class _Entry:
     graph reads and the bytes of its outputs in the pool."""
 
     __slots__ = ("graph", "out", "slots", "leaves", "tables", "nbytes",
-                 "capture_ms")
+                 "capture_ms", "dev_index")
 
     def output(self) -> P.Pipe:
         """The replayed output, cloned out of the graph's memory (a
@@ -296,7 +333,11 @@ class _Entry:
 
 
 def _pool(dev: torch.device):
-    if dev.index not in _POOLS:
+    """The device's graph pool. Once no cached graph of the device is
+    left (``drop_stages``, or leaves that died), the pool is released
+    and PyTorch's host allocator refuses to capture into it again, so
+    the next capture takes a fresh pool."""
+    if dev.index not in _POOLS or not _STAGE_CACHE.holds_device(dev.index):
         _POOLS[dev.index] = torch.cuda.graph_pool_handle()
     return _POOLS[dev.index]
 
@@ -315,31 +356,28 @@ def _capture(plan: P.PhysicalPlan, leaves: List[torch.Tensor],
     Returns (warm-up pipe, entry)."""
     t0 = time.perf_counter()
     main = torch.cuda.current_stream(dev)
-    side = _side_stream(dev)
     tables: list = []
-    side.wait_stream(main)
-    with D.collecting_tables(tables), torch.cuda.stream(side):
-        warm = _stage_fn(plan)
-        main.wait_stream(side)
-        for t in _pipe_tensors(warm):
-            t.record_stream(main)
+    with _CAPTURE_LOCK:
+        side = _side_stream(dev)
+        side.wait_stream(main)
+        with D.collecting_tables(tables), torch.cuda.stream(side):
+            warm = _stage_fn(plan)
+            main.wait_stream(side)
+            for t in _pipe_tensors(warm):
+                t.record_stream(main)
 
-        graph = torch.cuda.CUDAGraph()
-        prev_log, seg_agg.call_log = seg_agg.call_log, _RECORD_CALLS.get()
-        mode = torch.cuda.get_sync_debug_mode()
-        graph.capture_begin(pool=_pool(dev))
-        try:
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                out = _stage_fn(plan)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        finally:
-            graph.capture_end()
-            seg_agg.call_log = prev_log
+            graph = torch.cuda.CUDAGraph()
+            with seg_agg.logging_calls_into(_RECORD_CALLS.get()):
+                graph.capture_begin(pool=_pool(dev),
+                                    capture_error_mode="thread_local")
+                try:
+                    out = _stage_fn(plan)
+                finally:
+                    graph.capture_end()
 
     entry = _Entry()
     entry.graph = graph
+    entry.dev_index = dev.index
     entry.leaves = tuple(weakref.ref(t) for t in leaves)
     entry.tables = tables
     leaf_index = {id(t): i for i, t in enumerate(leaves)}
@@ -391,9 +429,11 @@ def run_stage(plan: P.PhysicalPlan, snapshot: tuple, capture: bool,
         metrics.record("stage_compile", node=plan.node_string(),
                        ms=round(entry.capture_ms, 2))
         return warm
-    entry.graph.replay()
+    with _REPLAY_LOCK:
+        entry.graph.replay()
+        out = entry.output()
     run.replayed += 1
-    return entry.output()
+    return out
 
 
 @contextlib.contextmanager
@@ -431,9 +471,7 @@ def drop_stages() -> int:
     """Drop every captured stage (their graphs and cached outputs), so
     the graph pool's memory can be returned to the allocator; the number
     dropped. The OOM ladder calls this before its first replan."""
-    n = len(_STAGE_CACHE)
-    _STAGE_CACHE._data.clear()
-    return n
+    return _STAGE_CACHE.clear()
 
 
 def pool_bytes(dev=None) -> Optional[int]:

@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from spark_tpu_torch import locks
 from spark_tpu_torch import types as T
 from spark_tpu_torch.columnar.batch import Batch, BatchData, ColumnData
 from spark_tpu_torch.expr import compiler as C
@@ -1189,15 +1190,18 @@ class _AdaptiveStatsCache:
         self._data: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._maxsize = maxsize
         self.max_bytes = max_bytes
+        # queries on several threads (the scheduler's workers) share it
+        self._lock = locks.named_lock("physical.stats_cache")
 
     @staticmethod
     def nbytes(value) -> int:
         return 0
 
     def total_bytes(self) -> int:
-        return sum(self.nbytes(v) for v, _ in self._data.values())
+        with self._lock:
+            return sum(self.nbytes(v) for v, _ in self._data.values())
 
-    def _alive(self, key) -> bool:
+    def _alive_locked(self, key) -> bool:
         v = self._data.get(key)
         if v is None:
             return False
@@ -1208,10 +1212,11 @@ class _AdaptiveStatsCache:
 
     def get(self, key_and_pins):
         key, _ = key_and_pins
-        if not self._alive(key):
-            return None
-        self._data.move_to_end(key)
-        return self._data[key][0]
+        with self._lock:
+            if not self._alive_locked(key):
+                return None
+            self._data.move_to_end(key)
+            return self._data[key][0]
 
     def put(self, key_and_pins, value) -> None:
         if _STATS_RECORDING.get():
@@ -1220,23 +1225,32 @@ class _AdaptiveStatsCache:
     def insert(self, key_and_pins, value) -> None:
         key, pins = key_and_pins
         refs = tuple(weakref.ref(a) for a in pins)
-        # sweep entries whose leaves died: never hit again, but they would
-        # pin their values (device memory, for _JoinIndexCache)
-        for k in [k for k, (_, rs) in self._data.items()
-                  if any(r() is None for r in rs)]:
-            del self._data[k]
-        self._data[key] = (value, refs)
-        self._data.move_to_end(key)
-        while len(self._data) > self._maxsize:
-            self._data.popitem(last=False)
-        if self.max_bytes is not None:
-            total = self.total_bytes()
-            while total > self.max_bytes and len(self._data) > 1:
-                _, (v, _) = self._data.popitem(last=False)
-                total -= self.nbytes(v)
+        with self._lock:
+            # sweep entries whose leaves died: never hit again, but they
+            # would pin their values (device memory, for _JoinIndexCache)
+            for k in [k for k, (_, rs) in self._data.items()
+                      if any(r() is None for r in rs)]:
+                del self._data[k]
+            self._data[key] = (value, refs)
+            self._data.move_to_end(key)
+            while len(self._data) > self._maxsize:
+                self._data.popitem(last=False)
+            if self.max_bytes is not None:
+                total = sum(self.nbytes(v) for v, _ in self._data.values())
+                while total > self.max_bytes and len(self._data) > 1:
+                    _, (v, _) = self._data.popitem(last=False)
+                    total -= self.nbytes(v)
 
     def __contains__(self, key_and_pins) -> bool:
-        return self._alive(key_and_pins[0])
+        with self._lock:
+            return self._alive_locked(key_and_pins[0])
+
+    def clear(self) -> int:
+        """Drop every entry; the number dropped."""
+        with self._lock:
+            n = len(self._data)
+            self._data.clear()
+            return n
 
     def __len__(self) -> int:
         return len(self._data)

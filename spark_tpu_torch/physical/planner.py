@@ -24,6 +24,7 @@ stages, the captures and the replays.
 from __future__ import annotations
 
 import collections
+import contextlib
 import contextvars
 import dataclasses
 from dataclasses import dataclass, field
@@ -131,9 +132,24 @@ class RunStats:
     first_run: bool = True   # no output stats were bound
 
 
-#: the counts of the newest run
+#: the counts of the newest run in the process (with several queries at
+#: once, of whichever finished last: a caller that needs its own runs
+#: collects them with ``recording_runs``)
 last_run = RunStats()
 _RUN = contextvars.ContextVar("run_stats", default=None)
+_RUN_SINK = contextvars.ContextVar("run_sink", default=None)
+
+
+@contextlib.contextmanager
+def recording_runs(into: list):
+    """While the block runs, append each outermost run's ``RunStats`` of
+    this context to ``into`` (a scheduler worker collects its ticket's
+    runs so)."""
+    token = _RUN_SINK.set(into)
+    try:
+        yield into
+    finally:
+        _RUN_SINK.reset(token)
 
 
 def _capacity_bucket(conf) -> int:
@@ -309,6 +325,9 @@ def execute(plan: P.PhysicalPlan, conf=None) -> Batch:
         _RUN.reset(token)
         if outer is None:
             last_run = run
+            sink = _RUN_SINK.get()
+            if sink is not None:
+                sink.append(run)
 
 
 def execute_logical(plan: L.LogicalPlan, optimize: bool = True,

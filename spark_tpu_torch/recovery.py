@@ -47,8 +47,11 @@ the run is retried once with ``parallel/executor.FORCE_ADAPTIVE`` set
 exchange-heavy plan runs out on, with the same rows), before the
 chunked replans.
 
-Waiting for later slices (ROADMAP A12 part 2): planned chunking from
-measured bytes and the admission feedback of the scheduler.
+Measured bytes (``scheduler/admission.py``): a resident run notes its
+peak stage bytes under the optimized plan (``_note_measured_resident``),
+and a plan whose measured working set exceeds what the memory manager
+can grant now is planned into the chunked tier before it runs
+(``_grant_planned_chunk``, no replan).
 """
 
 from __future__ import annotations
@@ -409,10 +412,72 @@ def _release_device_memory(device) -> Dict[str, Any]:
     return {"stages_dropped": dropped, "cache_emptied": emptied}
 
 
+def query_peak_stage_bytes() -> int:
+    """The largest ``stage_bytes`` event of the running query (the mesh
+    records one a stage; a single-device run records none, as in the
+    reference): the events of the ambient trace, else those since the
+    newest query mark."""
+    from spark_tpu_torch import trace
+
+    tid = trace.current_trace_id()
+    evs = metrics.query_events(tid) if tid else metrics.last_query()
+    return max((int(e.get("bytes", 0)) for e in evs
+                if e.get("kind") == "stage_bytes"), default=0)
+
+
+def _note_measured_resident(lp) -> None:
+    """Seed admission's measured-bytes table keyed on the optimized plan
+    after a resident run (``DataFrame._execute`` keys on the raw plan;
+    the planned-chunk pre-step and the hybrid join see the optimized
+    one, so both keys are filled)."""
+    try:
+        from spark_tpu_torch.scheduler import admission
+
+        admission.note_measured_bytes(lp, query_peak_stage_bytes())
+    except Exception:  # noqa: BLE001 - observability never fails a query
+        pass
+
+
+def _grant_planned_chunk(lp, conf, manager):
+    """Planned degradation before execution, the path with no replan:
+    where a measured earlier run of this plan shape says its working set
+    exceeds what the unified memory manager could offer now (storage
+    pins, a shrunken budget), plan the chunked tier at the free span
+    now instead of letting the device OOM and walking the ladder.
+    Measured bytes only: static estimates are too noisy to pre-chunk
+    on. Returns ``(found, shadow_conf)`` or ``(None, None)``."""
+    from spark_tpu_torch.physical.chunked import JOIN_HYBRID_ENABLED
+    from spark_tpu_torch.scheduler import admission
+
+    try:
+        if manager is None or not bool(conf.get(JOIN_HYBRID_ENABLED)):
+            return None, None
+        measured = admission.measured_plan_bytes(lp)
+        if not measured:
+            return None, None
+        # the span free for execution; the query's own grant is not
+        # modeled: storage is what it cannot evict past
+        with manager.lock:
+            avail = manager.budget - manager.storage_bytes()
+        if avail <= 0 or int(measured) <= avail:
+            return None, None
+    except Exception:  # noqa: BLE001 - no plan: the usual path
+        return None, None
+    found, shadow = plan_chunk_first(lp, conf, avail)
+    if found is None:
+        return None, None
+    metrics.record("planned_chunked", budget=avail,
+                   measured=int(measured))
+    return found, shadow
+
+
 def run_plan_with_oom_degradation(lp, conf, run_fn, device="cuda",
                                   manager=None, mesh=None):
     """Run an optimized logical plan with the degradation ladder: a plan
-    whose scans exceed the device budget runs chunked; a run that dies of
+    whose scans exceed the device budget runs chunked; a plan whose
+    measured working set exceeds what the session's memory manager
+    (``manager``) can grant now is planned into the chunked tier before
+    it runs (``planned_chunked``, no replan); a run that dies of
     an OOM on a mesh (``mesh``: the session's mesh executor) with
     adaptive execution off is retried once with it forced on (rung 0);
     then the plan replans through ``find_chunkable``/``execute_chunked``
@@ -432,11 +497,20 @@ def run_plan_with_oom_degradation(lp, conf, run_fn, device="cuda",
     last_ladder = record
     try:
         found = find_chunkable(lp, conf)
+        chunk_conf = conf
+        if found is None:
+            found, shadow = _grant_planned_chunk(lp, conf, manager)
+            if found is not None:
+                chunk_conf = shadow
         if found is not None:
-            return execute_chunked(found, conf, run_fn, device, manager)
+            return execute_chunked(found, chunk_conf, run_fn, device,
+                                   manager)
         # the whole-batch device execution seam
         faults.inject("execute.device", conf)
-        return run_fn(lp)
+        out = run_fn(lp)
+        if mesh is not None:  # only a mesh measures its stages
+            _note_measured_resident(lp)
+        return out
     except Exception as e:  # noqa: BLE001 - re-raised unless an OOM
         if not (conf.get(OOM_DEGRADE_ENABLED) and is_oom(e)):
             raise

@@ -16,7 +16,7 @@ share one byte budget, ``spark.tpu.scheduler.hbmBudgetBytes``:
 
 Invariant, held under one lock: ``storage_bytes + execution_in_use <=
 budget`` at every instant. The scheduler's admission control that also
-draws on this budget comes with ROADMAP A12.
+draws on this budget is ``scheduler/admission.py``.
 """
 
 from __future__ import annotations
@@ -57,6 +57,12 @@ class UnifiedMemoryManager:
         self.zero_grants = 0
         self.grows = 0
         self.grow_denials = 0
+        #: called after ``release_execution`` drops the lock: the
+        #: scheduler's gate registers here, so a grant released by any
+        #: tenant (the hybrid join, the scheduler) wakes its waiters.
+        #: Called under the lock, they would nest storage.unified ->
+        #: scheduler.cond against the ranks.
+        self._release_listeners: list = []
 
     # -- live settings --------------------------------------------------------
 
@@ -154,10 +160,22 @@ class UnifiedMemoryManager:
                 self.grow_denials += 1
             return got
 
+    def add_release_listener(self, callback) -> None:
+        """Call ``callback()`` (outside the lock) after every release of
+        an execution grant: a blocked admission may fit now."""
+        with self.lock:
+            self._release_listeners.append(callback)
+
     def release_execution(self, charge: int) -> None:
         with self.lock:
             self._execution = max(0, self._execution - int(charge))
             self._admitted = max(0, self._admitted - 1)
+            listeners = list(self._release_listeners)
+        for cb in listeners:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 - a listener never fails a release
+                pass
 
     def _storage_freeable_locked(self) -> int:
         """Unpinned storage bytes execution could reclaim without going

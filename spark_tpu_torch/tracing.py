@@ -30,9 +30,9 @@ two:
   from the event stream — the text form of the SQL-tab DAG view.
 - ``pipeline_profile()``: the out-of-memory chunk pipeline's per-tier
   stage/overlap rollup (decode/filter/transfer vs device compute).
-- the exchange, fault, storage, analysis and aggregation profiles; the
-  scheduler, serve, warmup and mview profiles fold to empty until the
-  tiers that emit their events are ported (ROADMAP A12 parts 2 and 3).
+- the exchange, fault, storage, analysis, aggregation, scheduler and
+  serve profiles; the warmup and mview profiles fold to empty until the
+  tiers that emit their events are ported (ROADMAP A12 parts 2b and 3).
 - ``PlanningTracker``: phase timing for parse/optimize/plan (the
   QueryPlanningTracker analogue).
 """

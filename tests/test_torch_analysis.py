@@ -10,7 +10,7 @@ diagnostic, each seeded defect gets its own code, the gate is off by
 default and rejects at level=error, the oracle's widths and capacities,
 the hazards detector, ``explain(mode="lint")`` and ``/api/v1/lint``. The
 invariant linter (tools/lint_invariants.py) keeps scanning the reference
-package; the connect server's lint endpoint waits for part 2.
+package; the connect server's lint endpoint is in tests/test_torch_connect.py.
 """
 
 import json

@@ -514,3 +514,22 @@ def test_mesh_session_runs_the_chunked_tier(tmp_path):
         assert got == want
     finally:
         PortSession._active = prev
+
+
+def test_measured_bytes_feed_admission(mesh_session):
+    """A mesh query's largest stage_bytes event is noted for its plan,
+    and admission's estimate of the plan is that measurement."""
+    from spark_tpu_torch.scheduler import admission
+
+    rng = np.random.default_rng(42)
+    mesh_session.createDataFrame(pa.table({
+        "k": pa.array(rng.integers(0, 50, 4000), pa.int64()),
+        "v": pa.array(rng.integers(0, 1000, 4000), pa.int64())})) \
+        .createOrReplaceTempView("aqe_adm")
+    df = mesh_session.sql(
+        "SELECT k, sum(v) s FROM aqe_adm GROUP BY k ORDER BY k")
+    df.collect()
+    measured = admission.measured_plan_bytes(df._plan)
+    assert measured is not None and measured > 0
+    assert admission.estimate_plan_bytes(df._plan, mesh_session.conf) \
+        == max(admission.MIN_ESTIMATE_BYTES, measured)

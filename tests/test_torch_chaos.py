@@ -2,21 +2,29 @@
 tests/test_chaos.py: seeded campaigns over the fault points this slice
 wires (``faults.WIRED_POINTS``), on a CPU mesh and on one device, each
 schedule graded byte-identical or typed, with no hang, its retry draws
-within the budget and the memory invariant kept. The fleet cases (a
-replica killed and revived, the router's health) wait for the serving
-tier (ROADMAP A12 part 2).
+within the budget and the memory invariant kept; and over a two-replica
+fleet through the router: a seeded campaign over every wired point, a
+replica killed and revived (``chaos.kill_and_revive``), and the
+router's health reporting the breakers, the brownout and the retry
+budget.
 """
 
 import json
+import urllib.request
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
 
-from spark_tpu_torch import chaos, faults
+from spark_tpu_torch import chaos, faults, metrics
 from spark_tpu_torch import conf as CF
 from spark_tpu_torch.api.session import SparkSession
+
+#: the engine's seams (the mesh workload reaches no serving seam)
+_ENGINE_POINTS = ("pipeline.decode", "pipeline.transfer", "execute.device",
+                  "exchange.all_to_all", "agg.strategy", "agg.presplit",
+                  "join.spill", "fusion.decide")
 
 pytestmark = pytest.mark.timeout(240)
 
@@ -58,7 +66,7 @@ def _workload(s):
 def test_mesh_campaign_passes_its_contract(mesh, seed):
     clean = _workload(mesh)
     schedules = chaos.generate_campaign(
-        seed, 4, points=faults.WIRED_POINTS, max_points=2)
+        seed, 4, points=_ENGINE_POINTS, max_points=2)
     report = chaos.run_campaign(
         mesh.conf, lambda: _workload(mesh), schedules, clean_bytes=clean,
         alarm_s=60.0, queries=len(_QUERIES),
@@ -134,3 +142,77 @@ def test_failing_campaign_writes_replay_artifact(tmp_path):
     assert chaos.replay_artifact(art) == schedules[0]
     with open(art) as f:
         assert json.load(f)["outcome"] == "mismatch"
+
+
+# ---- a serving fleet -------------------------------------------------------
+
+
+_SMOKE_QUERIES = ("SELECT a, b FROM chaos_t WHERE a >= 8 ORDER BY a",
+                  "SELECT a % 4 AS g, SUM(b) AS s FROM chaos_t "
+                  "GROUP BY a % 4 ORDER BY g")
+
+
+@pytest.fixture
+def fleet(tmp_path):
+    from spark_tpu_torch.serve import serve_fleet
+
+    s = SparkSession("cpu", {"spark.tpu.faultInjection.hangSeconds": 0.02})
+    path = str(tmp_path / "chaos_t.parquet")
+    pq.write_table(pa.table({"a": list(range(64)),
+                             "b": [float(i) * 0.5 for i in range(64)]}),
+                   path)
+    s.read.parquet(path).createOrReplaceTempView("chaos_t")
+    fl = serve_fleet(s, replicas=2)
+    try:
+        yield s, fl
+    finally:
+        fl.stop()
+        s.stop()
+        metrics.reset_brownout()
+
+
+def _fleet_workload(s, url):
+    from spark_tpu_torch.connect.server import Client
+
+    if s.serve_result_cache is not None:
+        s.serve_result_cache.clear()  # faults reach the engine
+    client = Client(url, timeout=20.0, retries=3)
+    return b"\x00".join(_ipc(client.sql(q)) for q in _SMOKE_QUERIES)
+
+
+def test_chaos_smoke_three_schedules(fleet):
+    s, fl = fleet
+    clean = _fleet_workload(s, fl.url)
+    assert clean == b"\x00".join(_ipc(s.sql(q).toArrow())
+                                  for q in _SMOKE_QUERIES)
+    report = chaos.run_campaign(
+        s.conf, lambda: _fleet_workload(s, fl.url),
+        chaos.generate_campaign(7, 3, points=faults.WIRED_POINTS),
+        clean_bytes=clean, alarm_s=60.0, queries=len(_SMOKE_QUERIES),
+        memory_manager=s.memory_manager)
+    assert report.ok, [r.to_dict() for r in report.failures]
+    assert len(report.results) == 3
+    for r in report.results:
+        assert r.outcome in ("identical", "typed_error")
+        assert r.elapsed_s < 60.0
+
+
+def test_chaos_kill_and_revive_schedule(fleet):
+    s, fl = fleet
+    clean = _fleet_workload(s, fl.url)
+    out = chaos.kill_and_revive(fl, lambda: _fleet_workload(s, fl.url),
+                                clean_bytes=clean)
+    assert out["breaker_after_death"] == "open"
+    assert out["healthy_after_revival"] is True
+    assert fl.replicas[0].replica_id == out["replica"]
+    assert "spark.tpu.serve.healthProbeSeconds" not in s.conf._overrides
+
+
+def test_router_health_reports_resilience(fleet):
+    _, fl = fleet
+    with urllib.request.urlopen(fl.url + "/health", timeout=10.0) as resp:
+        h = json.loads(resp.read())
+    assert "level" in h["brownout"] and "draws" in h["retry_budget"]
+    assert len(h["replicas"]) == 2
+    for rep in h["replicas"]:
+        assert rep["breaker"]["state"] in ("closed", "open", "half_open")

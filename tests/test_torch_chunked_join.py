@@ -269,3 +269,56 @@ def test_streamed_join_rows_equal_at_every_depth(port, reference, files):
         assert chunked.last_run["pipeline_depth"] == depth
     assert by_depth[0] == by_depth[1] == by_depth[2] \
         == reference["streamed_join"][1]
+
+
+# ---- admission's measured bytes ---------------------------------------------
+
+
+def test_hybrid_zero_replans_where_ladder_replanned(port, reference):
+    """Under a starved grant the hybrid join completes in one planned
+    pass (no ladder replan, though its spills show memory was short);
+    the resident path pays a ladder replan for an injected OOM."""
+    from spark_tpu_torch import faults, metrics
+
+    want = reference["hybrid_hash_join"][1]
+    with _Settings(port.conf, {
+            "spark.tpu.maxDeviceBatchBytes": 1024,
+            "spark.tpu.chunkRows": 32_768,
+            "spark.tpu.join.hybrid.partitionsMax": 64,
+            "spark.tpu.scheduler.hbmBudgetBytes": 64 * 1024}):
+        metrics.reset_recovery()
+        got = _rows(port.sql(_JOIN))
+        assert chunked.last_run["tier"] == "_HybridHashJoinAgg"
+        assert chunked.last_run["spill_writes"] >= 1
+        assert metrics.recovery_stats()["replans"] == 0
+    assert got == want
+
+    port.conf.set("spark.tpu.join.hybrid.enabled", False)
+    port.conf.set("spark.tpu.faultInjection.execute.device", "nth:1:oom")
+    faults.reset(port.conf)
+    try:
+        metrics.reset_recovery()
+        got2 = _rows(port.sql(_JOIN))
+        assert metrics.recovery_stats()["replans"] >= 1
+    finally:
+        port.conf.unset("spark.tpu.join.hybrid.enabled")
+        port.conf.unset("spark.tpu.faultInjection.execute.device")
+        faults.reset(port.conf)
+    assert got2 == want
+
+
+def test_hybrid_grant_seeded_from_measured_staging(port, reference):
+    """A hybrid run notes what its staging took; the next run of the same
+    plan shape asks for that grant instead of the planner's estimate."""
+    with _Settings(port.conf, {
+            "spark.tpu.maxDeviceBatchBytes": 1024,
+            "spark.tpu.chunkRows": 32_768,
+            "spark.tpu.join.hybrid.partitionsMax": 16,
+            "spark.tpu.scheduler.hbmBudgetBytes": 64 << 20}):
+        first = _rows(port.sql(_JOIN))
+        staged = chunked.last_run["staged_bytes"]
+        again = _rows(port.sql(_JOIN))
+        granted_again = chunked.last_run["granted_bytes"]
+    assert first == again == reference["hybrid_hash_join"][1]
+    assert staged > 0
+    assert granted_again == max(64 * 1024, staged)

@@ -12,8 +12,12 @@ tests/test_concurrency_runtime.py.
   chunked pipelined query, cached frames) whose locks do nest; a proxy's
   cost per acquire is held next to a plain lock's.
 
-The scheduler and serve result-cache cases wait for part 2 (ROADMAP
-A12); tools/lint_concurrency.py keeps scanning the reference package.
+- The serving tier: the scheduler's workers and the result cache's
+  single flight under the validator, a follower's wait bound, an
+  owner's cancellation that its followers do not inherit, and every
+  thread the serving tier starts stopping with it.
+
+tools/lint_concurrency.py keeps scanning the reference package.
 """
 
 import textwrap
@@ -298,3 +302,129 @@ def test_proxy_cost_next_to_a_plain_lock():
         locks.set_validation(False)
         locks.reset_observations()
     assert on - proxy < 50e-6, (on, proxy)
+
+
+# ---- the serving tier ------------------------------------------------------
+
+
+def _cache(**overrides):
+    from spark_tpu_torch.serve.result_cache import ResultCache
+
+    base = {"spark.tpu.serve.resultCache.enabled": True}
+    base.update(overrides)
+    return ResultCache(CF.RuntimeConf(base))
+
+
+def test_scheduler_and_result_cache_zero_violations(validator):
+    from spark_tpu_torch.scheduler import QueryScheduler
+
+    sched = QueryScheduler(conf=CF.RuntimeConf({}))
+    cache = _cache()
+    tbl = pa.table({"x": [1, 2, 3]})
+    try:
+        tasks = [sched.submit(lambda tk, i=i: cache.get_or_execute(
+            ("k", i % 2), lambda: tbl)[1]) for i in range(8)]
+        got = [t.result(timeout=30) for t in tasks]
+        assert got.count("miss") == 2
+    finally:
+        sched.stop()
+    rep = locks.order_report()
+    assert rep["violations"] == [] and rep["cycles"] == []
+    assert rep["edges"]
+
+
+def test_flight_wait_timeout_falls_through(monkeypatch):
+    from spark_tpu_torch import metrics
+    from spark_tpu_torch.serve import result_cache as rc
+
+    monkeypatch.setattr(rc, "_FLIGHT_WAIT_S", 0.2)
+    cache = _cache()
+    tbl = pa.table({"x": [1, 2, 3]})
+    started, release = threading.Event(), threading.Event()
+
+    def wedged_owner():
+        started.set()
+        release.wait(timeout=30)
+        return tbl
+
+    before = metrics.serve_stats().get("wait_timeouts", 0)
+    owner_res = {}
+    th = threading.Thread(target=lambda: owner_res.update(
+        r=cache.get_or_execute("q", wedged_owner)), daemon=True)
+    th.start()
+    assert started.wait(timeout=10)
+    blob, status = cache.get_or_execute("q", lambda: tbl)
+    assert status == "timeout"
+    assert pa.ipc.open_stream(blob).read_all().equals(tbl)
+    assert metrics.serve_stats().get("wait_timeouts", 0) == before + 1
+    release.set()
+    th.join(timeout=30)
+    assert owner_res["r"][1] == "miss"
+
+
+def test_flight_wait_timeout_is_typed():
+    from spark_tpu_torch.serve.result_cache import FlightWaitTimeout
+
+    e = FlightWaitTimeout("abcd1234", 0.25)
+    assert isinstance(e, RuntimeError)
+    assert e.key_digest == "abcd1234" and e.waited_s == 0.25
+
+
+def test_owner_cancellation_not_inherited_by_followers():
+    from spark_tpu_torch.scheduler import QueryCancelled
+
+    cache = _cache()
+    tbl = pa.table({"x": [7]})
+    started, proceed = threading.Event(), threading.Event()
+
+    def cancelled_owner():
+        started.set()
+        proceed.wait(timeout=30)
+        raise QueryCancelled("owner-local deadline")
+
+    owner_res, follower_res = {}, {}
+
+    def owner():
+        try:
+            cache.get_or_execute("qc", cancelled_owner)
+        except QueryCancelled as e:
+            owner_res["e"] = e
+
+    to = threading.Thread(target=owner, daemon=True)
+    to.start()
+    assert started.wait(timeout=10)
+    tf = threading.Thread(target=lambda: follower_res.update(
+        r=cache.get_or_execute("qc", lambda: tbl)), daemon=True)
+    tf.start()
+    time.sleep(0.1)
+    proceed.set()
+    to.join(timeout=30)
+    tf.join(timeout=30)
+    assert isinstance(owner_res["e"], QueryCancelled)
+    assert follower_res["r"][1] == "miss"
+    assert pa.ipc.open_stream(follower_res["r"][0]).read_all().equals(tbl)
+
+
+def test_serving_threads_quiesce():
+    from spark_tpu_torch.connect.server import ConnectServer
+    from spark_tpu_torch.serve import serve_fleet
+
+    s = SparkSession(device="cpu")
+    srv = ConnectServer(s, port=0).start()
+    fleet = serve_fleet(s, replicas=2)
+    assert s.query_scheduler.submit(lambda tk: 41 + 1).result(30) == 42
+    alive = {th.name for th in threading.enumerate()}
+    assert any(n.startswith("spark-tpu-sched") for n in alive), alive
+    fleet.stop()
+    srv.stop()
+    s.stop()
+    deadline = time.time() + 15
+    leftover = ["unchecked"]
+    while time.time() < deadline:
+        leftover = [th.name for th in threading.enumerate()
+                    if th.name.startswith(("spark-tpu-router",
+                                           "spark-tpu-connect"))]
+        if not leftover:
+            break
+        time.sleep(0.05)
+    assert not leftover, leftover

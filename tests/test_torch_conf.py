@@ -58,6 +58,7 @@ def test_port_keys_match_the_reference():
     import spark_tpu.physical.pipeline  # noqa: F401
     import spark_tpu.plan.optimizer  # noqa: F401  (registers its keys)
     import spark_tpu.recovery  # noqa: F401
+    import spark_tpu.serve  # noqa: F401  (breaker, ownership, cache keys)
     import spark_tpu.trace  # noqa: F401
     import spark_tpu.ui  # noqa: F401
 

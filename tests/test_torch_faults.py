@@ -9,9 +9,13 @@ the fault matrix of every wired point (``pipeline.decode``,
 and 8 CPU ranks, ``agg.strategy``, ``agg.presplit``, ``fusion.decide`` and
 ``join.spill``) gives the clean run's rows or raises the typed error, the
 chunk retry keeps source order, the OOM ladder replans an injected OOM,
-and the fault profile and the event log see every injection. The
-streaming, connect, scheduler, compile, serve, mview and slo points wait
-for their tiers (ROADMAP A12 parts 2 and 3).
+and the fault profile and the event log see every injection. The connect
+server's cells (``connect.request`` of each kind, a hung request against
+the client's deadline, ``/health`` with and without a heartbeat) are
+here; the scheduler, serve and slo points have their cells in
+tests/test_torch_scheduler.py, test_torch_serve.py, test_torch_fleet.py
+and test_torch_slo.py. The streaming, compile and mview points wait for
+their tiers (ROADMAP A12 parts 2b and 3).
 """
 
 import json
@@ -629,3 +633,75 @@ def test_retry_draws_stay_within_the_budget(port, fconf, fact_parquet):
     st = metrics.retry_budget_stats()
     assert st["draws"] - st["floor_draws"] <= 3
     assert st["denials"] >= 1
+
+
+# ---- fault matrix: the connect round trip ----------------------------------
+
+
+@pytest.fixture()
+def connect_srv(port):
+    from spark_tpu_torch.connect.server import ConnectServer
+
+    port.createDataFrame([{"x": 1, "y": "a"}, {"x": 2, "y": "b"}]) \
+        .createOrReplaceTempView("fconn_tv")
+    srv = ConnectServer(port).start()
+    yield srv
+    srv.stop()
+
+
+@pytest.mark.parametrize("kind", ["transient", "oom", "corrupt"])
+def test_fault_matrix_connect(port, fconf, connect_srv, kind):
+    from spark_tpu_torch.connect.server import Client
+
+    cli = Client(connect_srv.url, timeout=10.0)
+    assert cli.sql("SELECT x FROM fconn_tv ORDER BY x") \
+        .column("x").to_pylist() == [1, 2]
+    fconf.set("spark.tpu.faultInjection.connect.request", f"nth:1:{kind}")
+    faults.reset(fconf)
+    marker = {"transient": "UNAVAILABLE", "oom": "RESOURCE_EXHAUSTED",
+              "corrupt": "DATA_LOSS"}[kind]
+    with pytest.raises(RuntimeError) as ei:
+        cli.sql("SELECT x FROM fconn_tv")
+    # the typed marker and the server's traceback in the raised error
+    assert marker in str(ei.value)
+    assert "server traceback" in str(ei.value)
+    assert faults.fire_count(fconf, "connect.request") == 1
+    fconf.unset("spark.tpu.faultInjection.connect.request")
+    # the server survives: the next request succeeds
+    assert cli.sql("SELECT x FROM fconn_tv ORDER BY x") \
+        .column("x").to_pylist() == [1, 2]
+
+
+def test_connect_client_timeout_on_hung_server(port, fconf, connect_srv):
+    """A hang longer than the client's deadline surfaces as
+    DEADLINE_EXCEEDED instead of blocking."""
+    from spark_tpu_torch.connect.server import Client
+
+    fconf.set("spark.tpu.faultInjection.connect.request", "nth:1:hang")
+    fconf.set("spark.tpu.faultInjection.hangSeconds", 3.0)
+    faults.reset(fconf)
+    cli = Client(connect_srv.url, timeout=0.3)
+    with pytest.raises(RuntimeError, match="DEADLINE_EXCEEDED"):
+        cli.sql("SELECT x FROM fconn_tv")
+
+
+def test_connect_health_carries_heartbeat(port):
+    from spark_tpu_torch.connect.server import Client, ConnectServer
+
+    mon = recovery.HeartbeatMonitor(interval_s=30, device="cpu").start()
+    srv = ConnectServer(port, heartbeat=mon).start()
+    try:
+        h = Client(srv.url, timeout=10.0).health()
+        assert h["status"] == "ok"
+        assert h["heartbeat"]["last_ok"] is not None
+        assert h["heartbeat"]["interval_s"] == 30
+    finally:
+        srv.stop()
+        mon.stop()
+
+
+def test_connect_health_without_heartbeat(port, connect_srv):
+    from spark_tpu_torch.connect.server import Client
+
+    h = Client(connect_srv.url, timeout=10.0).health()
+    assert h["status"] == "ok" and h["heartbeat"] is None

@@ -1,21 +1,27 @@
 """The port's resilience primitives on the inputs of tests/test_resilience.py:
 deadlines (``spark_tpu_torch/deadline.py``), the per-query retry budget
 (``recovery.RetryBudget``), the heartbeat monitor, and the chaos
-harness's units (``chaos.py``). The circuit breaker, the brownout
-controller, the connect client's fail-fast and the scheduler's queued
-deadline wait for the serving tier (ROADMAP A12 part 2).
+harness's units (``chaos.py``); and the serving tier's: the circuit
+breaker and the brownout controller (``serve/federation.py``, each
+transition sequence held against the reference's), the deadline's
+header round trip, the connect client that never sleeps past its
+deadline, and the scheduler's queued deadline (no execution, no grant)
+and its merge with the caller's.
 """
 
 import json
 import random
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
 
 from spark_tpu import chaos as RC
 from spark_tpu import deadline as RD
 from spark_tpu import recovery as RR
-from spark_tpu_torch import chaos, deadline, faults, metrics, recovery
+from spark_tpu.serve import federation as RFED
+from spark_tpu_torch import chaos, deadline, faults, metrics, recovery, tracing
 from spark_tpu_torch.conf import RuntimeConf
 
 pytestmark = pytest.mark.timeout(90)
@@ -281,3 +287,238 @@ def test_is_typed_error_classification():
     assert chaos.is_typed_error(wrapped)
     assert not chaos.is_typed_error(AttributeError("oops"))
     assert not chaos.is_typed_error(RuntimeError("segfault adjacent"))
+
+
+# ---- the deadline on the wire and the connect client -----------------------
+
+
+def test_deadline_header_roundtrip_matches_reference():
+    dl = time.time() + 12.5
+    with deadline.bind(dl):
+        hv = deadline.header_value()
+    with RD.bind(dl):
+        assert hv == RD.header_value()
+    assert deadline.from_header(hv) == pytest.approx(dl, abs=1e-3)
+    for bad in (None, "", "garbage"):
+        assert deadline.from_header(bad) is None
+        assert RD.from_header(bad) is None
+    assert deadline.DEADLINE_HEADER == RD.DEADLINE_HEADER
+
+
+class _Always429(BaseHTTPRequestHandler):
+    """A server whose Retry-After hint (10 s) far exceeds the client's
+    timeout."""
+
+    def log_message(self, *a):
+        pass
+
+    def do_POST(self):
+        n = int(self.headers.get("Content-Length", "0"))
+        self.rfile.read(n)
+        body = json.dumps({"error": "SchedulerQueueFull", "message": "full",
+                           "retry_after_s": 10.0}).encode()
+        self.send_response(429)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Retry-After", "10")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+
+def test_client_never_sleeps_past_its_deadline():
+    from spark_tpu_torch.connect.server import Client
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _Always429)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = Client(f"http://127.0.0.1:{httpd.server_address[1]}",
+                        timeout=0.8, retries=8)
+        t0 = time.perf_counter()
+        with pytest.raises(deadline.DeadlineExceeded):
+            client.sql("SELECT 1")
+        assert time.perf_counter() - t0 < 5.0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=5.0)
+
+
+# ---- the circuit breaker and the brownout, against the reference -----------
+
+
+def _breakers(**over):
+    from spark_tpu.conf import RuntimeConf as RefConf
+    from spark_tpu_torch.serve.federation import CircuitBreaker
+
+    base = {"spark.tpu.serve.breaker.minRequests": 2,
+            "spark.tpu.serve.breaker.openSeconds": 0.05,
+            "spark.tpu.serve.breaker.failureRate": 0.5}
+    base.update(over)
+    return CircuitBreaker(RuntimeConf(base)), \
+        RFED.CircuitBreaker(RefConf(base))
+
+
+def _transitions(br):
+    return [(a, b) for _, a, b in br.state_changes]
+
+
+@pytest.mark.parametrize("seed", [0, 9])
+def test_breaker_sequences_match_reference(seed):
+    rng = random.Random(seed)
+    mine, theirs = _breakers()
+    for _ in range(40):
+        op = rng.choice(("success", "failure", "begin", "admits", "trip",
+                         "sleep"))
+        if op == "sleep":
+            time.sleep(0.06)
+            continue
+        out = [getattr(br, op)() for br in (mine, theirs)]
+        assert out[0] == out[1], op
+        assert mine.state == theirs.state, op
+    assert _transitions(mine) == _transitions(theirs)
+
+
+def test_breaker_opens_on_failure_rate():
+    br, _ = _breakers()
+    assert br.admits()
+    br.failure()
+    assert br.state == "closed"
+    br.failure()
+    assert br.state == "open" and not br.admits()
+
+
+def test_breaker_half_open_probe_then_close():
+    br, _ = _breakers()
+    br.failure()
+    br.failure()
+    time.sleep(0.06)
+    assert br.admits() and br.state == "half_open"
+    br.begin()
+    assert not br.admits()
+    br.success()
+    assert br.state == "closed" and br.admits()
+    assert _transitions(br) == [("closed", "open"), ("open", "half_open"),
+                                ("half_open", "closed")]
+
+
+def test_breaker_half_open_failure_reopens():
+    br, _ = _breakers()
+    br.failure()
+    br.failure()
+    time.sleep(0.06)
+    assert br.admits()
+    br.begin()
+    br.failure()
+    assert br.state == "open" and not br.admits()
+
+
+def test_breaker_successes_keep_rate_low():
+    br, _ = _breakers()
+    for _ in range(8):
+        br.success()
+    br.failure()
+    br.failure()
+    assert br.state == "closed"
+
+
+def test_breaker_disabled_is_transparent():
+    br, _ = _breakers(**{"spark.tpu.serve.breaker.enabled": False})
+    for _ in range(10):
+        br.failure()
+    assert br.state == "closed" and br.admits()
+
+
+def test_brownout_enters_and_exits_with_hysteresis():
+    from spark_tpu_torch.serve.federation import BrownoutController
+
+    metrics.reset_brownout()
+    bo = BrownoutController(RuntimeConf({
+        "spark.tpu.serve.brownout.minEvents": 4,
+        "spark.tpu.serve.brownout.enterRate": 0.5,
+        "spark.tpu.serve.brownout.exitRate": 0.1}))
+    try:
+        for _ in range(4):
+            bo.note("failure")
+        assert bo.level == 1 and metrics.brownout_level() == 1
+        for _ in range(4):
+            bo.note("ok")
+        assert bo.level == 1  # between the rates: the level holds
+        for _ in range(32):
+            bo.note("ok")
+        assert bo.level == 0 and metrics.brownout_level() == 0
+        st = metrics.brownout_stats()
+        assert st["entered"] == 1 and st["exited"] == 1
+    finally:
+        metrics.reset_brownout()
+
+
+def test_brownout_sheds_trace_sampling_and_auto_cache():
+    from spark_tpu_torch import trace as trace_mod
+
+    metrics.reset_brownout()
+    try:
+        metrics.set_brownout(1)
+        assert trace_mod._sample_root() is False
+    finally:
+        metrics.reset_brownout()
+
+
+def test_serve_profile_reports_resilience():
+    p = tracing.serve_profile(events=[])
+    assert set(p["resilience"]) == {"brownout", "retry_budget"}
+
+
+# ---- the scheduler's deadlines ---------------------------------------------
+
+
+class _MiniSession:
+    """The settings and a memory manager: all the scheduler reads."""
+
+    def __init__(self, conf, mm):
+        self.conf = conf
+        self.memory_manager = mm
+
+
+def test_deadline_expired_in_queue_zero_executions_zero_grants():
+    from spark_tpu_torch.scheduler import QueryCancelled, QueryScheduler
+    from spark_tpu_torch.storage.unified import UnifiedMemoryManager
+
+    conf = RuntimeConf({"spark.tpu.scheduler.maxConcurrency": 1})
+    mm = UnifiedMemoryManager(budget_bytes=1 << 24, conf=conf)
+    sched = QueryScheduler(_MiniSession(conf, mm))
+    release = threading.Event()
+    ran = threading.Event()
+    try:
+        blocker = sched.submit(lambda tk: release.wait(30))
+        t0 = time.time() + 30
+        while blocker.state != "RUNNING" and time.time() < t0:
+            time.sleep(0.005)
+        grants_before = mm.snapshot()["grants"]["grants"]
+        t = sched.submit(lambda tk: ran.set(), deadline_s=0.05)
+        time.sleep(0.1)
+        release.set()
+        with pytest.raises(QueryCancelled, match="DEADLINE_EXCEEDED"):
+            t.result(timeout=30)
+        blocker.result(timeout=30)
+        assert not ran.is_set()
+        snap = mm.snapshot()
+        assert snap["grants"]["grants"] == grants_before
+        assert snap["in_use_bytes"] == 0
+    finally:
+        release.set()
+        sched.stop()
+
+
+def test_scheduler_submit_merges_ambient_deadline():
+    from spark_tpu_torch.scheduler import QueryScheduler
+
+    sched = QueryScheduler(conf=RuntimeConf())
+    try:
+        tight = time.time() + 0.5
+        with deadline.bind(tight):
+            t = sched.submit(lambda tk: "ok", deadline_s=600.0)
+        assert t.deadline == pytest.approx(tight, abs=1e-6)
+        assert t.result(timeout=30) == "ok"
+    finally:
+        sched.stop()

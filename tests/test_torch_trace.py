@@ -10,8 +10,9 @@ itself: one well-formed tree per query, every stage event stamped with
 the query's trace id (the mesh's rank threads included), the
 breakdown's parts summing to its wall, rows equal bit for bit with
 tracing on, sampled and off, and ``torch.profiler`` traces holding the
-annotated region. The fleet propagation cases wait for the connect and
-serving tiers (part 2).
+annotated region. Over the serving tier: one trace from the client
+through the router, the replica and the scheduler's worker to the
+stages, and a shed re-dispatch that stays in one trace.
 """
 
 import json
@@ -338,7 +339,7 @@ def test_pipeline_profile_rolls_up_chunk_events():
 
 @pytest.mark.parametrize("fold", ["exchange_profile", "fault_profile",
                                   "scheduler_profile", "analysis_profile",
-                                  "aggregation_profile"])
+                                  "aggregation_profile", "serve_profile"])
 def test_profiles_fold_as_the_references(fold):
     """The pure folds over the same events give the reference's result
     (the live counters each profile adds are zeroed on both sides)."""
@@ -348,7 +349,8 @@ def test_profiles_fold_as_the_references(fold):
     evs = []
     for i in range(40):
         kind = ["exchange", "aqe", "fault_injected", "fault_recovered",
-                "scheduler", "analysis", "agg", "stage"][i % 8]
+                "scheduler", "analysis", "agg", "stage", "serve",
+                "serve_cache"][i % 10]
         evs.append({"kind": kind, "n": i, "op": ["hash", "range"][i % 2],
                     "mode": "adaptive", "devices": 4,
                     "rows": int(rng.integers(0, 1000)),
@@ -359,10 +361,78 @@ def test_profiles_fold_as_the_references(fold):
                     "queue_wait_ms": 1.5, "device_ms": 2.0, "plan": "P",
                     "errors": 0, "warnings": 1, "diagnostics": 1,
                     "elapsed_ms": 0.5, "strategy": "hash", "ndv": 10,
-                    "ratio": 0.1, "domain": 64})
+                    "ratio": 0.1, "domain": 64,
+                    "replica": f"r{i % 3}", "ms": 1.25, "bytes": 64})
     for mod in (metrics, RM):
         mod.reset_agg()
+        mod.reset_serve()
+        mod.reset_brownout()
+        mod.reset_retry_budget()
     mine, ref = getattr(tracing, fold)(evs), getattr(RTr, fold)(evs)
     for d in (mine, ref):
         d.pop("totals", None)
     assert mine == ref
+
+
+# ---- the serving tier: one trace across client, router and replica ----------
+
+
+def test_fleet_propagation_two_replicas(port):
+    from spark_tpu_torch.connect.server import Client
+    from spark_tpu_torch.serve import serve_fleet
+
+    fleet = serve_fleet(port, replicas=2)
+    try:
+        c = Client(fleet.url, timeout=60)
+        rows = c.sql(_Q)
+        assert rows.equals(port.sql(_Q).toArrow())
+        spans = _spans(metrics.query_events(c.last_trace_id))
+        assert {e.get("name") for e in spans} >= {
+            "connect.client", "router.dispatch", "router.forward",
+            "connect.request", "scheduler.run", "scheduler.queue",
+            "query.execute", "stage.run"}
+        roots = _roots(spans)
+        assert len(roots) == 1 and roots[0]["name"] == "connect.client"
+        doc = c.trace()
+        xs = {e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"}
+        assert xs >= {"router.dispatch", "connect.request", "scheduler.run",
+                      "stage.run"}
+    finally:
+        fleet.stop()
+
+
+def test_shed_redispatch_shares_one_trace(port):
+    import urllib.request
+
+    from spark_tpu_torch.conf import RuntimeConf
+    from spark_tpu_torch.connect.server import ConnectServer
+    from spark_tpu_torch.scheduler import QueryScheduler
+    from spark_tpu_torch.serve import FederationRouter
+
+    full = ConnectServer(
+        port, port=0, replica_id="full",
+        scheduler=QueryScheduler(conf=RuntimeConf(
+            {"spark.tpu.scheduler.queueDepth": 0}))).start()
+    ok = ConnectServer(port, port=0, replica_id="ok").start()
+    router = FederationRouter(
+        [full, ok], conf=RuntimeConf(
+            {"spark.tpu.serve.policy": "round_robin"})).start()
+    try:
+        req = urllib.request.Request(
+            router.url + "/sql",
+            data=json.dumps({"query": "SELECT k FROM tr_a WHERE k > 0"})
+            .encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            assert resp.status == 200
+            tid = resp.headers.get("X-SparkTpu-Trace-Id")
+        assert tid
+        evs = metrics.query_events(tid)
+        forwards = [e for e in _spans(evs) if e.get("name") == "router.forward"]
+        assert [e.get("replica") for e in forwards] == ["full", "ok"]
+        sheds = [e for e in evs if e.get("kind") == "serve"
+                 and e.get("phase") == "shed"]
+        assert sheds and all(e.get("trace_id") == tid for e in sheds)
+    finally:
+        router.stop()
+        full.stop()
+        ok.stop()
