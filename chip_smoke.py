@@ -212,8 +212,38 @@ no result line):
      ticket. The fault cells ``scheduler.admit`` (transient, oom),
      ``connect.request``, ``slo.predict`` and ``slo.reject``, each the
      clean bytes or the typed error, counted in the fault profile.
-   Outside the ooc, obs and serve phases every query must run with no
-   ladder replan. The sqlite comparisons of ``ORACLE_HELD_BY_TESTS``
+   - stream phase (streaming and materialized views): q1 and q1-wide
+     over SF1 lineitem through a MemoryStream in 8 equal micro-batches,
+     complete mode, each equal to its batch run on the card bit for bit,
+     and MESH_F168's float sums (``seg_fsum`` in every partial and
+     merge) within 1e-12 of each group's sum of |x| of the batch run;
+     q1-wide's triggers with the stages eager and with capture on (each
+     trigger's wall, Arrow/transfer ms and captures printed); a
+     ``streaming.commit`` crash at trigger 5 whose restart replays the
+     logged batch from the WAL to the same bytes; a 7-day tumbling
+     window count over orders in append mode with a watermark, equal to
+     the batch GROUP BY window; a stream-stream inner join of the first
+     tenth of the orders and their lineitems (row count and checksum of
+     the batch join); a materialized view of a q1-like aggregate over
+     lineitem written as four Parquet files, two files appended, each
+     refresh an incremental merge equal to the uncached re-read bit for
+     bit, the second under a transient ``mview.refresh`` fault, retried.
+   - compile phase (the compile tier): a fresh card session with the
+     statistics store and the history serves q1-wide, q3, q5 and q18
+     through a connect server (a first run that writes its statistics,
+     then a capture); a child process (``--compile-child prewarm``)
+     restarts with the history and pre-warm: each journaled query's
+     first client run captures nothing and replays every stage, with the
+     parent's bytes; a child with the store alone (``--compile-child
+     store``): q3's first run binds the statistics, runs no blocking
+     operator and captures, with the same bytes; q5 with background
+     capture: served eagerly while the capture runs off-thread, then
+     replayed, bit for bit, swapped once; the ``compile.background``
+     cell: a failed capture pins q3 to the eager path, the same bytes.
+     The obs phase's fault cells cover the wired points but the serve
+     phase's and these three (``TIER_POINTS``).
+   Outside the ooc, obs, serve, stream and compile phases every query
+   must run with no ladder replan. The sqlite comparisons of ``ORACLE_HELD_BY_TESTS``
    (W2, W3, R1, C1, X1, X2, A1-168) are left out at SF1: their card rows
    equal the CPU run's, and the named tests hold the CPU run against
    sqlite.
@@ -3260,7 +3290,7 @@ def obs_fault_matrix(seg_agg, gpu, dev: str, root: str) -> None:
         + tracing.format_fault_profile(prof))
     log(f"obs: fault cells {[c for c, _ in cells]}; retry budget "
         f"{metrics.retry_budget_stats()}")
-    engine = set(faults.WIRED_POINTS) - set(SERVE_POINTS)
+    engine = set(faults.WIRED_POINTS) - set(SERVE_POINTS) - set(TIER_POINTS)
     check(engine and {p for _, p in cells} == engine,
           f"obs: cells cover {sorted({p for _, p in cells})}, the engine's "
           f"wired points are {sorted(engine)}")
@@ -4055,11 +4085,627 @@ def serve_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     return wrapped
 
 
+# ---- streaming and materialized views (the stream phase) ---------------------
+
+#: the three points of the streaming, compile and mview tiers: their cells
+#: are the stream and compile phases', not the obs phase's
+TIER_POINTS = ("streaming.commit", "compile.background", "mview.refresh")
+STREAM_TRIGGERS = 8
+#: the lineitem columns the streamed aggregates and the view read
+STREAM_COLS = ("l_returnflag", "l_linestatus", "l_shipmode", "l_shipinstruct",
+               "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+               "l_shipdate", "l_partkey", "l_suppkey")
+#: the stream-stream join's scale: the first 1/STREAM_JOIN_SHARE of the
+#: orders (by key; 150,000 at SF1) and their lineitems, in
+#: STREAM_JOIN_TRIGGERS triggers a side
+STREAM_JOIN_SHARE = 10
+STREAM_JOIN_TRIGGERS = 4
+STREAM_WINDOW_DAYS = 7
+
+
+def _stream_sql(query: str, view: str) -> str:
+    """A TPC-H aggregate over a streaming view: lineitem read from
+    ``view``, the ORDER BY dropped (the aggregate is the stream's root)."""
+    import re
+
+    body = query[:query.lower().rindex("order by")]
+    return re.sub(r"\bfrom\s+lineitem\b", f"from {view}", body)
+
+
+def _sorted_bits(table) -> list:
+    return sorted(row_bits([tuple(r.values()) for r in table.to_pylist()]))
+
+
+def stream_run(spark, name: str, sql: str, table, slices: int,
+               ckpt=None, fault_at=None):
+    """``sql`` over a MemoryStream of ``table`` in ``slices`` equal
+    micro-batches, complete mode. With ``fault_at``, the streaming.commit
+    point fails that trigger (a transient fault); the query restarts from
+    ``ckpt``, replays the logged batch and drains the rest. Returns the
+    sink's Arrow table, the trigger log and the fired count."""
+    from spark_tpu_torch import faults, metrics
+    from spark_tpu_torch.streaming import MemoryStream
+
+    src = MemoryStream(table.schema)
+    spark.readStream.load(src).createOrReplaceTempView(f"{name}_src")
+    sdf = spark.sql(_stream_sql(sql, f"{name}_src"))
+
+    def start():
+        w = sdf.writeStream.outputMode("complete").queryName(name)
+        return (w.option("checkpointLocation", ckpt) if ckpt else w).start()
+
+    q = start()
+    step = -(-table.num_rows // slices)
+    log_ = []
+    fired = 0
+    for i in range(slices):
+        src.add_data(table.slice(i * step, step))
+        if fault_at is not None and i == fault_at:
+            with _Armed(spark, {"spark.tpu.faultInjection.streaming.commit":
+                                "nth:1:transient"}):
+                try:
+                    q.process_all_available()
+                    raise RuntimeError("the commit fault did not fire")
+                except faults.InjectedTransientError:
+                    fired = faults.fire_count(spark.conf, "streaming.commit")
+            log_ += q.trigger_log
+            q.stop()
+            q = start()  # the restart: the logged batch replays
+            metrics.reset()
+            q.process_all_available()
+            check(any(e["kind"] == "fault_recovered"
+                      and e.get("how") == "wal_replay"
+                      for e in metrics.recent(256)),
+                  "stream: the restart did not replay the WAL")
+            continue
+        q.process_all_available()
+    log_ += q.trigger_log
+    return spark.table(name).toArrow(), log_, fired
+
+
+def _log_triggers(label: str, trig: list) -> None:
+    walls = [round(t["wall_ms"], 1) for t in trig]
+    arrow = [round(t["arrow_ms"], 1) for t in trig]
+    log(f"stream: {label}: {len(trig)} triggers, walls ms {walls} "
+        f"(sum {sum(walls):.1f}), Arrow/transfer ms {arrow} "
+        f"(sum {sum(arrow):.1f}); captured "
+        f"{sum(t['captured'] for t in trig)}, replayed "
+        f"{sum(t['replayed'] for t in trig)}")
+
+
+def stream_aggregates(gpu, tables) -> None:
+    """q1 and q1-wide over SF1 lineitem in STREAM_TRIGGERS equal
+    micro-batches, each equal to its batch run on the card bit for bit;
+    q1-wide's trigger walls with its stages eager and with capture on;
+    MESH_F168's float sums (seg_fsum in every partial and merge) within
+    MESH_TOL of each group's sum of |x| of the batch run; the
+    streaming.commit cell: a crash at trigger 5, the restart replays it
+    from the WAL to the same bytes."""
+    import tempfile
+
+    from spark_tpu_torch.physical import graphs
+    from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
+
+    li = tables["lineitem"].select(list(STREAM_COLS))
+    for name, sql in (("q1", QUERIES[1]), ("q1_wide", Q1_WIDE)):
+        want = _sorted_bits(gpu.sql(sql).toArrow())
+        if name == "q1_wide":
+            with graphs.eager_stages():
+                got, trig, _ = stream_run(gpu, "s_q1w_eager", sql, li,
+                                          STREAM_TRIGGERS)
+            check(_sorted_bits(got) == want, "stream: q1-wide (eager "
+                  "stages) differs from its batch run")
+            _log_triggers("q1-wide, stages eager", trig)
+        got, trig, _ = stream_run(gpu, f"s_{name}", sql, li, STREAM_TRIGGERS)
+        got = _sorted_bits(got)
+        check(got == want, f"stream: {name} differs from its batch run")
+        check(all(t["runs"] >= 2 for t in trig),
+              f"stream: {name} triggers ran no partial and merge")
+        _log_triggers(f"{name}, capture on", trig)
+        log(f"stream: {name} over {li.num_rows} lineitem rows in "
+            f"{STREAM_TRIGGERS} micro-batches: {len(got)} groups, equal to "
+            "the batch run on the card bit for bit")
+    got, trig, _ = stream_run(gpu, "s_f168", MESH_F168, li, STREAM_TRIGGERS)
+
+    def rows(tbl):
+        return sorted(tuple(r.values()) for r in tbl.to_pylist())
+
+    worst = match_mesh("stream: f168", rows(got),
+                       rows(gpu.sql(MESH_F168).toArrow()), mag_col=5)
+    _log_triggers("f168 (float sums), capture on", trig)
+    log(f"stream: f168's float sums within {worst:.3g} of each group's sum "
+        f"of |x| of the batch run (bound {MESH_TOL}); counts equal")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        got, trig, fired = stream_run(gpu, "s_q1w_fault", Q1_WIDE, li,
+                                      STREAM_TRIGGERS, ckpt=ckpt, fault_at=4)
+    check(fired == 1 and _sorted_bits(got) == want,
+          f"stream: the commit fault fired {fired}x; rows after the WAL "
+          "replay differ from the batch run")
+    check([t["batch"] for t in trig] == list(range(STREAM_TRIGGERS)),
+          f"stream: the triggers ran batches {[t['batch'] for t in trig]}")
+    log("stream fault streaming.commit: a transient crash at trigger 5; the "
+        "restart replayed batch 4 from the WAL; rows bit for bit the batch "
+        f"run's ({len(trig)} trigger runs)")
+
+
+def stream_window(gpu, tables) -> None:
+    """A tumbling STREAM_WINDOW_DAYS-day window count over orders by
+    order day, append mode with a watermark, in STREAM_TRIGGERS
+    micro-batches in time order and a last row that closes every window:
+    equal to the batch GROUP BY window on the card."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from spark_tpu_torch.api import functions as F
+    from spark_tpu_torch.streaming import MemoryStream
+
+    orders = tables["orders"]
+    day = pc.cast(pc.cast(orders.column("o_orderdate"), pa.int32()),
+                  pa.int64())
+    tbl = pa.table({"o_day": day, "o_orderkey": orders.column("o_orderkey")}) \
+        .sort_by("o_day")
+    batch = gpu.createDataFrame(tbl).groupBy(
+        F.window("o_day", STREAM_WINDOW_DAYS).alias("w")).agg(
+        F.count("o_orderkey").alias("n"), F.sum("o_orderkey").alias("s"))
+    want = _sorted_bits(batch.toArrow())
+    src = MemoryStream(tbl.schema)
+    q = (gpu.readStream.load(src).withWatermark("o_day", 0)
+         .groupBy(F.window("o_day", STREAM_WINDOW_DAYS).alias("w"))
+         .agg(F.count("o_orderkey").alias("n"), F.sum("o_orderkey").alias("s"))
+         .writeStream.outputMode("append").queryName("s_window").start())
+    step = -(-tbl.num_rows // STREAM_TRIGGERS)
+    for i in range(STREAM_TRIGGERS):
+        src.add_data(tbl.slice(i * step, step))
+        q.process_all_available()
+    last = int(pc.max(day).as_py()) + 10 * STREAM_WINDOW_DAYS
+    src.add_data(pa.table({"o_day": pa.array([last], pa.int64()),
+                           "o_orderkey": pa.array([0], pa.int64())}))
+    q.process_all_available()
+    got = _sorted_bits(gpu.table("s_window").toArrow())
+    check(got == want, f"stream: the windowed count ({len(got)} windows) "
+          f"differs from the batch GROUP BY window ({len(want)})")
+    _log_triggers("window count over orders", q.trigger_log)
+    log(f"stream: {STREAM_WINDOW_DAYS}-day windows over {tbl.num_rows} "
+        f"orders, append mode: {len(got)} windows emitted, equal to the "
+        "batch GROUP BY window bit for bit")
+
+
+def stream_join(gpu, tables) -> None:
+    """orders JOIN lineitem on the order key as a stream-stream inner
+    join over the first tenth of the orders and their lineitems,
+    STREAM_JOIN_TRIGGERS triggers a side: its row count and checksum
+    equal the batch join's on the card."""
+    import pyarrow.compute as pc
+
+    from spark_tpu_torch.api import functions as F
+    from spark_tpu_torch.streaming import MemoryStream
+
+    o = tables["orders"].select(["o_orderkey", "o_custkey"]) \
+        .sort_by("o_orderkey")
+    n_orders = o.num_rows // STREAM_JOIN_SHARE
+    cut = o.column("o_orderkey")[n_orders - 1].as_py()
+    o = o.slice(0, n_orders)
+    li = tables["lineitem"].select(["l_orderkey", "l_partkey", "l_suppkey"])
+    li = li.filter(pc.less_equal(li.column("l_orderkey"), cut)) \
+        .sort_by("l_orderkey")
+
+    def checksum(t) -> tuple:
+        cols = {n: t.column(n).to_numpy().astype(np.int64)
+                for n in ("o_custkey", "l_partkey", "l_suppkey")}
+        return (t.num_rows, int(np.sum(cols["o_custkey"] * 1_000_003
+                                       + cols["l_partkey"] * 7919
+                                       + cols["l_suppkey"])))
+
+    cond = F.col("o_orderkey") == F.col("l_orderkey")
+    want = checksum(gpu.createDataFrame(o).join(
+        gpu.createDataFrame(li), cond).toArrow())
+    left, right = MemoryStream(o.schema), MemoryStream(li.schema)
+    q = (gpu.readStream.load(left).join(gpu.readStream.load(right), cond)
+         .writeStream.outputMode("append").queryName("s_join").start())
+    ls, rs = -(-o.num_rows // STREAM_JOIN_TRIGGERS), \
+        -(-li.num_rows // STREAM_JOIN_TRIGGERS)
+    for i in range(STREAM_JOIN_TRIGGERS):
+        left.add_data(o.slice(i * ls, ls))
+        # the right side one trigger behind: rows meet the other side's
+        # state as well as its new rows
+        if i:
+            right.add_data(li.slice((i - 1) * rs, rs))
+        q.processAllAvailable()
+    right.add_data(li.slice((STREAM_JOIN_TRIGGERS - 1) * rs, rs))
+    q.processAllAvailable()
+    got = checksum(gpu.table("s_join").toArrow())
+    check(got == want, f"stream: the stream-stream join gave {got}, the "
+          f"batch join {want}")
+    _log_triggers("orders x lineitem join", q.trigger_log)
+    log(f"stream: stream-stream inner join of {o.num_rows} orders and "
+        f"{li.num_rows} lineitems (a smaller scale: the first "
+        f"1/{STREAM_JOIN_SHARE} of the orders by key): {got[0]} rows, "
+        "checksum equal to the batch join's")
+
+
+def stream_view(gpu, tables) -> None:
+    """A materialized view of a q1-like aggregate (four dictionary keys,
+    decimal sums, min and max) over SF1 lineitem written as four Parquet
+    files: two files appended, each followed by a collect equal to the
+    uncached re-read bit for bit and an incremental merge; the second
+    under a transient mview.refresh fault, retried."""
+    import tempfile
+
+    import pyarrow.parquet as pq
+
+    from spark_tpu_torch import faults, metrics
+    from spark_tpu_torch.api import functions as F
+
+    li = tables["lineitem"].select(list(STREAM_COLS))
+    eighth = -(-li.num_rows // 8)
+
+    def agg(df):
+        return df.groupBy("l_returnflag", "l_linestatus", "l_shipmode",
+                          "l_shipinstruct").agg(
+            F.sum("l_quantity").alias("sq"),
+            F.sum("l_extendedprice").alias("sp"),
+            F.min("l_partkey").alias("mn"), F.max("l_suppkey").alias("mx"))
+
+    gpu.conf.set("spark.tpu.mview.enabled", True)
+    metrics.reset_mview()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mview_") as d:
+            t0 = time.perf_counter()
+            for i in range(4):
+                pq.write_table(li.slice(2 * i * eighth, 2 * eighth),
+                               os.path.join(d, f"part{i}.parquet"))
+            log(f"stream: view files written in "
+                f"{time.perf_counter() - t0:.1f} s")
+            view = agg(gpu.read.parquet(d))
+            view.cache()
+            check(len(gpu.mview_manager.views()) == 1
+                  and gpu.mview_manager.views()[0]["incremental"],
+                  "stream: the view did not register as incremental")
+            t0 = time.perf_counter()
+            first = _sorted_bits(view.toArrow())
+            log(f"stream: view materialized ({len(first)} groups) in "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+            for step, part in enumerate((6, 7)):
+                pq.write_table(li.slice(part * eighth, eighth),
+                               os.path.join(d, f"part{part}.parquet"))
+                arm = {} if step == 0 else {
+                    "spark.tpu.faultInjection.mview.refresh":
+                        "nth:1:transient"}
+                t0 = time.perf_counter()
+                with _Armed(gpu, arm):
+                    got = _sorted_bits(view.toArrow())
+                    fired = faults.fire_count(gpu.conf, "mview.refresh")
+                wall = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                want = _sorted_bits(agg(gpu.read.parquet(d)).toArrow())
+                reread = (time.perf_counter() - t0) * 1e3
+                check(got == want, f"stream: the refreshed view after "
+                      f"file {part} differs from the uncached re-read")
+                check(fired == step, f"stream: mview.refresh fired {fired}x")
+                log(f"stream: file {part} appended; the view refreshed in "
+                    f"{wall:.1f} ms against an uncached re-read of "
+                    f"{reread:.1f} ms, bit for bit equal"
+                    + (f"; mview.refresh fired {fired}x and was retried"
+                       if step else ""))
+            v = gpu.mview_manager.views()[0]
+            st = metrics.mview_stats()
+            check(v["incremental_merges"] >= 1 and v["full_recomputes"] == 0
+                  and st["refresh_retries"] >= 1,
+                  f"stream: the view {v}, counters {st}")
+            log(f"stream: view counters {v}; {st}")
+            view.unpersist()
+    finally:
+        gpu.conf.unset("spark.tpu.mview.enabled")
+
+
+def stream_phase(seg_agg, gpu, cpu, oracle, dev="cuda", tables=None):
+    """Streaming and materialized views on the card session at SF1: the
+    streamed aggregates (``stream_aggregates``), a windowed count
+    (``stream_window``), a stream-stream join (``stream_join``) and a
+    view (``stream_view``), with the streaming.commit and mview.refresh
+    cells. Every wrapper call is recorded and held against its plain
+    version; every micro-batch is a first run, so the card's hand-kernel
+    runs equal the wrappers' launches. Returns the phase's launches."""
+    seg_agg.reset_launches()
+    runs = device_runs(seg_agg, dev)
+    for point in TIER_POINTS:
+        _FIRED.pop(point, None)
+    with recording_calls(seg_agg) as calls:
+        for part in (stream_aggregates, stream_window, stream_join,
+                     stream_view):
+            t0 = time.perf_counter()
+            part(gpu, tables)
+            log(f"stream: {part.__name__} {time.perf_counter() - t0:.1f} s")
+    hold_calls(seg_agg, calls, "stream")
+    wrapped = mode_launches(seg_agg)
+    if dev == "cuda":
+        check(len(calls) == sum(wrapped.values()),
+              f"stream: {len(calls)} wrapper calls, {wrapped} launches")
+    check(all(_FIRED.get(p, 0) >= 1
+              for p in ("streaming.commit", "mview.refresh")),
+          f"stream: the fault cells fired {_FIRED}")
+    log(f"stream: launches through the wrappers {wrapped}; {len(calls)} "
+        "wrapper calls held against the plain versions; the card ran "
+        f"{ran_since(seg_agg, runs)}")
+    return wrapped
+
+
+# ---- the compile tier (the compile phase) ---------------------------------------
+
+COMPILE_QUERIES = ("q1_wide", "q3", "q5", "q18")
+#: the scale the restarted children generate: the parent's (SF1 on the
+#: card; a CPU rehearsal lowers both)
+COMPILE_SF = 1.0
+
+
+def _served_runs(client, server, name: str):
+    """One query through the connect server: its IPC bytes, its ticket's
+    planner runs and the client's wall ms."""
+    blob, ticket, wall = _served(client, server, name)
+    return blob, list(ticket.runs), wall
+
+
+def compile_child(mode: str, store: str, hist: str, out_dir: str,
+                  sf: float) -> int:
+    """``--compile-child MODE STORE HIST OUT SF``: a restarted process,
+    which shares only the store directory and the history file with the
+    parent. Builds (loads) the kernels, generates TPC-H at ``sf``
+    (``SF1_SEED``) and registers it on a card session. ``prewarm``: a connect server with the history
+    and prewarm on; after the pre-warm, each journaled query's first
+    client run. ``store``: the store alone, q3's first run. Writes each
+    run's IPC bytes and records to OUT."""
+    import pyarrow as pa  # noqa: F401
+
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.ops import _build
+    from spark_tpu_torch.physical import planner
+    from spark_tpu_torch.tpch import generate_tables, register_views
+
+    os.environ["TZ"] = "UTC"
+    time.tzset()
+    t_start = time.perf_counter()
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    if dev == "cuda":
+        _build.libraries(("seg_agg", "seg_fsum"))
+    conf = {"spark.tpu.compile.store.dir": store}
+    if mode == "prewarm":
+        conf.update({"spark.tpu.compile.history.path": hist,
+                     "spark.tpu.compile.prewarm.enabled": True})
+    spark = SparkSession(device=dev, conf=conf)
+    register_views(spark, generate_tables(sf, seed=SF1_SEED))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_start
+    out = {"setup_s": setup_s, "runs": {}}
+    if mode == "prewarm":
+        from spark_tpu_torch.connect.server import Client, ConnectServer
+
+        svc = spark.compile_service
+        t0 = time.perf_counter()
+        server = ConnectServer(spark).start()
+        check(svc.wait_background(timeout=300), "child: pre-warm hung")
+        out["prewarm_s"] = time.perf_counter() - t0
+        out["prewarm"] = svc.status()["prewarm"]
+        try:
+            client = Client(server.url, timeout=120.0)
+            for name in COMPILE_QUERIES:
+                blob, runs, wall = _served_runs(client, server, name)
+                with open(os.path.join(out_dir, f"{name}.ipc"), "wb") as f:
+                    f.write(blob)
+                out["runs"][name] = {
+                    "wall_ms": wall, "first_run": [r.first_run for r in runs],
+                    "stages": sum(r.stages for r in runs),
+                    "captured": sum(r.captured for r in runs),
+                    "replayed": sum(r.replayed for r in runs)}
+        finally:
+            server.stop()
+    else:
+        runs: list = []
+        t0 = time.perf_counter()
+        with planner.recording_runs(runs):
+            blob = _ipc(spark.sql(_serve_sql("q3")).toArrow())
+        wall = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(out_dir, "q3.ipc"), "wb") as f:
+            f.write(blob)
+        out["runs"]["q3"] = {
+            "wall_ms": wall, "first_run": [r.first_run for r in runs],
+            "blocking": sum(sum(r.blocking.values()) for r in runs),
+            "stages": sum(r.stages for r in runs),
+            "captured": sum(r.captured for r in runs),
+            "replayed": sum(r.replayed for r in runs),
+            "capture_ms": sum(r.capture_ms for r in runs)}
+    from spark_tpu_torch import metrics
+
+    out["exec_store"] = metrics.exec_store_stats()
+    with open(os.path.join(out_dir, "out.json"), "w") as f:
+        json.dump(out, f)
+    spark.stop()
+    return 0
+
+
+def _child(mode: str, store: str, hist: str, root: str) -> dict:
+    out_dir = os.path.join(root, f"child_{mode}")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--compile-child", mode,
+         store, hist, out_dir, str(COMPILE_SF)], capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"compile: the {mode} child failed")
+    with open(os.path.join(out_dir, "out.json")) as f:
+        out = json.load(f)
+    out["wall_s"] = wall
+    out["ipc"] = {}
+    for name in os.listdir(out_dir):
+        if name.endswith(".ipc"):
+            with open(os.path.join(out_dir, name), "rb") as f:
+                out["ipc"][name[:-4]] = f.read()
+    return out
+
+
+def compile_phase(seg_agg, gpu, cpu, oracle, dev="cuda", tables=None):
+    """The compile tier on the card. Journal: a fresh session (new
+    leaves, so each query's first run records and writes its statistics)
+    with the store and the history on serves q1-wide, q3, q5 and q18
+    through a connect server, twice each (a first run, then a capture).
+    Prewarm in a restart: a child process with the history and prewarm;
+    each journaled query's first client run captures nothing and replays
+    every traced stage, with the parent's bytes. Store in a restart: a
+    child with the store alone; q3's first run binds, runs no blocking
+    operator and captures, with the same bytes. Background: q5 on the
+    parent with background capture, served eagerly while the capture
+    runs off-thread, then replayed, the same bytes; the
+    compile.background cell: a failed capture pins q3 eagerly, the same
+    bytes. Every wrapper call held. Returns the phase's launches."""
+    import tempfile
+
+    from spark_tpu_torch import faults, metrics
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.connect.server import Client, ConnectServer
+    from spark_tpu_torch.physical import graphs, planner
+    from spark_tpu_torch.tpch import register_views
+
+    seg_agg.reset_launches()
+    graphs.drop_stages()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compile_") as root, \
+            recording_calls(seg_agg) as calls:
+        store = os.path.join(root, "store")
+        hist = os.path.join(root, "history.jsonl")
+        metrics.reset_exec_store()
+        parent = SparkSession(device=dev, conf={
+            "spark.tpu.compile.store.dir": store,
+            "spark.tpu.compile.history.path": hist,
+            "spark.tpu.compile.prewarm.enabled": False})
+        register_views(parent, tables)
+        server = ConnectServer(parent).start()
+        direct, cold = {}, {}
+        try:
+            client = Client(server.url, timeout=120.0)
+            for name in COMPILE_QUERIES:
+                first, r1, w1 = _served_runs(client, server, name)
+                again, r2, w2 = _served_runs(client, server, name)
+                check(first == again, f"compile: {name} served twice differs")
+                check(all(r.first_run for r in r1),
+                      f"compile: {name} journal run was not a first run")
+                direct[name], cold[name] = first, w1
+                log(f"compile: journal {name}: cold first run {w1:.1f} ms "
+                    f"(blocking {sum(sum(r.blocking.values()) for r in r1)}"
+                    f"), capture run {w2:.1f} ms (captured "
+                    f"{sum(r.captured for r in r2)})")
+        finally:
+            server.stop()
+        svc = parent.compile_service
+        st = svc.status()
+        check(st["history"]["entries"] == len(COMPILE_QUERIES)
+              and st["store"]["entries"] >= len(COMPILE_QUERIES),
+              f"compile: history {st['history']}, store {st['store']}")
+        log(f"compile: journal {st['history']}; store {st['store']}; "
+            f"{metrics.exec_store_stats()}")
+
+        pre = _child("prewarm", store, hist, root)
+        rep = pre["prewarm"]
+        check(rep is not None and not rep["errors"]
+              and len(rep["replayed"]) == len(COMPILE_QUERIES),
+              f"compile: the pre-warm report {rep}")
+        for name in COMPILE_QUERIES:
+            r = pre["runs"][name]
+            check(r["captured"] == 0 and r["stages"] >= 1
+                  and (dev != "cuda" or r["replayed"] == r["stages"])
+                  and not any(r["first_run"]),
+                  f"compile: prewarmed {name}'s first client run {r}")
+            check(pre["ipc"][name] == direct[name],
+                  f"compile: prewarmed {name}'s bytes differ from the "
+                  "parent's")
+            log(f"compile: prewarmed restart {name}: first client run "
+                f"{r['wall_ms']:.1f} ms (cold first run {cold[name]:.1f} "
+                f"ms), {r['stages']} stages all replayed, 0 captured, the "
+                "parent's bytes")
+        log(f"compile: prewarm child: setup {pre['setup_s']:.1f} s, "
+            f"pre-warm {pre['prewarm_s']:.1f} s ("
+            + ", ".join(f"{e['sql'].split()[1]}... {e['ms']} ms"
+                        for e in rep["replayed"])
+            + f"), wall {pre['wall_s']:.1f} s; {pre['exec_store']}")
+
+        only = _child("store", store, hist, root)
+        r = only["runs"]["q3"]
+        check(not any(r["first_run"]) and r["blocking"] == 0
+              and (dev != "cuda" or r["captured"] >= 1),
+              f"compile: store-only q3 {r}")
+        check(only["ipc"]["q3"] == direct["q3"],
+              "compile: the store-only restart's q3 bytes differ")
+        log(f"compile: store-only restart q3: first run {r['wall_ms']:.1f} "
+            f"ms bound its statistics (no blocking operator) and captured "
+            f"{r['captured']} stages in {r['capture_ms']:.1f} ms; the "
+            f"parent's bytes; child wall {only['wall_s']:.1f} s")
+
+        # background capture and the hot swap on the parent
+        parent.conf.set("spark.tpu.compile.background", True)
+        graphs.drop_stages()
+        metrics.reset_exec_store()
+        svc = parent.compile_service
+        q5 = _serve_sql("q5")
+        seen = []
+        for i in range(3):
+            runs: list = []
+            t0 = time.perf_counter()
+            with planner.recording_runs(runs):
+                blob = _ipc(parent.sql(q5).toArrow())
+            seen.append((blob, runs, (time.perf_counter() - t0) * 1e3))
+            if i == 1:
+                check(svc.wait_background(timeout=120),
+                      "compile: the background capture hung")
+        check(all(b == direct["q5"] for b, _, _ in seen),
+              "compile: background q5 bytes differ")
+        (r1,), (r2,), (r3,) = (s[1] for s in seen)
+        check(r1.captured == 0 and r3.captured == 0 and r3.stages >= 1
+              and (dev != "cuda" or r3.replayed == r3.stages),
+              f"compile: background q5 runs {r1}, {r2}, {r3}")
+        st = metrics.exec_store_stats()
+        check(st["swaps"] == 1 and st["fallbacks"] == 0
+              and st["background"] >= 1, f"compile: background {st}")
+        log(f"compile: background q5: served eagerly in {seen[0][2]:.1f} ms "
+            f"and {seen[1][2]:.1f} ms while the capture ran off-thread, then "
+            f"replayed in {seen[2][2]:.1f} ms ({r3.replayed} stages); bit "
+            f"for bit; {st}")
+
+        # the compile.background cell
+        with _Armed(parent, {"spark.tpu.faultInjection.compile.background":
+                             "nth:1:transient"}):
+            q3 = _serve_sql("q3")
+            a = _ipc(parent.sql(q3).toArrow())
+            check(svc.wait_background(timeout=120),
+                  "compile: the failing capture hung")
+            b = _ipc(parent.sql(q3).toArrow())
+            fired = faults.fire_count(parent.conf, "compile.background")
+        st = metrics.exec_store_stats()
+        check(fired == 1 and a == b == direct["q3"]
+              and st["fallbacks"] == 1
+              and svc.status()["background"]["by_status"].get("failed") == 1,
+              f"compile: the compile.background cell fired {fired}x, {st}")
+        check(_FIRED.get("compile.background", 0) >= 1,
+              f"compile: the fault cells fired {_FIRED}")
+        log("compile fault compile.background: the capture failed, q3 "
+            "stays eager (pinned), no crash, bit for bit")
+        parent.stop()
+        del parent
+    hold_calls(seg_agg, calls, "compile")
+    wrapped = mode_launches(seg_agg)
+    log(f"compile: launches through the wrappers {wrapped}; {len(calls)} "
+        "wrapper calls held against the plain versions")
+    return wrapped
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--oom-child":
         return oom_child(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--oracle-child":
         return oracle_child(sys.argv[2])
+    if len(sys.argv) == 7 and sys.argv[1] == "--compile-child":
+        return compile_child(*sys.argv[2:6], sf=float(sys.argv[6]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -4150,7 +4796,10 @@ def run_all(oracle_proc, oracle_path: str) -> int:
                 ("mesh", mesh_phase), ("frontend", frontend_phase),
                 ("aqe", aqe_phase),
                 ("obs", functools.partial(obs_phase, root=root)),
-                ("serve", serve_phase)):
+                ("serve", serve_phase),
+                ("stream", functools.partial(stream_phase, tables=tables)),
+                ("compile", functools.partial(compile_phase,
+                                              tables=tables))):
             t0 = time.perf_counter()
             by_path[path] = phase(seg_agg, gpu, cpu, oracle)
             log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
@@ -4171,7 +4820,7 @@ def run_all(oracle_proc, oracle_path: str) -> int:
     check(not any(p["fsum_f64"] + p["fsum_f32"] for path, p in
                   by_path.items()
                   if path not in ("scalar", "io", "ooc", "mesh", "frontend",
-                                  "aqe", "obs", "serve")),
+                                  "aqe", "obs", "serve", "stream")),
           "an earlier path summed floats on a grouped path")
     check(by_path["frontend"]["fsum_f64"] >= 1
           and by_path["frontend"]["count"] >= 1,
@@ -4190,6 +4839,13 @@ def run_all(oracle_proc, oracle_path: str) -> int:
           and by_path["serve"]["min"] >= 1 and by_path["serve"]["max"] >= 1
           and by_path["serve"]["fsum_f64"] >= 1,
           "the serve path launched no seg_sum, seg_minmax or seg_fsum kernel")
+    check(by_path["stream"]["count"] >= 1 and by_path["stream"]["sum_i64"] >= 1
+          and by_path["stream"]["min"] >= 1 and by_path["stream"]["max"] >= 1
+          and by_path["stream"]["fsum_f64"] >= 1,
+          "the stream path launched no seg_sum count or int64 sum, "
+          "seg_minmax min or max, or seg_fsum kernel")
+    check(by_path["compile"]["count"] >= 1,
+          "the compile path launched no seg_sum kernel")
 
     kernels = []
     for name, modes, headline, replaces, source, stats in (

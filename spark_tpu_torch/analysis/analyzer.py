@@ -19,8 +19,8 @@ The analyzer itself NEVER raises: an internal failure becomes a single
 (``maybe_gate``) raises :class:`PlanAnalysisError` only at
 ``spark.tpu.analysis.level=error`` and only for error-level findings.
 
-The materialized-view candidacy codes (PLAN-MVIEW-*) come with the
-mview tier (ROADMAP A12 part 3). PLAN-EST-DIVERGE holds the static
+The materialized-view candidacy codes (PLAN-MVIEW-*) are
+``mview/view.inspect_plan``'s, for a root aggregate. PLAN-EST-DIVERGE holds the static
 estimate against the measured bytes admission keeps
 (``scheduler/admission.py``; the mesh records them), so it fires only
 for a plan that has run.
@@ -109,6 +109,25 @@ def _legality_diags(plan: L.LogicalPlan,
     return diags
 
 
+def _mview_diags(plan: L.LogicalPlan) -> List[Diagnostic]:
+    """Materialized-view candidacy of a root aggregate (the only plan a
+    view registers): whether a cache() of this plan would refresh
+    incrementally, by full recompute or not register at all. The
+    PLAN-MVIEW-* family is mview/view.inspect_plan's, so the lint and
+    the manager never disagree."""
+    if not isinstance(plan, L.Aggregate):
+        return []
+    try:
+        from spark_tpu_torch.mview import inspect_plan
+
+        insp = inspect_plan(plan)
+    except Exception:  # noqa: BLE001 - the analyzer never raises
+        return []
+    return [Diagnostic(code=code, level="info", node=plan.node_string(),
+                       message=message, hint=hint)
+            for code, message, hint in insp.diagnostics]
+
+
 def _aval_cross_check(optimized: L.LogicalPlan,
                       estimates) -> List[Diagnostic]:
     """The oracle's root aval must agree with the physical planner's
@@ -185,6 +204,7 @@ def analyze(plan: L.LogicalPlan, conf=None,
         hz, stable = hazards.detect(optimized, conf)
         diags.extend(hz)
         diags.extend(_legality_diags(optimized, intent))
+        diags.extend(_mview_diags(optimized))
 
         # estimate-divergence: the static oracle vs what admission
         # control will believe (measured bytes preferred)

@@ -801,6 +801,12 @@ def lock_graph(sources: Dict[str, str],
 PACKAGE_ALIASES = {
     "spark_tpu_torch/storage/store.py::MemoryStore._lock":
         "storage.unified",
+    # ViewManager.materialize takes the cache entry's lock from the
+    # CacheManager: the plain cache path's single-flight lock
+    "spark_tpu_torch/mview/manager.py::entry_lock": "session.cache.entry",
+    # MaterializedView.lock is a dataclass field (default_factory): the
+    # manager takes it through the view
+    "spark_tpu_torch/mview/manager.py::view.lock": "mview.view",
 }
 
 #: blocking calls under a lock that are so by design, with why
@@ -809,6 +815,10 @@ PACKAGE_EXEMPT_BLOCKING = {
         "the IO lock exists precisely to serialize event-log filesystem "
         "access; the mkdir and cache fill run once per configured "
         "directory",
+    "spark_tpu_torch/compile/service.py::PlanHistory.note":
+        "the history lock serializes the JSONL append and the compaction "
+        "with the in-memory counts; IO on a lock of its own would let the "
+        "journal and the counts diverge",
 }
 
 #: files ``lint_package`` does not scan: locks.py IS the proxy layer (its

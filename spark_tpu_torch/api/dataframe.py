@@ -15,9 +15,10 @@ with the session's cached plans substituted and pinned for the query
 
 ``na``, ``stat``, ``describe`` and the rest of the statistics are
 ``api/na_stat.py``'s. On a session with a mesh (``master("mesh[N]")``)
-an action runs through ``parallel/executor.MeshExecutor``. Not ported
-yet, each raising ``NotImplementedError``: ``rdd``, ``writeStream`` and
-``withWatermark``.
+an action runs through ``parallel/executor.MeshExecutor``. A streaming
+frame (``session.readStream``) starts with ``writeStream``
+(``streaming/``). Not ported yet, raising ``NotImplementedError``:
+``rdd``.
 """
 
 from __future__ import annotations
@@ -338,14 +339,23 @@ class DataFrame:
                 return mesh.execute_logical(lp, optimize=False)
             return execute_logical(lp, optimize=False, device=dev, conf=conf)
 
+        def ladder(lp):
+            return recovery.run_plan_with_oom_degradation(
+                lp, conf, run, dev, sess.memory_manager, mesh)
+
+        svc = sess.compile_service
+
         def run_full(plan):
             """The engine with the chunking decision and the OOM ladder;
             cached plans materialize through it too, so a cached big
             aggregate chunks. A mesh session's engine is its mesh
-            executor, and its ladder starts with the adaptive retry."""
-            return recovery.run_plan_with_oom_degradation(
-                optimize(plan, conf), conf, run, dev, sess.memory_manager,
-                mesh)
+            executor, and its ladder starts with the adaptive retry.
+            With background capture on (``compile/``) a plan not
+            captured yet is served eagerly meanwhile."""
+            lp = optimize(plan, conf)
+            if svc is not None:
+                return svc.execute_plan(lp, conf, ladder)
+            return ladder(lp)
 
         token = _EXECUTING.set(sess)
         try:
@@ -356,10 +366,17 @@ class DataFrame:
                 with trace.span("query.analysis"):
                     maybe_gate(self._plan, conf)
                 metrics.query_start(self._plan.node_string())
+                if svc is not None:
+                    # journaled for the pre-warm, with the SQL text of a
+                    # frame from session.sql
+                    svc.note_served(self._plan,
+                                    sql=getattr(self, "_sql_text", None))
                 # every store entry the query reads stays pinned until
                 # it finishes
                 with trace.span("storage.pin"), pin_scope():
-                    plan = sess.cache_manager.apply(self._plan, run_full)
+                    with trace.span("mview.probe"):
+                        plan = sess.cache_manager.apply(self._plan,
+                                                        run_full)
                     out = recovery.run_stage_with_recovery(
                         lambda: run_full(plan), conf=conf,
                         label=type(self._plan).__name__)
@@ -547,11 +564,32 @@ class DataFrame:
     def sampleBy(self, col: str, fractions, seed: int = 42):
         return self.stat.sampleBy(col, fractions, seed)
 
+    # ---- streaming ---------------------------------------------------------
+
+    @property
+    def isStreaming(self) -> bool:
+        from spark_tpu_torch.streaming.execution import StreamingSource
+
+        return bool(L.collect_nodes(self._plan, StreamingSource))
+
+    @property
+    def writeStream(self):
+        """A ``DataStreamWriter`` over this streaming frame
+        (``streaming/readwriter.py``)."""
+        from spark_tpu_torch.streaming.readwriter import DataStreamWriter
+
+        return DataStreamWriter(self)
+
+    def withWatermark(self, col_name: str, delay) -> "DataFrame":
+        """Mark ``col_name`` as the event time, rows later than ``delay``
+        behind its largest value dropped (reference: EventTimeWatermark)."""
+        from spark_tpu_torch.streaming.readwriter import with_watermark
+
+        return with_watermark(self, col_name, delay)
+
     # ---- later slices --------------------------------------------------------
 
-    rdd = property(_later("rdd (the RDD tier)", "A12"))
-    writeStream = property(_later("writeStream (streaming)", "A12"))
-    withWatermark = _later("withWatermark (streaming)", "A12")
+    rdd = property(_later("rdd (the RDD tier)", "A13"))
 
 
 def _fmt(v, truncate: bool) -> str:
@@ -611,7 +649,35 @@ class GroupedData:
     def count(self) -> DataFrame:
         return self.agg(E.Alias(E.Count(None), "count"))
 
-    def applyInPandasWithState(self, *args, **kwargs):
-        raise NotImplementedError(
-            "not ported yet: applyInPandasWithState (streaming, ROADMAP "
-            "A12)")
+    def applyInPandasWithState(self, func, outputStructType,
+                               stateStructType=None,
+                               outputMode: str = "append",
+                               timeoutConf: str = "NoTimeout") -> DataFrame:
+        """Arbitrary stateful per-group streaming transform (reference:
+        pyspark group_ops.py applyInPandasWithState,
+        FlatMapGroupsWithStateExec): ``func(key_tuple, pandas_df,
+        GroupState) -> pandas_df``, started with ``writeStream``.
+        ``stateStructType`` is accepted for the surface (the state is
+        pickled whole); ``timeoutConf="ProcessingTimeTimeout"`` enables
+        ``state.setTimeoutDuration(ms)``."""
+        from spark_tpu_torch.streaming.groups import FlatMapGroupsWithState
+        from spark_tpu_torch.types import parse_ddl_schema
+
+        out_schema = (outputStructType
+                      if isinstance(outputStructType, Schema)
+                      else parse_ddl_schema(outputStructType))
+        key_names = []
+        for k in self._keys:
+            inner = E.strip_alias(k)
+            if not isinstance(inner, E.Col):
+                raise NotImplementedError(
+                    "applyInPandasWithState keys must be plain columns")
+            key_names.append(inner.col_name)
+        if timeoutConf not in ("NoTimeout", "ProcessingTimeTimeout"):
+            raise NotImplementedError(
+                "timeoutConf: NoTimeout | ProcessingTimeTimeout "
+                "(event-time timeouts not implemented)")
+        node = FlatMapGroupsWithState(
+            tuple(key_names), func, out_schema, self._df._plan,
+            timeout_conf=timeoutConf)
+        return self._df._with(node)

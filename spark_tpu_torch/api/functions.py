@@ -4,8 +4,9 @@ Columns are expression trees: every function builds an
 ``expr/expressions.py`` node, and the functions the SQL parser composes
 out of other nodes come from ``sql/functions.py``.
 
-``udf`` and ``arrow_udf`` are ``api/udf.py``'s. The streaming windows
-raise ``NotImplementedError("not ported yet: ...")`` (ROADMAP A12).
+``udf`` and ``arrow_udf`` are ``api/udf.py``'s; ``window`` and
+``session_window`` build the streaming windows (``streaming/``), and
+``window`` also groups a batch query.
 """
 
 from __future__ import annotations
@@ -24,10 +25,6 @@ ColumnOrName = Union[Column, str]
 
 def _c(c: ColumnOrName) -> Column:
     return c if isinstance(c, E.Expression) else E.Col(c)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {what} (ROADMAP queue A)")
 
 
 def col(name: str) -> Column:
@@ -493,18 +490,6 @@ def desc_nulls_first(c: ColumnOrName) -> Column:
     return E.SortOrder(_c(c), ascending=False, nulls_first=True)
 
 
-# ---- not ported yet ----------------------------------------------------------
-
-
-def _refuse(name: str, what: str):
-    def builder(*args, **kwargs):
-        raise _not_ported(f"{what} {name}()")
-
-    builder.__name__ = name
-    builder.__doc__ = f"Not ported yet: raises NotImplementedError ({what})."
-    return builder
-
-
 # ---- arrays, maps, higher-order functions, collect and explode -------------
 # (reference: collectionOperations.scala, complexTypeCreator.scala,
 # higherOrderFunctions.scala, aggregate/collect.scala, generators.scala)
@@ -602,6 +587,14 @@ def posexplode(c: ColumnOrName) -> Column:
     return SF.posexplode(_c(c))
 
 
-# the reference's builders of a later tier: the streaming windows
-window = _refuse("window", "streaming window")
-session_window = _refuse("session_window", "streaming window")
+def window(c: ColumnOrName, width: int) -> Column:
+    """Tumbling event-time window of ``width`` time units; the column is
+    the window start (reference: functions.window)."""
+    return E.TumblingWindow(_c(c), int(width))
+
+
+def session_window(c: ColumnOrName, gap: int) -> Column:
+    """Gap-based session window, grouped by a streaming aggregation; the
+    column is the merged session's start (reference:
+    functions.session_window, MergingSessionsExec)."""
+    return E.SessionWindow(_c(c), int(gap))

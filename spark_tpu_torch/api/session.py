@@ -8,7 +8,10 @@ mesh; ``createDataFrame`` from a ``pyarrow.Table``, a
 CSV, JSON, ORC); ``range``; temp views; ``sql``; ``table``; ``conf``.
 A session owns one ``UnifiedMemoryManager`` (``memory_manager``), the
 ``MemoryStore`` on it (``memory_store``) and the ``CacheManager`` of
-``DataFrame.cache()`` over that store (``cache_manager``).
+``DataFrame.cache()`` over that store (``cache_manager``), with the
+materialized views behind it (``mview_manager``), the streaming reader
+(``readStream``) and, when a ``spark.tpu.compile.*`` feature is on, the
+compile tier (``compile_service``).
 The device defaults to ``"cuda"``; without a usable CUDA device the
 session raises unless the caller asked for ``"cpu"``. Every relation the
 session creates, and every file it reads, lives on its device.
@@ -73,8 +76,11 @@ class CacheManager:
     Thread-safe: the registry changes under a lock, and each entry
     materializes under its own lock (single-flight: two queries meeting
     the same cold plan materialize it once), without the registry lock,
-    so unrelated queries proceed. The materialized views of the
-    reference come with ROADMAP A12."""
+    so unrelated queries proceed. With ``spark.tpu.mview.enabled`` a
+    cached aggregate over a file scan is a materialized view
+    (``mview/``): its materialization goes to the session's
+    ``ViewManager`` (``_mview``), which refreshes it when the files
+    change."""
 
     def __init__(self, store):
         self._store = store
@@ -83,6 +89,9 @@ class CacheManager:
         self._lock = locks.named_lock("session.cache.registry")
         #: materializations run (a store hit is not one)
         self.materializations = 0
+        #: the session's materialized-view manager; a cached key that is
+        #: a registered view materializes through its freshness check
+        self._mview = None
 
     @staticmethod
     def _key(plan: L.LogicalPlan):
@@ -98,6 +107,8 @@ class CacheManager:
             self._entries.setdefault(self._key(plan),
                                      [plan, locks.named_lock(
                                          "session.cache.entry")])
+        if self._mview is not None:
+            self._mview.maybe_register(plan)
 
     def drop(self, plan: L.LogicalPlan) -> bool:
         key = self._key(plan)
@@ -105,6 +116,8 @@ class CacheManager:
             entry = self._entries.pop(key, None)
         if entry is None:
             return False
+        if self._mview is not None:
+            self._mview.unregister(key)
         self._store.remove(self._skey(key))  # releases the bytes
         return True
 
@@ -112,6 +125,8 @@ class CacheManager:
         with self._lock:
             keys = list(self._entries)
             self._entries.clear()
+        if self._mview is not None:
+            self._mview.clear_file_views()
         for key in keys:
             self._store.remove(self._skey(key))
 
@@ -140,7 +155,15 @@ class CacheManager:
     def _materialize(self, node: L.LogicalPlan, entry: list, run):
         """A store hit, or a single-flight materialization; either is
         pinned for the enclosing query's ``pin_scope``."""
-        skey = self._skey(self._key(node))
+        key = self._key(node)
+        skey = self._skey(key)
+        if self._mview is not None:
+            view = self._mview.view_for(key)
+            if view is not None:
+                # a registered view: the manager checks the source's
+                # fingerprint and refreshes in place before serving
+                return self._mview.materialize(view, entry[1], run,
+                                               self._store, skey)
         batch = self._store.get(skey, pin=True)
         if batch is not None:
             return batch
@@ -343,6 +366,11 @@ class SparkSession:
         self.memory_manager = UnifiedMemoryManager(conf=self.conf)
         self.memory_store = MemoryStore(self.memory_manager)
         self.cache_manager = CacheManager(store=self.memory_store)
+        # materialized views ride on the plan cache (mview/)
+        from spark_tpu_torch.mview import ViewManager
+
+        self.mview_manager = ViewManager(self)
+        self.cache_manager._mview = self.mview_manager
         self.extensions = Extensions()
         self.app_name = "spark-tpu-torch"
         #: the serving tier's attachments: the connect server's
@@ -353,10 +381,6 @@ class SparkSession:
         self.heartbeat_monitor = None
         self.serve_result_cache = None
         self.serve_invalidation_log = None
-        #: the reference's AOT compile service; the port's compile tier
-        #: is not there yet, so the connect server's pre-warm hook finds
-        #: None
-        self.compile_service = None
         self._stopped = False
         # the live status server (reference: SparkUI.scala:40), gated on
         # spark.ui.enabled
@@ -380,11 +404,32 @@ class SparkSession:
         None (reference: SparkContext.uiWebUrl)."""
         return self._ui.url if self._ui is not None else None
 
+    @property
+    def compile_service(self):
+        """The compile tier (``compile/``) when a ``spark.tpu.compile.*``
+        feature is on (the store, background capture, the history),
+        else None; resolved at each access, so a change of the settings
+        takes effect at once."""
+        from spark_tpu_torch.compile import maybe_service
+
+        return maybe_service(self)
+
+    @property
+    def readStream(self):
+        """A ``DataStreamReader`` (``streaming/readwriter.py``)."""
+        from spark_tpu_torch.streaming.readwriter import DataStreamReader
+
+        return DataStreamReader(self)
+
     def stop(self) -> None:
-        """Stop the session's services (the query scheduler's workers, a
-        heartbeat monitor, the status server) and shut the plugins down;
-        the session stops being the active one."""
+        """Stop the session's services (the compile tier's background
+        jobs, the query scheduler's workers, a heartbeat monitor, the
+        status server) and shut the plugins down; the session stops
+        being the active one."""
         self._stopped = True
+        svc = self.__dict__.pop("_compile_service", None)
+        if svc is not None:
+            svc.stop()
         sched = self.query_scheduler
         if sched is not None:
             sched.stop()
@@ -437,7 +482,11 @@ class SparkSession:
             plan = self.extensions.parse(query, self.catalog, parse_sql)
         finally:
             _EXECUTING.reset(token)
-        return DataFrame(self, plan)
+        df = DataFrame(self, plan)
+        # the compile tier's history replays SQL text: the identity of
+        # this plan in another process
+        df._sql_text = query
+        return df
 
     def createDataFrame(
         self,

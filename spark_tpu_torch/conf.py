@@ -7,8 +7,9 @@ here; the runtime-filter keys are registered by ``plan/optimizer.py``,
 those of the out-of-memory tier by ``physical/chunked.py`` and
 ``recovery.py``, and the serve tier's breaker, brownout, ownership and
 fingerprint keys by ``serve/``, which read them, as in the reference.
-Keys of tiers that are not ported yet come with those tiers (ROADMAP
-queue A).
+The compile tier's and the materialized views' keys are here; the
+streaming tier reads none of its own. Keys of tiers that are not ported
+yet come with those tiers (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -400,9 +401,9 @@ SLO_MODEL_ALPHA = register(
 
 SLO_MODEL_PATH = register(
     "spark.tpu.slo.model.path", "",
-    "JSONL journal of the latency model; empty keeps it in memory (the "
-    "reference's default beside the compile store's history waits for "
-    "the port's compile tier).", str)
+    "JSONL journal of the latency model; empty puts it beside the plan "
+    "history under spark.tpu.compile.store.dir when the store is on, "
+    "else keeps it in memory.", str)
 
 SLO_MODEL_MAX_ENTRIES = register(
     "spark.tpu.slo.model.maxEntries", 512,
@@ -454,6 +455,100 @@ STORAGE_AUTOCACHE_THRESHOLD = register(
     "(byte-accounted, LRU-evictable), so later reads skip the decode, "
     "the encoding and the copy to the device. 0 disables it; "
     "DataFrame.cache() is unaffected. Default: the reference's.", int)
+
+
+# ---- the compile tier (compile/) ---------------------------------------------
+
+COMPILE_STORE_DIR = register(
+    "spark.tpu.compile.store.dir", "",
+    "Root directory of the cross-session statistics store "
+    "(compile/store.py): the runtime statistics a plan's first run "
+    "records (output, aggregate, explode, join and compaction sizes), "
+    "keyed by a stable plan fingerprint that digests the data, so a "
+    "restarted process binds them and its first run of a known plan "
+    "is traced and captured. Empty disables the store.", str)
+
+COMPILE_STORE_MAX_BYTES = register(
+    "spark.tpu.compile.store.maxBytes", 1 << 30,
+    "Size bound of the store directory; beyond it the least recently "
+    "used entry files are evicted. Default: the reference's.", int)
+
+COMPILE_STORE_SERIALIZE = register(
+    "spark.tpu.compile.store.serialize", True,
+    "Write the statistics of each plan's first run to the store. Off "
+    "= lookups only.", bool)
+
+COMPILE_BACKGROUND = register(
+    "spark.tpu.compile.background", False,
+    "A plan whose stages are not captured yet is served eagerly while "
+    "its statistics run and its CUDA graph capture happen on a "
+    "background thread; the next execution replays the graphs. Rows "
+    "are the same either way. A background failure pins the plan to "
+    "the eager path (no swap, no crash).", bool)
+
+COMPILE_HISTORY_PATH = register(
+    "spark.tpu.compile.history.path", "",
+    "Served-plan history file (JSONL of served SQL and fingerprints) "
+    "that the pre-warm replays. Empty defaults to "
+    "<store.dir>/plan_history.jsonl when the store is on.", str)
+
+COMPILE_HISTORY_MAX_ENTRIES = register(
+    "spark.tpu.compile.history.maxEntries", 512,
+    "Distinct plans kept in the served-plan history (the file is "
+    "compacted past about twice as many lines).", int)
+
+COMPILE_PREWARM_ENABLED = register(
+    "spark.tpu.compile.prewarm.enabled", True,
+    "Replay the served-plan history when a connect server starts, on "
+    "a background worker, most frequent first: each plan runs its "
+    "first run and its capture, so the first client query replays.",
+    bool)
+
+COMPILE_PREWARM_BUDGET_S = register(
+    "spark.tpu.compile.prewarm.budgetSeconds", 120.0,
+    "Wall-clock budget of the pre-warm replay; the entries left when "
+    "it is spent are skipped (and named in the pre-warm report).",
+    float)
+
+COMPILE_PREWARM_MAX_QUERIES = register(
+    "spark.tpu.compile.prewarm.maxQueries", 32,
+    "Most distinct history plans the pre-warm replays, most frequent "
+    "first.", int)
+
+COMPILE_PREWARM_WORKERS = register(
+    "spark.tpu.compile.prewarm.workers", 1,
+    "Threads replaying the history at once during the pre-warm. 1 = "
+    "one after another (deterministic order).", int)
+
+# ---- materialized views (mview/) ----------------------------------------------
+
+MVIEW_ENABLED = register(
+    "spark.tpu.mview.enabled", False,
+    "Treat df.cache() of an aggregate over a fingerprinted file source "
+    "as a materialized view (mview/): the cached device batch is "
+    "refreshed when the source files change instead of being served "
+    "stale, incrementally when the aggregate is exactly "
+    "re-mergeable.", bool)
+
+MVIEW_INCREMENTAL = register(
+    "spark.tpu.mview.incremental", True,
+    "Refresh an appended-to view by running the aggregate over the new "
+    "files only and re-merging the partials into the cached batch "
+    "(integer Sum and non-float Min/Max only; everything else "
+    "recomputes in full). Off = always a full recompute; both give "
+    "the same bytes.", bool)
+
+MVIEW_REFRESH_RETRIES = register(
+    "spark.tpu.mview.refreshRetries", 2,
+    "Retries of one incremental view refresh after a transient failure "
+    "(injected mview.refresh faults included) before it falls back to "
+    "a full recompute.", int)
+
+MVIEW_SERVE_REPOPULATE = register(
+    "spark.tpu.mview.serveRepopulate", True,
+    "After a view refresh, put the refreshed Arrow result into the "
+    "serve tier's result cache under the new fingerprint key, so "
+    "readers keep hitting across updates.", bool)
 
 
 def active_int(entry: ConfigEntry, conf=None) -> int:

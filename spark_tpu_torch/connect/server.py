@@ -21,6 +21,7 @@ from typing import Optional
 
 import pyarrow as pa
 
+from spark_tpu_torch import conf as CF
 from spark_tpu_torch import deadline, faults, locks, metrics, trace
 from spark_tpu_torch.serve.ownership import EPOCH_HEADER, EpochRetry
 
@@ -522,14 +523,13 @@ class ConnectServer:
             target=self._httpd.serve_forever,
             name="spark-tpu-connect", daemon=True)
         self._thread.start()
-        # the reference's pre-warm hook: it replays the served-plan
-        # history on a background worker before the first client query.
-        # The port's session has no compile service yet (its compile
-        # tier, and the setting that gates pre-warm, come later), so
-        # ``compile_service`` is None and this does nothing.
+        # the pre-warm hook: with the compile tier on, the served-plan
+        # history replays on a background worker (each plan through its
+        # first run and its capture) before the first client query
         try:
             svc = self.session.compile_service
-            if svc is not None:
+            if svc is not None and bool(
+                    self.session.conf.get(CF.COMPILE_PREWARM_ENABLED)):
                 svc.prewarm(self.session, block=False)
         except Exception:  # noqa: BLE001 - never a startup failure
             pass

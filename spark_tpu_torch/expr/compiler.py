@@ -437,6 +437,10 @@ def evaluate(expr: E.Expression, env: Env) -> TV:
         tv = evaluate(expr.child, env)
         return TV(-tv.data, tv.validity, tv.dtype, None)
 
+    if isinstance(expr, E.TumblingWindow):
+        # a batch query: the window start is child - child % width
+        return evaluate(expr.as_arith(), env)
+
     if isinstance(expr, E.Arith):
         return _eval_arith(expr, env)
 

@@ -1373,6 +1373,60 @@ class OuterRef(Expression):
         return f"outer({self.col_name})"
 
 
+@dataclass(eq=False, frozen=True)
+class TumblingWindow(Expression):
+    """Tumbling event-time window key: ``child - child % width``, the
+    window start (reference: expressions/TimeWindow.scala). The width is
+    kept so that streaming eviction closes a window only when the
+    watermark passes its end; a batch query evaluates ``as_arith()``."""
+
+    child: Expression
+    width: int
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return self.child.data_type(schema)
+
+    @property
+    def name(self):
+        return "window"
+
+    def __str__(self):
+        return f"window({self.child}, {self.width})"
+
+    def as_arith(self) -> Expression:
+        return Arith("-", self.child,
+                     Arith("%", self.child, Literal(self.width)))
+
+
+@dataclass(eq=False, frozen=True)
+class SessionWindow(Expression):
+    """Gap-based session window key (reference:
+    expressions/SessionWindow.scala, planned by MergingSessionsExec).
+    The streaming runner groups partials by the raw event time (each
+    event opens a provisional [t, t + gap) session) and merges
+    overlapping sessions in the state merge; the output is the merged
+    session's start."""
+
+    child: Expression
+    gap: int
+
+    def children(self):
+        return (self.child,)
+
+    def data_type(self, schema):
+        return self.child.data_type(schema)
+
+    @property
+    def name(self):
+        return "session_window"
+
+    def __str__(self):
+        return f"session_window({self.child}, {self.gap})"
+
+
 class SubqueryExpression(Expression):
     """Marker base (reference: expressions/subquery.scala)."""
 

@@ -1,12 +1,11 @@
 """Deterministic, conf-driven fault injection (the port of
 ``spark_tpu/faults.py``).
 
-Every point of the reference is registered here; the port wires the
-seams of the tiers it has (``pipeline.*``, ``execute.device``,
-``exchange.all_to_all``, ``agg.*``, ``join.spill``, ``fusion.decide``,
-``connect.request``, ``scheduler.admit``, ``serve.*`` and ``slo.*``),
-and the later tiers' seams (``compile.background``, ``mview.refresh``,
-``streaming.commit``) come with them (ROADMAP A12 parts 2b and 3).
+Every point of the reference is registered and wired here
+(``pipeline.*``, ``execute.device``, ``exchange.all_to_all``, ``agg.*``,
+``join.spill``, ``fusion.decide``, ``connect.request``,
+``scheduler.admit``, ``serve.*``, ``slo.*``, ``streaming.commit``,
+``compile.background`` and ``mview.refresh``).
 
 The reference proves its recovery paths with chaos-style suites
 (FailureSuite.scala, DAGSchedulerSuite's MockBackend killing executors
@@ -189,8 +188,7 @@ POINTS = (
     "fusion.decide",
 )
 
-#: the points whose seam the port has (the rest arrive with their tiers,
-#: ROADMAP A12 parts 2b and 3); chaos campaigns draw from these
+#: the points whose seam the port has; chaos campaigns draw from these
 WIRED_POINTS = (
     "pipeline.decode",
     "pipeline.transfer",
@@ -207,6 +205,9 @@ WIRED_POINTS = (
     "serve.invalidate",
     "slo.predict",
     "slo.reject",
+    "streaming.commit",
+    "compile.background",
+    "mview.refresh",
 )
 
 KINDS = ("transient", "oom", "hang", "corrupt")

@@ -1,7 +1,8 @@
 """Scan-source freshness fingerprints (the port of
-``spark_tpu/io/fingerprint.py``'s ``stat_paths``, ``source_fingerprint``
-and ``plan_fingerprints``): the one stat walk the file scan's cache and
-the serve tier's result cache (``serve/result_cache.py``) both key on.
+``spark_tpu/io/fingerprint.py``'s ``stat_paths``, ``source_fingerprint``,
+``plan_fingerprints`` and ``classify_delta``): the one stat walk the file
+scan's cache, the serve tier's result cache (``serve/result_cache.py``)
+and the materialized views (``mview/``) all key on.
 
 A fingerprint is a tuple of ``(path, mtime_ns, size)`` triples in a
 deterministic order (sorted directory walks, paths in the order given),
@@ -65,3 +66,31 @@ def plan_fingerprints(plan) -> Tuple[Any, ...]:
         fp = source_fingerprint(scan.source)
         out.append(fp if fp is not None else ("src", id(scan.source)))
     return tuple(out)
+
+
+def classify_delta(old: Tuple[StatTriple, ...],
+                   new: Tuple[StatTriple, ...]):
+    """How a source moved from fingerprint ``old`` to ``new``:
+
+    - ``("unchanged", ())``   identical fingerprints;
+    - ``("appended", added)``  every old file is there unchanged and only
+                               new files appeared (the incremental
+                               merge's case); ``added`` lists the new
+                               paths in fingerprint order;
+    - ``("changed", ())``     anything else (a rewrite, a truncation, a
+                               deletion, an mtime bump): only a full
+                               recompute is sound.
+    """
+    if old == new:
+        return "unchanged", ()
+    old_map = {p: (m, s) for p, m, s in old}
+    new_map = {p: (m, s) for p, m, s in new}
+    for p, stat in old_map.items():
+        if new_map.get(p) != stat:
+            return "changed", ()
+    added = tuple(p for p, _, _ in new if p not in old_map)
+    if not added:
+        # the same paths in another order (the walk is deterministic,
+        # but a merge never rests on a guess)
+        return "changed", ()
+    return "appended", added

@@ -44,7 +44,7 @@ LOCK_RANKS: Dict[str, int] = {
     "compile.plans": 200,            # CompileService._plans_lock
     "compile.jobs": 210,             # CompileService._jobs_lock
     "compile.stage": 220,            # per-stage background-compile state
-    "compile.store": 230,            # ExecutableStore._lock (disk index)
+    "compile.store": 230,            # StatsStore._lock (disk index)
     "compile.loaded": 240,           # compile/store.py _LOADED cache
     "compile.dict_fp": 250,          # compile/store.py dict-fp cache
     "compile.history": 260,          # PlanHistory._lock (history file)

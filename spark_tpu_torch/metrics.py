@@ -269,8 +269,8 @@ def gauges() -> Dict[str, Any]:
 
 # ---- persistent compile-cache counters --------------------------------------
 
-#: hit/miss counts of a persistent compile cache (the port has none yet:
-#: they stay 0 until the compile tier comes, ROADMAP A12 part 2)
+#: hit/miss counts of the persistent compile cache: the compile tier's
+#: statistics store (compile/store.py), one per plan lookup
 _COMPILE_CACHE = {"hits": 0, "misses": 0}
 
 
@@ -325,11 +325,11 @@ def analysis_stats() -> Dict[str, int]:
 
 # ---- executable-store counters ----------------------------------------------
 
-#: cross-session executable store (spark_tpu_torch/compile/) — hits/misses
-#: against the AOT store, serialize puts, LRU evictions, corrupt-entry
-#: evictions, background-compile chunk-first serves, hot swaps,
-#: permanent chunked fallbacks after background failure, and pre-warmed
-#: replays. Shown in tracing.warmup_profile and /api/v1/compile.
+#: the compile tier (spark_tpu_torch/compile/) — hits/misses against the
+#: statistics store, puts, LRU evictions, corrupt-entry evictions, eager
+#: serves while a background capture runs, hot swaps, permanent eager
+#: fallbacks after a background failure, and pre-warmed replays. Shown
+#: in tracing.warmup_profile and /api/v1/compile.
 _EXEC_STORE = {"hits": 0, "misses": 0, "puts": 0, "evictions": 0,
                "corrupt": 0, "background": 0, "swaps": 0,
                "fallbacks": 0, "prewarmed": 0}

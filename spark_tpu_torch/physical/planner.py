@@ -18,7 +18,10 @@ aggregates and explodes traceable, replays the first run's compactions
 inside the stages (``_replay_compactions``) and compacts the result on
 the device before the copy to the host (``_OUTPUT_STATS``). ``last_run``
 counts what a run did: the nodes that ran traced and blocking, the
-stages, the captures and the replays.
+stages, the captures and the replays. With the compile tier's store
+(``compile/``, ``spark.tpu.compile.store.dir``) a first run in the
+process binds the statistics another process recorded for the same plan
+over the same data, and a first run that records writes them there.
 """
 
 from __future__ import annotations
@@ -300,6 +303,19 @@ def _count(plan: P.PhysicalPlan, into: collections.Counter) -> None:
         _count(c, into)
 
 
+def _compile_tier():
+    """The compile tier of the session whose query runs here, when it
+    has a statistics store and statistics are recorded (not a chunk's or
+    a mesh rank's run), else None."""
+    if not P.stats_recording():
+        return None
+    from spark_tpu_torch.api.session import executing_session
+
+    sess = executing_session()
+    svc = None if sess is None else sess.__dict__.get("_compile_service")
+    return svc if svc is not None and svc.store is not None else None
+
+
 def execute(plan: P.PhysicalPlan, conf=None) -> Batch:
     """Run a physical plan to a device batch: fuse what we can, block
     where we must. ``conf``: the session's settings (None reads the
@@ -309,6 +325,12 @@ def execute(plan: P.PhysicalPlan, conf=None) -> Batch:
     run = RunStats() if outer is None else outer
     token = _RUN.set(run)
     try:
+        svc = _compile_tier() if outer is None else None
+        if svc is not None and _OUTPUT_STATS.get(plan.stats_key()) is None:
+            # a first run in this process: statistics another process
+            # recorded for this plan and data make it traced
+            svc.bind_stats(plan)
+        first = plan
         plan = _replay_compactions(plan)
         _bind_adaptive(plan)
         sk = plan.stats_key()
@@ -320,6 +342,8 @@ def execute(plan: P.PhysicalPlan, conf=None) -> Batch:
         if P.stats_recording():
             live = int(pipe.mask.sum())  # host sync: first run only
             _OUTPUT_STATS.put(sk, K.bucket(live, _capacity_bucket(conf)))
+            if svc is not None:
+                svc.save_stats(first)
         return pipe.to_batch()
     finally:
         _RUN.reset(token)

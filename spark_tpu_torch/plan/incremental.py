@@ -7,9 +7,10 @@ input combine by a second ordinary aggregation over their union. The
 out-of-memory tier (``physical/chunked.py``) runs each chunk's partials
 and every merge through the planner (reference analogue:
 ExternalSorter.scala:93 and TungstenAggregation's sort-merge passes;
-AggUtils' partial/final split). The streaming state merge and the
-tumbling and session windows of the reference come with the streaming
-tier (ROADMAP A12).
+AggUtils' partial/final split). The streaming state merge
+(``streaming/execution.py``) uses the same decomposition, with the
+tumbling and session windows a streaming aggregate groups by
+(reference: statefulOperators.scala).
 """
 
 from __future__ import annotations
@@ -29,7 +30,27 @@ class AggSpec:
     def __init__(self, groupings, aggregates):
         self._aggregates = tuple(aggregates)
         self.groupings = [E.strip_alias(g) for g in groupings]
-        self.groupings_exec = list(self.groupings)
+        #: tumbling-window widths per grouping (None: not a window key);
+        #: the window runs as plain arithmetic, its width matters only
+        #: to the watermark's eviction
+        self.window_widths = [
+            g.width if isinstance(g, E.TumblingWindow) else None
+            for g in self.groupings]
+        #: the one gap-based session window grouping, if any: the
+        #: streaming runner merges overlapping sessions in the state
+        self.session_idx: "int | None" = None
+        self.session_gap: "int | None" = None
+        for i, g in enumerate(self.groupings):
+            if isinstance(g, E.SessionWindow):
+                if self.session_idx is not None:
+                    raise NotImplementedError(
+                        "multiple session_window groupings")
+                self.session_idx = i
+                self.session_gap = g.gap
+        self.groupings_exec = [
+            g.as_arith() if isinstance(g, E.TumblingWindow)
+            else (g.child if isinstance(g, E.SessionWindow) else g)
+            for g in self.groupings]
         self.key_names = [f"__k{i}" for i in range(len(self.groupings))]
         self.partials: List[E.Alias] = []   # over input rows
         self.merges: List[E.Alias] = []     # over union(state, partials)

@@ -323,13 +323,17 @@ class LatencyModel:
 
 
 def model_path_from_conf(conf) -> str:
-    """Journal location: ``spark.tpu.slo.model.path``, else "" (in
-    memory only, a cold start each restart). The reference's default
-    beside the compile store's plan history waits for the port's
-    compile tier (ROADMAP A12 part 2b)."""
+    """Journal location: ``spark.tpu.slo.model.path``, else beside the
+    plan history under the compile store's root
+    (``spark.tpu.compile.store.dir``), else "" (in memory only, a cold
+    start each restart)."""
     from spark_tpu_torch import conf as CF
 
     try:
-        return str(conf.get(CF.SLO_MODEL_PATH) or "")
+        explicit = str(conf.get(CF.SLO_MODEL_PATH) or "")
+        if explicit:
+            return explicit
+        root = str(conf.get(CF.COMPILE_STORE_DIR) or "")
+        return os.path.join(root, "slo_model.jsonl") if root else ""
     except Exception:  # noqa: BLE001 - advisory: in memory
         return ""

@@ -147,6 +147,44 @@ class MemoryStore:
                 self._pin_locked(key, e)
             return True
 
+    def update(self, key, batch, pin: bool = False) -> bool:
+        """Replace an entry's batch in place, accounting the byte delta
+        under the unified budget: a materialized view's refresh keeps
+        its key, pins and LRU place. Growth must fit like any storage
+        reservation; where it cannot, the stale entry is dropped (stale
+        bytes are worse than a recompute) and False returned, the
+        ``put`` rejection contract. An absent key falls through to
+        ``put``."""
+        nbytes = batch_nbytes(batch)
+        with self._lock:
+            e = self._entries.get(key)
+            if e is not None:
+                delta = nbytes - e.nbytes
+                if delta > 0:
+                    # hold the entry against the eviction pass the
+                    # reservation may run (evicting the entry being
+                    # updated would break the accounting below)
+                    e.pins += 1
+                    try:
+                        ok = self._m.reserve_storage(delta)
+                    finally:
+                        e.pins -= 1
+                    if not ok:
+                        self._entries.pop(key)
+                        self._bytes -= e.nbytes
+                        self.rejected_puts += 1
+                        return False
+                e.batch = batch
+                e.nbytes = nbytes
+                self._bytes += delta
+                self.put_bytes += max(0, delta)
+                e.last_access_t = time.time()
+                self._entries.move_to_end(key)
+                if pin:
+                    self._pin_locked(key, e)
+                return True
+        return self.put(key, batch, pin=pin)
+
     def remove(self, key) -> int:
         """Drop an entry wherever it stands (uncache); the bytes
         released. A pinned entry leaves the table too: its reader keeps

@@ -30,9 +30,9 @@ two:
   from the event stream — the text form of the SQL-tab DAG view.
 - ``pipeline_profile()``: the out-of-memory chunk pipeline's per-tier
   stage/overlap rollup (decode/filter/transfer vs device compute).
-- the exchange, fault, storage, analysis, aggregation, scheduler and
-  serve profiles; the warmup and mview profiles fold to empty until the
-  tiers that emit their events are ported (ROADMAP A12 parts 2b and 3).
+- the exchange, fault, storage, analysis, aggregation, scheduler,
+  serve, warmup (CUDA graph captures and the compile tier) and mview
+  profiles.
 - ``PlanningTracker``: phase timing for parse/optimize/plan (the
   QueryPlanningTracker analogue).
 """
@@ -522,8 +522,8 @@ def warmup_profile(events: Optional[List[dict]] = None) -> Dict[str, dict]:
     """Where did warmup time go? Splits first-run cost into its three
     host-side sinks — CUDA-graph capture (stage_compile events, with
     their ms), parquet decode, and host->device transfer (scan events) —
-    plus the compile-cache and executable-store counters, which stay 0
-    until the compile tier is ported."""
+    plus the compile tier's counters (compile/: statistics-store hits
+    and misses, background serves, swaps, pre-warmed replays)."""
     evs = events if events is not None else metrics.recent(4096)
     out = {
         "compile": {"count": 0, "total_ms": 0.0},

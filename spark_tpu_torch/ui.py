@@ -13,9 +13,9 @@ Endpoints:
   /api/v1/storage       HBM store occupancy, counters, entry listing
   /api/v1/exchange      shuffle stats: rows/bytes/padding per exchange,
                         adaptive (AQE) decisions, exchange.* gauges
-  /api/v1/compile       AOT compilation service: executable-store
+  /api/v1/compile       the compile tier: statistics-store
                         hit/miss/put/evict counters, background
-                        compile + hot-swap state, pre-warm report,
+                        capture + hot-swap state, pre-warm report,
                         warmup profile, compile.* gauges
   /api/v1/lint          static plan analysis: recent AnalysisReports,
                         run/error/warning/gated counters, analysis.*

@@ -3,8 +3,8 @@ inputs of tests/test_analysis.py.
 
 Held against the reference: the diagnostic codes ``analyze`` gives the
 same SQL over the same small TPC-H tables (it runs no query in either
-package); the materialized-view candidacy codes (PLAN-MVIEW-*) come with
-the mview tier (ROADMAP A12 part 3) and are left out of the comparison.
+package), the materialized-view candidacy codes (PLAN-MVIEW-*)
+included.
 Held against the port itself: no TPC-H query has an error-level
 diagnostic, each seeded defect gets its own code, the gate is off by
 default and rejects at level=error, the oracle's widths and capacities,
@@ -60,7 +60,7 @@ def aconf(port):
 
 
 def _codes(report):
-    return sorted(c for c in report.codes() if not c.startswith("PLAN-MVIEW"))
+    return sorted(report.codes())
 
 
 @pytest.mark.parametrize("qnum", sorted(QUERIES))
@@ -125,8 +125,7 @@ def test_seeded_plans_codes_match_reference(port, spark, name, intent):
                         intent=intent)
 
     def levels(r):
-        return sorted((d.code, d.level) for d in r.diagnostics
-                      if not d.code.startswith("PLAN-MVIEW"))
+        return sorted((d.code, d.level) for d in r.diagnostics)
 
     assert levels(mine) == levels(theirs), (mine.format(), theirs.format())
     assert mine.fingerprint_stable == theirs.fingerprint_stable

@@ -1,6 +1,7 @@
 """The port's chaos harness (``spark_tpu_torch/chaos.py``) on the inputs of
-tests/test_chaos.py: seeded campaigns over the fault points this slice
-wires (``faults.WIRED_POINTS``), on a CPU mesh and on one device, each
+tests/test_chaos.py: seeded campaigns over the fault points the port
+wires (``faults.WIRED_POINTS``), on a CPU mesh and on one device (the
+engine's points, and the streaming, compile and mview tiers'), each
 schedule graded byte-identical or typed, with no hang, its retry draws
 within the budget and the memory invariant kept; and over a two-replica
 fleet through the router: a seeded campaign over every wired point, a
@@ -104,6 +105,71 @@ def test_chunked_campaign_passes_its_contract(tmp_path):
         s.conf, run, chaos.generate_campaign(13, 3, points=points),
         clean_bytes=clean, alarm_s=60.0, memory_manager=s.memory_manager)
     assert report.ok, [r.to_dict() for r in report.failures]
+
+
+#: the seams of the streaming, compile and mview tiers
+_TIER_POINTS = ("streaming.commit", "compile.background", "mview.refresh")
+
+
+def test_tier_campaign_passes_its_contract(tmp_path):
+    """A seeded campaign over the three tiers' points on a workload that
+    passes each seam once a run: two triggers of a streaming aggregate,
+    an appended file merged into a cached view, and a plan served while
+    its background capture runs. Each schedule is identical or typed."""
+    import itertools
+    import os
+
+    from spark_tpu_torch.api import functions as F
+    from spark_tpu_torch.streaming import MemoryStream
+
+    s = SparkSession("cpu", {"spark.tpu.mview.enabled": True,
+                             "spark.tpu.compile.background": True,
+                             "spark.tpu.faultInjection.hangSeconds": 0.02})
+    runs = itertools.count()
+
+    def run():
+        i = next(runs)
+        out = []
+        src = MemoryStream(pa.schema([("k", pa.int64()), ("v", pa.int64())]))
+        q = s.readStream.load(src).groupBy("k").agg(F.sum("v").alias("s")) \
+            .writeStream.outputMode("complete").queryName(f"ct{i}") \
+            .option("checkpointLocation", str(tmp_path / f"ck{i}")).start()
+        for b in range(2):
+            src.add_data([{"k": j % 3, "v": b * 10 + j} for j in range(9)])
+            q.process_all_available()
+        out.append(s.table(f"ct{i}").orderBy("k").toArrow())
+        d = str(tmp_path / f"mv{i}")
+        os.makedirs(d)
+        for n, part in enumerate((range(40), range(40, 50))):
+            pq.write_table(pa.table({"k": [j % 5 for j in part],
+                                     "v": list(part)}),
+                           os.path.join(d, f"p{n}.parquet"))
+            if n == 0:
+                view = s.read.parquet(d).groupBy("k").agg(
+                    F.sum("v").alias("s"))
+                view.cache()
+                view.collect()
+        out.append(view.orderBy("k").toArrow())
+        view.unpersist()
+        s.createDataFrame([{"k": j % 4, "v": j} for j in range(20)]) \
+            .createOrReplaceTempView(f"bg{i}")
+        bq = f"SELECT k, SUM(v) AS s FROM bg{i} GROUP BY k ORDER BY k"
+        out.append(s.sql(bq).toArrow())
+        assert s.compile_service.wait_background(timeout=30)
+        out.append(s.sql(bq).toArrow())
+        return b"\x00".join(_ipc(t) for t in out)
+
+    clean = run()
+    report = chaos.run_campaign(
+        s.conf, run, chaos.generate_campaign(16, 4, points=_TIER_POINTS),
+        clean_bytes=clean, alarm_s=60.0, queries=4,
+        memory_manager=s.memory_manager)
+    assert report.ok, [r.to_dict() for r in report.failures]
+    assert len(report.results) == 4
+    for r in report.results:
+        assert r.outcome in ("identical", "typed_error")
+    assert set(_TIER_POINTS) <= set(faults.WIRED_POINTS)
+    s.stop()
 
 
 def test_mismatch_and_untyped_errors_fail_the_schedule():

@@ -278,12 +278,14 @@ def test_cache_waits_for_memory_store(engines):
     """The members of later tiers raise; those the front-end slice
     ported, which raised here before, run (``saveAsTable`` is held in
     tests/test_torch_saveastable.py, the statistics against the reference
-    in tests/test_torch_na_stat.py)."""
+    in tests/test_torch_na_stat.py, ``writeStream`` in
+    tests/test_torch_streaming.py)."""
     port = engines["port"][0]
     people = port.createDataFrame(PEOPLE)
-    for name in ("rdd", "writeStream"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            getattr(people, name)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        getattr(people, "rdd")
+    assert not people.isStreaming
+    assert type(people.writeStream).__name__ == "DataStreamWriter"
     assert people.repartition(2).count() == 5
     assert people.coalesce(1).count() == 5
     assert people.fillna(0).count() == 5

@@ -12,10 +12,12 @@ chunk retry keeps source order, the OOM ladder replans an injected OOM,
 and the fault profile and the event log see every injection. The connect
 server's cells (``connect.request`` of each kind, a hung request against
 the client's deadline, ``/health`` with and without a heartbeat) are
-here; the scheduler, serve and slo points have their cells in
-tests/test_torch_scheduler.py, test_torch_serve.py, test_torch_fleet.py
-and test_torch_slo.py. The streaming, compile and mview points wait for
-their tiers (ROADMAP A12 parts 2b and 3).
+here, and the streaming commit's (a crash of each kind replays from
+the WAL to the reference's rows); the scheduler, serve and slo points
+have their cells in tests/test_torch_scheduler.py, test_torch_serve.py,
+test_torch_fleet.py and test_torch_slo.py, the compile and mview points
+in tests/test_torch_compile.py and test_torch_mview.py. Every point of
+the reference is wired.
 """
 
 import json
@@ -102,6 +104,14 @@ def test_points_and_kinds_are_the_references():
     assert faults.KINDS == RF.KINDS
     for p in faults.POINTS:
         assert CF.is_registered(f"spark.tpu.faultInjection.{p}")
+
+
+def test_every_point_is_wired():
+    """The streaming, compile and mview tiers wired the last three
+    points: every point of the reference has its seam in the port."""
+    assert {"streaming.commit", "compile.background",
+            "mview.refresh"} <= set(faults.WIRED_POINTS)
+    assert set(faults.WIRED_POINTS) == set(faults.POINTS)
 
 
 _SPECS = ["none", "", "nth:3", "nth:1:oom", "prob:0.25:99:corrupt",
@@ -377,6 +387,68 @@ def test_oom_degrade_disabled_surfaces_oom(port, fconf, fact_parquet):
 
 def _mesh_session(n):
     return SparkSession("cpu", {CF.MESH_DEVICES.key: n}, ["cpu"] * n)
+
+
+# ---- fault matrix: streaming micro-batch commit ---------------------------------
+
+
+@pytest.mark.parametrize("kind", ["transient", "hang", "oom", "corrupt"])
+def test_streaming_commit_crash_replays_from_wal(port, fconf, tmp_path, kind):
+    """A crash at the commit seam loses nothing, whatever killed it: the
+    restarted query replays the logged offsets and reaches the same
+    state, and the replay is a fault_recovered event. The rows equal
+    the reference's uninterrupted run of the same micro-batches."""
+    from spark_tpu.api import functions as RFn
+    from spark_tpu.streaming import MemoryStream as RefStream
+    from spark_tpu_torch.api import functions as F
+    from spark_tpu_torch.streaming import MemoryStream
+
+    expected_exc = {
+        "transient": faults.InjectedTransientError,
+        "hang": faults.InjectedDeadlineError,
+        "oom": faults.InjectedOOMError,
+        "corrupt": faults.InjectedCorruptionError,
+    }[kind]
+    batches = ([{"k": "a", "v": 5}], [{"k": "a", "v": 7}, {"k": "b", "v": 1}])
+    ckpt = str(tmp_path / "fck")
+    src = MemoryStream(pa.schema([("k", pa.string()), ("v", pa.int64())]))
+    agg = port.readStream.load(src).groupBy("k").agg(F.sum("v").alias("s"))
+    q = agg.writeStream.outputMode("complete").queryName("fstr1") \
+        .option("checkpointLocation", ckpt).start()
+    src.add_data(batches[0])
+    q.process_all_available()
+
+    fconf.set("spark.tpu.faultInjection.hangSeconds", 0.02)
+    fconf.set("spark.tpu.faultInjection.streaming.commit", f"nth:1:{kind}")
+    faults.reset(fconf)
+    src.add_data(batches[1])
+    with pytest.raises(expected_exc):
+        q.process_all_available()
+    q.stop()
+    fconf.unset("spark.tpu.faultInjection.streaming.commit")
+
+    metrics.reset()
+    q2 = agg.writeStream.outputMode("complete").queryName("fstr2") \
+        .option("checkpointLocation", ckpt).start()
+    q2.process_all_available()
+    rows = {r.k: r.s for r in port.sql("select * from fstr2").collect()}
+    assert rows == {"a": 12, "b": 1}
+    assert any(e["kind"] == "fault_recovered"
+               and e.get("how") == "wal_replay" for e in metrics.recent(100))
+    q2.stop()
+
+    from spark_tpu.api.session import SparkSession as RefSession
+
+    ref = RefSession.builder.getOrCreate()
+    rsrc = RefStream(pa.schema([("k", pa.string()), ("v", pa.int64())]))
+    rq = ref.readStream.load(rsrc).groupBy("k").agg(
+        RFn.sum("v").alias("s")).writeStream.outputMode("complete") \
+        .queryName(f"fstr_ref_{kind}").start()
+    for b in batches:
+        rsrc.add_data(b)
+        rq.process_all_available()
+    assert rows == {r.k: r.s for r in ref.sql(
+        f"select * from fstr_ref_{kind}").collect()}
 
 
 @pytest.fixture(scope="module")

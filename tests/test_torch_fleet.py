@@ -4,8 +4,8 @@ epoch-numbered ownership map, epoch fencing (a stale stamp gets a typed
 409 that the router absorbs), owner routing and a byte-identical
 failover, the versioned invalidation log and its fault point, the
 breaker's trip on a dispatch failure, and the invalidation a rewritten
-file broadcasts. The case over a materialized view's refresh waits for
-the mview tier (ROADMAP A12 part 3).
+file broadcasts, and a cached view's refresh racing readers of a second
+replica (no read after the refresh's commit returns the old bytes).
 
 Held against the reference on numpy-seeded inputs: ``rendezvous_owner``
 and ``shard_key`` on the same shards and replicas, the coordinator's
@@ -314,6 +314,89 @@ def test_rewritten_file_broadcasts_an_invalidation(port, tmp_path):
         port.conf.unset("spark.tpu.serve.fingerprintCacheSeconds")
 
 
+def test_concurrent_append_read_no_stale_after_refresh(port, tmp_path, rng):
+    """Seeded interleaving: readers hammer a second replica (one that
+    never appends) while the source grows and a cached view's refresh
+    commits on the session. Reads racing the append may see the old or
+    the new bytes; once the refresh's invalidation lands, no read
+    returns the bytes from before the append again. The fresh rows are
+    the reference's over the same file."""
+    import threading
+
+    from spark_tpu.api.session import SparkSession as RefSession
+
+    path = str(tmp_path / "ivt.parquet")
+    pq.write_table(pa.table({"a": list(range(32)),
+                             "b": [float(i) for i in range(32)]}), path)
+    port.read.parquet(path).createOrReplaceTempView("ivt")
+    for key, value in (("spark.tpu.serve.ownership.enabled", True),
+                       ("spark.tpu.serve.resultCache.enabled", True),
+                       ("spark.tpu.serve.fingerprintCacheSeconds", 300.0),
+                       ("spark.tpu.mview.enabled", True)):
+        port.conf.set(key, value)
+    # an aggregate: only those register as views, and only the view's
+    # refresh closes the plain cache's staleness hole
+    q = "SELECT a % 4 AS g, SUM(b) AS s FROM ivt GROUP BY a % 4"
+    cached = port.sql(q)
+    cached.cache()
+    fl = None
+    try:
+        cached.collect()
+        assert len(port.mview_manager.views()) == 1
+        fl = serve_fleet(port, replicas=2)
+        _probe(fl)
+        clients = {s.replica_id: Client(s.url, timeout=20.0, retries=3)
+                   for s in fl.replicas}
+        pre = {rid: c.sql(q).to_pydict() for rid, c in clients.items()}
+        assert len({json.dumps(p, sort_keys=True)
+                    for p in pre.values()}) == 1
+        reads, stop = [], threading.Event()
+        second = sorted(clients)[1]
+
+        def reader():
+            c = clients[second]
+            while not stop.is_set():
+                t0 = time.time()
+                reads.append((t0, c.sql(q).to_pydict()))
+                time.sleep(float(rng.uniform(0.001, 0.01)))
+
+        th = threading.Thread(target=reader, daemon=True)
+        th.start()
+        time.sleep(float(rng.uniform(0.01, 0.05)))  # seeded overlap
+        pq.write_table(pa.table({
+            "a": list(range(32)) + [100 + i for i in range(8)],
+            "b": [float(i) for i in range(40)]}), path)
+        # the refresh commits here: the collect sees the rewrite,
+        # refreshes the cached view and broadcasts
+        fresh = port.sql(q).collect()
+        commit_t = time.time()
+        assert port.mview_manager.views()[0]["refreshes"] >= 1
+        deadline = time.time() + 10.0
+        while time.time() < deadline:
+            if any(t0 > commit_t for t0, _ in reads):
+                break
+            time.sleep(0.01)
+        stop.set()
+        th.join(timeout=20.0)
+        post = [r for t0, r in reads if t0 > commit_t]
+        assert post, "no read landed after the refresh commit"
+        stale = [r for r in post if r == pre[second]]
+        assert not stale, (f"{len(stale)}/{len(post)} reads after the "
+                           "commit returned the bytes from before it")
+        want = {row["g"]: row["s"] for row in fresh}
+        assert dict(zip(post[-1]["g"], post[-1]["s"])) == want
+        ref = RefSession.builder.getOrCreate()
+        ref.read.parquet(path).createOrReplaceTempView("ivt_ref")
+        assert want == {r.g: r.s for r in ref.sql(
+            q.replace("ivt", "ivt_ref")).collect()}
+    finally:
+        if fl is not None:
+            fl.stop()
+        cached.unpersist()
+        for key in _FLEET_CONF + ("spark.tpu.mview.enabled",):
+            port.conf.unset(key)
+
+
 # ---- epoch fencing, owner routing and failover -----------------------------
 
 
@@ -448,7 +531,8 @@ def test_fleet_registrations():
                 "spark.tpu.serve.invalidationLog.maxRecords",
                 "spark.tpu.serve.fingerprintCacheSeconds"):
         assert CF.is_registered(key), key
-    assert {"serve.ownership", "serve.invalidate"} <= set(faults.WIRED_POINTS)
+    assert {"serve.ownership", "serve.invalidate",
+            "mview.refresh"} <= set(faults.WIRED_POINTS)
     assert {"serve.epoch", "serve.invalidate"} <= trace.SPAN_NAMES
     assert locks.LOCK_RANKS["serve.ownership"] \
         > locks.LOCK_RANKS["serve.invalidation"]

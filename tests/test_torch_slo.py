@@ -390,10 +390,17 @@ def test_model_journal_compaction_bound(tmp_path):
 
 
 def test_model_path_from_conf(tmp_path):
+    from spark_tpu.conf import RuntimeConf as RefConf
+    from spark_tpu.slo.model import model_path_from_conf as ref_path
+
     explicit = str(tmp_path / "explicit.jsonl")
     assert model_path_from_conf(
         RuntimeConf({"spark.tpu.slo.model.path": explicit})) == explicit
     assert model_path_from_conf(RuntimeConf()) == ""
+    store = {"spark.tpu.compile.store.dir": str(tmp_path / "store")}
+    assert model_path_from_conf(RuntimeConf(store)) == \
+        ref_path(RefConf(store)) == str(tmp_path / "store" /
+                                        "slo_model.jsonl")
 
 
 def test_model_tolerates_torn_journal(tmp_path):

@@ -3,9 +3,8 @@
 tests/test_tracing.py.
 
 Held against the reference: the span names, and the span tree's names
-and nesting for the same single-device query (the reference's
-``mview.probe`` span, a seam of the mview tier, is collapsed into its
-parent: it comes with ROADMAP A12 part 3). Held against the port
+and nesting for the same single-device query (the ``mview.probe`` span
+of the cache and view probe included). Held against the port
 itself: one well-formed tree per query, every stage event stamped with
 the query's trace id (the mesh's rank threads included), the
 breakdown's parts summing to its wall, rows equal bit for bit with
@@ -74,19 +73,15 @@ def _roots(spans):
     return [e for e in spans if e.get("parent_id") not in ids]
 
 
-def _edges(spans, collapse=("mview.probe",)):
-    """{(parent name, name)} of one trace, spans named in ``collapse``
-    replaced by their parent."""
+def _edges(spans):
+    """{(parent name, name)} of one trace."""
     by_id = {e["span_id"]: e for e in spans}
 
     def parent_name(e):
         p = by_id.get(e.get("parent_id"))
-        while p is not None and p["name"] in collapse:
-            p = by_id.get(p.get("parent_id"))
         return None if p is None else p["name"]
 
-    return {(parent_name(e), e["name"]) for e in spans
-            if e["name"] not in collapse}
+    return {(parent_name(e), e["name"]) for e in spans}
 
 
 # ---- registry and wire form ----------------------------------------------------
