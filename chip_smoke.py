@@ -242,6 +242,38 @@ no result line):
      cell: a failed capture pins q3 to the eager path, the same bytes.
      The obs phase's fault cells cover the wired points but the serve
      phase's and these three (``TIER_POINTS``).
+   - lib phase (the libraries, last): each part at full size on the
+     card, and a stated cut of it on the CPU and on the card, held
+     against each other. ml on lineitem (5,996,700 rows; the cut its
+     first 599,670): a Pipeline of StringIndexer(l_shipmode),
+     StandardScaler of l_quantity, l_extendedprice, l_discount and
+     l_tax and LogisticRegression of ``l_returnflag = 'R'``, a
+     LinearRegression, KMeans(k=8, maxIter=20),
+     DecisionTreeClassifier(maxDepth=5), RandomForestClassifier(
+     numTrees=10, maxDepth=5), StringIndexer(p_type) over part, and on
+     the cut a 3-fold CrossValidator over maxDepth in {2, 5}, each
+     evaluated; the card's cut fits KMeans and the trees on the rows the
+     CPU's fitted indexer and scaler make (``ml.state.model_from_state``):
+     centers bit for bit, every assignment, the trees split for split
+     and leaf for leaf, the cross validation's metrics equal; scaler
+     statistics within ``LIB_AGG_TOL``, linear and logistic
+     coefficients within ``LIB_COEF_TOL``. graph: a Graph500 Kronecker
+     graph (A, B, C = 0.57, 0.19, 0.19, edgefactor 16) of scale 20 on the
+     card, PageRank 20 supersteps (its float32 merge the first caller of
+     seg_fsum's float32 mode), connected components to a fixpoint and
+     an SSSP by a custom pregel with a min merge; at scale 16 on the card
+     and the CPU, components and SSSP equal, PageRank within 20 * (max
+     in-degree + 2) * 2^-24 relative; triangle_count at scale 12 on
+     both, equal. pandas (the io phase's Parquet, card and CPU): a merge
+     on the part key, a groupby over p_type (K = 150: the B1 count and
+     int64 sums), value_counts, nlargest, describe. rdd: customer
+     through ``.rdd``, reduceByKey by nation, ``toDF()`` into a grouped
+     query on the session's device; 2,000,000 numbers through
+     reduceByKey, sortByKey and a checkpoint. Each part's wall and
+     launches printed; a sample of the wrapper calls (the first 2 of
+     each wrapper, dtype, K and N) held against the plain versions, the
+     card's runs equal to the wrappers' launches; seg_fsum float32 and
+     the B1 count timed at the phase's own shapes.
    Outside the ooc, obs, serve, stream and compile phases every query
    must run with no ladder replan. The sqlite comparisons of ``ORACLE_HELD_BY_TESTS``
    (W2, W3, R1, C1, X1, X2, A1-168) are left out at SF1: their card rows
@@ -4699,6 +4731,603 @@ def compile_phase(seg_agg, gpu, cpu, oracle, dev="cuda", tables=None):
     return wrapped
 
 
+# ---- the libraries (the lib phase) ----------------------------------------------
+
+#: the ml part's cut: the first tenth of SF1's lineitem rows, which the
+#: CPU session fits and the card's fit of the same rows is held against;
+#: the CrossValidator runs on it (card and CPU)
+LIB_ML_CUT = 599_670
+LIB_ML_COLS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+#: Graph500's Kronecker initiator (A, B, C; D = 1 - A - B - C), its
+#: edgefactor, and the scales: the card's run, the CPU comparison, the
+#: dense triangle count
+LIB_KRON = (0.57, 0.19, 0.19)
+LIB_EDGEFACTOR = 16
+LIB_SCALE = 20
+LIB_CPU_SCALE = 16
+LIB_TRI_SCALE = 12
+LIB_PR_ITERS = 20
+LIB_SSSP_ITERS = 16
+LIB_RDD_RANGE = 2_000_000
+#: linear and logistic coefficients, card against CPU: |dw| <= this *
+#: max(1, |w|). Both fit in float32 from the same rows (standardized
+#: features), but each gram or gradient entry is a sum of 599,670
+#: float32 products, blocked differently by the card's and the CPU's
+#: matmuls (their difference is in the 5th-6th digit of a sum); the
+#: 2x2..6x6 solve and 200 contracting gradient steps carry it to the
+#: coefficients without growth past this (the measured difference and
+#: the gram's condition number are printed)
+LIB_COEF_TOL = 1e-3
+#: the scaler's means and stds, card against CPU: each is a float64
+#: sum of integer-valued doubles (the decimal columns' unscaled integers,
+#: ROADMAP's reference quirk) over 599,670 rows; the means' sums stay
+#: below 2^53 and are exact in any order, the squares' sums round at
+#: most n * 2^-53 = 6.7e-11 of their size apart
+LIB_AGG_TOL = 1e-9
+#: a held sample of wrapper calls: the first calls of each (wrapper,
+#: dtype, K, rows), against the plain version
+LIB_HELD_PER_KEY = 2
+#: the kernels' times at the lib phase's own shapes, by mode
+_LIB_KERNELS: dict = {}
+
+
+def ml_frame(df):
+    """The ml part's columns of a lineitem frame: the four decimal
+    columns as doubles (their unscaled integers, as the reference reads
+    a decimal), the ship mode and the label ``l_returnflag = 'R'``."""
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.api import functions as F
+
+    return df.select(
+        *[F.col(c).cast(T.FLOAT64).alias(c) for c in LIB_ML_COLS],
+        "l_shipmode",
+        F.when(F.col("l_returnflag") == "R", 1.0).otherwise(0.0)
+        .alias("label"))
+
+
+@contextlib.contextmanager
+def sampling_calls(seg_agg):
+    """While the block runs, count every call the engine makes to the
+    seg_agg wrappers and keep (cloned) the first ``LIB_HELD_PER_KEY`` of
+    each (wrapper, dtype, K, N), to hold against the plain version after
+    (``hold_calls``): the lib phase makes thousands of calls on tens of
+    millions of rows, too many to keep."""
+    from spark_tpu_torch.physical import kernels as PK
+
+    kept, counts = [], {}
+
+    def recorder(name):
+        fn = getattr(seg_agg, name)
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if torch.cuda.is_available() \
+                    and torch.cuda.is_current_stream_capturing():
+                return out
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            a = bound.arguments
+            data = a.get("data")
+            key = (name, None if data is None else str(data.dtype),
+                   int(a["num_segments"]), int(a["seg"].shape[0]))
+            counts[key] = counts.get(key, 0) + 1
+            if counts[key] <= LIB_HELD_PER_KEY:
+                kept.append((name, {k: v.clone() if torch.is_tensor(v)
+                                    else v for k, v in a.items()},
+                             out.clone()))
+            return out
+        return call
+
+    real = PK.seg_agg
+    PK.seg_agg = types.SimpleNamespace(seg_sum=recorder("seg_sum"),
+                                       seg_minmax=recorder("seg_minmax"),
+                                       seg_fsum=recorder("seg_fsum"))
+    try:
+        yield kept, counts
+    finally:
+        PK.seg_agg = real
+
+
+def _lib_part(label: str, seg_agg, fn, *args):
+    """Run one part of the lib phase; print its wall and the launches it
+    made, by mode."""
+    before = dict(mode_launches(seg_agg))
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = mode_launches(seg_agg)
+    ran = {m: after[m] - before[m] for m in after if after[m] != before[m]}
+    log(f"lib: {label}: wall {wall:.2f} s, launches {ran}")
+    return out
+
+
+def _coef_diff(label: str, got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    check(bool((diff <= LIB_COEF_TOL * np.maximum(1.0, np.abs(want))).all()),
+          f"lib: {label} coefficients {got.tolist()} against the CPU's "
+          f"{want.tolist()}")
+    return float(diff.max())
+
+
+def _tree_dicts(model):
+    return [(f.splits, f.leaves) for f in model.fits]
+
+
+def lib_ml_fits(df, ml):
+    """The ml part's first fits on ``df`` (an ``ml_frame``): the pipeline
+    (StringIndexer(l_shipmode), StandardScaler of the four columns,
+    LogisticRegression of the label) and a LinearRegression of the
+    scaled price on the other scaled columns, each evaluated; ``prep`` is
+    ``df`` through the pipeline's indexer and scaler. Returns {name:
+    model or value}."""
+    scaled = [c + "_scaled" for c in LIB_ML_COLS]
+    feats = scaled + ["l_shipmode_idx"]
+    out = {}
+    pipe = ml.Pipeline([ml.StringIndexer("l_shipmode"),
+                        ml.StandardScaler(list(LIB_ML_COLS)),
+                        ml.LogisticRegression(feats, "label")])
+    out["pipeline"] = pipe.fit(df)
+    acc = ml.MulticlassClassificationEvaluator(labelCol="label")
+    out["logistic_acc"] = acc.evaluate(out["pipeline"].transform(df))
+    prep = out["pipeline"].stages[1].transform(
+        out["pipeline"].stages[0].transform(df))
+    out["prep"] = prep
+    lin = ml.LinearRegression(
+        ["l_quantity_scaled", "l_discount_scaled", "l_tax_scaled"],
+        "l_extendedprice_scaled")
+    out["linear"] = lin.fit(prep)
+    out["linear_rmse"] = ml.RegressionEvaluator(
+        labelCol="l_extendedprice_scaled").evaluate(
+            out["linear"].transform(prep))
+    return out
+
+
+def lib_ml_models(prep, ml, cv: bool):
+    """KMeans(k=8, maxIter=20) of the scaled columns,
+    DecisionTreeClassifier(maxDepth=5) and RandomForestClassifier(
+    numTrees=10, maxDepth=5) of the label on prepared rows, each tree
+    evaluated; with ``cv`` a 3-fold CrossValidator of the tree over
+    maxDepth in {2, 5}. Returns {name: model or value}."""
+    feats = [c + "_scaled" for c in LIB_ML_COLS] + ["l_shipmode_idx"]
+    acc = ml.MulticlassClassificationEvaluator(labelCol="label")
+    out = {"kmeans": ml.KMeans(feats[:4], k=8, maxIter=20).fit(prep)}
+    out["tree"] = ml.DecisionTreeClassifier(feats, "label",
+                                            maxDepth=5).fit(prep)
+    out["tree_acc"] = acc.evaluate(out["tree"].transform(prep))
+    out["forest"] = ml.RandomForestClassifier(feats, "label", numTrees=10,
+                                              maxDepth=5).fit(prep)
+    out["forest_acc"] = acc.evaluate(out["forest"].transform(prep))
+    if cv:
+        grid = ml.ParamGridBuilder().addGrid("max_depth", [2, 5]).build()
+        c = ml.CrossValidator(
+            ml.DecisionTreeClassifier(feats, "label"), grid, acc,
+            numFolds=3)
+        out["cv"] = c.fit(prep)
+    return out
+
+
+def lib_ml(seg_agg, gpu, cpu, tables, dev: str) -> None:
+    """The ml part: every estimator at full size on the card; on the
+    first ``LIB_ML_CUT`` rows on the CPU and on the card, held against
+    each other."""
+    import spark_tpu_torch.ml as ml
+    from spark_tpu_torch.ml.state import model_from_state
+
+    full = ml_frame(gpu.table("lineitem"))
+    cut = tables["lineitem"].slice(0, LIB_ML_CUT)
+    card_cut = ml_frame(gpu.createDataFrame(cut))
+    cpu_cut = ml_frame(cpu.createDataFrame(cut))
+
+    big = _lib_part("ml: pipeline + linear, full lineitem on the card",
+                    seg_agg, lib_ml_fits, full, ml)
+    models = _lib_part("ml: kmeans, tree, forest, full lineitem on the card",
+                       seg_agg, lib_ml_models, big["prep"], ml, False)
+    lr = big["pipeline"].stages[2]
+    sizes = models["kmeans"].transform(big["prep"]).groupBy(
+        "prediction").count().collect()
+    check(all(np.isfinite(lr.coefficients)) and 0.5 < big["logistic_acc"] <= 1
+          and 1 <= len(sizes) <= 8 and 0.5 < models["tree_acc"] <= 1
+          and 0.5 < models["forest_acc"] <= 1
+          and np.isfinite(big["linear_rmse"]),
+          f"lib: full-size fits {big['logistic_acc']}, {models['tree_acc']},"
+          f" {models['forest_acc']}, {sizes}")
+    log(f"lib: full size: logistic accuracy {big['logistic_acc']:.6f}, "
+        f"linear rmse {big['linear_rmse']:.6f}, tree accuracy "
+        f"{models['tree_acc']:.6f}, forest accuracy "
+        f"{models['forest_acc']:.6f}, KMeans cluster sizes "
+        f"{sorted(r['count'] for r in sizes)}")
+
+    want = _lib_part("ml: pipeline + linear, the cut on the CPU", seg_agg,
+                     lib_ml_fits, cpu_cut, ml)
+    got = _lib_part("ml: pipeline + linear, the cut on the card", seg_agg,
+                    lib_ml_fits, card_cut, ml)
+    gp, wp = got["pipeline"].stages, want["pipeline"].stages
+    check(gp[0].labels == wp[0].labels,
+          f"lib: ship mode labels {gp[0].labels} != {wp[0].labels}")
+    stats = np.asarray(gp[1].means + gp[1].stds, np.float64)
+    wstats = np.asarray(wp[1].means + wp[1].stds, np.float64)
+    check(bool((np.abs(stats - wstats) <= LIB_AGG_TOL
+                * np.abs(wstats)).all()),
+          f"lib: scaler {stats.tolist()} != the CPU's {wstats.tolist()}")
+    d_log = _coef_diff("logistic", gp[2].coefficients + [gp[2].intercept],
+                       wp[2].coefficients + [wp[2].intercept])
+    d_lin = _coef_diff("linear",
+                       got["linear"].coefficients + [got["linear"].intercept],
+                       want["linear"].coefficients
+                       + [want["linear"].intercept])
+    from spark_tpu_torch.ml.pipeline import features_matrix
+    from spark_tpu_torch.ml.regression import with_intercept
+
+    xa = with_intercept(features_matrix(
+        want["prep"], ["l_quantity_scaled", "l_discount_scaled",
+                       "l_tax_scaled"])).double()
+    cond = float(torch.linalg.cond(xa.T @ xa))
+    log(f"lib: the cut: scaler means and stds within {LIB_AGG_TOL:g} of the "
+        f"CPU's; logistic coefficients off the CPU's by {d_log:.3g}, linear "
+        f"by {d_lin:.3g} (bound {LIB_COEF_TOL:g} * max(1, |w|); the linear "
+        f"gram's condition number {cond:.4g}); accuracy {got['logistic_acc']}"
+        f" (CPU {want['logistic_acc']}), rmse {got['linear_rmse']} (CPU "
+        f"{want['linear_rmse']})")
+
+    # the card's models from the CPU's fitted indexer and scaler, so
+    # both fit KMeans and the trees on the same doubles
+    state = model_from_state("standard_scaler", {
+        "params": {"inputCols": list(LIB_ML_COLS)},
+        "means": wp[1].means, "stds": wp[1].stds})
+    index = model_from_state("string_indexer", {
+        "params": {"inputCol": "l_shipmode"}, "labels": wp[0].labels})
+    card_prep = state.transform(index.transform(card_cut))
+    want_m = _lib_part("ml: kmeans, tree, forest, cv, the cut on the CPU",
+                       seg_agg, lib_ml_models, want["prep"], ml, True)
+    got_m = _lib_part("ml: kmeans, tree, forest, cv, the cut on the card",
+                      seg_agg, lib_ml_models, card_prep, ml, True)
+    check(got_m["kmeans"].centers.tobytes()
+          == want_m["kmeans"].centers.tobytes(),
+          "lib: KMeans centers differ from the CPU's")
+    def assignments(model, prep):
+        return model.transform(prep).select("prediction").toArrow() \
+            .column(0).to_numpy()
+
+    a_card = assignments(got_m["kmeans"], card_prep)
+    a_cpu = assignments(want_m["kmeans"], want["prep"])
+    check(np.array_equal(a_card, a_cpu),
+          f"lib: KMeans assignments differ on "
+          f"{int((a_card != a_cpu).sum())} rows")
+    for name in ("tree", "forest"):
+        check(_tree_dicts(got_m[name]) == _tree_dicts(want_m[name]),
+              f"lib: the {name} differs from the CPU's")
+        check(got_m[f"{name}_acc"] == want_m[f"{name}_acc"],
+              f"lib: the {name}'s accuracy differs")
+    gc, wc = got_m["cv"], want_m["cv"]
+    check(gc.bestParams == wc.bestParams and gc.avgMetrics == wc.avgMetrics
+          and _tree_dicts(gc.bestModel) == _tree_dicts(wc.bestModel),
+          f"lib: CrossValidator {gc.bestParams} {gc.avgMetrics} against "
+          f"{wc.bestParams} {wc.avgMetrics}")
+    # the replay of a transform equals its first run
+    again = assignments(got_m["kmeans"], card_prep)
+    check(np.array_equal(again, a_card), "lib: a KMeans replay differs")
+    log(f"lib: the cut: KMeans centers bit for bit and all {len(a_card)} "
+        f"assignments equal the CPU's; the tree and "
+        f"the forest equal split for split and leaf for leaf (accuracy "
+        f"{got_m['tree_acc']:.6f}, {got_m['forest_acc']:.6f}); the "
+        f"CrossValidator picks {gc.bestParams} with {gc.avgMetrics}, as the "
+        "CPU")
+
+    def p_type_labels(spark):
+        return ml.StringIndexer("p_type").fit(spark.table("part")).labels
+
+    labels = _lib_part("ml: StringIndexer(p_type) over part on the card",
+                       seg_agg, p_type_labels, gpu)
+    check(labels == p_type_labels(cpu) and len(labels) == 150,
+          f"lib: p_type labels ({len(labels)}) differ from the CPU's")
+
+
+def kronecker_graph(scale: int, seed: int):
+    """Graph500's Kronecker generator (initiator ``LIB_KRON``, edgefactor
+    ``LIB_EDGEFACTOR``) in numpy: 2^scale vertices, 16 * 2^scale
+    directed edges (duplicates and self-loops kept, as the generator
+    makes them), the vertex labels and the edge order permuted."""
+    a, b, c = LIB_KRON
+    rng = np.random.default_rng(seed)
+    n, m = 1 << scale, LIB_EDGEFACTOR << scale
+    ab, c_norm, a_norm = a + b, c / (1 - a - b), a / (a + b)
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for bit in range(scale):
+        ii = rng.random(m) > ab
+        jj = rng.random(m) > np.where(ii, c_norm, a_norm)
+        src |= ii.astype(np.int64) << bit
+        dst |= jj.astype(np.int64) << bit
+    perm = rng.permutation(n)
+    order = rng.permutation(m)
+    weights = rng.integers(1, 64, m).astype(np.float32)
+    return (np.arange(n, dtype=np.int64), perm[src][order],
+            perm[dst][order], weights)
+
+
+def lib_graph_runs(vid, src, dst, w, dev: str) -> dict:
+    """PageRank (``LIB_PR_ITERS`` supersteps), connected components to a
+    fixpoint and an SSSP by a custom ``pregel`` with a ``min`` merge from
+    the vertex of most out-edges, on ``dev``."""
+    from spark_tpu_torch.graph import Graph
+
+    t0 = time.perf_counter()
+    g = Graph(vid, src, dst, edge_attr=w, device=dev)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    out["pagerank"] = g.pagerank(num_iters=LIB_PR_ITERS).cpu()
+    out["cc"] = g.connected_components()
+    source = int(torch.argmax(g.out_degree))
+    init = torch.full((g.n,), float("inf"), dtype=torch.float32,
+                      device=g.device)
+    init[source] = 0.0
+    out["sssp"] = g.pregel(init, lambda d, e: d + e, torch.minimum,
+                           num_iters=LIB_SSSP_ITERS, merge="min",
+                           default_msg=float("inf")).cpu()
+    out["max_in_degree"] = int(g.in_degree.max())
+    return out
+
+
+def lib_graph(seg_agg, dev: str) -> None:
+    """The graph part: a Graph500 Kronecker graph at ``LIB_SCALE`` on the
+    card; at ``LIB_CPU_SCALE`` on the card and on the CPU, held against
+    each other; the triangle count at ``LIB_TRI_SCALE`` on both."""
+    from spark_tpu_torch.graph import Graph
+
+    t0 = time.perf_counter()
+    big = kronecker_graph(LIB_SCALE, SF1_SEED)
+    log(f"lib: graph: Kronecker scale {LIB_SCALE} ({len(big[0])} vertices, "
+        f"{len(big[1])} edges) generated in {time.perf_counter() - t0:.1f} s")
+    full = _lib_part(f"graph: scale {LIB_SCALE} on the card", seg_agg,
+                     lib_graph_runs, *big, dev)
+    pr = full["pagerank"]
+    reached = torch.isfinite(full["sssp"])
+    check(bool(torch.isfinite(pr).all()) and bool((pr >= 0.15 - 1e-6).all())
+          and int(reached.sum()) > 1,
+          "lib: the full-size PageRank or SSSP is off")
+    log(f"lib: graph scale {LIB_SCALE}: build {full['build_s']:.1f} s, "
+        f"{len(np.unique(full['cc']))} components, SSSP reached "
+        f"{int(reached.sum())} vertices, max in-degree "
+        f"{full['max_in_degree']}, ranks sum {float(pr.double().sum()):.6g}")
+    del big, full
+
+    small = kronecker_graph(LIB_CPU_SCALE, SF1_SEED)
+    got = _lib_part(f"graph: scale {LIB_CPU_SCALE} on the card", seg_agg,
+                    lib_graph_runs, *small, dev)
+    want = _lib_part(f"graph: scale {LIB_CPU_SCALE} on the CPU", seg_agg,
+                     lib_graph_runs, *small, "cpu")
+    check(np.array_equal(got["cc"], want["cc"]),
+          "lib: connected components differ from the CPU's")
+    check(torch.equal(got["sssp"].view(torch.int32),
+                      want["sssp"].view(torch.int32)),
+          "lib: SSSP distances differ from the CPU's")
+    # the CPU's merge (index_add_) rounds at each add, the card's
+    # seg_fsum once: a vertex's sum of d in-edge messages is at most
+    # (d + 2) * 2^-24 (the update's rounding included) relative off, and
+    # an error carries through the later supersteps: LIB_PR_ITERS *
+    # (max in-degree + 2) * 2^-24 relative bounds the difference
+    bound = LIB_PR_ITERS * (want["max_in_degree"] + 2) * 2.0 ** -24
+    rel = ((got["pagerank"].double() - want["pagerank"].double()).abs()
+           / want["pagerank"].double()).max().item()
+    check(rel <= bound, f"lib: PageRank off the CPU's by {rel} (bound "
+          f"{bound})")
+    log(f"lib: graph scale {LIB_CPU_SCALE}: components and SSSP equal the "
+        f"CPU's; PageRank within {rel:.3g} relative (bound {bound:.3g})")
+
+    tri = kronecker_graph(LIB_TRI_SCALE, SF1_SEED)
+
+    def triangles(d):
+        return Graph(tri[0], tri[1], tri[2], device=d).triangle_count()
+
+    n_card = _lib_part(f"graph: triangles at scale {LIB_TRI_SCALE} on the "
+                       "card", seg_agg, triangles, dev)
+    n_cpu = _lib_part(f"graph: triangles at scale {LIB_TRI_SCALE} on the "
+                      "CPU", seg_agg, triangles, "cpu")
+    check(n_card == n_cpu and n_card > 0,
+          f"lib: {n_card} triangles on the card, {n_cpu} on the CPU")
+    log(f"lib: {n_card} triangles at scale {LIB_TRI_SCALE}, as the CPU")
+
+
+def lib_pandas_runs(root: str, dev: str) -> dict:
+    """The pandas part on a session on ``dev`` (made the active one):
+    ``read_parquet`` of the io phase's lineitem and part, a merge on the
+    part key, a groupby over p_type (K = 150), value_counts, nlargest and
+    describe."""
+    import spark_tpu_torch.pandas as ps
+    from spark_tpu_torch.api.session import SparkSession
+
+    SparkSession.builder.device(dev).master("local").getOrCreate()
+    li = ps.read_parquet(os.path.join(root, "lineitem"))
+    part = ps.read_parquet(os.path.join(root, "part")).rename(
+        {"p_partkey": "l_partkey"})
+    merged = li.merge(part[["l_partkey", "p_type", "p_size"]],
+                      on="l_partkey")
+    out = {"groups": merged.groupby("p_type").agg(
+        {"l_quantity": ["sum", "count"], "l_extendedprice": "sum",
+         "p_size": ["min", "max"]}).sort_values("p_type").to_pandas()}
+    out["counts"] = li.value_counts("l_shipmode").to_pandas()
+    out["top"] = li.nlargest(10, "l_extendedprice")[
+        ["l_orderkey", "l_linenumber", "l_extendedprice"]].to_pandas()
+    out["describe"] = li[["l_linenumber", "l_suppkey"]].describe()
+    out["len"] = len(merged)
+    return out
+
+
+def lib_pandas(seg_agg, dev: str, root: str) -> None:
+    import pandas as pd
+
+    got = _lib_part("pandas on the card", seg_agg, lib_pandas_runs, root,
+                    dev)
+    want = _lib_part("pandas on the CPU", seg_agg, lib_pandas_runs, root,
+                     "cpu")
+    check(got["len"] == want["len"] and len(got["groups"]) == 150,
+          f"lib: pandas merge {got['len']} rows, {len(got['groups'])} groups")
+    for key in ("groups", "counts", "top"):
+        pd.testing.assert_frame_equal(got[key], want[key])
+    d, w = got["describe"], want["describe"]
+    exact = ["count", "min", "max"]
+    pd.testing.assert_frame_equal(d.loc[exact], w.loc[exact])
+    # mean and std: float64 sums of integers below 2^53 (exact, any
+    # order) and of their squares (within n * 2^-53 relative)
+    pd.testing.assert_frame_equal(d, w, check_exact=False, rtol=1e-9)
+    log(f"lib: pandas: the merge ({got['len']} rows), groupby over 150 "
+        "p_types, value_counts and nlargest equal the CPU's; describe's "
+        "counts, min and max equal, mean and std within 1e-9")
+
+
+def lib_rdd_runs(spark, root: str) -> dict:
+    """The rdd part on ``spark``: customer's rows through ``.rdd``, a map
+    and a reduceByKey by nation, back through ``toDF()`` into a grouped
+    query on the session's device; ``parallelize`` of a range through
+    reduceByKey, sortByKey and a checkpoint."""
+    sc = spark.sparkContext
+    out = {}
+    by_nation = spark.table("customer").rdd.map(
+        lambda r: (r["c_nationkey"], (float(r["c_acctbal"]), 1))) \
+        .reduceByKey(lambda a, b: (a[0] + b[0], a[1] + b[1]), 8) \
+        .map(lambda kv: (kv[0], kv[1][0], kv[1][1]))
+    by_nation.toDF(["nationkey", "balance", "customers"]) \
+        .createOrReplaceTempView("rdd_nation")
+    out["regions"] = [tuple(r) for r in spark.sql(
+        "select r_name, sum(customers) as n, count(*) as nations "
+        "from rdd_nation join nation on nationkey = n_nationkey "
+        "join region on n_regionkey = r_regionkey "
+        "group by r_name order by r_name").collect()]
+    out["nations"] = sorted(by_nation.collect())
+    sc.setCheckpointDir(os.path.join(root, f"rdd_ckpt_{spark.device.type}"))
+    sums = sc.parallelize(range(LIB_RDD_RANGE), 16) \
+        .map(lambda x: (x % 1000, x)) \
+        .reduceByKey(lambda a, b: a + b).sortByKey()
+    sums.checkpoint()
+    out["sums"] = sums.collect()
+    out["checkpointed"] = sums.isCheckpointed() and sums._parents == ()
+    out["again"] = sums.collect()
+    return out
+
+
+def lib_rdd(seg_agg, gpu, cpu, root: str) -> None:
+    got = _lib_part("rdd with the card session", seg_agg, lib_rdd_runs, gpu,
+                    root)
+    want = _lib_part("rdd with the CPU session", seg_agg, lib_rdd_runs, cpu,
+                     root)
+    n = LIB_RDD_RANGE
+    truth = [(k, sum(range(k, n, 1000))) for k in range(1000)]
+    check(got["sums"] == got["again"] == want["sums"] == truth
+          and got["checkpointed"], "lib: the range's sums are off")
+    check(got["nations"] == want["nations"] and len(got["nations"]) == 25
+          and got["regions"] == want["regions"]
+          and sum(r[1] for r in got["regions"])
+          == gpu.table("customer").count(),
+          f"lib: the customer rdd {got['regions']} != {want['regions']}")
+    log(f"lib: rdd: {sum(r[1] for r in got['regions'])} customers by nation "
+        f"and region {got['regions']} "
+        f"equal the CPU's; {n} numbers through reduceByKey, sortByKey and a "
+        "checkpoint equal their closed form")
+
+
+def lib_kernel_times(seg_agg, kept) -> None:
+    """seg_fsum float32 and the B1 count at the lib phase's own shapes
+    (PageRank's merge at K = 2^LIB_SCALE over sorted ids, the deepest
+    tree level's histogram, the p_type counts of StringIndexer over part
+    and of PsGroupBy over the merge): the kernel's device ms against its
+    bound, its plain version's and the library call's."""
+    picks = {}
+    for name, args, _ in kept:
+        if not args["seg"].is_cuda:
+            continue
+        k = int(args["num_segments"])
+        data = args.get("data")
+        if name == "seg_fsum" and data.dtype == torch.float32:
+            label = "pagerank_merge" if k == 1 << LIB_SCALE else (
+                "tree_histogram" if k <= 1024 else None)
+            if label and (label not in picks or
+                          (label == "tree_histogram"
+                           and k > int(picks[label][1]["num_segments"]))):
+                picks[label] = (name, args)
+        if name == "seg_sum" and data is None and k == 150:
+            # StringIndexer's over part, PsGroupBy's over the merge
+            label = ("p_type_count_merge" if args["seg"].shape[0] > 1 << 20
+                     else "p_type_count_part")
+            picks.setdefault(label, (name, args))
+    check({"pagerank_merge", "tree_histogram", "p_type_count_part",
+           "p_type_count_merge"} <= set(picks),
+          f"lib: the timed shapes {sorted(picks)}")
+    for label, (name, a) in picks.items():
+        seg, mask, k = a["seg"], a["mask"], int(a["num_segments"])
+        n = seg.shape[0]
+        seg_l = seg.long().clamp(0, k - 1)
+        if name == "seg_fsum":
+            data = a["data"]
+            fn = (lambda: seg_agg.seg_fsum(data, seg, mask, k))
+            plain = (lambda: seg_agg.seg_fsum_plain(data, seg, mask, k))
+            masked = torch.where(mask, data, torch.zeros((), device=data.device))
+            zeros = torch.zeros(k, dtype=data.dtype, device=data.device)
+            lib = (lambda: zeros.index_add(0, seg_l, masked))
+            n_bytes, n_ops, mode = n * 9 + k * 4, n * 12, "fsum_f32"
+        else:
+            fn = (lambda: seg_agg.seg_sum(None, seg, mask, k, exact_int=True))
+            plain = (lambda: seg_agg.seg_sum_plain(None, seg, mask, k, True))
+            weights = mask.to(torch.float32)
+            lib = (lambda: torch.bincount(seg, weights=weights, minlength=k))
+            n_bytes, n_ops, mode = n * 5 + k * 8, n, "count"
+        got, want = fn(), plain()
+        err = (got.double() - want.double()).abs().max().item()
+        check(torch.equal(_bits(got), _bits(want)),
+              f"lib: {label} differs from the plain version")
+        dev_ms, per_call, names = profile_calls(fn)
+        bnd, by = bound_ms(n_bytes, n_ops)
+        stats = dict(n=n, k=k, ms=cuda_ms(fn), device_ms=dev_ms,
+                     kernels_per_call=per_call, bound_ms=bnd, bound_by=by,
+                     share=bnd / dev_ms if dev_ms else None,
+                     max_abs_err=err, plain_ms=cuda_ms(plain, reps=3,
+                                                       warmup=1),
+                     library_ms=cuda_ms(lib))
+        _LIB_KERNELS.setdefault(mode, {})[label] = stats
+        log(f"kernel {name} {mode} lib {label}: " + " ".join(
+            f"{key}={val:.6g}" if isinstance(val, float) else
+            f"{key}={val}" for key, val in stats.items()))
+
+
+def lib_phase(seg_agg, gpu, cpu, oracle, dev="cuda", tables=None,
+              root=None):
+    """The libraries (A13) at SF1: spark.ml (``lib_ml``), Pregel graphs
+    (``lib_graph``), the pandas API over the io phase's Parquet files
+    (``lib_pandas``) and the RDD tier (``lib_rdd``). Every part runs at
+    full size on the card and at its stated cut on the card and the CPU,
+    held against each other. A sample of the wrapper calls is held
+    against the plain versions, the card's runs equal the wrappers'
+    launches, and the kernels are timed at the phase's shapes. Returns
+    the phase's launches."""
+    seg_agg.reset_launches()
+    runs = device_runs(seg_agg, dev)
+    with sampling_calls(seg_agg) as (kept, counts):
+        for label, part in (
+                ("ml", lambda: lib_ml(seg_agg, gpu, cpu, tables, dev)),
+                ("graph", lambda: lib_graph(seg_agg, dev)),
+                ("pandas", lambda: lib_pandas(seg_agg, dev, root)),
+                ("rdd", lambda: lib_rdd(seg_agg, gpu, cpu, root))):
+            t0 = time.perf_counter()
+            part()
+            log(f"lib: {label} part {time.perf_counter() - t0:.1f} s")
+    wrapped = mode_launches(seg_agg)
+    ran = ran_since(seg_agg, runs)
+    if dev == "cuda":
+        check(ran == {m: v for m, v in wrapped.items() if v},
+              f"lib: the card ran {ran}, the wrappers launched {wrapped}")
+    hold_calls(seg_agg, kept, "lib")
+    log(f"lib: launches through the wrappers {wrapped}; {sum(counts.values())}"
+        f" wrapper calls, {len(kept)} held against the plain versions "
+        f"(the first {LIB_HELD_PER_KEY} of each wrapper, dtype, K and N); "
+        "the "
+        f"card ran {ran}")
+    if dev == "cuda":
+        lib_kernel_times(seg_agg, kept)
+    return wrapped
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--oom-child":
         return oom_child(sys.argv[2])
@@ -4799,7 +5428,9 @@ def run_all(oracle_proc, oracle_path: str) -> int:
                 ("serve", serve_phase),
                 ("stream", functools.partial(stream_phase, tables=tables)),
                 ("compile", functools.partial(compile_phase,
-                                              tables=tables))):
+                                              tables=tables)),
+                ("lib", functools.partial(lib_phase, tables=tables,
+                                          root=root))):
             t0 = time.perf_counter()
             by_path[path] = phase(seg_agg, gpu, cpu, oracle)
             log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
@@ -4820,7 +5451,7 @@ def run_all(oracle_proc, oracle_path: str) -> int:
     check(not any(p["fsum_f64"] + p["fsum_f32"] for path, p in
                   by_path.items()
                   if path not in ("scalar", "io", "ooc", "mesh", "frontend",
-                                  "aqe", "obs", "serve", "stream")),
+                                  "aqe", "obs", "serve", "stream", "lib")),
           "an earlier path summed floats on a grouped path")
     check(by_path["frontend"]["fsum_f64"] >= 1
           and by_path["frontend"]["count"] >= 1,
@@ -4846,6 +5477,8 @@ def run_all(oracle_proc, oracle_path: str) -> int:
           "seg_minmax min or max, or seg_fsum kernel")
     check(by_path["compile"]["count"] >= 1,
           "the compile path launched no seg_sum kernel")
+    check(by_path["lib"]["count"] >= 1 and by_path["lib"]["fsum_f32"] >= 1,
+          "the lib path launched no seg_sum count or seg_fsum float32 kernel")
 
     kernels = []
     for name, modes, headline, replaces, source, stats in (
@@ -4866,6 +5499,10 @@ def run_all(oracle_proc, oracle_path: str) -> int:
         # Count-Min rows), B2 max at K = 512 (the HLL registers)
         stats_shape = {m: _AQE_KERNELS[m] for m in modes
                        if m in _AQE_KERNELS}
+        # the lib path's shapes: seg_fsum float32 at PageRank's merge and
+        # the deepest tree histogram, the B1 count over p_type
+        lib_shapes = {m: _LIB_KERNELS[m] for m in modes
+                      if m in _LIB_KERNELS}
         kernels.append(dict(
             name=name, route="cuda",
             source=f"spark_tpu_torch/ops/csrc/{source}", replaces=replaces,
@@ -4873,7 +5510,7 @@ def run_all(oracle_proc, oracle_path: str) -> int:
             launches_by_path={path: sum(p[m] for m in modes)
                               for path, p in by_path.items()},
             mode=headline, **top, modes=per_mode,
-            aqe_stats_stage=stats_shape))
+            aqe_stats_stage=stats_shape, lib_shapes=lib_shapes))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

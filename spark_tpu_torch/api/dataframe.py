@@ -17,8 +17,8 @@ with the session's cached plans substituted and pinned for the query
 ``api/na_stat.py``'s. On a session with a mesh (``master("mesh[N]")``)
 an action runs through ``parallel/executor.MeshExecutor``. A streaming
 frame (``session.readStream``) starts with ``writeStream``
-(``streaming/``). Not ported yet, raising ``NotImplementedError``:
-``rdd``.
+(``streaming/``). ``rdd`` collects the rows into the RDD tier
+(``rdd.py``).
 """
 
 from __future__ import annotations
@@ -41,15 +41,6 @@ def _c(c: ColumnOrName) -> E.Expression:
 def _order(c: ColumnOrName) -> E.SortOrder:
     e = _c(c)
     return e if isinstance(e, E.SortOrder) else E.SortOrder(e, ascending=True)
-
-
-def _later(what: str, item: str):
-    """A DataFrame member of a later slice: raises NotImplementedError."""
-    def member(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"not ported yet: DataFrame.{what} (ROADMAP {item})")
-
-    return member
 
 
 _JOIN_ALIASES = {"outer": "full", "full_outer": "full", "fullouter": "full",
@@ -587,9 +578,14 @@ class DataFrame:
 
         return with_watermark(self, col_name, delay)
 
-    # ---- later slices --------------------------------------------------------
+    # ---- the RDD tier --------------------------------------------------------
 
-    rdd = property(_later("rdd (the RDD tier)", "A13"))
+    @property
+    def rdd(self):
+        """Bridge to the RDD tier (``rdd.py``): collected Rows,
+        partitioned over the default parallelism (reference: Dataset.rdd
+        — the escape hatch out of the columnar engine)."""
+        return self._session.sparkContext.parallelize(self.collect())
 
 
 def _fmt(v, truncate: bool) -> str:

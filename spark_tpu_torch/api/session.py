@@ -457,6 +457,16 @@ class SparkSession:
         return self._mesh_executor
 
     @property
+    def sparkContext(self):
+        """RDD-tier entry point (``rdd.py``; reference:
+        SparkContext.scala:85)."""
+        if getattr(self, "_sc", None) is None:
+            from spark_tpu_torch.rdd import SparkContext
+
+            self._sc = SparkContext(self)
+        return self._sc
+
+    @property
     def read(self):
         from spark_tpu_torch.io.readwriter import DataFrameReader
 

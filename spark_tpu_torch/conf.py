@@ -7,9 +7,9 @@ here; the runtime-filter keys are registered by ``plan/optimizer.py``,
 those of the out-of-memory tier by ``physical/chunked.py`` and
 ``recovery.py``, and the serve tier's breaker, brownout, ownership and
 fingerprint keys by ``serve/``, which read them, as in the reference.
-The compile tier's and the materialized views' keys are here; the
-streaming tier reads none of its own. Keys of tiers that are not ported
-yet come with those tiers (ROADMAP queue A).
+The compile tier's and the materialized views' keys are here, and the
+RDD tier's ``spark.task.maxFailures``; the streaming tier reads none of
+its own.
 """
 
 from __future__ import annotations
@@ -90,6 +90,12 @@ DEBUG_LOCK_ORDER = register(
     "locks.order_report() lists the observed acquisition edges and any "
     "rank inversions or cycles. Off by default (one flag check per "
     "acquire either way).", bool)
+
+TASK_MAX_FAILURES = register(
+    "spark.task.maxFailures", 4,
+    "Attempts per partition-compute task of the RDD tier (rdd.py) before "
+    "the job fails (reference: config/package.scala TASK_MAX_FAILURES).",
+    int)
 
 
 EVENT_LOG_DIR = register(

@@ -244,6 +244,17 @@ def _fsum_on(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def exact_seg_fsum(data, seg, mask, num_segments: int):
+    """Grouped float sum, each group's exact sum rounded once, on every
+    device: ``seg_agg.seg_fsum`` on the card, its plain version (the same
+    bits) on the CPU. For callers whose result must not depend on the
+    device (the KMeans update); the engine's own float sums keep the
+    reference's ``index_add_`` on the CPU (``seg_sum``)."""
+    return _wrapper("seg_fsum", data.contiguous(),
+                    seg.to(torch.int32).contiguous(), mask.contiguous(),
+                    num_segments)
+
+
 def seg_sum(data, seg, mask, num_segments: int, sorted_seg: bool = False):
     """Grouped sum of int64 or float data (the only types the
     aggregates pass). Integer sums are exact on every path. A float sum

@@ -27,6 +27,18 @@ spark = SparkSession.builder.device("cpu").getOrCreate()
 register_views(spark, generate_tables(0.002, seed=1))
 for q in (QUERIES[1], Q1_WIDE):
     assert spark.sql(q).collect()
+import spark_tpu_torch.graph, spark_tpu_torch.ml, spark_tpu_torch.pandas
+import spark_tpu_torch.rdd
+from spark_tpu_torch.ml.state import model_from_state  # noqa: F401
+df = spark.createDataFrame([{"a": float(i), "b": float(i % 3), "y": float(i % 2)}
+                            for i in range(40)])
+tree = spark_tpu_torch.ml.DecisionTreeClassifier(["a", "b"], "y", maxDepth=2)
+assert tree.fit(df).transform(df).count() == 40
+g = spark_tpu_torch.graph.Graph([1, 2, 3], [1, 2], [2, 3], device="cpu")
+assert g.pagerank(3).shape == (3,)
+assert len(spark_tpu_torch.pandas.from_pandas(
+    spark.range(5).toPandas())) == 5
+assert spark.range(4).rdd.map(lambda r: r["id"]).sum() == 6
 import chip_smoke  # noqa: F401  (module import only: no card here)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))

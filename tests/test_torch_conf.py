@@ -57,6 +57,7 @@ def test_port_keys_match_the_reference():
     import spark_tpu.faults  # noqa: F401
     import spark_tpu.physical.pipeline  # noqa: F401
     import spark_tpu.plan.optimizer  # noqa: F401  (registers its keys)
+    import spark_tpu.rdd  # noqa: F401  (spark.task.maxFailures)
     import spark_tpu.recovery  # noqa: F401
     import spark_tpu.serve  # noqa: F401  (breaker, ownership, cache keys)
     import spark_tpu.trace  # noqa: F401

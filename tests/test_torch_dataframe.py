@@ -275,15 +275,18 @@ def test_temp_view_and_table(engines):
 
 
 def test_cache_waits_for_memory_store(engines):
-    """The members of later tiers raise; those the front-end slice
-    ported, which raised here before, run (``saveAsTable`` is held in
+    """The members that raised here before run: ``rdd`` (the RDD tier,
+    tests/test_torch_rdd.py) gives the reference's rows, and the
+    front-end slice's members run (``saveAsTable`` is held in
     tests/test_torch_saveastable.py, the statistics against the reference
     in tests/test_torch_na_stat.py, ``writeStream`` in
     tests/test_torch_streaming.py)."""
-    port = engines["port"][0]
+    port, ref = engines["port"][0], engines["ref"][0]
     people = port.createDataFrame(PEOPLE)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        getattr(people, "rdd")
+    got = [r.asDict() for r in people.rdd.collect()]
+    assert got == [r.asDict()
+                   for r in ref.createDataFrame(PEOPLE).rdd.collect()]
+    assert got == PEOPLE
     assert not people.isStreaming
     assert type(people.writeStream).__name__ == "DataStreamWriter"
     assert people.repartition(2).count() == 5
