@@ -45,7 +45,10 @@ no result line):
    indexed, LIKE case-sensitive as the engine's; one load for every
    phase, made in a child process (``--oracle-child``, the same seed)
    from the start, beside the build and the kernel phase, and copied
-   into memory when the slice phase needs it.
+   into memory when the slice phase needs it. Beside it from the start,
+   the scale phase's SF10 dataset (``--dataset-child``: ``ensure_dataset``
+   with the streamed writer, 8 parts, in a process per spare CPU) and
+   the pyarrow computations of q1, q3 and q5 over it.
 5. Slice phase: the eight SF1 tables registered on a
    ``device("cuda")`` session and on a ``device("cpu")`` one, TPC-H q1
    and q1-wide run through ``spark.sql(...).collect()``. Every launch
@@ -242,7 +245,7 @@ no result line):
      cell: a failed capture pins q3 to the eager path, the same bytes.
      The obs phase's fault cells cover the wired points but the serve
      phase's and these three (``TIER_POINTS``).
-   - lib phase (the libraries, last): each part at full size on the
+   - lib phase (the libraries): each part at full size on the
      card, and a stated cut of it on the CPU and on the card, held
      against each other. ml on lineitem (5,996,700 rows; the cut its
      first 599,670): a Pipeline of StringIndexer(l_shipmode),
@@ -274,6 +277,23 @@ no result line):
      each wrapper, dtype, K and N) held against the plain versions, the
      card's runs equal to the wrappers' launches; seg_fsum float32 and
      the B1 count timed at the phase's own shapes.
+   - scale phase (TPC-H at SF10, last): the SF1 views and captured
+     stages dropped; a fresh card session reads the child's multi-part
+     dataset through ``register_views(spark, path=...)``; q1, q1-wide,
+     q3, q5, q9 and q18 (``SCALE_QUERIES``) each with its largest scan
+     estimate against ``spark.tpu.maxDeviceBatchBytes``, a first run
+     (launches counted from 0: q1-wide 7 counts, 2 int64 sums, 1 min,
+     1 max, the others none; every wrapper call held against its plain
+     version), ``warm_runs`` (replays bit for bit with no capture and no
+     host sync inside a stage), a replay under
+     ``graphs.guarding_stages``, one profiled replay; q1, q3 and q5 equal
+     an in-memory card session over the same rows read back with
+     pyarrow bit for bit, and the child's pyarrow computations
+     (``tpch/arrow_queries.py``; ``oracle.assert_rows_match``); q1
+     chunked one byte under its scan estimate (29 chunks) equal to the
+     resident run; B1 and B2 timed at q1-wide's N = 60M; the graph
+     pool and the phase's peak device memory printed; the dataset
+     removed.
    Outside the ooc, obs, serve, stream and compile phases every query
    must run with no ladder replan. The sqlite comparisons of ``ORACLE_HELD_BY_TESTS``
    (W2, W3, R1, C1, X1, X2, A1-168) are left out at SF1: their card rows
@@ -831,7 +851,9 @@ def profile_query(spark, name: str, query) -> None:
     all; the device's own count is the measurement the checks use. The
     profiler is asked for ``acc_events=True`` where this torch has it;
     ``_PROFILES`` counts the runs whose first session held every event
-    (logged at the end: whether the option ends the dropped events)."""
+    (logged at the end: whether the option ends the dropped events).
+    Returns the wall, device ms and kernel launches (None when the
+    profiler recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from spark_tpu_torch.ops import seg_agg
@@ -868,7 +890,7 @@ def profile_query(spark, name: str, query) -> None:
     if dev_us <= 0:
         log(f"profile {name}: wall {wall:.2f} ms; device time not measured "
             "(the profiler recorded none)")
-        return
+        return None
     log(f"profile {name}: wall {wall:.2f} ms, device {dev_us / 1e3:.3f} ms "
         f"over {n_kernels} kernel launches, device busy "
         f"{dev_us / 1e3 / wall:.1%} of the wall")
@@ -876,6 +898,8 @@ def profile_query(spark, name: str, query) -> None:
     for e in top:
         log(f"profile {name}:   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5} {e.key[:90]}")
+    return {"wall_ms": wall, "device_ms": dev_us / 1e3,
+            "kernels": n_kernels}
 
 
 #: profiled runs, and those whose first profiler session recorded every
@@ -1323,7 +1347,8 @@ def warm_runs(label: str, seg_agg, spark, name: str, query, first_rows,
     through no wrapper, the capture run's (for ``SAME_LAUNCHES`` also the
     first run's). The kernel-wrapper calls the captures recorded are held
     against the plain versions on their own tensors, which hold the last
-    replay's values."""
+    replay's values. Returns the capture run's wall, the replays' walls
+    and their host syncs."""
     from spark_tpu_torch.physical import graphs, planner
 
     def one_run():
@@ -1366,6 +1391,7 @@ def warm_runs(label: str, seg_agg, spark, name: str, query, first_rows,
                   f"the capture run, the wrappers launched {cap_launches}")
         check(cap_launches == eager_launches, f"{name}: the capture run "
               f"launched {cap_launches}, the eager warm run {eager_launches}")
+        capture_ms = wall
         if name in SAME_LAUNCHES:
             check(cap_launches == first, f"{name}: the capture run "
                   f"launched {cap_launches}, the first run {first}")
@@ -1388,6 +1414,8 @@ def warm_runs(label: str, seg_agg, spark, name: str, query, first_rows,
         f"blocking operators: {wrapped}), host syncs {warm_syncs[-1]}")
     if calls:
         hold_calls(seg_agg, calls, f"{label} {name} replay")
+    return {"capture_ms": capture_ms, "replay_ms": walls,
+            "replay_syncs": warm_syncs}
 
 
 def log_pool(label: str) -> None:
@@ -5328,6 +5356,353 @@ def lib_phase(seg_agg, gpu, cpu, oracle, dev="cuda", tables=None,
     return wrapped
 
 
+#: the scale phase: TPC-H at SF10 from a multi-part Parquet dataset made
+#: once by ``ensure_dataset`` with the streamed writer (2,000,000 orders a
+#: part: 8 parts), in a child process started with the oracle's
+SCALE_SF = 10.0
+SCALE_SLICE_ORDERS = 2_000_000
+#: BASELINE.md's three (q1, q3, q5), q1-wide (the hand kernels), q9 (the
+#: widest join fan-out) and q18 (a group by l_orderkey, 15M groups)
+SCALE_QUERIES = ("q1", "q1_wide", "q3", "q5", "q9", "q18")
+#: held against an in-memory card session over the same rows and against
+#: pyarrow (``tpch/arrow_queries.py``)
+SCALE_HELD = (1, 3, 5)
+SCALE_LAUNCHES = {"q1_wide": {"count": 7, "sum_i64": 2, "min": 1, "max": 1}}
+#: B1 and B2 at the scale phase's q1-wide shapes (the kernels line)
+_SCALE_KERNELS: dict = {}
+
+
+def _scale_query(name: str) -> str:
+    from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
+
+    return Q1_WIDE if name == "q1_wide" else QUERIES[int(name[1:])]
+
+
+def read_scale_tables(path: str) -> dict:
+    """The columns q1, q3 and q5 read, of each table of the dataset at
+    ``path``, read back with pyarrow."""
+    import pyarrow.parquet as pq
+
+    from spark_tpu_torch.tpch.arrow_queries import COLUMNS
+
+    return {name: pq.read_table(os.path.join(path, f"{name}.parquet"),
+                                columns=list(cols))
+            for name, cols in COLUMNS.items()}
+
+
+def dataset_child(base: str, out: str) -> int:
+    """``--dataset-child BASE OUT``: the scale phase's dataset
+    (``ensure_dataset`` at ``SCALE_SF`` under ``BASE``, the streamed
+    writer in a process per spare CPU) and the pyarrow computations of
+    q1, q3 and q5 over it, made beside the earlier phases and pickled to
+    ``OUT``."""
+    import pickle
+
+    from spark_tpu_torch.tpch import arrow_queries, ensure_dataset
+
+    t0 = time.perf_counter()
+    path = ensure_dataset(SCALE_SF, base=base, seed=SF1_SEED, streamed=True,
+                          orders_per_slice=SCALE_SLICE_ORDERS,
+                          workers=max(1, (os.cpu_count() or 1) - 3))
+    done = {"path": path, "ensure_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    tables = read_scale_tables(path)
+    done["read_s"] = time.perf_counter() - t0
+    done["yardstick"], done["yardstick_s"] = {}, {}
+    for q, fn in arrow_queries.QUERIES.items():
+        t0 = time.perf_counter()
+        done["yardstick"][q] = fn(tables)
+        done["yardstick_s"][q] = time.perf_counter() - t0
+    import resource
+
+    done["peak_rss_bytes"] = \
+        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    with open(out, "wb") as f:
+        pickle.dump(done, f)
+    return 0
+
+
+def start_dataset(root: str):
+    """The dataset's child process (its own process group, so that its
+    writer's workers stop with it) and the file it writes."""
+    out = os.path.join(root, "scale.pickle")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--dataset-child", root, out],
+                            start_new_session=True), out
+
+
+def stop_child(proc) -> None:
+    """Stop a child that still runs, with every process of its group
+    where it leads one."""
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:  # not a group leader
+            proc.kill()
+    proc.wait()
+
+
+def scale_dataset(dataset) -> dict:
+    """Wait for the dataset's child; print what the generation took
+    (the static tables and the slices, each slice's seconds and its
+    process's peak RSS), the bytes on disk and the pyarrow runs."""
+    import pickle
+
+    from spark_tpu_torch.tpch import dataset_report
+
+    proc, out = dataset
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    check(rc == 0, f"the dataset's child process exited with {rc}")
+    with open(out, "rb") as f:
+        done = pickle.load(f)
+    rep = dataset_report(done["path"])
+    gen, slices = rep["report"], rep["report"]["slices"]
+    log(f"scale: waited {time.perf_counter() - t0:.1f} s for the dataset's "
+        f"child; {rep['recipe']}: {gen['seconds']:.1f} s to generate "
+        f"(static tables {gen['statics_s']:.1f} s, {len(slices)} slices "
+        f"{gen['slices_s']:.1f} s of wall beside them), "
+        f"{gen['bytes'] / 2 ** 30:.3f} GiB on disk, the writer's peak RSS "
+        f"{gen['peak_rss_bytes'] / 2 ** 30:.2f} GiB")
+    for s in slices:
+        log(f"scale: slice {s['part']}: {s['orders']} orders, "
+            f"{s['lineitem']} lineitems, {s['seconds']:.1f} s, its "
+            f"process's peak RSS {s['peak_rss_bytes'] / 2 ** 30:.2f} GiB")
+    log(f"scale: the child read q1/q3/q5's columns back in "
+        f"{done['read_s']:.1f} s and ran the pyarrow queries in "
+        + ", ".join(f"q{q} {s:.1f} s" for q, s in
+                    done["yardstick_s"].items())
+        + f"; its peak RSS {done['peak_rss_bytes'] / 2 ** 30:.2f} GiB")
+    return done
+
+
+def free_sf1(gpu) -> None:
+    """Drop the SF1 views of the earlier phases' card session and every
+    captured stage, and give the cached blocks back, before SF10."""
+    import gc
+
+    from spark_tpu_torch.physical import graphs
+
+    before = torch.cuda.memory_allocated() if gpu.device.type == "cuda" \
+        else 0
+    for name in gpu.catalog.listTables():
+        gpu.catalog.dropTempView(name)
+    dropped = graphs.drop_stages()
+    gc.collect()
+    if gpu.device.type == "cuda":
+        torch.cuda.empty_cache()
+        log(f"scale: dropped the SF1 views and {dropped} captured stages: "
+            f"device memory allocated {before / 2 ** 30:.2f} -> "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+
+
+def scale_scan_estimate(spark, query: str) -> int:
+    """The largest scan estimate of ``query``'s optimized plan, the
+    number the out-of-memory tier holds against
+    ``spark.tpu.maxDeviceBatchBytes``."""
+    from spark_tpu_torch.physical.chunked import _est_scan
+    from spark_tpu_torch.plan import logical as L
+    from spark_tpu_torch.plan.optimizer import optimize
+
+    plan = optimize(spark.sql(query)._plan, spark.conf)
+    return max(_est_scan(s) for s in L.collect_nodes(plan, L.UnresolvedScan))
+
+
+def scale_kernel_times(seg_agg, calls) -> None:
+    """B1 (count, int64 sum) and B2 (min, max) at q1-wide's SF10 shapes:
+    the first recorded call of each mode, timed (device ms from the
+    profiler, CUDA events) against its bound, its plain version and the
+    library call."""
+    seen = set()
+    for name, a, _ in calls:
+        data, seg, mask = a.get("data"), a["seg"], a["mask"]
+        k = int(a["num_segments"])
+        if name == "seg_sum":
+            mode = "count" if data is None else "sum_i64"
+        else:
+            mode = "max" if a["is_max"] else "min"
+        if mode in seen or not seg.is_cuda:
+            continue
+        seen.add(mode)
+        n = seg.shape[0]
+        seg_l = seg.long()
+        if mode == "count":
+            fn = lambda: seg_agg.seg_sum(None, seg, mask, k, exact_int=True)
+            plain = lambda: seg_agg.seg_sum_plain(None, seg, mask, k, True)
+            weights = mask.to(torch.float32)
+            lib = lambda: torch.bincount(seg, weights=weights, minlength=k)
+        elif mode == "sum_i64":
+            fn = lambda: seg_agg.seg_sum(data, seg, mask, k)
+            plain = lambda: seg_agg.seg_sum_plain(data, seg, mask, k)
+            masked = torch.where(mask, data, torch.zeros_like(data))
+            zeros = torch.zeros(k, dtype=torch.int64, device=seg.device)
+            lib = lambda: zeros.index_add(0, seg_l, masked)
+        else:
+            is_max = mode == "max"
+            fn = lambda: seg_agg.seg_minmax(data, seg, mask, k, is_max)
+            plain = lambda: seg_agg.seg_minmax_plain(data, seg, mask, k,
+                                                     is_max)
+            ident = float("-inf") if is_max else float("inf")
+            fill = torch.full((k,), ident, dtype=data.dtype,
+                              device=seg.device)
+            masked = torch.where(mask, data, fill.new_tensor(ident))
+            lib = lambda: fill.scatter_reduce(
+                0, seg_l, masked, "amax" if is_max else "amin",
+                include_self=True)
+        got, want = fn(), plain()
+        check(torch.equal(_bits(got), _bits(want)),
+              f"scale: {mode} at N={n} K={k} differs from the plain version")
+        dev_ms, per_call, _ = profile_calls(fn)
+        out_bytes = k * got.element_size()
+        bnd, by = bound_ms(n * ROW_BYTES[mode] + out_bytes, n * 3)
+        stats = dict(n=n, k=k, ms=cuda_ms(fn), device_ms=dev_ms,
+                     kernels_per_call=per_call, bound_ms=bnd, bound_by=by,
+                     share=bnd / dev_ms if dev_ms else None, max_abs_err=0.0,
+                     plain_ms=cuda_ms(plain, reps=3, warmup=1),
+                     library_ms=cuda_ms(lib, reps=5, warmup=1))
+        _SCALE_KERNELS[mode] = stats
+        log(f"kernel {name} {mode} scale N={n} K={k}: " + " ".join(
+            f"{key}={val:.6g}" if isinstance(val, float) else
+            f"{key}={val}" for key, val in stats.items()))
+    check(seen == {"count", "sum_i64", "min", "max"},
+          f"scale: q1-wide's calls covered {sorted(seen)}")
+
+
+def scale_phase(seg_agg, gpu, cpu, oracle, dev="cuda", dataset=None):
+    """TPC-H at SF10 from the multi-part dataset (``dataset``: the
+    child's process and its pickle). After the SF1 state is dropped
+    (``free_sf1``), a fresh card session registers the eight tables with
+    ``register_views(spark, path=...)``; each query of ``SCALE_QUERIES``
+    runs once with the launch counters set to 0 before and read after
+    (q1-wide: 7 counts, 2 int64 sums, 1 min, 1 max; every wrapper call
+    held against its plain version; the card's runs equal the wrappers'
+    launches), then its warm runs (``warm_runs``: an eager run, the
+    capture run and 3 replays, bit for bit, no capture in a replay) and
+    a replay under ``graphs.guarding_stages`` (no host sync inside a
+    stage), one profiled replay and its peak device memory. q1, q3 and
+    q5 equal an in-memory card session over the same rows read back with
+    pyarrow, bit for bit, and the pyarrow computations of the queries
+    (``oracle.assert_rows_match``). q1 chunked at a budget one byte
+    under its scan estimate equals the resident run. B1 and B2 are timed
+    at q1-wide's shapes. The dataset's directory is removed at the end.
+    Returns the launches of the first runs and the chunked run."""
+    import shutil
+
+    from spark_tpu_torch import recovery
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.physical import chunked, graphs
+    from spark_tpu_torch.tpch import register_views
+    from spark_tpu_torch.tpch.oracle import assert_rows_match
+
+    done = scale_dataset(dataset)
+    path = done["path"]
+    free_sf1(gpu)
+    phase_peak = 0
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    spark = SparkSession(device=dev)
+    register_views(spark, path=path)
+    max_batch = int(spark.conf.get(chunked.MAX_DEVICE_BATCH_BYTES))
+    rows, total = {}, {}
+    for name in SCALE_QUERIES:
+        query = _scale_query(name)
+        est = scale_scan_estimate(spark, query)
+        log(f"scale: {name} largest scan estimate {est / 2 ** 30:.3f} GiB, "
+            f"{est / max_batch:.1%} of spark.tpu.maxDeviceBatchBytes "
+            f"({max_batch / 2 ** 30:.0f} GiB)")
+        seg_agg.reset_launches()
+        runs = device_runs(seg_agg, dev)
+        with recording_calls(seg_agg) as calls:
+            t0 = time.perf_counter()
+            rows[name], syncs = collect_split_syncs(spark, query, dev)
+            first_ms = (time.perf_counter() - t0) * 1e3
+        got = {m: n for m, n in mode_launches(seg_agg).items() if n}
+        for m, n in got.items():
+            total[m] = total.get(m, 0) + n
+        check(rows[name], f"scale: {name}: no rows")
+        check(recovery.last_ladder.get("replans", 0) == 0,
+              f"scale: {name}: the OOM ladder replanned")
+        if dev == "cuda":
+            check(ran_since(seg_agg, runs) == got, f"scale: {name}: the "
+                  f"device ran {ran_since(seg_agg, runs)}, the wrappers "
+                  f"launched {got}")
+            check(got == SCALE_LAUNCHES.get(name, {}),
+                  f"scale: {name} launched {got}, want "
+                  f"{SCALE_LAUNCHES.get(name, {})}")
+            check(len(calls) == sum(got.values()),
+                  f"scale: {name}: {len(calls)} wrapper calls, {got}")
+        hold_calls(seg_agg, calls, f"scale {name}")
+        log(f"scale: {name} first run {first_ms:.1f} ms, {len(rows[name])} "
+            f"rows, host syncs {syncs}, launches {got}")
+        if name == "q1_wide" and dev == "cuda":
+            scale_kernel_times(seg_agg, calls)
+        del calls
+        warm = warm_runs("scale", seg_agg, spark, name, query, rows[name],
+                         got, dev)
+        check(all(s is None or s["in stages"] == 0
+                  for s in warm["replay_syncs"]),
+              f"scale: {name}: a replay synced inside a stage: "
+              f"{warm['replay_syncs']}")
+        with graphs.guarding_stages():
+            again = [tuple(r) for r in spark.sql(query).collect()]
+        check(row_bits(again) == row_bits(rows[name]),
+              f"scale: {name}: the guarded replay differs")
+        prof = None
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            phase_peak = max(phase_peak, torch.cuda.max_memory_allocated())
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            spark.sql(query).collect()
+            peak = torch.cuda.max_memory_allocated() - base
+            log(f"scale: {name} a replay's peak device memory above what "
+                f"was allocated {peak / 2 ** 20:.1f} MiB")
+            prof = profile_query(spark, f"scale {name}", query)
+        log(f"scale: {name} first {first_ms:.1f} / capture "
+            f"{warm['capture_ms']:.1f} / replay "
+            f"{statistics.median(warm['replay_ms']):.1f} ms (median of 3), "
+            + ("device not measured" if prof is None else
+               f"device {prof['device_ms']:.3f} ms, {prof['kernels']} "
+               "kernel launches")
+            + f"; hand-kernel launches {got}")
+    log_pool("scale")
+
+    t0 = time.perf_counter()
+    tables = read_scale_tables(path)
+    memory = SparkSession(device=dev)
+    for name, tbl in tables.items():
+        memory.createDataFrame(tbl).createOrReplaceTempView(name)
+    log(f"scale: q1/q3/q5's columns read back with pyarrow and registered "
+        f"in memory on {memory.device} in {time.perf_counter() - t0:.1f} s")
+    for q in SCALE_HELD:
+        name = f"q{q}"
+        t0 = time.perf_counter()
+        mem_rows = [tuple(r) for r in memory.sql(_scale_query(name))
+                    .collect()]
+        check(row_bits(mem_rows) == row_bits(rows[name]),
+              f"scale: {name} from the files differs from memory")
+        assert_rows_match(rows[name], done["yardstick"][q],
+                          label=f"scale {name}[pyarrow]")
+        log(f"scale: {name} from the files equals the in-memory session "
+            f"bit for bit ({time.perf_counter() - t0:.1f} s) and pyarrow's "
+            "computation")
+    del memory, tables
+
+    ch = ooc_run(seg_agg, spark, "q1", _scale_query("q1"), "_ChunkedAgg", 1,
+                 2, OOC_CHUNK_ROWS, rows["q1"], dev=dev)
+    for m, n in ch.items():
+        total[m] = total.get(m, 0) + n
+    if dev == "cuda":
+        phase_peak = max(phase_peak, torch.cuda.max_memory_allocated())
+        log(f"scale: peak device memory of the phase "
+            f"{phase_peak / 2 ** 30:.2f} GiB")
+    log_pool("scale")
+    shutil.rmtree(path)
+    return {m: total.get(m, 0) for m in mode_launches(seg_agg)}
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--oom-child":
         return oom_child(sys.argv[2])
@@ -5335,6 +5710,8 @@ def main() -> int:
         return oracle_child(sys.argv[2])
     if len(sys.argv) == 7 and sys.argv[1] == "--compile-child":
         return compile_child(*sys.argv[2:6], sf=float(sys.argv[6]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--dataset-child":
+        return dataset_child(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -5342,18 +5719,20 @@ def main() -> int:
     import tempfile
 
     # the sqlite oracle loads in a process of its own (about two minutes
-    # of host time), beside the first phases
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_oracle_") as odir:
+    # of host time), beside the first phases, and so does the scale
+    # phase's SF10 dataset
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_oracle_") as odir, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as sdir:
         proc, path = start_oracle(odir)
+        dataset = start_dataset(sdir)
         try:
-            return run_all(proc, path)
+            return run_all(proc, path, dataset)
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            stop_child(proc)
+            stop_child(dataset[0])
 
 
-def run_all(oracle_proc, oracle_path: str) -> int:
+def run_all(oracle_proc, oracle_path: str, dataset) -> int:
     """Every phase, the kernels line, the card line and the result."""
     from spark_tpu_torch.ops import _build, seg_agg
     from spark_tpu_torch.columnar.batch import round_capacity
@@ -5430,7 +5809,9 @@ def run_all(oracle_proc, oracle_path: str) -> int:
                 ("compile", functools.partial(compile_phase,
                                               tables=tables)),
                 ("lib", functools.partial(lib_phase, tables=tables,
-                                          root=root))):
+                                          root=root)),
+                ("scale", functools.partial(scale_phase,
+                                            dataset=dataset))):
             t0 = time.perf_counter()
             by_path[path] = phase(seg_agg, gpu, cpu, oracle)
             log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
@@ -5451,7 +5832,8 @@ def run_all(oracle_proc, oracle_path: str) -> int:
     check(not any(p["fsum_f64"] + p["fsum_f32"] for path, p in
                   by_path.items()
                   if path not in ("scalar", "io", "ooc", "mesh", "frontend",
-                                  "aqe", "obs", "serve", "stream", "lib")),
+                                  "aqe", "obs", "serve", "stream", "lib",
+                                  "scale")),
           "an earlier path summed floats on a grouped path")
     check(by_path["frontend"]["fsum_f64"] >= 1
           and by_path["frontend"]["count"] >= 1,
@@ -5479,6 +5861,10 @@ def run_all(oracle_proc, oracle_path: str) -> int:
           "the compile path launched no seg_sum kernel")
     check(by_path["lib"]["count"] >= 1 and by_path["lib"]["fsum_f32"] >= 1,
           "the lib path launched no seg_sum count or seg_fsum float32 kernel")
+    check(all(by_path["scale"][m] >= 1
+              for m in ("count", "sum_i64", "min", "max")),
+          "the scale path launched no seg_sum count or int64 sum or "
+          "seg_minmax kernel")
 
     kernels = []
     for name, modes, headline, replaces, source, stats in (
@@ -5503,6 +5889,9 @@ def run_all(oracle_proc, oracle_path: str) -> int:
         # the deepest tree histogram, the B1 count over p_type
         lib_shapes = {m: _LIB_KERNELS[m] for m in modes
                       if m in _LIB_KERNELS}
+        # the scale path's shapes: q1-wide at SF10 (N = 60M)
+        scale_shapes = {m: _SCALE_KERNELS[m] for m in modes
+                        if m in _SCALE_KERNELS}
         kernels.append(dict(
             name=name, route="cuda",
             source=f"spark_tpu_torch/ops/csrc/{source}", replaces=replaces,
@@ -5510,7 +5899,8 @@ def run_all(oracle_proc, oracle_path: str) -> int:
             launches_by_path={path: sum(p[m] for m in modes)
                               for path, p in by_path.items()},
             mode=headline, **top, modes=per_mode,
-            aqe_stats_stage=stats_shape, lib_shapes=lib_shapes))
+            aqe_stats_stage=stats_shape, lib_shapes=lib_shapes,
+            scale_shapes=scale_shapes))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

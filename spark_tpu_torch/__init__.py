@@ -8,3 +8,5 @@ eagerly. Entry point: ``spark_tpu_torch.api.session.SparkSession``.
 """
 
 from spark_tpu_torch.device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"

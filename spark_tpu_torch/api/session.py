@@ -264,6 +264,13 @@ class SparkSessionBuilder:
         self._conf: Dict[str, Any] = {}
         self._mesh_devices: Optional[List[str]] = None
         self._ext_fns: list = []
+        self._app_name = "spark-tpu-torch"
+
+    def appName(self, name: str) -> "SparkSessionBuilder":
+        """The name of the session this builder creates (an existing
+        active session keeps its own, as in the reference)."""
+        self._app_name = name
+        return self
 
     def withExtensions(self, fn) -> "SparkSessionBuilder":
         """``fn(extensions)`` registers injection points on the session
@@ -321,6 +328,7 @@ class SparkSessionBuilder:
         if active is None or active.device != dev \
                 or active._mesh_spec != (n, self._mesh_devices):
             active = SparkSession(dev, self._conf, self._mesh_devices)
+            active.app_name = self._app_name
             SparkSession._active = active
         else:
             for key, value in self._conf.items():
@@ -398,11 +406,25 @@ class SparkSession:
     def getActiveSession(cls) -> Optional["SparkSession"]:
         return cls._active
 
+    @classmethod
+    def setActiveSession(cls, session: "SparkSession") -> None:
+        """Reference: SparkSession.setActiveSession."""
+        cls._active = session
+
     @property
     def uiWebUrl(self) -> Optional[str]:
         """The live status server's URL with ``spark.ui.enabled``, else
         None (reference: SparkContext.uiWebUrl)."""
         return self._ui.url if self._ui is not None else None
+
+    ui_web_url = uiWebUrl
+
+    @property
+    def version(self) -> str:
+        """The package's ``__version__``."""
+        from spark_tpu_torch import __version__
+
+        return __version__
 
     @property
     def compile_service(self):

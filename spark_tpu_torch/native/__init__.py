@@ -24,6 +24,7 @@ from spark_tpu_torch.ops import _build
 _SRC = Path(__file__).resolve().parent / "strkernels.cpp"
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
 
 
 def _lib() -> ctypes.CDLL:
@@ -35,7 +36,21 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_char_p, _I64P, ctypes.c_int64, ctypes.c_char_p,
         ctypes.c_int64, ctypes.c_int32, _U8P]
     lib.predicate_table.restype = None
+    lib.hash_table64.argtypes = [ctypes.c_char_p, _I64P, ctypes.c_int64,
+                                 ctypes.c_uint64, _U64P]
+    lib.hash_table64.restype = None
     return lib
+
+
+def available() -> bool:
+    """Whether the C++ tier builds and loads here (g++ on the PATH).
+    Callers do not branch on it: every table call raises when the build
+    fails."""
+    try:
+        _lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _arrow_buffers(strings: Sequence[str]):
@@ -78,3 +93,15 @@ def predicate_table(dictionary: Sequence[str], op: str,
                         len(dictionary), nd, len(nd), _PRED_OPS[op],
                         out.ctypes.data_as(_U8P))
     return out.astype(bool)
+
+
+def hash_table64(dictionary: Sequence[str], seed: int = 42) -> np.ndarray:
+    """uint64[n]: a 64-bit avalanche hash of every dictionary entry's
+    UTF-8 bytes under ``seed``, the reference's bit for bit (partition
+    routing of host-side string keys)."""
+    lib = _lib()
+    data, offsets = _arrow_buffers(dictionary)
+    out = np.zeros(len(dictionary), dtype=np.uint64)
+    lib.hash_table64(data, offsets.ctypes.data_as(_I64P), len(dictionary),
+                     ctypes.c_uint64(seed), out.ctypes.data_as(_U64P))
+    return out

@@ -95,4 +95,32 @@ void predicate_table(const char* data, const int64_t* offsets, int64_t n,
     }
 }
 
+// 64-bit avalanche hash per entry (splitmix64 finalizer over bytes,
+// chunked): partition routing for host-side string keys; must agree
+// with itself across hosts (and with the reference's), not with the
+// device hash.
+void hash_table64(const char* data, const int64_t* offsets, int64_t n,
+                  uint64_t seed, uint64_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        const unsigned char* s = reinterpret_cast<const unsigned char*>(
+            data + offsets[i]);
+        int64_t slen = offsets[i + 1] - offsets[i];
+        uint64_t h = seed ^ (0x9E3779B97F4A7C15ULL * (uint64_t)slen);
+        int64_t j = 0;
+        for (; j + 8 <= slen; j += 8) {
+            uint64_t k;
+            std::memcpy(&k, s + j, 8);
+            h ^= k;
+            h = (h ^ (h >> 33)) * 0xFF51AFD7ED558CCDULL;
+        }
+        uint64_t tail = 0;
+        for (int64_t t = 0; j + t < slen; ++t)
+            tail |= (uint64_t)s[j + t] << (8 * t);
+        h ^= tail;
+        h = (h ^ (h >> 33)) * 0xC4CEB9FE1A85EC53ULL;
+        h ^= h >> 33;
+        out[i] = h;
+    }
+}
+
 }  // extern "C"

@@ -13,7 +13,12 @@ TPCHQuerySuite (reference: sql/core/.../TPCHQuerySuite.scala:26).
 from __future__ import annotations
 
 import datetime
-from typing import Dict
+import json
+import os
+import resource
+import shutil
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import pyarrow as pa
@@ -153,7 +158,8 @@ def _numbered_names(prefix: str, keys: np.ndarray) -> pa.Array:
 def generate_tables(sf: float = 0.01,
                     seed: int = 20260729) -> Dict[str, pa.Table]:
     """All eight tables at scale factor ``sf`` (sf=1 is ~6M lineitems).
-    Everything is generated in host RAM (SF1 takes a few GB)."""
+    In host RAM: for sf <= ~10; above that use write_parquet_streamed
+    (SF100 lineitem alone would need ~80 GB of host arrays)."""
     rng = np.random.default_rng(seed)
     tables, ctx = _gen_static(sf, rng)
     n_ord = max(1, int(1_500_000 * sf))
@@ -167,6 +173,7 @@ def _gen_static(sf: float, rng) -> tuple:
     """The six non-order tables plus the context the orders/lineitem
     generator needs (part retail prices, key cardinalities)."""
     tables: Dict[str, pa.Table] = {}
+    ctx = _order_ctx(sf)
 
     # region / nation --------------------------------------------------------
     tables["region"] = pa.table({
@@ -183,7 +190,7 @@ def _gen_static(sf: float, rng) -> tuple:
     })
 
     # part --------------------------------------------------------------------
-    n_part = max(1, int(200_000 * sf))
+    n_part = ctx["n_part"]
     pk = np.arange(1, n_part + 1)
     # p_name: 5-word strings from a pooled vocabulary (q9 predicates on
     # '%green%' — the pool keeps every color word's hit rate intact)
@@ -200,8 +207,7 @@ def _gen_static(sf: float, rng) -> tuple:
     type_vocab = [f"{a} {b} {c}" for a in TYPE_S1 for b in TYPE_S2
                   for c in TYPE_S3]
     cont_vocab = [f"{a} {b}" for a in CONTAINER_S1 for b in CONTAINER_S2]
-    # spec: (90000 + ((partkey/10) mod 20001) + 100*(partkey mod 1000))/100
-    retail_cents = 90000 + (pk // 10) % 20001 + 100 * (pk % 1000)
+    retail_cents = ctx["retail_cents"]
     tables["part"] = pa.table({
         "p_partkey": pa.array(pk, pa.int64()),
         "p_name": _dict_col(rng.integers(0, name_pool, n_part),
@@ -218,7 +224,7 @@ def _gen_static(sf: float, rng) -> tuple:
     })
 
     # supplier ----------------------------------------------------------------
-    n_supp = max(1, int(10_000 * sf))
+    n_supp = ctx["n_supp"]
     sk = np.arange(1, n_supp + 1)
     s_nation = rng.integers(0, 25, n_supp)
     # q16: ~5 per 10k suppliers carry 'Customer...Complaints'
@@ -253,8 +259,7 @@ def _gen_static(sf: float, rng) -> tuple:
     })
 
     # customer ----------------------------------------------------------------
-    n_cust = max(1, int(150_000 * sf))
-    ck = np.arange(1, n_cust + 1)
+    n_cust, ck = ctx["n_cust"], ctx["ck"]
     c_nation = rng.integers(0, 25, n_cust)
     # q13: some customers' orders carry 'special ... requests' comments —
     # handled on orders below
@@ -269,9 +274,20 @@ def _gen_static(sf: float, rng) -> tuple:
         "c_comment": _words_dict(rng, n_cust, 6),
     })
 
-    ctx = {"n_part": n_part, "n_supp": n_supp, "n_cust": n_cust,
-           "ck": ck, "retail_cents": retail_cents}
     return tables, ctx
+
+
+def _order_ctx(sf: float) -> Dict:
+    """The key cardinalities, customer keys and part retail prices that
+    the static tables and the orders/lineitem generator share: a function
+    of ``sf`` alone, so a slice can be made without the static tables."""
+    n_part = max(1, int(200_000 * sf))
+    n_cust = max(1, int(150_000 * sf))
+    pk = np.arange(1, n_part + 1)
+    # spec: (90000 + ((partkey/10) mod 20001) + 100*(partkey mod 1000))/100
+    return {"n_part": n_part, "n_supp": max(1, int(10_000 * sf)),
+            "n_cust": n_cust, "ck": np.arange(1, n_cust + 1),
+            "retail_cents": 90000 + (pk // 10) % 20001 + 100 * (pk % 1000)}
 
 
 def _gen_orders_slice(rng, ok_lo: int, ok_hi: int,
@@ -370,7 +386,166 @@ def _phones(rng, nationkeys: np.ndarray):
     return out
 
 
-def register_views(spark, tables: Dict[str, pa.Table]) -> None:
-    """Register the eight tables as temp views of ``spark``."""
+#: the eight tables, in the order the writers and ``register_views`` take
+TABLES = ("region", "nation", "part", "supplier", "partsupp", "customer",
+          "orders", "lineitem")
+
+#: row groups of the streamed writer's part files
+ROW_GROUP_ROWS = 1 << 20
+
+
+def write_parquet(tables: Dict[str, pa.Table], path: str) -> None:
+    """Each table as ``<path>/<name>.parquet``, one file each."""
+    import pyarrow.parquet as pq
+
+    os.makedirs(path, exist_ok=True)
+    for name, tbl in tables.items():
+        pq.write_table(tbl, os.path.join(path, f"{name}.parquet"))
+
+
+def _peak_rss_bytes() -> int:
+    """This process's peak resident set (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _write_slice(sf: float, path: str, seed: int, i: int, lo: int,
+                 hi: int) -> Dict:
+    """Orders [lo, hi) and their lineitems, generated from
+    ``default_rng([seed, i])`` and written as part ``i`` of
+    ``orders.parquet/`` and ``lineitem.parquet/``; its seconds and the
+    process's peak RSS."""
+    import pyarrow.parquet as pq
+
+    t0 = time.perf_counter()
+    orders, lineitem = _gen_orders_slice(np.random.default_rng([seed, i]),
+                                         lo, hi, _order_ctx(sf))
+    part = f"part-{i:05d}.parquet"
+    pq.write_table(orders, os.path.join(path, "orders.parquet", part),
+                   row_group_size=ROW_GROUP_ROWS)
+    pq.write_table(lineitem, os.path.join(path, "lineitem.parquet", part),
+                   row_group_size=ROW_GROUP_ROWS)
+    return {"part": i, "orders": hi - lo, "lineitem": lineitem.num_rows,
+            "seconds": time.perf_counter() - t0,
+            "peak_rss_bytes": _peak_rss_bytes()}
+
+
+def write_parquet_streamed(sf: float, path: str, seed: int = 20260729,
+                           orders_per_slice: int = 4_000_000,
+                           workers: int = 1) -> Dict:
+    """Generation past host RAM: the six static tables are written whole;
+    orders and lineitem are generated and written in slices of
+    ``orders_per_slice`` orders (~4x lineitems), so peak host RAM is one
+    slice a process (PERF.md has the measured sizes) instead of the full
+    ~100 GB at SF100.
+    ``orders.parquet/`` and ``lineitem.parquet/`` become directories of
+    ``part-%05d.parquet``, the multi-part layout every dbgen -S chunk run
+    produces; slice i draws from ``default_rng([seed, i])``. Slices are
+    seeded independently, so ``workers`` > 1 writes them in that many
+    spawned processes (beside the static tables), to the same files.
+
+    Returns the seconds of the static tables and of the slices (their
+    wall, and each slice's own with its process's peak RSS)."""
+    import pyarrow.parquet as pq
+
+    for sub in ("orders.parquet", "lineitem.parquet"):
+        os.makedirs(os.path.join(path, sub), exist_ok=True)
+    n_ord = max(1, int(1_500_000 * sf))
+    slices = [(i, lo, min(lo + orders_per_slice, n_ord + 1)) for i, lo in
+              enumerate(range(1, n_ord + 1, orders_per_slice))]
+
+    def statics() -> float:
+        t0 = time.perf_counter()
+        tables, _ = _gen_static(sf, np.random.default_rng(seed))
+        for name, tbl in tables.items():
+            pq.write_table(tbl, os.path.join(path, f"{name}.parquet"))
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if workers > 1 and len(slices) > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(
+                max_workers=min(workers, len(slices)),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            futures = [pool.submit(_write_slice, sf, path, seed, *s)
+                       for s in slices]
+            statics_s = statics()
+            done = [f.result() for f in futures]
+    else:
+        statics_s = statics()
+        done = [_write_slice(sf, path, seed, *s) for s in slices]
+    return {"statics_s": statics_s, "slices_s": time.perf_counter() - t0,
+            "slices": done, "peak_rss_bytes": _peak_rss_bytes()}
+
+
+def ensure_dataset(sf: float, base: str = "/tmp", seed: int = 20260729, *,
+                   streamed: Optional[bool] = None,
+                   orders_per_slice: int = 4_000_000,
+                   workers: int = 1) -> str:
+    """Generate once and keep on disk (SF100 is ~15 min of rng on one
+    core; a benchmark must not pay it per run); returns the directory.
+    ``write_parquet`` of ``generate_tables`` at sf <= 10, else
+    ``write_parquet_streamed``; ``streamed`` forces either writer.
+
+    A ``_DONE`` marker, written last, holds the recipe (sf, seed, writer,
+    slice size) and what the generation took. A directory whose marker
+    holds this recipe is returned as it is; any other (half written, or
+    made by another recipe, whose rows differ) is removed and made
+    again. ``workers`` only sets how the streamed writer runs. The
+    directory is ``<base>/tpch_sf<sf>`` (sf 0.5: ``tpch_sf0p5``)."""
+    path = os.path.join(base, "tpch_sf" + f"{sf:g}".replace(".", "p"))
+    marker = os.path.join(path, "_DONE")
+    if streamed is None:
+        streamed = sf > 10
+    recipe = {"sf": sf, "seed": seed,
+              "writer": "streamed" if streamed else "memory",
+              "orders_per_slice": orders_per_slice if streamed else None}
+    if os.path.exists(marker):
+        with open(marker) as f:
+            try:
+                done = json.load(f)
+            except ValueError:
+                done = {}
+        if isinstance(done, dict) and done.get("recipe") == recipe:
+            return path
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    t0 = time.perf_counter()
+    if streamed:
+        report = write_parquet_streamed(sf, path, seed, orders_per_slice,
+                                        workers)
+    else:
+        write_parquet(generate_tables(sf, seed), path)
+        report = {"peak_rss_bytes": _peak_rss_bytes()}
+    report["seconds"] = time.perf_counter() - t0
+    report["bytes"] = sum(
+        os.path.getsize(os.path.join(d, f))
+        for d, _, files in os.walk(path) for f in files)
+    with open(marker, "w") as f:
+        json.dump({"recipe": recipe, "report": report}, f)
+    return path
+
+
+def dataset_report(path: str) -> Dict:
+    """What ``ensure_dataset`` recorded in ``path``'s marker: the recipe
+    and the generation's seconds, bytes on disk and peak RSS."""
+    with open(os.path.join(path, "_DONE")) as f:
+        return json.load(f)
+
+
+def register_views(spark, tables: Optional[Dict[str, pa.Table]] = None,
+                   path: Optional[str] = None) -> None:
+    """Register the TPC-H tables as temp views of ``spark``: each of
+    ``tables`` from memory, or the eight of a ``write_parquet`` or
+    ``ensure_dataset`` directory through ``spark.read.parquet`` (a part
+    directory is one multi-file scan)."""
+    if (tables is None) == (path is None):
+        raise ValueError("register_views takes tables or path, not both")
+    if path is not None:
+        for name in TABLES:
+            spark.read.parquet(os.path.join(path, f"{name}.parquet")) \
+                .createOrReplaceTempView(name)
+        return
     for name, tbl in tables.items():
         spark.createDataFrame(tbl).createOrReplaceTempView(name)

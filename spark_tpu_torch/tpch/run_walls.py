@@ -2,8 +2,8 @@
 port on one GPU, and a host-side profile of one warm run, so that two
 trees of the repo can be compared in one call on one card.
 
-    python spark_tpu_torch/tpch/run_walls.py --tree DIR [--queries q2,q8]
-        [--sf 1.0] [--reps 5] [--profile q2,q8 --out DIR]
+    python spark_tpu_torch/tpch/run_walls.py --tree DIR [--queries q2,q8|all]
+        [--sf 1.0] [--reps 5] [--profile q2,q8 --out DIR] [--dataset BASE]
 
 Imports ``spark_tpu_torch`` from DIR (a checkout of any commit that has
 the port; the script itself may come from another), generates TPC-H at
@@ -18,6 +18,13 @@ top 8 into the JSON line. Prints one JSON line: the tree, the card's name
 and power limit, and per query the walls in ms, the warm median and the
 row count. Compare two trees in turns within one call (parent, change,
 change, parent): walls move 30% between machines.
+
+With ``--dataset BASE`` the tables come from disk instead: the tree's
+own ``ensure_dataset`` makes (once) ``BASE/tpch_sf<sf>`` with the
+streamed writer, 2,000,000 orders a part, in a process per CPU, and
+``register_views(spark, path=...)`` reads it. A query that fails is
+recorded with its error and the others still run (exit 1 if any
+failed).
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profile", default="")
     ap.add_argument("--out", help="directory for the --profile listings")
+    ap.add_argument("--dataset", metavar="BASE",
+                    help="read the tables from ensure_dataset(sf, BASE)")
     args = ap.parse_args()
     if args.profile and not args.out:
         ap.error("--profile needs --out")
@@ -80,19 +89,41 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     spark = SparkSession(device="cuda")
-    register_views(spark, generate_tables(args.sf, seed=20260729))
+    out = {"tree": args.tree, "card": card, "sf": args.sf}
+    if args.dataset:
+        from spark_tpu_torch.tpch import dataset_report, ensure_dataset
+
+        t0 = time.perf_counter()
+        path = ensure_dataset(args.sf, base=args.dataset, seed=20260729,
+                              streamed=True, orders_per_slice=2_000_000,
+                              workers=os.cpu_count() or 1)
+        out["dataset"] = {"path": path, "wall_s": time.perf_counter() - t0,
+                          **dataset_report(path)}
+        register_views(spark, path=path)
+    else:
+        register_views(spark, generate_tables(args.sf, seed=20260729))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    out = {"tree": args.tree, "card": card, "sf": args.sf}
     profiled = set(filter(None, args.profile.split(",")))
-    for name in args.queries.split(","):
+    names = (",".join(f"q{i}" for i in range(1, 23))
+             if args.queries == "all" else args.queries)
+    failed = []
+    for name in names.split(","):
         query = (QUERIES[int(name[1:])] if name[1:].isdigit()
                  else SCALAR_QUERIES[name])
         walls = []
-        for _ in range(2 + args.reps):
-            t0 = time.perf_counter()
-            rows = spark.sql(query).collect()
-            walls.append((time.perf_counter() - t0) * 1e3)
+        try:
+            for _ in range(2 + args.reps):
+                t0 = time.perf_counter()
+                rows = spark.sql(query).collect()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        except Exception as exc:  # noqa: BLE001 - recorded, run goes on
+            out[name] = {"error": f"{type(exc).__name__}: {exc}"[:500],
+                         "walls_ms": walls}
+            failed.append(name)
+            print(f"run_walls: {name} failed: {exc!r}", file=sys.stderr,
+                  flush=True)
+            continue
         out[name] = {"first_ms": walls[0], "second_ms": walls[1],
                      "warm_ms": walls[2:],
                      "warm_median_ms": statistics.median(walls[2:]),
@@ -102,7 +133,7 @@ def main() -> int:
                 args.out, f"run_walls_{os.path.basename(tree)}_{name}.txt")
             out[name]["host_profile"] = _profile(spark, query, path)
     print(json.dumps(out), flush=True)
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

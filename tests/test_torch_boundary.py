@@ -119,3 +119,36 @@ def test_kernel_wrappers_refuse_to_fall_back(monkeypatch):
     mask.dtype = torch.bool
     with pytest.raises(RuntimeError, match="nvcc"):
         seg_agg.seg_sum(None, seg, mask, 100, exact_int=True)
+
+
+def test_other_entry_points_default_to_cuda(monkeypatch):
+    """Every public entry point that places tensors takes the session's
+    rule: the card by default, a raise without it."""
+    from spark_tpu_torch.graph import Graph
+    from spark_tpu_torch.sketch import CountMinSketch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Graph([1, 2], [1], [2])
+    with pytest.raises(RuntimeError, match="cuda"):
+        CountMinSketch()
+    assert Graph([1, 2], [1], [2], device="cpu").device.type == "cpu"
+
+
+def test_perf_kernel_table_rows_have_bound_and_library_time():
+    """Each TPU kernel's row in PERF.md's table names its bound and the
+    library call's time."""
+    text = (REPO / "PERF.md").read_text()
+    after = text[text.index("### Every TPU kernel of the repo"):]
+    start = after.index("\n| ") + 1
+    lines = after[start:after.index("\n\n", start)].splitlines()
+    head = [c.strip() for c in lines[0].strip("|").split("|")]
+    rows = [[c.strip() for c in ln.strip("|").split("|")]
+            for ln in lines[2:] if ln.startswith(("| B1 ", "| B2 "))]
+    assert {r[0] for r in rows} == {"B1", "B2"}
+    bound = head.index("Bound ms")
+    library = head.index("Library ms")
+    for r in rows:
+        assert len(r) == len(head), r[:4]
+        assert r[bound][:1].isdigit(), (r[:4], r[bound])
+        assert r[library][:1].isdigit(), (r[:4], r[library])
