@@ -277,7 +277,7 @@ no result line):
      each wrapper, dtype, K and N) held against the plain versions, the
      card's runs equal to the wrappers' launches; seg_fsum float32 and
      the B1 count timed at the phase's own shapes.
-   - scale phase (TPC-H at SF10, last): the SF1 views and captured
+   - scale phase (TPC-H at SF10): the SF1 views and captured
      stages dropped; a fresh card session reads the child's multi-part
      dataset through ``register_views(spark, path=...)``; q1, q1-wide,
      q3, q5, q9 and q18 (``SCALE_QUERIES``) each with its largest scan
@@ -292,8 +292,29 @@ no result line):
      (``tpch/arrow_queries.py``; ``oracle.assert_rows_match``); q1
      chunked one byte under its scan estimate (29 chunks) equal to the
      resident run; B1 and B2 timed at q1-wide's N = 60M; the graph
-     pool and the phase's peak device memory printed; the dataset
-     removed.
+     pool and the phase's peak device memory printed; the dataset, the
+     rows and pyarrow's answers kept for the multiproc phase.
+   - multiproc phase (query execution across processes, last): the
+     parent frees its device state (``free_sf1``) and starts 2 child
+     processes (``--multiproc-child RANK PORT DATASET OUT``) on the one
+     card, each one rank of a ``master("mesh[*]")`` session on
+     ``cuda:0`` over gloo (NCCL refuses two ranks on one device; gloo
+     moves CUDA tensors through host copies, the route printed), each
+     reading its own 4 of the 8 lineitem and orders parts with
+     ``multihost.read_parquet_sharded`` (dictionaries agreed across the
+     processes) and the six small tables whole; q1, q1-wide, q3, q5, q9
+     and q18 with adaptive execution off, q1-wide and q3 also adaptive
+     and fused, each twice (the second bit for bit the first), launches
+     counted from 0 (the card's runs equal the wrappers'), every wrapper
+     call held against its plain version; each run's walls, stages,
+     exchanges (rows and bytes moved to the other process), result
+     gather ms, bytes staged through the host and peak device memory,
+     and each child's read ms of its parts printed; child 0 times B1
+     and B2 at q1-wide's N = 30M. The parent waits at most
+     ``MULTIPROC_WAIT_S`` and kills the children's process groups after;
+     both children's rows equal bit for bit, the scale phase's by
+     ``match_mesh``'s rules, q1, q3 and q5 pyarrow's, every mode the off
+     run's bit for bit. The dataset is removed.
    Outside the ooc, obs, serve, stream and compile phases every query
    must run with no ladder replan. The sqlite comparisons of ``ORACLE_HELD_BY_TESTS``
    (W2, W3, R1, C1, X1, X2, A1-168) are left out at SF1: their card rows
@@ -325,7 +346,9 @@ no result line):
    each is held against its plain PyTorch version on those same
    tensors: counts, int64 sums and min/max equal, float32 sums within
    rtol 1e-4 / atol 1e-3, seg_fsum bit for bit.
-7. A ``{"kernels": [...]}`` line (launches by path), the card line,
+7. A ``{"kernels": [...]}`` line (launches by path, the multiproc
+   path's the sum of its children's first runs; the scale and multiproc
+   paths' B1/B2 shapes), the card line,
    and as the last line ``{"ok": true, "device": {...}}``. Each phase
    prints its seconds.
 """
@@ -358,7 +381,9 @@ CROSSOVER_KS = (2, 6, 16, 32, 64)  # q1 has K = 6
 
 
 def log(*args):
-    print(*args, flush=True)
+    # one write a line: the multiproc phase's children share stdout
+    sys.stdout.write(" ".join(map(str, args)) + "\n")
+    sys.stdout.flush()
 
 
 def check(cond, msg: str) -> None:
@@ -5370,6 +5395,9 @@ SCALE_HELD = (1, 3, 5)
 SCALE_LAUNCHES = {"q1_wide": {"count": 7, "sum_i64": 2, "min": 1, "max": 1}}
 #: B1 and B2 at the scale phase's q1-wide shapes (the kernels line)
 _SCALE_KERNELS: dict = {}
+#: the scale phase's dataset path, rows and pyarrow answers (``path``,
+#: ``rows``, ``yardstick``), which the multiproc phase reads
+_SCALE_DONE: dict = {}
 
 
 def _scale_query(name: str) -> str:
@@ -5510,11 +5538,12 @@ def scale_scan_estimate(spark, query: str) -> int:
     return max(_est_scan(s) for s in L.collect_nodes(plan, L.UnresolvedScan))
 
 
-def scale_kernel_times(seg_agg, calls) -> None:
-    """B1 (count, int64 sum) and B2 (min, max) at q1-wide's SF10 shapes:
-    the first recorded call of each mode, timed (device ms from the
-    profiler, CUDA events) against its bound, its plain version and the
-    library call."""
+def scale_kernel_times(seg_agg, calls, label: str = "scale",
+                       into: dict = _SCALE_KERNELS) -> None:
+    """B1 (count, int64 sum) and B2 (min, max) at q1-wide's SF10 shapes
+    (``label``'s path): the first recorded call of each mode, timed
+    (device ms from the profiler, CUDA events) against its bound, its
+    plain version and the library call, kept in ``into``."""
     seen = set()
     for name, a, _ in calls:
         data, seg, mask = a.get("data"), a["seg"], a["mask"]
@@ -5553,7 +5582,8 @@ def scale_kernel_times(seg_agg, calls) -> None:
                 include_self=True)
         got, want = fn(), plain()
         check(torch.equal(_bits(got), _bits(want)),
-              f"scale: {mode} at N={n} K={k} differs from the plain version")
+              f"{label}: {mode} at N={n} K={k} differs from the plain "
+              "version")
         dev_ms, per_call, _ = profile_calls(fn)
         out_bytes = k * got.element_size()
         bnd, by = bound_ms(n * ROW_BYTES[mode] + out_bytes, n * 3)
@@ -5562,12 +5592,12 @@ def scale_kernel_times(seg_agg, calls) -> None:
                      share=bnd / dev_ms if dev_ms else None, max_abs_err=0.0,
                      plain_ms=cuda_ms(plain, reps=3, warmup=1),
                      library_ms=cuda_ms(lib, reps=5, warmup=1))
-        _SCALE_KERNELS[mode] = stats
-        log(f"kernel {name} {mode} scale N={n} K={k}: " + " ".join(
+        into[mode] = stats
+        log(f"kernel {name} {mode} {label} N={n} K={k}: " + " ".join(
             f"{key}={val:.6g}" if isinstance(val, float) else
             f"{key}={val}" for key, val in stats.items()))
     check(seen == {"count", "sum_i64", "min", "max"},
-          f"scale: q1-wide's calls covered {sorted(seen)}")
+          f"{label}: q1-wide's calls covered {sorted(seen)}")
 
 
 def scale_phase(seg_agg, gpu, cpu, oracle, dev="cuda", dataset=None):
@@ -5586,10 +5616,9 @@ def scale_phase(seg_agg, gpu, cpu, oracle, dev="cuda", dataset=None):
     pyarrow, bit for bit, and the pyarrow computations of the queries
     (``oracle.assert_rows_match``). q1 chunked at a budget one byte
     under its scan estimate equals the resident run. B1 and B2 are timed
-    at q1-wide's shapes. The dataset's directory is removed at the end.
-    Returns the launches of the first runs and the chunked run."""
-    import shutil
-
+    at q1-wide's shapes. The dataset, the rows and pyarrow's answers are
+    kept for the multiproc phase (``_SCALE_DONE``). Returns the launches
+    of the first runs and the chunked run."""
     from spark_tpu_torch import recovery
     from spark_tpu_torch.api.session import SparkSession
     from spark_tpu_torch.physical import chunked, graphs
@@ -5699,6 +5728,282 @@ def scale_phase(seg_agg, gpu, cpu, oracle, dev="cuda", dataset=None):
         log(f"scale: peak device memory of the phase "
             f"{phase_peak / 2 ** 30:.2f} GiB")
     log_pool("scale")
+    # the multiproc phase reads the same parts and holds its rows to these
+    _SCALE_DONE.update(path=path, rows=rows, yardstick=done["yardstick"])
+    return {m: total.get(m, 0) for m in mode_launches(seg_agg)}
+
+
+#: the multiproc phase (query execution across processes): this many
+#: child processes on the one card, one rank each, over gloo (NCCL
+#: refuses two ranks on one device)
+MULTIPROC_PROCS = 2
+MULTIPROC_BACKEND = "gloo"
+#: the scale phase's queries with adaptive execution off; these also
+#: adaptive and fused
+MULTIPROC_MODES = {"q1_wide": ("off", "adaptive", "fused"),
+                   "q3": ("off", "adaptive", "fused")}
+#: a collective waits this long for its peers, then the child fails
+MULTIPROC_TIMEOUT_S = 120.0
+#: the parent waits this long for its children, then kills them
+MULTIPROC_WAIT_S = 400.0
+#: B1 and B2 at q1-wide's shapes in the multiproc children (child 0)
+_MULTIPROC_KERNELS: dict = {}
+
+
+def multiproc_child(rank: int, port: int, path: str, out: str,
+                    dev: str = "cuda") -> int:
+    """``--multiproc-child RANK PORT DATASET OUT``: rank ``rank`` of the
+    multiproc phase. It joins the gloo group at ``localhost:PORT``, makes
+    a ``master("mesh[*]")`` session on ``dev`` (the card: ``cuda:0`` in
+    every child), reads its own parts of lineitem and orders with
+    ``read_parquet_sharded`` (parts ``rank``, ``rank`` + N, ...) and the
+    six small tables whole, and runs each query of ``SCALE_QUERIES``
+    (``MULTIPROC_MODES``: also adaptive and fused) twice: the first run
+    with the launch counters set to 0 before and read after, every
+    kernel-wrapper call held against its plain version, the card's runs
+    equal to the wrappers' launches; the second bit for bit the first.
+    It prints each run's walls, stages, exchanges, result gather, bytes
+    staged through the host and peak device memory, and pickles the
+    rows and numbers to ``OUT``. Child 0 then times B1 and B2 at
+    q1-wide's shapes while the others wait."""
+    import pickle
+
+    from spark_tpu_torch.api.dataframe import DataFrame
+    from spark_tpu_torch.api.session import SparkSession
+    from spark_tpu_torch.ops import _build, seg_agg
+    from spark_tpu_torch.parallel import multihost
+    from spark_tpu_torch.plan import logical as L
+
+    os.environ["TZ"] = "UTC"
+    time.tzset()
+    t_start = time.perf_counter()
+    if dev == "cuda":
+        _build.libraries(("seg_agg", "seg_fsum"))  # the parent's build
+    multihost.initialize(f"localhost:{port}", MULTIPROC_PROCS, rank,
+                         backend=MULTIPROC_BACKEND,
+                         timeout_s=MULTIPROC_TIMEOUT_S)
+    spark = SparkSession.builder.device(dev).master("mesh[*]") \
+        .getOrCreate()
+    mesh = spark.mesh_executor.mesh
+    comm = mesh.comm
+    tag = f"multiproc[{rank}]"
+    log(f"{tag}: {mesh}, backend {comm.backend}, route {comm.route}, "
+        f"{time.perf_counter() - t_start:.1f} s to join")
+    res = {"rank": rank, "backend": comm.backend, "route": comm.route,
+           "reads": {}, "rows": {}, "runs": {}, "launches": {}, "calls": {}}
+    for name in ("lineitem", "orders"):
+        table = os.path.join(path, f"{name}.parquet")
+        t0 = time.perf_counter()
+        parts = [os.path.basename(f)
+                 for f in multihost.local_fragments(table)]
+        sb = multihost.read_parquet_sharded(table, mesh=mesh)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        live = sb.live_counts()
+        res["reads"][name] = dict(ms=ms, parts=parts, live=live)
+        log(f"{tag}: read {name} parts {parts} in {ms:.1f} ms: live rows "
+            f"by rank {live}, capacity {sb.per_device_capacity} a rank")
+        DataFrame(spark, L.Relation(sb)).createOrReplaceTempView(name)
+        del sb
+    for name in ("customer", "supplier", "nation", "region", "part",
+                 "partsupp"):
+        spark.read.parquet(os.path.join(path, f"{name}.parquet")) \
+            .createOrReplaceTempView(name)
+    total: dict = {}
+    kept = None
+    for name in SCALE_QUERIES:
+        query = _scale_query(name)
+        for mode in MULTIPROC_MODES.get(name, ("off",)):
+            spark.conf.set("spark.tpu.adaptive.enabled", mode != "off")
+            spark.conf.set("spark.tpu.fusion.enabled", mode == "fused")
+            label = f"{tag} {name} {mode}"
+            seg_agg.reset_launches()
+            runs = device_runs(seg_agg, dev)
+            if dev == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            with recording_calls(seg_agg) as calls:
+                t0 = time.perf_counter()
+                rows = [tuple(r) for r in spark.sql(query).collect()]
+                first_ms = (time.perf_counter() - t0) * 1e3
+            rec = spark.mesh_executor.last_run
+            got = {m: n for m, n in mode_launches(seg_agg).items() if n}
+            for m, n in got.items():
+                total[m] = total.get(m, 0) + n
+            if dev == "cuda":
+                check(ran_since(seg_agg, runs) == got, f"{label}: the "
+                      f"device ran {ran_since(seg_agg, runs)}, the "
+                      f"wrappers launched {got}")
+                check(len(calls) == sum(got.values()),
+                      f"{label}: {len(calls)} wrapper calls, {got}")
+            hold_calls(seg_agg, calls, label)
+            res["calls"][(name, mode)] = sorted({c[0] for c in calls})
+            if name == "q1_wide" and mode == "off" and rank == 0:
+                kept = calls
+            del calls
+            peak = (torch.cuda.max_memory_allocated() - base
+                    if dev == "cuda" else 0)
+            t0 = time.perf_counter()
+            again = [tuple(r) for r in spark.sql(query).collect()]
+            second_ms = (time.perf_counter() - t0) * 1e3
+            check(row_bits(again) == row_bits(rows),
+                  f"{label}: the second run differs from the first")
+            ex = rec["exchanges"]
+            run = dict(first_ms=first_ms, second_ms=second_ms,
+                       stages=[round(st["wall_ms"], 1)
+                               for st in rec["stages"]],
+                       exchanges=[(e["op"], e["rows"], e["moved_rows"],
+                                   e["moved_bytes"]) for e in ex],
+                       moved_rows=sum(e["moved_rows"] or 0 for e in ex),
+                       moved_bytes=sum(e["moved_bytes"] or 0 for e in ex),
+                       gather_ms=rec.get("gather_ms", 0.0),
+                       staged_bytes=rec["staged_bytes"],
+                       host_reads=rec["host_reads"], peak_bytes=peak,
+                       events=sorted({e["kind"] for e in rec["events"]}))
+            res["rows"][(name, mode)] = rows
+            res["runs"][(name, mode)] = run
+            res["launches"][(name, mode)] = got
+            log(f"{label}: first {first_ms:.1f} ms, second "
+                f"{second_ms:.1f} ms, {len(rows)} rows; "
+                f"{len(run['stages'])} stages, wall ms {run['stages']}; "
+                f"{len(ex)} exchanges moving {run['moved_rows']} rows / "
+                f"{run['moved_bytes']} bytes to the other ranks (op, live "
+                f"rows, moved rows, moved bytes each: {run['exchanges']}); "
+                f"result gather {run['gather_ms']:.1f} ms; staged through "
+                f"the host {run['staged_bytes']} bytes; host reads "
+                f"{run['host_reads']}; peak device memory above the "
+                f"tables {peak / 2 ** 20:.1f} MiB; decisions "
+                f"{run['events']}; launches {got}")
+    spark.conf.set("spark.tpu.adaptive.enabled", False)
+    spark.conf.set("spark.tpu.fusion.enabled", False)
+    res["total"] = total
+    res["device_runs"] = device_runs(seg_agg, dev)
+    # child 0 times B1 and B2 at q1-wide's shapes while the others wait
+    comm.gather_objects("timing")
+    res["kernels"] = {}
+    if kept is not None and dev == "cuda":
+        scale_kernel_times(seg_agg, kept, label=tag, into=res["kernels"])
+    del kept
+    comm.gather_objects("timed")
+    res["seconds"] = time.perf_counter() - t_start
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    log(f"{tag}: {res['seconds']:.1f} s in all")
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def multiproc_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
+    """Query execution across processes on the one card: after the
+    parent's device state is freed (``free_sf1``), ``MULTIPROC_PROCS``
+    children (``--multiproc-child``, each its own process group) join a
+    gloo group, each one rank of a ``mesh[*]`` session on ``cuda:0``,
+    each reading its own parts of the scale phase's SF10 lineitem and
+    orders (``multiproc_child``). The parent waits at most
+    ``MULTIPROC_WAIT_S`` and kills them after. Every child's rows equal
+    the other's bit for bit, the scale phase's single-process rows by
+    ``match_mesh`` and, for q1, q3 and q5, pyarrow's answers; each mode
+    equals the off run bit for bit; both children launch the same
+    kernels, q1-wide B1's count and int64 sum and B2's min and max.
+    Returns the children's first runs' launches; removes the dataset."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from spark_tpu_torch.tpch.oracle import assert_rows_match
+
+    t_phase = time.perf_counter()
+    path = _SCALE_DONE["path"]
+    free_sf1(gpu)
+    if dev == "cuda":
+        log(f"multiproc: the parent holds "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card "
+            "before its children start")
+    port = _free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multiproc_") as tmp:
+        outs = [os.path.join(tmp, f"child{r}.pickle")
+                for r in range(MULTIPROC_PROCS)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multiproc-child",
+             str(r), str(port), path, outs[r]]
+            + ([] if dev == "cuda" else [dev]), start_new_session=True)
+            for r in range(MULTIPROC_PROCS)]
+        try:
+            deadline = time.monotonic() + MULTIPROC_WAIT_S
+            for r, proc in enumerate(procs):
+                try:
+                    rc = proc.wait(max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    rc = None
+                check(rc == 0, f"multiproc: child {r} "
+                      + ("did not finish within "
+                         f"{MULTIPROC_WAIT_S:.0f} s" if rc is None
+                         else f"exited with {rc}"))
+        finally:
+            for proc in procs:
+                stop_child(proc)
+        got = []
+        for out in outs:
+            with open(out, "rb") as f:
+                got.append(pickle.load(f))
+    first = got[0]
+    check({g["backend"] for g in got} == {MULTIPROC_BACKEND},
+          f"multiproc: backends {[g['backend'] for g in got]}")
+    parts = sorted(p for g in got for p in g["reads"]["lineitem"]["parts"])
+    check(len(parts) == len(set(parts)) and len(parts) > MULTIPROC_PROCS,
+          f"multiproc: the children's lineitem parts {parts}")
+    scale_rows, yardstick = _SCALE_DONE["rows"], _SCALE_DONE["yardstick"]
+    total: dict = {}
+    for (name, mode), rows in first["rows"].items():
+        label = f"multiproc {name} {mode}"
+        for g in got[1:]:
+            check(row_bits(g["rows"][(name, mode)]) == row_bits(rows),
+                  f"{label}: the children's rows differ")
+        check(row_bits(rows) == row_bits(first["rows"][(name, "off")]),
+              f"{label}: differs from the off run")
+        worst = match_mesh(label, rows, scale_rows[name])
+        if name in (f"q{q}" for q in SCALE_HELD) and mode == "off":
+            assert_rows_match(rows, yardstick[int(name[1:])],
+                              label=f"{label}[pyarrow]")
+        launched = [g["launches"][(name, mode)] for g in got]
+        check(all(x == launched[0] for x in launched),
+              f"{label}: the children launched {launched}")
+        if name == "q1_wide":
+            # B1 and B2 inside the mesh stages (the wrappers' calls; on
+            # the card their launches)
+            check(all(g["calls"][(name, mode)] == ["seg_minmax", "seg_sum"]
+                      for g in got), f"{label}: wrapper calls "
+                  f"{[g['calls'][(name, mode)] for g in got]}")
+            check(dev != "cuda" or all(launched[0].get(m) for m in
+                                       ("count", "sum_i64", "min", "max")),
+                  f"{label}: launched {launched[0]}")
+        log(f"multiproc: {name} {mode}: {len(rows)} rows, the children's "
+            f"equal bit for bit, the scale phase's single-process rows "
+            f"(floats within {worst:.3g} of the bound {MESH_TOL})"
+            + (" and pyarrow's" if name in (f"q{q}" for q in SCALE_HELD)
+               and mode == "off" else "")
+            + f"; walls by child (first / second ms) "
+            + ", ".join(f"{g['runs'][(name, mode)]['first_ms']:.1f} / "
+                        f"{g['runs'][(name, mode)]['second_ms']:.1f}"
+                        for g in got))
+    for g in got:
+        for m, n in g["total"].items():
+            total[m] = total.get(m, 0) + n
+    _MULTIPROC_KERNELS.update(first["kernels"])
+    staged = sum(r["staged_bytes"] for g in got for r in g["runs"].values())
+    log(f"multiproc: {MULTIPROC_PROCS} processes over {first['backend']} "
+        f"(route {first['route']}), {staged} bytes staged through the host "
+        f"by the first runs, the children's own seconds "
+        f"{[round(g['seconds'], 1) for g in got]}, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s; launches {total}")
     shutil.rmtree(path)
     return {m: total.get(m, 0) for m in mode_launches(seg_agg)}
 
@@ -5712,6 +6017,9 @@ def main() -> int:
         return compile_child(*sys.argv[2:6], sf=float(sys.argv[6]))
     if len(sys.argv) == 4 and sys.argv[1] == "--dataset-child":
         return dataset_child(sys.argv[2], sys.argv[3])
+    if len(sys.argv) in (6, 7) and sys.argv[1] == "--multiproc-child":
+        return multiproc_child(int(sys.argv[2]), int(sys.argv[3]),
+                               *sys.argv[4:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -5811,7 +6119,8 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
                 ("lib", functools.partial(lib_phase, tables=tables,
                                           root=root)),
                 ("scale", functools.partial(scale_phase,
-                                            dataset=dataset))):
+                                            dataset=dataset)),
+                ("multiproc", multiproc_phase)):
             t0 = time.perf_counter()
             by_path[path] = phase(seg_agg, gpu, cpu, oracle)
             log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
@@ -5833,7 +6142,7 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
                   by_path.items()
                   if path not in ("scalar", "io", "ooc", "mesh", "frontend",
                                   "aqe", "obs", "serve", "stream", "lib",
-                                  "scale")),
+                                  "scale", "multiproc")),
           "an earlier path summed floats on a grouped path")
     check(by_path["frontend"]["fsum_f64"] >= 1
           and by_path["frontend"]["count"] >= 1,
@@ -5865,6 +6174,10 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
               for m in ("count", "sum_i64", "min", "max")),
           "the scale path launched no seg_sum count or int64 sum or "
           "seg_minmax kernel")
+    check(all(by_path["multiproc"][m] >= 1
+              for m in ("count", "sum_i64", "min", "max")),
+          "the multiproc path launched no seg_sum count or int64 sum or "
+          "seg_minmax kernel")
 
     kernels = []
     for name, modes, headline, replaces, source, stats in (
@@ -5892,6 +6205,9 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
         # the scale path's shapes: q1-wide at SF10 (N = 60M)
         scale_shapes = {m: _SCALE_KERNELS[m] for m in modes
                         if m in _SCALE_KERNELS}
+        # the multiproc path's shapes: q1-wide in a child (N = 30M)
+        multiproc_shapes = {m: _MULTIPROC_KERNELS[m] for m in modes
+                            if m in _MULTIPROC_KERNELS}
         kernels.append(dict(
             name=name, route="cuda",
             source=f"spark_tpu_torch/ops/csrc/{source}", replaces=replaces,
@@ -5900,7 +6216,7 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
                               for path, p in by_path.items()},
             mode=headline, **top, modes=per_mode,
             aqe_stats_stage=stats_shape, lib_shapes=lib_shapes,
-            scale_shapes=scale_shapes))
+            scale_shapes=scale_shapes, multiproc_shapes=multiproc_shapes))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -288,7 +288,11 @@ class SparkSessionBuilder:
         """The master URL (reference: SparkContext's master parsing):
         ``local``, ``local[*]`` or ``local[N]`` run on the session's one
         device; ``mesh[N]`` (``mesh[*]``: every CUDA device) runs every
-        query over an N-rank mesh (``parallel/executor.py``)."""
+        query over an N-rank mesh (``parallel/executor.py``). Under an
+        initialized process group of several processes
+        (``parallel/multihost.initialize``), ``mesh[*]`` is the mesh over
+        them, one rank a process, each on its process's device (the
+        session's: ``cpu``, or the process's own card)."""
         from spark_tpu_torch import conf as CF
 
         if url.startswith("mesh"):
@@ -363,10 +367,16 @@ class SparkSession:
         self._mesh = None
         self._mesh_executor = None
         if n is not None:
+            from spark_tpu_torch.parallel import multihost
             from spark_tpu_torch.parallel.mesh import make_mesh
 
-            self._mesh = make_mesh(None if n == -1 else int(n),
-                                   devices=mesh_devices)
+            if n == -1 and multihost.process_info()["process_count"] > 1:
+                # one rank a process over the initialized process group
+                self._mesh = multihost.global_mesh(mesh_devices,
+                                                   device=self.device)
+            else:
+                self._mesh = make_mesh(None if n == -1 else int(n),
+                                       devices=mesh_devices)
         # runtime lock-order validation (spark.tpu.debug.lockOrder)
         locks.configure(self.conf)
         self.catalog = Catalog(self)

@@ -17,8 +17,16 @@ a (D, slice) send buffer by destination and ``all_to_all`` it.
   work). A wait has a timeout; a rank that fails aborts the barrier, so
   the others stop with ``CommAborted`` instead of waiting for it.
 - ``DistComm``: one rank per process over ``torch.distributed``
-  (``all_to_all_single``, ``all_gather``, ``broadcast``; gloo on the
-  CPU, NCCL on the card).
+  (``all_to_all_single``, ``all_gather``; gloo on the CPU, NCCL on the
+  card). Its route is fixed by the backend's name when it is made: on
+  gloo a CUDA tensor is copied to the host, moved, and copied back
+  (``route`` "host", the bytes counted in ``staged_bytes``), so two
+  processes sharing one card (which NCCL refuses) run over gloo; NCCL
+  and CPU tensors move directly. A collective that fails (a peer
+  process died or tore the group down, or the wait passed the group's
+  timeout, ``multihost.initialize``) tears the group down too and
+  raises ``ProcessGroupLost``, which is terminal: a failure anywhere in
+  the job stops every process within that timeout.
 
 Both give the same results: a reduction gathers every rank's tensor and
 combines them in rank order, so a float ``psum``'s bits do not depend on
@@ -31,7 +39,7 @@ per (source, destination) and sizes the send slice by the largest cell
 (rounded up to 128 rows, the same on every rank). The live rows and
 their order are those of the reference's exchange; only the dead
 padding differs. The matrix also gives each exchange's statistics: live
-rows, rows moved to another rank, their bytes (``ThreadComm.events``).
+rows, rows moved to another rank, their bytes (``Comm.events``).
 Adaptive execution passes the reference's measured bounds (a slice and
 a receive capacity) instead, and a fused span picks its receive
 capacity from the same matrix.
@@ -61,6 +69,14 @@ SLICE_BUCKET = 128
 
 class CommAborted(RuntimeError):
     """Another rank failed (or a wait timed out) during a collective."""
+
+
+class ProcessGroupLost(CommAborted):
+    """A stage or a collective across processes failed, and the process
+    group is torn down: terminal, never retried (a retry in one process
+    would meet no peer; ``recovery.is_transient`` reads ``terminal``)."""
+
+    terminal = True
 
 
 class Comm:
@@ -102,6 +118,12 @@ class Comm:
                   src: int = 0) -> List[torch.Tensor]:
         return [parts[src] for parts in self.all_gather(rank, device,
                                                         tensors)]
+
+    def keeps_stats(self, rank: int) -> bool:
+        """Whether ``rank`` records the statistics every rank could: rank
+        0 on a communicator of threads, every process's own rank on one
+        of processes (each process keeps its own copy)."""
+        return rank == 0
 
     def record(self, event: dict) -> None:
         """Keep one exchange's statistics (called by one rank)."""
@@ -173,33 +195,110 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 class DistComm(Comm):
     """One rank per process over an initialized ``torch.distributed``
-    process group (``multihost.initialize``)."""
+    process group (``multihost.initialize``); see the module docstring
+    for its route and its failures."""
 
     def __init__(self, group=None):
         import torch.distributed as dist
 
+        if not dist.is_initialized():
+            raise ProcessGroupLost("the process group was torn down after "
+                                   "a failed stage")
         self._dist = dist
         self.group = group
         self.size = dist.get_world_size(group)
+        self.backend = str(dist.get_backend(group))
+        #: "host" (gloo: CUDA tensors staged through host copies) or
+        #: "device"
+        self.route = "host" if self.backend == "gloo" else "device"
+        #: bytes copied between the card and the host for the route
+        self.staged_bytes = 0
         self.events: List[dict] = []
+
+    def _call(self, fn, *args):
+        if not self._dist.is_initialized():
+            raise ProcessGroupLost("the process group was torn down after "
+                                   "a failed stage")
+        try:
+            return fn(*args, group=self.group)
+        except RuntimeError as e:
+            self.abort()
+            raise ProcessGroupLost(
+                f"a collective across processes failed (a peer failed, or "
+                f"the wait passed the group's timeout): {e}") from None
+
+    def _send(self, t: torch.Tensor) -> torch.Tensor:
+        w = _wire(t).contiguous()
+        if self.route == "host":
+            if w.is_cuda:
+                self.staged_bytes += w.numel() * w.element_size()
+                w = w.cpu()
+        elif not w.is_cuda:
+            w = w.cuda()  # NCCL moves CUDA tensors only
+        return w
+
+    def _recv(self, w: torch.Tensor, like: torch.Tensor,
+              device=None) -> torch.Tensor:
+        dev = torch.device(device) if device is not None else like.device
+        if w.device != dev:
+            if dev.type == "cuda":
+                self.staged_bytes += w.numel() * w.element_size()
+            w = w.to(dev)
+        return w.to(like.dtype)
 
     def all_to_all(self, rank, device, tensors):
         out = []
         for t in tensors:
-            src = _wire(t).contiguous()
+            src = self._send(t)
             dst = torch.empty_like(src)
-            self._dist.all_to_all_single(dst, src, group=self.group)
-            out.append(dst.to(t.dtype))
+            self._call(self._dist.all_to_all_single, dst, src)
+            out.append(self._recv(dst, t, device))
         return out
 
     def all_gather(self, rank, device, tensors):
         out = []
         for t in tensors:
-            src = _wire(t).contiguous()
+            src = self._send(t)
             parts = [torch.empty_like(src) for _ in range(self.size)]
-            self._dist.all_gather(parts, src, group=self.group)
-            out.append([p.to(t.dtype) for p in parts])
+            self._call(self._dist.all_gather, parts, src)
+            out.append([self._recv(p, t, device) for p in parts])
         return out
+
+    def all_gather_var(self, rank: int, device,
+                       tensors: List[torch.Tensor]
+                       ) -> List[List[torch.Tensor]]:
+        """``all_gather`` of tensors whose leading dimension differs from
+        rank to rank: the sizes first, then every tensor padded to the
+        largest (``all_gather`` moves equal shapes only) and cut back."""
+        sizes = torch.tensor([t.shape[0] for t in tensors],
+                             dtype=torch.int64)
+        rows = torch.stack(self.all_gather(rank, "cpu", [sizes])[0]) \
+            .tolist()
+        out = []
+        for j, t in enumerate(tensors):
+            m = max(r[j] for r in rows)
+            if t.shape[0] < m:
+                t = torch.cat([t, t.new_zeros((m - t.shape[0],)
+                                              + tuple(t.shape[1:]))])
+            parts = self.all_gather(rank, device, [t])[0]
+            out.append([p[:r[j]] for p, r in zip(parts, rows)])
+        return out
+
+    def gather_objects(self, obj) -> list:
+        """Every process's picklable ``obj``, in rank order."""
+        got: list = [None] * self.size
+        self._call(self._dist.all_gather_object, got, obj)
+        return got
+
+    def keeps_stats(self, rank: int) -> bool:
+        return True
+
+    def abort(self) -> None:
+        """Tear the process group down: every peer's pending or next
+        collective fails (``ProcessGroupLost``) instead of waiting out
+        the timeout."""
+        if self._dist.is_initialized():
+            self._dist.destroy_process_group(self.group)
 
     def record(self, event: dict) -> None:
         self.events.append(event)
@@ -247,9 +346,10 @@ def axis_size() -> int:
 
 def note_host_read() -> None:
     """Count a read of device values on the host that every rank makes
-    (rank 0 counts it once for the stage)."""
+    (rank 0 counts it once for the stage; across processes, each
+    process for its own record)."""
     ctx = current()
-    if ctx.rank == 0:
+    if ctx.comm.keeps_stats(ctx.rank):
         ctx.comm.note_host_read()
 
 
@@ -413,7 +513,7 @@ def exchange(pipe: Pipe, target: torch.Tensor, op: str = "hash",
     if ocap is not None and ocap < max(incoming):
         raise RuntimeError(f"exchange out capacity {ocap} below the "
                            f"measured largest incoming {max(incoming)}")
-    if ctx.rank == 0:
+    if ctx.comm.keeps_stats(ctx.rank):
         moved = sum(n for s, r in enumerate(rows) for j, n in enumerate(r)
                     if j != s)
         ctx.comm.record({"op": op, "ranks": d,
@@ -457,7 +557,7 @@ def broadcast_gather(pipe: Pipe) -> Pipe:
     ctx = current()
     d = ctx.comm.size
     parts = ctx.comm.all_gather(ctx.rank, ctx.device, _tensors(pipe))
-    if ctx.rank == 0:
+    if ctx.comm.keeps_stats(ctx.rank):
         live = int(sum(int(m.sum()) for m in parts[0]))  # host sync
         ctx.comm.note_host_read()
         ctx.comm.record({"op": "broadcast", "ranks": d, "rows": live,

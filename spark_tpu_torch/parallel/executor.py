@@ -12,6 +12,16 @@ it are collectives on a ``ThreadComm`` of its own. A rank that raises
 aborts the collectives, the others stop, and the stage re-raises the
 first failure in the caller; no thread outlives its stage.
 
+On a mesh that spans processes (``multihost``: one rank a process) each
+process runs the same program and, for each stage, only its own rank,
+in the calling thread, on a ``DistComm``. Every host decision (a
+compaction, the fused overflow sentinel, the stats stages, an
+aggregation strategy, the broadcast switch, join counts, key ranges,
+hot keys) reads values gathered from every rank
+(``ShardedBatch.rank_values``), so every process decides alike and
+issues the same collectives; a stage's end gathers every rank's
+capacity and a digest of its dictionaries.
+
 Mesh stages run eagerly under ``stats_recording_disabled``: they bind
 and record no runtime statistics and capture no CUDA graph (a capture
 while another thread launches on the same device fails).
@@ -160,6 +170,27 @@ def _decode_key_value(raw, field):
 
         return decimal.Decimal(int(raw)).scaleb(-field.dtype.scale)
     return raw.item() if hasattr(raw, "item") else raw
+
+
+def _key_raw(bits: int, field):
+    """A key value from its gathered int64 (``_detect_hot_keys``): a
+    float from its bits, a boolean, else the integer."""
+    if isinstance(field.dtype, (T.Float32Type, T.Float64Type)):
+        return float(np.array(bits, dtype=np.int64).view(np.float64))
+    if isinstance(field.dtype, T.BooleanType):
+        return bool(bits)
+    return int(bits)
+
+
+def _dictionary_digest(field) -> int:
+    """A field's string dictionary as one int64 (0 without one), equal
+    across processes when the dictionaries are."""
+    if field.dictionary is None:
+        return 0
+    import hashlib
+
+    h = hashlib.blake2b(repr(field.dictionary).encode(), digest_size=8)
+    return int.from_bytes(h.digest(), "little", signed=True)
 
 
 def _hot_key_pred(keys, hot) -> E.Expression:
@@ -338,6 +369,9 @@ class MeshExecutor:
       rank, their bytes and its capacities in and out;
     - ``host_reads``: reads of device values on the host, by the executor
       and the collectives (one per read all ranks make);
+    - ``gather_ms``: the result's gather (``ShardedBatch.to_batch``);
+      ``staged_bytes``: across processes over gloo, the bytes the
+      collectives copied between the card and the host;
     - ``events``: every decision, as the reference's metrics events
       (``kind`` ``aqe``: ``decision`` broadcast_join / exchange_join with
       ``measured_bytes``, ``static_bytes`` and ``threshold``, skew_split
@@ -362,16 +396,25 @@ class MeshExecutor:
     def execute_logical(self, plan: L.LogicalPlan,
                         optimize: bool = True) -> Batch:
         """Optimize (under this executor's settings), plan and run
-        ``plan``; the result's shards concatenated on rank 0's device."""
+        ``plan``; the result's shards concatenated on rank 0's device
+        (across processes: every rank's live rows, in every process, on
+        its first rank's device)."""
         from spark_tpu_torch.plan.optimizer import optimize as opt
 
         lp = opt(plan, self.conf) if optimize else plan
         self._stats = {"stages": [], "exchanges": [], "events": [],
-                       "host_reads": 0}
+                       "host_reads": 0, "staged_bytes": 0}
+        comm = self.mesh.comm
+        staged = comm.staged_bytes if comm is not None else 0
         t0 = time.perf_counter()
         try:
-            out = self.run(self.plan(lp)).to_batch()
+            sb = self.run(self.plan(lp))
+            t1 = time.perf_counter()
+            out = sb.to_batch()
+            self._stats["gather_ms"] = (time.perf_counter() - t1) * 1e3
         finally:
+            if comm is not None:  # host decisions' and the result's
+                self._stats["staged_bytes"] += comm.staged_bytes - staged
             stats, self._stats = self._stats, None
             stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
             stats["rank_stages"] = len(stats["stages"])
@@ -387,7 +430,7 @@ class MeshExecutor:
         if isinstance(plan, L.UnresolvedScan):
             return D.ShardScanExec(self._shard_relation(
                 plan.source.read(plan.columns, plan.filters,
-                                 self.mesh.devices[0])))
+                                 self.mesh.home_device)))
         if isinstance(plan, L.Range):
             n = plan.num_rows
             p = K.bucket(math.ceil(max(1, n) / d), 128)
@@ -817,9 +860,11 @@ class MeshExecutor:
         return sb
 
     def _read_stats(self, stats_sb: ShardedBatch, widths) -> list:
-        """The stats stage's columns from rank 0's shard, each cut to its
-        width, in one host read."""
-        cols = stats_sb.shards[0].columns
+        """The stats stage's columns, each cut to its width, in one host
+        read. They are reductions over every rank, combined in rank
+        order, so each rank's copy is the same: this process's first
+        rank's is read (rank 0's lives in process 0 only)."""
+        cols = stats_sb.shards[self.mesh.local_ranks[0]].columns
         flat = torch.cat([cols[i].data[:w] for i, w in enumerate(widths)])
         values = flat.tolist()
         self._host_read()
@@ -1174,39 +1219,63 @@ class MeshExecutor:
         return sb
 
     def _run_stage_inner(self, plan: P.PhysicalPlan) -> ShardedBatch:
-        """Run ``plan`` on every rank (one thread each, the caller's
-        context copied into each), its collectives on one ThreadComm;
-        the first failure is raised here once every rank has stopped.
-        With a sampled trace each rank runs in a ``stage.device`` span
-        that ends with a sync of its device."""
+        """Run ``plan`` on every rank of this process (``_run_threads``,
+        or ``_run_local_rank`` on a mesh that spans processes), then
+        record the stage, check the fused overflow sentinel and compact
+        a sparse output."""
         _check_stage(plan)
+        d = self.d
+        t0 = time.perf_counter()
+        if self.mesh.spans_processes:
+            sb, walls, comm = self._run_local_rank(plan)
+        else:
+            sb, walls, comm = self._run_threads(plan)
+        wall = (time.perf_counter() - t0) * 1e3
+        if self._stats is not None:
+            self._stats["host_reads"] += comm.host_reads
+            self._stats["stages"].append({
+                "node": plan.node_string(), "wall_ms": wall,
+                "rank_ms": walls, "exchanges": len(comm.events)})
+            self._stats["exchanges"].extend(comm.events)
+            self._stats["staged_bytes"] += getattr(comm, "staged_bytes", 0)
+        if comm.events and not self._adaptive_enabled():
+            # static mode: the stage's exchanges ran inside it at their
+            # own capacities; report the stage output as the post-exchange
+            # shape (the live rows were counted by the exchanges' reads)
+            p = sb.per_device_capacity
+            metrics.record_exchange(
+                op="fused", mode="fused", devices=d,
+                exchanges=len(comm.events),
+                rows=int(comm.events[-1]["rows"]),
+                capacity_before=p, capacity_after=p,
+                buffer_bytes=d * p * _row_width(sb.schema))
+        if isinstance(plan, D.FusedSpanExec) and plan.speculate:
+            # each shard's last slot is the overflow sentinel: read it
+            # before any compaction could move it
+            self._host_read()
+            if any(v[0] for v in sb.rank_values(
+                    lambda s: s.row_mask[-1:])):
+                raise _FusionOverflow()
+        return self._maybe_compact(sb)
+
+    def _run_threads(self, plan: P.PhysicalPlan):
+        """Every rank, one thread each (the caller's context copied into
+        each), their collectives on one ThreadComm; the first failure is
+        raised here once every rank has stopped. With a sampled trace
+        each rank runs in a ``stage.device`` span that ends with a sync
+        of its device. Returns the output, the ranks' walls and the
+        communicator."""
         d = self.d
         comm = X.ThreadComm(d)
         outs: List[Optional[Batch]] = [None] * d
         walls = [0.0] * d
         failures: list = []  # (rank, exception), first failure first
         lock = locks.named_lock("mesh.rank_stage")
-        ctx = trace.current()
-        sampled = ctx is not None and ctx.sampled
-        op = type(plan).__name__
-
-        def run_on(r: int) -> Batch:
-            dev = self.mesh.devices[r]
-            if not sampled:
-                return run_rank(plan, r, comm, dev)
-            with trace.span("stage.device", op=op, rank=r):
-                out = run_rank(plan, r, comm, dev)
-                if torch.device(dev).type == "cuda":
-                    # device time, not launch time: only a sampled
-                    # trace pays the sync (the host reads the same
-                    # buffers right after anyway)
-                    torch.cuda.current_stream(dev).synchronize()
-                return out
 
         def rank_main(r: int) -> None:
             t0 = time.perf_counter()
             try:
-                outs[r] = run_on(r)
+                outs[r] = self._run_on(plan, r, comm)
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 with lock:
                     failures.append((r, e))
@@ -1214,7 +1283,6 @@ class MeshExecutor:
             finally:
                 walls[r] = (time.perf_counter() - t0) * 1e3
 
-        t0 = time.perf_counter()
         if d == 1:
             contextvars.copy_context().run(rank_main, 0)
         else:
@@ -1233,10 +1301,9 @@ class MeshExecutor:
                 raise RuntimeError(
                     f"mesh stage did not finish within {comm.timeout} s: "
                     + plan.node_string())
-        wall = (time.perf_counter() - t0) * 1e3
-        if self._stats is not None:
-            self._stats["host_reads"] += comm.host_reads
         if failures:
+            if self._stats is not None:
+                self._stats["host_reads"] += comm.host_reads
             real = [f for f in failures
                     if not isinstance(f[1], X.CommAborted)]
             raise (real or failures)[0][1]
@@ -1247,32 +1314,62 @@ class MeshExecutor:
                    for a, b_ in zip(schema.fields, b.schema.fields)):
                 raise AssertionError(
                     f"rank {r}'s string dictionaries differ from rank 0's")
-        sb = ShardedBatch(schema, [b.data for b in outs], self.mesh)
-        if self._stats is not None:
-            self._stats["stages"].append({
-                "node": plan.node_string(), "wall_ms": wall,
-                "rank_ms": walls, "exchanges": len(comm.events)})
-            self._stats["exchanges"].extend(comm.events)
-        if comm.events and not self._adaptive_enabled():
-            # static mode: the stage's exchanges ran inside it at their
-            # own capacities; report the stage output as the post-exchange
-            # shape (the live rows were counted by the exchanges' reads)
-            p = sb.per_device_capacity
-            metrics.record_exchange(
-                op="fused", mode="fused", devices=d,
-                exchanges=len(comm.events),
-                rows=int(comm.events[-1]["rows"]),
-                capacity_before=p, capacity_after=p,
-                buffer_bytes=d * p * _row_width(sb.schema))
-        if isinstance(plan, D.FusedSpanExec) and plan.speculate:
-            # each shard's last slot is the overflow sentinel: read it
-            # before any compaction could move it
-            self._host_read()
-            if bool(torch.stack([s.row_mask[-1].to(sb.shards[0].row_mask
-                                                   .device)
-                                 for s in sb.shards]).any()):
-                raise _FusionOverflow()
-        return self._maybe_compact(sb)
+        return (ShardedBatch(schema, [b.data for b in outs], self.mesh),
+                walls, comm)
+
+    def _run_local_rank(self, plan: P.PhysicalPlan):
+        """On a mesh that spans processes: this process's rank, in the
+        calling thread, its collectives on a DistComm over the process
+        group. A failure here tears the group down (``DistComm.abort``),
+        so the other processes' collectives fail at once instead of
+        waiting out the timeout, and is raised as ``ProcessGroupLost``
+        (terminal, never retried: a retry would meet no peer). Then one
+        all-gather of every rank's capacity, wall and a digest of its
+        output's dictionaries: a digest that differs fails the stage in
+        every process. Returns the output, the ranks' walls and the
+        communicator."""
+        (r,) = self.mesh.local_ranks
+        comm = X.DistComm(self.mesh.comm.group)
+        t0 = time.perf_counter()
+        try:
+            out = self._run_on(plan, r, comm)
+        except X.ProcessGroupLost:
+            raise
+        except BaseException as e:
+            comm.abort()
+            raise X.ProcessGroupLost(
+                f"{plan.node_string()} failed in process "
+                f"{self.mesh.process_index} ({type(e).__name__}: {e}); the "
+                "process group is torn down") from e
+        wall_us = int((time.perf_counter() - t0) * 1e6)
+        digests = [_dictionary_digest(f) for f in out.schema.fields]
+        rows = self.mesh.comm.gather_objects(
+            (out.capacity, wall_us, digests))
+        for q, (_, _, dg) in enumerate(rows):
+            if dg != digests:
+                raise AssertionError(
+                    f"rank {q}'s string dictionaries differ from rank "
+                    f"{r}'s after {plan.node_string()}")
+        shards = [out.data if q == r else None for q in range(self.d)]
+        sb = ShardedBatch(out.schema, shards, self.mesh,
+                          capacities=[c for c, _, _ in rows])
+        return sb, [w / 1e3 for _, w, _ in rows], comm
+
+    def _run_on(self, plan: P.PhysicalPlan, r: int, comm: X.Comm) -> Batch:
+        """Rank ``r``'s part of the stage, in a ``stage.device`` span
+        closed by a sync of its device when the trace is sampled."""
+        dev = self.mesh.devices[r]
+        ctx = trace.current()
+        if ctx is None or not ctx.sampled:
+            return run_rank(plan, r, comm, dev)
+        with trace.span("stage.device", op=type(plan).__name__, rank=r):
+            out = run_rank(plan, r, comm, dev)
+            if torch.device(dev).type == "cuda":
+                # device time, not launch time: only a sampled trace
+                # pays the sync (the host reads the same buffers right
+                # after anyway)
+                torch.cuda.current_stream(dev).synchronize()
+            return out
 
     def _maybe_compact(self, sb: ShardedBatch) -> ShardedBatch:
         """Shrink the shards when at most a quarter of the rows live, to
@@ -1282,16 +1379,16 @@ class MeshExecutor:
         p = sb.per_device_capacity
         if p <= _COMPACT_MIN_CAPACITY:
             return sb
-        # per rank: live rows and 1 + the last live row's position
-        reads = []
-        for s in sb.shards:
+
+        def live_and_end(s):
+            # live rows and 1 + the last live row's position
             pos = torch.arange(s.capacity + 1, device=s.row_mask.device)
             mask = torch.cat([s.row_mask.new_zeros(1), s.row_mask])
-            reads.append(torch.stack([
+            return torch.stack([
                 s.row_mask.sum(),
                 torch.where(mask, pos, torch.zeros_like(pos)).max()])
-                .to(sb.shards[0].row_mask.device))
-        stats = torch.stack(reads).tolist()
+
+        stats = sb.rank_values(live_and_end)
         self._host_read()
         max_live = max(live for live, _ in stats)
         if max_live * 4 > p:
@@ -1299,9 +1396,11 @@ class MeshExecutor:
         new_p = K.bucket(max_live, 128)
         op = _CompactExec(new_p, D.ShardScanExec(sb),
                           sliced=all(end <= new_p for _, end in stats))
-        shards = [op.execute([Pipe.from_batch(sb.shard_batch(r))])
-                  .to_batch().data for r in range(self.d)]
-        return ShardedBatch(sb.schema, shards, sb.mesh, sb.sorted_by)
+        shards = [None if s is None else
+                  op.execute([Pipe.from_batch(sb.shard_batch(r))])
+                  .to_batch().data for r, s in enumerate(sb.shards)]
+        return ShardedBatch(sb.schema, shards, sb.mesh, sb.sorted_by,
+                            capacities=[new_p] * self.d)
 
     # ---- join lowering ------------------------------------------------------
 
@@ -1361,9 +1460,8 @@ class MeshExecutor:
             cnt_sb = self._run_stage(D.JoinCountExec(
                 D.ShardScanExec(ls), D.ShardScanExec(rs), jb.left_keys,
                 jb.right_keys, mins, ranges, bcast))
-            dev = cnt_sb.shards[0].row_mask.device
-            counts = torch.cat([s.columns[0].data[:1].to(dev)
-                                for s in cnt_sb.shards]).tolist()
+            counts = [v[0] for v in cnt_sb.rank_values(
+                lambda s: s.columns[0].data[:1])]
             self._host_read()
             return np.array(counts, dtype=np.int64)
 
@@ -1414,18 +1512,28 @@ class MeshExecutor:
         self._host_read(2)  # the candidates, then the live rows
         nkeys = len(keys)
         fields = cand.schema.fields
+
+        def first_row(s):
+            # per key: valid, the value's int64 (a float's bits); the count
+            out = []
+            for cd in s.columns[:nkeys]:
+                v = cd.data[:1]
+                v = v.to(torch.float64).view(torch.int64) \
+                    if v.is_floating_point() else v.to(torch.int64)
+                out += [torch.ones(1, dtype=torch.int64, device=v.device)
+                        if cd.validity is None
+                        else cd.validity[:1].to(torch.int64), v]
+            return torch.cat(out + [s.columns[nkeys].data[:1]
+                                    .to(torch.int64)])
+
         counts: dict = {}
-        for s in cand.shards:
-            vals = []
-            for i in range(nkeys):
-                cd = s.columns[i]
-                if cd.validity is not None and not bool(cd.validity[0]):
-                    break  # a NULL key never joins
-                vals.append(_decode_key_value(cd.data[0].cpu(), fields[i]))
-            else:
-                key = tuple(vals)
-                counts[key] = counts.get(key, 0) + int(s.columns[nkeys]
-                                                       .data[0])
+        for row in cand.rank_values(first_row):
+            if not all(row[2 * i] for i in range(nkeys)):
+                continue  # a NULL key never joins
+            key = tuple(_decode_key_value(_key_raw(row[2 * i + 1],
+                                                   fields[i]), fields[i])
+                        for i in range(nkeys))
+            counts[key] = counts.get(key, 0) + int(row[-1])
         share = max(1, sb.num_valid_rows() // max(1, self.d))
         hot = [k for k, c in sorted(counts.items(), key=lambda kv: -kv[1])
                if c > share]
@@ -1510,23 +1618,23 @@ class MeshExecutor:
                 mins.append(0)
                 ranges.append(max(1, len(ud or ())))
             else:
+                def any_min_max(s, i=i):
+                    cd = s.columns[i]
+                    ok = s.row_mask if cd.validity is None \
+                        else s.row_mask & cd.validity
+                    v = cd.data.to(torch.int64)
+                    big = torch.full((), K.INT64_MAX, dtype=torch.int64,
+                                     device=v.device)
+                    small = torch.full((), K.INT64_MIN, dtype=torch.int64,
+                                       device=v.device)
+                    return torch.stack([ok.any().to(torch.int64),
+                                        torch.where(ok, v, big).min(),
+                                        torch.where(ok, v, small).max()])
+
                 stats = []
                 for sb in (lproj, rproj):
-                    for s in sb.shards:
-                        cd = s.columns[i]
-                        ok = s.row_mask if cd.validity is None \
-                            else s.row_mask & cd.validity
-                        v = cd.data.to(torch.int64)
-                        big = torch.full((), K.INT64_MAX, dtype=torch.int64,
-                                         device=v.device)
-                        small = torch.full((), K.INT64_MIN,
-                                           dtype=torch.int64,
-                                           device=v.device)
-                        stats.append(torch.stack([
-                            ok.any().to(torch.int64),
-                            torch.where(ok, v, big).min(),
-                            torch.where(ok, v, small).max()]).tolist())
-                        self._host_read()
+                    stats += sb.rank_values(any_min_max)
+                    self._host_read()
                 found = [(lo, hi) for any_, lo, hi in stats if any_]
                 if not found:
                     mins.append(0)

@@ -151,7 +151,10 @@ def _atom_ndv(atom: L.LogicalPlan, expr: E.Expression) -> Optional[float]:
         break
     if isinstance(node, L.Relation):
         if node.batch.capacity > _REL_NDV_CAP \
-                or name not in node.batch.schema:
+                or name not in node.batch.schema \
+                or not hasattr(node.batch, "data"):
+            # a sharded relation: its rows may live in other processes,
+            # and every process must plan alike
             return None
         data = node.batch.data.columns[node.batch.schema.index(name)].data
         return _column_ndv(data)

@@ -198,7 +198,8 @@ def is_transient(exc: BaseException) -> bool:
         return False
     for e in _chain(exc):
         if isinstance(e, (deadline.DeadlineExceeded,
-                          RetryBudgetExhausted)):
+                          RetryBudgetExhausted)) \
+                or getattr(e, "terminal", False):
             return False
     for e in _chain(exc):
         if isinstance(e, (faults.InjectedTransientError,
