@@ -300,21 +300,30 @@ no result line):
      card, each one rank of a ``master("mesh[*]")`` session on
      ``cuda:0`` over gloo (NCCL refuses two ranks on one device; gloo
      moves CUDA tensors through host copies, the route printed), each
-     reading its own 4 of the 8 lineitem and orders parts with
-     ``multihost.read_parquet_sharded`` (dictionaries agreed across the
-     processes) and the six small tables whole; q1, q1-wide, q3, q5, q9
-     and q18 with adaptive execution off, q1-wide and q3 also adaptive
-     and fused, each twice (the second bit for bit the first), launches
-     counted from 0 (the card's runs equal the wrappers'), every wrapper
-     call held against its plain version; each run's walls, stages,
-     exchanges (rows and bytes moved to the other process), result
-     gather ms, bytes staged through the host and peak device memory,
-     and each child's read ms of its parts printed; child 0 times B1
-     and B2 at q1-wide's N = 30M. The parent waits at most
+     reading its own 4 of the 8 lineitem and orders parts
+     (``multihost.local_fragments``) into Arrow tables, sharded with
+     ``multihost.sharded_batch_from_local`` (dictionaries agreed across
+     the processes), and the six small tables whole; q1, q1-wide, q3,
+     q5, q9 and q18 with adaptive execution off, q1-wide and q3 also
+     adaptive and fused, each twice (the second bit for bit the first),
+     launches counted from 0 (the card's runs equal the wrappers'),
+     every wrapper call held against its plain version. Then the 2 x 2
+     mesh: each child makes a ``mesh[*]`` session over 4 devices listed
+     with ``meshDevices`` (``cuda:0`` each), two ranks a child, threads
+     of it, their collectives on ``exchange.ProcessThreadComm``, shards
+     the same Arrow tables over its two ranks in row order (SF10's parts
+     are not read again), and runs q1-wide, q3, q5 and q18 off and q3
+     also adaptive and fused, twice each, held the same way. Each run's
+     walls, stages, exchanges (the rows and bytes that cross to the
+     other process, and those that stay between a child's threads),
+     result gather ms, bytes staged through the host and peak device
+     memory, and each child's read and shard ms printed; child 0 times
+     B1 and B2 at q1-wide's N = 30M. The parent waits at most
      ``MULTIPROC_WAIT_S`` and kills the children's process groups after;
-     both children's rows equal bit for bit, the scale phase's by
-     ``match_mesh``'s rules, q1, q3 and q5 pyarrow's, every mode the off
-     run's bit for bit. The dataset is removed.
+     on both meshes both children's rows equal bit for bit, the scale
+     phase's by ``match_mesh``'s rules, q1, q3 and q5 pyarrow's, every
+     mode the off run's bit for bit; the 2 x 2 mesh's rows the one-rank
+     runs' by ``match_mesh``'s rules. The dataset is removed.
    Outside the ooc, obs, serve, stream and compile phases every query
    must run with no ladder replan. The sqlite comparisons of ``ORACLE_HELD_BY_TESTS``
    (W2, W3, R1, C1, X1, X2, A1-168) are left out at SF1: their card rows
@@ -347,7 +356,8 @@ no result line):
    tensors: counts, int64 sums and min/max equal, float32 sums within
    rtol 1e-4 / atol 1e-3, seg_fsum bit for bit.
 7. A ``{"kernels": [...]}`` line (launches by path, the multiproc
-   path's the sum of its children's first runs; the scale and multiproc
+   path's the sum of its children's one-rank first runs,
+   ``multiproc_2x2``'s of their 2 x 2 mesh's; the scale and multiproc
    paths' B1/B2 shapes), the card line,
    and as the last line ``{"ok": true, "device": {...}}``. Each phase
    prints its seconds.
@@ -5742,12 +5752,20 @@ MULTIPROC_BACKEND = "gloo"
 #: adaptive and fused
 MULTIPROC_MODES = {"q1_wide": ("off", "adaptive", "fused"),
                    "q3": ("off", "adaptive", "fused")}
+#: then the 2 x 2 mesh: this many ranks a child, threads of it, and its
+#: queries and modes
+MULTIPROC_THREADS = 2
+MULTIPROC_MESH2 = {"q1_wide": ("off",), "q3": ("off", "adaptive", "fused"),
+                   "q5": ("off",), "q18": ("off",)}
 #: a collective waits this long for its peers, then the child fails
 MULTIPROC_TIMEOUT_S = 120.0
 #: the parent waits this long for its children, then kills them
-MULTIPROC_WAIT_S = 400.0
+MULTIPROC_WAIT_S = 500.0
 #: B1 and B2 at q1-wide's shapes in the multiproc children (child 0)
 _MULTIPROC_KERNELS: dict = {}
+#: the 2 x 2 mesh's launches (the children's first runs), for the
+#: kernels line
+_MULTIPROC_MESH2: dict = {}
 
 
 def multiproc_child(rank: int, port: int, path: str, out: str,
@@ -5755,18 +5773,21 @@ def multiproc_child(rank: int, port: int, path: str, out: str,
     """``--multiproc-child RANK PORT DATASET OUT``: rank ``rank`` of the
     multiproc phase. It joins the gloo group at ``localhost:PORT``, makes
     a ``master("mesh[*]")`` session on ``dev`` (the card: ``cuda:0`` in
-    every child), reads its own parts of lineitem and orders with
-    ``read_parquet_sharded`` (parts ``rank``, ``rank`` + N, ...) and the
-    six small tables whole, and runs each query of ``SCALE_QUERIES``
-    (``MULTIPROC_MODES``: also adaptive and fused) twice: the first run
-    with the launch counters set to 0 before and read after, every
-    kernel-wrapper call held against its plain version, the card's runs
-    equal to the wrappers' launches; the second bit for bit the first.
-    It prints each run's walls, stages, exchanges, result gather, bytes
-    staged through the host and peak device memory, and pickles the
-    rows and numbers to ``OUT``. Child 0 then times B1 and B2 at
-    q1-wide's shapes while the others wait."""
+    every child), reads its own parts of lineitem and orders (parts
+    ``rank``, ``rank`` + N, ...: ``multihost.local_fragments``) into
+    Arrow tables and shards them with ``sharded_batch_from_local``, reads
+    the six small tables whole, and runs each query of
+    ``SCALE_QUERIES`` (``MULTIPROC_MODES``: also adaptive and fused)
+    twice (``multiproc_runs``). Then the 2 x 2 mesh: a session over
+    ``MULTIPROC_THREADS`` ranks a child (``meshDevices``, the child's
+    ranks threads of it on its card), the same Arrow tables sharded over
+    them in row order (SF10's parts are not read again), and
+    ``MULTIPROC_MESH2``'s queries and modes run twice each the same way.
+    It pickles the rows and numbers to ``OUT``. Child 0 then times B1
+    and B2 at q1-wide's shapes while the others wait."""
     import pickle
+
+    import pyarrow.dataset as pads
 
     from spark_tpu_torch.api.dataframe import DataFrame
     from spark_tpu_torch.api.session import SparkSession
@@ -5790,31 +5811,97 @@ def multiproc_child(rank: int, port: int, path: str, out: str,
     log(f"{tag}: {mesh}, backend {comm.backend}, route {comm.route}, "
         f"{time.perf_counter() - t_start:.1f} s to join")
     res = {"rank": rank, "backend": comm.backend, "route": comm.route,
-           "reads": {}, "rows": {}, "runs": {}, "launches": {}, "calls": {}}
+           "reads": {}, "rows": {}, "runs": {}, "launches": {}, "calls": {},
+           "mesh2": {}}
+    tables = {}
+
+    def views(session, label):
+        m = session.mesh_executor.mesh
+        for name, table in tables.items():
+            t0 = time.perf_counter()
+            sb = multihost.sharded_batch_from_local(table, mesh=m)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            live = sb.live_counts()
+            res["reads"].setdefault(name, {})[label] = dict(ms=ms, live=live)
+            log(f"{tag}: {label}: {name} sharded in {ms:.1f} ms: live rows "
+                f"by rank {live}, capacity {sb.per_device_capacity} a rank")
+            DataFrame(session, L.Relation(sb)) \
+                .createOrReplaceTempView(name)
+            del sb
+        for name in ("customer", "supplier", "nation", "region", "part",
+                     "partsupp"):
+            session.read.parquet(os.path.join(path, f"{name}.parquet")) \
+                .createOrReplaceTempView(name)
+
     for name in ("lineitem", "orders"):
-        table = os.path.join(path, f"{name}.parquet")
         t0 = time.perf_counter()
-        parts = [os.path.basename(f)
-                 for f in multihost.local_fragments(table)]
-        sb = multihost.read_parquet_sharded(table, mesh=mesh)
-        if dev == "cuda":
-            torch.cuda.synchronize()
+        frags = multihost.local_fragments(
+            os.path.join(path, f"{name}.parquet"))
+        tables[name] = pads.dataset(frags, format="parquet").to_table()
         ms = (time.perf_counter() - t0) * 1e3
-        live = sb.live_counts()
-        res["reads"][name] = dict(ms=ms, parts=parts, live=live)
-        log(f"{tag}: read {name} parts {parts} in {ms:.1f} ms: live rows "
-            f"by rank {live}, capacity {sb.per_device_capacity} a rank")
-        DataFrame(spark, L.Relation(sb)).createOrReplaceTempView(name)
-        del sb
-    for name in ("customer", "supplier", "nation", "region", "part",
-                 "partsupp"):
-        spark.read.parquet(os.path.join(path, f"{name}.parquet")) \
-            .createOrReplaceTempView(name)
-    total: dict = {}
+        parts = [os.path.basename(f) for f in frags]
+        res["reads"][name] = dict(ms=ms, parts=parts)
+        log(f"{tag}: read {name} parts {parts} in {ms:.1f} ms "
+            f"({tables[name].num_rows} rows)")
+    views(spark, "mesh[*]")
+    kept = multiproc_runs(seg_agg, spark, SCALE_QUERIES, MULTIPROC_MODES,
+                          tag, res, dev)
+    if rank != 0:
+        kept = None
+
+    # the 2 x 2 mesh: this child's ranks are threads of it, on its card
+    for name in tables:
+        spark.catalog.dropTempView(name)
+    del spark
+    per = ([f"cuda:{p % torch.cuda.device_count()}"
+            for p in range(MULTIPROC_PROCS) for _ in range(MULTIPROC_THREADS)]
+           if dev == "cuda" else [dev] * MULTIPROC_PROCS * MULTIPROC_THREADS)
+    spark = SparkSession.builder.device(dev).master("mesh[*]") \
+        .meshDevices(per).getOrCreate()
+    mesh = spark.mesh_executor.mesh
+    log(f"{tag}: 2 x 2: {mesh}, this child's ranks {mesh.local_ranks}")
+    check(mesh.local_ranks == tuple(range(rank * MULTIPROC_THREADS,
+                                          (rank + 1) * MULTIPROC_THREADS)),
+          f"{tag}: the 2 x 2 mesh's ranks {mesh.local_ranks}")
+    views(spark, "2 x 2")
+    del tables
+    mesh2 = {"rows": {}, "runs": {}, "launches": {}, "calls": {}}
+    res["mesh2"] = mesh2
+    multiproc_runs(seg_agg, spark, tuple(MULTIPROC_MESH2), MULTIPROC_MESH2,
+                   f"{tag} 2 x 2", mesh2, dev)
+    res["device_runs"] = device_runs(seg_agg, dev)
+    # child 0 times B1 and B2 at q1-wide's shapes while the others wait
+    comm.gather_objects("timing")
+    res["kernels"] = {}
+    if kept is not None and rank == 0 and dev == "cuda":
+        scale_kernel_times(seg_agg, kept, label=tag, into=res["kernels"])
+    del kept
+    comm.gather_objects("timed")
+    res["seconds"] = time.perf_counter() - t_start
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    log(f"{tag}: {res['seconds']:.1f} s in all")
+    return 0
+
+
+def multiproc_runs(seg_agg, spark, names, modes: dict, tag: str, res: dict,
+                   dev: str):
+    """Each query of ``names`` in ``modes`` (by default off only) twice
+    on ``spark``'s mesh: the first run with the launch counters set to 0
+    before and read after, every kernel-wrapper call held against its
+    plain version, the card's runs equal to the wrappers' launches; the
+    second bit for bit the first. Prints each run's walls, stages,
+    exchanges (the rows and bytes that cross to another process, and
+    those that stay between the threads of one), result gather, bytes
+    staged through the host and peak device memory; keeps them and the
+    rows and launches in ``res``. Returns q1-wide's first calls of the
+    off run."""
     kept = None
-    for name in SCALE_QUERIES:
+    for name in names:
         query = _scale_query(name)
-        for mode in MULTIPROC_MODES.get(name, ("off",)):
+        for mode in modes.get(name, ("off",)):
             spark.conf.set("spark.tpu.adaptive.enabled", mode != "off")
             spark.conf.set("spark.tpu.fusion.enabled", mode == "fused")
             label = f"{tag} {name} {mode}"
@@ -5829,8 +5916,6 @@ def multiproc_child(rank: int, port: int, path: str, out: str,
                 first_ms = (time.perf_counter() - t0) * 1e3
             rec = spark.mesh_executor.last_run
             got = {m: n for m, n in mode_launches(seg_agg).items() if n}
-            for m, n in got.items():
-                total[m] = total.get(m, 0) + n
             if dev == "cuda":
                 check(ran_since(seg_agg, runs) == got, f"{label}: the "
                       f"device ran {ran_since(seg_agg, runs)}, the "
@@ -5839,7 +5924,7 @@ def multiproc_child(rank: int, port: int, path: str, out: str,
                       f"{label}: {len(calls)} wrapper calls, {got}")
             hold_calls(seg_agg, calls, label)
             res["calls"][(name, mode)] = sorted({c[0] for c in calls})
-            if name == "q1_wide" and mode == "off" and rank == 0:
+            if name == "q1_wide" and mode == "off" and kept is None:
                 kept = calls
             del calls
             peak = (torch.cuda.max_memory_allocated() - base
@@ -5850,13 +5935,17 @@ def multiproc_child(rank: int, port: int, path: str, out: str,
             check(row_bits(again) == row_bits(rows),
                   f"{label}: the second run differs from the first")
             ex = rec["exchanges"]
+            moved = sum(e["moved_rows"] or 0 for e in ex)
+            moved_bytes = sum(e["moved_bytes"] or 0 for e in ex)
+            cross = sum(e["cross_rows"] for e in ex)
+            cross_bytes = sum(e["cross_bytes"] for e in ex)
             run = dict(first_ms=first_ms, second_ms=second_ms,
                        stages=[round(st["wall_ms"], 1)
                                for st in rec["stages"]],
                        exchanges=[(e["op"], e["rows"], e["moved_rows"],
                                    e["moved_bytes"]) for e in ex],
-                       moved_rows=sum(e["moved_rows"] or 0 for e in ex),
-                       moved_bytes=sum(e["moved_bytes"] or 0 for e in ex),
+                       moved_rows=moved, moved_bytes=moved_bytes,
+                       cross_rows=cross, cross_bytes=cross_bytes,
                        gather_ms=rec.get("gather_ms", 0.0),
                        staged_bytes=rec["staged_bytes"],
                        host_reads=rec["host_reads"], peak_bytes=peak,
@@ -5867,30 +5956,20 @@ def multiproc_child(rank: int, port: int, path: str, out: str,
             log(f"{label}: first {first_ms:.1f} ms, second "
                 f"{second_ms:.1f} ms, {len(rows)} rows; "
                 f"{len(run['stages'])} stages, wall ms {run['stages']}; "
-                f"{len(ex)} exchanges moving {run['moved_rows']} rows / "
-                f"{run['moved_bytes']} bytes to the other ranks (op, live "
-                f"rows, moved rows, moved bytes each: {run['exchanges']}); "
-                f"result gather {run['gather_ms']:.1f} ms; staged through "
-                f"the host {run['staged_bytes']} bytes; host reads "
+                f"{len(ex)} exchanges moving {moved} rows / {moved_bytes} "
+                f"bytes to other ranks, of them {cross} rows / "
+                f"{cross_bytes} bytes to the other process and "
+                f"{moved - cross} rows / {moved_bytes - cross_bytes} bytes "
+                f"between this process's threads (op, live rows, moved "
+                f"rows, moved bytes each: {run['exchanges']}); result "
+                f"gather {run['gather_ms']:.1f} ms; staged through the "
+                f"host {run['staged_bytes']} bytes; host reads "
                 f"{run['host_reads']}; peak device memory above the "
                 f"tables {peak / 2 ** 20:.1f} MiB; decisions "
                 f"{run['events']}; launches {got}")
     spark.conf.set("spark.tpu.adaptive.enabled", False)
     spark.conf.set("spark.tpu.fusion.enabled", False)
-    res["total"] = total
-    res["device_runs"] = device_runs(seg_agg, dev)
-    # child 0 times B1 and B2 at q1-wide's shapes while the others wait
-    comm.gather_objects("timing")
-    res["kernels"] = {}
-    if kept is not None and dev == "cuda":
-        scale_kernel_times(seg_agg, kept, label=tag, into=res["kernels"])
-    del kept
-    comm.gather_objects("timed")
-    res["seconds"] = time.perf_counter() - t_start
-    with open(out, "wb") as f:
-        pickle.dump(res, f)
-    log(f"{tag}: {res['seconds']:.1f} s in all")
-    return 0
+    return kept
 
 
 def _free_port() -> int:
@@ -5907,13 +5986,17 @@ def multiproc_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     children (``--multiproc-child``, each its own process group) join a
     gloo group, each one rank of a ``mesh[*]`` session on ``cuda:0``,
     each reading its own parts of the scale phase's SF10 lineitem and
-    orders (``multiproc_child``). The parent waits at most
-    ``MULTIPROC_WAIT_S`` and kills them after. Every child's rows equal
-    the other's bit for bit, the scale phase's single-process rows by
-    ``match_mesh`` and, for q1, q3 and q5, pyarrow's answers; each mode
-    equals the off run bit for bit; both children launch the same
-    kernels, q1-wide B1's count and int64 sum and B2's min and max.
-    Returns the children's first runs' launches; removes the dataset."""
+    orders, then ``MULTIPROC_THREADS`` ranks each, threads of it, on the
+    2 x 2 mesh (``multiproc_child``). The parent waits at most
+    ``MULTIPROC_WAIT_S`` and kills them after. On both meshes every
+    child's rows equal the other's bit for bit, the scale phase's
+    single-process rows by ``match_mesh`` and, for q1, q3 and q5,
+    pyarrow's answers; each mode equals the off run bit for bit; both
+    children launch the same kernels, q1-wide B1's count and int64 sum
+    and B2's min and max; the 2 x 2 mesh's rows equal the one-rank
+    runs' by ``match_mesh``. Returns the children's one-rank first runs'
+    launches (the 2 x 2 mesh's go to ``_MULTIPROC_MESH2``); removes the
+    dataset."""
     import pickle
     import shutil
     import tempfile
@@ -5961,49 +6044,78 @@ def multiproc_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     check(len(parts) == len(set(parts)) and len(parts) > MULTIPROC_PROCS,
           f"multiproc: the children's lineitem parts {parts}")
     scale_rows, yardstick = _SCALE_DONE["rows"], _SCALE_DONE["yardstick"]
-    total: dict = {}
-    for (name, mode), rows in first["rows"].items():
-        label = f"multiproc {name} {mode}"
-        for g in got[1:]:
-            check(row_bits(g["rows"][(name, mode)]) == row_bits(rows),
-                  f"{label}: the children's rows differ")
-        check(row_bits(rows) == row_bits(first["rows"][(name, "off")]),
-              f"{label}: differs from the off run")
-        worst = match_mesh(label, rows, scale_rows[name])
-        if name in (f"q{q}" for q in SCALE_HELD) and mode == "off":
-            assert_rows_match(rows, yardstick[int(name[1:])],
-                              label=f"{label}[pyarrow]")
-        launched = [g["launches"][(name, mode)] for g in got]
-        check(all(x == launched[0] for x in launched),
-              f"{label}: the children launched {launched}")
-        if name == "q1_wide":
-            # B1 and B2 inside the mesh stages (the wrappers' calls; on
-            # the card their launches)
-            check(all(g["calls"][(name, mode)] == ["seg_minmax", "seg_sum"]
-                      for g in got), f"{label}: wrapper calls "
-                  f"{[g['calls'][(name, mode)] for g in got]}")
-            check(dev != "cuda" or all(launched[0].get(m) for m in
-                                       ("count", "sum_i64", "min", "max")),
-                  f"{label}: launched {launched[0]}")
-        log(f"multiproc: {name} {mode}: {len(rows)} rows, the children's "
-            f"equal bit for bit, the scale phase's single-process rows "
-            f"(floats within {worst:.3g} of the bound {MESH_TOL})"
-            + (" and pyarrow's" if name in (f"q{q}" for q in SCALE_HELD)
-               and mode == "off" else "")
-            + f"; walls by child (first / second ms) "
-            + ", ".join(f"{g['runs'][(name, mode)]['first_ms']:.1f} / "
-                        f"{g['runs'][(name, mode)]['second_ms']:.1f}"
-                        for g in got))
-    for g in got:
-        for m, n in g["total"].items():
-            total[m] = total.get(m, 0) + n
+
+    def hold(runs, label_of, one_rank=None):
+        """The children's runs (``runs(g)``: rows and launches by
+        query and mode) against each other, the off run, the scale
+        phase's rows and pyarrow's; returns their launches."""
+        launches: dict = {}
+        for (name, mode), rows in runs(first)["rows"].items():
+            label = label_of(name, mode)
+            for g in got[1:]:
+                check(row_bits(runs(g)["rows"][(name, mode)])
+                      == row_bits(rows), f"{label}: the children's rows "
+                      "differ")
+            check(row_bits(rows) == row_bits(runs(first)["rows"][
+                (name, "off")]), f"{label}: differs from the off run")
+            worst = match_mesh(label, rows, scale_rows[name])
+            if one_rank is not None:
+                worst = max(worst, match_mesh(
+                    f"{label} against one rank a child", rows,
+                    one_rank[(name, "off")]))
+            held = name in (f"q{q}" for q in SCALE_HELD) and mode == "off"
+            if held:
+                assert_rows_match(rows, yardstick[int(name[1:])],
+                                  label=f"{label}[pyarrow]")
+            launched = [runs(g)["launches"][(name, mode)] for g in got]
+            check(all(x == launched[0] for x in launched),
+                  f"{label}: the children launched {launched}")
+            for x in launched:
+                for m, n in x.items():
+                    launches[m] = launches.get(m, 0) + n
+            if name == "q1_wide":
+                # B1 and B2 inside the mesh stages (the wrappers' calls;
+                # on the card their launches)
+                check(all(runs(g)["calls"][(name, mode)]
+                          == ["seg_minmax", "seg_sum"] for g in got),
+                      f"{label}: wrapper calls "
+                      f"{[runs(g)['calls'][(name, mode)] for g in got]}")
+                check(dev != "cuda" or all(launched[0].get(m) for m in
+                                           ("count", "sum_i64", "min",
+                                            "max")),
+                      f"{label}: launched {launched[0]}")
+            walls = [runs(g)["runs"][(name, mode)] for g in got]
+            log(f"{label}: {len(rows)} rows, the children's equal bit for "
+                f"bit, the scale phase's single-process rows"
+                + (" and the one-rank runs'" if one_rank is not None else "")
+                + f" (floats within {worst:.3g} of the bound {MESH_TOL})"
+                + (" and pyarrow's" if held else "")
+                + "; walls by child (first / second ms) "
+                + ", ".join(f"{w['first_ms']:.1f} / {w['second_ms']:.1f}"
+                            for w in walls)
+                + "; crossing the processes (rows / bytes) "
+                + ", ".join(f"{w['cross_rows']} / {w['cross_bytes']}"
+                            for w in walls))
+        return launches
+
+    total = hold(lambda g: g, lambda n, m: f"multiproc {n} {m}")
+    mesh2 = hold(lambda g: g["mesh2"], lambda n, m: f"multiproc 2 x 2 {n} {m}",
+                 one_rank=first["rows"])
+    check(all(mesh2.get(m) for m in ("count", "sum_i64", "min", "max"))
+          or dev != "cuda", f"multiproc 2 x 2: launched {mesh2}")
+    _MULTIPROC_MESH2.clear()
+    _MULTIPROC_MESH2.update(mesh2)
     _MULTIPROC_KERNELS.update(first["kernels"])
-    staged = sum(r["staged_bytes"] for g in got for r in g["runs"].values())
+    staged = [sum(r["staged_bytes"] for g in got for r in g["runs"].values()),
+              sum(r["staged_bytes"] for g in got
+                  for r in g["mesh2"]["runs"].values())]
     log(f"multiproc: {MULTIPROC_PROCS} processes over {first['backend']} "
-        f"(route {first['route']}), {staged} bytes staged through the host "
-        f"by the first runs, the children's own seconds "
+        f"(route {first['route']}), {staged[0]} bytes staged through the "
+        f"host by the one-rank first runs and {staged[1]} by the 2 x 2 "
+        f"mesh's, the children's own seconds "
         f"{[round(g['seconds'], 1) for g in got]}, the phase "
-        f"{time.perf_counter() - t_phase:.1f} s; launches {total}")
+        f"{time.perf_counter() - t_phase:.1f} s; launches one rank a child "
+        f"{total}, 2 x 2 {mesh2}")
     shutil.rmtree(path)
     return {m: total.get(m, 0) for m in mode_launches(seg_agg)}
 
@@ -6124,6 +6236,9 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
             t0 = time.perf_counter()
             by_path[path] = phase(seg_agg, gpu, cpu, oracle)
             log(f"{path} phase: {time.perf_counter() - t0:.1f} s")
+    # the multiproc phase's 2 x 2 mesh, a path of its own in the line
+    by_path["multiproc_2x2"] = {m: _MULTIPROC_MESH2.get(m, 0)
+                                for m in mode_launches(seg_agg)}
     oracle.close()
     log(f"profiler (acc_events={_PROFILES['acc_events']}): "
         f"{_PROFILES['first']} of "
@@ -6142,7 +6257,8 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
                   by_path.items()
                   if path not in ("scalar", "io", "ooc", "mesh", "frontend",
                                   "aqe", "obs", "serve", "stream", "lib",
-                                  "scale", "multiproc")),
+                                  "scale", "multiproc",
+                                  "multiproc_2x2")),
           "an earlier path summed floats on a grouped path")
     check(by_path["frontend"]["fsum_f64"] >= 1
           and by_path["frontend"]["count"] >= 1,
@@ -6178,6 +6294,10 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
               for m in ("count", "sum_i64", "min", "max")),
           "the multiproc path launched no seg_sum count or int64 sum or "
           "seg_minmax kernel")
+    check(all(by_path["multiproc_2x2"][m] >= 1
+              for m in ("count", "sum_i64", "min", "max")),
+          "the multiproc 2 x 2 path launched no seg_sum count or int64 sum "
+          "or seg_minmax kernel")
 
     kernels = []
     for name, modes, headline, replaces, source, stats in (

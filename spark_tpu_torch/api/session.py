@@ -291,8 +291,11 @@ class SparkSessionBuilder:
         query over an N-rank mesh (``parallel/executor.py``). Under an
         initialized process group of several processes
         (``parallel/multihost.initialize``), ``mesh[*]`` is the mesh over
-        them, one rank a process, each on its process's device (the
-        session's: ``cpu``, or the process's own card)."""
+        them: with ``meshDevices`` listing world size * k devices, k
+        ranks a process (process p's on its k entries of the list,
+        threads of that process); without, one rank a process, on its
+        process's device (the session's: ``cpu``, or the process's own
+        card)."""
         from spark_tpu_torch import conf as CF
 
         if url.startswith("mesh"):
@@ -310,7 +313,9 @@ class SparkSessionBuilder:
 
     def meshDevices(self, devices) -> "SparkSessionBuilder":
         """The mesh's devices, one per rank (``["cuda:0"] * 4``, ``["cpu"]
-        * 8``); a device may repeat only when listed here."""
+        * 8``); a device may repeat only when listed here. Under a process
+        group, ``mesh[*]`` over the whole world's devices, process-major
+        (world size * k: k ranks a process)."""
         self._mesh_devices = [str(d) for d in devices]
         return self
 
@@ -371,7 +376,8 @@ class SparkSession:
             from spark_tpu_torch.parallel.mesh import make_mesh
 
             if n == -1 and multihost.process_info()["process_count"] > 1:
-                # one rank a process over the initialized process group
+                # the mesh over the initialized process group: k ranks a
+                # process over the listed world's devices, else one
                 self._mesh = multihost.global_mesh(mesh_devices,
                                                    device=self.device)
             else:

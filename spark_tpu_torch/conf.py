@@ -116,7 +116,11 @@ MESH_DEVICES = register(
     "The mesh size SparkSession.builder.master('mesh[N]') asks for: N "
     "ranks, -1 for every CUDA device, None (unset) for one device. The "
     "ranks run on cuda:0 .. cuda:N-1 unless the builder lists the "
-    "devices (meshDevices), which may repeat one.",
+    "devices (meshDevices), which may repeat one. Under a process group "
+    "(multihost.initialize), -1 (mesh[*]) is the mesh over the "
+    "processes: one rank a process on its own card by default, or k "
+    "ranks a process, threads of it, when meshDevices lists world size "
+    "* k devices (process p takes entries p*k .. p*k+k-1).",
     lambda v: v if v is None else int(v))
 
 JIT_STAGE_CACHE_ENTRIES = register(

@@ -16,7 +16,7 @@ a (D, slice) send buffer by destination and ``all_to_all`` it.
   no-op where ranks share a device, whose current stream orders the
   work). A wait has a timeout; a rank that fails aborts the barrier, so
   the others stop with ``CommAborted`` instead of waiting for it.
-- ``DistComm``: one rank per process over ``torch.distributed``
+- ``DistComm``: one member per process over ``torch.distributed``
   (``all_to_all_single``, ``all_gather``; gloo on the CPU, NCCL on the
   card). Its route is fixed by the backend's name when it is made: on
   gloo a CUDA tensor is copied to the host, moved, and copied back
@@ -27,10 +27,22 @@ a (D, slice) send buffer by destination and ``all_to_all`` it.
   timeout, ``multihost.initialize``) tears the group down too and
   raises ``ProcessGroupLost``, which is terminal: a failure anywhere in
   the job stops every process within that timeout.
+- ``ProcessThreadComm``: the ranks of a mesh that spans processes, k a
+  process, one thread each. A process's ranks meet at a barrier, as in
+  ``ThreadComm``; then its first rank makes the collective's one
+  ``DistComm`` call for the tensors of all k (stacked: an all_to_all
+  sends each process one block of (source thread, destination thread)
+  chunks), and each rank takes its own part of the answer. No other
+  thread touches the process group, so every process issues the same
+  calls in the same order. Its statistics (``events``,
+  ``staged_bytes``) are the ``DistComm``'s, kept once a process; a rank
+  that fails aborts the barrier, and the executor tears the group down.
 
-Both give the same results: a reduction gathers every rank's tensor and
-combines them in rank order, so a float ``psum``'s bits do not depend on
-thread timing or the backend's reduction tree.
+All give the same results for the same global ranks: chunks arrive in
+global rank order, and a reduction gathers every rank's tensor and
+combines them in rank order (rank 0 first), so a float ``psum``'s bits
+depend on neither thread timing, the topology, nor the backend's
+reduction tree.
 
 **Capacities.** The reference's exchange is static-shaped: a rank
 receives D times its capacity, the worst case. The port's ranks run
@@ -39,7 +51,8 @@ per (source, destination) and sizes the send slice by the largest cell
 (rounded up to 128 rows, the same on every rank). The live rows and
 their order are those of the reference's exchange; only the dead
 padding differs. The matrix also gives each exchange's statistics: live
-rows, rows moved to another rank, their bytes (``Comm.events``).
+rows, rows moved to another rank, their bytes, and the rows and bytes
+of those that cross to another process (``Comm.events``).
 Adaptive execution passes the reference's measured bounds (a slice and
 a receive capacity) instead, and a fused span picks its receive
 capacity from the same matrix.
@@ -99,6 +112,13 @@ class Comm:
         """Per tensor, every rank's copy on ``device``, in rank order."""
         raise NotImplementedError
 
+    def all_gather_var(self, rank: int, device,
+                       tensors: List[torch.Tensor]
+                       ) -> List[List[torch.Tensor]]:
+        """``all_gather`` of tensors whose leading dimension may differ
+        from rank to rank."""
+        return self.all_gather(rank, device, tensors)
+
     def all_reduce(self, rank: int, device, tensor: torch.Tensor,
                    op: str) -> torch.Tensor:
         """``op`` in sum/min/max over the ranks' tensors, combined in rank
@@ -121,9 +141,13 @@ class Comm:
 
     def keeps_stats(self, rank: int) -> bool:
         """Whether ``rank`` records the statistics every rank could: rank
-        0 on a communicator of threads, every process's own rank on one
-        of processes (each process keeps its own copy)."""
+        0 on a communicator of threads, every process's first rank on
+        one that spans processes (each process keeps its own copy)."""
         return rank == 0
+
+    def process_of(self, rank: int) -> int:
+        """The process that runs ``rank``."""
+        return 0
 
     def record(self, event: dict) -> None:
         """Keep one exchange's statistics (called by one rank)."""
@@ -293,6 +317,9 @@ class DistComm(Comm):
     def keeps_stats(self, rank: int) -> bool:
         return True
 
+    def process_of(self, rank: int) -> int:
+        return rank
+
     def abort(self) -> None:
         """Tear the process group down: every peer's pending or next
         collective fails (``ProcessGroupLost``) instead of waiting out
@@ -302,6 +329,137 @@ class DistComm(Comm):
 
     def record(self, event: dict) -> None:
         self.events.append(event)
+
+
+class ProcessThreadComm(Comm):
+    """The ranks of a mesh that spans processes, k a process, each a
+    thread (see the module docstring). ``size`` is every process's
+    ranks; this process runs ``local``, which are consecutive (process
+    p runs ranks p*k .. p*k+k-1, ``mesh.make_process_mesh``)."""
+
+    def __init__(self, local: Sequence[int], size: int, dist: DistComm,
+                 timeout: float = DEFAULT_TIMEOUT_S):
+        self.local = tuple(local)
+        self.k = len(self.local)
+        self.size = size
+        self.dist = dist
+        self.timeout = timeout
+        self._barrier = threading.Barrier(self.k)
+        self._slots: list = [None] * self.k
+        self._out: list = []
+
+    @property
+    def events(self) -> List[dict]:
+        return self.dist.events
+
+    @property
+    def staged_bytes(self) -> int:
+        return self.dist.staged_bytes
+
+    def abort(self) -> None:
+        """Stop this process's ranks' collectives (``CommAborted``); the
+        executor then tears the process group down."""
+        self._barrier.abort()
+
+    def _wait(self, timeout: Optional[float]) -> None:
+        try:
+            self._barrier.wait(timeout)
+        except threading.BrokenBarrierError:
+            raise CommAborted("a collective was aborted: another rank "
+                              "failed or a wait timed out") from None
+
+    def _meet(self, rank: int, value, across) -> list:
+        """Publish ``value``; once every local rank has, the first one
+        calls ``across(values)`` (the one call over the process group;
+        it returns one result per local rank), and each rank returns its
+        own. The wait for the first rank's call has no timeout of its
+        own: the process group's bounds the call, and a failure aborts
+        the wait."""
+        i = rank - self.local[0]
+        self._slots[i] = value
+        self._wait(self.timeout)
+        if i == 0:
+            try:
+                self._out = across(list(self._slots))
+            except BaseException:
+                self._barrier.abort()
+                raise
+        self._wait(None)
+        return self._out[i]
+
+    def all_to_all(self, rank, device, tensors):
+        def across(vals):
+            k, w = self.k, self.size // self.k
+            home = vals[0][0]
+            sent, shapes = [], []
+            for j in range(len(tensors)):
+                x = _stack([v[1][j] for v in vals], home)
+                c = x.shape[1] // self.size
+                rest = tuple(x.shape[2:])
+                shapes.append((c, rest))
+                # (source thread, destination process, destination
+                # thread, c) -> destination process first
+                sent.append(x.reshape((k, w, k, c) + rest).transpose(0, 1)
+                            .reshape((w * k * k * c,) + rest))
+            got = self.dist.all_to_all(self.local[0], home, sent)
+            # from each source process: (source thread, destination
+            # thread, c); a thread's chunks in global source order
+            return [[g.reshape((w, k, k, c) + rest)[:, :, i]
+                     .reshape((self.size * c,) + rest)
+                     for g, (c, rest) in zip(got, shapes)]
+                    for i in range(k)]
+
+        got = self._meet(rank, (torch.device(device), tensors), across)
+        return [t.to(device) for t in got]
+
+    def all_gather(self, rank, device, tensors):
+        def across(vals):
+            home = vals[0][0]
+            got = self.dist.all_gather(
+                self.local[0], home,
+                [_stack([v[1][j] for v in vals], home)
+                 for j in range(len(tensors))])
+            flat = [[part[i] for part in parts for i in range(self.k)]
+                    for parts in got]
+            return [flat] * self.k
+
+        got = self._meet(rank, (torch.device(device), tensors), across)
+        return [[t.to(device) for t in parts] for parts in got]
+
+    def all_gather_var(self, rank, device, tensors):
+        def across(vals):
+            home = vals[0][0]
+            sizes = torch.tensor([[t.shape[0] for t in v[1]] for v in vals],
+                                 dtype=torch.int64)
+            cat = [torch.cat([v[1][j].to(home) for v in vals])
+                   for j in range(len(tensors))]
+            got = self.dist.all_gather_var(self.local[0], home,
+                                           [sizes.to(home)] + cat)
+            rows = [s.tolist() for s in got[0]]
+            flat = []
+            for j, parts in enumerate(got[1:]):
+                flat.append([t for part, r in zip(parts, rows)
+                             for t in part.split([x[j] for x in r])])
+            return [flat] * self.k
+
+        got = self._meet(rank, (torch.device(device), tensors), across)
+        return [[t.to(device) for t in parts] for parts in got]
+
+    def keeps_stats(self, rank: int) -> bool:
+        return rank == self.local[0]
+
+    def process_of(self, rank: int) -> int:
+        return rank // self.k
+
+    def record(self, event: dict) -> None:
+        self.dist.record(event)
+
+
+def _stack(ts: List[torch.Tensor], device) -> torch.Tensor:
+    """``ts`` stacked on ``device`` (one tensor: a view)."""
+    if len(ts) == 1:
+        return ts[0].to(device).unsqueeze(0)
+    return torch.stack([t.to(device) for t in ts])
 
 
 # ---- the calling rank -------------------------------------------------------
@@ -516,9 +674,13 @@ def exchange(pipe: Pipe, target: torch.Tensor, op: str = "hash",
     if ctx.comm.keeps_stats(ctx.rank):
         moved = sum(n for s, r in enumerate(rows) for j, n in enumerate(r)
                     if j != s)
+        cross = sum(n for s, r in enumerate(rows) for j, n in enumerate(r)
+                    if ctx.comm.process_of(j) != ctx.comm.process_of(s))
         ctx.comm.record({"op": op, "ranks": d,
                          "rows": sum(map(sum, rows)), "moved_rows": moved,
                          "moved_bytes": moved * _row_bytes(pipe),
+                         "cross_rows": cross,
+                         "cross_bytes": cross * _row_bytes(pipe),
                          "capacity_in": cap,
                          "capacity_out": d * scap if ocap is None
                          else min(d * scap, int(ocap))})
@@ -558,11 +720,19 @@ def broadcast_gather(pipe: Pipe) -> Pipe:
     d = ctx.comm.size
     parts = ctx.comm.all_gather(ctx.rank, ctx.device, _tensors(pipe))
     if ctx.comm.keeps_stats(ctx.rank):
-        live = int(sum(int(m.sum()) for m in parts[0]))  # host sync
+        lives = torch.stack([m.sum() for m in parts[0]]).tolist()  # sync
         ctx.comm.note_host_read()
+        # the ranks of other processes each rank's rows reach
+        away = [sum(ctx.comm.process_of(j) != ctx.comm.process_of(s)
+                    for j in range(d)) for s in range(d)]
+        live = int(sum(lives))
         ctx.comm.record({"op": "broadcast", "ranks": d, "rows": live,
                          "moved_rows": live * (d - 1),
                          "moved_bytes": d * (d - 1) * pipe.capacity
+                         * _row_bytes(pipe),
+                         "cross_rows": sum(n * a for n, a in zip(lives,
+                                                                 away)),
+                         "cross_bytes": sum(away) * pipe.capacity
                          * _row_bytes(pipe),
                          "capacity_in": pipe.capacity,
                          "capacity_out": pipe.capacity * d})

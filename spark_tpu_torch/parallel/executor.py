@@ -12,9 +12,11 @@ it are collectives on a ``ThreadComm`` of its own. A rank that raises
 aborts the collectives, the others stop, and the stage re-raises the
 first failure in the caller; no thread outlives its stage.
 
-On a mesh that spans processes (``multihost``: one rank a process) each
-process runs the same program and, for each stage, only its own rank,
-in the calling thread, on a ``DistComm``. Every host decision (a
+On a mesh that spans processes (``multihost``: k ranks a process) each
+process runs the same program and, for each stage, only its own ranks,
+one thread each (one rank: the calling thread), on a
+``ProcessThreadComm``: a barrier between the threads, one ``DistComm``
+call a collective between the processes. Every host decision (a
 compaction, the fused overflow sentinel, the stats stages, an
 aggregation strategy, the broadcast switch, join counts, key ranges,
 hot keys) reads values gathered from every rank
@@ -337,8 +339,8 @@ def run_rank(plan: P.PhysicalPlan, rank: int, comm: X.Comm,
              device) -> Batch:
     """Rank ``rank``'s part of a mesh stage, in the calling thread: its
     shard through ``plan``, eagerly, its collectives on ``comm`` (a
-    ``ThreadComm`` in a stage's thread; a ``DistComm`` in a process of
-    its own). No runtime statistics are recorded."""
+    ``ThreadComm`` in a stage's thread; a ``ProcessThreadComm`` on a
+    mesh that spans processes). No runtime statistics are recorded."""
     dev = torch.device(device)
     with X.on_rank(rank, comm, dev), P.stats_recording_disabled(), \
             (torch.cuda.device(dev) if dev.type == "cuda"
@@ -862,8 +864,9 @@ class MeshExecutor:
     def _read_stats(self, stats_sb: ShardedBatch, widths) -> list:
         """The stats stage's columns, each cut to its width, in one host
         read. They are reductions over every rank, combined in rank
-        order, so each rank's copy is the same: this process's first
-        rank's is read (rank 0's lives in process 0 only)."""
+        order, so each rank's copy is the same bit for bit: this
+        process's first rank's is read (rank 0's lives in process 0
+        only; the others of this process hold the same values)."""
         cols = stats_sb.shards[self.mesh.local_ranks[0]].columns
         flat = torch.cat([cols[i].data[:w] for i, w in enumerate(widths)])
         values = flat.tolist()
@@ -1220,14 +1223,14 @@ class MeshExecutor:
 
     def _run_stage_inner(self, plan: P.PhysicalPlan) -> ShardedBatch:
         """Run ``plan`` on every rank of this process (``_run_threads``,
-        or ``_run_local_rank`` on a mesh that spans processes), then
+        or ``_run_processes`` on a mesh that spans processes), then
         record the stage, check the fused overflow sentinel and compact
         a sparse output."""
         _check_stage(plan)
         d = self.d
         t0 = time.perf_counter()
         if self.mesh.spans_processes:
-            sb, walls, comm = self._run_local_rank(plan)
+            sb, walls, comm = self._run_processes(plan)
         else:
             sb, walls, comm = self._run_threads(plan)
         wall = (time.perf_counter() - t0) * 1e3
@@ -1259,36 +1262,53 @@ class MeshExecutor:
         return self._maybe_compact(sb)
 
     def _run_threads(self, plan: P.PhysicalPlan):
-        """Every rank, one thread each (the caller's context copied into
-        each), their collectives on one ThreadComm; the first failure is
-        raised here once every rank has stopped. With a sampled trace
-        each rank runs in a ``stage.device`` span that ends with a sync
-        of its device. Returns the output, the ranks' walls and the
-        communicator."""
+        """Every rank, one thread each, their collectives on one
+        ThreadComm (``_run_ranks``). Returns the output, the ranks' walls
+        and the communicator."""
         d = self.d
         comm = X.ThreadComm(d)
-        outs: List[Optional[Batch]] = [None] * d
-        walls = [0.0] * d
+        outs, walls = self._run_ranks(plan, range(d), comm)
+        schema = outs[0].schema
+        for r, b in enumerate(outs[1:], 1):
+            if any(a.dictionary is not b_.dictionary
+                   and a.dictionary != b_.dictionary
+                   for a, b_ in zip(schema.fields, b.schema.fields)):
+                raise AssertionError(
+                    f"rank {r}'s string dictionaries differ from rank 0's")
+        return (ShardedBatch(schema, [b.data for b in outs], self.mesh),
+                walls, comm)
+
+    def _run_ranks(self, plan: P.PhysicalPlan, ranks, comm):
+        """``ranks`` of the stage, one thread each (the caller's context
+        copied into each; one rank runs in the calling thread), their
+        collectives on ``comm``; the first failure is raised here once
+        every rank has stopped. With a sampled trace each rank runs in a
+        ``stage.device`` span that ends with a sync of its device.
+        Returns the ranks' outputs and walls (ms)."""
+        ranks = list(ranks)
+        outs: List[Optional[Batch]] = [None] * len(ranks)
+        walls = [0.0] * len(ranks)
         failures: list = []  # (rank, exception), first failure first
         lock = locks.named_lock("mesh.rank_stage")
 
-        def rank_main(r: int) -> None:
+        def rank_main(i: int) -> None:
             t0 = time.perf_counter()
             try:
-                outs[r] = self._run_on(plan, r, comm)
+                outs[i] = self._run_on(plan, ranks[i], comm)
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 with lock:
-                    failures.append((r, e))
+                    failures.append((ranks[i], e))
                 comm.abort()
             finally:
-                walls[r] = (time.perf_counter() - t0) * 1e3
+                walls[i] = (time.perf_counter() - t0) * 1e3
 
-        if d == 1:
+        if len(ranks) == 1:
             contextvars.copy_context().run(rank_main, 0)
         else:
             threads = [threading.Thread(
-                target=contextvars.copy_context().run, args=(rank_main, r),
-                name=f"mesh-rank-{r}", daemon=True) for r in range(d)]
+                target=contextvars.copy_context().run, args=(rank_main, i),
+                name=f"mesh-rank-{r}", daemon=True)
+                for i, r in enumerate(ranks)]
             for t in threads:
                 t.start()
             deadline = time.monotonic() + comm.timeout + 30.0
@@ -1304,54 +1324,53 @@ class MeshExecutor:
         if failures:
             if self._stats is not None:
                 self._stats["host_reads"] += comm.host_reads
+            # a rank's own failure (a lost group is one) before the
+            # aborts it caused
             real = [f for f in failures
-                    if not isinstance(f[1], X.CommAborted)]
+                    if not isinstance(f[1], X.CommAborted)
+                    or isinstance(f[1], X.ProcessGroupLost)]
             raise (real or failures)[0][1]
-        schema = outs[0].schema
-        for r, b in enumerate(outs[1:], 1):
-            if any(a.dictionary is not b_.dictionary
-                   and a.dictionary != b_.dictionary
-                   for a, b_ in zip(schema.fields, b.schema.fields)):
-                raise AssertionError(
-                    f"rank {r}'s string dictionaries differ from rank 0's")
-        return (ShardedBatch(schema, [b.data for b in outs], self.mesh),
-                walls, comm)
+        return outs, walls
 
-    def _run_local_rank(self, plan: P.PhysicalPlan):
-        """On a mesh that spans processes: this process's rank, in the
-        calling thread, its collectives on a DistComm over the process
-        group. A failure here tears the group down (``DistComm.abort``),
-        so the other processes' collectives fail at once instead of
-        waiting out the timeout, and is raised as ``ProcessGroupLost``
-        (terminal, never retried: a retry would meet no peer). Then one
-        all-gather of every rank's capacity, wall and a digest of its
-        output's dictionaries: a digest that differs fails the stage in
-        every process. Returns the output, the ranks' walls and the
-        communicator."""
-        (r,) = self.mesh.local_ranks
-        comm = X.DistComm(self.mesh.comm.group)
-        t0 = time.perf_counter()
+    def _run_processes(self, plan: P.PhysicalPlan):
+        """On a mesh that spans processes: this process's ranks, one
+        thread each (``_run_ranks``), their collectives on a
+        ProcessThreadComm over the process group. A failure here tears
+        the group down (``DistComm.abort``), so the other processes'
+        collectives fail at once instead of waiting out the timeout, and
+        is raised as ``ProcessGroupLost`` (terminal, never retried: a
+        retry would meet no peer). Then one all-gather of every rank's
+        capacity, wall and a digest of its output's dictionaries: a
+        digest that differs fails the stage in every process. Returns
+        the output, the ranks' walls and the communicator."""
+        local = self.mesh.local_ranks
+        comm = X.ProcessThreadComm(local, self.d,
+                                   X.DistComm(self.mesh.comm.group))
         try:
-            out = self._run_on(plan, r, comm)
+            outs, walls = self._run_ranks(plan, local, comm)
         except X.ProcessGroupLost:
+            comm.dist.abort()
             raise
         except BaseException as e:
-            comm.abort()
+            comm.dist.abort()
             raise X.ProcessGroupLost(
                 f"{plan.node_string()} failed in process "
                 f"{self.mesh.process_index} ({type(e).__name__}: {e}); the "
                 "process group is torn down") from e
-        wall_us = int((time.perf_counter() - t0) * 1e6)
-        digests = [_dictionary_digest(f) for f in out.schema.fields]
-        rows = self.mesh.comm.gather_objects(
-            (out.capacity, wall_us, digests))
+        mine = [(b.capacity, int(w * 1e3),
+                 [_dictionary_digest(f) for f in b.schema.fields])
+                for b, w in zip(outs, walls)]
+        rows = [x for got in self.mesh.comm.gather_objects(mine)
+                for x in got]
         for q, (_, _, dg) in enumerate(rows):
-            if dg != digests:
+            if dg != mine[0][2]:
                 raise AssertionError(
                     f"rank {q}'s string dictionaries differ from rank "
-                    f"{r}'s after {plan.node_string()}")
-        shards = [out.data if q == r else None for q in range(self.d)]
-        sb = ShardedBatch(out.schema, shards, self.mesh,
+                    f"{local[0]}'s after {plan.node_string()}")
+        shards = [None] * self.d
+        for r, b in zip(local, outs):
+            shards[r] = b.data
+        sb = ShardedBatch(outs[0].schema, shards, self.mesh,
                           capacities=[c for c, _, _ in rows])
         return sb, [w / 1e3 for _, w, _ in rows], comm
 

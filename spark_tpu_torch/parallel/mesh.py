@@ -6,9 +6,11 @@ carries partition parallelism (the analogue of Spark's task slots).
 
 A mesh is of one process (``make_mesh``: its ranks are threads of this
 process) or spans the processes of an initialized ``torch.distributed``
-group (``make_process_mesh``: rank r runs in process r, one rank a
-process). Each rank has a device and an owning process; a process runs,
-and holds the shards of, its own ranks only.
+group (``make_process_mesh``: k ranks a process, process p running
+ranks p*k .. p*k+k-1 as threads, the process-major order in which the
+reference lists a multi-process job's devices). Each rank has a device
+and an owning process; a process runs, and holds the shards of, its own
+ranks only.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ DATA_AXIS = "data"
 class Mesh:
     """A 1-D ``data`` mesh: rank r runs on ``devices[r]`` in process
     ``owners[r]``. ``comm``, on a mesh that spans processes, is the
-    process group's communicator (``exchange.DistComm``) that host
-    decisions gather through; None on a mesh of one process."""
+    process group's communicator (``exchange.DistComm``, one member a
+    process) that host decisions gather through; None on a mesh of one
+    process."""
 
     __slots__ = ("devices", "owners", "process_index", "comm")
 
@@ -89,14 +92,19 @@ def make_mesh(n_devices: Optional[int] = None,
     return Mesh(devices)
 
 
-def make_process_mesh(device=None) -> Mesh:
-    """A mesh over the initialized process group, one rank a process:
-    rank r is process r, on that process's ``device``. A CUDA device
-    without an index (or None) is the process's own card, ``cuda:(r mod
-    the cards)``: two processes that share one card both use ``cuda:0``;
-    without CUDA it raises. ``"cpu"`` puts every rank on its process's
-    CPU (a gloo group). The ranks' devices are all-gathered, so every
-    process holds the same list."""
+def make_process_mesh(device=None, devices: Optional[Sequence] = None
+                      ) -> Mesh:
+    """A mesh over the initialized process group. With ``devices`` (a
+    list of world size * k devices), k ranks a process: process p runs
+    ranks p*k .. p*k+k-1 on ``devices[p*k:(p+1)*k]``; a length that is
+    not a multiple of the world size raises ``ValueError``. Without,
+    one rank a process: rank r is process r, on that process's
+    ``device``. A CUDA device without an index (or None) is the
+    process's own card, ``cuda:(r mod the cards)``: two processes that
+    share one card both use ``cuda:0``; without CUDA it raises.
+    ``"cpu"`` puts every rank on its process's CPU (a gloo group). The
+    ranks' devices are all-gathered, so every process holds the same
+    list."""
     import torch.distributed as dist
 
     from spark_tpu_torch.parallel.exchange import DistComm
@@ -105,17 +113,32 @@ def make_process_mesh(device=None) -> Mesh:
         raise RuntimeError("a mesh over processes needs an initialized "
                            "process group (multihost.initialize)")
     n, me = dist.get_world_size(), dist.get_rank()
+    if devices is not None:
+        devices = list(devices)
+        if not devices or len(devices) % n:
+            raise ValueError(f"{len(devices)} mesh devices over {n} "
+                             "processes: list k devices a process")
+        k = len(devices) // n
+        mine = [_own_device(d, me) for d in devices[me * k:(me + 1) * k]]
+    else:
+        k, mine = 1, [_own_device(device, me)]
+    if mine[0].type == "cuda":
+        torch.cuda.set_device(mine[0])  # NCCL's object collectives use it
+    names: list = [None] * n
+    dist.all_gather_object(names, [str(d) for d in mine])
+    return Mesh([torch.device(x) for got in names for x in got],
+                owners=[p for p in range(n) for _ in range(k)],
+                process_index=me, comm=DistComm())
+
+
+def _own_device(device, process: int) -> torch.device:
+    """``device`` as process ``process`` runs it (see
+    ``make_process_mesh``)."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and dev.index is None:
         resolve_device("cuda")  # raises without CUDA
-        dev = torch.device("cuda", me % torch.cuda.device_count())
-    dev = resolve_device(dev)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)  # NCCL's object collectives use it
-    names: list = [None] * n
-    dist.all_gather_object(names, str(dev))
-    return Mesh([torch.device(x) for x in names], owners=range(n),
-                process_index=me, comm=DistComm())
+        dev = torch.device("cuda", process % torch.cuda.device_count())
+    return resolve_device(dev)
 
 
 def mesh_size(mesh: Mesh) -> int:

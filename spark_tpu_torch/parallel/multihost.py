@@ -4,11 +4,15 @@ The reference joins ``jax.distributed``'s coordination service and then
 sees every host's devices in one mesh. The port's control plane is
 ``torch.distributed``: ``initialize`` joins a process group (NCCL on the
 card, gloo on the CPU; ``backend`` picks), whose store carries the
-rendezvous (``barrier_kv_exchange``). Its data plane is one rank a
-process: under an initialized group, ``global_mesh()`` (and a session's
-``master("mesh[*]")``) is a mesh whose rank r runs in process r, and a
-``MeshExecutor`` over it runs each stage's local rank in the calling
-thread, its collectives on ``exchange.DistComm``. An identical program
+rendezvous (``barrier_kv_exchange``). Its data plane is k ranks a
+process: under an initialized group, ``global_mesh(devices)`` (and a
+session's ``master("mesh[*]")`` with ``meshDevices``) over world size *
+k devices is a mesh whose process p runs ranks p*k .. p*k+k-1, one
+thread each; without a list, one rank a process, on its own card. A
+``MeshExecutor`` over it runs each stage's local ranks as threads, their
+collectives on ``exchange.ProcessThreadComm`` (a barrier between the
+threads, one ``exchange.DistComm`` call a collective between the
+processes). An identical program
 runs in every process: each reads its own files
 (``read_parquet_sharded``), every host decision reads values gathered
 from all ranks, and ``collect()`` returns the same rows in every
@@ -20,8 +24,8 @@ process's row count; and every string column's dictionary becomes the
 sorted union of all processes' dictionaries, each process's codes
 remapped to it on the device, so every process holds the same schema
 (the reference stitched per-process dictionaries whose codes disagree).
-Several ranks a process across processes is not ported yet (ROADMAP
-A10).
+Both are agreed once a process; a process's rows then fill its ranks in
+row order, as the reference's do.
 """
 
 from __future__ import annotations
@@ -106,21 +110,16 @@ def is_coordinator() -> bool:
 
 def global_mesh(devices: Optional[Sequence] = None, device=None) -> Mesh:
     """Under an initialized group of several processes, the mesh over
-    them, one rank a process (``mesh.make_process_mesh``): rank r on
-    ``devices[r]`` when a list is given (one device a process), else on
-    ``device`` (by default the process's own card). In one process, a
-    mesh over ``devices``, by default every CUDA device."""
+    them (``mesh.make_process_mesh``). With ``devices``, a list of
+    world size * k devices, k ranks a process: process p takes
+    ``devices[p*k:(p+1)*k]`` and runs those ranks as threads (the
+    reference's mesh over every device of every process); a length that
+    is not a multiple of the world size raises ``ValueError``. Without
+    a list, one rank a process, on ``device`` (by default the process's
+    own card). In one process, a mesh over ``devices``, by default every
+    CUDA device."""
     if process_info()["process_count"] > 1:
-        if devices is not None:
-            devices = list(devices)
-            n = _dist().get_world_size()
-            if len(devices) != n:
-                raise NotImplementedError(
-                    f"not ported yet: {len(devices)} ranks over {n} "
-                    "processes (several ranks a process across processes, "
-                    "ROADMAP A10); list one device a process")
-            device = devices[_dist().get_rank()]
-        return make_process_mesh(device)
+        return make_process_mesh(device, devices=devices)
     return make_mesh(devices=list(devices) if devices is not None else None)
 
 
@@ -137,46 +136,43 @@ def local_fragments(path, fmt: str = "parquet") -> list:
 
 def sharded_batch_from_local(table, mesh: Optional[Mesh] = None,
                              per_device_capacity: Optional[int] = None):
-    """A ShardedBatch over ``mesh`` of this process's rows (contiguous
-    blocks of ``per_device_capacity`` over its ranks, on their devices).
-    Every process of a mesh that spans processes calls it with its own
-    table: the capacity, when not given, is bucket(the largest process's
-    rows, 128), agreed by one all-gather, which also carries each
-    process's string dictionaries, null flags and array widths; every
-    dictionary becomes the sorted union (codes remapped on the device),
-    a column with nulls anywhere has a validity everywhere, and arrays
-    pad to the widest, so every process holds one schema. In one
-    process the capacity defaults to ceil(rows / D) rounded up to 128."""
+    """A ShardedBatch over ``mesh`` of this process's rows: contiguous
+    blocks of ``per_device_capacity`` over its ranks in row order, on
+    their devices (the reference's split over a process's local
+    devices). Every process of a mesh that spans processes calls it
+    with its own table: the capacity, when not given, is bucket(the
+    largest process's ceil(rows / its k ranks), 128), agreed by one
+    all-gather, which also carries each process's string dictionaries,
+    null flags and array widths; every dictionary becomes the sorted
+    union (codes remapped on the device), a column with nulls anywhere
+    has a validity everywhere, and arrays pad to the widest, so every
+    process holds one schema, agreed once a process and shared by its
+    ranks. In one process the capacity defaults to ceil(rows / D)
+    rounded up to 128."""
     from spark_tpu_torch.columnar.arrow import from_arrow
     from spark_tpu_torch.parallel.sharded import ShardedBatch
     from spark_tpu_torch.physical.kernels import bucket
 
     if mesh is None:
         mesh = global_mesh()
-    d = len(mesh.devices)
+    k = len(mesh.local_ranks)
     if not mesh.spans_processes:
-        p = per_device_capacity or bucket(
-            math.ceil(max(1, table.num_rows) / d), 128)
-        if table.num_rows > p * d:
-            raise ValueError(f"local rows {table.num_rows} exceed local "
-                             f"capacity {p * d}; raise per_device_capacity")
-        batch = from_arrow(table, capacity=p * d, device=mesh.devices[0])
-        return ShardedBatch.from_batch(batch, mesh, per_device_capacity=p)
-    (r,) = mesh.local_ranks
-    most = max(mesh.comm.gather_objects(table.num_rows))
-    p = per_device_capacity or bucket(max(1, most), 128)
-    if most > p:  # every process raises alike
-        raise ValueError(f"a process's rows {most} exceed the per-rank "
-                         f"capacity {p}; raise per_device_capacity")
-    batch = from_arrow(table, capacity=p, device=mesh.devices[r])
-    everyone = mesh.comm.gather_objects({
-        "dicts": [f.dictionary for f in batch.schema.fields],
-        "nullable": [cd.validity is not None for cd in batch.data.columns],
-        "widths": [cd.data.shape[1] if cd.data.dim() == 2 else 0
-                   for cd in batch.data.columns]})
-    batch = _agree(batch, everyone)
-    shards = [batch.data if q == r else None for q in range(d)]
-    return ShardedBatch(batch.schema, shards, mesh, capacities=[p] * d)
+        most = table.num_rows
+    else:
+        most = max(mesh.comm.gather_objects(table.num_rows))
+    p = per_device_capacity or bucket(math.ceil(max(1, most) / k), 128)
+    if most > p * k:  # every process raises alike
+        raise ValueError(f"a process's rows {most} exceed its {k} ranks' "
+                         f"capacity {p * k}; raise per_device_capacity")
+    batch = from_arrow(table, capacity=p * k, device=mesh.home_device)
+    if mesh.spans_processes:
+        batch = _agree(batch, mesh.comm.gather_objects({
+            "dicts": [f.dictionary for f in batch.schema.fields],
+            "nullable": [cd.validity is not None
+                         for cd in batch.data.columns],
+            "widths": [cd.data.shape[1] if cd.data.dim() == 2 else 0
+                       for cd in batch.data.columns]}))
+    return ShardedBatch.from_local(batch, mesh, p)
 
 
 def _agree(batch, everyone: list):

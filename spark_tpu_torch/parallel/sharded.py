@@ -12,9 +12,9 @@ keeps the rows a single device would.
 On a mesh that spans processes (``Mesh.spans_processes``) a process
 holds the shards of its own ranks only (``None`` at the others'), and
 ``capacities`` lists every rank's. Host decisions over the shards read
-through ``rank_values``, which all-gathers them, so every process
-decides alike; ``to_batch`` gathers every rank's live rows to every
-process.
+through ``rank_values``, which all-gathers every rank's values in one
+call, so every process decides alike; ``to_batch`` gathers every rank's
+live rows to every process.
 """
 
 from __future__ import annotations
@@ -74,16 +74,19 @@ class ShardedBatch:
     def rank_values(self, fn) -> list:
         """Per rank, in rank order, ``fn(shard)`` (a 1-D integer tensor of
         one length on every rank) as a host list, in one read: the local
-        shards' values, all-gathered where the mesh spans processes.
-        Every host decision over the shards reads through here."""
-        local = [fn(self.shards[r]).to(torch.int64).reshape(-1)
-                 for r in self.mesh.local_ranks]
+        shards' values, stacked and, where the mesh spans processes,
+        all-gathered in one call (a process's block holds its ranks'
+        values, the blocks in process order, which is rank order). Every
+        host decision over the shards reads through here."""
+        local = self.mesh.local_ranks
+        dev = self.mesh.home_device
+        vals = torch.stack([fn(self.shards[r]).to(torch.int64).reshape(-1)
+                            .to(dev) for r in local])
         comm = self.mesh.comm
         if comm is None:
-            dev = local[0].device
-            return torch.stack([v.to(dev) for v in local]).tolist()
-        return torch.stack(comm.all_gather(0, local[0].device,
-                                           local)[0]).tolist()
+            return vals.tolist()
+        parts = comm.all_gather(0, "cpu", [vals])[0]
+        return torch.cat(parts).tolist()
 
     def live_counts(self) -> list:
         """Each rank's live rows."""
@@ -110,21 +113,36 @@ class ShardedBatch:
         holds the whole ``batch``, each copies only its own ranks'
         blocks."""
         d = mesh_size(mesh)
+        p = per_device_capacity or bucket(math.ceil(batch.capacity / d), 128)
+        return cls._place(batch, mesh, p, {r: r for r in mesh.local_ranks})
+
+    @classmethod
+    def from_local(cls, batch: Batch, mesh: Mesh, p: int) -> "ShardedBatch":
+        """This process's rows over its own ranks in row order, p each:
+        its i-th rank owns rows [i*p, (i+1)*p) (across processes, each
+        process calls it with its own ``batch``)."""
+        return cls._place(batch, mesh, p,
+                          {r: i for i, r in enumerate(mesh.local_ranks)})
+
+    @classmethod
+    def _place(cls, batch: Batch, mesh: Mesh, p: int, block: dict
+               ) -> "ShardedBatch":
+        """Rank r (a key of ``block``) gets rows [b*p, (b+1)*p) of
+        ``batch``, b = ``block[r]``, on its device; the others None."""
         n = batch.capacity
-        p = per_device_capacity or bucket(math.ceil(n / d), 128)
-        local = set(mesh.local_ranks)
         shards = []
         for r, dev in enumerate(mesh.devices):
-            if r not in local:
+            if r not in block:
                 shards.append(None)
                 continue
-            lo, hi = min(n, r * p), min(n, (r + 1) * p)
+            lo, hi = min(n, block[r] * p), min(n, (block[r] + 1) * p)
             cols = tuple(ColumnData(_rows(cd.data, lo, hi, p, dev),
                                     _rows(cd.validity, lo, hi, p, dev))
                          for cd in batch.data.columns)
             shards.append(BatchData(cols, _rows(batch.data.row_mask, lo, hi,
                                                 p, dev)))
-        return cls(batch.schema, shards, mesh, capacities=[p] * d)
+        return cls(batch.schema, shards, mesh,
+                   capacities=[p] * mesh_size(mesh))
 
     def to_batch(self, device=None) -> Batch:
         """The shards concatenated in rank order into one batch on
@@ -162,38 +180,52 @@ class ShardedBatch:
 
     def _gather(self, device=None) -> Batch:
         """Every rank's live rows on every process, in rank order: one
-        gather of the live counts, array widths and validity flags, then
-        each column padded to the largest shard's live rows
-        (``Comm.all_gather_var``), cut back and concatenated."""
+        gather of each process's live rows, array widths and validity
+        flags, then each column's live rows of this process's ranks
+        (concatenated in rank order), padded to the largest process's
+        (``Comm.all_gather_var``), cut back and concatenated in process
+        order, which is rank order."""
         from spark_tpu_torch.expr.compiler import pad_width
 
         comm = self.mesh.comm
-        (r,) = self.mesh.local_ranks
-        shard = self.shards[r]
-        dev = torch.device(device) if device is not None \
-            else self.mesh.devices[r]
-        keep = torch.nonzero(shard.row_mask).reshape(-1)
+        shards = [self.shards[r] for r in self.mesh.local_ranks]
+        home = self.mesh.home_device
+        dev = torch.device(device) if device is not None else home
+        keeps = [torch.nonzero(s.row_mask).reshape(-1) for s in shards]
         k = len(self.schema)
         meta = torch.tensor(
-            [[int(keep.shape[0]), 0]]
-            + [[cd.data.shape[1] if cd.data.dim() == 2 else 0,
-                int(cd.validity is not None)] for cd in shard.columns],
-            dtype=torch.int64).reshape(-1)
+            [[sum(int(x.shape[0]) for x in keeps), 0]]
+            + [[max(s.columns[i].data.shape[1]
+                    if s.columns[i].data.dim() == 2 else 0 for s in shards),
+                int(any(s.columns[i].validity is not None for s in shards))]
+               for i in range(k)], dtype=torch.int64).reshape(-1)
         metas = torch.stack(comm.all_gather(0, "cpu", [meta])[0]) \
             .reshape(comm.size, -1, 2)
         n = int(metas[:, 0, 0].sum())
         widths = metas[:, 1:, 0].max(dim=0).values.tolist()
         valid = metas[:, 1:, 1].any(dim=0).tolist()
+
+        def live(i: int, validity: bool) -> torch.Tensor:
+            out = []
+            for s, keep in zip(shards, keeps):
+                cd = s.columns[i]
+                if not validity:
+                    t = cd.data[keep]
+                    if t.dim() == 2:
+                        t = pad_width(t, int(widths[i]))
+                elif cd.validity is not None:
+                    t = cd.validity[keep]
+                else:
+                    t = torch.ones(keep.shape[0], dtype=torch.bool,
+                                   device=keep.device)
+                out.append(t.to(home))
+            return out[0] if len(out) == 1 else torch.cat(out)
+
         send = []
-        for i, cd in enumerate(shard.columns):
-            data = cd.data[keep]
-            if data.dim() == 2:
-                data = pad_width(data, int(widths[i]))
-            send.append(data)
+        for i in range(k):
+            send.append(live(i, False))
             if valid[i]:
-                send.append(cd.validity[keep] if cd.validity is not None
-                            else torch.ones(keep.shape[0], dtype=torch.bool,
-                                            device=keep.device))
+                send.append(live(i, True))
         got = iter(comm.all_gather_var(0, dev, send))
         cols = []
         for i in range(k):

@@ -226,3 +226,34 @@ def test_event_fields_match_reference(workloads, kind):
         # reference's SPMD stage is one span on one thread)
         want = want | {"rank"}
     assert got == want, got ^ want
+
+
+def test_broadcast_threshold_zero_forces_partitioned(port, monkeypatch):
+    """tests/test_conf_metrics.py's case through the port's MeshExecutor
+    on a 4-rank CPU thread mesh: a threshold of 0 plans a hash
+    partitioned join, one of 1 << 30 broadcasts the 8-row build side."""
+    from spark_tpu_torch.conf import RuntimeConf
+    from spark_tpu_torch.expr import expressions as E
+    from spark_tpu_torch.parallel import executor as X
+    from spark_tpu_torch.parallel import operators as D
+    from spark_tpu_torch.parallel.mesh import make_mesh
+    from spark_tpu_torch.plan import logical as L
+
+    left = port.createDataFrame([{"k": i % 8, "v": i} for i in range(64)])
+    right = port.createDataFrame([{"k": i, "w": i * 10} for i in range(8)])
+    plan = L.Join(left._plan, right._plan, "inner", (E.Col("k"),),
+                  (E.Col("k"),))
+    run, seen = X.MeshExecutor.run, []
+
+    def spy(self, p):
+        seen.append(isinstance(p, D.HashPartitionExchangeExec))
+        return run(self, p)
+
+    monkeypatch.setattr(X.MeshExecutor, "run", spy)
+    mesh = make_mesh(devices=["cpu"] * 4)
+    for threshold, partitioned in ((0, True), (1 << 30, False)):
+        seen.clear()
+        ex = X.MeshExecutor(mesh, conf=RuntimeConf(
+            {"spark.sql.autoBroadcastJoinThreshold": threshold}))
+        assert len(ex.execute_logical(plan).to_pylist()) == 64
+        assert any(seen) == partitioned, (threshold, seen)

@@ -27,6 +27,15 @@ files with ``multihost.read_parquet_sharded``:
   in one process only): both processes exit non-zero, each well within
   the process group's timeout.
 
+Then the same two processes make a 2 x 2 mesh, two ranks a process, each
+a thread (``meshDevices(["cpu"] * 4)``, owners (0, 0, 1, 1)): a
+process's rows fill its two ranks in row order; (a) again; (b) with
+adaptive execution off and q3 also adaptive and fused; (d) again; and
+the collectives of ``exchange.ProcessThreadComm`` equal a 4-rank
+``ThreadComm``'s in one process bit for bit. The fault children, after
+(e), join a second group and raise inside a stage in the second thread
+of one process: both exit non-zero, each well within the timeout.
+
 The parent computes the references while the children run."""
 
 import json
@@ -48,6 +57,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEAD = ("q1", "q1_wide", "q3", "q5", "q9", "q18")
 REST = tuple(f"q{q}" for q in range(1, 23) if f"q{q}" not in HEAD)
 MODES = ("off", "adaptive", "fused")
+#: the 2 x 2 mesh's runs: HEAD with adaptive execution off, q3 also
+#: adaptive and fused
+MESH2 = tuple((n, "off") for n in HEAD) + (("q3", "adaptive"),
+                                           ("q3", "fused"))
+#: the collectives' seeded inputs, one set a global rank of the 2 x 2 mesh
+COMM_RANKS = 4
 #: seconds a collective waits for its peers in the fault case
 FAULT_TIMEOUT_S = 30
 #: floats against the single-device run (tests/test_torch_mesh_tpch.py)
@@ -81,10 +96,13 @@ _WORKER = textwrap.dedent('''
         .getOrCreate()
     mesh = spark.mesh_executor.mesh
     res = {"mesh": repr(mesh), "ranks": len(mesh.devices)}
-    try:
-        multihost.global_mesh(["cpu"] * 4)
-    except NotImplementedError as e:
-        res["several_ranks"] = str(e)
+
+    def two_a_process():
+        # the 2 x 2 mesh, the session's own; its views are its own too
+        global spark, mesh
+        spark = SparkSession.builder.device("cpu").master("mesh[*]") \\
+            .meshDevices(["cpu"] * 4).getOrCreate()
+        mesh = spark.mesh_executor.mesh
 
     def rows(q):
         return [tuple(r) for r in spark.sql(q).collect()]
@@ -104,30 +122,55 @@ _WORKER = textwrap.dedent('''
         if rank == 1:
             spark.conf.set("spark.tpu.faultInjection.exchange.all_to_all",
                            "nth:1")
-        t0 = time.monotonic()
-        try:
-            rows("select k, count(*) from t group by k")
-        except Exception as e:
-            chain, x = [], e
-            while x is not None:
-                chain.append(type(x).__name__)
-                x = x.__cause__ or x.__context__
-            json.dump({"elapsed": time.monotonic() - t0, "chain": chain,
-                       "message": str(e)[:300]}, open(out, "w"))
-            sys.exit(1)
-        json.dump({"elapsed": time.monotonic() - t0, "chain": []},
-                  open(out, "w"))
-        sys.exit(0)
+        def attempt():
+            t0 = time.monotonic()
+            try:
+                rows("select k, count(*) from t group by k")
+            except Exception as e:
+                chain, x = [], e
+                while x is not None:
+                    chain.append(type(x).__name__)
+                    x = x.__cause__ or x.__context__
+                return {"elapsed": time.monotonic() - t0, "chain": chain,
+                        "message": str(e)[:300]}
+            return {"elapsed": time.monotonic() - t0, "chain": []}
+
+        got = attempt()
+        # the 2 x 2 mesh over a second group: the second thread of
+        # process 1 (rank 3) raises inside the stage
+        from spark_tpu_torch.parallel import exchange as X
+        multihost.initialize(f"localhost:{sys.argv[10]}", 2, rank,
+                             backend="gloo", timeout_s=timeout_s)
+        two_a_process()
+        spark.createDataFrame(pa.table({
+            "k": pa.array([(i * 7919) % 1000003 for i in range(4000)],
+                          pa.int64()),
+            "v": pa.array(list(range(4000)), pa.int64())})) \\
+            .createOrReplaceTempView("t")
+        real = X.exchange
+
+        def exchange(*args, **kwargs):
+            if X.axis_index() == 3:
+                raise RuntimeError("rank 3 fails inside the stage")
+            return real(*args, **kwargs)
+
+        X.exchange = exchange
+        got["mesh2"] = attempt()
+        json.dump(got, open(out, "w"))
+        sys.exit(1 if got["chain"] or got["mesh2"]["chain"] else 0)
+
+    def case_a(sb):
+        agg = L.Aggregate((E.Col("s"), E.Col("k")), (
+            E.Col("s"), E.Col("k"), E.Alias(E.Count(None), "n"),
+            E.Alias(E.Sum(E.Col("v")), "sv"),
+            E.Alias(E.Max(E.Col("v")), "mx")), L.Relation(sb))
+        return MeshExecutor(mesh).execute_logical(agg).to_pylist()
 
     # (a) the data plane: fragments to an aggregate
     sb = multihost.read_parquet_sharded(os.path.join(root, "frags"),
                                         mesh=mesh)
     res["a_live"] = sb.live_counts()
-    agg = L.Aggregate((E.Col("s"), E.Col("k")), (
-        E.Col("s"), E.Col("k"), E.Alias(E.Count(None), "n"),
-        E.Alias(E.Sum(E.Col("v")), "sv"),
-        E.Alias(E.Max(E.Col("v")), "mx")), L.Relation(sb))
-    res["a"] = MeshExecutor(mesh).execute_logical(agg).to_pylist()
+    res["a"] = case_a(sb)
 
     # (b), (c): TPC-H from the parts
     tpch = os.path.join(root, "tpch")
@@ -157,7 +200,84 @@ _WORKER = textwrap.dedent('''
     spark.read.parquet(os.path.join(root, "disjoint", "dim.parquet")) \\
         .createOrReplaceTempView("dim")
     res["d"] = {k: rows(q) for k, q in json.loads(sys.argv[9]).items()}
+
+    # the 2 x 2 mesh: two ranks a process
+    two_a_process()
+    res["m_mesh"] = (len(mesh.devices), mesh.owners, mesh.local_ranks)
+    sb = multihost.read_parquet_sharded(os.path.join(root, "frags"),
+                                        mesh=mesh)
+    res["m_live"] = sb.live_counts()
+    v = sb.schema.names.index("v")
+    res["m_v"] = [sb.shards[r].columns[v].data[sb.shards[r].row_mask]
+                  .tolist() for r in mesh.local_ranks]
+    res["m_a"] = case_a(sb)
+    for name in ("lineitem", "orders"):
+        sharded_view(name, os.path.join(tpch, f"{name}.parquet"))
+    for name in ("customer", "supplier", "nation", "region", "part",
+                 "partsupp"):
+        spark.read.parquet(os.path.join(tpch, f"{name}.parquet")) \\
+            .createOrReplaceTempView(name)
+    res["m_tpch"], res["m_events"] = {}, {}
+    for name, mode in json.loads(sys.argv[11]):
+        spark.conf.set("spark.tpu.adaptive.enabled", mode != "off")
+        spark.conf.set("spark.tpu.fusion.enabled", mode == "fused")
+        res["m_tpch"][(name, mode)] = rows(text[name])
+        res["m_events"][(name, mode)] = sorted({
+            e["kind"] for e in spark.mesh_executor.last_run["events"]})
+    spark.conf.set("spark.tpu.adaptive.enabled", False)
+    spark.conf.set("spark.tpu.fusion.enabled", False)
+    sb = sharded_view("t", os.path.join(root, "disjoint", "t"))
+    res["m_d_dict"] = sb.schema.field("s").dictionary
+    spark.read.parquet(os.path.join(root, "disjoint", "dim.parquet")) \\
+        .createOrReplaceTempView("dim")
+    res["m_d"] = {k: rows(q) for k, q in json.loads(sys.argv[9]).items()}
+
+    # the communicator: each local rank a thread, seeded inputs
+    import threading
+    from spark_tpu_torch.parallel import exchange as X
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from comm_case import collectives
+    comm = X.ProcessThreadComm(mesh.local_ranks, len(mesh.devices),
+                               X.DistComm())
+    res["m_comm"] = {}
+    threads = [threading.Thread(target=lambda r=r: res["m_comm"].update(
+        {r: collectives(comm, r)})) for r in mesh.local_ranks]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
     pickle.dump(res, open(out, "wb"))
+''')
+
+
+_COMM_CASE = textwrap.dedent('''
+    import numpy as np
+    import torch
+
+
+    def inputs(rank):
+        g = np.random.default_rng(2000 + rank)
+        return {"a": torch.as_tensor(g.integers(-10 ** 6, 10 ** 6, (12, 2))),
+                "b": torch.as_tensor(g.random(20) < 0.5),
+                # magnitudes 1e-8 .. 1e8: a sum's bits depend on its order
+                "f": torch.as_tensor(g.standard_normal(9)
+                                     * 10.0 ** g.integers(-8, 9, 9)),
+                "v": torch.as_tensor(g.integers(0, 99, 1 + 2 * rank))}
+
+
+    def collectives(comm, rank):
+        """Every collective of ``comm`` as rank ``rank``, on seeded
+        inputs."""
+        t = inputs(rank)
+        return {
+            "all_to_all": comm.all_to_all(rank, "cpu", [t["a"], t["b"]]),
+            "all_gather": comm.all_gather(rank, "cpu", [t["f"], t["b"]]),
+            "all_gather_var": comm.all_gather_var(
+                rank, "cpu", [t["v"], t["a"][:rank + 1]]),
+            "psum": comm.all_reduce(rank, "cpu", t["f"], "sum"),
+            "pmin": comm.all_reduce(rank, "cpu", t["f"], "min"),
+            "pmax": comm.all_reduce(rank, "cpu", t["a"], "max"),
+            "broadcast": comm.broadcast(rank, "cpu", [t["a"]], src=3)}
 ''')
 
 
@@ -201,7 +321,9 @@ def _write_data(root: str) -> dict:
 
 
 def _spawn(script: str, root: str, role: str, tmp: str) -> list:
-    port = _free_port()
+    port, port2 = _free_port(), _free_port()
+    while port2 == port:
+        port2 = _free_port()
     # one compute thread a child: the suite's workers already fill the
     # cores, and the tables are small
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
@@ -210,7 +332,7 @@ def _spawn(script: str, root: str, role: str, tmp: str) -> list:
     return [(subprocess.Popen(
         [sys.executable, script, REPO, str(port), str(r), role, root,
          os.path.join(tmp, f"{role}{r}.out"), str(timeout), ",".join(HEAD),
-         json.dumps(DISJOINT)],
+         json.dumps(DISJOINT), str(port2), json.dumps(MESH2)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
         os.path.join(tmp, f"{role}{r}.out")) for r in range(2)]
 
@@ -252,6 +374,28 @@ def _jax_case_a(frags: str) -> list:
     return JMesh(mesh).execute_logical(agg).to_pylist()
 
 
+def _thread_comm_case(tmp: str) -> dict:
+    """The communicator case on a 4-rank ThreadComm in this process."""
+    import importlib.util
+    import threading
+
+    from spark_tpu_torch.parallel.exchange import ThreadComm
+
+    spec = importlib.util.spec_from_file_location(
+        "comm_case", os.path.join(tmp, "comm_case.py"))
+    case = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(case)
+    comm, out = ThreadComm(COMM_RANKS), {}
+    threads = [threading.Thread(target=lambda r=r: out.update(
+        {r: case.collectives(comm, r)})) for r in range(COMM_RANKS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    return out
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     from spark_tpu_torch.api.session import SparkSession
@@ -264,6 +408,8 @@ def world(tmp_path_factory):
     script = os.path.join(tmp, "worker.py")
     with open(script, "w") as f:
         f.write(_WORKER)
+    with open(os.path.join(tmp, "comm_case.py"), "w") as f:
+        f.write(_COMM_CASE)
     t0 = time.monotonic()
     main = _spawn(script, root, "main", tmp)
     fault = _spawn(script, root, "fault", tmp)
@@ -288,6 +434,7 @@ def world(tmp_path_factory):
             .createOrReplaceTempView("dim")
         d_want = {k: _single_rows(dj, q) for k, q in DISJOINT.items()}
         a_want = _jax_case_a(os.path.join(root, "frags"))
+        comm_want = _thread_comm_case(tmp)
         fault_logs = _wait(fault, 3 * FAULT_TIMEOUT_S)
         main_logs = _wait(main, 240)
     finally:
@@ -306,6 +453,7 @@ def world(tmp_path_factory):
             faulted.append((p.returncode, json.load(f), log[-2000:]))
     yield {"got": got, "want": want, "text": text, "conn": conn,
            "d_want": d_want, "a_want": a_want, "fault": faulted,
+           "comm_want": comm_want, "root": root,
            "words": made["words"], "seconds": time.monotonic() - t0}
     conn.close()
 
@@ -337,9 +485,25 @@ def test_processes_form_one_mesh(world):
     assert world["got"][0]["a_live"] == world["got"][1]["a_live"]
 
 
-def test_several_ranks_a_process_is_refused(world):
+def test_two_ranks_a_process_mesh(world):
+    """The 2 x 2 mesh: four ranks, two threads of each process, and each
+    process's rows over its two ranks in row order, p rows each."""
+    from spark_tpu_torch.physical.kernels import bucket
+
+    files = sorted(os.path.join(world["root"], "frags", f)
+                   for f in os.listdir(os.path.join(world["root"], "frags")))
+    tables = [pa.concat_tables([pq.read_table(f) for f in files[p::2]])
+              for p in range(2)]
+    cap = bucket(max(-(-t.num_rows // 2) for t in tables), 128)
+    live = []
+    for p, (g, t) in enumerate(zip(world["got"], tables)):
+        assert g["m_mesh"] == (4, (0, 0, 1, 1), (2 * p, 2 * p + 1)), g
+        v = t.column("v").to_pylist()
+        assert g["m_v"] == [v[:cap], v[cap:2 * cap]], p
+        live += [min(cap, t.num_rows), max(0, t.num_rows - cap)]
     for g in world["got"]:
-        assert "not ported yet" in g.get("several_ranks", ""), g
+        assert g["m_live"] == live
+    assert all(live), live
 
 
 def test_lost_group_is_never_retried():
@@ -434,3 +598,86 @@ def test_failing_rank_stops_both_processes(world):
     assert r0["chain"][0] == "ProcessGroupLost", r0
     for r in (r0, r1):
         assert r["elapsed"] < FAULT_TIMEOUT_S, r
+
+
+def test_two_ranks_a_process_data_plane(world):
+    """(a) on the 2 x 2 mesh against the JAX package's one-process
+    run."""
+    key = lambda r: (r["s"], r["k"])  # noqa: E731
+    want = sorted(world["a_want"], key=key)
+    for g in world["got"]:
+        assert sorted(g["m_a"], key=key) == want
+
+
+@pytest.mark.parametrize("name,mode", MESH2)
+def test_two_ranks_a_process_tpch(world, name, mode):
+    """(b) on the 2 x 2 mesh: both processes alike, q3's adaptive and
+    fused runs the off run's bit for bit, the single-device run's and
+    sqlite's."""
+    from spark_tpu_torch.tpch.oracle import assert_rows_match, run_oracle
+
+    a, b = (g["m_tpch"][(name, mode)] for g in world["got"])
+    assert a == b, f"{name} {mode}: the processes disagree"
+    assert repr(a) == repr(world["got"][0]["m_tpch"][(name, "off")])
+    assert a, f"{name} returned no rows at this scale"
+    _match_single(a, world["want"][name], f"{name} {mode} 2 x 2")
+    if name != "q1_wide":
+        assert_rows_match(a, run_oracle(world["conn"], world["text"][name]),
+                          label=f"{name}[2 x 2 {mode}]")
+    kinds = world["got"][0]["m_events"][(name, mode)]
+    assert bool(kinds) == (mode != "off"), kinds
+
+
+def test_two_ranks_a_process_dictionaries_agree(world):
+    """(d) on the 2 x 2 mesh: agreed once a process, one schema for its
+    two ranks."""
+    union = tuple(sorted(set(world["words"][0]) | set(world["words"][1])))
+    for g in world["got"]:
+        assert g["m_d_dict"] == union
+
+
+@pytest.mark.parametrize("case", sorted(DISJOINT))
+def test_two_ranks_a_process_dictionaries_queries(world, case):
+    a, b = (g["m_d"][case] for g in world["got"])
+    assert a == b
+    want = world["d_want"][case]
+    if case == "order":
+        assert a == want
+    else:
+        assert sorted(a, key=_key) == sorted(want, key=_key)
+
+
+def test_process_thread_comm_equals_thread_comm(world):
+    """2 processes x 2 threads on ProcessThreadComm against a 4-rank
+    ThreadComm: every collective's result, bit for bit, a float64
+    all_reduce sum included."""
+    import torch
+
+    got = {**world["got"][0]["m_comm"], **world["got"][1]["m_comm"]}
+    want = world["comm_want"]
+    assert sorted(got) == sorted(want) == list(range(COMM_RANKS))
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return (a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a, b))
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+
+    for r in range(COMM_RANKS):
+        assert want[r]["psum"].dtype == torch.float64
+        for op in want[r]:
+            assert same(got[r][op], want[r][op]), (r, op)
+
+
+def test_failing_local_thread_stops_both_processes(world):
+    """(e) on the 2 x 2 mesh: the second thread of process 1 raises
+    inside a stage; both processes exit non-zero, each within the
+    group's timeout."""
+    (rc0, r0, log0), (rc1, r1, log1) = world["fault"]
+    assert rc0 != 0 and rc1 != 0, (log0, log1)
+    m0, m1 = r0["mesh2"], r1["mesh2"]
+    assert m1["chain"][:2] == ["ProcessGroupLost", "RuntimeError"], m1
+    assert "rank 3" in m1["message"], m1
+    assert m0["chain"][0] == "ProcessGroupLost", m0
+    for m in (m0, m1):
+        assert m["elapsed"] < FAULT_TIMEOUT_S, m
