@@ -44,8 +44,12 @@ no result line):
 4. The sqlite oracle: every column of the eight SF1 tables, key columns
    indexed, LIKE case-sensitive as the engine's; one load for every
    phase, made in a child process (``--oracle-child``, the same seed)
-   from the start, beside the build and the kernel phase, and copied
-   into memory when the slice phase needs it. Beside it from the start,
+   from the start, beside the build and the kernel phase. The same
+   child then holds each result a phase sends it (``OracleChecks``: the
+   main process only pickles the rows to the child's standard input)
+   against the oracle, beside the phases; the command waits for the
+   child, and fails on its first mismatch, before the result lines.
+   Beside it from the start,
    the scale phase's SF10 dataset (``--dataset-child``: ``ensure_dataset``
    with the streamed writer, 8 parts, in a process per spare CPU) and
    the pyarrow computations of q1, q3 and q5 over it.
@@ -175,7 +179,12 @@ no result line):
      to its wall; the median walls on and off printed, and q3's
      ``format_trace`` and query profile. ``tracing.trace(dir)`` around
      one q1-wide run: its Chrome trace holds the ``annotate`` region and
-     one CUDA kernel event per hand-kernel run (7 + 2 + 1 + 1). q3 and
+     one CUDA kernel event per hand-kernel run (7 + 2 + 1 + 1), in one
+     of five sessions; beside it, the kernel events a 100-addition CUDA
+     graph with no engine code keeps in three bare profiler sessions and
+     in three ``tracing.trace`` sessions (a reading: torch's profiler
+     drops a session's first kernel records, more as a process ages, and
+     ``tracing.trace`` launches a primer first). q3 and
      q18 on ``mesh[4]`` with adaptive execution: every rank's
      ``stage.device`` span and every ``exchange.stats`` span carry the
      query's trace id; the exchange and aggregation profiles of the five
@@ -388,6 +397,10 @@ FP32_OPS_PER_S = 67e12
 KS = (65, 168, 1024)
 MAIN_K = 168  # q1-wide: 3 * 2 * 7 * 4 packed dictionary groups
 CROSSOVER_KS = (2, 6, 16, 32, 64)  # q1 has K = 6
+
+
+#: when the command's process began (the obs phase logs its age)
+_T0 = time.perf_counter()
 
 
 def log(*args):
@@ -1095,52 +1108,107 @@ def oracle_connection(tables):
 SF1_SEED = 20260729
 
 
-def oracle_child(path: str) -> int:
-    """``--oracle-child PATH``: the sqlite oracle of SF1 (``SF1_SEED``),
-    built in a process of its own while the main one builds the kernels
-    and runs the kernel phase, and written to ``PATH``."""
-    import sqlite3
+def oracle_child(root: str, sf: float = 1.0, seed: int = SF1_SEED) -> int:
+    """``--oracle-child ROOT SF SEED``: the sqlite oracle of the tables at
+    ``sf`` from ``seed`` (the command's: SF1, ``SF1_SEED``), built in a
+    process of its own from the start of the command, which
+    then holds each result the main process sends it (a pickled
+    ``(rows, sql, label, line)`` on its standard input, read by a thread
+    from the start so the main process never waits on the pipe) against
+    the oracle's rows for its statement, in order, and logs ``line`` with
+    the seconds it took. The first mismatch is written to
+    ``ROOT/oracle_error.txt`` and ends the child with 1."""
+    import pickle
+    import queue
+    import threading
 
     from spark_tpu_torch.tpch import generate_tables
+    from spark_tpu_torch.tpch.oracle import assert_rows_match
 
-    conn = oracle_connection(generate_tables(1.0, seed=SF1_SEED))
-    out = sqlite3.connect(path)
-    conn.backup(out)
-    out.close()
+    items = queue.Queue()
+
+    def read() -> None:
+        while True:
+            try:
+                items.put(pickle.load(sys.stdin.buffer))
+            except EOFError:
+                items.put(None)
+                return
+
+    threading.Thread(target=read, daemon=True).start()
+    t0 = time.perf_counter()
+    conn = oracle_connection(generate_tables(sf, seed=seed))
+    log(f"oracle: the child process made its tables and sqlite database "
+        f"in {time.perf_counter() - t0:.1f} s")
+    while (item := items.get()) is not None:
+        rows, sql, label, line = item
+        t0 = time.perf_counter()
+        try:
+            assert_rows_match(rows, oracle_rows(conn, sql), label=label)
+        except BaseException as e:
+            with open(os.path.join(root, "oracle_error.txt"), "w") as f:
+                f.write(f"{type(e).__name__}: {e}")
+            return 1
+        log(f"{line} ({time.perf_counter() - t0:.1f} s, in the oracle's "
+            "process)")
     return 0
 
 
-def start_oracle(root: str):
-    """The oracle's child process and the file it writes."""
-    path = os.path.join(root, "oracle.sqlite")
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             "--oracle-child", path]), path
+class OracleChecks:
+    """The sqlite oracle's comparisons, in the oracle's child process
+    (``oracle_child``), beside the phases: the main process only pickles
+    each result to the child's standard input, and no thread of its own
+    takes a share of its interpreter. ``expect`` raises the first
+    mismatch once the child has ended on it; ``finish`` closes the input,
+    waits for the child and raises it. ``sf`` and ``seed`` make the
+    child's tables: those of the phases' sessions."""
 
+    def __init__(self, root: str, sf: float = 1.0, seed: int = SF1_SEED):
+        self._error_path = os.path.join(root, "oracle_error.txt")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--oracle-child",
+             root, str(sf), str(seed)], stdin=subprocess.PIPE)
 
-def oracle_from_child(proc, path: str):
-    """Wait for the oracle's child, then copy its database into memory
-    (indexes and statistics with it) and make LIKE case-sensitive, as
-    ``oracle_connection`` does."""
-    import sqlite3
+    def expect(self, rows, sql: str, label: str, line: str) -> None:
+        """Send ``rows`` to be held against the oracle's for ``sql``;
+        ``line`` is logged by the child, with the seconds the comparison
+        took, when they match."""
+        import pickle
 
-    t0 = time.perf_counter()
-    rc = proc.wait()
-    check(rc == 0, f"the oracle's child process exited with {rc}")
-    conn = sqlite3.connect(":memory:")
-    src = sqlite3.connect(path)
-    src.backup(conn)
-    src.close()
-    conn.execute("pragma case_sensitive_like = on")
-    log(f"oracle: waited {time.perf_counter() - t0:.1f} s for the child "
-        "process and copied its database into memory")
-    return conn
+        if self.proc.poll() is not None:
+            self._raise()
+        try:
+            pickle.dump((list(rows), sql, label, line), self.proc.stdin)
+            self.proc.stdin.flush()
+        except BrokenPipeError:
+            self.proc.wait()
+            self._raise()
+
+    def finish(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.proc.stdin.close()
+        except BrokenPipeError:
+            pass
+        rc = self.proc.wait()
+        log(f"oracle: waited {time.perf_counter() - t0:.1f} s for the "
+            "child's comparisons at the end")
+        if rc != 0:
+            self._raise()
+
+    def _raise(self) -> None:
+        why = f"its process exited with {self.proc.returncode}"
+        if os.path.exists(self._error_path):
+            with open(self._error_path) as f:
+                why = f.read()
+        raise RuntimeError(f"chip_smoke check failed: the sqlite oracle: "
+                           f"{why}")
 
 
 def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     from spark_tpu_torch import recovery
     from spark_tpu_torch.physical import graphs
     from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
-    from spark_tpu_torch.tpch.oracle import assert_rows_match
 
     queries = {"q1": QUERIES[1], "q1_wide": Q1_WIDE}
 
@@ -1192,11 +1260,8 @@ def slice_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
             "CPU run")
     log(f"slice: CPU runs took {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    assert_rows_match(gpu_rows["q1"], oracle_rows(oracle, QUERIES[1]),
-                      label="q1[sqlite]")
-    log(f"slice: q1 equals the sqlite oracle "
-        f"({time.perf_counter() - t0:.1f} s)")
+    oracle.expect(gpu_rows["q1"], QUERIES[1], "q1[sqlite]",
+                  "slice: q1 equals the sqlite oracle")
     return total
 
 
@@ -1268,7 +1333,6 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
     the launches of the path's run."""
     from spark_tpu_torch import recovery
     from spark_tpu_torch.physical import graphs
-    from spark_tpu_torch.tpch.oracle import assert_rows_match
 
     seg_agg.reset_launches()
     rows, launches, syncs = {}, {}, {}
@@ -1318,14 +1382,11 @@ def run_phase(label: str, seg_agg, gpu, cpu, queries: dict, launches_want,
     log(f"{label}: CPU runs took {time.perf_counter() - t0:.1f} s")
 
     for name, q in oracle_queries.items():
-        t0 = time.perf_counter()
         sql, cols = q if isinstance(q, tuple) else (q, None)
         held = rows[name] if cols is None else [
             tuple(r[i] for i in cols) for r in rows[name]]
-        assert_rows_match(held, oracle_rows(oracle, sql),
-                          label=f"{name}[sqlite]")
-        log(f"{label}: {name} equals the sqlite oracle "
-            f"({time.perf_counter() - t0:.1f} s)")
+        oracle.expect(held, sql, f"{name}[sqlite]",
+                      f"{label}: {name} equals the sqlite oracle")
 
     for name, q in queries.items():
         warm_runs(label, seg_agg, gpu, name, q, rows[name], launches[name],
@@ -2385,7 +2446,6 @@ def mesh_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     launches (mesh[4] and mesh[1])."""
     from spark_tpu_torch.physical import graphs
     from spark_tpu_torch.tpch import Q1_WIDE, QUERIES
-    from spark_tpu_torch.tpch.oracle import assert_rows_match
 
     queries = {f"q{q}": QUERIES[q] for q in sorted(QUERIES)}
     queries.update(q1_wide=Q1_WIDE, f168=MESH_F168)
@@ -2419,14 +2479,15 @@ def mesh_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
                           f"{name}: two mesh[4] runs differ")
                     ratios[name] = (wall, one_wall)
                 if name not in extra:
-                    assert_rows_match(rows, oracle_rows(oracle, q),
-                                      label=f"{name}[mesh {ranks}]")
+                    oracle.expect(rows, q, f"{name}[mesh {ranks}]",
+                                  f"mesh: {name} mesh[{ranks}] equals the "
+                                  "sqlite oracle")
                 log(f"mesh: {name} mesh[{ranks}] {wall:.1f} ms"
                     + (f" (again {wall2:.1f} ms)" if ranks == 4 else "")
                     + f", one device {one_wall:.1f} ms; {len(rows)} rows "
                     f"equal to one device (floats within {worst:.3g} of "
                     f"the bound {MESH_TOL})"
-                    + ("" if name in extra else " and to sqlite")
+                    + ("" if name in extra else " (sqlite queued)")
                     + f"; launches {launched}")
                 log_exchanges("mesh", f"{name} mesh[{ranks}]", record)
                 if dev == "cuda" and ranks == 4 and name in MESH_PROFILED:
@@ -2639,6 +2700,144 @@ where o_orderdate < date '1994-01-01'
 group by l_returnflag order by l_returnflag"""
 
 
+#: the skew step's cells over SF1 lineitem: name -> (the key's per-row
+#: value, the join type, the skew handling). The probe side's key takes
+#: one hot value (the column's least, so the build side holds it) where
+#: l_orderkey % 10 <> 0, about 90% of the rows, and the row's own value
+#: elsewhere; the build side is the column's distinct values with their
+#: row counts as the int64 payload w (date_left's stops before 1998, so
+#: the left join keeps unmatched rows). The split cells turn the broadcast
+#: off and cap the demotion at 1 byte; the demotion cell keeps its default.
+AQE_SKEW_CELLS = {
+    "date": ("l_shipdate", "inner", "split"),
+    "date_left": ("l_shipdate", "left", "split"),
+    "timestamp": ("cast(l_shipdate as timestamp)", "inner", "split"),
+    "decimal": ("l_extendedprice", "inner", "split"),
+    "int64": ("l_suppkey", "inner", "split"),
+    "string": ("l_shipmode", "inner", "split"),
+    "int64_broadcast": ("l_suppkey", "inner", "broadcast"),
+}
+
+
+def _sql_literal(v) -> str:
+    """``v`` as a SQL literal of its own type."""
+    import datetime
+    import decimal
+
+    if isinstance(v, datetime.datetime):
+        return f"timestamp '{v.isoformat(sep=' ')}'"
+    if isinstance(v, datetime.date):
+        return f"date '{v.isoformat()}'"
+    if isinstance(v, decimal.Decimal):
+        # from a string: a numeric literal is a double, whose CAST to a
+        # decimal keeps the reference's unscaled reading (9.01 for 901.0)
+        return f"cast('{v}' as decimal(12,{max(0, -v.as_tuple().exponent)}))"
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    return str(int(v))
+
+
+def skew_query(gpu, value: str, how: str) -> str:
+    """The skew step's join: counts and the payload's sum over the
+    skewed probe side joined to the distinct values."""
+    (hot,) = gpu.sql(f"select min({value}) from lineitem").collect()[0]
+    where = (" where l_shipdate < date '1998-01-01'"
+             if how == "left" else "")
+    return f"""select count(*) as n, count(w) as m, sum(w) as s
+from (select case when l_orderkey % 10 <> 0 then {_sql_literal(hot)}
+                  else {value} end as hk
+      from lineitem) p
+{how} join (select k, count(*) as w
+      from (select {value} as k from lineitem{where}) t group by k) b
+  on p.hk = b.k"""
+
+
+def aqe_skew_step(seg_agg, gpu, dev: str, aqe_total: dict) -> dict:
+    """The skew join on mesh[4] at SF1 (``AQE_SKEW_CELLS``): each split
+    cell logs a ``skew_join_split`` with a hot key and its branches'
+    pairs, the demotion cell a ``skew_join_broadcast``; every cell's row
+    equals, bit for bit, the one-device run's and the mesh run's with the
+    skew handling off (minPairs past the row count). The one-device runs
+    (and the hot values' and row count's) run their stages eagerly, so the
+    graph pool and the stage cache stay as the phase checks them. Returns
+    per cell the walls (first and second run), hot keys and branch
+    pairs."""
+    from spark_tpu_torch import conf as CF
+    from spark_tpu_torch.parallel.executor import (
+        BROADCAST_THRESHOLD, SKEW_MAX_BROADCAST_BYTES, SKEW_MIN_PAIRS)
+    from spark_tpu_torch.physical import graphs
+
+    def session(mode: str):
+        spark = mesh_session(gpu, 4, dev)
+        spark.conf.set(CF.ADAPTIVE_ENABLED.key, True)
+        spark.conf.set(CF.ADAPTIVE_BROADCAST_THRESHOLD.key, -1)
+        spark.conf.set(BROADCAST_THRESHOLD.key, -1)
+        if mode != "broadcast":
+            spark.conf.set(SKEW_MAX_BROADCAST_BYTES.key, 1)
+        if mode == "off":
+            spark.conf.set(SKEW_MIN_PAIRS.key, 1 << 40)
+        return spark
+
+    spark = {mode: session(mode) for mode in ("split", "broadcast", "off")}
+    with graphs.eager_stages():
+        (live,) = gpu.sql("select count(*) from lineitem").collect()[0]
+    out = {}
+    for cell, (value, how, mode) in AQE_SKEW_CELLS.items():
+        t0 = time.perf_counter()
+        with graphs.eager_stages():
+            q = skew_query(gpu, value, how)
+            one = [tuple(r) for r in gpu.sql(q).collect()]
+        off, off_wall, _, off_rec = mesh_run(seg_agg, spark["off"], cell, q,
+                                             dev)
+        walls = []
+        for _ in range(2):
+            rows, wall, launched, record = mesh_run(seg_agg, spark[mode],
+                                                    cell, q, dev)
+            walls.append(wall)
+            for m, k in launched.items():
+                aqe_total[m] += k
+        check(row_bits(rows) == row_bits(one) == row_bits(off),
+              f"skew {cell}: mesh {rows}, skew off {off}, one device {one}")
+        check(not any(e["kind"].startswith("skew_join")
+                      for e in off_rec["events"]),
+              f"skew {cell}: the skew-off run handled the skew")
+        events = record["events"]
+        split = [e for e in events if e["kind"] == "skew_join_split"]
+        demoted = [e for e in events if e["kind"] == "skew_join_broadcast"]
+        branches = [e for e in events if e["kind"] == "skew_join_branches"]
+        if mode == "split":
+            check(split and split[0]["hot_keys"] >= 1 and not demoted
+                  and len(branches) == 1,
+                  f"skew {cell}: no split around a hot key: {events}")
+        else:
+            check(demoted and not split,
+                  f"skew {cell}: not demoted to a broadcast: {events}")
+        n, m, _ = rows[0]
+        check(n == live and m > 0.85 * live,
+              f"skew {cell}: {n} rows, {m} matched of {live}: the hot key "
+              "missed its build row")
+        br = branches[0] if branches else {}
+        check(not br or br["hot_pairs"] + br["rest_pairs"] == m,
+              f"skew {cell}: branch pairs {br} against {m} matches")
+        out[cell] = dict(walls_ms=walls, off_ms=off_wall, rows=n, matched=m,
+                         hot_keys=split[0]["hot_keys"] if split else 0,
+                         max_pairs=(split or demoted)[0]["max"],
+                         median_pairs=(split or demoted)[0]["median"],
+                         hot_pairs=br.get("hot_pairs"),
+                         rest_pairs=br.get("rest_pairs"),
+                         hot_max=br.get("hot_max"),
+                         rest_max=br.get("rest_max"))
+        log(f"aqe skew: {cell} ({how} join on {value}, {mode}): "
+            f"{walls[0]:.1f} / {walls[1]:.1f} ms (first / second run), "
+            f"{off_wall:.1f} ms with the skew handling off (first run); "
+            f"{n} rows, {m} matched; " + ", ".join(
+                f"{k} {v}" for k, v in out[cell].items()
+                if k not in ("walls_ms", "off_ms", "rows", "matched"))
+            + f"; equal to one device and to skew off "
+            f"({(time.perf_counter() - t0):.1f} s with the reference runs)")
+    return out
+
+
 def aqe_sessions(gpu, dev: str, over=None) -> dict:
     """A mesh[4] session per mode over ``gpu``'s tables."""
     from spark_tpu_torch import conf as CF
@@ -2789,7 +2988,6 @@ def aqe_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
     from spark_tpu_torch import metrics
     from spark_tpu_torch.physical import graphs
     from spark_tpu_torch.tpch import QUERIES
-    from spark_tpu_torch.tpch.oracle import assert_rows_match
 
     probe = mesh_session(gpu, 4, dev)
     check(not probe.conf.get(CF.ADAPTIVE_ENABLED)
@@ -2824,10 +3022,10 @@ def aqe_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
             for mode in ("adaptive", "fused"):
                 check(row_bits(first[mode]) == row_bits(first["off"]),
                       f"{name}: the {mode} rows differ from the off run's")
-            assert_rows_match(first["adaptive"], oracle_rows(oracle, q),
-                              label=f"{name}[aqe]")
+            oracle.expect(first["adaptive"], q, f"{name}[aqe]",
+                          f"aqe: {name} equals the sqlite oracle")
             log(f"aqe: {name} {len(first['off'])} rows: adaptive and fused "
-                "bit for bit the off run's, and the sqlite oracle's")
+                "bit for bit the off run's (sqlite queued)")
 
         for cell, (sql, want, over) in AQE_CELLS.items():
             cell_sessions = aqe_sessions(gpu, dev, over)
@@ -2883,13 +3081,18 @@ def aqe_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
               and switch[0]["measured_bytes"] <= AQE_BROADCAST_BYTES
               < switch[0]["static_bytes"],
               f"broadcast: the switch did not flip: {switch}")
-        assert_rows_match(rows, oracle_rows(oracle, AQE_BROADCAST),
-                          label="broadcast[aqe]")
+        oracle.expect(rows, AQE_BROADCAST, "broadcast[aqe]",
+                      "aqe: the broadcast switch's rows equal the sqlite "
+                      "oracle")
         log(f"aqe: broadcast switch flipped: measured "
             f"{switch[0]['measured_bytes']} bytes, static estimate "
             f"{switch[0]['static_bytes']} bytes, threshold "
             f"{AQE_BROADCAST_BYTES}; {len(rows)} rows equal the off run's "
-            f"(a partitioned join) and the sqlite oracle's, {wall:.1f} ms")
+            f"(a partitioned join; sqlite queued), {wall:.1f} ms")
+
+        t0 = time.perf_counter()
+        _AQE_SKEW.update(aqe_skew_step(seg_agg, gpu, dev, aqe_total))
+        log(f"aqe: skew step {time.perf_counter() - t0:.1f} s")
     hold_calls(seg_agg, calls, "aqe")
     total = mode_launches(seg_agg)
     if dev == "cuda":
@@ -2916,6 +3119,8 @@ def aqe_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
 
 #: the aqe phase's timings of the stats stages' kernel shapes
 _AQE_KERNELS: dict = {}
+#: the aqe phase's skew cells: walls, hot keys, branch pairs
+_AQE_SKEW: dict = {}
 #: the events of each strategy cell's adaptive run in the aqe phase
 _AQE_CELL_EVENTS: dict = {}
 
@@ -3070,6 +3275,59 @@ def obs_device_trace(seg_agg, gpu, dev: str, root: str) -> None:
             return
     check(False, f"obs: the device trace held {hand} hand-kernel events "
           f"for {want} runs in each of five sessions")
+
+
+def obs_profiler_graph(dev: str, root: str) -> None:
+    """torch's profiler on a CUDA graph with no engine code: 100
+    additions captured in one graph, each replayed in three bare
+    ``torch.profiler.profile`` sessions and in three ``tracing.trace``
+    sessions. Logs the graph's kernel events each exported trace holds,
+    beside the command's age. A reading, not a gate: the profiler drops
+    a session's first kernel records, more the older the process, and
+    ``tracing.trace`` launches a primer first (PERF.md §6-§7)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_tpu_torch import tracing
+
+    if dev != "cuda":
+        return
+    x = torch.zeros(1 << 16, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x.add_(1)  # the first launch outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(100):
+            x.add_(1)
+    torch.cuda.synchronize()
+
+    def kept(path: str) -> int:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        return sum(1 for e in events if e.get("cat") == "kernel"
+                   and "_add" in e.get("name", ""))
+
+    bare, traced = [], []
+    for i in range(3):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        path = os.path.join(root, f"obs_graph_bare_{i}.json")
+        prof.export_chrome_trace(path)
+        bare.append(kept(path))
+        with tracing.trace(os.path.join(root, f"obs_graph_{i}"),
+                           cuda=True) as session:
+            graph.replay()
+        traced.append(kept(session.path))
+    log(f"obs: a CUDA graph of 100 additions, "
+        f"{time.perf_counter() - _T0:.0f} s into the command: its kernel "
+        f"events in three bare profiler sessions {bare}, in three "
+        f"tracing.trace sessions {traced}")
+    del graph, x
 
 
 def obs_mesh_traced(seg_agg, gpu, dev: str) -> None:
@@ -3484,6 +3742,7 @@ def obs_phase(seg_agg, gpu, cpu, oracle, dev="cuda", root=None):
         t0 = time.perf_counter()
         obs_device_trace(seg_agg, gpu, dev, root)
         log(f"obs: device trace {time.perf_counter() - t0:.1f} s")
+        obs_profiler_graph(dev, root)
         # graphs captured by now: the rest may add none
         if dev == "cuda":
             check(graphs.pool_bytes() == pools
@@ -6123,8 +6382,9 @@ def multiproc_phase(seg_agg, gpu, cpu, oracle, dev="cuda"):
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--oom-child":
         return oom_child(sys.argv[2])
-    if len(sys.argv) == 3 and sys.argv[1] == "--oracle-child":
-        return oracle_child(sys.argv[2])
+    if len(sys.argv) == 5 and sys.argv[1] == "--oracle-child":
+        return oracle_child(sys.argv[2], float(sys.argv[3]),
+                            int(sys.argv[4]))
     if len(sys.argv) == 7 and sys.argv[1] == "--compile-child":
         return compile_child(*sys.argv[2:6], sf=float(sys.argv[6]))
     if len(sys.argv) == 4 and sys.argv[1] == "--dataset-child":
@@ -6143,16 +6403,16 @@ def main() -> int:
     # phase's SF10 dataset
     with tempfile.TemporaryDirectory(prefix="chip_smoke_oracle_") as odir, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as sdir:
-        proc, path = start_oracle(odir)
+        oracle = OracleChecks(odir)
         dataset = start_dataset(sdir)
         try:
-            return run_all(proc, path, dataset)
+            return run_all(oracle, dataset)
         finally:
-            stop_child(proc)
+            stop_child(oracle.proc)
             stop_child(dataset[0])
 
 
-def run_all(oracle_proc, oracle_path: str, dataset) -> int:
+def run_all(oracle, dataset) -> int:
     """Every phase, the kernels line, the card line and the result."""
     from spark_tpu_torch.ops import _build, seg_agg
     from spark_tpu_torch.columnar.batch import round_capacity
@@ -6207,7 +6467,6 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
     for spark in (gpu, cpu):
         spark.createDataFrame(ts).createOrReplaceTempView("ts_orders")
         spark.createDataFrame(nested).createOrReplaceTempView("nested")
-    oracle = oracle_from_child(oracle_proc, oracle_path)
     by_path = {}
     import functools
     import tempfile
@@ -6239,7 +6498,7 @@ def run_all(oracle_proc, oracle_path: str, dataset) -> int:
     # the multiproc phase's 2 x 2 mesh, a path of its own in the line
     by_path["multiproc_2x2"] = {m: _MULTIPROC_MESH2.get(m, 0)
                                 for m in mode_launches(seg_agg)}
-    oracle.close()
+    oracle.finish()
     log(f"profiler (acc_events={_PROFILES['acc_events']}): "
         f"{_PROFILES['first']} of "
         f"{_PROFILES['all']} profiled runs recorded every hand-kernel run "

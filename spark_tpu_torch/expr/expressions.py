@@ -704,6 +704,24 @@ class Cast(Expression):
         return f"CAST({self.child} AS {self.dtype})"
 
 
+def exact_cast(child: Expression, src: DataType, dst: DataType
+               ) -> Expression:
+    """``child``, of type ``src``, as the same value in ``dst``. CAST keeps
+    the reference's decimal quirks (a decimal to a double is its unscaled
+    integer, an integer to a decimal is not rescaled), so those two go the
+    long way: through the division by 10^scale, and through a decimal of
+    scale 0."""
+    if src == dst:
+        return child
+    if isinstance(src, T.DecimalType) and not isinstance(dst, T.DecimalType):
+        as_float = Cast(child, T.FLOAT64)
+        return as_float if src.scale == 0 else Arith(
+            "/", as_float, Literal(float(10 ** src.scale)))
+    if isinstance(dst, T.DecimalType) and not isinstance(src, T.DecimalType):
+        child = Cast(child, T.DecimalType(T.DecimalType.MAX_PRECISION, 0))
+    return Cast(child, dst)
+
+
 @dataclass(eq=False, frozen=True)
 class AddMonths(Expression):
     """date + n months, the day clamped to the target month's length

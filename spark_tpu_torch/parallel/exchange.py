@@ -526,11 +526,7 @@ def hash_rows(tvs: Sequence[TV]) -> torch.Tensor:
     dev = tvs[0].data.device if tvs else None
     h = torch.zeros((cap,), dtype=torch.int64, device=dev)
     for tv in tvs:
-        data = tv.data
-        if data.is_floating_point():
-            data = torch.where(data == 0, torch.zeros_like(data), data) \
-                .to(torch.float64).view(torch.int64)
-        code = data.to(torch.int64)
+        code = K.key_int64(tv.data)
         if tv.validity is not None:
             code = torch.where(tv.validity, code,
                                torch.full((), _NULL_CODE, dtype=torch.int64,

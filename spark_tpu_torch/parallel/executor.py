@@ -195,13 +195,15 @@ def _dictionary_digest(field) -> int:
     return int.from_bytes(h.digest(), "little", signed=True)
 
 
-def _hot_key_pred(keys, hot) -> E.Expression:
-    """OR over the hot candidates of AND(key == literal)."""
+def _hot_key_pred(keys, fields, hot) -> E.Expression:
+    """OR over the hot candidates of AND(key == literal), each literal of
+    its key's type (``fields``: the probe keys' fields): a timestamp's
+    integer or a decimal's value has no inferred type of its own."""
     ors = None
     for vals in hot:
         ands = None
-        for k, v in zip(keys, vals):
-            c = E.Cmp("==", k, E.Literal(v))
+        for k, f, v in zip(keys, fields, vals):
+            c = E.Cmp("==", k, E.Literal(v, f.dtype))
             ands = c if ands is None else E.And(ands, c)
         ors = ands if ors is None else E.Or(ors, ands)
     return ors
@@ -466,10 +468,12 @@ class MeshExecutor:
         if isinstance(plan, L.Union):
             return P.UnionExec(self.plan(plan.left), self.plan(plan.right))
         if isinstance(plan, L.Join):
+            lkeys, rkeys = P.coerce_join_keys(
+                plan.left_keys, plan.right_keys, plan.left.schema,
+                plan.right.schema)
             return D.DistJoinBoundary(self.plan(plan.left),
                                       self.plan(plan.right), plan.how,
-                                      plan.left_keys, plan.right_keys,
-                                      plan.condition)
+                                      lkeys, rkeys, plan.condition)
         if isinstance(plan, L.Expand):
             # row-local: each rank expands its own rows
             return P.ExpandExec(plan.projections, plan.names,
@@ -1508,13 +1512,14 @@ class MeshExecutor:
                     left_sb, right_sb = left0, right0
                     counts = count_pairs(left_sb, right_sb, True)
                 else:
-                    hot = self._detect_hot_keys(jb.left_keys, left0)
+                    fields, hot = self._detect_hot_keys(jb.left_keys,
+                                                        left0)
                     if hot:
                         self._note("skew_join_split", max=int(counts.max()),
                                    median=med, hot_keys=len(hot))
                         return self._run_skew_split(
-                            jb, how, left0, right0, hot, union_dicts, mins,
-                            ranges, count_pairs)
+                            jb, how, left0, right0, fields, hot,
+                            union_dicts, mins, ranges, count_pairs)
             pair_cap = K.bucket(int(counts.max()) if counts.size else 0)
 
         left0 = right0 = None  # release the rows before the exchange
@@ -1524,21 +1529,19 @@ class MeshExecutor:
             pair_cap, broadcast))
 
     def _detect_hot_keys(self, keys, sb: ShardedBatch):
-        """Hot-key candidates: each rank's local mode (TopKeyExec); a
-        candidate is hot when its global count (a lower bound) exceeds one
-        balanced rank's share."""
+        """The keys' fields and the hot-key candidates: each rank's local
+        mode (TopKeyExec); a candidate is hot when its global count (a
+        lower bound) exceeds one balanced rank's share."""
         cand = self._run_stage(D.TopKeyExec(tuple(keys), D.ShardScanExec(sb)))
         self._host_read(2)  # the candidates, then the live rows
         nkeys = len(keys)
         fields = cand.schema.fields
 
         def first_row(s):
-            # per key: valid, the value's int64 (a float's bits); the count
+            # per key: valid, the value's int64 (K.key_int64); the count
             out = []
             for cd in s.columns[:nkeys]:
-                v = cd.data[:1]
-                v = v.to(torch.float64).view(torch.int64) \
-                    if v.is_floating_point() else v.to(torch.int64)
+                v = K.key_int64(cd.data[:1])
                 out += [torch.ones(1, dtype=torch.int64, device=v.device)
                         if cd.validity is None
                         else cd.validity[:1].to(torch.int64), v]
@@ -1556,18 +1559,18 @@ class MeshExecutor:
         share = max(1, sb.num_valid_rows() // max(1, self.d))
         hot = [k for k, c in sorted(counts.items(), key=lambda kv: -kv[1])
                if c > share]
-        return hot[:4]
+        return fields[:nkeys], hot[:4]
 
     def _run_skew_split(self, jb: D.DistJoinBoundary, how: str,
-                        left0: ShardedBatch, right0: ShardedBatch, hot,
-                        union_dicts, mins, ranges,
+                        left0: ShardedBatch, right0: ShardedBatch, fields,
+                        hot, union_dicts, mins, ranges,
                         count_pairs) -> ShardedBatch:
         """The skew split: the hot keys' probe rows stay where they are
         and join a broadcast of the hot keys' build rows; the rest take
         the hash exchange; the union of the two joins is exact for the
         left-preserving join types."""
-        lpred = _hot_key_pred(jb.left_keys, hot)
-        rpred = _hot_key_pred(jb.right_keys, hot)
+        lpred = _hot_key_pred(jb.left_keys, fields, hot)
+        rpred = _hot_key_pred(jb.right_keys, fields, hot)
         # NULL probe keys belong to the rest (preserved rows of outer and
         # anti joins); NOT(pred) alone is NULL for them
         lrest_pred = E.Or(E.Not(lpred), _null_any(jb.left_keys))
@@ -1586,6 +1589,9 @@ class MeshExecutor:
             key_union_dicts=union_dicts))
         c1 = count_pairs(lrest_ex, rrest_ex, False)
         c2 = count_pairs(lhot, rhot, True)
+        self._note("skew_join_branches", hot_pairs=int(c2.sum()),
+                   rest_pairs=int(c1.sum()), hot_max=int(c2.max()),
+                   rest_max=int(c1.max()))
         j1 = self._run_stage(D.JoinApplyExec(
             D.ShardScanExec(lrest_ex), D.ShardScanExec(rrest_ex), how,
             jb.left_keys, jb.right_keys, jb.condition, mins, ranges,
@@ -1641,7 +1647,7 @@ class MeshExecutor:
                     cd = s.columns[i]
                     ok = s.row_mask if cd.validity is None \
                         else s.row_mask & cd.validity
-                    v = cd.data.to(torch.int64)
+                    v = K.key_int64(cd.data)
                     big = torch.full((), K.INT64_MAX, dtype=torch.int64,
                                      device=v.device)
                     small = torch.full((), K.INT64_MIN, dtype=torch.int64,

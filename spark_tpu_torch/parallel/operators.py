@@ -981,8 +981,8 @@ def packed_join_keys(lpipe: Pipe, rpipe: Pipe,
             rd = (C._gather(tr, rt.data) if len(rt.dictionary or ())
                   else rt.data.to(torch.int64))
         else:
-            ld = lt.data.to(torch.int64)
-            rd = rt.data.to(torch.int64)
+            ld = K.key_int64(lt.data)
+            rd = K.key_int64(rt.data)
         prepped.append((ld, rd))
         if not hashed:
             mn, rg = mins[ki], ranges[ki]

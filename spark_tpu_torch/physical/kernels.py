@@ -621,6 +621,21 @@ def expand_join_pairs(ranges: JoinRanges, total: int
     return p, build_idx, pair_mask
 
 
+def key_int64(data: torch.Tensor) -> torch.Tensor:
+    """A key column's int64 form for equality: an integer as itself, a
+    float as the bits of its float64 value with -0.0 as 0.0 and every
+    NaN as one NaN, so that equal values, and only they, get equal codes
+    (a cast to int64 would join 0.5 with 0.0). The exchange's row hash
+    codes keys with it too; the planners cast a float key's partner to a
+    float (``operators.coerce_join_keys``)."""
+    if not data.is_floating_point():
+        return data.to(torch.int64)
+    f = data.to(torch.float64)
+    f = torch.where(f == 0, torch.zeros_like(f), f)
+    f = torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f)
+    return f.view(torch.int64)
+
+
 def range_compress_keys(
     keys: List[Tuple[torch.Tensor, Optional[torch.Tensor]]],
     mins: List[int],

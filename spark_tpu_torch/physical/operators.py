@@ -339,6 +339,39 @@ def _scalar_column(tv: TV, what: str) -> TV:
     return tv
 
 
+def _key_scale(dtype) -> Optional[int]:
+    """An exact numeric key type's scale (0 for an integer), None for
+    any other type."""
+    if isinstance(dtype, T.DecimalType):
+        return dtype.scale
+    if isinstance(dtype, T.IntegralType):
+        return 0
+    return None
+
+
+def coerce_join_keys(left_keys, right_keys, lschema: Schema,
+                     rschema: Schema):
+    """Equi-join keys cast to their pair's common type where the two
+    sides' int64 forms would differ for one value: a float against an
+    exact number, or decimals (or a decimal and an integer) of other
+    scales. Other pairs stay as they are (int32 against int64 codes
+    alike, a float32 and a float64 join by their float64 bits)."""
+    lout, rout = [], []
+    for lk, rk in zip(left_keys, right_keys):
+        a, b = lk.data_type(lschema), rk.data_type(rschema)
+        fa = isinstance(a, (T.Float32Type, T.Float64Type))
+        fb = isinstance(b, (T.Float32Type, T.Float64Type))
+        sa, sb = _key_scale(a), _key_scale(b)
+        differ = ((fa and sb is not None) or (fb and sa is not None)
+                  or (sa is not None and sb is not None and sa != sb))
+        if differ:
+            t = T.common_type(a, b)
+            lk, rk = E.exact_cast(lk, a, t), E.exact_cast(rk, b, t)
+        lout.append(lk)
+        rout.append(rk)
+    return tuple(lout), tuple(rout)
+
+
 @dataclass(eq=False)
 class FilterExec(PhysicalPlan):
     condition: E.Expression
@@ -1487,8 +1520,8 @@ class JoinExec(PhysicalPlan):
                       else rt.data)
                 prepped.append((ld, rd, max(1, len(union))))
             else:
-                prepped.append((lt.data.to(torch.int64),
-                                rt.data.to(torch.int64), None))
+                prepped.append((K.key_int64(lt.data), K.key_int64(rt.data),
+                                None))
         return lks, rks, prepped
 
     def _packing(self, lpipe: Pipe, rpipe: Pipe, lks, rks, prepped):

@@ -84,8 +84,11 @@ def plan_physical(plan: L.LogicalPlan,
     if isinstance(plan, L.Expand):
         return P.ExpandExec(plan.projections, plan.names, go(plan.child))
     if isinstance(plan, L.Join):
+        lkeys, rkeys = P.coerce_join_keys(plan.left_keys, plan.right_keys,
+                                          plan.left.schema,
+                                          plan.right.schema)
         return P.JoinExec(go(plan.left), go(plan.right), plan.how,
-                          plan.left_keys, plan.right_keys, plan.condition)
+                          lkeys, rkeys, plan.condition)
     if isinstance(plan, L.Union):
         return P.UnionExec(go(plan.left), go(plan.right))
     if isinstance(plan, L.Generate):

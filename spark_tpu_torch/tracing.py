@@ -62,13 +62,32 @@ def _cuda_available() -> bool:
     return torch.cuda.is_available()
 
 
+#: kernel launches a CUDA ``trace`` session makes, and waits for, before
+#: its block. torch's profiler (kineto over CUPTI) drops the first kernel
+#: records of a session as out of its window, more of them the older the
+#: process (PERF.md §6-§7); these no-op fills take those places, so the
+#: block's own kernel events are kept.
+_PRIMER_LAUNCHES = 256
+
+
+def _prime_device() -> None:
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    for _ in range(_PRIMER_LAUNCHES):
+        x.fill_(0)
+    torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def trace(log_dir: str, *, cuda: Optional[bool] = None
           ) -> Iterator[TraceSession]:
     """Run ``torch.profiler.profile`` over the block and write its Chrome
     trace to ``log_dir/trace-<pid>-<n>.json``. ``cuda``: record CUDA
-    activity too (default: when a CUDA device exists). Yields the
-    ``TraceSession`` that holds the profile and the path."""
+    activity too (default: when a CUDA device exists), after
+    ``_PRIMER_LAUNCHES`` no-op kernels that precede the block in the
+    trace. Yields the ``TraceSession`` that holds the profile and the
+    path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -82,6 +101,8 @@ def trace(log_dir: str, *, cuda: Optional[bool] = None
     prof = profile(activities=activities)
     prof.__enter__()
     try:
+        if cuda:
+            _prime_device()
         yield session
     finally:
         if cuda:

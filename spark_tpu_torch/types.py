@@ -312,6 +312,10 @@ def date_to_days(d: datetime.date) -> int:
     return (d - datetime.date(1970, 1, 1)).days
 
 
+def days_to_date(days: int) -> datetime.date:
+    return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(days))
+
+
 @dataclass(frozen=True)
 class Field:
     """A named, typed column in a schema. ``dictionary`` is the host-side

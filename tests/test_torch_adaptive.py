@@ -49,6 +49,7 @@ from spark_tpu_torch.physical import graphs, planner
 from spark_tpu_torch.physical import kernels as PK
 from spark_tpu_torch.physical import operators as PP
 from test_torch_join import _assert_batches_equal, _batches
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # ---- caches -----------------------------------------------------------------
 

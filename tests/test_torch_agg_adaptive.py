@@ -36,6 +36,8 @@ from spark_tpu_torch.conf import RuntimeConf
 from spark_tpu_torch.parallel.executor import MeshExecutor
 from spark_tpu_torch.parallel.mesh import make_mesh
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 RANKS = (1, 2, 8)
 STRATEGIES = ("auto", "partial", "bypass", "hash", "sort", "presplit")
 #: presplit thresholds low enough that the hot dataset pre-splits at 8

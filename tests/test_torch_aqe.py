@@ -15,11 +15,17 @@ ladder's rung 0.
 - A skewed destination fans into a pre-merge (``skew_split``), reached
   through rung 0 of the OOM ladder: a mesh session's run that runs out
   of memory with adaptive execution off is retried once with it forced.
+- A skewed join splits around its hot key for every key type a mesh
+  join takes (hot-key literals of the key's type, ROADMAP C9 and C10),
+  inner and left, against a host count, the reference where it runs the
+  type, and the skew-off run where it raises; keys of two types meet
+  where their values are equal (C11).
 
 The UI exchange endpoint and the admission feedback of measured bytes
 wait for the port's A12 tiers (ROADMAP).
 """
 
+import decimal
 import glob
 import os
 import re
@@ -54,6 +60,8 @@ from spark_tpu_torch.parallel.mesh import make_mesh
 from spark_tpu_torch.physical import kernels as K
 from spark_tpu_torch.physical.planner import execute_logical
 from spark_tpu_torch.types import INT64
+
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RANKS = (1, 2, 8)
 
@@ -392,59 +400,234 @@ def test_skewed_join_completes(adaptive):
     assert r["s"] == sum((1 if i % 10 else i % 50) * 2 for i in range(5000))
 
 
-def _split_executor(adaptive):
+#: every key type a mesh join takes; the split's hot-key literals carry
+#: the key's type
+SKEW_KEYS = ("int16", "int32", "int64", "float32", "float64", "bool",
+             "string", "date", "timestamp", "decimal")
+#: the key types whose skew split the reference runs and gets right: it
+#: raises on a timestamp or decimal hot key (ROADMAP C10), and joins
+#: float keys by their int64 cast, so 0.5 meets 0.0 (C11)
+REF_SKEW_KEYS = ("int64", "string", "date")
+
+
+def _skew_key(kind, ks, mask=None):
+    """The base integers ``ks`` as a key column of type ``kind`` (one key
+    value per integer; ``mask`` marks NULLs)."""
+    ks = np.asarray(ks, np.int64)
+    if kind in ("int16", "int32", "int64"):
+        return pa.array(ks.astype(kind), mask=mask)
+    if kind in ("float32", "float64"):
+        return pa.array((ks * 0.5).astype(kind), mask=mask)
+    if kind == "bool":
+        return pa.array(ks % 2 == 1, mask=mask)
+    if kind == "string":
+        return pa.array([f"s{k:03d}" for k in ks], pa.string(), mask=mask)
+    if kind == "date":
+        return pa.array(ks.astype(np.int32), pa.int32(),
+                        mask=mask).cast(pa.date32())
+    if kind == "timestamp":  # hours past the epoch
+        return pa.array(ks * 3_600_000_000, pa.int64(),
+                        mask=mask).cast(pa.timestamp("us"))
+    assert kind == "decimal"
+    return pa.array([decimal.Decimal(int(k)).scaleb(-2) for k in ks],
+                    pa.decimal128(12, 2), mask=mask)
+
+
+def _skew_tables(kind, how):
+    """The skewed fact and its dimension. inner: 8000 rows, 90% on base
+    key 1, the rest on 0..399 (n = 8000 and s = 326400 wherever the
+    type keeps the 400 keys apart); left: 6000 rows, 80% on base key 7,
+    every 97th key NULL, the rest on 0..899 against a dimension of
+    0..499."""
+    if how == "inner":
+        n, hot, spread, mod, wmul, nd = 8000, 1, 10, 400, 2, 400
+        mask = None
+    else:
+        n, hot, spread, mod, wmul, nd = 6000, 7, 5, 900, 3, 500
+        mask = np.arange(n) % 97 == 0
+    ks = np.array([(hot if i % spread else i % mod) for i in range(n)])
+    dk = np.arange(2 if kind == "bool" else nd)
+    fact = pa.table({"k": _skew_key(kind, ks, mask),
+                     "v": pa.array(np.arange(n), pa.int64())})
+    dim = pa.table({"k": _skew_key(kind, dk),
+                    "w": pa.array(dk * wmul, pa.int64())})
+    return fact, dim
+
+
+def _join_plan(mod, rel_of, fact, dim, how):
+    Lm, Em = mod
+    return Lm.Aggregate(
+        (), (Em.Alias(Em.Count(None), "n"),
+             Em.Alias(Em.Count(Em.Col("w")), "m"),
+             Em.Alias(Em.Sum(Em.Col("w")), "s")),
+        Lm.Join(rel_of(fact), rel_of(dim), how, (Em.Col("k"),),
+                (Em.Col("k"),)))
+
+
+def _join_host(fact, dim, how):
+    """(n, m, s) counted on the host from the tables' Python values (an
+    int, a float and a Decimal of one value are one dict key)."""
+    w = dict(zip(dim["k"].to_pylist(), dim["w"].to_pylist()))
+    hits = [w[k] for k in fact["k"].to_pylist() if k is not None and k in w]
+    n = fact.num_rows if how == "left" else len(hits)
+    return {"n": n, "m": len(hits), "s": sum(hits)}
+
+
+def _skew_plan(mod, rel_of, kind, how):
+    return _join_plan(mod, rel_of, *_skew_tables(kind, how), how)
+
+
+def _skew_host(kind, how):
+    return _join_host(*_skew_tables(kind, how), how)
+
+
+@pytest.fixture(scope="module")
+def skew_reference():
+    """The reference's MeshExecutor(make_mesh(8)) over the split cases it
+    runs, once for the file: (how, kind) -> its row."""
+    conf = RefConf({BROADCAST_THRESHOLD.key: -1,
+                    "spark.tpu.adaptive.autoBroadcastJoinThreshold": -1,
+                    "spark.tpu.skewJoin.maxBroadcastBytes": 1,
+                    "spark.tpu.skewJoin.minPairs": 1000})
+    def rel(t):
+        return RL.Relation(ref_from_arrow(t))
+
+    out = {}
+    for how in ("inner", "left"):
+        for kind in REF_SKEW_KEYS:
+            ex = RefMeshExecutor(ref_make_mesh(8), conf=conf)
+            out[(how, kind)] = ex.execute_logical(_skew_plan(
+                (RL, RE), rel, kind, how)).to_pylist()[0]
+    ex = RefMeshExecutor(ref_make_mesh(8), conf=conf)
+    out[("left", "date", "inner rows")] = ex.execute_logical(_join_plan(
+        (RL, RE), rel, *_skew_tables("date", "inner"),
+        "left")).to_pylist()[0]
+    return out
+
+
+def _split_executor(adaptive, **over):
     return _executor(8, adaptive, **{
         BROADCAST_THRESHOLD.key: -1,
         "spark.tpu.adaptive.autoBroadcastJoinThreshold": -1,
         "spark.tpu.skewJoin.maxBroadcastBytes": 1,  # no demotion
-        "spark.tpu.skewJoin.minPairs": 1000})
+        "spark.tpu.skewJoin.minPairs": 1000, **over})
 
 
-@pytest.mark.parametrize("adaptive", [False, True])
-def test_skewed_join_split_non_broadcastable(adaptive):
-    """A build side over the skew re-plan's broadcast limit: the join
-    splits around the hot key (hot probe rows stay where they are against
-    a broadcast of only the hot build rows)."""
-    n = 8000
-    fact = _port_df([{"k": (1 if i % 10 else i % 400), "v": i}
-                     for i in range(n)])
-    dim = _port_df([{"k": i, "w": i * 2} for i in range(400)])
-    plan = L.Aggregate(
-        (), (E.Alias(E.Count(None), "n"), E.Alias(E.Sum(E.Col("w")), "s")),
-        L.Join(fact._plan, dim._plan, "inner", (E.Col("k"),), (E.Col("k"),)))
+def _check_split(kind, how, adaptive, skew_reference):
+    """The split runs (a ``skew_join_split`` event with a hot key) and its
+    row equals the host count, the reference's where it runs the type,
+    and the skew-off mesh run's where the reference raises (C10)."""
+    plan = _skew_plan((L, E), lambda t: L.Relation(from_arrow(
+        t, device="cpu")), kind, how)
     ex = _split_executor(adaptive)
     r = ex.execute_logical(plan).to_pylist()[0]
     evs = [e for e in ex.last_run["events"] if e["kind"] == "skew_join_split"]
     assert evs and evs[-1]["hot_keys"] >= 1
-    assert r["n"] == n
-    assert r["s"] == sum((1 if i % 10 else i % 400) * 2 for i in range(n))
+    assert r == _skew_host(kind, how)
+    # the branches' matched pairs add up to the join's
+    (br,) = [e for e in ex.last_run["events"]
+             if e["kind"] == "skew_join_branches"]
+    assert br["hot_pairs"] + br["rest_pairs"] == r["m"]
+    assert br["hot_pairs"] > br["rest_pairs"] > 0
+    if kind in REF_SKEW_KEYS:
+        assert r == skew_reference[(how, kind)]
+    if kind in ("timestamp", "decimal"):
+        off = _split_executor(adaptive, **{
+            "spark.tpu.skewJoin.minPairs": 1 << 40})
+        assert off.execute_logical(plan).to_pylist()[0] == r
+        assert not [e for e in off.last_run["events"]
+                    if e["kind"] == "skew_join_split"]
+    return r
 
 
 @pytest.mark.parametrize("adaptive", [False, True])
-def test_skewed_left_join_split_parity(adaptive):
-    """The split keeps left-outer semantics: unmatched and NULL probe keys
-    survive through the rest branch."""
-    n = 6000
-    ks = np.array([(7 if i % 5 else i % 900) for i in range(n)],
-                  dtype=np.int64)
-    kmask = np.arange(n) % 97 == 0  # every 97th key is NULL
-    fact = pa.table({"k": pa.array(np.where(kmask, 0, ks), pa.int64(),
-                                   mask=kmask),
-                     "v": pa.array(np.arange(n), pa.int64())})
-    dim = _port_df([{"k": i, "w": i * 3} for i in range(500)])
-    plan = L.Aggregate(
-        (), (E.Alias(E.Count(None), "n"), E.Alias(E.Count(E.Col("w")), "m"),
-             E.Alias(E.Sum(E.Col("w")), "s")),
-        L.Join(L.Relation(from_arrow(fact, device="cpu")), dim._plan,
-               "left", (E.Col("k"),), (E.Col("k"),)))
+@pytest.mark.parametrize("kind", SKEW_KEYS)
+def test_skewed_join_split_non_broadcastable(kind, adaptive,
+                                             skew_reference):
+    """A build side over the skew re-plan's broadcast limit: the join
+    splits around the hot key (hot probe rows stay where they are against
+    a broadcast of only the hot build rows), for every key type."""
+    r = _check_split(kind, "inner", adaptive, skew_reference)
+    if kind != "bool":
+        assert (r["n"], r["s"]) == (8000, 326400)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_date_skew_split_left_join_of_the_inner_rows(adaptive,
+                                                     skew_reference):
+    """ROADMAP C9's rows as a left join: every fact row finds its date,
+    so n = 8000 and s = 326400, as on the reference."""
+    plan = _join_plan((L, E), lambda t: L.Relation(from_arrow(
+        t, device="cpu")), *_skew_tables("date", "inner"), "left")
     ex = _split_executor(adaptive)
     r = ex.execute_logical(plan).to_pylist()[0]
     assert [e for e in ex.last_run["events"]
             if e["kind"] == "skew_join_split"]
-    matched = [int(k) for k, m in zip(ks, kmask) if not m and k < 500]
-    assert r["n"] == n
-    assert r["m"] == len(matched)
-    assert r["s"] == sum(k * 3 for k in matched)
+    assert r == {"n": 8000, "m": 8000, "s": 326400}
+    assert r == skew_reference[("left", "date", "inner rows")]
+
+
+def _typed(kind, values):
+    """Exact values (Decimals) as a key column of ``kind``."""
+    if kind.startswith("float"):
+        return pa.array([float(v) for v in values], kind)
+    if kind == "int64":
+        return pa.array([int(v) for v in values], pa.int64())
+    scale = {"decimal": 2, "decimal3": 3}[kind]
+    return pa.array(values, pa.decimal128(10 + scale, scale))
+
+
+@pytest.mark.parametrize("kinds,step", [
+    (("float32", "float64"), "0.5"), (("float64", "int64"), "1"),
+    (("decimal", "int64"), "1"), (("decimal", "decimal3"), "0.01"),
+    (("decimal", "float64"), "0.5")])
+def test_join_keys_meet_across_types(kinds, step):
+    """Keys of two types meet where their values are equal (ROADMAP C11):
+    a float by its value, not its int64 cast, and an integer, a decimal
+    and a float of one value alike, on one device and split on the mesh.
+    The values are the skew cases' base keys times ``step``."""
+    kind, dim_kind = kinds
+    ks = [(1 if i % 10 else i % 400) for i in range(8000)]
+    unit = decimal.Decimal(step)
+    fact = pa.table({"k": _typed(kind, [k * unit for k in ks])})
+    dim = pa.table({"k": _typed(dim_kind, [k * unit for k in range(400)]),
+                    "w": pa.array(np.arange(400) * 2, pa.int64())})
+    plan = _join_plan((L, E), lambda t: L.Relation(from_arrow(
+        t, device="cpu")), fact, dim, "inner")
+    want = _join_host(fact, dim, "inner")
+    assert (want["n"], want["s"]) == (8000, 326400)
+    assert execute_logical(plan, device="cpu").to_pylist()[0] == want
+    ex = _split_executor(True)
+    assert ex.execute_logical(plan).to_pylist()[0] == want
+    assert [e for e in ex.last_run["events"]
+            if e["kind"] == "skew_join_split"]
+
+
+def test_float_keys_meet_nan_and_signed_zero():
+    """Float keys meet by value as Spark's do: -0.0 meets 0.0 and a NaN
+    meets a NaN of another payload, on one device and through the mesh's
+    hash exchange; 0.5 meets nothing."""
+    other_nan = np.array([0x7FF8000000000001], np.int64).view(np.float64)[0]
+    fact = pa.table({"k": pa.array([np.nan, -0.0, 0.0, 1.5, 0.5] * 40,
+                                   pa.float64())})
+    dim = pa.table({"k": pa.array([other_nan, 0.0, 1.5, 1.0], pa.float64()),
+                    "w": pa.array([1, 10, 100, 1000], pa.int64())})
+    plan = _join_plan((L, E), lambda t: L.Relation(from_arrow(
+        t, device="cpu")), fact, dim, "inner")
+    want = {"n": 160, "m": 160, "s": 40 * (1 + 10 + 10 + 100)}
+    assert execute_logical(plan, device="cpu").to_pylist()[0] == want
+    assert _executor(8, False, **{
+        BROADCAST_THRESHOLD.key: -1}).execute_logical(
+            plan).to_pylist()[0] == want
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("kind", SKEW_KEYS)
+def test_skewed_left_join_split_parity(kind, adaptive, skew_reference):
+    """The split keeps left-outer semantics: unmatched and NULL probe keys
+    survive through the rest branch."""
+    r = _check_split(kind, "left", adaptive, skew_reference)
+    assert r["n"] == 6000 and r["m"] < r["n"]
 
 
 @pytest.mark.parametrize("devices", RANKS)

@@ -15,6 +15,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 
 _PROBE = r"""

@@ -22,6 +22,8 @@ from spark_tpu_torch import chaos, faults, metrics
 from spark_tpu_torch import conf as CF
 from spark_tpu_torch.api.session import SparkSession
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 #: the engine's seams (the mesh workload reaches no serving seam)
 _ENGINE_POINTS = ("pipeline.decode", "pipeline.transfer", "execute.device",
                   "exchange.all_to_all", "agg.strategy", "agg.presplit",

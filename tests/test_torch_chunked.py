@@ -24,6 +24,8 @@ from spark_tpu_torch.api import functions as F
 from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.physical import chunked
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 _OC = ("spark.tpu.maxDeviceBatchBytes", "spark.tpu.chunkRows",
        "spark.tpu.join.hybrid.enabled", "spark.tpu.pipelineDepth",
        "spark.tpu.prefetchBytesMax", "spark.tpu.join.hybrid.partitionsMax",

@@ -21,6 +21,7 @@ from spark_tpu_torch.physical import chunked
 from test_torch_chunked import (  # noqa: F401 - fixtures used by name
     _Settings, _df, _rows, check_case, files, port, reference_runs)
 from spark_tpu_torch.api import functions as F
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 _JOIN = ("select sum(v * w) as s, count(*) as n "
          "from oc_fact join oc_dim on k = dk")

@@ -24,6 +24,8 @@ from spark_tpu_torch.tpch import generate_tables
 from spark_tpu_torch.tpch.queries import (OOC_QUERIES, SCALAR_QUERIES,
                                           ooc_budget)
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def tpch_files(tmp_path_factory):

@@ -13,6 +13,8 @@ import pytest
 from spark_tpu.columnar.arrow import from_arrow as ref_from_arrow
 from spark_tpu_torch.columnar.arrow import from_arrow, to_arrow
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _table(n: int = 300, seed: int = 4):
     rng = np.random.default_rng(seed)

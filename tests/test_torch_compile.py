@@ -50,6 +50,8 @@ from spark_tpu_torch.compile.store import (StatsStore, clear_process_cache,
 from spark_tpu_torch.physical import graphs, planner
 from spark_tpu_torch.physical import operators as P
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(300)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

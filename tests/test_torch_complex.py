@@ -32,6 +32,8 @@ from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.columnar.arrow import from_arrow as port_from_arrow
 from spark_tpu_torch.columnar.arrow import to_arrow as port_to_arrow
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def engines(spark):

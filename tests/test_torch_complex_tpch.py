@@ -24,6 +24,8 @@ from spark_tpu_torch.tpch.queries import (COMPLEX_ORACLE_QUERIES,
                                           COMPLEX_QUERIES, nested_table,
                                           word_counts)
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 SF = 0.02
 SEED = 7
 
@@ -52,6 +54,19 @@ def _rows(df):
     return [tuple(r) for r in df.collect()]
 
 
+@pytest.fixture(scope="module")
+def port_rows(engines):
+    """The port's rows of a named query, run once for the module."""
+    port = engines[1]
+    done = {}
+
+    def rows(name):
+        if name not in done:
+            done[name] = _rows(_frame(port, COMPLEX_QUERIES[name], None))
+        return done[name]
+    return rows
+
+
 def _frame(spark, query, functions):
     if callable(query):
         if functions is RF:  # the reference's DataFrame API
@@ -64,19 +79,17 @@ def _frame(spark, query, functions):
 
 
 @pytest.mark.parametrize("name", sorted(COMPLEX_QUERIES))
-def test_complex_query_matches_reference(engines, name):
-    spark, port, _ = engines
-    q = COMPLEX_QUERIES[name]
-    got = _rows(_frame(port, q, None))
-    want = _rows(_frame(spark, q, RF))
+def test_complex_query_matches_reference(engines, port_rows, name):
+    spark = engines[0]
+    got = port_rows(name)
+    want = _rows(_frame(spark, COMPLEX_QUERIES[name], RF))
     assert want and got == want
 
 
 @pytest.mark.parametrize("name", sorted(COMPLEX_ORACLE_QUERIES))
-def test_complex_query_matches_oracle(engines, oracle, name):
-    _, port, _ = engines
+def test_complex_query_matches_oracle(port_rows, oracle, name):
     sql, cols = COMPLEX_ORACLE_QUERIES[name]
-    got = _rows(port.sql(COMPLEX_QUERIES[name]))
+    got = port_rows(name)
     if cols is not None:
         got = [tuple(r[i] for i in cols) for r in got]
     assert_rows_match(got, run_oracle(oracle, sql), label=name)
@@ -98,10 +111,10 @@ def test_x3_filter_threshold_inside_the_scale(engines, oracle):
     assert all(r[3] > 0 and r[4] > 0 for r in got)
 
 
-def test_x4_equals_python_split(engines):
+def test_x4_equals_python_split(engines, port_rows):
     """X4 against ``str.split(' ')`` and ``Counter`` over o_comment."""
-    _, port, tables = engines
-    got = _rows(port.sql(COMPLEX_QUERIES["x4_wordcount"]))
+    tables = engines[2]
+    got = port_rows("x4_wordcount")
     assert got == word_counts(
         tables["orders"].column("o_comment").to_pylist())
 
@@ -120,8 +133,8 @@ def test_x6_from_parquet_equals_in_memory(engines, tmp_path):
     assert _rows(fresh.sql(q))[0][0] is None
 
 
-def test_x1_explodes_two_elements_a_row(engines):
-    _, port, tables = engines
-    got = _rows(port.sql(COMPLEX_QUERIES["x1_explode"]))
+def test_x1_explodes_two_elements_a_row(engines, port_rows):
+    tables = engines[2]
+    got = port_rows("x1_explode")
     assert sum(r[4] for r in got) == 2 * tables["lineitem"].num_rows
     assert len({r[:4] for r in got}) == len(got) <= 3 * 2 * 7 * 4

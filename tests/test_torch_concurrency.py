@@ -37,6 +37,8 @@ from spark_tpu_torch.analysis import concurrency
 from spark_tpu_torch.api.session import SparkSession
 from spark_tpu_torch.tpch import QUERIES, generate_tables, register_views
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(180)
 
 

@@ -26,6 +26,8 @@ from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.plan import logical as PL
 from spark_tpu_torch.plan.optimizer import optimize as port_optimize
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 CBO = "spark.sql.cbo.joinReorder.enabled"
 RF_ON = "spark.tpu.runtimeFilter.semiJoinReduction"
 RF_MIN = "spark.tpu.runtimeFilter.minRows"

@@ -22,6 +22,8 @@ from spark_tpu_torch import metrics, trace
 from spark_tpu_torch.api.session import SparkSession
 from spark_tpu_torch.physical import pipeline
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(180)
 
 

@@ -26,6 +26,8 @@ from spark_tpu_torch.connect.server import (Client, ConnectServer, col, fn,
                                             lit)
 from spark_tpu_torch.serve.result_cache import table_to_ipc
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(120)
 
 

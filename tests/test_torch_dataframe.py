@@ -33,6 +33,8 @@ from spark_tpu_torch.api import functions as PF
 from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.api.window import Window as PWindow
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REL = 1e-6
 
 PEOPLE = [

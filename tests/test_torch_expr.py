@@ -24,6 +24,7 @@ from spark_tpu_torch.expr import expressions as PE
 from spark_tpu_torch.physical.operators import Pipe
 
 from test_torch_operators import _carry
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 N = 64
 

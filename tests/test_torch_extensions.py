@@ -12,6 +12,8 @@ from spark_tpu_torch.expr import expressions as E
 from spark_tpu_torch.plan import logical as L
 from spark_tpu_torch.sql.parser import SQLParseError
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture()
 def port():

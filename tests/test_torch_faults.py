@@ -38,6 +38,8 @@ from spark_tpu_torch.metrics import PipelineStats
 from spark_tpu_torch.physical import chunked
 from spark_tpu_torch.physical.pipeline import ChunkPipeline
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(300)
 
 _KEYS = tuple(f"spark.tpu.faultInjection.{p}" for p in faults.POINTS) + (

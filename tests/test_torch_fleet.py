@@ -41,6 +41,8 @@ from spark_tpu_torch.serve.ownership import (EPOCH_HEADER, EpochRetry,
 from spark_tpu_torch.serve.result_cache import ResultCache, table_to_ipc
 from spark_tpu_torch.serve.router import serve_fleet
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(240)
 
 _FLEET_CONF = ("spark.tpu.serve.ownership.enabled",

@@ -31,6 +31,8 @@ from spark_tpu.physical import kernels as RK
 from spark_tpu_torch.ops import seg_agg
 from spark_tpu_torch.physical import kernels as PK
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 KS = [1, 6, 168, 1024, 10_000]
 
 

@@ -48,6 +48,8 @@ from spark_tpu_torch.parallel.sharded import ShardedBatch
 from spark_tpu_torch.physical import operators as P
 from spark_tpu_torch.physical.planner import execute_logical
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 RANKS = (1, 2, 8)
 
 

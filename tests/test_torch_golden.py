@@ -16,6 +16,8 @@ import pytest
 from spark_tpu_torch.api.session import SparkSession
 from tests.sql_golden import harness as H
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 #: (file, query index) of the golden queries that need constructs the
 #: port has not ported yet, by what they need: none
 NOT_PORTED: dict = {}

@@ -27,6 +27,8 @@ from spark_tpu.graph import Graph as RGraph
 from spark_tpu_torch.graph import Graph as PGraph
 from spark_tpu_torch.physical import kernels as PK
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _graphs(*args, **kw):
     return PGraph(*args, device="cpu", **kw), RGraph(*args, **kw)

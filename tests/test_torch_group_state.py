@@ -25,6 +25,8 @@ from spark_tpu_torch.api.session import SparkSession
 from spark_tpu_torch.streaming import MemoryStream
 from spark_tpu_torch.types import parse_ddl_schema
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(300)
 
 

@@ -25,6 +25,8 @@ from spark_tpu_torch import conf as CF
 from spark_tpu_torch import history, metrics, ui
 from spark_tpu_torch.api.session import SparkSession
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(180)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

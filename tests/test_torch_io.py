@@ -37,6 +37,8 @@ from spark_tpu_torch.io.datasource import FileSource
 from spark_tpu_torch.plan import logical as L
 from spark_tpu_torch.plan.optimizer import optimize as port_optimize
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def port():

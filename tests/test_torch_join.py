@@ -37,6 +37,8 @@ from spark_tpu_torch.expr import expressions as PE
 from spark_tpu_torch.physical import kernels as PK
 from spark_tpu_torch.physical import operators as PP
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _np(x):
     return np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)

@@ -16,6 +16,8 @@ from spark_tpu.physical import kernels as RK
 from spark_tpu_torch.ops import seg_agg
 from spark_tpu_torch.physical import kernels as PK
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _case(k: int, sorted_seg: bool, seed: int = 3, n: int = 4000):
     rng = np.random.default_rng(seed + k + 10 * sorted_seg)

@@ -49,6 +49,8 @@ from spark_tpu_torch.parallel.executor import (ADAPTIVE_ENABLED,
 from spark_tpu_torch.parallel.mesh import make_mesh
 from spark_tpu_torch.physical.planner import execute_logical
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REL = 1e-9
 RANKS = (1, 2, 8)
 

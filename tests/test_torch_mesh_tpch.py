@@ -17,6 +17,8 @@ from spark_tpu_torch.tpch import QUERIES, generate_tables, register_views
 from spark_tpu_torch.tpch.oracle import (assert_rows_match, index_keys,
                                          load_sqlite, run_oracle)
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REL = 1e-9
 
 

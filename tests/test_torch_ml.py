@@ -30,6 +30,8 @@ from spark_tpu_torch.api import functions as PF
 from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.ml.state import model_from_state
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REL = 1e-4
 
 

@@ -31,6 +31,8 @@ from spark_tpu_torch.ml import tree as PT
 from spark_tpu_torch.ml.state import model_from_state
 from spark_tpu_torch.physical import kernels as PK
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def engines(spark):

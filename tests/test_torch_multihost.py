@@ -30,6 +30,8 @@ from spark_tpu_torch.parallel.mesh import make_mesh
 from spark_tpu_torch.parallel.sharded import ShardedBatch
 from spark_tpu_torch.plan import logical as L
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

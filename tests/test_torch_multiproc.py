@@ -52,6 +52,8 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 HEAD = ("q1", "q1_wide", "q3", "q5", "q9", "q18")

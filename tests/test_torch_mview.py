@@ -34,6 +34,8 @@ from spark_tpu_torch.columnar.arrow import to_arrow
 from spark_tpu_torch.io.fingerprint import classify_delta, stat_paths
 from spark_tpu_torch.serve.result_cache import table_to_ipc
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(300)
 
 _KEYS = ("spark.tpu.mview.enabled", "spark.tpu.mview.incremental",

@@ -23,6 +23,8 @@ from spark_tpu.expr import expressions as RE
 from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.expr import expressions as PE
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REL = 1e-12
 
 NA_TABLE = pa.table({

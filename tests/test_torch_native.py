@@ -15,6 +15,8 @@ from spark_tpu_torch import native
 from spark_tpu_torch.expr import compiler as PC
 from spark_tpu_torch.ops import _build
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 WORDS = ["special", "requests", "green", "BRASS", "yellow metallic",
          "über", "naïve", "日本語テキスト", "", "%literal", "a_b", "ends%",
          "x" * 300, "Customer", "Complaints"]

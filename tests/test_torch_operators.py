@@ -29,6 +29,8 @@ from spark_tpu_torch.expr import expressions as PE
 from spark_tpu_torch.physical import operators as PP
 from spark_tpu_torch.physical.planner import execute as port_execute
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _carry(ref_batch):
     """Port batch holding the reference batch's exact host arrays."""

@@ -14,6 +14,8 @@ import spark_tpu.pandas as rps
 import spark_tpu_torch.pandas as pps
 from spark_tpu_torch.api.session import SparkSession as PortSession
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 DATA = pd.DataFrame({
     "k": ["a", "b", "a", "c", "b", "a"],
     "x": [1, 2, 3, 4, 5, 6],

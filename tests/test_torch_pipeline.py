@@ -25,6 +25,7 @@ from spark_tpu_torch.physical.pipeline import (ChunkPipeline, PipelineStats,
 from spark_tpu_torch.types import Field, Schema
 from spark_tpu_torch import types as T
 from test_torch_chunked import _Settings, _rows, files, port  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 _TOPK = ("select k, v from oc_fact where v >= 10 "
          "order by v desc, k asc limit 9")

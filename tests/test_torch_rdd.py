@@ -14,6 +14,8 @@ import pytest
 
 from spark_tpu_torch.api.session import SparkSession as PortSession
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def engines(spark):

@@ -29,6 +29,8 @@ from spark_tpu_torch.physical import chunked
 from spark_tpu_torch.plan import logical as L
 from spark_tpu_torch.plan.optimizer import optimize
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _wrapped(inner, outer):
     try:

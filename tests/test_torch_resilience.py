@@ -24,6 +24,8 @@ from spark_tpu.serve import federation as RFED
 from spark_tpu_torch import chaos, deadline, faults, metrics, recovery, tracing
 from spark_tpu_torch.conf import RuntimeConf
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(90)
 
 

@@ -14,6 +14,8 @@ from spark_tpu_torch.api import functions as PF
 from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.physical.random import random_bits64, uniform
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 SEEDS = (0, 7, 42, 2 ** 31 + 11, 2 ** 40 + 5, -3)
 SIZES = (1, 1000, 1024, 65_537)
 

@@ -18,6 +18,8 @@ from spark_tpu import conf as RCF
 from spark_tpu_torch import conf as PCF
 from spark_tpu_torch.api.session import SparkSession as PortSession
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _table(seed=13, n=200):
     rng = np.random.default_rng(seed)

@@ -31,6 +31,8 @@ import pytest
 from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.expr import compiler as PC
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 D = decimal.Decimal
 TS = datetime.datetime
 

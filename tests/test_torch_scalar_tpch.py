@@ -30,6 +30,7 @@ from spark_tpu_torch.tpch.queries import (SCALAR_ORACLE_QUERIES,
 
 from test_torch_scalar import assert_rows_equal
 from test_torch_sql import _rows, engines  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 #: kernel-wrapper calls per query with float sums routed as on the card
 #: (seg_fsum: stddev and variance two float64 sums each, avg one)

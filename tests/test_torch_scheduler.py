@@ -35,6 +35,8 @@ from spark_tpu_torch.serve.result_cache import table_to_ipc
 from spark_tpu_torch.storage import MemoryStore, pin_scope
 from spark_tpu_torch.tpch import QUERIES, generate_tables, register_views
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(90)
 
 SF = 0.01

@@ -26,6 +26,8 @@ from spark_tpu.ops import pallas_seg_minmax, pallas_seg_sum
 from spark_tpu.physical import kernels as RK
 from spark_tpu_torch.ops import seg_agg
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 KS = [2, 65, 100, 1024]
 
 

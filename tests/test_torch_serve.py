@@ -33,6 +33,8 @@ from spark_tpu_torch.serve import (Federation, FederationRouter, ResultCache,
 from spark_tpu_torch.serve.result_cache import key_digest
 from spark_tpu_torch.storage.lru import LruDict
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(120)
 
 

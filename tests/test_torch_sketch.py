@@ -38,6 +38,8 @@ from spark_tpu_torch.parallel.executor import MeshExecutor
 from spark_tpu_torch.parallel.mesh import make_mesh
 from spark_tpu_torch.parallel.sharded import ShardedBatch
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 def _keys(seed, n=20000):
     rng = np.random.default_rng(seed)

@@ -37,6 +37,8 @@ from spark_tpu_torch.slo import (InfeasibleDeadline, LatencyModel,
                                  plan_input_rows)
 from spark_tpu_torch.slo.edf import backlog_ms, edf_key, feasible, pick_edf
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(240)
 
 

@@ -40,6 +40,8 @@ from spark_tpu_torch.tpch import register_views as port_register_views
 from spark_tpu_torch.tpch.oracle import (assert_rows_match, load_sqlite,
                                          run_oracle)
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 SF = 0.02
 SEED = 99
 
@@ -59,6 +61,14 @@ def oracle(engines):
     conn.execute("pragma case_sensitive_like = on")
     yield conn
     conn.close()
+
+
+@pytest.fixture(scope="module")
+def shared_rows(engines):
+    """Rows one test of the module computed and another reads, by key
+    (the port's q1: the slice test runs it under its kernel spy, the
+    oracle test reads it); a test whose key is missing runs its own."""
+    return {}
 
 
 def _rows(df):
@@ -81,11 +91,11 @@ def _spy_kernels(monkeypatch) -> list:
 
 
 @pytest.mark.parametrize("name", ["q1", "q1_wide"])
-def test_slice_matches_reference(engines, name, monkeypatch):
+def test_slice_matches_reference(engines, shared_rows, name, monkeypatch):
     spark, port, _ = engines
     query = QUERIES[1] if name == "q1" else Q1_WIDE
     calls = _spy_kernels(monkeypatch)
-    got = _rows(port.sql(query))
+    got = shared_rows[name] = _rows(port.sql(query))
     want = _rows(spark.sql(query))
     assert want and got == want
     if name == "q1_wide":
@@ -101,10 +111,11 @@ def test_slice_matches_reference(engines, name, monkeypatch):
         assert calls == []  # K = 6: masked reductions
 
 
-def test_q1_matches_sqlite_oracle(engines, oracle):
+def test_q1_matches_sqlite_oracle(engines, oracle, shared_rows):
     _, port, _ = engines
     want = run_oracle(oracle, QUERIES[1])
-    assert_rows_match(_rows(port.sql(QUERIES[1])), want, label="q1[port]")
+    got = shared_rows.get("q1") or _rows(port.sql(QUERIES[1]))
+    assert_rows_match(got, want, label="q1[port]")
 
 
 # the TPC-H queries of the join and subquery slices, with the number of

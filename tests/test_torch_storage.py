@@ -27,6 +27,8 @@ from spark_tpu_torch.api import functions as F
 from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.storage import lru
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 
 class FakeBatch:
     """A store payload of an exact byte size."""

@@ -29,6 +29,8 @@ from spark_tpu_torch.api import functions as F
 from spark_tpu_torch.api.session import SparkSession
 from spark_tpu_torch.streaming import MemoryStream
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(300)
 
 

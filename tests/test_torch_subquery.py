@@ -15,6 +15,7 @@ from spark_tpu_torch.tpch import QUERIES
 from spark_tpu_torch.tpch.oracle import assert_rows_match, run_oracle
 
 from test_torch_sql import _rows, check_tpch_query, engines, oracle  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("qnum", [6, 10, 13, 14, 16, 18, 22])

@@ -23,6 +23,8 @@ from spark_tpu_torch.tpch.queries import (WINDOW_ORACLE_QUERIES,
                                           WINDOW_QUERIES)
 
 from test_torch_sql import _rows, _spy_kernels, engines  # noqa: F401
+from test_torch_sql import shared_rows  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 #: the TPC-H queries that the join and subquery slices' tests do not hold
 REST = (2, 4, 7, 8, 9, 11, 12, 15, 17, 19, 20, 21)
@@ -46,15 +48,15 @@ def oracle(engines):  # noqa: F811
 
 
 @pytest.mark.parametrize("qnum", REST)
-def test_tpch_rest_match_oracle(engines, oracle, qnum,
+def test_tpch_rest_match_oracle(engines, oracle, shared_rows, qnum,
                                 monkeypatch):  # noqa: F811
     _, port, _ = engines
     calls = _spy_kernels(monkeypatch)
-    got = _rows(port.sql(QUERIES[qnum]))
+    got = shared_rows[("port", qnum)] = _rows(port.sql(QUERIES[qnum]))
     assert calls == REST_KERNEL_CALLS.get(qnum, [])
     assert got, f"q{qnum} returned no rows at this scale"
-    assert_rows_match(got, run_oracle(oracle, QUERIES[qnum]),
-                      label=f"q{qnum}[port]")
+    want = shared_rows[("oracle", qnum)] = run_oracle(oracle, QUERIES[qnum])
+    assert_rows_match(got, want, label=f"q{qnum}[port]")
 
 
 @pytest.mark.slow
@@ -118,19 +120,21 @@ def _keyless_base_joins(plan) -> list:
 
 
 @pytest.mark.parametrize("qnum", (2, 8, 9))
-def test_comma_joins_plan_no_cross_product(engines, oracle,
+def test_comma_joins_plan_no_cross_product(engines, oracle, shared_rows,
                                            qnum):  # noqa: F811
     """q2, q8 and q9 list part and supplier in one FROM clause with no key
     between them. The reorder joins each through lineitem or partsupp
     instead of as a cross product (q9's held 9.9 GB on the card at SF1),
-    and the rows stay those of sqlite."""
+    and the rows stay those of sqlite (both as the rest test of the
+    module ran them, where it did)."""
     _, port, _ = engines
     plan = port_optimize(port_parse_sql(QUERIES[qnum], port.catalog))
     assert _keyless_base_joins(plan) == []
-    got = _rows(port.sql(QUERIES[qnum]))
+    got = shared_rows.get(("port", qnum)) or _rows(port.sql(QUERIES[qnum]))
     assert got
-    assert_rows_match(got, run_oracle(oracle, QUERIES[qnum]),
-                      label=f"q{qnum}[port]")
+    want = (shared_rows.get(("oracle", qnum))
+            or run_oracle(oracle, QUERIES[qnum]))
+    assert_rows_match(got, want, label=f"q{qnum}[port]")
 
 
 def test_scalar_subquery_joins_stay_keyless(engines):  # noqa: F811

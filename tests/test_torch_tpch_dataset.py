@@ -33,6 +33,8 @@ from spark_tpu_torch.tpch import QUERIES, arrow_queries, gen
 from spark_tpu_torch.tpch.oracle import (assert_rows_match, index_keys,
                                          load_sqlite, run_oracle)
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 SF = 0.01
 SEED = 20260729
 SLICE = 3000  # orders a part: five parts at sf 0.01

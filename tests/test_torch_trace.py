@@ -29,6 +29,8 @@ from spark_tpu_torch import conf as CF
 from spark_tpu_torch import history, metrics, trace, tracing
 from spark_tpu_torch.api.session import SparkSession
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.timeout(180)
 
 _Q = "SELECT a.k, SUM(a.v + b.v) AS s FROM tr_a a JOIN tr_b b ON a.k = b.k " \

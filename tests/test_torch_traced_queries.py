@@ -24,6 +24,7 @@ from spark_tpu_torch.tpch.queries import (COMPLEX_QUERIES, DATAFRAME_QUERIES,
                                           nested_table, timestamp_table)
 
 from test_torch_traced_tpch import assert_rerun_equal, run_twice
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 QUERY_SETS = {**WINDOW_QUERIES, **SCALAR_QUERIES, **COMPLEX_QUERIES,
               **{k: v for k, v in DATAFRAME_QUERIES.items()

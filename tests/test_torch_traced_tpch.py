@@ -32,6 +32,7 @@ from spark_tpu_torch.tpch.oracle import (assert_rows_match, index_keys,
                                          load_sqlite, run_oracle)
 
 from test_torch_sql import _rows, engines  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 #: what a traced re-execution must not leave blocking (reference:
 #: planner._bind_adaptive and each operator's traceable)

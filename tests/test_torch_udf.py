@@ -28,6 +28,8 @@ from spark_tpu_torch.api.session import SparkSession as PortSession
 from spark_tpu_torch.expr import expressions as PE
 from spark_tpu_torch.physical import graphs, planner
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REL = 1e-12
 
 

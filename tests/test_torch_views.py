@@ -15,6 +15,8 @@ import pytest
 
 from spark_tpu_torch.api.session import SparkSession as PortSession
 
+from test_torch_threads import one_torch_thread  # noqa: F401
+
 REL = 1e-12
 
 

@@ -45,6 +45,7 @@ from spark_tpu_torch.physical import window as PW
 from spark_tpu_torch.physical.planner import execute as port_execute
 
 from test_torch_operators import _assert_rows, _carry
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
